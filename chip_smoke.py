@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training and attribution
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -7,19 +8,37 @@
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
    build time.
 3. Holds each kernel against its plain PyTorch version on the card, in
-   f32 with TF32 off, at the serving path's shapes, and times both with
+   f32 with TF32 off, at the main paths' shapes, and times both with
    CUDA events:
      B1 (IIR cascade): 60 Hz notch then 4-40 Hz band-pass ``sosfiltfilt``
         on (B, 64, 800); tolerance rtol 1e-4, atol 1e-4 * max|ref|
         (the JAX package's Pallas IIR tolerance, tests/test_pallas.py).
-     B2 (Conv4Layers head forward) at full width; rtol 1e-4, atol 1e-5.
-4. Drives the main path: full-width FAST weights from a numpy seed are
-   written as a checkpoint, the port's ``cli.serve`` serves it over TCP,
-   and a ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD
-   to a second checkpoint, and DECODE again. The posteriors must be
-   finite, sum to 1 and match the port's plain CPU forward of the same
-   weights (rtol 1e-4, atol 1e-5), and both kernels' launch counters must
-   have moved during those requests.
+     B2f (Conv4Layers head forward, through the model-axis entry at
+        M = 1) at full width; rtol 1e-4, atol 1e-5.
+     B2w / B2x (head weight / input gradients) at full width, M = 2,
+        B = 8 and M = 1, B = 64, against the plain autograd backward;
+        rtol 1e-4, atol 1e-4 * max|ref| per tensor (sums over B*N*t1
+        terms). Then all three at the training run's M = 75 and its
+        batch sizes 64, 24 (the ragged tail) and 35 (validation): the
+        full launches' outputs for models 0, 37 and 74 against the plain
+        version on those models' operands, at the same tolerances; B2f
+        and B2w are timed alone at M = 75, B = 64.
+4. Serving path: full-width FAST weights from a numpy seed are written
+   as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
+   ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
+   second checkpoint, and DECODE again. The posteriors must be finite,
+   sum to 1 and match the port's plain CPU forward of the same weights
+   (rtol 1e-4, atol 1e-5), and B1 and B2f must have launched.
+5. Training path: the port's ``cli.train_fast`` on a 15-subject x 350-trial
+   synthetic corpus, 75 stacked full-width models, 2 epochs, f32. B2f and
+   B2w must have launched and B2x not; the history must be finite, the
+   result tree complete, and one subject's ``best_subject.npz`` must
+   reproduce its ``test_predictions.csv`` on the card, with logits that
+   match the plain CPU forward (rtol 1e-4, atol 1e-5). Then one step at M = 75,
+   B = 64 under the profiler, and a 2-subject x 10-trial run on the card
+   against the same run on the CPU (plain path).
+6. Attribution path: integrated gradients of a trained checkpoint, whose
+   input gradient runs through B2x, against the plain CPU path.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -28,6 +47,7 @@ script exits non-zero. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,12 +61,18 @@ from scipy.signal import tf2sos
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from imagined_speech_decoding_tpu_torch.cli import train_fast
 from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_server
-from imagined_speech_decoding_tpu_torch.config import FASTConfig
+from imagined_speech_decoding_tpu_torch.config import FASTConfig, TrainConfig
 from imagined_speech_decoding_tpu_torch.data.constants import SFREQ
+from imagined_speech_decoding_tpu_torch.data.synthetic import synthetic_corpus, synthetic_trials
+from imagined_speech_decoding_tpu_torch.explain.attribution import integrated_gradients
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    conv4head_bwd_plain,
+    conv4head_bwd_w,
+    conv4head_bwd_x,
     fused_conv4_head,
     fused_conv4_head_plain,
 )
@@ -61,18 +87,33 @@ from imagined_speech_decoding_tpu_torch.ops.filters import (
 )
 from imagined_speech_decoding_tpu_torch.server import DecoderClient
 from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
-from imagined_speech_decoding_tpu_torch.train.checkpoint import save_model_npz
+from imagined_speech_decoding_tpu_torch.train import engine
+from imagined_speech_decoding_tpu_torch.train.artifacts import load_predictions_csv
+from imagined_speech_decoding_tpu_torch.train.checkpoint import load_model_npz, save_model_npz
+from imagined_speech_decoding_tpu_torch.train.cv import build_cv_index_stack, stacked_init
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout_params,
+    to_jax_params,
 )
 
 SEED = 0
 IIR_RTOL = 1e-4  # atol = IIR_RTOL * max|ref|
 HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-5
 POST_RTOL, POST_ATOL = 1e-4, 1e-5
-MAIN_BATCH = 8  # the main path's largest request; the JSON line's shapes
+BWD_RTOL = 1e-4  # atol = BWD_RTOL * max|ref| per gradient tensor
+TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-5  # card vs CPU training trajectory
+TRAJ_NOISE_SHARE = 1e-4  # parameter elements allowed past it, each within the summed lr
+MAIN_BATCH = 8  # the serving path's largest request; the JSON line's forward shapes
 REQUESTS = 100  # timed DECODE requests per batch size
+TRAIN_SUBJECTS, TRAIN_TRIALS, TRAIN_EPOCHS = 15, 350, 2  # 75 models, 280 + 70 trials each
+TRAIN_BATCH = 64
+# The head's batch sizes in that run: 280 train trials at batch 64 are
+# 4 x 64 + a 24-trial tail; 70 validation trials are 2 x 35.
+TRAIN_STEP_BATCHES = (TRAIN_BATCH, TRAIN_TRIALS * 4 // 5 % TRAIN_BATCH,
+                      engine.eval_batch_size_for(TRAIN_TRIALS // 5, TRAIN_BATCH))
+BWD_SHAPES = ((2, 8), (1, 64))  # (M, B) of the backward comparisons; JSON line: the first
+IG_TRIALS, IG_STEPS = 8, 16
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -133,12 +174,12 @@ def phase_iir(dev, rng):
 
 
 def phase_head(model, dev, rng):
-    """B2 against its plain version at full width."""
+    """B2f against its plain version at full width, one model (M = 1)."""
     cfg = model.cfg
-    ops = model.head.prepare_fused_weights()
+    ops = model.head.fused_weights()
     rows = {}
     for b in (1, MAIN_BATCH, 64):
-        x = torch.tensor(rng.normal(size=(b, 64, 800)).astype(np.float32), device=dev)
+        x = torch.tensor(rng.normal(size=(1, b, 64, 800)).astype(np.float32), device=dev)
         ref = fused_conv4_head_plain(x, *ops, cfg.window_len, cfg.slide_step)
         got = fused_conv4_head(x, *ops, cfg.window_len, cfg.slide_step)
         err = check_close(f"B2 B={b}", got, ref, HEAD_RTOL, HEAD_ATOL)
@@ -153,7 +194,7 @@ def phase_head(model, dev, rng):
     return rows
 
 
-def phase_main_path(cfg, params1, params2, rng, workdir):
+def phase_serving(cfg, params1, params2, rng, workdir):
     """Serve checkpoints through the port's CLI and decode over TCP."""
     ckpt1 = os.path.join(workdir, "FAST", "sub-01", "best_subject.npz")
     ckpt2 = os.path.join(workdir, "FAST", "sub-02", "best_subject.npz")
@@ -164,8 +205,7 @@ def phase_main_path(cfg, params1, params2, rng, workdir):
     sizes = [1, MAIN_BATCH] + [1] * REQUESTS + [MAIN_BATCH] * REQUESTS
     batches = [rng.normal(size=(b, 64, 800)).astype(np.float32) for b in sizes]
 
-    sosfilt_time_major.launches = 0
-    fused_conv4_head.launches = 0
+    reset_launches()
     latencies, posts = [], []
     with server, DecoderClient(*server.address) as client:
         info = client.info()
@@ -175,12 +215,12 @@ def phase_main_path(cfg, params1, params2, rng, workdir):
             latencies.append(time.perf_counter() - t0)
         client.reload(ckpt2)
         post_reloaded = client.decode(batches[-1])
-    launches = {"iir": sosfilt_time_major.launches, "conv4head": fused_conv4_head.launches}
-    print(f"main path: INFO {json.dumps(info)}", flush=True)
-    print(f"main path: kernel launches during the requests {launches}", flush=True)
-    for name, n in launches.items():
-        if n < 1:
-            raise RuntimeError(f"the main path never launched the {name} kernel")
+    launches = read_launches()
+    print(f"serving path: INFO {json.dumps(info)}", flush=True)
+    print(f"serving path: kernel launches during the requests {launches}", flush=True)
+    for name in ("iir", "conv4head_fwd"):
+        if launches[name] < 1:
+            raise RuntimeError(f"the serving path never launched the {name} kernel")
     if info["device"] != "cuda" or info["n_channels"] != 64 or info["n_classes"] != cfg.n_classes:
         raise RuntimeError(f"unexpected INFO {info}")
 
@@ -188,10 +228,10 @@ def phase_main_path(cfg, params1, params2, rng, workdir):
     for b in (1, MAIN_BATCH):
         ms = [1e3 * t for t, x in zip(latencies[2:], batches[2:]) if x.shape[0] == b]
         p50, p90, p99 = np.percentile(ms, [50, 90, 99])
-        print(f"main path: DECODE B={b} over TCP, closed loop, one client, host clock: "
+        print(f"serving path: DECODE B={b} over TCP, closed loop, one client, host clock: "
               f"p50 {p50:.3f} ms, p90 {p90:.3f} ms, p99 {p99:.3f} ms, max {max(ms):.3f} ms "
               f"({len(ms)} requests)", flush=True)
-    print("main path: posteriors finite, sum to 1, match the plain CPU forward "
+    print("serving path: posteriors finite, sum to 1, match the plain CPU forward "
           f"(rtol {POST_RTOL}, atol {POST_ATOL}); RELOAD swapped the weights", flush=True)
     return launches
 
@@ -255,6 +295,292 @@ def phase_device_time(cfg, params, dev, rng):
             print(f"    host   {ms:9.4f} ms  {calls:4d} calls  {key[:70]}", flush=True)
 
 
+HEAD_FMA_FWD = 5_038_080  # per (trial, window, zone) at full width: conv12 2.52 M + tails 2 x 1.26 M
+HEAD_FMA_BWD_W = 12_595_200  # recompute 5.04 M + dh2, dh1, dw4, dw3 1.26 M each + dw12 2.52 M
+
+
+def phase_head_backward(cfg, dev, rng):
+    """B2w and B2x against the plain autograd backward at full width, then
+    B2f and B2w alone at the training step's shape."""
+    geo = (cfg.window_len, cfg.slide_step)
+    feat = cfg.n_zones * cfg.dim_cnn
+    rows = {}
+    for m, b in BWD_SHAPES:
+        model = FAST(cfg, n_models=m, device=dev)
+        model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+        with torch.no_grad():
+            ops = model.head.fused_weights()
+        x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32), device=dev)
+        g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, feat)).astype(np.float32),
+                         device=dev)
+        ref = conv4head_bwd_plain(g, x, *ops, *geo)
+        got = (conv4head_bwd_x(g, x, *ops, *geo), *conv4head_bwd_w(g, x, *ops, *geo))
+        errs = {name: check_close(f"B2 backward M={m} B={b} {name}", a, r, BWD_RTOL,
+                                  BWD_RTOL * float(r.abs().max()))
+                for name, a, r in zip(("dx", "dw12", "db12", "dw3", "dw4"), got, ref)}
+        rows[(m, b)] = {
+            "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 10),
+            "x_ms": cuda_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), 10),
+            "plain_ms": cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 3),
+            "w_err": max(errs[k] for k in ("dw12", "db12", "dw3", "dw4")),
+            "x_err": errs["dx"],
+        }
+        r = rows[(m, b)]
+        print(f"B2w M={m} B={b:<3} weight grads: kernel {r['w_ms']:.3f} ms, max|err| "
+              f"{r['w_err']:.3g}; B2x input grad: kernel {r['x_ms']:.3f} ms, max|err| "
+              f"{r['x_err']:.3g}; plain autograd backward (all five) {r['plain_ms']:.3f} ms; "
+              f"per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}",
+              flush=True)
+
+    # The training run's own launches: M = 75 at its batch sizes (the
+    # 64-trial steps, the ragged tail, the validation batch). The plain
+    # autograd backward of all 75 models needs tens of GB, but the models
+    # are independent: the full launches' outputs are held, model by model,
+    # against the plain version on the first, a middle and the last
+    # model's operands.
+    m = TRAIN_SUBJECTS * 5
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b in TRAIN_STEP_BATCHES:
+        x = torch.randn((m, b, 64, 800), generator=gen, device=dev)
+        g = torch.randn((m, b, cfg.n_tokens, feat), generator=gen, device=dev)
+        with torch.no_grad():
+            out = fused_conv4_head(x, *ops, *geo)
+        grads = (conv4head_bwd_x(g, x, *ops, *geo), *conv4head_bwd_w(g, x, *ops, *geo))
+        errs = {"out": 0.0, "dx": 0.0, "dw12": 0.0, "db12": 0.0, "dw3": 0.0, "dw4": 0.0}
+        for i in (0, m // 2, m - 1):
+            one = [t[i : i + 1] for t in (g, x, *ops)]
+            what = f"M={m} B={b} model {i}"
+            ref = fused_conv4_head_plain(*one[1:], *geo)
+            errs["out"] = max(errs["out"], check_close(f"B2f {what}", out[i : i + 1], ref,
+                                                       HEAD_RTOL, HEAD_ATOL))
+            for name, a, r in zip(("dx", "dw12", "db12", "dw3", "dw4"), grads,
+                                  conv4head_bwd_plain(*one, *geo)):
+                errs[name] = max(errs[name], check_close(f"B2 backward {what} {name}",
+                                                         a[i : i + 1], r, BWD_RTOL,
+                                                         BWD_RTOL * float(r.abs().max())))
+        print(f"B2f / B2w / B2x at M={m} B={b:<3}: models 0, {m // 2} and {m - 1} of the full "
+              f"launches match the plain version on their operands; max|err| "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}", flush=True)
+    x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev)
+    g = torch.randn((m, TRAIN_BATCH, cfg.n_tokens, feat), generator=gen, device=dev)
+    big = {"fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 3),
+           "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 3)}
+    units = m * TRAIN_BATCH * cfg.n_tokens * cfg.n_zones
+    print(f"B2f / B2w alone at M={m} B={TRAIN_BATCH} (kernel only): B2f {big['fwd_ms']:.2f} ms "
+          f"({units * HEAD_FMA_FWD / big['fwd_ms'] / 1e9:.2f} T FMA/s), B2w {big['w_ms']:.2f} ms "
+          f"({units * HEAD_FMA_BWD_W / big['w_ms'] / 1e9:.2f} T FMA/s)", flush=True)
+    return rows, big
+
+
+def reset_launches() -> None:
+    for fn in (sosfilt_time_major, fused_conv4_head, conv4head_bwd_w, conv4head_bwd_x):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {"iir": sosfilt_time_major.launches, "conv4head_fwd": fused_conv4_head.launches,
+            "conv4head_bwd_w": conv4head_bwd_w.launches,
+            "conv4head_bwd_x": conv4head_bwd_x.launches}
+
+
+def phase_training(cfg, dev, workdir):
+    """The training CLI on the full synthetic corpus: 75 stacked models."""
+    out = os.path.join(workdir, "train")
+    argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+            "--epochs", str(TRAIN_EPOCHS), "--precision", "f32", "--output_dir", out]
+    print(f"training path: cli.train_fast {' '.join(argv[:-1])} <tmp>", flush=True)
+    reset_launches()
+    result = train_fast.main(argv)
+    launches = read_launches()
+    print(f"training path: kernel launches during the run {launches}", flush=True)
+    if launches["conv4head_fwd"] < 1 or launches["conv4head_bwd_w"] < 1:
+        raise RuntimeError("the training path never launched B2f or B2w")
+    if launches["conv4head_bwd_x"] != 0:
+        raise RuntimeError("the training path launched B2x: no input gradient is needed")
+    for k, v in result.fit.history.items():
+        if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
+            raise RuntimeError(f"history {k}: shape {v.shape}, finite {np.isfinite(v).all()}")
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    expected = [os.path.join(out, n) for n in
+                ("summary_per_subject.csv", "global_test_predictions.csv")]
+    for sid in subjects:
+        expected += [os.path.join(out, f"sub-{sid}", n) for n in
+                     [f"fold-{k}_history.csv" for k in range(5)]
+                     + ["fold_metrics.csv", "best_subject.npz", "test_predictions.csv"]]
+    missing = [p for p in expected if not os.path.isfile(p)]
+    if missing:
+        raise RuntimeError(f"result tree incomplete: {missing[:5]}")
+
+    # One subject's best checkpoint, loaded as the serving layout (M = 1),
+    # reproduces its test predictions (unfiltered: the training data is).
+    si = TRAIN_SUBJECTS - 1
+    ckpt = os.path.join(out, f"sub-{subjects[si]}", "best_subject.npz")
+    params, _, _ = load_model_npz(ckpt, init_jax_layout_params(cfg, SEED), {"head": {}})
+    model = FAST(cfg, device=dev)
+    model.load_state_dict(from_jax_params(params))
+    x_test = synthetic_trials(1000 * si, TRAIN_TRIALS, 64, 800)[0][: TRAIN_TRIALS // 3]
+    y_pred = engine.predict(model, torch.tensor(x_test, device=dev), TRAIN_BATCH)
+    saved, _ = load_predictions_csv(os.path.join(out, f"sub-{subjects[si]}", "test_predictions.csv"))
+    if not np.array_equal(y_pred, saved):
+        raise RuntimeError("the best checkpoint does not reproduce test_predictions.csv")
+    cpu = FAST(cfg)
+    cpu.load_state_dict(from_jax_params(params))
+    with torch.no_grad():
+        logits = model.eval()(torch.tensor(x_test, device=dev)).cpu()
+        logit_err = check_close("best checkpoint logits, card vs CPU", logits,
+                                cpu.eval()(torch.from_numpy(x_test)), POST_RTOL, POST_ATOL)
+
+    t = result.timings
+    m, n_train = TRAIN_SUBJECTS * 5, TRAIN_TRIALS * 4 // 5
+    print(f"training path: all {len(expected)} result files written; sub-{subjects[si]}'s "
+          f"best_subject.npz reproduces its {len(saved)} test predictions; its logits match "
+          f"the plain CPU forward, max|err| {logit_err:.3g}", flush=True)
+    print(f"training path, host clock: corpus generation {t['data_s']:.2f} s, fit "
+          f"{t['fit_s']:.2f} s, artifacts + test eval {t['artifacts_s']:.2f} s", flush=True)
+    for ep, (tr, va) in enumerate(zip(t["train_s"], t["val_s"])):
+        print(f"  epoch {ep}: train pass {tr:.3f} s ({t['steps_per_epoch']} steps, "
+              f"{1e3 * tr / t['steps_per_epoch']:.1f} ms/step, "
+              f"{m * n_train * cfg.n_tokens / tr:.0f} train trial-windows/s), validation "
+              f"{va:.3f} s, epoch {tr + va:.3f} s", flush=True)
+    acc = [row["Test_Acc"] for row in result.summary]
+    print(f"  mean val_acc {result.fit.history['val_acc'][:, -1].mean():.4f}, mean test acc "
+          f"{np.mean(acc):.4f} after {TRAIN_EPOCHS} epochs", flush=True)
+    return launches, t, (ckpt, x_test)
+
+
+def phase_train_step_profile(cfg, dev):
+    """One training step of the 75-model stack at batch 64: CUDA-event
+    span, profiler device time by kernel, device idle share."""
+    m = TRAIN_SUBJECTS * 5
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+    model.train()
+    opt = engine.make_optimizer(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev)
+    y = torch.randint(0, cfg.n_classes, (m, TRAIN_BATCH), generator=gen, device=dev)
+
+    def step():
+        engine.train_step(model, opt, x, y, 1e-4, cfg.n_classes, gen)
+
+    step()
+    span = cuda_ms(step, 3, warmup=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.device_type != DeviceType.CPU),
+                       reverse=True)
+    busy = sum(ms for ms, _, _ in by_device)
+    print(f"train step M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler device "
+          f"time {busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies "
+          f"(device idle {max(0.0, 1 - busy / span):.1%} of the span)", flush=True)
+    for ms, calls, key in by_device[:10]:
+        print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
+              flush=True)
+    return {"step_ms": span, "busy_ms": busy}
+
+
+def phase_trajectory(cfg, dev):
+    """2 subjects x 10 trials (10 models, 8 + 2 trials, batch 8), dropout 0,
+    2 epochs: the engine on the card against the engine on the CPU, from
+    the same weights and the same CPU-generator permutations."""
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
+    tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
+    m = tidx.shape[0]
+    p0 = from_jax_params(stacked_init(cfg0, 42, m))
+    runs, models = {}, {}
+    for device, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = models[device] = FAST(cfg0, n_models=m, device=d)
+        model.load_state_dict(p0)
+        fit = engine.make_fit(model, cfg.n_classes, epochs=2, batch_size=8, n_train=8, n_val=2,
+                              learning_rate=1e-3, warmup_epochs=0)
+        t0 = time.perf_counter()
+        runs[device] = fit(tidx, vidx, torch.as_tensor(x.reshape(-1, 64, 800), device=d),
+                           torch.as_tensor(y.reshape(-1).astype(np.int64), device=d), seed=43)
+        print(f"trajectory: {device} fit {time.perf_counter() - t0:.2f} s", flush=True)
+    gpu, cpu = runs["card"], runs["cpu"]
+    for k in engine.HISTORY_KEYS:
+        np.testing.assert_allclose(gpu.history[k], cpu.history[k], rtol=TRAJ_RTOL, atol=TRAJ_ATOL,
+                                   err_msg=k)
+    np.testing.assert_array_equal(gpu.best_epoch, cpu.best_epoch)
+    np.testing.assert_allclose(gpu.best_val_acc, cpu.best_val_acc, rtol=TRAJ_RTOL)
+    # The last step's gradients, per tensor, as the kernels are held (BWD_RTOL).
+    for (k, a), b in zip(models["card"].named_parameters(), models["cpu"].parameters()):
+        check_close(f"trajectory last-step gradient {k}", a.grad.cpu(), b.grad, BWD_RTOL,
+                    BWD_RTOL * float(b.grad.abs().max()))
+    # Parameters. Adam moves an element by ~lr whatever its gradient's size, so
+    # an element whose gradient is at the rounding-noise level moves
+    # differently on the two devices: the key part of the attention
+    # in-projection bias (its exact gradient is 0, softmax being
+    # shift-invariant along the keys) and a few others. Every element must
+    # stay within the summed learning rate, and all but TRAJ_NOISE_SHARE of
+    # the others within rtol TRAJ_RTOL, atol TRAJ_ATOL.
+    budget = float(np.sum(fit.lr_table))
+    d = cfg.dim_token
+    far, total, worst = {}, 0, 0.0
+    for which in ("params", "best_params"):
+        a_all, b_all = getattr(gpu, which), getattr(cpu, which)
+        for k in a_all:
+            a, b = a_all[k].cpu(), b_all[k]
+            torch.testing.assert_close(a, b, rtol=0, atol=budget,
+                                       msg=lambda msg, k=k: f"{which} {k}: {msg}")
+            worst = max(worst, float((a - b).abs().max()))
+            if k.endswith("attn.in_proj.bias"):
+                a, b = torch.cat([a[:, :d], a[:, 2 * d :]], 1), torch.cat([b[:, :d], b[:, 2 * d :]], 1)
+            n_far = int(((a - b).abs() > TRAJ_ATOL + TRAJ_RTOL * b.abs()).sum())
+            if n_far:
+                far[f"{which}.{k}"] = n_far
+            total += b.numel()
+    n_far = sum(far.values())
+    print(f"trajectory: {n_far} of {total} parameter elements (the key bias aside) beyond rtol "
+          f"{TRAJ_RTOL}, atol {TRAJ_ATOL}: {json.dumps(dict(sorted(far.items(), key=lambda kv: -kv[1])[:6]))}",
+          flush=True)
+    if n_far > TRAJ_NOISE_SHARE * total:
+        raise RuntimeError(f"trajectory: {n_far} of {total} parameter elements differ beyond "
+                           f"rtol {TRAJ_RTOL}, atol {TRAJ_ATOL}")
+    moved = max(float((gpu.params[k].cpu() - p0[k]).abs().max()) for k in p0)
+    print(f"trajectory: card and CPU agree over 2 epochs: history (rtol {TRAJ_RTOL}, atol "
+          f"{TRAJ_ATOL}), best epochs, last-step gradients (rtol {BWD_RTOL}, atol {BWD_RTOL} * "
+          f"max|ref|), final and best parameters ({n_far} of {total} elements beyond rtol "
+          f"{TRAJ_RTOL}, atol {TRAJ_ATOL}; max|card - CPU| {worst:.3g} <= summed lr {budget:.3g}) "
+          f"while the parameters moved up to {moved:.3g}", flush=True)
+
+
+def phase_explain(cfg, dev, ckpt, x_test):
+    """Integrated gradients of a trained checkpoint: the input gradient
+    runs through B2x; against the same attribution on the CPU."""
+    params, _, _ = load_model_npz(ckpt, init_jax_layout_params(cfg, SEED), {"head": {}})
+    model = FAST(cfg, device=dev)
+    model.load_state_dict(from_jax_params(params))
+    x = torch.tensor(x_test[:IG_TRIALS], device=dev)
+    with torch.no_grad():
+        target = model.eval()(x).argmax(-1)
+    reset_launches()
+    t0 = time.perf_counter()
+    attr = integrated_gradients(model, x, target, n_steps=IG_STEPS)
+    launches = read_launches()
+    host_s = time.perf_counter() - t0
+    print(f"attribution path: integrated gradients, {IG_TRIALS} trials x {IG_STEPS} steps, "
+          f"{host_s:.3f} s; kernel launches {launches}", flush=True)
+    if launches["conv4head_bwd_x"] < 1 or launches["conv4head_bwd_w"] != 0:
+        raise RuntimeError("the attribution path must launch B2x and not B2w")
+    cpu = FAST(cfg)
+    cpu.load_state_dict(from_jax_params(params))
+    ref = integrated_gradients(cpu, x.cpu(), target.cpu(), n_steps=IG_STEPS)
+    err = check_close("integrated gradients", attr.cpu(), ref, BWD_RTOL,
+                      BWD_RTOL * float(ref.abs().max()))
+    print(f"attribution path: matches the plain CPU path, max|err| {err:.3g} "
+          f"(max|attr| {float(ref.abs().max()):.3g})", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
@@ -283,19 +609,31 @@ def main() -> None:
     with torch.inference_mode():
         iir = phase_iir(dev, rng)
         head = phase_head(model, dev, rng)
+    bwd, _ = phase_head_backward(cfg, dev, rng)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main_path(cfg, params1, params2, rng, workdir)
-    phase_device_time(cfg, params1, dev, rng)
+        serving = phase_serving(cfg, params1, params2, rng, workdir)
+        phase_device_time(cfg, params1, dev, rng)
+        training, _, (ckpt, x_test) = phase_training(cfg, dev, workdir)
+        explain = phase_explain(cfg, dev, ckpt, x_test)
+    phase_train_step_profile(cfg, dev)
+    phase_trajectory(cfg, dev)
 
+    src = "imagined_speech_decoding_tpu_torch/csrc/"
+    pallas = "imagined_speech_decoding_tpu/ops/pallas/"
+    b2 = bwd[BWD_SHAPES[0]]
     kernels = [
-        {"name": "iir_sosfilt_time_major", "route": "cuda",
-         "source": "imagined_speech_decoding_tpu_torch/csrc/iir.cu",
-         "replaces": "imagined_speech_decoding_tpu/ops/pallas/iir.py:67",
-         "launches": launches["iir"], **{k: iir[MAIN_BATCH][k] for k in ("max_abs_err", "ms", "plain_ms")}},
-        {"name": "conv4head_fwd", "route": "cuda",
-         "source": "imagined_speech_decoding_tpu_torch/csrc/conv4head.cu",
-         "replaces": "imagined_speech_decoding_tpu/ops/pallas/conv4head.py:303",
-         "launches": launches["conv4head"], **head[MAIN_BATCH]},
+        {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
+         "replaces": pallas + "iir.py:67", "launches": serving["iir"],
+         **{k: iir[MAIN_BATCH][k] for k in ("max_abs_err", "ms", "plain_ms")}},
+        {"name": "conv4head_fwd", "route": "cuda", "source": src + "conv4head.cu",
+         "replaces": pallas + "conv4head.py:303", "launches": training["conv4head_fwd"],
+         **head[MAIN_BATCH]},
+        {"name": "conv4head_bwd_w", "route": "cuda", "source": src + "conv4head_bwd.cu",
+         "replaces": pallas + "conv4head.py:323", "launches": training["conv4head_bwd_w"],
+         "max_abs_err": b2["w_err"], "ms": b2["w_ms"], "plain_ms": b2["plain_ms"]},
+        {"name": "conv4head_bwd_x", "route": "cuda", "source": src + "conv4head_bwd.cu",
+         "replaces": pallas + "conv4head.py:351", "launches": explain["conv4head_bwd_x"],
+         "max_abs_err": b2["x_err"], "ms": b2["x_ms"], "plain_ms": b2["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,20 +1,23 @@
-// Forward of the fused sliding-window Conv4Layers zone head, for Hopper.
+// Forward of the fused sliding-window Conv4Layers zone head, for Hopper
+// (kernel B2f).
 //
 // Replaces the forward Pallas kernel of
 // imagined_speech_decoding_tpu/ops/pallas/conv4head.py (_fwd_kernel, called
-// by _fwd_impl). Per trial b, window n and zone z it computes
+// by _fwd_impl). Per model m, trial b, window n and zone z it computes
 //
-//   h1[o, t] = b12[z*O + o] + sum_{k, c} w12[z*O + o, k*C + c] * x[b, c, n*step + t + k]
-//   h2 = 'same' K2-tap conv of h1 with w3[z]      (zero padding at the window edges)
-//   h3 = 'same' K2-tap conv of h2 with w4[z]
-//   out[b, n, z*O + o] = mean_t gelu(h3[o, t])    (exact erf GELU)
+//   h1[o, t] = b12[m, z*O + o] + sum_{k, c} w12[m, z*O + o, k*C + c] * x[m, b, c, n*step + t + k]
+//   h2 = 'same' K2-tap conv of h1 with w3[m, z]   (zero padding at the window edges)
+//   h3 = 'same' K2-tap conv of h2 with w4[m, z]
+//   out[m, b, n, z*O + o] = mean_t gelu(h3[o, t])  (exact erf GELU)
 //
 // for t in [0, t1), t1 = W - K1 + 1. The operand layouts are the ones that
 // imagined_speech_decoding_tpu_torch.models.heads.Conv4LayersHead
-// .prepare_fused_weights returns: w12 (Z*O, K1*C) and w3, w4 (Z, O, K2*O),
-// all tap-major. x is batch-major (B, C, T); the Pallas kernel's
-// channel-major input and its 246 -> 256 lane padding were Mosaic
-// constraints and are gone.
+// .fused_weights returns, with a leading model axis M: w12
+// (M, Z*O, K1*C) and w3, w4 (M, Z, O, K2*O), all tap-major. x is
+// (M, B, C, T): each model trains on its own batch. The Pallas kernel gets
+// the model axis from jax.vmap as an outer grid dimension; here it is the
+// outer part of the grid's z index. Its channel-major input and its
+// 246 -> 256 lane padding were Mosaic constraints and are gone.
 //
 // What bounds it on the H100: about 5 M FMAs per (trial, window, zone) at
 // full width (C = 64, O = 32, K = 5, t1 = 246), so ~0.4 GFLOP per trial
@@ -33,11 +36,12 @@
 
 #include <cuda_runtime.h>
 
+#include "conv4head_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-__host__ __device__ inline int round_up4(int v) { return (v + 3) & ~3; }
+using isd::kThreads;
+using isd::round_up4;
 
 // Shared-memory plan in floats; every region starts 16-byte aligned.
 struct SmemPlan {
@@ -46,7 +50,7 @@ struct SmemPlan {
 
 __host__ __device__ inline SmemPlan smem_plan(int C, int W, int O, int K1, int K2) {
   const int t1 = W - K1 + 1;
-  const int w_floats = (K1 * C > 2 * K2 * O ? K1 * C : 2 * K2 * O) * O;
+  const int w_floats = isd::max_int(K1 * C, 2 * K2 * O) * O;
   SmemPlan p;
   p.xs = 0;
   p.ws = p.xs + round_up4(C * W);
@@ -56,100 +60,48 @@ __host__ __device__ inline SmemPlan smem_plan(int C, int W, int O, int K1, int K
   return p;
 }
 
-// Stage rows [row0, row0 + O) of a (rows, cols) matrix into dst as
-// (cols, O): dst[q * O + o] = src[(row0 + o) * cols + q].
-__device__ inline void stage_transposed(float* dst, const float* __restrict__ src, int row0,
-                                        int O, int cols) {
-  for (int i = threadIdx.x; i < O * cols; i += blockDim.x) {
-    const int o = i / cols, q = i - o * cols;
-    dst[q * O + o] = src[static_cast<size_t>(row0 + o) * cols + q];
-  }
-}
-
-// acc[o] += sum_q w[q * O + o] * v  for one input value v (w transposed).
-template <int O>
-__device__ inline void axpy_row(float (&acc)[O], const float* w, float v) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int j = 0; j < O / 4; ++j) {
-    const float4 q = w4[j];
-    acc[4 * j + 0] += q.x * v;
-    acc[4 * j + 1] += q.y * v;
-    acc[4 * j + 2] += q.z * v;
-    acc[4 * j + 3] += q.w * v;
-  }
-}
-
-// One 'same' K-tap conv over time: dst[o, t] = sum_{k, i} w[(k*O + i) * O + o] * src[i, t + k - K/2].
-template <int O>
-__device__ inline void same_conv(float* dst, const float* src, const float* w, int K, int t1,
-                                 bool apply_gelu) {
-  const int pad = K / 2;
-  for (int t = threadIdx.x; t < t1; t += blockDim.x) {
-    float acc[O];
-#pragma unroll
-    for (int o = 0; o < O; ++o) acc[o] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int tt = t + k - pad;
-      if (tt < 0 || tt >= t1) continue;
-      for (int i = 0; i < O; ++i) axpy_row<O>(acc, w + (k * O + i) * O, src[i * t1 + tt]);
-    }
-#pragma unroll
-    for (int o = 0; o < O; ++o) {
-      float v = acc[o];
-      if (apply_gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-      dst[o * t1 + t] = v;
-    }
-  }
-}
-
 template <int O>
 __global__ void __launch_bounds__(kThreads)
 conv4head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w12,
                      const float* __restrict__ b12, const float* __restrict__ w3,
-                     const float* __restrict__ w4, float* __restrict__ out, int C, int T, int Z,
-                     int N, int W, int step, int K1, int K2) {
+                     const float* __restrict__ w4, float* __restrict__ out, int B, int C, int T,
+                     int Z, int N, int W, int step, int K1, int K2) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int z = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
+  const int z = blockIdx.x, n = blockIdx.y, mb = blockIdx.z;  // mb = m * B + b
+  const int m = mb / B;
   const int t1 = W - K1 + 1;
   const SmemPlan plan = smem_plan(C, W, O, K1, K2);
   float* xs = smem + plan.xs;  // (C, W) window slice
   float* ws = smem + plan.ws;  // transposed weights of the current stage
   float* ha = smem + plan.ha;  // (O, t1): h1, later gelu(h3)
   float* hb = smem + plan.hb;  // (O, t1): h2
+  const float* w12m = w12 + static_cast<size_t>(m) * Z * O * K1 * C;
+  const float* w3m = w3 + static_cast<size_t>(m) * Z * O * K2 * O;
+  const float* w4m = w4 + static_cast<size_t>(m) * Z * O * K2 * O;
 
   // Stage the window and the zone's rows of w12.
-  const float* xw = x + static_cast<size_t>(b) * C * T + static_cast<size_t>(n) * step;
+  const float* xw = x + static_cast<size_t>(mb) * C * T + static_cast<size_t>(n) * step;
   for (int i = threadIdx.x; i < C * W; i += blockDim.x) {
     const int c = i / W, j = i - c * W;
     xs[i] = xw[static_cast<size_t>(c) * T + j];
   }
-  stage_transposed(ws, w12, z * O, O, K1 * C);
+  isd::stage_transposed(ws, w12m, z * O, O, K1 * C);
   __syncthreads();
 
   // h1 = fused temporal x zone-scattered spatial conv (valid) + bias.
-  for (int t = threadIdx.x; t < t1; t += blockDim.x) {
-    float acc[O];
-#pragma unroll
-    for (int o = 0; o < O; ++o) acc[o] = b12[z * O + o];
-    for (int k = 0; k < K1; ++k) {
-      for (int c = 0; c < C; ++c) axpy_row<O>(acc, ws + (k * C + c) * O, xs[c * W + t + k]);
-    }
-#pragma unroll
-    for (int o = 0; o < O; ++o) ha[o * t1 + t] = acc[o];
-  }
+  isd::first_conv<O>(ha, t1, xs, W, ws, b12 + (static_cast<size_t>(m) * Z + z) * O, C, K1, t1);
   __syncthreads();
 
   // The zone's two tail convs, staged together.
   float* ws3 = ws;
   float* ws4 = ws + K2 * O * O;
-  stage_transposed(ws3, w3, z * O, O, K2 * O);
-  stage_transposed(ws4, w4, z * O, O, K2 * O);
+  isd::stage_transposed(ws3, w3m, z * O, O, K2 * O);
+  isd::stage_transposed(ws4, w4m, z * O, O, K2 * O);
   __syncthreads();
-  same_conv<O>(hb, ha, ws3, K2, t1, false);
+  isd::same_conv<O, false>(hb, ha, t1, ws3, K2, t1, false);
   __syncthreads();
-  same_conv<O>(ha, hb, ws4, K2, t1, true);
+  isd::same_conv<O, false>(ha, hb, t1, ws4, K2, t1, true);
   __syncthreads();
 
   // Mean over t: one warp per output channel, lanes stride over t.
@@ -159,22 +111,22 @@ conv4head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w12,
     for (int t = lane; t < t1; t += 32) s += ha[o * t1 + t];
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) out[(static_cast<size_t>(b) * N + n) * Z * O + z * O + o] = s / t1;
+    if (lane == 0) out[(static_cast<size_t>(mb) * N + n) * Z * O + z * O + o] = s / t1;
   }
 }
 
 template <int O>
 cudaError_t launch(const float* x, const float* w12, const float* b12, const float* w3,
-                   const float* w4, float* out, int B, int C, int T, int Z, int K1, int K2,
-                   int W, int step, int N, cudaStream_t stream) {
+                   const float* w4, float* out, int M, int B, int C, int T, int Z, int K1,
+                   int K2, int W, int step, int N, cudaStream_t stream) {
   const size_t smem_bytes = sizeof(float) * smem_plan(C, W, O, K1, K2).total;
   cudaError_t err = cudaFuncSetAttribute(conv4head_fwd_kernel<O>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(Z, N, B);
-  conv4head_fwd_kernel<O><<<grid, kThreads, smem_bytes, stream>>>(x, w12, b12, w3, w4, out, C,
-                                                                  T, Z, N, W, step, K1, K2);
+  const dim3 grid(Z, N, M * B);
+  conv4head_fwd_kernel<O><<<grid, kThreads, smem_bytes, stream>>>(x, w12, b12, w3, w4, out, B,
+                                                                  C, T, Z, N, W, step, K1, K2);
   return cudaGetLastError();
 }
 
@@ -186,19 +138,20 @@ extern "C" int isd_conv4head_smem_bytes(int C, int W, int O, int K1, int K2) {
   return static_cast<int>(sizeof(float)) * smem_plan(C, W, O, K1, K2).total;
 }
 
-// x (B, C, T), w12 (Z*O, K1*C), b12 (Z*O), w3/w4 (Z, O, K2*O), out (B, N, Z*O);
-// all f32, contiguous, on the device. Returns a cudaError_t (0 on success).
+// x (M, B, C, T), w12 (M, Z*O, K1*C), b12 (M, Z*O), w3/w4 (M, Z, O, K2*O),
+// out (M, B, N, Z*O); all f32, contiguous, on the device. Returns a
+// cudaError_t (0 on success).
 extern "C" int isd_conv4head_fwd(const float* x, const float* w12, const float* b12,
-                                 const float* w3, const float* w4, float* out, int B, int C,
-                                 int T, int Z, int O, int K1, int K2, int W, int step, int N,
-                                 void* stream) {
-  if (B < 1 || C < 1 || Z < 1 || N < 1 || K1 < 1 || K2 < 1 || W < K1 || step < 1 ||
-      (N - 1) * step + W > T) {
+                                 const float* w3, const float* w4, float* out, int M, int B,
+                                 int C, int T, int Z, int O, int K1, int K2, int W, int step,
+                                 int N, void* stream) {
+  if (M < 1 || B < 1 || C < 1 || Z < 1 || N < 1 || K1 < 1 || K2 < 1 || W < K1 || step < 1 ||
+      (N - 1) * step + W > T || static_cast<long long>(M) * B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (O) {
-    case 32: return launch<32>(x, w12, b12, w3, w4, out, B, C, T, Z, K1, K2, W, step, N, st);
+    case 32: return launch<32>(x, w12, b12, w3, w4, out, M, B, C, T, Z, K1, K2, W, step, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

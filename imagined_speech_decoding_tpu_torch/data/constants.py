@@ -13,6 +13,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+TARGET_TIMEPOINTS = 800  # trials are padded 795 -> 800 samples
 SFREQ = 250  # Hz
 
 # 64-channel montage, in recorded channel order.

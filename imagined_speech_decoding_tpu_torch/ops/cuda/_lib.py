@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into ONE
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and the objects link into ONE
 shared library with a plain C interface, loaded with ``ctypes``. The
 build happens on first use, never at import, into
 ``build/isd_torch_cuda/`` beside the package; the file name carries a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.
+hash of the sources, headers and flags, so an edited source rebuilds and
+an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -27,15 +28,18 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "isd_torch_cuda")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
     "isd_sosfilt_time_major": ([_P] * 5 + [_I] * 3 + [_P], _I),
-    "isd_conv4head_fwd": ([_P] * 6 + [_I] * 10 + [_P], _I),
+    "isd_conv4head_fwd": ([_P] * 6 + [_I] * 11 + [_P], _I),
     "isd_conv4head_smem_bytes": ([_I] * 5, _I),
+    "isd_conv4head_bwd_w": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    "isd_conv4head_bwd_x": ([_P] * 7 + [_I] * 11 + [_P], _I),
+    "isd_conv4head_bwd_smem_bytes": ([_I] * 4, _I),
     "isd_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -58,8 +62,9 @@ def build() -> Dict[str, object]:
     built yet. Returns ``{"path", "seconds", "log"}``: ``seconds`` is 0.0
     and ``log`` empty when the library was already there."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as f:
             digest.update(f.read())
     path = os.path.join(BUILD_DIR, f"libisd_kernels_{digest.hexdigest()[:16]}.so")
@@ -67,14 +72,29 @@ def build() -> Dict[str, object]:
         return {"path": path, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in zip(sources, objects))
+    ]
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objects]
+    try:
+        for cmd, out, code in logs:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(link)}):\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
-    return {"path": path, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    return {"path": path, "seconds": seconds, "log": "".join(out for _, out, _ in logs)}
 
 
 def library() -> ctypes.CDLL:
@@ -111,7 +131,7 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def require_no_grad(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels are forward-only: refuse to cut an autograd graph."""
+    """A forward-only kernel refuses to cut an autograd graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{what} has no backward kernel yet (see ROADMAP.md); "

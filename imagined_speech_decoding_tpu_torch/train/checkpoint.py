@@ -84,3 +84,13 @@ def load_model_npz(path: str, params_template: Any, state_template: Any):
         )
         return tree["params"], tree["state"], True
     return load_state_dict(path, params_template), state_template, False
+
+
+def select_model(tree: Any, index: int) -> Any:
+    """Slice model ``index`` out of a stacked tree (leading model axis);
+    leaves may be numpy arrays or tensors, containers dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: select_model(v, index) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(select_model(v, index) for v in tree)
+    return tree[index]

@@ -3,18 +3,20 @@
 
 The JAX tree (``imagined_speech_decoding_tpu.models.fast.fast_init``) is a
 nested dict of arrays; here its leaves are numpy arrays, as the ``.npz``
-checkpoints hold them. JAX linears are ``(d_in, d_out)`` and
-``nn.Linear`` weights ``(out, in)``, so linear weights are transposed;
-the zone-stacked conv stacks, ``pos_embedding (1, n_tokens + 1, D)`` and
-``cls_token (1, 1, D)`` keep their layout. Both directions only copy or
-transpose, so a round trip is bit-exact.
+checkpoints hold them. JAX linears are ``(d_in, d_out)`` and the port's
+``Linear`` weights ``(out, in)``, so linear weights swap their last two
+axes; the zone-stacked conv stacks, ``pos_embedding (1, n_tokens + 1, D)``
+and ``cls_token (1, 1, D)`` keep their layout. A stacked tree, whose
+leaves carry a leading model axis as ``jax.vmap(fast_init)`` gives them,
+maps to the ``state_dict`` of ``FAST(cfg, n_models=M)`` the same way.
+Both directions only copy or transpose, so a round trip is bit-exact.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +50,8 @@ def _pairs(num_layers: int) -> Iterator[Tuple[tuple, str, bool]]:
 
 
 def from_jax_params(params) -> Dict[str, torch.Tensor]:
-    """JAX-layout FAST tree (numpy or array-like leaves) -> ``state_dict``."""
+    """JAX-layout FAST tree (numpy or array-like leaves, stacked or not)
+    -> ``state_dict``."""
     out = {}
     for path, key, transposed in _pairs(len(params["blocks"])):
         leaf = params
@@ -56,12 +59,12 @@ def from_jax_params(params) -> Dict[str, torch.Tensor]:
             leaf = leaf[p]
         arr = np.asarray(leaf)
         # torch.tensor copies: checkpoint leaves may be read-only views
-        out[key] = torch.tensor(np.ascontiguousarray(arr.T if transposed else arr))
+        out[key] = torch.tensor(np.ascontiguousarray(np.swapaxes(arr, -1, -2) if transposed else arr))
     return out
 
 
 def to_jax_params(state_dict) -> dict:
-    """``state_dict`` -> JAX-layout FAST tree with numpy leaves."""
+    """``state_dict`` (stacked or not) -> JAX-layout FAST tree with numpy leaves."""
     num_layers = len({m.group(1) for k in state_dict if (m := re.match(r"blocks\.(\d+)\.", k))})
     tree: dict = {"blocks": [{} for _ in range(num_layers)]}
     for path, key, transposed in _pairs(num_layers):
@@ -69,16 +72,35 @@ def to_jax_params(state_dict) -> dict:
         node = tree
         for p in path[:-1]:
             node = node[p] if isinstance(p, int) else node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+        node[path[-1]] = np.ascontiguousarray(np.swapaxes(arr, -1, -2) if transposed else arr)
     return tree
 
 
-def init_jax_layout_params(cfg: FASTConfig, seed: int) -> dict:
+def init_jax_layout_params(cfg: FASTConfig, seed: int, n_models: Optional[int] = None) -> dict:
     """Random FAST weights in the JAX layout, from a numpy seed, with the
     distributions ``fast_init`` uses (torch defaults: U(+-1/sqrt(fan_in))
     for convs and linears, Xavier-uniform attention in-projection with
-    zero biases, unit-normal positional table and CLS token)."""
+    zero biases, unit-normal positional table and CLS token). With
+    ``n_models=M``, M models drawn one after another from the seed's
+    stream, stacked on a leading axis as ``jax.vmap(fast_init)`` stacks
+    them."""
     rng = np.random.default_rng(seed)
+    if n_models is None:
+        return _draw_params(cfg, rng)
+    trees = [_draw_params(cfg, rng) for _ in range(n_models)]
+    return _stack(trees)
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack(trees)
+
+
+def _draw_params(cfg: FASTConfig, rng: np.random.Generator) -> dict:
     f32 = np.float32
     layout = zone_layout(cfg.electrodes, cfg.zone_dict)
     z, c_max, o, d, k = layout.n_zones, layout.c_max, cfg.dim_cnn, cfg.dim_token, 5

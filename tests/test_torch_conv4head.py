@@ -66,7 +66,7 @@ def full():
 
 def _ops(model):
     with torch.no_grad():
-        return model.head.prepare_fused_weights()
+        return tuple(t[0] for t in model.head.fused_weights())  # one model: no model axis
 
 
 class TestPreparedWeights:

@@ -16,6 +16,9 @@ import torch
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    conv4head_bwd_plain,
+    conv4head_bwd_w,
+    conv4head_bwd_x,
     fused_conv4_head,
     fused_conv4_head_plain,
 )
@@ -85,7 +88,7 @@ def test_head_kernel_matches_plain(dev, batch, seq_len, window_len, step):
         device=dev,
     )
     with torch.no_grad():
-        ops = model.head.prepare_fused_weights()
+        ops = [t[0] for t in model.head.fused_weights()]  # one model: no model axis
         before = fused_conv4_head.launches
         out = fused_conv4_head(x, *ops, cfg.window_len, cfg.slide_step)
         torch.cuda.synchronize()
@@ -94,18 +97,86 @@ def test_head_kernel_matches_plain(dev, batch, seq_len, window_len, step):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
 
 
-def test_head_kernel_refuses_autograd(dev):
+def _full_width_operands(dev, m, b, seed):
     cfg = FASTConfig.default()
-    model = FAST(cfg, device=dev)
-    x = torch.zeros((1, 64, 800), device=dev)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model.forward_head(x)
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, seed, m)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, 256)).astype(np.float32), device=dev)
+    return cfg, model, ops, x, g
+
+
+def _assert_grad_close(got, ref, name):
+    # sums over B*N*t1 terms: rtol 1e-4, atol 1e-4 * max|ref| (chip_smoke.py)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()),
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("m,b", [(2, 8), (1, 64)])
+def test_backward_kernels_match_plain(dev, m, b):
+    """B2w and B2x at full width, at chip_smoke.py's shapes."""
+    cfg, _, ops, x, g = _full_width_operands(dev, m, b, m + b)
+    geo = (cfg.window_len, cfg.slide_step)
+    before = (conv4head_bwd_w.launches, conv4head_bwd_x.launches)
+    dw = conv4head_bwd_w(g, x, *ops, *geo)
+    dx = conv4head_bwd_x(g, x, *ops, *geo)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_w.launches, conv4head_bwd_x.launches) == (before[0] + 1, before[1] + 1)
+    ref = conv4head_bwd_plain(g, x, *ops, *geo)
+    for name, got, r in zip(("dx", "dw12", "db12", "dw3", "dw4"), (dx, *dw), ref):
+        assert got.shape == r.shape
+        _assert_grad_close(got, r, name)
+
+
+def test_backward_kernel_is_deterministic(dev):
+    cfg, _, ops, x, g = _full_width_operands(dev, 2, 8, 0)
+    geo = (cfg.window_len, cfg.slide_step)
+    for a, b in zip(conv4head_bwd_w(g, x, *ops, *geo), conv4head_bwd_w(g, x, *ops, *geo)):
+        assert torch.equal(a, b)
+
+
+def test_autograd_function_through_the_model(dev):
+    """``loss.backward()`` of a stacked FAST on the card launches B2f and
+    B2w (not B2x: the input needs no gradient) and matches the CPU model."""
+    cfg, model, _, x, _ = _full_width_operands(dev, 2, 8, 3)
+    cpu = FAST(cfg, n_models=2)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    before = (fused_conv4_head.launches, conv4head_bwd_w.launches, conv4head_bwd_x.launches)
+    for mdl in (model, cpu):
+        mdl.eval()
+        mdl(x.to(next(mdl.parameters()).device)).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_conv4_head.launches, conv4head_bwd_w.launches, conv4head_bwd_x.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        _assert_grad_close(p.grad.cpu(), q.grad, name)
+
+
+def test_input_gradient_launches_b2x(dev):
+    cfg, model, _, x, _ = _full_width_operands(dev, 1, 4, 4)
+    model.requires_grad_(False)
+    xg = x[0].clone().requires_grad_(True)
+    single = FAST(cfg, device=dev)
+    single.load_state_dict({k: v[0] for k, v in model.state_dict().items()})
+    single.requires_grad_(False)
+    before = (conv4head_bwd_w.launches, conv4head_bwd_x.launches)
+    single.eval()(xg).sum().backward()
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_w.launches, conv4head_bwd_x.launches) == (before[0], before[1] + 1)
+    xc = x[0].cpu().requires_grad_(True)
+    cpu = FAST(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in single.state_dict().items()})
+    cpu.eval()(xc).sum().backward()
+    _assert_grad_close(xg.grad.cpu(), xc.grad, "dx")
 
 
 def test_head_kernel_rejects_cpu_operands_on_cuda_input(dev):
     cfg = FASTConfig.default()
     model = FAST(cfg)
-    ops = model.head.prepare_fused_weights()
-    x = torch.zeros((1, 64, 800), device=dev)
+    ops = model.head.fused_weights()
+    x = torch.zeros((1, 1, 64, 800), device=dev)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_conv4_head(x, *ops, cfg.window_len, cfg.slide_step)

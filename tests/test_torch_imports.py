@@ -1,6 +1,7 @@
-"""The PyTorch port's import closure reaches neither ``jax`` nor ``yaml``,
-no port file imports the JAX package, and ``chip_smoke.py`` fails
-without a GPU or without the repository around it."""
+"""The PyTorch port's import closure reaches none of ``jax``, ``yaml``,
+``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
+package, and ``chip_smoke.py`` fails without a GPU or without the
+repository around it."""
 
 import ast
 import os
@@ -10,16 +11,21 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "imagined_speech_decoding_tpu_torch")
-FORBIDDEN = ("jax", "yaml", "imagined_speech_decoding_tpu")
+BLOCKED = ("jax", "yaml", "pandas", "sklearn", "matplotlib")  # the card's machine promises none
+FORBIDDEN = BLOCKED + ("imagined_speech_decoding_tpu",)
 
 SERVE_ONE_REQUEST = r"""
 import os, sys, tempfile
-sys.modules["jax"] = None   # any import of jax or yaml now raises
-sys.modules["yaml"] = None
+for name in ("jax", "yaml", "pandas", "sklearn", "matplotlib"):
+    sys.modules[name] = None   # any import of these now raises
 import numpy as np, torch
 torch.set_num_threads(1)
 import imagined_speech_decoding_tpu_torch
 import imagined_speech_decoding_tpu_torch.serving
+import imagined_speech_decoding_tpu_torch.cli.train_fast
+import imagined_speech_decoding_tpu_torch.explain.attribution
+from imagined_speech_decoding_tpu_torch.train import artifacts, cv, engine, metrics, schedule
+from imagined_speech_decoding_tpu_torch.data import arrays, synthetic
 from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_server
 import chip_smoke  # noqa: F401  (main() does not run on import)
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
@@ -34,8 +40,13 @@ with tempfile.TemporaryDirectory() as d:
     with server, DecoderClient(*server.address) as client:
         post = client.decode(np.random.default_rng(0).normal(size=(1, 64, 800)).astype(np.float32))
 assert post.shape == (1, 5) and abs(float(post.sum()) - 1.0) < 1e-5, post
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "yaml", "imagined_speech_decoding_tpu"})
-assert loaded == ["jax", "yaml"], loaded  # only the blocking None entries
+# the training CLI's default config falls back to built-in defaults without PyYAML
+from imagined_speech_decoding_tpu_torch.cli.train_fast import build_parser as train_parser, resolve_config
+os.chdir(os.path.dirname(os.path.abspath(chip_smoke.__file__)))
+assert resolve_config(train_parser().parse_args([]), {}).train.max_epochs == 200
+blocked = {"jax", "yaml", "pandas", "sklearn", "matplotlib"}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked | {"imagined_speech_decoding_tpu"})
+assert loaded == sorted(blocked), loaded  # only the blocking None entries
 print("SERVED", post.tolist())
 """
 
@@ -51,27 +62,36 @@ def test_port_imports_and_serves_without_jax_or_yaml():
     assert "SERVED" in proc.stdout
 
 
+LAZY_ONLY = ("yaml",)  # PyYAML may be imported inside a function (reading --config), never at import
+
+
 def _imported_modules(path):
+    """``(module, inside_a_function)`` for every absolute import in ``path``."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
+    lazy = {id(n) for fn in ast.walk(tree)
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) for n in ast.walk(fn)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (alias.name for alias in node.names)
+            yield from ((alias.name, id(node) in lazy) for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, id(node) in lazy
 
 
 def test_no_port_file_imports_jax_yaml_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
-    bad = [
-        (os.path.relpath(f, ROOT), m)
-        for f in files for m in _imported_modules(f)
+    assert len(files) > 20
+    found = [
+        (os.path.relpath(f, ROOT), m, lazy)
+        for f in files for m, lazy in _imported_modules(f)
         if m.split(".")[0] in FORBIDDEN
     ]
+    bad = [(f, m) for f, m, lazy in found if not (lazy and m.split(".")[0] in LAZY_ONLY)]
     assert not bad, bad
+    assert {f for f, _, _ in found} <= {os.path.join("imagined_speech_decoding_tpu_torch", p)
+                                        for p in ("config.py", os.path.join("cli", "train_fast.py"))}
 
 
 def test_chip_smoke_fails_without_a_gpu():
