@@ -6,10 +6,14 @@ paths on one NVIDIA GPU.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
-   build time.
+   build time, B2w's registers and spills (``-Xptxas -v``), its shared
+   memory per block and the count of tensor-core (HMMA) instructions in
+   its SASS (``cuobjdump``, where the toolkit has it).
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
-   CUDA events:
+   CUDA events, beside the kernel's bound (the least time for its work:
+   bytes at 3.35 TB/s, or its products as three TF32 tensor-core passes
+   at 495 TFLOP/s, the fastest f32-accurate route):
      B1 (IIR cascade): 60 Hz notch then 4-40 Hz band-pass ``sosfiltfilt``
         on (B, 64, 800); tolerance rtol 1e-4, atol 1e-4 * max|ref|
         (the JAX package's Pallas IIR tolerance, tests/test_pallas.py).
@@ -50,6 +54,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -70,6 +76,7 @@ from imagined_speech_decoding_tpu_torch.explain.attribution import integrated_gr
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    KERNEL_TAPS,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
@@ -115,6 +122,39 @@ TRAIN_STEP_BATCHES = (TRAIN_BATCH, TRAIN_TRIALS * 4 // 5 % TRAIN_BATCH,
 BWD_SHAPES = ((2, 8), (1, 64))  # (M, B) of the backward comparisons; JSON line: the first
 IG_TRIALS, IG_STEPS = 8, 16
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
+TF32_FLOPS = 495e12  # tensor cores, TF32
+F32_FLOPS = 67e12  # CUDA cores, f32
+HBM_BYTES_S = 3.35e12
+IIR_FMA_PER_SECTION = 5  # per sample: csrc/iir.cu's transposed direct form II
+
+
+def bound_ms(nbytes: float, flops: float, flops_s: float):
+    """Least time the card could take for the work, and what sets it:
+    each input read once and each output written once at the memory rate,
+    or the operations at the peak of their route."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * flops / flops_s
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def iir_bound(rows: int, t_len: int = 854, sections: int = 4):
+    """B1 on (t_len, rows): x, zi read and y, zf written; f32 FMAs."""
+    nbytes = 4 * 2 * rows * (t_len + 2 * sections)
+    return bound_ms(nbytes, 2 * IIR_FMA_PER_SECTION * sections * t_len * rows, F32_FLOPS)
+
+
+HEAD_WEIGHT_FLOATS = 256 * 320 + 256 + 2 * 8 * 32 * 160  # w12, b12, w3, w4 of one model
+
+
+def head_bound(fma_per_unit: int, m: int, b: int, n_out_floats: int, reads_g: bool = True):
+    """A head kernel at full width (C = 64, T = 800, 5 windows, 8 zones,
+    O = 32, K = 5) on M models of B trials. The fastest f32-accurate route
+    for its products is three TF32 tensor-core passes: 3 x 2 FLOPs per FMA
+    at the TF32 peak. Reads x, the weights and (backward) the cotangent g;
+    writes ``n_out_floats``."""
+    n_in = m * b * 64 * 800 + m * HEAD_WEIGHT_FLOATS + reads_g * m * b * 5 * 256
+    return bound_ms(4 * (n_in + n_out_floats), 3 * 2 * fma_per_unit * m * b * 5 * 8, TF32_FLOPS)
+
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean milliseconds per call between CUDA events on the current stream."""
@@ -158,7 +198,9 @@ def phase_iir(dev, rng):
         y, _ = sosfilt_time_major(band, xt, zi)
         k_err = check_close(f"B1 kernel B={b}", y, y_ref, IIR_RTOL,
                             IIR_RTOL * float(y_ref.abs().max()))
+        bound, bound_by = iir_bound(b * 64)
         rows[b] = {
+            "bound_ms": bound, "bound_by": bound_by,
             "chain_ms": cuda_ms(lambda: chain(x, sosfilt_time_major), 20),
             "chain_plain_ms": cuda_ms(lambda: chain(x, sosfilt_time_major_plain), 2),
             "chain_max_abs_err": err,
@@ -167,7 +209,8 @@ def phase_iir(dev, rng):
             "max_abs_err": k_err,
         }
         print(f"B1 B={b:<4} (854, {b * 64}) band-pass pass: kernel {rows[b]['ms']:.4f} ms, "
-              f"plain {rows[b]['plain_ms']:.3f} ms, max|err| {k_err:.3g}; notch+band "
+              f"plain {rows[b]['plain_ms']:.3f} ms, max|err| {k_err:.3g}, bound "
+              f"{bound:.4f} ms ({bound_by}); notch+band "
               f"sosfiltfilt: kernel {rows[b]['chain_ms']:.3f} ms, plain "
               f"{rows[b]['chain_plain_ms']:.3f} ms, max|err| {err:.3g}", flush=True)
     return rows
@@ -183,14 +226,17 @@ def phase_head(model, dev, rng):
         ref = fused_conv4_head_plain(x, *ops, cfg.window_len, cfg.slide_step)
         got = fused_conv4_head(x, *ops, cfg.window_len, cfg.slide_step)
         err = check_close(f"B2 B={b}", got, ref, HEAD_RTOL, HEAD_ATOL)
+        bound, bound_by = head_bound(HEAD_FMA_FWD, 1, b, b * 5 * 256, reads_g=False)
         rows[b] = {
+            "bound_ms": bound, "bound_by": bound_by,
             "ms": cuda_ms(lambda: fused_conv4_head(x, *ops, cfg.window_len, cfg.slide_step), 50),
             "plain_ms": cuda_ms(
                 lambda: fused_conv4_head_plain(x, *ops, cfg.window_len, cfg.slide_step), 20),
             "max_abs_err": err,
         }
         print(f"B2 B={b:<4} head forward: kernel {rows[b]['ms']:.4f} ms, plain "
-              f"{rows[b]['plain_ms']:.4f} ms, max|err| {err:.3g}", flush=True)
+              f"{rows[b]['plain_ms']:.4f} ms, max|err| {err:.3g}, bound {bound:.4f} ms "
+              f"({bound_by}, {bound / rows[b]['ms']:.1%} reached)", flush=True)
     return rows
 
 
@@ -297,6 +343,7 @@ def phase_device_time(cfg, params, dev, rng):
 
 HEAD_FMA_FWD = 5_038_080  # per (trial, window, zone) at full width: conv12 2.52 M + tails 2 x 1.26 M
 HEAD_FMA_BWD_W = 12_595_200  # recompute 5.04 M + dh2, dh1, dw4, dw3 1.26 M each + dw12 2.52 M
+HEAD_FMA_BWD_X = 10_076_160  # recompute 5.04 M + dh2, dh1 1.26 M each + dx 2.52 M
 
 
 def phase_head_backward(cfg, dev, rng):
@@ -326,9 +373,14 @@ def phase_head_backward(cfg, dev, rng):
             "x_err": errs["dx"],
         }
         r = rows[(m, b)]
+        r["w_bound"] = head_bound(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS)
+        r["x_bound"] = head_bound(HEAD_FMA_BWD_X, m, b, m * b * 64 * 800)
         print(f"B2w M={m} B={b:<3} weight grads: kernel {r['w_ms']:.3f} ms, max|err| "
-              f"{r['w_err']:.3g}; B2x input grad: kernel {r['x_ms']:.3f} ms, max|err| "
-              f"{r['x_err']:.3g}; plain autograd backward (all five) {r['plain_ms']:.3f} ms; "
+              f"{r['w_err']:.3g}, bound {r['w_bound'][0]:.3f} ms ({r['w_bound'][1]}, "
+              f"{r['w_bound'][0] / r['w_ms']:.1%} reached); B2x input grad: kernel "
+              f"{r['x_ms']:.3f} ms, max|err| {r['x_err']:.3g}, bound {r['x_bound'][0]:.3f} ms "
+              f"({r['x_bound'][1]}, {r['x_bound'][0] / r['x_ms']:.1%} reached); plain autograd "
+              f"backward (all five) {r['plain_ms']:.3f} ms; "
               f"per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}",
               flush=True)
 
@@ -370,10 +422,53 @@ def phase_head_backward(cfg, dev, rng):
     big = {"fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 3),
            "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 3)}
     units = m * TRAIN_BATCH * cfg.n_tokens * cfg.n_zones
+    fwd_bound = head_bound(HEAD_FMA_FWD, m, TRAIN_BATCH, m * TRAIN_BATCH * 5 * 256,
+                           reads_g=False)
+    w_bound = head_bound(HEAD_FMA_BWD_W, m, TRAIN_BATCH, m * HEAD_WEIGHT_FLOATS)
     print(f"B2f / B2w alone at M={m} B={TRAIN_BATCH} (kernel only): B2f {big['fwd_ms']:.2f} ms "
-          f"({units * HEAD_FMA_FWD / big['fwd_ms'] / 1e9:.2f} T FMA/s), B2w {big['w_ms']:.2f} ms "
-          f"({units * HEAD_FMA_BWD_W / big['w_ms'] / 1e9:.2f} T FMA/s)", flush=True)
+          f"({units * HEAD_FMA_FWD / big['fwd_ms'] / 1e9:.2f} T FMA/s; "
+          f"bound {fwd_bound[0]:.2f} ms, "
+          f"{fwd_bound[1]}, {fwd_bound[0] / big['fwd_ms']:.1%} reached), B2w {big['w_ms']:.2f} ms "
+          f"({units * HEAD_FMA_BWD_W / big['w_ms'] / 1e9:.2f} T FMA/s f32-equivalent; bound "
+          f"{w_bound[0]:.2f} ms, {w_bound[1]}, {w_bound[0] / big['w_ms']:.1%} reached)", flush=True)
     return rows, big
+
+
+def report_b2w_build(info, cfg) -> None:
+    """B2w's registers and spills (each instantiation) from the ``-Xptxas
+    -v`` log of this run's build, its dynamic shared memory per block, and
+    the count of tensor-core (HMMA) instructions in its SASS."""
+    log = info["log"]
+    if not log:
+        print("B2w ptxas: no build log (the library was already built)", flush=True)
+    for block in log.split("Compiling entry function")[1:]:
+        if "conv4head_bwd_w_kernel" in block.splitlines()[0]:
+            name = re.search(r"conv4head_bwd_w_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", block)
+            lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
+                     if re.search(r"registers|spill", ln)]
+            print(f"B2w ptxas <O, K, C, W> = <{', '.join(name.groups()) if name else '?'}>: "
+                  f"{' | '.join(lines)}", flush=True)
+    smem = _lib.library().isd_conv4head_bwd_w_smem_bytes(64, cfg.window_len, cfg.dim_cnn,
+                                                          KERNEL_TAPS)
+    print(f"B2w shared memory: {smem} bytes per block (dynamic)", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("B2w SASS: cuobjdump is missing; HMMA count not read", flush=True)
+        return
+    sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+        elif "HMMA" in ln and name is not None:
+            counts[name] = counts.get(name, 0) + 1
+    hmma = sum(v for k, v in counts.items() if "conv4head_bwd_w_kernel" in k)
+    if hmma == 0:
+        raise RuntimeError("B2w's SASS has no HMMA instruction: "
+                           "it does not run on the tensor cores")
+    print(f"B2w SASS: {hmma} HMMA instructions (cuobjdump -sass)", flush=True)
 
 
 def reset_launches() -> None:
@@ -598,6 +693,7 @@ def main() -> None:
 
     info = _lib.build_info()
     print(f"kernels built in {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}", flush=True)
+    report_b2w_build(info, FASTConfig.default())
 
     cfg = FASTConfig.default()
     rng = np.random.default_rng(SEED)
@@ -621,19 +717,24 @@ def main() -> None:
     src = "imagined_speech_decoding_tpu_torch/csrc/"
     pallas = "imagined_speech_decoding_tpu/ops/pallas/"
     b2 = bwd[BWD_SHAPES[0]]
+    # library_ms: no single PyTorch call computes the IIR cascade, the fused
+    # windowed head or its gradients.
     kernels = [
         {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67", "launches": serving["iir"],
-         **{k: iir[MAIN_BATCH][k] for k in ("max_abs_err", "ms", "plain_ms")}},
+         **{k: iir[MAIN_BATCH][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by")}, "library_ms": None},
         {"name": "conv4head_fwd", "route": "cuda", "source": src + "conv4head.cu",
          "replaces": pallas + "conv4head.py:303", "launches": training["conv4head_fwd"],
-         **head[MAIN_BATCH]},
+         **head[MAIN_BATCH], "library_ms": None},
         {"name": "conv4head_bwd_w", "route": "cuda", "source": src + "conv4head_bwd.cu",
          "replaces": pallas + "conv4head.py:323", "launches": training["conv4head_bwd_w"],
-         "max_abs_err": b2["w_err"], "ms": b2["w_ms"], "plain_ms": b2["plain_ms"]},
+         "max_abs_err": b2["w_err"], "ms": b2["w_ms"], "plain_ms": b2["plain_ms"],
+         "bound_ms": b2["w_bound"][0], "bound_by": b2["w_bound"][1], "library_ms": None},
         {"name": "conv4head_bwd_x", "route": "cuda", "source": src + "conv4head_bwd.cu",
          "replaces": pallas + "conv4head.py:351", "launches": explain["conv4head_bwd_x"],
-         "max_abs_err": b2["x_err"], "ms": b2["x_ms"], "plain_ms": b2["plain_ms"]},
+         "max_abs_err": b2["x_err"], "ms": b2["x_ms"], "plain_ms": b2["plain_ms"],
+         "bound_ms": b2["x_bound"][0], "bound_by": b2["x_bound"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ Counterpart of ``imagined_speech_decoding_tpu/cli/serve.py`` in live mode:
         --checkpoint results/FAST/sub-01/best_subject.npz --port 9333
 
 The checkpoint is the JAX package's flat ``.npz`` (``save_model_npz``),
-served with ``FASTConfig.default()`` on the GPU when there is one, else
-on the CPU. Clients hot-swap weights with RELOAD. The protocol and
+served with ``FASTConfig.default()`` on the GPU; without one it raises
+(a Python caller passes ``build_server(args, device="cpu")`` to serve
+from the CPU). Clients hot-swap weights with RELOAD. The protocol and
 client are the JAX package's (``server.DecoderClient``). The artifact
 and fleet sources and YAML configs are not ported yet (ROADMAP.md).
 """
@@ -45,25 +46,25 @@ def build_parser():
     return p
 
 
-def build_server(args):
-    """Construct the (unstarted) ``DecoderServer`` for ``args``."""
+def build_server(args, device="cuda"):
+    """Construct the (unstarted) ``DecoderServer`` for ``args`` on
+    ``device``; CUDA raises ``RuntimeError`` when no card is visible."""
     for flag, value in (("--artifact", args.artifact),
                         ("--checkpoint-dir", args.checkpoint_dir),
                         ("--config", args.config)):
         if value:
             raise NotImplementedError(f"{flag} {_NOT_PORTED}")
 
-    import torch
-
     from ..config import FASTConfig
+    from ..devices import require_device
     from ..models.fast import FAST
     from ..server import DecoderServer
     from ..serving import make_online_decoder
     from ..train.checkpoint import load_model_npz
     from ..transplant import to_jax_params
 
+    device = require_device(device)
     cfg = FASTConfig.default()
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     model = FAST(cfg, device=device)
     template = to_jax_params(model.state_dict())
     band = tuple(args.band) if args.band and args.band[0] > 0 else None

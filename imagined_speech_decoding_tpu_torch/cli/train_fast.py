@@ -2,8 +2,11 @@
 
 Counterpart of ``imagined_speech_decoding_tpu/cli/train_fast.py`` with the
 same parser, on the port's engine (``train.cv``): all subject x fold
-models train together on one device (CUDA when present, else the CPU)
-and the run writes the same result tree, without the plots.
+models train together on one device and the run writes the same result
+tree, without the plots. The device is the GPU: without one the run
+raises ``RuntimeError`` before it generates data. A Python caller trains
+on the CPU with ``main(argv, device="cpu")``; the parser has no device
+flag, as the JAX CLI has none.
 
     python -m imagined_speech_decoding_tpu_torch.cli.train_fast \\
         --synthetic 2 --synthetic_trials 60 --epochs 2 --precision f32 --output_dir out/
@@ -162,7 +165,7 @@ def format_summary(rows) -> str:
     return "\n".join(lines)
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     cfg = resolve_config(args, build_overrides(args))
@@ -170,15 +173,17 @@ def main(argv=None):
         raise NotImplementedError(f"head {cfg.model.head!r} {_ROADMAP}")
     cfg.train.compute_dtype  # raises for bf16: the port trains in f32 only
 
+    from ..devices import require_device
     from ..train.cv import train_per_subject_cv
 
+    device = require_device(device)
     os.makedirs(args.output_dir, exist_ok=True)
     t0 = time.perf_counter()
     X, Y, subjects, test = load_data(args)
     data_s = time.perf_counter() - t0
     result = train_per_subject_cv(
         cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
-        test_per_subject=test, save_dir=args.output_dir,
+        test_per_subject=test, save_dir=args.output_dir, device=device,
     )
     result.timings["data_s"] = data_s
 

@@ -7,6 +7,8 @@ Replaces ``imagined_speech_decoding_tpu/ops/pallas/conv4head.py``:
 custom VJP's ``_bwd_rule`` with ``_bwd_w_kernel`` (B2w) and
 ``_bwd_x_kernel`` (B2x), both in ``csrc/conv4head_bwd.cu``. Each source's
 header says what bounds it on the H100 and what the design does about it.
+B2w runs on the tensor cores in 3xTF32 (f32 accuracy) and needs the
+channel count C to be a multiple of 8; for any other C it raises.
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
 with a leading model axis M where the JAX kernel had ``jax.vmap``:
@@ -140,6 +142,12 @@ def _check_taps(k1: int, k2: int) -> None:
                          f"got K1={k1}, K2={k2}")
 
 
+def _check_bwd_w_channels(c: int) -> None:
+    """B2w's reduction steps of 8 rows over ``K1 * C`` must not straddle taps."""
+    if c % 8:
+        raise ValueError(f"B2w needs the channel count C to be a multiple of 8, got C={c}")
+
+
 def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int):
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step)
     lib = _lib.library()
@@ -155,9 +163,16 @@ def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int):
     return out
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in storage of its own when its data does not
+    start on 16 bytes (B2w copies the weights in 16-byte chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _trial_splits(m: int, b: int, z: int, n: int, device) -> int:
-    """Trial ranges per (model, zone, window) in B2w: enough blocks for two
-    per SM, never more ranges than trials."""
+    """Trial ranges per (model, zone, window) in B2w: at least two blocks
+    per SM (one B2w block fills an SM's shared memory, so two waves or
+    more), never more ranges than trials."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(b, -(-2 * sms // (m * z * n))))
 
@@ -166,10 +181,13 @@ def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2w: ``(dw12, db12, dw3, dw4)`` of ``<g, fused_conv4_head(x, ...)>``."""
     if x.device.type == "cpu":
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
-    m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
+    _, _, c, _, _, _, k1, k2, _ = _geometry(x, w12, w3, window_len, step)
     _check_taps(k1, k2)
+    _check_bwd_w_channels(c)
+    m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
     lib = _lib.library()
-    _check_smem(lib.isd_conv4head_bwd_smem_bytes(c, window_len, o, k1), "backward")
+    _check_smem(lib.isd_conv4head_bwd_w_smem_bytes(c, window_len, o, k1), "B2w")
+    w12, w3, w4 = _aligned16(w12), _aligned16(w3), _aligned16(w4)
     s = _trial_splits(m, b, z, n, x.device)
     p = n * s
     grads = [torch.empty((m,) + tuple(w.shape[1:]), dtype=torch.float32, device=x.device)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import FASTConfig, TrainConfig
+from ..devices import require_device
 from ..models.fast import FAST
 from ..transplant import from_jax_params, init_jax_layout_params, to_jax_params
 from . import artifacts
@@ -104,7 +105,7 @@ def train_per_subject_cv(
     test_per_subject: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]] = None,
     save_dir: Optional[str] = None,
     warm_start: Optional[dict] = None,  # JAX-layout params stacked over S*K
-    device=None,
+    device="cuda",
     verbose: bool = True,
     model_seed: Optional[int] = None,
 ) -> CVRunResult:
@@ -112,10 +113,11 @@ def train_per_subject_cv(
     evaluate it on the test split and write the result tree under
     ``save_dir``. Folds come from ``tc.seed``; the initial weights and the
     fit's permutations and dropout from ``model_seed`` (default
-    ``tc.seed``), as in the JAX function."""
+    ``tc.seed``), as in the JAX function. Runs on ``device``: CUDA unless
+    the caller names another, and CUDA without a card raises."""
+    device = require_device(device)
     s_count, n_trials = X.shape[:2]
     assert s_count == len(subjects)
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
     k = tc.n_folds
     m_count = s_count * k
     m_seed = tc.seed if model_seed is None else model_seed

@@ -182,3 +182,21 @@ def test_kernel_wrappers_route_cpu_tensors_to_plain():
     assert (conv4head_bwd_w.launches, conv4head_bwd_x.launches) == before
     out = fused_conv4_head_plain(x, *ops, jcfg.window_len, jcfg.slide_step)
     assert out.shape == g.shape
+
+
+@pytest.mark.parametrize("c", [10, 12, 63])
+def test_b2w_refuses_channels_not_a_multiple_of_8(c):
+    """Off the CPU, B2w raises for C % 8 != 0 before it looks at the device
+    (a reduction step of 8 rows must not straddle two taps). Meta tensors
+    take the kernel's route without a card."""
+    m, b, t, z, o, k, window, step = 1, 2, 200, 4, 32, 5, 100, 50
+    n = (t - window) // step + 1
+    meta = dict(device="meta", dtype=torch.float32)
+    x = torch.empty((m, b, c, t), **meta)
+    w12, b12 = torch.empty((m, z * o, k * c), **meta), torch.empty((m, z * o, 1), **meta)
+    w3 = w4 = torch.empty((m, z, o, k * o), **meta)
+    g = torch.empty((m, b, n, z * o), **meta)
+    before = conv4head_bwd_w.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv4head_bwd_w(g, x, w12, b12, w3, w4, window, step)
+    assert conv4head_bwd_w.launches == before

@@ -8,6 +8,8 @@ file imports no JAX, so it runs on a machine without it:
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.signal as sps
@@ -97,14 +99,14 @@ def test_head_kernel_matches_plain(dev, batch, seq_len, window_len, step):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
 
 
-def _full_width_operands(dev, m, b, seed):
-    cfg = FASTConfig.default()
+def _full_width_operands(dev, m, b, seed, **geometry):
+    cfg = dataclasses.replace(FASTConfig.default(), **geometry)
     model = FAST(cfg, n_models=m, device=dev)
     model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, seed, m)))
     with torch.no_grad():
         ops = model.head.fused_weights()
     rng = np.random.default_rng(seed)
-    x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32), device=dev)
+    x = torch.tensor(rng.normal(size=(m, b, 64, cfg.seq_len)).astype(np.float32), device=dev)
     g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, 256)).astype(np.float32), device=dev)
     return cfg, model, ops, x, g
 
@@ -127,6 +129,26 @@ def test_backward_kernels_match_plain(dev, m, b):
     assert (conv4head_bwd_w.launches, conv4head_bwd_x.launches) == (before[0] + 1, before[1] + 1)
     ref = conv4head_bwd_plain(g, x, *ops, *geo)
     for name, got, r in zip(("dx", "dw12", "db12", "dw3", "dw4"), (dx, *dw), ref):
+        assert got.shape == r.shape
+        _assert_grad_close(got, r, name)
+
+
+@pytest.mark.parametrize("m,b,geometry", [
+    (1, 4, dict(seq_len=230, window_len=120, slide_step=37)),  # t1 = 116, not a multiple of 8
+    (2, 5, {}),  # B = 5: the trial ranges (S = 4 on 132 SMs) are of unequal length
+    (3, 8, {}),  # M = 3
+])
+def test_b2w_edges_match_plain(dev, m, b, geometry):
+    """B2w at full width (C = 64) at its edges: padded time tiles, ragged
+    trial ranges, several models."""
+    cfg, _, ops, x, g = _full_width_operands(dev, m, b, 7 * m + b, **geometry)
+    geo = (cfg.window_len, cfg.slide_step)
+    before = conv4head_bwd_w.launches
+    dw = conv4head_bwd_w(g, x, *ops, *geo)
+    torch.cuda.synchronize()
+    assert conv4head_bwd_w.launches == before + 1
+    ref = conv4head_bwd_plain(g, x, *ops, *geo)[1:]
+    for name, got, r in zip(("dw12", "db12", "dw3", "dw4"), dw, ref):
         assert got.shape == r.shape
         _assert_grad_close(got, r, name)
 

@@ -222,6 +222,20 @@ class TestCLI:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_fast.main(argv + ["--output_dir", str(tmp_path)])
 
+    def test_no_cpu_fallback_without_a_card(self, tmp_path, monkeypatch):
+        """The CLI and the CV driver train on CUDA unless told otherwise:
+        with no card both raise instead of training on the CPU."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="is_available"):
+            train_fast.main(["--synthetic", "1", "--synthetic_trials", "10", "--epochs", "1",
+                             "--precision", "f32", "--output_dir", str(tmp_path)])
+        x = np.zeros((1, 10, 10, 200), np.float32)
+        y = np.zeros((1, 10), np.int64)
+        with pytest.raises(RuntimeError, match="is_available"):
+            cv.train_per_subject_cv(config.FASTConfig(**SMALL),
+                                    config.TrainConfig(max_epochs=1, precision="f32"),
+                                    x, y, ["01"], 5, verbose=False)
+
     def test_synthetic_run_writes_the_result_tree(self, tmp_path):
         """The CLI end to end on a 64-channel synthetic corpus with a narrow
         model from ``--config`` (FAST's widths cut for the CPU)."""
@@ -232,7 +246,7 @@ class TestCLI:
         res = train_fast.main(["--config", str(cfg_path), "--synthetic", "2",
                                "--synthetic_trials", "10", "--epochs", "2", "--batch_size", "8",
                                "--precision", "f32", "--label_noise", "0.2",
-                               "--output_dir", str(out)])
+                               "--output_dir", str(out)], device="cpu")
         for sid in ("01", "02"):
             sub = out / f"sub-{sid}"
             names = [f"fold-{k}_history.csv" for k in range(5)]

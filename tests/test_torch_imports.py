@@ -1,7 +1,7 @@
 """The PyTorch port's import closure reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
-package, and ``chip_smoke.py`` fails without a GPU or without the
-repository around it."""
+package, ``chip_smoke.py`` fails without a GPU or without the
+repository around it, and ``mma_tf32_ceiling.py`` fails without a GPU."""
 
 import ast
 import os
@@ -36,7 +36,8 @@ from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout_params
 with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "FAST", "sub-01", "best_subject.npz")
     save_model_npz(path, init_jax_layout_params(FASTConfig.default(), 0), {"head": {}})
-    server = build_server(build_parser().parse_args(["--checkpoint", path, "--port", "0"]))
+    server = build_server(build_parser().parse_args(["--checkpoint", path, "--port", "0"]),
+                          device="cpu")
     with server, DecoderClient(*server.address) as client:
         post = client.decode(np.random.default_rng(0).normal(size=(1, 64, 800)).astype(np.float32))
 assert post.shape == (1, 5) and abs(float(post.sum()) - 1.0) < 1e-5, post
@@ -79,7 +80,7 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax_yaml_or_the_jax_package():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "mma_tf32_ceiling.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -98,6 +99,13 @@ def test_chip_smoke_fails_without_a_gpu():
     proc = _run([sys.executable, "chip_smoke.py"], ROOT)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+    assert "needs a CUDA GPU" in proc.stderr
+
+
+def test_mma_ceiling_fails_without_a_gpu():
+    proc = _run([sys.executable, "mma_tf32_ceiling.py"], ROOT)
+    assert proc.returncode != 0
+    assert "TFLOP/s" not in proc.stdout
     assert "needs a CUDA GPU" in proc.stderr
 
 

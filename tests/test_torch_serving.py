@@ -134,7 +134,8 @@ class TestServeCLI:
         x = np.random.default_rng(2).normal(size=(2, 64, 800)).astype(np.float32)
         argv = ["--checkpoint", paths[0], "--port", "0"]
         out = {}
-        for name, server in (("port", build_server(build_parser().parse_args(argv))),
+        for name, server in (("port", build_server(build_parser().parse_args(argv),
+                                                   device="cpu")),
                              ("jax", jax_build_server(jax_build_parser().parse_args(argv)))):
             with server, DecoderClient(*server.address) as client:
                 info = client.info()
@@ -142,7 +143,7 @@ class TestServeCLI:
                 client.reload(os.path.relpath(paths[1], os.path.dirname(os.path.dirname(paths[1]))))
                 out[name] = (info, first, client.decode(x))
         (info, first, second), (jinfo, jfirst, jsecond) = out["port"], out["jax"]
-        assert info["device"] == ("cuda" if torch.cuda.is_available() else "cpu")
+        assert info["device"] == "cpu"
         for key in ("n_channels", "seq_len", "n_classes", "reloadable", "mode", "reload_root"):
             assert info[key] == jinfo[key], key
         np.testing.assert_allclose(first, jfirst, rtol=RTOL, atol=ATOL)
@@ -154,6 +155,14 @@ class TestServeCLI:
     def test_unported_sources_raise(self, flag, value):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_server(build_parser().parse_args([flag, value]))
+
+    def test_no_cpu_fallback_without_a_card(self, tmp_path, monkeypatch):
+        """The server runs on CUDA unless told otherwise: with no card it
+        raises instead of serving from the CPU."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        args = build_parser().parse_args(["--checkpoint", str(tmp_path / "w.npz"), "--port", "0"])
+        with pytest.raises(RuntimeError, match="is_available"):
+            build_server(args)
 
     def test_yaml_config_not_ported(self, tmp_path):
         args = build_parser().parse_args(
