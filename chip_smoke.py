@@ -6,9 +6,10 @@ paths on one NVIDIA GPU.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
-   build time, B2w's registers and spills (``-Xptxas -v``), its shared
-   memory per block and the count of tensor-core (HMMA) instructions in
-   its SASS (``cuobjdump``, where the toolkit has it).
+   build time and, for the tensor-core kernels B2f and B2w, their
+   registers and spills (``-Xptxas -v``), shared memory per block and the
+   count of HMMA instructions in their SASS (``cuobjdump``, where the
+   toolkit has it; a count of 0 fails the run).
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
    CUDA events, beside the kernel's bound (the least time for its work:
@@ -26,7 +27,8 @@ paths on one NVIDIA GPU.
         batch sizes 64, 24 (the ragged tail) and 35 (validation): the
         full launches' outputs for models 0, 37 and 74 against the plain
         version on those models' operands, at the same tolerances; B2f
-        and B2w are timed alone at M = 75, B = 64.
+        and B2w are timed alone at M = 75, B = 64, with their rates and
+        their shares of the bound and of the ``mma.sync`` TF32 floor.
 4. Serving path: full-width FAST weights from a numpy seed are written
    as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
    ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
@@ -126,6 +128,9 @@ IG_TRIALS, IG_STEPS = 8, 16
 TF32_FLOPS = 495e12  # tensor cores, TF32
 F32_FLOPS = 67e12  # CUDA cores, f32
 HBM_BYTES_S = 3.35e12
+# The rate of mma.sync m16n8k8 TF32 on an H100 80GB HBM3 at 700 W, measured by
+# mma_tf32_ceiling.py: the floor of B2f's and B2w's route (three passes per product).
+MMA_SYNC_TF32_FLOPS = 323.2e12
 IIR_FMA_PER_SECTION = 5  # per sample: csrc/iir.cu's transposed direct form II
 
 
@@ -425,36 +430,48 @@ def phase_head_backward(cfg, dev, rng):
     fwd_bound = head_bound(HEAD_FMA_FWD, m, TRAIN_BATCH, m * TRAIN_BATCH * 5 * 256,
                            reads_g=False)
     w_bound = head_bound(HEAD_FMA_BWD_W, m, TRAIN_BATCH, m * HEAD_WEIGHT_FLOATS)
+    fwd_floor, w_floor = (1e3 * 3 * 2 * units * fma / MMA_SYNC_TF32_FLOPS
+                          for fma in (HEAD_FMA_FWD, HEAD_FMA_BWD_W))
     print(f"B2f / B2w alone at M={m} B={TRAIN_BATCH} (kernel only): B2f {big['fwd_ms']:.2f} ms "
-          f"({units * HEAD_FMA_FWD / big['fwd_ms'] / 1e9:.2f} T FMA/s; "
-          f"bound {fwd_bound[0]:.2f} ms, "
-          f"{fwd_bound[1]}, {fwd_bound[0] / big['fwd_ms']:.1%} reached), B2w {big['w_ms']:.2f} ms "
+          f"({units * HEAD_FMA_FWD / big['fwd_ms'] / 1e9:.2f} T FMA/s f32-equivalent; "
+          f"bound {fwd_bound[0]:.2f} ms, {fwd_bound[1]}, {fwd_bound[0] / big['fwd_ms']:.1%} "
+          f"reached; mma.sync floor {fwd_floor:.2f} ms, {fwd_floor / big['fwd_ms']:.1%} reached), "
+          f"B2w {big['w_ms']:.2f} ms "
           f"({units * HEAD_FMA_BWD_W / big['w_ms'] / 1e9:.2f} T FMA/s f32-equivalent; bound "
-          f"{w_bound[0]:.2f} ms, {w_bound[1]}, {w_bound[0] / big['w_ms']:.1%} reached)", flush=True)
+          f"{w_bound[0]:.2f} ms, {w_bound[1]}, {w_bound[0] / big['w_ms']:.1%} reached; mma.sync "
+          f"floor {w_floor:.2f} ms, {w_floor / big['w_ms']:.1%} reached)", flush=True)
     return rows, big
 
 
-def report_b2w_build(info, cfg) -> None:
-    """B2w's registers and spills (each instantiation) from the ``-Xptxas
-    -v`` log of this run's build, its dynamic shared memory per block, and
-    the count of tensor-core (HMMA) instructions in its SASS."""
+TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes function)
+    ("B2f", "conv4head_fwd_kernel", "isd_conv4head_smem_bytes"),
+    ("B2w", "conv4head_bwd_w_kernel", "isd_conv4head_bwd_w_smem_bytes"),
+)
+
+
+def report_tc_build(info, cfg) -> None:
+    """B2f's and B2w's registers and spills (each instantiation) from the
+    ``-Xptxas -v`` log of this run's build, their dynamic shared memory per
+    block at full width, and the count of tensor-core (HMMA) instructions
+    in each one's SASS; raises if either has none."""
     log = info["log"]
     if not log:
-        print("B2w ptxas: no build log (the library was already built)", flush=True)
-    for block in log.split("Compiling entry function")[1:]:
-        if "conv4head_bwd_w_kernel" in block.splitlines()[0]:
-            name = re.search(r"conv4head_bwd_w_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", block)
-            lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
-                     if re.search(r"registers|spill", ln)]
-            print(f"B2w ptxas <O, K, C, W> = <{', '.join(name.groups()) if name else '?'}>: "
-                  f"{' | '.join(lines)}", flush=True)
-    smem = _lib.library().isd_conv4head_bwd_w_smem_bytes(64, cfg.window_len, cfg.dim_cnn,
-                                                          KERNEL_TAPS)
-    print(f"B2w shared memory: {smem} bytes per block (dynamic)", flush=True)
+        print("ptxas: no build log (the library was already built)", flush=True)
+    lib = _lib.library()
+    for what, entry, smem_fn in TC_KERNELS:
+        for block in log.split("Compiling entry function")[1:]:
+            if entry in block.splitlines()[0]:
+                name = re.search(entry + r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", block)
+                lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
+                         if re.search(r"registers|spill", ln)]
+                print(f"{what} ptxas <O, K, C, W> = <{', '.join(name.groups()) if name else '?'}>: "
+                      f"{' | '.join(lines)}", flush=True)
+        smem = getattr(lib, smem_fn)(64, cfg.window_len, cfg.dim_cnn, KERNEL_TAPS)
+        print(f"{what} shared memory: {smem} bytes per block (dynamic)", flush=True)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
-        print("B2w SASS: cuobjdump is missing; HMMA count not read", flush=True)
+        print("SASS: cuobjdump is missing; HMMA counts not read", flush=True)
         return
     sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
                           check=True).stdout
@@ -464,11 +481,12 @@ def report_b2w_build(info, cfg) -> None:
             name = ln.split("Function :")[1].strip()
         elif "HMMA" in ln and name is not None:
             counts[name] = counts.get(name, 0) + 1
-    hmma = sum(v for k, v in counts.items() if "conv4head_bwd_w_kernel" in k)
-    if hmma == 0:
-        raise RuntimeError("B2w's SASS has no HMMA instruction: "
-                           "it does not run on the tensor cores")
-    print(f"B2w SASS: {hmma} HMMA instructions (cuobjdump -sass)", flush=True)
+    for what, entry, _ in TC_KERNELS:
+        hmma = sum(v for k, v in counts.items() if entry in k)
+        if hmma == 0:
+            raise RuntimeError(f"{what}'s SASS has no HMMA instruction: "
+                               "it does not run on the tensor cores")
+        print(f"{what} SASS: {hmma} HMMA instructions (cuobjdump -sass)", flush=True)
 
 
 def reset_launches() -> None:
@@ -693,7 +711,7 @@ def main() -> None:
 
     info = _lib.build_info()
     print(f"kernels built in {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}", flush=True)
-    report_b2w_build(info, FASTConfig.default())
+    report_tc_build(info, FASTConfig.default())
 
     cfg = FASTConfig.default()
     rng = np.random.default_rng(SEED)

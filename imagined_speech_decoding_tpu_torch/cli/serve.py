@@ -8,9 +8,10 @@ Counterpart of ``imagined_speech_decoding_tpu/cli/serve.py`` in live mode:
 The checkpoint is the JAX package's flat ``.npz`` (``save_model_npz``),
 served with ``FASTConfig.default()`` on the GPU; without one it raises
 (a Python caller passes ``build_server(args, device="cpu")`` to serve
-from the CPU). Clients hot-swap weights with RELOAD. The protocol and
-client are the JAX package's (``server.DecoderClient``). The artifact
-and fleet sources and YAML configs are not ported yet (ROADMAP.md).
+from the CPU). Clients hot-swap weights with RELOAD. The protocol is
+the port's own copy of ISD1 (``server.py``; clients use
+``server.DecoderClient``). The artifact and fleet sources and YAML
+configs are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -28,7 +28,8 @@
 // three TF32 tensor-core passes at 495 TFLOP/s: 29.3 ms for the step's
 // 2.4 T FMAs (on the CUDA cores in f32, 67 TFLOP/s, it would be 72.2 ms).
 //
-// B2w: every product on the tensor cores, f32-exact (mma_tf32.cuh).
+// B2w: every product on the tensor cores, f32-exact (mma_tf32.cuh); the
+// convs go through conv_tc (conv4head_tc.cuh), which B2f shares.
 // The unit is eight small GEMMs with one side O = 32, plus GELU' and a
 // row sum; t1 runs to nt8 = 248 columns (31 tiles of 8):
 //   h1  = w12z . P + b12z   32 x nt8 x K*C   P[k*C + c, t] = xs[c, t + k]
@@ -92,7 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "conv4head_common.cuh"
-#include "mma_tf32.cuh"
+#include "conv4head_tc.cuh"
 
 namespace {
 
@@ -191,9 +192,9 @@ __device__ void zone_backward(const BwdPlan& p, float* smem, const Operands& op,
   isd::stage_transposed(r1, op.w3, z * O, O, K * O);
   isd::stage_transposed(r1 + kw, op.w4, z * O, O, K * O);
   __syncthreads();
-  isd::same_conv<O, false>(hb, ha, p.lt, r1, K, t1, false);
+  isd::same_conv<O, false>(hb, ha, p.lt, r1, K, t1);
   __syncthreads();
-  isd::same_conv<O, false>(hc, hb, p.lt, r1 + kw, K, t1, false);
+  isd::same_conv<O, false>(hc, hb, p.lt, r1 + kw, K, t1);
   __syncthreads();
 
   for (int i = threadIdx.x; i < O * t1; i += blockDim.x) {
@@ -204,9 +205,9 @@ __device__ void zone_backward(const BwdPlan& p, float* smem, const Operands& op,
   isd::stage_copy(r1, op.w3 + static_cast<size_t>(z) * kw, kw);
   isd::stage_copy(r1 + kw, op.w4 + static_cast<size_t>(z) * kw, kw);
   __syncthreads();
-  isd::same_conv<O, true>(hb, hc, p.lt, r1 + kw, K, t1, false);  // dh2 = conv4^T(dh3)
+  isd::same_conv<O, true>(hb, hc, p.lt, r1 + kw, K, t1);  // dh2 = conv4^T(dh3)
   __syncthreads();
-  isd::same_conv<O, true>(hc, hb, p.lt, r1, K, t1, false);  // dh1 = conv3^T(dh2)
+  isd::same_conv<O, true>(hc, hb, p.lt, r1, K, t1);  // dh1 = conv3^T(dh2)
   __syncthreads();
 }
 
@@ -222,8 +223,12 @@ __device__ inline Operands model_operands(const float* w12, const float* b12, co
 
 // ---- B2w on the tensor cores ----
 
+using isd::conv_tc;
+using isd::kUnrollTc;
+using isd::stage_rows_async;
+using isd::stage_window_async;
+
 constexpr int kWarpsW = 16;  // B2w's block: 16 warps, one block per SM
-constexpr int kUnrollW = 2;  // reduction steps per iteration of B2w's mma loops
 
 // 8-column tiles per warp in each phase, for the shipped geometry's 31 time
 // tiles, K*O/8 = 20 column tiles of dw3/dw4 and K*C/8 = 40 of dw12 (other
@@ -234,32 +239,22 @@ constexpr int kNtDw4 = (20 + kWarpsW / 2 - 1) / (kWarpsW / 2);  // all warps, on
 constexpr int kNtDw3 = 20 / (kWarpsW / 4);                     // half the warps
 constexpr int kNtDw12 = 40 / (kWarpsW / 2);
 
-// The least stride >= n that is 4 mod 8: rows g = 0..7 at columns q = 0..3
-// (the A fragments, and the B fragments of the weight gradients) then fall
-// in 32 distinct banks.
-__host__ __device__ inline int stride_4mod8(int n) { return ((n + 3) & ~7) + 4; }
-
-// Shared-memory plan of a B2w block, in floats. Two regions r[0], r[1]
-// take turns: one holds the (trial's) window, C rows at stride ld from
-// column 0; the other the activations h1 (rows 0..O-1) and h2 (from O*ld),
-// each row stored from column K/2. A third activation buffer c, the
-// zone's w3 and w4 (resident for the whole block), the cotangent row g/t1
-// and the bias follow. w12's 32 rows are staged per trial in two halves of
-// 16 (row stride lw1) into h2's and c's space, which conv1 leaves free.
-struct TcPlan {
-  int nt8;      // t1 rounded up to whole 8-column tiles
-  int ld;       // >= nt8 + K - 1: the farthest column a tap's shift reaches
-  int lw1, lw;  // row strides of the staged w12 rows and of w3 / w4
-  int hsz;      // floats of one activation buffer, which also holds 16 rows of w12
+// Shared-memory plan of a B2w block, in floats (strides from
+// conv4head_tc.cuh, with Ch = C). Two regions r[0], r[1] take turns: one
+// holds the (trial's) window, C rows at stride ld from column 0; the other
+// the activations h1 (rows 0..O-1) and h2 (from O*ld), each row stored
+// from column K/2. A third activation buffer c, the zone's w3 and w4
+// (resident for the whole block), the cotangent row g/t1 and the bias
+// follow. w12's 32 rows are staged per trial in two halves of 16 (row
+// stride lw1) into h2's and c's space, which conv1 leaves free.
+struct TcPlan : isd::TcStrides {
+  int hsz;  // floats of one activation buffer, which also holds 16 rows of w12
   int r[2], c, w3, w4, gz, bias, total;
 };
 
 __host__ __device__ inline TcPlan tc_plan(int C, int W, int O, int K) {
   TcPlan p;
-  p.nt8 = (W - K + 1 + 7) & ~7;
-  p.ld = stride_4mod8(p.nt8 + K - 1);
-  p.lw1 = stride_4mod8(K * C);
-  p.lw = stride_4mod8(K * O);
+  static_cast<isd::TcStrides&>(p) = isd::tc_strides(C, W, O, K);
   p.hsz = round_up4(isd::max_int(O * p.ld, 16 * p.lw1));
   const int rsz = round_up4(isd::max_int(C * p.ld, O * p.ld + p.hsz));
   p.r[0] = 0;
@@ -271,120 +266,6 @@ __host__ __device__ inline TcPlan tc_plan(int C, int W, int O, int K) {
   p.bias = p.gz + round_up4(O);
   p.total = p.bias + round_up4(O);
   return p;
-}
-
-// The window x[c, 0:W] (rows at stride T) to dst[c * ld + j] by cp.async,
-// and zeros in its columns W..ld-1 (the conv's reach past the window).
-__device__ inline void stage_window_async(float* dst, int ld, const float* __restrict__ x, int C,
-                                          int T, int W) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = warp; c < C; c += kWarpsW) {
-    const float* src = x + static_cast<size_t>(c) * T;
-    float* row = dst + c * ld;
-    for (int j = lane; j < W; j += 32) isd::cp_async4(row + j, src + j);
-    for (int j = W + lane; j < ld; j += 32) row[j] = 0.f;
-  }
-}
-
-// Rows o < 16 of w (O = 32 rows of `cols` floats, 16-byte aligned) to
-// lo[o * ld], rows 16..31 to hi[(o - 16) * ld], by 16-byte cp.async.
-__device__ inline void stage_rows_async(float* lo, float* hi, int ld, const float* __restrict__ w,
-                                        int cols) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int o = warp; o < 32; o += kWarpsW) {
-    float* row = o < 16 ? lo + o * ld : hi + (o - 16) * ld;
-    const float* src = w + static_cast<size_t>(o) * cols;
-    for (int j = 4 * lane; j < cols; j += 128) isd::cp_async16(row + j, src + j);
-  }
-}
-
-// Zeros in the pad columns [0, K/2) and [K/2 + nt8, ld) of O activation
-// rows: the 'same' convs' zero padding. Thread i of a team of `threads`.
-template <int O, int K>
-__device__ inline void zero_pads(float* dst, int ld, int nt8, int i, int threads) {
-  const int tail = ld - K / 2 - nt8;
-  const int per_row = K / 2 + tail;
-  for (int e = i; e < O * per_row; e += threads) {
-    const int o = e / per_row, j = e - o * per_row;
-    dst[o * ld + (j < K / 2 ? j : nt8 + j)] = 0.f;
-  }
-}
-
-// dst[o, K/2 + t] = epi(o, t, sum_r A[o, r] * src[c, t + shift]) for the
-// nt8 columns t, r = k * Ch + c over K * Ch, and zeros in dst's pad
-// columns. src is the window (stored from column 0) or an activation
-// (from column K/2, so a 'same' conv's shift is the tap k too).
-//  * kT false (a conv): A[o, k*Ch + c] = a_i[(o - 16 i) * lda + k*Ch + c] for
-//    the row halves i = 0, 1 (a1 may be anywhere), and shift = k.
-//  * kT true (the input gradient of a 'same' conv with weight w at a0,
-//    w[o', k*O + o] at a0[o' * lda + k*O + o], Ch = O): A[o, k*O + o'] =
-//    w[o', k*O + o] read in place, and shift = K - 1 - k.
-// A team of kTeam warps (tw its warp) covers both 16-row tiles of the
-// 8-column tiles tw, tw + kTeam, ... (NT at a time; a tile past the end is
-// computed as the last one and not stored).
-template <int K, bool kT, int NT, int kTeam, class Epi>
-__device__ inline void conv_tc(float* dst, int ld, const float* a0, const float* a1, int lda,
-                               const float* src, int lds, int Ch, int nt8, int tw, Epi epi) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int tiles = nt8 >> 3;
-  zero_pads<32, K>(dst, ld, nt8, tw * 32 + lane, kTeam * 32);
-  for (int base = tw; base < tiles; base += kTeam * NT) {
-    int col[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) col[j] = 8 * min(base + kTeam * j, tiles - 1) + g;
-    float acc[2][NT][4] = {};
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int shift = kT ? K - 1 - k : k;
-      const float* pb = src + q * lds + shift;
-      const float* pa0 = kT ? a0 + q * lda + k * 32 + g : a0 + g * lda + k * Ch + q;
-      const float* pa1 = kT ? pa0 + 16 : a1 + g * lda + k * Ch + q;
-      const int a_row8 = kT ? 8 : 8 * lda;  // a1 - a0 (rows g + 8)
-      const int a_col4 = kT ? 4 * lda : 4;  // a2 - a0 (reduction q + 4)
-      const int a_step = kT ? 8 * lda : 8;  // one reduction step
-#pragma unroll kUnrollW
-      for (int c0 = 0; c0 < Ch; c0 += 8) {
-        float a[2][4], b[NT][2];
-        if (kT) {
-          const float* p0 = pa0 + (c0 / 8) * a_step;
-          const float* p1 = pa1 + (c0 / 8) * a_step;
-          a[0][0] = p0[0];
-          a[0][1] = p0[a_row8];
-          a[0][2] = p0[a_col4];
-          a[0][3] = p0[a_row8 + a_col4];
-          a[1][0] = p1[0];
-          a[1][1] = p1[a_row8];
-          a[1][2] = p1[a_col4];
-          a[1][3] = p1[a_row8 + a_col4];
-        } else {
-          isd::ldmatrix_a(a[0], a0 + k * Ch + c0, lda);
-          isd::ldmatrix_a(a[1], a1 + k * Ch + c0, lda);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float* p = pb + c0 * lds + col[j];
-          b[j][0] = p[0];
-          b[j][1] = p[4 * lds];
-        }
-        isd::mma3_step<2, NT>(acc, a, b);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (base + kTeam * j < tiles) {
-        const int c = col[j] - g + 2 * q;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = 16 * i + 8 * h + g;
-            *reinterpret_cast<float2*>(dst + row * ld + K / 2 + c) =
-                make_float2(epi(row, c, acc[i][j][2 * h]), epi(row, c + 1, acc[i][j][2 * h + 1]));
-          }
-        }
-      }
-    }
-  }
 }
 
 // dw[o * ldw + n] (+)= sum_{t < nt8} d[o, K/2 + t] * src[i, t + k] for
@@ -410,7 +291,7 @@ __device__ inline void weight_grad_tc(float* __restrict__ dw, int ldw, bool firs
       pb[j] = src + (n0 - k * Ch + g) * lds + q + k;
     }
     float acc[1][NT][4] = {};
-#pragma unroll kUnrollW
+#pragma unroll kUnrollTc
     for (int t0 = 0; t0 < nt8; t0 += 8) {
       float a[1][4], b[NT][2];
       a[0][0] = arow[t0];
@@ -497,11 +378,13 @@ conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const size_t x_win = static_cast<size_t>(n) * step;
 
   const int b0 = s * B / S, b1 = (s + 1) * B / S;
-  stage_rows_async(w3s, w3s + 16 * lw, lw, op.w3 + static_cast<size_t>(z) * O * K * O, K * O);
-  stage_rows_async(w4s, w4s + 16 * lw, lw, op.w4 + static_cast<size_t>(z) * O * K * O, K * O);
-  stage_window_async(smem + plan.r[0], ld, x + (static_cast<size_t>(m) * B + b0) * C * T + x_win,
-                     C, T, W);
-  stage_rows_async(smem + plan.r[1] + O * ld, hc, lw1, w12z, K * C);
+  stage_rows_async<kWarpsW>(w3s, w3s + 16 * lw, lw, op.w3 + static_cast<size_t>(z) * O * K * O,
+                            K * O);
+  stage_rows_async<kWarpsW>(w4s, w4s + 16 * lw, lw, op.w4 + static_cast<size_t>(z) * O * K * O,
+                            K * O);
+  stage_window_async<kWarpsW>(smem + plan.r[0], ld,
+                              x + (static_cast<size_t>(m) * B + b0) * C * T + x_win, C, T, W);
+  stage_rows_async<kWarpsW>(smem + plan.r[1] + O * ld, hc, lw1, w12z, K * C);
   if (threadIdx.x < O) bias[threadIdx.x] = op.b12[z * O + threadIdx.x];
   isd::cp_async_wait_all();
   __syncthreads();
@@ -538,12 +421,14 @@ conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
           hc, ld, w3s, nullptr, lw, hb, ld, O, nt8, warp - kHalf, same);
     }
     __syncthreads();
-    if (b + 1 < b1) stage_window_async(ha, ld, x + (mb + 1) * C * T + x_win, C, T, W);
+    if (b + 1 < b1) {
+      stage_window_async<kWarpsW>(ha, ld, x + (mb + 1) * C * T + x_win, C, T, W);
+    }
     weight_grad_tc<K, kNtDw12, kWarpsW>(dw12z, K * C, first, hc, ld, xs, ld, C, nt8, warp);
     bias_grad<K>(db12z, first, hc, ld, O, nt8);
     __syncthreads();
     if (b + 1 < b1) {  // the next trial's w12 halves, into its h2's and c's space
-      stage_rows_async(xs + O * ld, hc, lw1, w12z, K * C);
+      stage_rows_async<kWarpsW>(xs + O * ld, hc, lw1, w12z, K * C);
       isd::cp_async_wait_all();
       __syncthreads();
     }

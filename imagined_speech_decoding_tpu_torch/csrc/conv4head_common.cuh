@@ -1,9 +1,10 @@
-// Device helpers shared by the Conv4Layers head kernels (conv4head.cu,
-// conv4head_bwd.cu). Activations live in shared memory as (rows, ld)
-// arrays; weights are staged into shared memory either transposed
-// (o innermost, so one 16-byte broadcast load feeds four FMAs of a
-// thread's output row) or as stored (for the transposed convs of the
-// backward, whose innermost index is the input channel).
+// Device helpers of the Conv4Layers head kernels: GELU and its derivative
+// (B2f, B2w), and the CUDA-core convs of B2x (conv4head_bwd.cu).
+// Activations live in shared memory as (rows, ld) arrays; weights are
+// staged into shared memory either transposed (o innermost, so one
+// 16-byte broadcast load feeds four FMAs of a thread's output row) or as
+// stored (for the transposed convs, whose innermost index is the input
+// channel).
 
 #pragma once
 
@@ -77,7 +78,7 @@ __device__ inline void first_conv(float* dst, int ld, const float* xs, int lx, c
 //              with w staged as stored, (O, K*O) tap-major: the input-gradient of the forward conv.
 template <int O, bool kTranspose>
 __device__ inline void same_conv(float* dst, const float* src, int ld, const float* w, int K,
-                                 int t1, bool apply_gelu) {
+                                 int t1) {
   const int pad = K / 2;
   for (int t = threadIdx.x; t < t1; t += blockDim.x) {
     float acc[O];
@@ -92,7 +93,7 @@ __device__ inline void same_conv(float* dst, const float* src, int ld, const flo
       }
     }
 #pragma unroll
-    for (int o = 0; o < O; ++o) dst[o * ld + t] = apply_gelu ? gelu(acc[o]) : acc[o];
+    for (int o = 0; o < O; ++o) dst[o * ld + t] = acc[o];
   }
 }
 

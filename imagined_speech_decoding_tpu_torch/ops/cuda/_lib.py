@@ -35,8 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
     "isd_sosfilt_time_major": ([_P] * 5 + [_I] * 3 + [_P], _I),
-    "isd_conv4head_fwd": ([_P] * 6 + [_I] * 11 + [_P], _I),
-    "isd_conv4head_smem_bytes": ([_I] * 5, _I),
+    "isd_conv4head_fwd": ([_P] * 6 + [_I] * 12 + [_P], _I),
+    "isd_conv4head_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w": ([_P] * 14 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_x": ([_P] * 7 + [_I] * 11 + [_P], _I),
     "isd_conv4head_bwd_smem_bytes": ([_I] * 4, _I),

@@ -7,8 +7,10 @@ Replaces ``imagined_speech_decoding_tpu/ops/pallas/conv4head.py``:
 custom VJP's ``_bwd_rule`` with ``_bwd_w_kernel`` (B2w) and
 ``_bwd_x_kernel`` (B2x), both in ``csrc/conv4head_bwd.cu``. Each source's
 header says what bounds it on the H100 and what the design does about it.
-B2w runs on the tensor cores in 3xTF32 (f32 accuracy) and needs the
-channel count C to be a multiple of 8; for any other C it raises.
+B2f and B2w run on the tensor cores in 3xTF32 (f32 accuracy), sharing
+one conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32
+and K1 = K2 = 5. B2f takes any channel count C; B2w needs C to be a
+multiple of 8 and raises for any other C.
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
 with a leading model axis M where the JAX kernel had ``jax.vmap``:
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 from . import _lib
 
 KERNEL_WIDTHS = (32,)  # O values the kernels are instantiated for
-KERNEL_TAPS = 5  # K1 = K2 the backward kernels are instantiated for
+KERNEL_TAPS = 5  # K1 = K2 the kernels are instantiated for
 MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on Hopper (227 KB)
 MAX_GRID = 65535
 
@@ -123,8 +125,8 @@ def _check_cuda(x, w12, b12, w3, w4, window_len: int, step: int, g=None):
         raise ValueError("head operands must share x's device")
     if o not in KERNEL_WIDTHS:
         raise ValueError(f"the kernels are built for O in {KERNEL_WIDTHS}, got O={o}")
-    if m * b > MAX_GRID:
-        raise ValueError(f"{m} models x {b} trials exceed the kernel grid's {MAX_GRID}")
+    if max(m, b) > MAX_GRID:
+        raise ValueError(f"{m} models or {b} trials exceed the kernel grid's {MAX_GRID}")
     return m, b, c, t, z, o, k1, k2, n
 
 
@@ -138,7 +140,7 @@ def _check_smem(nbytes: int, what: str) -> None:
 
 def _check_taps(k1: int, k2: int) -> None:
     if k1 != KERNEL_TAPS or k2 != KERNEL_TAPS:
-        raise ValueError(f"the backward kernels are built for K1 = K2 = {KERNEL_TAPS}, "
+        raise ValueError(f"the head kernels are built for K1 = K2 = {KERNEL_TAPS}, "
                          f"got K1={k1}, K2={k2}")
 
 
@@ -150,13 +152,17 @@ def _check_bwd_w_channels(c: int) -> None:
 
 def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int):
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step)
+    _check_taps(k1, k2)
     lib = _lib.library()
-    _check_smem(lib.isd_conv4head_smem_bytes(c, window_len, o, k1, k2), "(trial, window, zone)")
+    _check_smem(lib.isd_conv4head_smem_bytes(c, window_len, o, k1), "B2f")
+    w3, w4 = _aligned16(w3), _aligned16(w4)
+    s = _trial_splits(m, b, z, n, x.device)
     out = torch.empty((m, b, n, z * o), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = lib.isd_conv4head_fwd(
             x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(), w4.data_ptr(),
-            out.data_ptr(), m, b, c, t, z, o, k1, k2, window_len, step, n, _lib.stream_of(x),
+            out.data_ptr(), m, b, c, t, z, o, k1, k2, window_len, step, n, s,
+            _lib.stream_of(x),
         )
     _lib.check(code, "isd_conv4head_fwd")
     fused_conv4_head.launches += 1
@@ -165,14 +171,14 @@ def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int):
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it in storage of its own when its data does not
-    start on 16 bytes (B2w copies the weights in 16-byte chunks)."""
+    start on 16 bytes (B2f and B2w copy weights in 16-byte chunks)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _trial_splits(m: int, b: int, z: int, n: int, device) -> int:
-    """Trial ranges per (model, zone, window) in B2w: at least two blocks
-    per SM (one B2w block fills an SM's shared memory, so two waves or
-    more), never more ranges than trials."""
+    """Trial ranges per (model, zone, window) in B2f and B2w: at least
+    two blocks per SM (one block fills an SM's shared memory, so two
+    waves or more), never more ranges than trials."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(b, -(-2 * sms // (m * z * n))))
 

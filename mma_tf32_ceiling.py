@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The rate of warp-level TF32 tensor-core products (``mma.sync``
-m16n8k8 .tf32, f32 accumulators) on this card: the ceiling of kernel
-B2w's route, which issues only these (three per f32 product, 3xTF32).
+m16n8k8 .tf32, f32 accumulators) on this card: the ceiling of the route
+of kernels B2f and B2w, which issue only these (three per f32 product,
+3xTF32).
 
     python3 mma_tf32_ceiling.py        # on a machine with a card and nvcc
 

@@ -153,6 +153,28 @@ def test_b2w_edges_match_plain(dev, m, b, geometry):
         _assert_grad_close(got, r, name)
 
 
+@pytest.mark.parametrize("m,b,geometry", [
+    (1, 4, dict(seq_len=230, window_len=120, slide_step=37)),  # t1 = 116, not a multiple of 8
+    (3, 5, {}),  # M = 3, B = 5: the trial ranges (S = 3 on 132 SMs) are of unequal length
+    (1, 1, {}),  # serving's smallest request: one trial, 40 blocks
+])
+def test_b2f_edges_match_plain(dev, m, b, geometry):
+    """B2f at full width (C = 64) at its edges."""
+    cfg, _, ops, x, _ = _full_width_operands(dev, m, b, 11 * m + b, **geometry)
+    geo = (cfg.window_len, cfg.slide_step)
+    before = fused_conv4_head.launches
+    out = fused_conv4_head(x, *ops, *geo)
+    torch.cuda.synchronize()
+    assert fused_conv4_head.launches == before + 1
+    torch.testing.assert_close(out, fused_conv4_head_plain(x, *ops, *geo), rtol=1e-4, atol=1e-5)
+
+
+def test_head_kernel_is_deterministic(dev):
+    cfg, _, ops, x, _ = _full_width_operands(dev, 2, 8, 0)
+    geo = (cfg.window_len, cfg.slide_step)
+    assert torch.equal(fused_conv4_head(x, *ops, *geo), fused_conv4_head(x, *ops, *geo))
+
+
 def test_backward_kernel_is_deterministic(dev):
     cfg, _, ops, x, g = _full_width_operands(dev, 2, 8, 0)
     geo = (cfg.window_len, cfg.slide_step)

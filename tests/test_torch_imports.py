@@ -63,6 +63,18 @@ def test_port_imports_and_serves_without_jax_or_yaml():
     assert "SERVED" in proc.stdout
 
 
+def test_port_serves_without_the_jax_package_beside_it(tmp_path):
+    """A copy of the port package and ``chip_smoke.py`` alone: nothing
+    under ``imagined_speech_decoding_tpu/`` is there to be opened."""
+    shutil.copytree(PORT, tmp_path / "imagined_speech_decoding_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    assert not (tmp_path / "imagined_speech_decoding_tpu").exists()
+    proc = _run([sys.executable, "-c", SERVE_ONE_REQUEST], str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SERVED" in proc.stdout
+
+
 LAZY_ONLY = ("yaml",)  # PyYAML may be imported inside a function (reading --config), never at import
 
 
