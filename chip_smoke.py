@@ -12,12 +12,16 @@ paths on one NVIDIA GPU.
    toolkit has it; a count of 0 fails the run).
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
-   CUDA events, beside the kernel's bound (the least time for its work:
+   CUDA events (B1 also by the profiler's device time), beside the kernel's bound (the least time for its work:
    bytes at 3.35 TB/s, or its products as three TF32 tensor-core passes
    at 495 TFLOP/s, the fastest f32-accurate route):
-     B1 (IIR cascade): 60 Hz notch then 4-40 Hz band-pass ``sosfiltfilt``
-        on (B, 64, 800); tolerance rtol 1e-4, atol 1e-4 * max|ref|
-        (the JAX package's Pallas IIR tolerance, tests/test_pallas.py).
+     B1 (IIR cascade): the chain entry, 60 Hz notch then 4-40 Hz
+        band-pass zero-phase in one launch, on (B, 64, 800) for B = 1, 8,
+        64, 350 and on the corpus's 336,000 rows (there also with 8 and 16
+        lanes a row); the causal entry on the band-pass's padded length,
+        y and zf; tolerance rtol 1e-4, atol 1e-4 * max|ref| (the JAX
+        package's Pallas IIR tolerance, tests/test_pallas.py). Bounds: x
+        read and y written once, or the f32 FMAs of both passes.
      B2f (Conv4Layers head forward, through the model-axis entry at
         M = 1) at full width; rtol 1e-4, atol 1e-5.
      B2w / B2x (head weight / input gradients) at full width, M = 2,
@@ -34,7 +38,9 @@ paths on one NVIDIA GPU.
    ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
    second checkpoint, and DECODE again. The posteriors must be finite,
    sum to 1 and match the port's plain CPU forward of the same weights
-   (rtol 1e-4, atol 1e-5), and B1 and B2f must have launched.
+   (rtol 1e-4, atol 1e-5), every decode must have made exactly one B1
+   chain launch, and B2f must have launched. In process: device busy
+   time and ``cudaLaunchKernel`` calls per decode (profiler).
 5. Training path: the port's ``cli.train_fast`` on a 15-subject x 350-trial
    synthetic corpus, 75 stacked full-width models, 2 epochs, f32. B2f and
    B2w must have launched and B2x not; the history must be finite, the
@@ -86,14 +92,16 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     fused_conv4_head_plain,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
+    _launch_causal,
+    _launch_chain,
+    lanes_for,
+    prepare_filter,
     sosfilt_time_major,
     sosfilt_time_major_plain,
+    sosfiltfilt_chain,
+    sosfiltfilt_chain_plain,
 )
-from imagined_speech_decoding_tpu_torch.ops.filters import (
-    butter_sos,
-    notch_ba,
-    sosfiltfilt,
-)
+from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, notch_ba
 from imagined_speech_decoding_tpu_torch.server import DecoderClient
 from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
 from imagined_speech_decoding_tpu_torch.train import engine
@@ -143,9 +151,18 @@ def bound_ms(nbytes: float, flops: float, flops_s: float):
 
 
 def iir_bound(rows: int, t_len: int = 854, sections: int = 4):
-    """B1 on (t_len, rows): x, zi read and y, zf written; f32 FMAs."""
+    """B1's causal entry on (t_len, rows): x, zi read and y, zf written; f32 FMAs."""
     nbytes = 4 * 2 * rows * (t_len + 2 * sections)
     return bound_ms(nbytes, 2 * IIR_FMA_PER_SECTION * sections * t_len * rows, F32_FLOPS)
+
+
+def chain_bound(rows: int, filters, t_len: int = 800):
+    """B1's chain entry on (rows, t_len): x read and y written once; f32
+    FMAs of both passes of every filter at its extended length (the
+    kernel's fix-up work does not count)."""
+    flops = sum(2 * 2 * IIR_FMA_PER_SECTION * f.n_sections * (t_len + 2 * f.padlen)
+                for f in filters)
+    return bound_ms(4 * 2 * rows * t_len, flops * rows, F32_FLOPS)
 
 
 HEAD_WEIGHT_FLOATS = 256 * 320 + 256 + 2 * 8 * 32 * 160  # w12, b12, w3, w4 of one model
@@ -176,48 +193,112 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int) -> float:
+    """Mean device time per call of the kernels whose name holds ``kernel``
+    (profiler): the kernel's own time, without the host's time between
+    back-to-back calls, which ``cuda_ms`` includes."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel in e.key) / 1e3 / iters
+
+
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
     err = float((got - ref).abs().max())
     torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=lambda m: f"{name}: {m}")
     return err
 
 
+CORPUS_ROWS = TRAIN_SUBJECTS * TRAIN_TRIALS * 64  # 336,000 rows: the corpus's preprocessing
+CHAIN_LANES = (8, 16, 32)  # lanes a row, compared at the corpus size
+
+
+def decode_chain():
+    """The online decoder's filters: the 60 Hz notch, then the 4-40 Hz band-pass."""
+    return [prepare_filter(tf2sos(*notch_ba(SFREQ, 60.0))),
+            prepare_filter(butter_sos(SFREQ, 4.0, 40.0))]
+
+
 def phase_iir(dev, rng):
-    """B1 against its plain version: the zero-phase notch + band-pass
-    chain, and the causal kernel alone on the band-pass's padded length."""
-    notch = tf2sos(*notch_ba(SFREQ, 60.0))
-    band = butter_sos(SFREQ, 4.0, 40.0)
-
-    def chain(x, backend):
-        return sosfiltfilt(band, sosfiltfilt(notch, x, time_major=backend), time_major=backend)
-
+    """B1 against its plain version. The chain entry (the decode's notch +
+    band-pass, zero-phase, one launch) at B = 1, 8, 64 and 350 trials of 64
+    channels and at the corpus's 336,000 rows, there also with 8 and 16
+    lanes a row; the causal entry alone on the band-pass's padded length,
+    y and zf. ``ms`` is the CUDA-event time a call over back-to-back calls,
+    as for every kernel; ``device_ms`` the profiler's device time a launch."""
+    chain = decode_chain()
+    pads = tuple(f.padlen for f in chain)
+    band = chain[1].sos
     rows = {}
-    for b in (1, MAIN_BATCH, 64, 350):
-        x = torch.tensor(rng.normal(size=(b, 64, 800)).astype(np.float32), device=dev)
-        ref = chain(x, sosfilt_time_major_plain)
-        err = check_close(f"B1 chain B={b}", chain(x, sosfilt_time_major), ref,
-                          IIR_RTOL, IIR_RTOL * float(ref.abs().max()))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b in (1, MAIN_BATCH, 64, 350, CORPUS_ROWS // 64):
+        if b * 64 == CORPUS_ROWS:  # 1.07 GB: drawn on the card
+            x = torch.randn((b, 64, 800), generator=gen, device=dev)
+        else:
+            x = torch.tensor(rng.normal(size=(b, 64, 800)).astype(np.float32), device=dev)
+        ref = sosfiltfilt_chain_plain(chain, x)
+        scale = IIR_RTOL * float(ref.abs().max())
+        err = check_close(f"B1 chain R={b * 64}", sosfiltfilt_chain(chain, x), ref, IIR_RTOL, scale)
+        bound, bound_by = chain_bound(b * 64, chain)
+        big = b * 64 == CORPUS_ROWS
+        row = rows[b] = {
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            "ms": cuda_ms(lambda: sosfiltfilt_chain(chain, x), 5 if big else 50),
+            "device_ms": device_ms(lambda: sosfiltfilt_chain(chain, x),
+                                   "sosfiltfilt_chain_kernel", 5 if big else 50),
+            "plain_ms": cuda_ms(lambda: sosfiltfilt_chain_plain(chain, x), 1,
+                                warmup=0 if big else 1),
+        }
+        print(f"B1 chain R={b * 64:<6} (B={b}) notch + band-pass zero-phase, one launch, "
+              f"{lanes_for(b * 64)} lanes a row: kernel {row['ms']:.4f} ms a call back to back "
+              f"(CUDA events), {row['device_ms']:.4f} ms on the device (profiler), plain "
+              f"{row['plain_ms']:.3f} ms, max|err| {err:.3g}, bound {bound:.4f} ms ({bound_by}, "
+              f"{bound / row['ms']:.1%} reached; {bound / row['device_ms']:.1%} of the device "
+              f"time)", flush=True)
+        if big:
+            for lanes in CHAIN_LANES:
+                check_close(f"B1 chain R={b * 64} lanes={lanes}",
+                            _launch_chain(chain, x, pads, lanes), ref, IIR_RTOL, scale)
+                ms = device_ms(lambda: _launch_chain(chain, x, pads, lanes),
+                               "sosfiltfilt_chain_kernel", 5)
+                print(f"B1 chain R={b * 64} with {lanes:>2} lanes a row: {ms:.4f} ms on the "
+                      f"device ({bound / ms:.1%} of the bound)", flush=True)
+            del x, ref
+            torch.cuda.empty_cache()
+            continue
         xt = torch.tensor(rng.normal(size=(854, b * 64)).astype(np.float32), device=dev)
         zi = torch.tensor(rng.normal(size=(8, b * 64)).astype(np.float32), device=dev)
-        y_ref, _ = sosfilt_time_major_plain(band, xt, zi)
-        y, _ = sosfilt_time_major(band, xt, zi)
-        k_err = check_close(f"B1 kernel B={b}", y, y_ref, IIR_RTOL,
-                            IIR_RTOL * float(y_ref.abs().max()))
-        bound, bound_by = iir_bound(b * 64)
-        rows[b] = {
-            "bound_ms": bound, "bound_by": bound_by,
-            "chain_ms": cuda_ms(lambda: chain(x, sosfilt_time_major), 20),
-            "chain_plain_ms": cuda_ms(lambda: chain(x, sosfilt_time_major_plain), 2),
-            "chain_max_abs_err": err,
+        y_ref, zf_ref = sosfilt_time_major_plain(band, xt, zi)
+        y, zf = sosfilt_time_major(band, xt, zi)
+        k_err = max(check_close(f"B1 causal R={b * 64} {name}", got, want, IIR_RTOL,
+                                IIR_RTOL * float(want.abs().max()))
+                    for name, got, want in (("y", y, y_ref), ("zf", zf, zf_ref)))
+        c_bound, c_bound_by = iir_bound(b * 64)
+        row["causal"] = {
+            "bound_ms": c_bound, "bound_by": c_bound_by, "max_abs_err": k_err,
             "ms": cuda_ms(lambda: sosfilt_time_major(band, xt, zi), 50),
+            "device_ms": device_ms(lambda: sosfilt_time_major(band, xt, zi),
+                                   "sosfilt_time_major_kernel", 50),
             "plain_ms": cuda_ms(lambda: sosfilt_time_major_plain(band, xt, zi), 2),
-            "max_abs_err": k_err,
         }
-        print(f"B1 B={b:<4} (854, {b * 64}) band-pass pass: kernel {rows[b]['ms']:.4f} ms, "
-              f"plain {rows[b]['plain_ms']:.3f} ms, max|err| {k_err:.3g}, bound "
-              f"{bound:.4f} ms ({bound_by}); notch+band "
-              f"sosfiltfilt: kernel {rows[b]['chain_ms']:.3f} ms, plain "
-              f"{rows[b]['chain_plain_ms']:.3f} ms, max|err| {err:.3g}", flush=True)
+        c = row["causal"]
+        chain_alt = {g: device_ms(lambda: _launch_chain(chain, x, pads, g),
+                                  "sosfiltfilt_chain_kernel", 20) for g in (16, 32)}
+        causal_alt = {g: device_ms(lambda: _launch_causal(band, xt, zi, g),
+                                   "sosfilt_time_major_kernel", 20) for g in (1, 16, 32)}
+        print(f"B1 R={b * 64} lanes a row -> device ms: chain "
+              f"{json.dumps({g: round(v, 4) for g, v in chain_alt.items()})}, causal "
+              f"{json.dumps({g: round(v, 4) for g, v in causal_alt.items()})}", flush=True)
+        print(f"B1 causal (854, {b * 64}) band-pass pass with zi and zf, "
+              f"{lanes_for(b * 64, causal=True)} lanes a row: kernel {c['ms']:.4f} ms a call back "
+              f"to back (CUDA events), {c['device_ms']:.4f} ms on the device (profiler), plain "
+              f"{c['plain_ms']:.3f} ms, max|err| {k_err:.3g} (y and zf), bound {c_bound:.4f} ms "
+              f"({c_bound_by}, {c_bound / c['ms']:.1%} reached; {c_bound / c['device_ms']:.1%} of "
+              f"the device time)", flush=True)
     return rows
 
 
@@ -269,9 +350,12 @@ def phase_serving(cfg, params1, params2, rng, workdir):
     launches = read_launches()
     print(f"serving path: INFO {json.dumps(info)}", flush=True)
     print(f"serving path: kernel launches during the requests {launches}", flush=True)
-    for name in ("iir", "conv4head_fwd"):
-        if launches[name] < 1:
-            raise RuntimeError(f"the serving path never launched the {name} kernel")
+    decodes = len(batches) + 1
+    if launches["iir_chain"] != decodes or launches["iir"] != 0:
+        raise RuntimeError(f"{decodes} decodes must make one B1 chain launch each and no "
+                           f"causal one: {launches}")
+    if launches["conv4head_fwd"] < 1:
+        raise RuntimeError("the serving path never launched the conv4head_fwd kernel")
     if info["device"] != "cuda" or info["n_channels"] != 64 or info["n_classes"] != cfg.n_classes:
         raise RuntimeError(f"unexpected INFO {info}")
 
@@ -336,10 +420,13 @@ def phase_device_time(cfg, params, dev, rng):
                           for e in events if e.device_type == DeviceType.CPU), reverse=True)
         busy = sum(ms for ms, _, _ in by_device)
         device_ops = sum(calls for _, calls, _ in by_device)
+        launches = sum(calls for _, calls, key in by_host if key == "cudaLaunchKernel")
+        launches_ex = sum(calls for _, calls, key in by_host if key == "cudaLaunchKernelExC")
         print(f"decode B={b} in process: host p50 {np.median(host):.3f} ms; CUDA-event span "
               f"p50 {np.median(span):.3f} ms; profiler device time {busy:.3f} ms per decode "
               f"over {device_ops} kernels and copies (device idle "
-              f"{1 - busy / np.median(span):.0%} of the span)", flush=True)
+              f"{1 - busy / np.median(span):.0%} of the span); {launches} cudaLaunchKernel "
+              f"and {launches_ex} cudaLaunchKernelExC calls per decode", flush=True)
         for ms, calls, key in by_device[:8]:
             print(f"    device {ms:9.4f} ms  {calls:4d} calls  {key[:70]}", flush=True)
         for ms, calls, key in by_host[:8]:
@@ -449,6 +536,16 @@ TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes
 )
 
 
+def report_iir_build(info) -> None:
+    """B1's registers and spills per entry, from this run's ``-Xptxas -v`` log."""
+    for block in info["log"].split("Compiling entry function")[1:]:
+        for entry in ("sosfiltfilt_chain_kernel", "sosfilt_time_major_kernel"):
+            if entry in block.splitlines()[0]:
+                lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
+                         if re.search(r"registers|spill", ln)]
+                print(f"B1 ptxas {entry}: {' | '.join(lines)}", flush=True)
+
+
 def report_tc_build(info, cfg) -> None:
     """B2f's and B2w's registers and spills (each instantiation) from the
     ``-Xptxas -v`` log of this run's build, their dynamic shared memory per
@@ -490,13 +587,15 @@ def report_tc_build(info, cfg) -> None:
 
 
 def reset_launches() -> None:
-    for fn in (sosfilt_time_major, fused_conv4_head, conv4head_bwd_w, conv4head_bwd_x):
+    for fn in (sosfiltfilt_chain, sosfilt_time_major, fused_conv4_head, conv4head_bwd_w,
+               conv4head_bwd_x):
         fn.launches = 0
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
-    return {"iir": sosfilt_time_major.launches, "conv4head_fwd": fused_conv4_head.launches,
+    return {"iir_chain": sosfiltfilt_chain.launches, "iir": sosfilt_time_major.launches,
+            "conv4head_fwd": fused_conv4_head.launches,
             "conv4head_bwd_w": conv4head_bwd_w.launches,
             "conv4head_bwd_x": conv4head_bwd_x.launches}
 
@@ -711,6 +810,7 @@ def main() -> None:
 
     info = _lib.build_info()
     print(f"kernels built in {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}", flush=True)
+    report_iir_build(info)
     report_tc_build(info, FASTConfig.default())
 
     cfg = FASTConfig.default()
@@ -737,11 +837,14 @@ def main() -> None:
     b2 = bwd[BWD_SHAPES[0]]
     # library_ms: no single PyTorch call computes the IIR cascade, the fused
     # windowed head or its gradients.
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
+        {"name": "iir_sosfiltfilt_chain", "route": "cuda", "source": src + "iir.cu",
+         "replaces": pallas + "iir.py:67", "launches": serving["iir_chain"],
+         **{k: iir[MAIN_BATCH][k] for k in keys}, "library_ms": None},
         {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67", "launches": serving["iir"],
-         **{k: iir[MAIN_BATCH][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by")}, "library_ms": None},
+         **{k: iir[MAIN_BATCH]["causal"][k] for k in keys}, "library_ms": None},
         {"name": "conv4head_fwd", "route": "cuda", "source": src + "conv4head.cu",
          "replaces": pallas + "conv4head.py:303", "launches": training["conv4head_fwd"],
          **head[MAIN_BATCH], "library_ms": None},

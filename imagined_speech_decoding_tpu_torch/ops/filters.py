@@ -16,7 +16,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .cuda.iir import sosfilt_time_major
+from .cuda.iir import default_padlen, sosfilt_time_major
 
 
 def sosfilt(
@@ -78,11 +78,16 @@ def sos_zero_phase(
 
     sos = np.asarray(sos, np.float64)
     if padlen is None:
-        ntaps = 2 * sos.shape[0] + 1
-        ntaps -= min((sos[:, 2] == 0).sum(), (sos[:, 5] == 0).sum())
-        padlen = 3 * int(ntaps)
+        padlen = default_padlen(sos)
     zi = torch.as_tensor(np.asarray(sosfilt_zi(sos), np.float64), dtype=x.dtype, device=x.device)
+    return zero_phase(sosfilt_fn, sos, x, padlen, zi)
 
+
+def zero_phase(sosfilt_fn, sos: np.ndarray, x: torch.Tensor, padlen: int,
+               zi: torch.Tensor) -> torch.Tensor:
+    """The forward-backward passes of ``sos_zero_phase`` with ``padlen``
+    and the steady-state ``zi (S, 2)`` already known (``ops.cuda.iir``'s
+    prepared filters bring both)."""
     ext = _odd_ext(x, padlen)
     y, _ = sosfilt_fn(sos, ext, zi * ext[..., :1, None])
     y = torch.flip(y, dims=(-1,))

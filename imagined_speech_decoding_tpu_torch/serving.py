@@ -6,8 +6,10 @@ Counterpart of ``_build_decode_fn`` and ``make_online_decoder`` in
     raw (B, C, T) -> [60 Hz notch -> 4-40 Hz band-pass, zero-phase IIR]
         -> FAST (default mode, eval) -> softmax posteriors (B, K)
 
-Both filter stages run as SOS cascades through ``ops.filters.sosfiltfilt``
-(kernel B1 on a CUDA device), and the FAST head runs through kernel B2.
+Both filter stages are prepared once, when the decoder is built
+(``ops.cuda.iir.prepare_filter``: SciPy runs there and never per decode),
+and run as one ``sosfiltfilt_chain``: one launch of kernel B1 on a CUDA
+device. The FAST head runs through kernel B2f.
 Weights are runtime state of the decoder: ``swap_weights`` copies a new
 checkpoint into the same module, in place.
 """
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from .data.constants import SFREQ
-from .ops.filters import butter_sos, notch_ba, sosfiltfilt
+from .ops.cuda.iir import load_tables, prepare_filter, sosfiltfilt_chain
+from .ops.filters import butter_sos, notch_ba
 from .transplant import from_jax_params
 
 
@@ -32,17 +35,19 @@ def _build_decode_fn(
     from scipy.signal import tf2sos
 
     # The notch's (b, a) pair converts exactly to one second-order section.
-    notch_sos = tf2sos(*notch_ba(sfreq, notch_hz)) if notch_hz else None
-    sos = butter_sos(sfreq, band[0], band[1]) if band else None
+    filters = []
+    if notch_hz:
+        filters.append(prepare_filter(tf2sos(*notch_ba(sfreq, notch_hz))))
+    if band:
+        filters.append(prepare_filter(butter_sos(sfreq, band[0], band[1])))
 
     def _decode(model, x):
         with torch.inference_mode():
-            if notch_sos is not None:
-                x = sosfiltfilt(notch_sos, x)
-            if sos is not None:
-                x = sosfiltfilt(sos, x)
+            if filters:
+                x = sosfiltfilt_chain(filters, x)
             return torch.softmax(model(x).float(), dim=-1)
 
+    _decode.filters = filters
     return _decode
 
 
@@ -64,6 +69,8 @@ def make_online_decoder(
     """
     _decode = _build_decode_fn(sfreq, notch_hz, band)
     device = next(model.parameters()).device
+    if device.type == "cuda" and _decode.filters:
+        load_tables(_decode.filters, device)
     model.eval()
 
     def swap_weights(new_params) -> None:

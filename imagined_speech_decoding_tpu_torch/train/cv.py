@@ -130,12 +130,16 @@ def train_per_subject_cv(
     model = FAST(cfg, n_models=m_count, device=device)
     model.load_state_dict(from_jax_params(params0))
 
+    # A val_every that does not divide the budget runs whole blocks of
+    # val_every epochs, of which make_fit runs those within the budget (the
+    # JAX package's train_per_subject_cv rounds its segments the same way).
+    val_every = tc.val_every or 1
     fit = make_fit(
-        model, n_classes, epochs=tc.max_epochs, batch_size=tc.batch_size,
-        n_train=train_idx.shape[1], n_val=val_idx.shape[1],
+        model, n_classes, epochs=-(-tc.max_epochs // val_every) * val_every,
+        batch_size=tc.batch_size, n_train=train_idx.shape[1], n_val=val_idx.shape[1],
         learning_rate=tc.learning_rate, warmup_epochs=tc.warmup_epochs,
         final_scale=tc.final_lr_scale, weight_decay=tc.weight_decay,
-        val_every=tc.val_every or 1,
+        val_every=val_every, total_epochs=tc.max_epochs,
     )
 
     def progress(done, val_acc):

@@ -141,6 +141,7 @@ def make_fit(
     final_scale: float = 0.1,
     weight_decay: float = 0.01,
     val_every: int = 1,
+    total_epochs: Optional[int] = None,
 ) -> Callable:
     """Build the fit of a stacked ``model`` (``FAST(cfg, n_models=M)`` with
     its initial parameters loaded). Returned signature::
@@ -151,11 +152,21 @@ def make_fit(
     trains ``model`` in place. Indices address the trial axis of the
     device-resident corpus ``X``/``Y``; ``seed`` seeds the permutations
     (CPU generator) and dropout (generator on ``X``'s device).
-    ``progress(epoch, val_acc (M,))`` is called after each epoch."""
+    ``progress(epoch, val_acc (M,))`` is called after each epoch.
+
+    ``total_epochs`` is the epoch budget when it is less than ``epochs``
+    (JAX ``make_fit``): the learning-rate table spans the budget and only
+    the budget's epochs run. The JAX engine runs the epochs past it and
+    discards their updates, because its scanned segments have fixed
+    shapes; the parameters, the best snapshot and the history (cut to the
+    budget there) come out the same. This is how a ``val_every`` that does
+    not divide the budget runs (``train.cv``)."""
     if val_every < 1 or epochs % val_every != 0:
         raise ValueError(f"val_every must be >= 1 and divide epochs ({epochs}); got {val_every}")
+    budget = min(epochs, total_epochs or epochs)
     spe = num_batches(n_train, batch_size)
-    table = warmup_cosine_lr(learning_rate, epochs, spe, warmup_epochs, final_scale)
+    table = warmup_cosine_lr(learning_rate, total_epochs or epochs, spe, warmup_epochs,
+                             final_scale)
     eval_batch_size = eval_batch_size_for(n_val, batch_size)
 
     def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None) -> FitResult:
@@ -175,7 +186,7 @@ def make_fit(
         train_s, val_s = [], []
         step = 0
         model.train()
-        for ep in range(epochs):
+        for ep in range(budget):
             t0 = time.perf_counter()
             gidx = torch.gather(tidx, 1, epoch_permutations(perm_gen, m, n_train).to(device))
             loss_sum = torch.zeros(m, device=device)

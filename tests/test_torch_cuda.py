@@ -25,10 +25,15 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     fused_conv4_head_plain,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
+    default_padlen,
+    prepare_filter,
     sosfilt_time_major,
     sosfilt_time_major_plain,
+    sosfiltfilt_chain,
+    sosfiltfilt_chain_plain,
 )
-from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, sosfiltfilt
+from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, notch_ba, sosfiltfilt
+from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout_params,
@@ -49,8 +54,12 @@ def dev():
     return torch.device("cuda")
 
 
-# butter_sos(order=N) band-pass has N sections; the kernel exists for S = 1 and 4.
-@pytest.mark.parametrize("rows,t_len,order", [(1, 50, 4), (111, 300, 4), (4096, 64, 1)])
+# butter_sos(order=N) band-pass has N sections; the kernel takes S = 1 to 8.
+@pytest.mark.parametrize("rows,t_len,order", [
+    (1, 50, 4), (111, 300, 4), (4096, 64, 1),  # one tile
+    (33, 2048, 8), (5, 2500, 2),  # several tiles; R not a multiple of 32
+    (9000, 300, 4),  # one lane a row (more than 8,192 rows)
+] + [(45, 400, order) for order in (2, 3, 5, 6, 7)])  # every S from 1 to 8
 def test_iir_kernel_matches_plain(dev, rows, t_len, order):
     rng = np.random.default_rng(rows)
     sos = butter_sos(250.0, 4.0, 40.0, order)
@@ -64,6 +73,66 @@ def test_iir_kernel_matches_plain(dev, rows, t_len, order):
     tol = 1e-4 * float(y_ref.abs().max())
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=tol)
     torch.testing.assert_close(zf, zf_ref, rtol=1e-4, atol=tol)
+
+
+def _iir_close(got, ref):
+    # rtol 1e-4, atol 1e-4 * max|ref|: the JAX package's Pallas IIR tolerance
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+NOTCH = sps.tf2sos(*notch_ba(250.0, 60.0))
+
+
+@pytest.mark.parametrize("orders,rows,t_len,padlens", [
+    ((None, 4), 64, 800, None),  # the decode chain at B = 1
+    ((None, 4), 37, 400, None),  # R not a multiple of 32
+    ((4,), 1, default_padlen(butter_sos(250.0, 4.0, 40.0, 4)) + 1, None),  # T = padlen + 1
+    ((8,), 5, 2048, None),  # several tiles per pass
+    ((None,), 3, 10, None),  # the notch at T = padlen + 1
+    ((2, 4), 33, 400, (0, 0)),  # no extension
+    ((3, 5), 9, 400, (0, 120)),
+    ((6, 7), 70, 2048, (2047, 30)),  # the longest row: 6142 samples extended
+    ((None, 4), 2048, 800, None),  # the most rows at 32 lanes a row
+    ((None, 4), 2049, 800, None),  # the fewest at 16
+] + [((order,), 45, 400, None) for order in range(1, 9)])  # every S from 1 to 8
+def test_chain_kernel_matches_plain(dev, orders, rows, t_len, padlens):
+    chain = [prepare_filter(NOTCH if o is None else butter_sos(250.0, 4.0, 40.0, o))
+             for o in orders]
+    x = torch.tensor(np.random.default_rng(rows + t_len).normal(size=(rows, t_len))
+                     .astype(np.float32), device=dev)
+    before = sosfiltfilt_chain.launches
+    y = sosfiltfilt_chain(chain, x, padlens)
+    torch.cuda.synchronize()
+    assert sosfiltfilt_chain.launches == before + 1
+    _iir_close(y, sosfiltfilt_chain_plain(chain, x, padlens))
+
+
+def test_iir_kernels_are_deterministic(dev):
+    rng = np.random.default_rng(3)
+    chain = [prepare_filter(NOTCH), prepare_filter(butter_sos(250.0, 4.0, 40.0, 4))]
+    x = torch.tensor(rng.normal(size=(8, 64, 800)).astype(np.float32), device=dev)
+    assert torch.equal(sosfiltfilt_chain(chain, x), sosfiltfilt_chain(chain, x))
+    sos = butter_sos(250.0, 4.0, 40.0, 4)
+    xt = torch.tensor(rng.normal(size=(854, 512)).astype(np.float32), device=dev)
+    zi = torch.tensor(rng.normal(size=(8, 512)).astype(np.float32), device=dev)
+    for a, b in zip(sosfilt_time_major(sos, xt, zi), sosfilt_time_major(sos, xt, zi)):
+        assert torch.equal(a, b)
+
+
+def test_decode_makes_one_filter_launch(dev):
+    """A decode runs its notch and band-pass as one chain launch and never
+    the causal entry."""
+    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
+                     num_layers=1, num_heads=4)
+    params = init_jax_layout_params(cfg, 2)
+    x = np.random.default_rng(4).normal(size=(2, 10, 800)).astype(np.float32)
+    decode = make_online_decoder(FAST(cfg, device=dev), params)
+    before = (sosfiltfilt_chain.launches, sosfilt_time_major.launches)
+    for _ in range(3):
+        post = decode(x)
+    assert (sosfiltfilt_chain.launches, sosfilt_time_major.launches) == (before[0] + 3, before[1])
+    ref = make_online_decoder(FAST(cfg), params)(x)
+    np.testing.assert_allclose(post, ref, rtol=1e-4, atol=1e-5)
 
 
 def test_sosfiltfilt_on_card_matches_scipy(dev):

@@ -11,8 +11,11 @@ from imagined_speech_decoding_tpu.ops import filters as jax_filters
 from imagined_speech_decoding_tpu.ops.pallas import sosfiltfilt_pallas
 from imagined_speech_decoding_tpu_torch.ops import filters
 from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
+    prepare_filter,
     sosfilt_time_major,
     sosfilt_time_major_plain,
+    sosfiltfilt_chain,
+    sosfiltfilt_chain_plain,
 )
 
 torch.set_num_threads(1)
@@ -91,9 +94,10 @@ class TestSosfilt:
             sosfilt_time_major(SOS["low2"], xt)
 
     def test_unbuilt_section_count_raises(self):
-        """The kernel exists for the serving chain's S = 1 and S = 4 only;
-        any other cascade off the CPU is refused before it is launched."""
-        sos = sps.butter(2, [4.0 / 125, 40.0 / 125], btype="bandpass", output="sos")
+        """The kernel takes S = 1 to 8; a longer cascade off the CPU is
+        refused before it is launched."""
+        sos = sps.butter(9, [4.0 / 125, 40.0 / 125], btype="bandpass", output="sos")
+        assert sos.shape[0] == 9
         xt = torch.zeros((10, 3), device="meta")
         with pytest.raises(ValueError, match="built for S in"):
             sosfilt_time_major(sos, xt)
@@ -137,3 +141,50 @@ class TestSosfiltfilt:
         )
         for a, b in zip(filters.notch_ba(250.0, 60.0), jax_filters.notch_ba(250.0, 60.0)):
             np.testing.assert_array_equal(a, b)
+
+
+class TestSosfiltfiltChain:
+    """The chain entry on the CPU: the plain version, on the prepared
+    filters' ``sosfilt_zi`` and ``padlen``."""
+
+    def test_equals_the_old_composition_bit_for_bit(self, eeg_full):
+        x = torch.from_numpy(eeg_full)
+        chain = [prepare_filter(SOS["notch"]), prepare_filter(SOS["band4"])]
+        before = sosfiltfilt_chain.launches
+        ours = sosfiltfilt_chain(chain, x)
+        assert sosfiltfilt_chain.launches == before
+        old = filters.sosfiltfilt(SOS["band4"], filters.sosfiltfilt(SOS["notch"], x))
+        assert torch.equal(ours, old)
+        assert torch.equal(ours, sosfiltfilt_chain_plain(chain, x))
+
+    def test_serving_chain_full_width_matches_jax(self, eeg_full):
+        ours = sosfiltfilt_chain([prepare_filter(SOS["notch"]), prepare_filter(SOS["band4"])],
+                                 torch.from_numpy(eeg_full))
+        xj = jnp.asarray(eeg_full)
+        _close(ours, jax_filters.sosfiltfilt(SOS["band4"], jax_filters.sosfiltfilt(SOS["notch"], xj)))
+
+    @pytest.mark.parametrize("padlens", [(0, 5), (50, 0)])
+    def test_explicit_padlens_match_scipy(self, eeg, padlens):
+        chain = [prepare_filter(SOS["low2"]), prepare_filter(SOS["notch"])]
+        ours = sosfiltfilt_chain(chain, torch.from_numpy(eeg), padlens=padlens)
+        ref = eeg.astype(np.float64)
+        for name, p in zip(("low2", "notch"), padlens):
+            ref = sps.sosfiltfilt(SOS[name], ref, padlen=p)
+        _close(ours, ref)
+
+    def test_short_input_raises_like_scipy(self):
+        with pytest.raises(ValueError, match="greater than padlen"):
+            sosfiltfilt_chain([prepare_filter(SOS["band4"])], torch.zeros(2, 27))
+
+    def test_limits_are_refused(self):
+        with pytest.raises(ValueError, match="1 to 8 sections"):
+            prepare_filter(sps.butter(9, [4.0 / 125, 40.0 / 125], btype="bandpass", output="sos"))
+        chain = [prepare_filter(SOS["notch"])] * 3
+        with pytest.raises(ValueError, match="1 to 2 filters"):
+            sosfiltfilt_chain(chain, torch.zeros(2, 100))
+        with pytest.raises(ValueError, match="up to 6144 samples"):
+            sosfiltfilt_chain(chain[:1], torch.zeros((2, 6200), device="meta"))
+
+    def test_non_cpu_tensor_never_falls_back(self):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            sosfiltfilt_chain([prepare_filter(SOS["notch"])], torch.zeros((3, 100), device="meta"))

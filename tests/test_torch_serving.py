@@ -64,6 +64,21 @@ class TestOnlineDecoder:
         ours = make_online_decoder(FAST(FASTConfig(**SMALL)), p1, notch_hz=None, band=None)(x)
         np.testing.assert_allclose(ours, np.asarray(ref), rtol=RTOL, atol=ATOL)
 
+    def test_filters_are_designed_once(self, small, monkeypatch):
+        """Building a decoder computes ``sosfilt_zi`` once per filter;
+        decoding never calls it."""
+        import scipy.signal
+
+        _, p1, _, _, x = small
+        calls = []
+        real = scipy.signal.sosfilt_zi
+        monkeypatch.setattr(scipy.signal, "sosfilt_zi", lambda sos: calls.append(1) or real(sos))
+        dec = make_online_decoder(FAST(FASTConfig(**SMALL)), p1, **CHAIN)
+        assert len(calls) == 2  # the notch and the band-pass
+        dec(x)
+        dec(x[:1])
+        assert len(calls) == 2
+
     def test_swap_weights(self, small):
         model, p1, p2, state, x = small
         dec = make_online_decoder(FAST(FASTConfig(**SMALL)), p1, **CHAIN)

@@ -266,6 +266,32 @@ def test_val_every_records_nan_rows():
         engine.make_fit(model, 5, epochs=3, batch_size=8, n_train=8, n_val=2, val_every=2)
 
 
+def test_epochs_past_the_budget_are_frozen():
+    """``total_epochs=3`` in a 4-epoch fit (``val_every=2``): the LR table
+    spans 3 epochs, the 4th leaves no update and is never the best, and the
+    history has 3 epochs, as a 3-epoch fit with the same table."""
+    cfg = FASTConfig(**SMALL)
+    x, y = _corpus(10, 2)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
+    p0 = from_jax_params(init_jax_layout_params(cfg, 1, 1))
+    runs = {}
+    for epochs, val_every, total in ((4, 2, 3), (3, 1, None)):
+        model = FAST(cfg, n_models=1)
+        model.load_state_dict(p0)
+        fit = engine.make_fit(model, 5, epochs=epochs, batch_size=8, n_train=8, n_val=2,
+                              learning_rate=1e-3, warmup_epochs=1, val_every=val_every,
+                              total_epochs=total)
+        runs[epochs] = fit, fit(np.arange(8)[None], np.arange(8, 10)[None], xt, yt, seed=0)
+    (fit, res), (fit3, res3) = runs[4], runs[3]
+    np.testing.assert_array_equal(fit.lr_table, fit3.lr_table)
+    for k, p in res3.params.items():
+        torch.testing.assert_close(res.params[k], p, rtol=0, atol=0, msg=k)
+    assert all(v.shape == (1, 3) for v in res.history.values())
+    np.testing.assert_array_equal(res.history["loss"], res3.history["loss"])
+    assert np.isfinite(res.history["val_acc"][0, 1]) and np.isnan(res.history["val_acc"][0, [0, 2]]).all()
+    assert res.best_epoch[0] == 1
+
+
 class TestStackedModel:
     def test_stacked_logits_equal_per_model(self):
         cfg = FASTConfig(**SMALL)
