@@ -6,7 +6,7 @@ paths on one NVIDIA GPU.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
-   build time and, for the tensor-core kernels B2f and B2w, their
+   build time and, for the tensor-core kernels B2f, B2w and B2x, their
    registers and spills (``-Xptxas -v``), shared memory per block and the
    count of HMMA instructions in their SASS (``cuobjdump``, where the
    toolkit has it; a count of 0 fails the run).
@@ -27,11 +27,15 @@ paths on one NVIDIA GPU.
      B2w / B2x (head weight / input gradients) at full width, M = 2,
         B = 8 and M = 1, B = 64, against the plain autograd backward;
         rtol 1e-4, atol 1e-4 * max|ref| per tensor (sums over B*N*t1
-        terms). Then all three at the training run's M = 75 and its
+        terms). B2x also at M = 1, B = 16 and 100 (the attribution CLIs'
+        batches), against its plain version alone (autograd w.r.t. x with
+        the weights held out), timed also by the profiler's device time,
+        with its share of the bound and of the ``mma.sync`` TF32 floor.
+        Then all three at the training run's M = 75 and its
         batch sizes 64, 24 (the ragged tail) and 35 (validation): the
         full launches' outputs for models 0, 37 and 74 against the plain
-        version on those models' operands, at the same tolerances; B2f
-        and B2w are timed alone at M = 75, B = 64, with their rates and
+        version on those models' operands, at the same tolerances; B2f,
+        B2w and B2x are timed alone at M = 75, B = 64, with their rates and
         their shares of the bound and of the ``mma.sync`` TF32 floor.
 4. Serving path: full-width FAST weights from a numpy seed are written
    as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
@@ -49,8 +53,14 @@ paths on one NVIDIA GPU.
    match the plain CPU forward (rtol 1e-4, atol 1e-5). Then one step at M = 75,
    B = 64 under the profiler, and a 2-subject x 10-trial run on the card
    against the same run on the CPU (plain path).
-6. Attribution path: integrated gradients of a trained checkpoint, whose
-   input gradient runs through B2x, against the plain CPU path.
+6. Attribution path, on a trained checkpoint, every input gradient
+   through B2x (and none through B2w): integrated gradients (8 trials x
+   16 steps) against the plain CPU path; expected gradients at the
+   global-explain CLI's shape (100 trials x 16 samples, 200 background
+   trials), its host seconds and B2x's share of its device time, against
+   the CPU on 4 trials with the same draws; ``attribution_for_predictions``
+   at the explain CLI's shape (16 trials x 32 samples, 64 background
+   trials), its predictions against the CPU's.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -80,7 +90,12 @@ from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_ser
 from imagined_speech_decoding_tpu_torch.config import FASTConfig, TrainConfig
 from imagined_speech_decoding_tpu_torch.data.constants import SFREQ
 from imagined_speech_decoding_tpu_torch.data.synthetic import synthetic_corpus, synthetic_trials
-from imagined_speech_decoding_tpu_torch.explain.attribution import integrated_gradients
+from imagined_speech_decoding_tpu_torch.explain.attribution import (
+    attribution_for_predictions,
+    expected_gradients,
+    expected_gradients_from_draws,
+    integrated_gradients,
+)
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
@@ -88,6 +103,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
+    conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
 )
@@ -129,8 +145,15 @@ TRAIN_BATCH = 64
 # 4 x 64 + a 24-trial tail; 70 validation trials are 2 x 35.
 TRAIN_STEP_BATCHES = (TRAIN_BATCH, TRAIN_TRIALS * 4 // 5 % TRAIN_BATCH,
                       engine.eval_batch_size_for(TRAIN_TRIALS // 5, TRAIN_BATCH))
-BWD_SHAPES = ((2, 8), (1, 64))  # (M, B) of the backward comparisons; JSON line: the first
+BWD_SHAPES = ((2, 8), (1, 64))  # (M, B) of the B2w comparisons; JSON line: the first
+# (M, B) of B2x's: the attribution CLIs' batches too; JSON line: the last,
+# expected gradients' batch in the attribution phase.
+X_SHAPES = ((2, 8), (1, 16), (1, 64), (1, 100))
 IG_TRIALS, IG_STEPS = 8, 16
+EG_TRIALS, EG_SAMPLES, EG_BACKGROUND = 100, 16, 200  # cli/global_explain.py's defaults
+EG_CPU_TRIALS = 4  # trials of expected gradients held against the CPU
+AFP_TRIALS, AFP_SAMPLES, AFP_BACKGROUND = 16, 32, 64  # cli/explain_fast.py's defaults
+B2X_KERNELS = "conv4head_bwd_x_kernel|sum_partials_kernel"  # B2x and its partial pass
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 TF32_FLOPS = 495e12  # tensor cores, TF32
@@ -194,9 +217,10 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def device_ms(fn, kernel: str, iters: int) -> float:
-    """Mean device time per call of the kernels whose name holds ``kernel``
-    (profiler): the kernel's own time, without the host's time between
-    back-to-back calls, which ``cuda_ms`` includes."""
+    """Mean device time per call of the kernels whose name matches the
+    regular expression ``kernel`` (profiler): the kernels' own time,
+    without the host's time between back-to-back calls, which ``cuda_ms``
+    includes."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -204,7 +228,7 @@ def device_ms(fn, kernel: str, iters: int) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel in e.key) / 1e3 / iters
+               if re.search(kernel, e.key)) / 1e3 / iters
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
@@ -439,12 +463,12 @@ HEAD_FMA_BWD_X = 10_076_160  # recompute 5.04 M + dh2, dh1 1.26 M each + dx 2.52
 
 
 def phase_head_backward(cfg, dev, rng):
-    """B2w and B2x against the plain autograd backward at full width, then
-    B2f and B2w alone at the training step's shape."""
+    """B2w and B2x against their plain versions at full width, then B2f
+    and B2w alone at the training step's shape."""
     geo = (cfg.window_len, cfg.slide_step)
     feat = cfg.n_zones * cfg.dim_cnn
     rows = {}
-    for m, b in BWD_SHAPES:
+    for m, b in X_SHAPES:
         model = FAST(cfg, n_models=m, device=dev)
         model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
         with torch.no_grad():
@@ -452,29 +476,37 @@ def phase_head_backward(cfg, dev, rng):
         x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32), device=dev)
         g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, feat)).astype(np.float32),
                          device=dev)
-        ref = conv4head_bwd_plain(g, x, *ops, *geo)
-        got = (conv4head_bwd_x(g, x, *ops, *geo), *conv4head_bwd_w(g, x, *ops, *geo))
-        errs = {name: check_close(f"B2 backward M={m} B={b} {name}", a, r, BWD_RTOL,
-                                  BWD_RTOL * float(r.abs().max()))
-                for name, a, r in zip(("dx", "dw12", "db12", "dw3", "dw4"), got, ref)}
-        rows[(m, b)] = {
-            "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 10),
-            "x_ms": cuda_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), 10),
-            "plain_ms": cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 3),
-            "w_err": max(errs[k] for k in ("dw12", "db12", "dw3", "dw4")),
-            "x_err": errs["dx"],
-        }
-        r = rows[(m, b)]
-        r["w_bound"] = head_bound(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS)
+        r = rows[(m, b)] = {}
+        if (m, b) in BWD_SHAPES:
+            ref = conv4head_bwd_plain(g, x, *ops, *geo)
+            got = (conv4head_bwd_x(g, x, *ops, *geo), *conv4head_bwd_w(g, x, *ops, *geo))
+            errs = {name: check_close(f"B2 backward M={m} B={b} {name}", a, r_, BWD_RTOL,
+                                      BWD_RTOL * float(r_.abs().max()))
+                    for name, a, r_ in zip(("dx", "dw12", "db12", "dw3", "dw4"), got, ref)}
+            r.update(w_ms=cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 10),
+                     plain_ms=cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 3),
+                     w_err=max(errs[k] for k in ("dw12", "db12", "dw3", "dw4")),
+                     w_bound=head_bound(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS))
+            print(f"B2w M={m} B={b:<3} weight grads: kernel {r['w_ms']:.3f} ms, max|err| "
+                  f"{r['w_err']:.3g}, bound {r['w_bound'][0]:.3f} ms ({r['w_bound'][1]}, "
+                  f"{r['w_bound'][0] / r['w_ms']:.1%} reached); plain autograd backward (all "
+                  f"five) {r['plain_ms']:.3f} ms; per tensor "
+                  f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}", flush=True)
+        ref_x = conv4head_bwd_x_plain(g, x, *ops, *geo)
+        r["x_err"] = check_close(f"B2x M={m} B={b}", conv4head_bwd_x(g, x, *ops, *geo), ref_x,
+                                 BWD_RTOL, BWD_RTOL * float(ref_x.abs().max()))
+        r["x_ms"] = cuda_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), 10)
+        r["x_device_ms"] = device_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), B2X_KERNELS, 10)
+        r["x_plain_ms"] = cuda_ms(lambda: conv4head_bwd_x_plain(g, x, *ops, *geo), 3)
         r["x_bound"] = head_bound(HEAD_FMA_BWD_X, m, b, m * b * 64 * 800)
-        print(f"B2w M={m} B={b:<3} weight grads: kernel {r['w_ms']:.3f} ms, max|err| "
-              f"{r['w_err']:.3g}, bound {r['w_bound'][0]:.3f} ms ({r['w_bound'][1]}, "
-              f"{r['w_bound'][0] / r['w_ms']:.1%} reached); B2x input grad: kernel "
-              f"{r['x_ms']:.3f} ms, max|err| {r['x_err']:.3g}, bound {r['x_bound'][0]:.3f} ms "
-              f"({r['x_bound'][1]}, {r['x_bound'][0] / r['x_ms']:.1%} reached); plain autograd "
-              f"backward (all five) {r['plain_ms']:.3f} ms; "
-              f"per tensor {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}",
-              flush=True)
+        floor = 1e3 * 3 * 2 * m * b * cfg.n_tokens * cfg.n_zones * HEAD_FMA_BWD_X / MMA_SYNC_TF32_FLOPS
+        bound = r["x_bound"][0]
+        print(f"B2x M={m} B={b:<3} input grad: wrapper {r['x_ms']:.4f} ms a call (CUDA events: "
+              f"the kernel, dxw and the overlap-add), kernel {r['x_device_ms']:.4f} ms on the "
+              f"device (profiler), plain dx alone {r['x_plain_ms']:.3f} ms, max|err| "
+              f"{r['x_err']:.3g}; bound {bound:.4f} ms ({r['x_bound'][1]}, {bound / r['x_ms']:.1%} "
+              f"reached, {bound / r['x_device_ms']:.1%} of the device time); mma.sync floor "
+              f"{floor:.4f} ms ({floor / r['x_device_ms']:.1%} of the device time)", flush=True)
 
     # The training run's own launches: M = 75 at its batch sizes (the
     # 64-trial steps, the ragged tail, the validation batch). The plain
@@ -527,12 +559,22 @@ def phase_head_backward(cfg, dev, rng):
           f"({units * HEAD_FMA_BWD_W / big['w_ms'] / 1e9:.2f} T FMA/s f32-equivalent; bound "
           f"{w_bound[0]:.2f} ms, {w_bound[1]}, {w_bound[0] / big['w_ms']:.1%} reached; mma.sync "
           f"floor {w_floor:.2f} ms, {w_floor / big['w_ms']:.1%} reached)", flush=True)
+    # B2x at the same shape: its own device time (it never runs in training).
+    big["x_device_ms"] = device_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), B2X_KERNELS, 3)
+    x_bound = head_bound(HEAD_FMA_BWD_X, m, TRAIN_BATCH, m * TRAIN_BATCH * 64 * 800)
+    x_floor = 1e3 * 3 * 2 * units * HEAD_FMA_BWD_X / MMA_SYNC_TF32_FLOPS
+    print(f"B2x alone at M={m} B={TRAIN_BATCH}: {big['x_device_ms']:.2f} ms on the device "
+          f"({units * HEAD_FMA_BWD_X / big['x_device_ms'] / 1e9:.2f} T FMA/s f32-equivalent; "
+          f"bound {x_bound[0]:.2f} ms, {x_bound[1]}, {x_bound[0] / big['x_device_ms']:.1%} "
+          f"reached; mma.sync floor {x_floor:.2f} ms, {x_floor / big['x_device_ms']:.1%} "
+          f"reached)", flush=True)
     return rows, big
 
 
 TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes function)
     ("B2f", "conv4head_fwd_kernel", "isd_conv4head_smem_bytes"),
     ("B2w", "conv4head_bwd_w_kernel", "isd_conv4head_bwd_w_smem_bytes"),
+    ("B2x", "conv4head_bwd_x_kernel", "isd_conv4head_bwd_x_smem_bytes"),
 )
 
 
@@ -547,10 +589,10 @@ def report_iir_build(info) -> None:
 
 
 def report_tc_build(info, cfg) -> None:
-    """B2f's and B2w's registers and spills (each instantiation) from the
-    ``-Xptxas -v`` log of this run's build, their dynamic shared memory per
-    block at full width, and the count of tensor-core (HMMA) instructions
-    in each one's SASS; raises if either has none."""
+    """The tensor-core kernels' registers and spills (each instantiation)
+    from the ``-Xptxas -v`` log of this run's build, their dynamic shared
+    memory per block at full width, and the count of tensor-core (HMMA)
+    instructions in each one's SASS; raises if any has none."""
     log = info["log"]
     if not log:
         print("ptxas: no build log (the library was already built)", flush=True)
@@ -635,7 +677,8 @@ def phase_training(cfg, dev, workdir):
     params, _, _ = load_model_npz(ckpt, init_jax_layout_params(cfg, SEED), {"head": {}})
     model = FAST(cfg, device=dev)
     model.load_state_dict(from_jax_params(params))
-    x_test = synthetic_trials(1000 * si, TRAIN_TRIALS, 64, 800)[0][: TRAIN_TRIALS // 3]
+    subject = synthetic_trials(1000 * si, TRAIN_TRIALS, 64, 800)
+    x_test = subject[0][: TRAIN_TRIALS // 3]
     y_pred = engine.predict(model, torch.tensor(x_test, device=dev), TRAIN_BATCH)
     saved, _ = load_predictions_csv(os.path.join(out, f"sub-{subjects[si]}", "test_predictions.csv"))
     if not np.array_equal(y_pred, saved):
@@ -662,7 +705,7 @@ def phase_training(cfg, dev, workdir):
     acc = [row["Test_Acc"] for row in result.summary]
     print(f"  mean val_acc {result.fit.history['val_acc'][:, -1].mean():.4f}, mean test acc "
           f"{np.mean(acc):.4f} after {TRAIN_EPOCHS} epochs", flush=True)
-    return launches, t, (ckpt, x_test)
+    return launches, t, (ckpt, subject)
 
 
 def phase_train_step_profile(cfg, dev):
@@ -765,31 +808,94 @@ def phase_trajectory(cfg, dev):
           f"while the parameters moved up to {moved:.3g}", flush=True)
 
 
-def phase_explain(cfg, dev, ckpt, x_test):
-    """Integrated gradients of a trained checkpoint: the input gradient
-    runs through B2x; against the same attribution on the CPU."""
+def phase_explain(cfg, dev, ckpt, subject):
+    """Attributions of a trained checkpoint on its subject's trials
+    ``subject = (x, y)``; every input gradient runs through B2x. Against
+    the same attributions on the CPU (plain path)."""
     params, _, _ = load_model_npz(ckpt, init_jax_layout_params(cfg, SEED), {"head": {}})
     model = FAST(cfg, device=dev)
     model.load_state_dict(from_jax_params(params))
-    x = torch.tensor(x_test[:IG_TRIALS], device=dev)
+    cpu = FAST(cfg)
+    cpu.load_state_dict(from_jax_params(params))
+    x_all, y_all = subject
+    x = torch.tensor(x_all[:IG_TRIALS], device=dev)
     with torch.no_grad():
         target = model.eval()(x).argmax(-1)
     reset_launches()
     t0 = time.perf_counter()
     attr = integrated_gradients(model, x, target, n_steps=IG_STEPS)
-    launches = read_launches()
+    torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     print(f"attribution path: integrated gradients, {IG_TRIALS} trials x {IG_STEPS} steps, "
-          f"{host_s:.3f} s; kernel launches {launches}", flush=True)
-    if launches["conv4head_bwd_x"] < 1 or launches["conv4head_bwd_w"] != 0:
-        raise RuntimeError("the attribution path must launch B2x and not B2w")
-    cpu = FAST(cfg)
-    cpu.load_state_dict(from_jax_params(params))
+          f"{host_s:.3f} s", flush=True)
     ref = integrated_gradients(cpu, x.cpu(), target.cpu(), n_steps=IG_STEPS)
     err = check_close("integrated gradients", attr.cpu(), ref, BWD_RTOL,
                       BWD_RTOL * float(ref.abs().max()))
-    print(f"attribution path: matches the plain CPU path, max|err| {err:.3g} "
+    print(f"attribution path: integrated gradients match the plain CPU path, max|err| {err:.3g} "
           f"(max|attr| {float(ref.abs().max()):.3g})", flush=True)
+
+    # Expected gradients as cli/global_explain.py runs them: a seeded
+    # permutation into 200 background and 100 explained trials, the true
+    # labels as targets, 16 samples.
+    perm = np.random.default_rng(SEED).permutation(len(x_all))
+    bg = torch.tensor(x_all[perm[:EG_BACKGROUND]], device=dev)
+    sel = perm[EG_BACKGROUND:EG_BACKGROUND + EG_TRIALS]
+    xt = torch.tensor(x_all[sel], device=dev)
+    yt = torch.tensor(np.asarray(y_all)[sel].astype(np.int64), device=dev)
+
+    def eg():
+        return expected_gradients(model, xt, bg, yt, torch.Generator().manual_seed(SEED),
+                                  EG_SAMPLES)
+
+    eg()  # warm-up: the first call at these shapes sets up allocations and cuBLAS plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    attr = eg()
+    torch.cuda.synchronize()
+    eg_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eg()
+        torch.cuda.synchronize()
+    by_device = [(e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU]
+    busy = sum(ms for ms, _ in by_device)
+    b2x = sum(ms for ms, key in by_device if re.search(B2X_KERNELS, key))
+    b2f = sum(ms for ms, key in by_device if "conv4head_fwd_kernel" in key)
+    gen = torch.Generator().manual_seed(SEED)  # expected_gradients' draws, in its order
+    bg_idx = torch.randint(0, EG_BACKGROUND, (EG_SAMPLES, EG_TRIALS), generator=gen)
+    alphas = torch.rand((EG_SAMPLES, EG_TRIALS), generator=gen)
+    k = EG_CPU_TRIALS
+    ref = expected_gradients_from_draws(cpu, xt[:k].cpu(), bg.cpu(), yt[:k].cpu(), bg_idx[:, :k],
+                                        alphas[:, :k])
+    eg_err = check_close("expected gradients", attr[:k].cpu(), ref, BWD_RTOL,
+                         BWD_RTOL * float(ref.abs().max()))
+    if attr.shape != xt.shape or not bool(torch.isfinite(attr).all()):
+        raise RuntimeError(f"expected gradients: shape {tuple(attr.shape)} or non-finite values")
+    print(f"attribution path: expected gradients, {EG_TRIALS} trials x {EG_SAMPLES} samples "
+          f"against {EG_BACKGROUND} background trials: {eg_s:.3f} s on the host clock (after a "
+          f"warm-up call); profiler device time {busy:.2f} ms (device idle "
+          f"{max(0.0, 1 - busy / (1e3 * eg_s)):.0%} of the host time), B2x {b2x:.2f} ms "
+          f"({b2x / busy:.1%}), B2f {b2f:.2f} ms "
+          f"({b2f / busy:.1%}); the first {k} trials match the CPU on the same draws, max|err| "
+          f"{eg_err:.3g} (max|attr| {float(ref.abs().max()):.3g})", flush=True)
+
+    # attribution_for_predictions as cli/explain_fast.py runs it.
+    bg = torch.tensor(x_all[perm[:AFP_BACKGROUND]], device=dev)
+    xt = x_all[perm[AFP_BACKGROUND:AFP_BACKGROUND + AFP_TRIALS]]
+    attr, preds = attribution_for_predictions(model, torch.tensor(xt, device=dev), bg,
+                                              torch.Generator().manual_seed(SEED), AFP_SAMPLES)
+    with torch.no_grad():
+        cpu_preds = cpu.eval()(torch.from_numpy(xt)).argmax(-1)
+    if not torch.equal(preds.cpu(), cpu_preds) or not bool(torch.isfinite(attr).all()):
+        raise RuntimeError("attribution_for_predictions: predictions differ from the CPU's or "
+                           "attributions are not finite")
+    launches = read_launches()
+    print(f"attribution path: attribution_for_predictions, {AFP_TRIALS} trials x {AFP_SAMPLES} "
+          f"samples against {AFP_BACKGROUND}: predictions equal the CPU's; kernel launches in "
+          f"the phase {launches}", flush=True)
+    want = IG_STEPS + 3 * EG_SAMPLES + AFP_SAMPLES
+    if launches["conv4head_bwd_x"] != want or launches["conv4head_bwd_w"] != 0:
+        raise RuntimeError(f"the attribution path must launch B2x {want} times and B2w never")
     return launches
 
 
@@ -827,14 +933,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         serving = phase_serving(cfg, params1, params2, rng, workdir)
         phase_device_time(cfg, params1, dev, rng)
-        training, _, (ckpt, x_test) = phase_training(cfg, dev, workdir)
-        explain = phase_explain(cfg, dev, ckpt, x_test)
+        training, _, (ckpt, subject) = phase_training(cfg, dev, workdir)
+        explain = phase_explain(cfg, dev, ckpt, subject)
     phase_train_step_profile(cfg, dev)
     phase_trajectory(cfg, dev)
 
     src = "imagined_speech_decoding_tpu_torch/csrc/"
     pallas = "imagined_speech_decoding_tpu/ops/pallas/"
-    b2 = bwd[BWD_SHAPES[0]]
+    b2, b2x = bwd[BWD_SHAPES[0]], bwd[X_SHAPES[-1]]
     # library_ms: no single PyTorch call computes the IIR cascade, the fused
     # windowed head or its gradients.
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
@@ -854,8 +960,9 @@ def main() -> None:
          "bound_ms": b2["w_bound"][0], "bound_by": b2["w_bound"][1], "library_ms": None},
         {"name": "conv4head_bwd_x", "route": "cuda", "source": src + "conv4head_bwd.cu",
          "replaces": pallas + "conv4head.py:351", "launches": explain["conv4head_bwd_x"],
-         "max_abs_err": b2["x_err"], "ms": b2["x_ms"], "plain_ms": b2["plain_ms"],
-         "bound_ms": b2["x_bound"][0], "bound_by": b2["x_bound"][1], "library_ms": None},
+         "max_abs_err": b2x["x_err"], "ms": b2x["x_ms"], "device_ms": b2x["x_device_ms"],
+         "plain_ms": b2x["x_plain_ms"], "bound_ms": b2x["x_bound"][0],
+         "bound_by": b2x["x_bound"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -91,25 +91,6 @@ __host__ __device__ inline FwdPlan fwd_plan(int C, int W, int O, int K) {
   return p;
 }
 
-// The zone's O rows of w12 (K taps of C channels each) to
-// dst[o * ld + k * cp + c], zeros for c >= C, by 4-byte cp.async (any C,
-// any alignment).
-template <int O, int K>
-__device__ inline void stage_w12_async(float* dst, int ld, const float* __restrict__ w, int C,
-                                       int cp) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int o = warp; o < O; o += kWarpsF) {
-    for (int j = lane; j < K * cp; j += 32) {
-      const int k = j / cp, c = j - k * cp;
-      if (c < C) {
-        isd::cp_async4(dst + o * ld + j, w + static_cast<size_t>(o) * K * C + k * C + c);
-      } else {
-        dst[o * ld + j] = 0.f;
-      }
-    }
-  }
-}
-
 // B2f: block (z, p = n * S + s, m) covers trials [s*B/S, (s+1)*B/S) of
 // window n of model m. Per trial, four phases between barriers (h1 | h2,
 // the next window's cp.async | gelu(h3) | the mean). kC, kW > 0 fix C and
@@ -141,7 +122,7 @@ conv4head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w12,
   const size_t x_win = static_cast<size_t>(n) * step;
   const int b0 = s * B / S, b1 = (s + 1) * B / S;
 
-  stage_w12_async<O, K>(w12s, lw1, w12 + zo * K * C, C, cp);
+  isd::stage_w12_async<O, K, kWarpsF>(w12s, lw1, w12 + zo * K * C, C, cp);
   isd::stage_rows_async<kWarpsF>(w3s, w3s + 16 * lw, lw, w3 + zo * K * O, K * O);
   isd::stage_rows_async<kWarpsF>(w4s, w4s + 16 * lw, lw, w4 + zo * K * O, K * O);
   isd::stage_window_async<kWarpsF>(xs, ld, x + (static_cast<size_t>(m) * B + b0) * C * T + x_win,

@@ -22,11 +22,13 @@
 // What bounds it on the H100: work. At full width (C = 64, O = 32, K = 5,
 // t1 = 246) one (trial, window, zone) costs ~12.6 M FMAs in B2w (the 5.0 M
 // recompute, then dh2, dh1, dw4, dw3 at 1.26 M each and dw12 at 2.52 M) and
-// ~10 M in B2x; one training step of 75 models at batch 64 is ~2.4 T FMAs
-// of B2w. All operands are reused hundreds of times from shared memory, so
-// both are compute-bound. B2w's bound is the fastest f32-accurate route,
-// three TF32 tensor-core passes at 495 TFLOP/s: 29.3 ms for the step's
-// 2.4 T FMAs (on the CUDA cores in f32, 67 TFLOP/s, it would be 72.2 ms).
+// 10.08 M in B2x (the recompute, dh2, dh1 and dx at 2.52 M); one training
+// step of 75 models at batch 64 is ~2.4 T FMAs of B2w, one attribution
+// step at 100 trials 40 G FMAs of B2x. All operands are reused hundreds
+// of times from shared memory, so both are compute-bound. Their bound is
+// the fastest f32-accurate route, three TF32 tensor-core passes at 495
+// TFLOP/s: 29.3 ms for the training step's B2w (on the CUDA cores in f32,
+// 67 TFLOP/s, it would be 72.2 ms), 0.49 ms for the attribution step's B2x.
 //
 // B2w: every product on the tensor cores, f32-exact (mma_tf32.cuh); the
 // convs go through conv_tc (conv4head_tc.cuh), which B2f shares.
@@ -80,15 +82,51 @@
 //    its accumulator fragments into fixed elements of the slice once per
 //    trial. No atomics: the result is bit-identical from run to run.
 //
-// B2x (f32 on the CUDA cores, one thread per time step) keeps the helpers
-// of conv4head_common.cuh and the odd row strides of bwd_plan:
-//  * one block per (model, trial, window) loops over the zones, so
-//    the per-window input gradient accumulates zone by zone without any
-//    race; windows overlap, so each window writes its own dxw slice and
-//    the wrapper overlap-adds them, as the JAX package does in XLA.
+// B2x: the same route from the same pieces. A unit is B2w's first six
+// phases and one GEMM more, the input gradient:
+//   h1, h2, h3 -> dh3, dh2, dh1             as B2w (conv_tc)
+//   dxw += A . B   Cp x wp x K*O   A[c, k*O + o] = w12z[o, k*C + c],
+//                                  B[k*O + o, w] = dh1[o, w - k]
+// over the window's wp = W rounded up to 8 columns (256 at full width).
+// Where the trouble lay, and what the design does about it:
+//  * conv_tc has 32 output rows; dx has C. input_grad_tc is a GEMM of its
+//    own: a warp owns two 16-row tiles of c and four 8-column tiles of w
+//    (32 accumulators a lane), A read in place from the staged w12 rows
+//    (rows c of A are columns k*Cp + c of w12z; the fragment loads take
+//    two wavefronts, as conv^T's A does), B a view of dh1 shifted by the tap.
+//  * dh1's reach: dx at w in [0, wp) reads dh1 at t = w - k from -(K - 1)
+//    to wp - 1, past the K/2 zero columns and the row end of the other
+//    activations. conv3^T writes dh1 from column K - 1 (conv_tc's kOff)
+//    into a wider row (stride ldx >= K - 1 + wp: 260 floats against 252 at
+//    full width, 1 KB), zeros on both sides, so the fragment loads need no
+//    predicate; predicating the edge tiles would have put a select on
+//    every B load of the loop, or split it in two.
+//  * Where dx accumulates across zones: in the block's own slice of dxw in
+//    global memory (L2 traffic, 64 KB a unit at full width): the block's
+//    first zone writes, the later ones add, each lane into fixed elements.
+//    Holding the C x wp tile in registers across the zones would take 32
+//    more registers a thread beside the convs' fragments.
+//  * Grid fill at M = 1: a block is one (trial, window, zone range) of a
+//    model, 16 warps and 213,760 bytes of shared memory, one block per SM;
+//    5 windows of 16 trials are 80 blocks for 132 SMs. The wrapper splits
+//    the 8 zones into SZ ranges by counting waves of blocks
+//    (ops/cuda/conv4head.py::_bwd_x_zone_splits: SZ = 8 at 16 trials, 1
+//    at 100); with SZ > 1 each block writes a partial and B2w's
+//    fixed-order pass sums them. No atomics: reruns are bit-identical.
+//  * Staging: the window once per block, each zone's w12, w3 and w4 once
+//    per zone. Blocks of several trials, with the next window streamed in
+//    by cp.async behind the compute, were no faster on the card (1.645
+//    against 1.522 ms at M = 1, B = 100, H100 80GB HBM3, 700 W; PERF.md).
+//    Two activation buffers suffice: h1, dh3 and dh1 in a, h2 and dh2 in
+//    b, each phase reading one and writing the other.
+//  * Any C: the window gets zero rows C..Cp-1 and w12 zero columns, with
+//    Cp = C rounded up to 32 (a pair of dx's row tiles), so a reduction
+//    step of 8 never straddles two taps and every row of A that a warp
+//    reads lies inside its tap.
 // Both kernels take O and K as template arguments, instantiated only for
-// the shipped model's O = 32, K1 = K2 = 5; B2w also needs C % 8 == 0 (a
-// reduction step of 8 rows never straddles two taps).
+// the shipped model's O = 32, K1 = K2 = 5, with compile-time strides for
+// its C = 64, W = 250 beside a generic instantiation; B2w also needs
+// C % 8 == 0 (a reduction step of 8 rows never straddles two taps).
 
 #include <cuda_runtime.h>
 
@@ -97,33 +135,7 @@
 
 namespace {
 
-using isd::kThreads;
 using isd::round_up4;
-
-// Shared-memory plan of a backward block, in floats; every region starts
-// 16-byte aligned.
-struct BwdPlan {
-  int lx, lt, cp;             // row strides of the window and activations; padded C
-  int xs, r1, a, b, c, gz, total;
-};
-
-__host__ __device__ inline BwdPlan bwd_plan(int C, int W, int O, int K) {
-  BwdPlan p;
-  const int t1 = W - K + 1;
-  p.lx = W | 1;
-  p.lt = t1 | 1;
-  p.cp = (C + 31) & ~31;  // w12 rows padded to whole 32-channel chunks for dx
-  int r1 = isd::max_int(O * K * C, 2 * K * O * O);
-  r1 = isd::max_int(r1, O * K * p.cp);
-  p.xs = 0;
-  p.r1 = p.xs + round_up4(C * p.lx);
-  p.a = p.r1 + round_up4(r1);
-  p.b = p.a + round_up4(O * p.lt);
-  p.c = p.b + round_up4(O * p.lt);
-  p.gz = p.c + round_up4(O * p.lt);
-  p.total = p.gz + round_up4(O);
-  return p;
-}
 
 // Per-model operand pointers.
 struct Operands {
@@ -132,84 +144,6 @@ struct Operands {
   const float* w3;   // (Z, O, K*O)
   const float* w4;
 };
-
-__device__ inline void stage_window(float* xs, int lx, const float* __restrict__ x, int C, int T,
-                                    int W) {
-  for (int i = threadIdx.x; i < C * W; i += blockDim.x) {
-    const int c = i / W, j = i - c * W;
-    xs[c * lx + j] = x[static_cast<size_t>(c) * T + j];
-  }
-}
-
-// dxw[c * W + w] (+)= sum_{o, k} w12z[o, k*C + c] * d[o, w - k], 0 <= w - k < t1,
-// with wpad the zone's w12 rows staged as wpad[(o * K + k) * cp + c] (zero
-// for c >= C). A thread owns one window sample w, 32 channels at a time.
-template <int O, int K>
-__device__ inline void input_grad(float* __restrict__ dxw, bool first, const float* d, int ld,
-                                  const float* wpad, int cp, int C, int W, int t1) {
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      float acc[32];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int tt = w - k;
-        if (tt < 0 || tt >= t1) continue;
-        for (int o = 0; o < O; ++o) isd::axpy_row<32>(acc, wpad + (o * K + k) * cp + c0, d[o * ld + tt]);
-      }
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        if (c0 + j < C) {
-          const size_t idx = static_cast<size_t>(c0 + j) * W + w;
-          dxw[idx] = (first ? 0.f : dxw[idx]) + acc[j];
-        }
-      }
-    }
-  }
-}
-
-// One zone's backward for the window staged in xs: recompute h1 (a), h2
-// (b), h3 (c); dh3 into c; dh2 into b; dh1 into c. g_z points at the
-// zone's O cotangents. Ends synchronised, r1 free.
-template <int O, int K>
-__device__ void zone_backward(const BwdPlan& p, float* smem, const Operands& op,
-                              const float* __restrict__ g_z, int z, int C, int t1) {
-  float* xs = smem + p.xs;
-  float* r1 = smem + p.r1;
-  float* ha = smem + p.a;
-  float* hb = smem + p.b;
-  float* hc = smem + p.c;
-  float* gz = smem + p.gz;
-  const int kw = K * O * O;  // floats of one zone's w3 (or w4)
-
-  isd::stage_transposed(r1, op.w12, z * O, O, K * C);
-  if (threadIdx.x < O) gz[threadIdx.x] = g_z[threadIdx.x] / t1;  // d(mean) over the t1 real steps
-  __syncthreads();
-  isd::first_conv<O>(ha, p.lt, xs, p.lx, r1, op.b12 + z * O, C, K, t1);
-  __syncthreads();
-
-  isd::stage_transposed(r1, op.w3, z * O, O, K * O);
-  isd::stage_transposed(r1 + kw, op.w4, z * O, O, K * O);
-  __syncthreads();
-  isd::same_conv<O, false>(hb, ha, p.lt, r1, K, t1);
-  __syncthreads();
-  isd::same_conv<O, false>(hc, hb, p.lt, r1 + kw, K, t1);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < O * t1; i += blockDim.x) {
-    const int o = i / t1, t = i - o * t1;
-    float* v = hc + o * p.lt + t;
-    *v = gz[o] * isd::gelu_grad(*v);  // dh3
-  }
-  isd::stage_copy(r1, op.w3 + static_cast<size_t>(z) * kw, kw);
-  isd::stage_copy(r1 + kw, op.w4 + static_cast<size_t>(z) * kw, kw);
-  __syncthreads();
-  isd::same_conv<O, true>(hb, hc, p.lt, r1 + kw, K, t1);  // dh2 = conv4^T(dh3)
-  __syncthreads();
-  isd::same_conv<O, true>(hc, hb, p.lt, r1, K, t1);  // dh1 = conv3^T(dh2)
-  __syncthreads();
-}
 
 __device__ inline Operands model_operands(const float* w12, const float* b12, const float* w3,
                                           const float* w4, int m, int Z, int O, int K, int C) {
@@ -456,34 +390,187 @@ cudaError_t sum_partials(const float* part, float* out, int M, int P, int L, cud
   return cudaGetLastError();
 }
 
-// B2x: block (n, b, m) accumulates the window's input gradient over zones.
-template <int O, int K>
-__global__ void __launch_bounds__(kThreads)
+// ---- B2x on the tensor cores ----
+
+constexpr int kWarpsX = 16;  // B2x's block: 16 warps, one block per SM
+constexpr int kNtDx = 4;     // 8-column tiles per warp in dx (beside two 16-row tiles)
+static_assert(kWarpsX == kWarpsW, "B2x's convs take B2w's tiles a warp (kNtConv)");
+
+// Shared-memory plan of a B2x block, in floats (strides from
+// conv4head_tc.cuh, with Ch = Cp): the window (Cp rows at stride ld), the
+// activation buffer a (h1, dh3 at stride ld; dh1 at stride ldx from column
+// K - 1), b (h2, dh2), the zone's w12 (O rows of K*Cp at stride lw1), w3
+// and w4 (O rows of K*O at stride lw), the cotangent row g/t1 and the bias.
+struct XPlan : isd::TcStrides {
+  int cp;   // C rounded up to 32
+  int wp;   // W rounded up to 8: dx's columns
+  int ldx;  // dh1's row stride, >= K - 1 + wp
+  int xs, a, b, w12, w3, w4, gz, bias, total;
+};
+
+__host__ __device__ inline XPlan x_plan(int C, int W, int O, int K) {
+  XPlan p;
+  p.cp = (C + 31) & ~31;
+  static_cast<isd::TcStrides&>(p) = isd::tc_strides(p.cp, W, O, K);
+  p.wp = (W + 7) & ~7;
+  p.ldx = isd::stride_4mod8(p.wp + K - 1);
+  p.xs = 0;
+  p.a = round_up4(p.cp * p.ld);
+  p.b = p.a + round_up4(isd::max_int(O * p.ld, O * p.ldx));
+  p.w12 = p.b + round_up4(O * p.ld);
+  p.w3 = p.w12 + round_up4(O * p.lw1);
+  p.w4 = p.w3 + round_up4(O * p.lw);
+  p.gz = p.w4 + round_up4(O * p.lw);
+  p.bias = p.gz + round_up4(O);
+  p.total = p.bias + round_up4(O);
+  return p;
+}
+
+// dx[c * W + w] (+)= sum_{k, o} w12z[o, k*C + c] * dh1[o, w - k] for c < C,
+// w < W: a GEMM of Cp x wp over K*O, with w12z staged as
+// a[o * lda + k * cp + c] and dh1[o, t] at d[o * ldd + K - 1 + t], zero for
+// t outside [0, t1). A[c, k*O + o] = a[o * lda + k * cp + c] is read in
+// place and B[k*O + o, w] = d[o * ldd + K - 1 - k + w] is dh1 shifted by
+// the tap (conv_tc's kT pattern, with the tap's stride cp and C rows).
+// Warp tw of a team of kTeam takes the units tw, tw + kTeam, ...: a unit
+// is a pair of 16-row tiles and NT consecutive 8-column tiles (a tile past
+// the end is computed as the last one and not stored). Each lane adds its
+// accumulators into fixed elements of dx; `first` writes instead.
+template <int O, int K, int NT, int kTeam>
+__device__ inline void input_grad_tc(float* __restrict__ dx, bool first, const float* d, int ldd,
+                                     const float* a, int lda, int C, int cp, int W, int wp,
+                                     int tw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int pairs = cp >> 5, tiles = wp >> 3;
+  const int units = pairs * ((tiles + NT - 1) / NT);
+  for (int u = tw; u < units; u += kTeam) {
+    const int r0 = 32 * (u % pairs), base = NT * (u / pairs);
+    int col[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) col[j] = 8 * min(base + j, tiles - 1) + g;
+    float acc[2][NT][4] = {};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float* pa = a + q * lda + k * cp + r0 + g;
+      const float* pb = d + q * ldd + K - 1 - k;
+#pragma unroll kUnrollTc
+      for (int o0 = 0; o0 < O; o0 += 8) {
+        float av[2][4], bv[NT][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* p = pa + o0 * lda + 16 * i;
+          av[i][0] = p[0];             // (row g, column q)
+          av[i][1] = p[8];             // (g + 8, q)
+          av[i][2] = p[4 * lda];       // (g, q + 4)
+          av[i][3] = p[4 * lda + 8];   // (g + 8, q + 4)
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float* p = pb + o0 * ldd + col[j];
+          bv[j][0] = p[0];
+          bv[j][1] = p[4 * ldd];
+        }
+        isd::mma3_step<2, NT>(acc, av, bv);
+      }
+    }
+    const bool pairs_fit = (W & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (base + j >= tiles) continue;
+      const int w = 8 * (base + j) + 2 * q;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = r0 + 16 * i + 8 * h + g;
+          if (c >= C) continue;
+          float* p = dx + static_cast<size_t>(c) * W + w;
+          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          if (pairs_fit && w + 1 < W) {
+            float2 v = first ? make_float2(0.f, 0.f) : *reinterpret_cast<float2*>(p);
+            v.x += v0;
+            v.y += v1;
+            *reinterpret_cast<float2*>(p) = v;
+          } else {
+            if (w < W) p[0] = (first ? 0.f : p[0]) + v0;
+            if (w + 1 < W) p[1] = (first ? 0.f : p[1]) + v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// B2x: block (n * SZ + zs, b, m) covers zones [zs*Z/SZ, (zs+1)*Z/SZ) of
+// trial b's window n in model m, and writes their sum of the window's
+// input gradient (C x W) to out + ((m*B + b)*N + n)*SZ + zs. Per zone, six
+// phases between barriers (h1 | h2 | h3 -> dh3 | dh2 | dh1 | dx). kC, kW >
+// 0 fix C and W at compile time; 0 takes them from the arguments.
+template <int O, int K, int kC, int kW>
+__global__ void __launch_bounds__(kWarpsX * 32, 1)
 conv4head_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ x,
                        const float* __restrict__ w12, const float* __restrict__ b12,
                        const float* __restrict__ w3, const float* __restrict__ w4,
-                       float* __restrict__ dxw, int B, int C, int T, int Z, int N, int W,
-                       int step) {
+                       float* __restrict__ out, int B, int C_arg, int T, int Z, int N, int W_arg,
+                       int step, int SZ) {
+  static_assert(O == 32, "two 16-row tiles of O");
+  const int C = kC > 0 ? kC : C_arg, W = kW > 0 ? kW : W_arg;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int n = blockIdx.x, b = blockIdx.y, m = blockIdx.z;
+  const int n = blockIdx.x / SZ, zs = blockIdx.x - n * SZ, b = blockIdx.y, m = blockIdx.z;
   const int t1 = W - K + 1;
-  const BwdPlan plan = bwd_plan(C, W, O, K);
+  const int warp = threadIdx.x >> 5;
+  const XPlan plan = x_plan(C, W, O, K);
+  const int ld = plan.ld, nt8 = plan.nt8, cp = plan.cp, lw1 = plan.lw1, lw = plan.lw;
+  float* xs = smem + plan.xs;
+  float* ha = smem + plan.a;
+  float* hb = smem + plan.b;
+  float* w12s = smem + plan.w12;
+  float* w3s = smem + plan.w3;
+  float* w4s = smem + plan.w4;
+  float* gz = smem + plan.gz;
+  float* bias = smem + plan.bias;
   const Operands op = model_operands(w12, b12, w3, w4, m, Z, O, K, C);
-  const size_t mb = static_cast<size_t>(m) * B + b;
-  float* dxw_w = dxw + (mb * N + n) * C * W;
-  float* r1 = smem + plan.r1;
+  const size_t mbn = (static_cast<size_t>(m) * B + b) * N + n;
+  float* dxw = out + (mbn * SZ + zs) * C * W;
+  const int z0 = zs * Z / SZ, z1 = (zs + 1) * Z / SZ;
 
-  stage_window(smem + plan.xs, plan.lx, x + mb * C * T + static_cast<size_t>(n) * step, C, T, W);
-  for (int z = 0; z < Z; ++z) {
-    zone_backward<O, K>(plan, smem, op, g + (mb * N + n) * Z * O + z * O, z, C, t1);
-    for (int i = threadIdx.x; i < O * K * plan.cp; i += blockDim.x) {
-      const int o = i / (K * plan.cp), rem = i - o * K * plan.cp;
-      const int k = rem / plan.cp, c = rem - k * plan.cp;
-      r1[i] = c < C ? op.w12[static_cast<size_t>(z * O + o) * K * C + k * C + c] : 0.f;
+  for (int i = threadIdx.x; i < (cp - C) * ld; i += blockDim.x) xs[C * ld + i] = 0.f;
+  stage_window_async<kWarpsX>(xs, ld, x + (static_cast<size_t>(m) * B + b) * C * T +
+                                          static_cast<size_t>(n) * step, C, T, W);
+  const auto same = [&](int, int t, float v) { return t < t1 ? v : 0.f; };
+  for (int z = z0; z < z1; ++z) {
+    isd::stage_w12_async<O, K, kWarpsX>(w12s, lw1, op.w12 + static_cast<size_t>(z) * O * K * C, C,
+                                        cp);
+    stage_rows_async<kWarpsX>(w3s, w3s + 16 * lw, lw, op.w3 + static_cast<size_t>(z) * O * K * O,
+                              K * O);
+    stage_rows_async<kWarpsX>(w4s, w4s + 16 * lw, lw, op.w4 + static_cast<size_t>(z) * O * K * O,
+                              K * O);
+    if (threadIdx.x < O) {
+      bias[threadIdx.x] = op.b12[z * O + threadIdx.x];
+      gz[threadIdx.x] = g[mbn * Z * O + z * O + threadIdx.x] / t1;
     }
+    isd::cp_async_wait_all();
     __syncthreads();
-    input_grad<O, K>(dxw_w, z == 0, smem + plan.c, plan.lt, r1, plan.cp, C, W, t1);
+    conv_tc<K, false, kNtConv, kWarpsX>(  // h1
+        ha, ld, w12s, w12s + 16 * lw1, lw1, xs, ld, cp, nt8, warp,
+        [&](int o, int t, float v) { return t < t1 ? v + bias[o] : 0.f; });
+    __syncthreads();
+    conv_tc<K, false, kNtConv, kWarpsX>(  // h2
+        hb, ld, w3s, w3s + 16 * lw, lw, ha, ld, O, nt8, warp, same);
+    __syncthreads();
+    conv_tc<K, false, kNtConv, kWarpsX>(  // h3 -> dh3
+        ha, ld, w4s, w4s + 16 * lw, lw, hb, ld, O, nt8, warp,
+        [&](int o, int t, float v) { return t < t1 ? gz[o] * isd::gelu_grad(v) : 0.f; });
+    __syncthreads();
+    conv_tc<K, true, kNtConv, kWarpsX>(  // dh2 = conv4^T(dh3)
+        hb, ld, w4s, nullptr, lw, ha, ld, O, nt8, warp, same);
+    __syncthreads();
+    conv_tc<K, true, kNtConv, kWarpsX, K - 1>(  // dh1 = conv3^T(dh2), from column K - 1
+        ha, plan.ldx, w3s, nullptr, lw, hb, ld, O, nt8, warp, same);
+    __syncthreads();
+    input_grad_tc<O, K, kNtDx, kWarpsX>(dxw, z == z0, ha, plan.ldx, w12s, lw1, C, cp, W, plan.wp,
+                                        warp);
     __syncthreads();
   }
 }
@@ -517,23 +604,26 @@ cudaError_t launch_w(const float* g, const float* x, const float* w12, const flo
 
 template <int O, int K>
 cudaError_t launch_x(const float* g, const float* x, const float* w12, const float* b12,
-                     const float* w3, const float* w4, float* dxw, int M, int B, int C, int T,
-                     int Z, int W, int step, int N, cudaStream_t st) {
-  const size_t smem_bytes = sizeof(float) * bwd_plan(C, W, O, K).total;
-  cudaError_t err = cudaFuncSetAttribute(conv4head_bwd_x_kernel<O, K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     const float* w3, const float* w4, float* dxw, float* part, int M, int B,
+                     int C, int T, int Z, int W, int step, int N, int SZ, cudaStream_t st) {
+  const size_t smem_bytes = sizeof(float) * x_plan(C, W, O, K).total;
+  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
+  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_x_kernel<O, K, 64, 250>
+                                            : conv4head_bwd_x_kernel<O, K, 0, 0>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
-  conv4head_bwd_x_kernel<O, K><<<dim3(N, B, M), kThreads, smem_bytes, st>>>(
-      g, x, w12, b12, w3, w4, dxw, B, C, T, Z, N, W, step);
-  return cudaGetLastError();
+  kernel<<<dim3(N * SZ, B, M), kWarpsX * 32, smem_bytes, st>>>(
+      g, x, w12, b12, w3, w4, SZ > 1 ? part : dxw, B, C, T, Z, N, W, step, SZ);
+  if ((err = cudaGetLastError()) != cudaSuccess || SZ == 1) return err;
+  return sum_partials(part, dxw, M * B * N, SZ, C * W, st);
 }
 
 }  // namespace
 
 // Dynamic shared memory of one B2x block, in bytes.
-extern "C" int isd_conv4head_bwd_smem_bytes(int C, int W, int O, int K) {
-  return static_cast<int>(sizeof(float)) * bwd_plan(C, W, O, K).total;
+extern "C" int isd_conv4head_bwd_x_smem_bytes(int C, int W, int O, int K) {
+  return static_cast<int>(sizeof(float)) * x_plan(C, W, O, K).total;
 }
 
 // Dynamic shared memory of one B2w block, in bytes.
@@ -564,17 +654,22 @@ extern "C" int isd_conv4head_bwd_w(const float* g, const float* x, const float* 
 }
 
 // B2x. g, x and operands as B2w; output dxw (M, B, N, C, W), the
-// per-window input gradients (the caller overlap-adds the windows).
+// per-window input gradients (the caller overlap-adds the windows). SZ
+// zone ranges (1 <= SZ <= Z) per (model, trial, window); with SZ > 1 the
+// scratch part (M, B, N, SZ, C, W) holds the partials that a fixed-order
+// pass sums into dxw (null otherwise).
 extern "C" int isd_conv4head_bwd_x(const float* g, const float* x, const float* w12,
                                    const float* b12, const float* w3, const float* w4,
-                                   float* dxw, int M, int B, int C, int T, int Z, int O, int K1,
-                                   int K2, int W, int step, int N, void* stream) {
-  if (bad_geometry(M, B, C, T, Z, K1, K2, W, step, N)) {
+                                   float* dxw, float* part, int M, int B, int C, int T, int Z,
+                                   int O, int K1, int K2, int W, int step, int N, int SZ,
+                                   void* stream) {
+  if (bad_geometry(M, B, C, T, Z, K1, K2, W, step, N) || SZ < 1 || SZ > Z ||
+      (SZ > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (O == 32 && K1 == 5 && K2 == 5) {
-    return launch_x<32, 5>(g, x, w12, b12, w3, w4, dxw, M, B, C, T, Z, W, step, N, st);
+    return launch_x<32, 5>(g, x, w12, b12, w3, w4, dxw, part, M, B, C, T, Z, W, step, N, SZ, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

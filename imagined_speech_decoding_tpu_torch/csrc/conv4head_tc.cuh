@@ -1,12 +1,13 @@
 // Tensor-core pieces shared by the Conv4Layers head kernels B2f
-// (conv4head.cu) and B2w (conv4head_bwd.cu): row strides, staging by
+// (conv4head.cu), B2w and B2x (conv4head_bwd.cu): row strides, staging by
 // cp.async, and conv_tc, one conv of the head (or the input gradient of
 // a 'same' conv) as a 3xTF32 mma.sync GEMM with an implicit im2col.
 //
 // Layout in shared memory: the window x[c, 0:W] is stored from column 0
 // with zeros after it; an activation row from column K/2 with zero
 // columns around it, so a tap's shift never leaves the row and fragment
-// loads need no branch. t1 runs to nt8 columns (whole 8-column tiles);
+// loads need no branch (B2x writes dh1 from column K - 1 instead: its
+// input gradient reaches K - 1 columns left of it). t1 runs to nt8 columns (whole 8-column tiles);
 // every epilogue writes exact zeros in the columns t1..nt8-1. Row strides
 // are 4 mod 8, so the A fragments (rows g, columns q) fall in 32 distinct
 // banks; the B fragments of a conv (rows q, columns g) take two
@@ -72,22 +73,43 @@ __device__ inline void stage_rows_async(float* lo, float* hi, int ld, const floa
   }
 }
 
-// Zeros in the pad columns [0, K/2) and [K/2 + nt8, ld) of O activation
-// rows: the 'same' convs' zero padding. Thread i of a team of `threads`.
-template <int O, int K>
-__device__ inline void zero_pads(float* dst, int ld, int nt8, int i, int threads) {
-  const int tail = ld - K / 2 - nt8;
-  const int per_row = K / 2 + tail;
-  for (int e = i; e < O * per_row; e += threads) {
-    const int o = e / per_row, j = e - o * per_row;
-    dst[o * ld + (j < K / 2 ? j : nt8 + j)] = 0.f;
+// The zone's O rows of w12 (K taps of C channels each) to
+// dst[o * ld + k * cp + c], zeros for c in [C, cp), by 4-byte cp.async
+// (any C, any alignment).
+template <int O, int K, int kWarps>
+__device__ inline void stage_w12_async(float* dst, int ld, const float* __restrict__ w, int C,
+                                       int cp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int o = warp; o < O; o += kWarps) {
+    for (int j = lane; j < K * cp; j += 32) {
+      const int k = j / cp, c = j - k * cp;
+      if (c < C) {
+        cp_async4(dst + o * ld + j, w + static_cast<size_t>(o) * K * C + k * C + c);
+      } else {
+        dst[o * ld + j] = 0.f;
+      }
+    }
   }
 }
 
-// dst[o, K/2 + t] = epi(o, t, sum_r A[o, r] * src[c, t + shift]) for the
+// Zeros in the pad columns [0, kOff) and [kOff + nt8, ld) of O activation
+// rows stored from column kOff: the 'same' convs' zero padding. Thread i
+// of a team of `threads`.
+template <int O, int K, int kOff = K / 2>
+__device__ inline void zero_pads(float* dst, int ld, int nt8, int i, int threads) {
+  const int tail = ld - kOff - nt8;
+  const int per_row = kOff + tail;
+  for (int e = i; e < O * per_row; e += threads) {
+    const int o = e / per_row, j = e - o * per_row;
+    dst[o * ld + (j < kOff ? j : nt8 + j)] = 0.f;
+  }
+}
+
+// dst[o, kOff + t] = epi(o, t, sum_r A[o, r] * src[c, t + shift]) for the
 // nt8 columns t, r = k * Ch + c over K * Ch, and zeros in dst's pad
-// columns. src is the window (stored from column 0) or an activation
-// (from column K/2, so a 'same' conv's shift is the tap k too).
+// columns (dst is stored from column kOff: K/2, or K - 1 for B2x's dh1).
+// src is the window (stored from column 0) or an activation (from column
+// K/2, so a 'same' conv's shift is the tap k too).
 //  * kT false (a conv): A[o, k*Ch + c] = a_i[(o - 16 i) * lda + k*Ch + c] for
 //    the row halves i = 0, 1 (a1 may be anywhere), and shift = k.
 //  * kT true (the input gradient of a 'same' conv with weight w at a0,
@@ -96,12 +118,12 @@ __device__ inline void zero_pads(float* dst, int ld, int nt8, int i, int threads
 // A team of kTeam warps (tw its warp) covers both 16-row tiles of the
 // 8-column tiles tw, tw + kTeam, ... (NT at a time; a tile past the end is
 // computed as the last one and not stored).
-template <int K, bool kT, int NT, int kTeam, class Epi>
+template <int K, bool kT, int NT, int kTeam, int kOff = K / 2, class Epi>
 __device__ inline void conv_tc(float* dst, int ld, const float* a0, const float* a1, int lda,
                                const float* src, int lds, int Ch, int nt8, int tw, Epi epi) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int tiles = nt8 >> 3;
-  zero_pads<32, K>(dst, ld, nt8, tw * 32 + lane, kTeam * 32);
+  zero_pads<32, K, kOff>(dst, ld, nt8, tw * 32 + lane, kTeam * 32);
   for (int base = tw; base < tiles; base += kTeam * NT) {
     int col[NT];
 #pragma unroll
@@ -152,7 +174,7 @@ __device__ inline void conv_tc(float* dst, int ld, const float* a0, const float*
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = 16 * i + 8 * h + g;
-            *reinterpret_cast<float2*>(dst + row * ld + K / 2 + c) =
+            *reinterpret_cast<float2*>(dst + row * ld + kOff + c) =
                 make_float2(epi(row, c, acc[i][j][2 * h]), epi(row, c + 1, acc[i][j][2 * h + 1]));
           }
         }

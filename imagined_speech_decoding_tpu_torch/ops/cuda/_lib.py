@@ -39,8 +39,8 @@ _SIGNATURES = {
     "isd_conv4head_fwd": ([_P] * 6 + [_I] * 12 + [_P], _I),
     "isd_conv4head_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w": ([_P] * 14 + [_I] * 12 + [_P], _I),
-    "isd_conv4head_bwd_x": ([_P] * 7 + [_I] * 11 + [_P], _I),
-    "isd_conv4head_bwd_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_bwd_x": ([_P] * 8 + [_I] * 12 + [_P], _I),
+    "isd_conv4head_bwd_x_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_smem_bytes": ([_I] * 4, _I),
     "isd_cuda_error_string": ([_I], ctypes.c_char_p),
 }

@@ -7,9 +7,9 @@ Replaces ``imagined_speech_decoding_tpu/ops/pallas/conv4head.py``:
 custom VJP's ``_bwd_rule`` with ``_bwd_w_kernel`` (B2w) and
 ``_bwd_x_kernel`` (B2x), both in ``csrc/conv4head_bwd.cu``. Each source's
 header says what bounds it on the H100 and what the design does about it.
-B2f and B2w run on the tensor cores in 3xTF32 (f32 accuracy), sharing
-one conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32
-and K1 = K2 = 5. B2f takes any channel count C; B2w needs C to be a
+All three run on the tensor cores in 3xTF32 (f32 accuracy), sharing one
+conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32 and
+K1 = K2 = 5. B2f and B2x take any channel count C; B2w needs C to be a
 multiple of 8 and raises for any other C.
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
@@ -26,8 +26,9 @@ only (``g (M, B, N, Z*O)``), as the autograd Function passes it.
 
 Routing: a CPU tensor goes to ``fused_conv4_head_plain``, which autograd
 differentiates; that autograd backward is the plain version of B2w and
-B2x (``conv4head_bwd_plain``). A CUDA tensor launches the kernels or
-raises; there is no fallback between the two. On CUDA the forward is a
+B2x (``conv4head_bwd_plain``; B2x's alone, dx with the weights held out
+of the graph, is ``conv4head_bwd_x_plain``). A CUDA tensor launches the
+kernels or raises; there is no fallback between the two. On CUDA the forward is a
 ``torch.autograd.Function``: it saves only its operands, and its backward
 recomputes the forward inside B2w (when any weight operand needs a
 gradient) and B2x (only when ``x`` needs one; training never asks).
@@ -211,22 +212,65 @@ def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     return tuple(grads)
 
 
+# B2x's time for one unit (one trial, window and zone) on one SM at full
+# width: 47.6 us on an H100 80GB HBM3 at 700 W (1.522 ms for 4 waves of
+# 8-zone blocks at M = 1, B = 100; PERF.md). _bwd_x_zone_splits weighs it
+# against the bytes of the pass that a zone split adds.
+X_UNIT_S = 47.6e-6
+HBM_BYTES_S = 3.35e12
+
+
+def _bwd_x_zone_splits(m: int, b: int, n: int, z: int, c: int, w: int, sms: int) -> int:
+    """SZ, B2x's zone ranges per (model, trial, window). A block fills an
+    SM, so the kernel takes about its waves of blocks times a block's
+    zones; SZ > 1 adds a pass over SZ + 1 copies of dxw. The least
+    estimate wins, ties to fewer ranges."""
+    def seconds(sz):
+        waves = -(-m * b * n * sz // sms)
+        extra = (sz + 1) * m * b * n * c * w * 4 / HBM_BYTES_S if sz > 1 else 0.0
+        return waves * -(-z // sz) * X_UNIT_S + extra
+
+    return min(range(1, z + 1), key=lambda sz: (seconds(sz), sz))
+
+
+def conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len: int, step: int):
+    """Plain version of B2x alone: ``dx`` of ``<g, fused_conv4_head_plain(x, ...)>``
+    by autograd, with the weights held out of the graph."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = fused_conv4_head_plain(xg, *(t.detach() for t in (w12, b12, w3, w4)),
+                                     window_len, step)
+        return torch.autograd.grad(out, xg, g)[0]
+
+
 def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>``. The kernel writes
     per-window gradients; the overlapping windows are added here, in plain
     PyTorch, as the JAX package adds them in XLA."""
     if x.device.type == "cpu":
-        return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[0]
+        return conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len, step)
+    return _launch_bwd_x(g, x, w12, b12, w3, w4, window_len, step)
+
+
+def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
+    """B2x with ``sz`` zone ranges per (model, trial, window), or with
+    ``_bwd_x_zone_splits``'s when None."""
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
     _check_taps(k1, k2)
+    if sz is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        sz = _bwd_x_zone_splits(m, b, n, z, c, window_len, sms)
     lib = _lib.library()
-    _check_smem(lib.isd_conv4head_bwd_smem_bytes(c, window_len, o, k1), "backward")
+    _check_smem(lib.isd_conv4head_bwd_x_smem_bytes(c, window_len, o, k1), "B2x")
+    w3, w4 = _aligned16(w3), _aligned16(w4)
     dxw = torch.empty((m, b, n, c, window_len), dtype=torch.float32, device=x.device)
+    part = (torch.empty((m, b, n, sz, c, window_len), dtype=torch.float32, device=x.device)
+            if sz > 1 else None)
     with torch.cuda.device(x.device):
         code = lib.isd_conv4head_bwd_x(
             g.data_ptr(), x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(),
-            w4.data_ptr(), dxw.data_ptr(), m, b, c, t, z, o, k1, k2, window_len, step, n,
-            _lib.stream_of(x),
+            w4.data_ptr(), dxw.data_ptr(), None if part is None else part.data_ptr(),
+            m, b, c, t, z, o, k1, k2, window_len, step, n, sz, _lib.stream_of(x),
         )
     _lib.check(code, "isd_conv4head_bwd_x")
     conv4head_bwd_x.launches += 1

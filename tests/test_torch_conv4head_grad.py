@@ -18,6 +18,7 @@ from imagined_speech_decoding_tpu.ops.pallas.conv4head import fused_conv4_head a
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    _bwd_x_zone_splits,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
@@ -200,3 +201,30 @@ def test_b2w_refuses_channels_not_a_multiple_of_8(c):
     with pytest.raises(ValueError, match="multiple of 8"):
         conv4head_bwd_w(g, x, w12, b12, w3, w4, window, step)
     assert conv4head_bwd_w.launches == before
+
+
+@pytest.mark.parametrize("m,b,want", [
+    (1, 16, 8), (2, 8, 8), (1, 1, 8),  # 80 / 80 / 5 blocks of 8 zones leave SMs idle: split
+    (1, 64, 2),  # 320 blocks are 3 waves of 8 zones; 640 of 4 zones are 5 waves
+    (1, 100, 1), (75, 64, 1),  # whole waves already: no partial pass
+])
+def test_b2x_zone_splits_fill_the_card(m, b, want):
+    """B2x's zone ranges on a 132-SM H100 at full width (5 windows, 8
+    zones, C = 64, W = 250), as measured best on the card (PERF.md)."""
+    assert _bwd_x_zone_splits(m, b, 5, 8, 64, 250, 132) == want
+
+
+def test_b2x_raises_off_the_cpu_without_a_card():
+    """Off the CPU, B2x launches or raises: it never falls back to the
+    plain version. Meta tensors take the kernel's route without a card."""
+    m, b, c, t, z, o, k, window, step = 1, 2, 10, 200, 4, 32, 5, 100, 50
+    n = (t - window) // step + 1
+    meta = dict(device="meta", dtype=torch.float32)
+    x = torch.empty((m, b, c, t), **meta)
+    w12, b12 = torch.empty((m, z * o, k * c), **meta), torch.empty((m, z * o, 1), **meta)
+    w3 = w4 = torch.empty((m, z, o, k * o), **meta)
+    g = torch.empty((m, b, n, z * o), **meta)
+    before = conv4head_bwd_x.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv4head_bwd_x(g, x, w12, b12, w3, w4, window, step)
+    assert conv4head_bwd_x.launches == before

@@ -16,11 +16,14 @@ import scipy.signal as sps
 import torch
 
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
+from imagined_speech_decoding_tpu_torch.explain.attribution import attribution_for_predictions
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    _launch_bwd_x,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
+    conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
 )
@@ -244,11 +247,59 @@ def test_head_kernel_is_deterministic(dev):
     assert torch.equal(fused_conv4_head(x, *ops, *geo), fused_conv4_head(x, *ops, *geo))
 
 
+@pytest.mark.parametrize("m,b,geometry", [
+    (1, 4, dict(seq_len=230, window_len=120, slide_step=37)),  # t1 = 116, not a multiple of 8
+    (1, 1, {}),  # one trial: 5 windows, the zones split over blocks
+    (1, 100, {}),  # global_explain's 100 trials
+    (3, 5, {}),  # M = 3
+])
+def test_b2x_edges_match_plain(dev, m, b, geometry):
+    """B2x at full width (C = 64) at its edges, against the plain dx alone."""
+    cfg, _, ops, x, g = _full_width_operands(dev, m, b, 13 * m + b, **geometry)
+    geo = (cfg.window_len, cfg.slide_step)
+    before = conv4head_bwd_x.launches
+    dx = conv4head_bwd_x(g, x, *ops, *geo)
+    torch.cuda.synchronize()
+    assert conv4head_bwd_x.launches == before + 1
+    ref = conv4head_bwd_x_plain(g, x, *ops, *geo)
+    assert dx.shape == ref.shape
+    _assert_grad_close(dx, ref, "dx")
+
+
+@pytest.mark.parametrize("sz", [1, 2, 3, 8])
+def test_b2x_splits_match_plain(dev, sz):
+    """Every split of the zones into SZ ranges (partials summed by a second
+    pass when SZ > 1) gives the plain dx; the wrapper picks one."""
+    cfg, _, ops, x, g = _full_width_operands(dev, 2, 5, 17)
+    geo = (cfg.window_len, cfg.slide_step)
+    dx = _launch_bwd_x(g, x, *ops, *geo, sz)
+    _assert_grad_close(dx, conv4head_bwd_x_plain(g, x, *ops, *geo), "dx")
+
+
+def test_b2x_small_channels_match_plain(dev):
+    """C = 10 channels (not a multiple of 8) and 4 zones, at O = 32."""
+    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
+                     num_layers=1, num_heads=4)
+    model = FAST(cfg, n_models=2, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, 5, 2)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.normal(size=(2, 3, 10, 800)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.normal(size=(2, 3, cfg.n_tokens, 4 * 32)).astype(np.float32),
+                     device=dev)
+    geo = (cfg.window_len, cfg.slide_step)
+    _assert_grad_close(conv4head_bwd_x(g, x, *ops, *geo),
+                       conv4head_bwd_x_plain(g, x, *ops, *geo), "dx")
+
+
 def test_backward_kernel_is_deterministic(dev):
     cfg, _, ops, x, g = _full_width_operands(dev, 2, 8, 0)
     geo = (cfg.window_len, cfg.slide_step)
     for a, b in zip(conv4head_bwd_w(g, x, *ops, *geo), conv4head_bwd_w(g, x, *ops, *geo)):
         assert torch.equal(a, b)
+    assert torch.equal(conv4head_bwd_x(g, x, *ops, *geo), conv4head_bwd_x(g, x, *ops, *geo))
+    assert torch.equal(_launch_bwd_x(g, x, *ops, *geo, 8), _launch_bwd_x(g, x, *ops, *geo, 8))
 
 
 def test_autograd_function_through_the_model(dev):
@@ -284,6 +335,31 @@ def test_input_gradient_launches_b2x(dev):
     cpu.load_state_dict({k: v.cpu() for k, v in single.state_dict().items()})
     cpu.eval()(xc).sum().backward()
     _assert_grad_close(xg.grad.cpu(), xc.grad, "dx")
+
+
+def test_attribution_for_predictions_runs_b2x(dev):
+    """Expected gradients on the card launch B2x once a sample and never
+    B2w, and match the CPU path on the same draws."""
+    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
+                     num_layers=1, num_heads=4)
+    params = init_jax_layout_params(cfg, 8)
+    models = {d: FAST(cfg, device=d) for d in (dev, torch.device("cpu"))}
+    for mdl in models.values():
+        mdl.load_state_dict(from_jax_params(params))
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(6, 10, 800)).astype(np.float32)
+    bg = rng.normal(size=(12, 10, 800)).astype(np.float32)
+    before = (conv4head_bwd_w.launches, conv4head_bwd_x.launches)
+    attr, preds = attribution_for_predictions(
+        models[dev], torch.tensor(x, device=dev), torch.tensor(bg, device=dev),
+        torch.Generator().manual_seed(0), n_samples=4)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_w.launches, conv4head_bwd_x.launches) == (before[0], before[1] + 4)
+    ref, ref_preds = attribution_for_predictions(
+        models[torch.device("cpu")], torch.from_numpy(x), torch.from_numpy(bg),
+        torch.Generator().manual_seed(0), n_samples=4)
+    assert torch.equal(preds.cpu(), ref_preds)
+    _assert_grad_close(attr.cpu(), ref, "expected gradients")
 
 
 def test_head_kernel_rejects_cpu_operands_on_cuda_input(dev):
