@@ -6,10 +6,11 @@ paths on one NVIDIA GPU.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
-   build time and, for the tensor-core kernels B2f, B2w and B2x, their
-   registers and spills (``-Xptxas -v``), shared memory per block and the
-   count of HMMA instructions in their SASS (``cuobjdump``, where the
-   toolkit has it; a count of 0 fails the run).
+   build time and, for the tensor-core kernels B2f, B2w and B2x and the
+   bf16 instantiations B2f-bf16 and B2w-bf16, their registers and spills
+   (``-Xptxas -v``), shared memory per block and the count of HMMA
+   instructions in their SASS (``cuobjdump``, where the toolkit has it; a
+   count of 0 fails the run).
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
    CUDA events (B1 also by the profiler's device time), beside the kernel's bound (the least time for its work:
@@ -37,6 +38,14 @@ paths on one NVIDIA GPU.
         version on those models' operands, at the same tolerances; B2f,
         B2w and B2x are timed alone at M = 75, B = 64, with their rates and
         their shares of the bound and of the ``mma.sync`` TF32 floor.
+     B2f-bf16 / B2w-bf16 (the training path's default precision: bf16 x,
+        f32 weights, f32 outputs) at (M, B) = (2, 8), (1, 64) and the
+        training run's M = 75 at 64, 24 and 35 (models 0, 37, 74), against
+        the plain bf16 versions: |err| <= 3e-4 (features) and 1e-3 (weight
+        gradients) x max|ref| per tensor (tests/test_torch_cuda.py says
+        why); timed by CUDA events, with their bound (x at 2 bytes a
+        sample; one bf16 tensor-core pass at 989 TFLOP/s) and their share
+        of the ``mma.sync`` bf16 floor.
 4. Serving path: full-width FAST weights from a numpy seed are written
    as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
    ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
@@ -46,13 +55,17 @@ paths on one NVIDIA GPU.
    chain launch, and B2f must have launched. In process: device busy
    time and ``cudaLaunchKernel`` calls per decode (profiler).
 5. Training path: the port's ``cli.train_fast`` on a 15-subject x 350-trial
-   synthetic corpus, 75 stacked full-width models, 2 epochs, f32. B2f and
-   B2w must have launched and B2x not; the history must be finite, the
-   result tree complete, and one subject's ``best_subject.npz`` must
-   reproduce its ``test_predictions.csv`` on the card, with logits that
-   match the plain CPU forward (rtol 1e-4, atol 1e-5). Then one step at M = 75,
-   B = 64 under the profiler, and a 2-subject x 10-trial run on the card
-   against the same run on the CPU (plain path).
+   synthetic corpus, 75 stacked full-width models, 2 epochs, at its
+   default precision (bf16: B2f-bf16 and B2w-bf16 must have launched, and
+   no f32 head kernel) and with ``--precision f32`` (B2f and B2w, no
+   bf16 one); B2x never. The history must be finite, the result tree
+   complete, and one subject's ``best_subject.npz`` must reproduce its
+   ``test_predictions.csv`` on the card, with logits that match the plain
+   CPU forward (f32: rtol 1e-4, atol 1e-5; bf16: 3e-3 in relative L2).
+   Then one step at M = 75, B = 64 in each precision under the profiler
+   (the bf16 one must run B2f-bf16 and B2w-bf16 and no f32 head kernel),
+   and a 2-subject x 10-trial run on the card against the same run on the
+   CPU (plain path), in each precision.
 6. Attribution path, on a trained checkpoint, every input gradient
    through B2x (and none through B2w): integrated gradients (8 trials x
    16 steps) against the plain CPU path; expected gradients at the
@@ -162,6 +175,13 @@ HBM_BYTES_S = 3.35e12
 # The rate of mma.sync m16n8k8 TF32 on an H100 80GB HBM3 at 700 W, measured by
 # mma_tf32_ceiling.py: the floor of B2f's and B2w's route (three passes per product).
 MMA_SYNC_TF32_FLOPS = 323.2e12
+BF16_FLOPS = 989e12  # tensor cores, bf16 dense
+# The rate of mma.sync m16n8k16 bf16 on an H100 80GB HBM3 at 700 W, measured by
+# mma_tf32_ceiling.py --mode bf16: the floor of B2f-bf16's and B2w-bf16's route (one pass).
+MMA_SYNC_BF16_FLOPS = 642.3e12
+BF16_FWD_REL, BF16_BWD_REL = 3e-4, 1e-3  # atol = REL * max|ref| per tensor (bf16 kernels)
+BF16_LOGITS_L2 = 3e-3  # bf16 logits and gradients, card vs CPU, relative L2
+BF16_SHAPES = ((2, 8), (1, 64))  # (M, B) of the bf16 kernel comparisons; JSON line: the last
 IIR_FMA_PER_SECTION = 5  # per sample: csrc/iir.cu's transposed direct form II
 
 
@@ -201,6 +221,16 @@ def head_bound(fma_per_unit: int, m: int, b: int, n_out_floats: int, reads_g: bo
     return bound_ms(4 * (n_in + n_out_floats), 3 * 2 * fma_per_unit * m * b * 5 * 8, TF32_FLOPS)
 
 
+def head_bound_bf16(fma_per_unit: int, m: int, b: int, n_out_floats: int,
+                    reads_g: bool = True):
+    """``head_bound`` for a bf16 kernel: x at 2 bytes a sample, the f32
+    weights, cotangent and outputs at 4; its products as one bf16
+    tensor-core pass at the bf16 peak."""
+    nbytes = 2 * m * b * 64 * 800 + 4 * (m * HEAD_WEIGHT_FLOATS + reads_g * m * b * 5 * 256
+                                         + n_out_floats)
+    return bound_ms(nbytes, 2 * fma_per_unit * m * b * 5 * 8, BF16_FLOPS)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean milliseconds per call between CUDA events on the current stream."""
     for _ in range(warmup):
@@ -223,12 +253,31 @@ def device_ms(fn, kernel: str, iters: int) -> float:
     includes."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if re.search(kernel, e.key)) / 1e3 / iters
+
+    total = sum(e.self_device_time_total for e in profiled(calls) if re.search(kernel, e.key))
+    if total <= 0:
+        raise RuntimeError(f"the profiler recorded no {kernel!r} kernel")
+    return total / 1e3 / iters
+
+
+def profiled(fn, cpu: bool = False):
+    """``fn()`` under the profiler (the device's activity, and the host's if
+    ``cpu``): its ``key_averages()``. The profiler now and then returns a
+    session without any device record (seen once on the H100, after a run
+    of sessions), so such a session is profiled again, up to three times."""
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(3):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.self_device_time_total > 0 for e in events):
+            return events
+    raise RuntimeError("the profiler recorded no device time in three sessions")
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
@@ -432,12 +481,9 @@ def phase_device_time(cfg, params, dev, rng):
             host.append(1e3 * (time.perf_counter() - t0))
             end.synchronize()
             span.append(start.elapsed_time(end))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                decode(x)
         # Kernels and copies are events of their own; an op's device time
         # repeats its kernels', so only the device-side events are summed.
-        events = prof.key_averages()
+        events = profiled(lambda: [decode(x) for _ in range(5)], cpu=True)
         by_device = sorted(((e.self_device_time_total / 5e3, e.count // 5, e.key)
                             for e in events if e.device_type != DeviceType.CPU), reverse=True)
         by_host = sorted(((e.self_cpu_time_total / 5e3, e.count // 5, e.key)
@@ -571,10 +617,105 @@ def phase_head_backward(cfg, dev, rng):
     return rows, big
 
 
+def check_rel(name: str, got: torch.Tensor, ref: torch.Tensor, rel: float) -> float:
+    """``check_close`` at atol ``rel * max|ref|``, rtol 0."""
+    return check_close(name, got, ref, 0.0, rel * float(ref.abs().max()))
+
+
+def compare_bf16(ops, x, g, geo, models, what: str) -> dict:
+    """B2f-bf16 and B2w-bf16 once each on the stacked operands, their
+    outputs for ``models`` held against the plain bf16 versions on those
+    models' operands; the largest error per output."""
+    with torch.no_grad():
+        out = fused_conv4_head(x, *ops, *geo)
+    dw = conv4head_bwd_w(g, x, *ops, *geo)
+    errs = dict.fromkeys(("out", "dw12", "db12", "dw3", "dw4"), 0.0)
+    for i in models:
+        one = [t[i : i + 1] for t in (g, x, *ops)]
+        errs["out"] = max(errs["out"], check_rel(
+            f"B2f-bf16 {what} model {i}", out[i : i + 1],
+            fused_conv4_head_plain(*one[1:], *geo), BF16_FWD_REL))
+        for name, a, r in zip(("dw12", "db12", "dw3", "dw4"), dw,
+                              conv4head_bwd_plain(*one, *geo)[1:]):
+            errs[name] = max(errs[name], check_rel(f"B2w-bf16 {what} model {i} {name}",
+                                                   a[i : i + 1], r, BF16_BWD_REL))
+    return errs
+
+
+def phase_bf16_kernels(cfg, dev, rng):
+    """B2f-bf16 and B2w-bf16 against their plain bf16 versions at full
+    width, timed; then at the training run's M = 75 and its batch sizes,
+    and alone at M = 75, B = 64."""
+    geo = (cfg.window_len, cfg.slide_step)
+    feat = cfg.n_zones * cfg.dim_cnn
+    rows = {}
+    for m, b in BF16_SHAPES:
+        model = FAST(cfg, n_models=m, device=dev)
+        model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+        with torch.no_grad():
+            ops = model.head.fused_weights()
+        x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32),
+                         device=dev).to(torch.bfloat16)
+        g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, feat)).astype(np.float32),
+                         device=dev)
+        errs = compare_bf16(ops, x, g, geo, range(m), f"M={m} B={b}")
+        r = rows[(m, b)] = {
+            "fwd_err": errs["out"], "w_err": max(errs[k] for k in ("dw12", "db12", "dw3", "dw4")),
+            "fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 20),
+            "fwd_plain_ms": cuda_ms(lambda: fused_conv4_head_plain(x, *ops, *geo), 3),
+            "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 10),
+            "w_plain_ms": cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 3),
+            "fwd_bound": head_bound_bf16(HEAD_FMA_FWD, m, b, m * b * 5 * 256, reads_g=False),
+            "w_bound": head_bound_bf16(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS),
+        }
+        for k, name in (("fwd", "B2f-bf16 forward"), ("w", "B2w-bf16 weight grads")):
+            bound, by = r[f"{k}_bound"]
+            print(f"{name} M={m} B={b:<3}: kernel {r[f'{k}_ms']:.4f} ms, plain bf16 "
+                  f"{r[f'{k}_plain_ms']:.3f} ms, max|err| {r[f'{k}_err']:.3g}, bound {bound:.4f} ms "
+                  f"({by}, {bound / r[f'{k}_ms']:.1%} reached)", flush=True)
+        print(f"    per tensor max|err| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}",
+              flush=True)
+
+    m = TRAIN_SUBJECTS * 5
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for b in TRAIN_STEP_BATCHES:
+        x = torch.randn((m, b, 64, 800), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn((m, b, cfg.n_tokens, feat), generator=gen, device=dev)
+        errs = compare_bf16(ops, x, g, geo, (0, m // 2, m - 1), f"M={m} B={b}")
+        print(f"B2f-bf16 / B2w-bf16 at M={m} B={b:<3}: models 0, {m // 2} and {m - 1} of the full "
+              f"launches match the plain bf16 version on their operands; max|err| "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}", flush=True)
+    x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((m, TRAIN_BATCH, cfg.n_tokens, feat), generator=gen, device=dev)
+    big = {"fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 5),
+           "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 5)}
+    units = m * TRAIN_BATCH * cfg.n_tokens * cfg.n_zones
+    for k, fma, bound, name in (
+            ("fwd", HEAD_FMA_FWD, head_bound_bf16(HEAD_FMA_FWD, m, TRAIN_BATCH,
+                                                  m * TRAIN_BATCH * 5 * 256, reads_g=False),
+             "B2f-bf16"),
+            ("w", HEAD_FMA_BWD_W, head_bound_bf16(HEAD_FMA_BWD_W, m, TRAIN_BATCH,
+                                                  m * HEAD_WEIGHT_FLOATS), "B2w-bf16")):
+        ms = big[f"{k}_ms"]
+        floor = 1e3 * 2 * units * fma / MMA_SYNC_BF16_FLOPS
+        big[f"{k}_bound"], big[f"{k}_floor"] = bound, floor
+        print(f"{name} alone at M={m} B={TRAIN_BATCH} (kernel only): {ms:.2f} ms "
+              f"({units * fma / ms / 1e9:.2f} T FMA/s; bound {bound[0]:.2f} ms, {bound[1]}, "
+              f"{bound[0] / ms:.1%} reached; mma.sync bf16 floor {floor:.2f} ms, "
+              f"{floor / ms:.1%} reached)", flush=True)
+    return rows, big
+
+
 TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes function)
     ("B2f", "conv4head_fwd_kernel", "isd_conv4head_smem_bytes"),
     ("B2w", "conv4head_bwd_w_kernel", "isd_conv4head_bwd_w_smem_bytes"),
     ("B2x", "conv4head_bwd_x_kernel", "isd_conv4head_bwd_x_smem_bytes"),
+    ("B2f-bf16", "conv4head_fwd_bf16_kernel", "isd_conv4head_bf16_smem_bytes"),
+    ("B2w-bf16", "conv4head_bwd_w_bf16_kernel", "isd_conv4head_bwd_w_bf16_smem_bytes"),
 )
 
 
@@ -632,6 +773,7 @@ def reset_launches() -> None:
     for fn in (sosfiltfilt_chain, sosfilt_time_major, fused_conv4_head, conv4head_bwd_w,
                conv4head_bwd_x):
         fn.launches = 0
+    fused_conv4_head.launches_bf16 = conv4head_bwd_w.launches_bf16 = 0
 
 
 def read_launches() -> dict:
@@ -639,23 +781,34 @@ def read_launches() -> dict:
     return {"iir_chain": sosfiltfilt_chain.launches, "iir": sosfilt_time_major.launches,
             "conv4head_fwd": fused_conv4_head.launches,
             "conv4head_bwd_w": conv4head_bwd_w.launches,
-            "conv4head_bwd_x": conv4head_bwd_x.launches}
+            "conv4head_bwd_x": conv4head_bwd_x.launches,
+            "conv4head_fwd_bf16": fused_conv4_head.launches_bf16,
+            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16}
 
 
-def phase_training(cfg, dev, workdir):
-    """The training CLI on the full synthetic corpus: 75 stacked models."""
-    out = os.path.join(workdir, "train")
+HEAD_KERNELS = {"f32": ("conv4head_fwd", "conv4head_bwd_w"),
+                "bf16": ("conv4head_fwd_bf16", "conv4head_bwd_w_bf16")}  # launch-count keys
+
+
+def phase_training(cfg, dev, workdir, precision: str):
+    """The training CLI on the full synthetic corpus: 75 stacked models, at
+    the CLI's default precision (bf16: no ``--precision``) or f32."""
+    out = os.path.join(workdir, f"train_{precision}")
     argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
-            "--epochs", str(TRAIN_EPOCHS), "--precision", "f32", "--output_dir", out]
-    print(f"training path: cli.train_fast {' '.join(argv[:-1])} <tmp>", flush=True)
+            "--epochs", str(TRAIN_EPOCHS)]
+    argv += [] if precision == "bf16" else ["--precision", precision]
+    argv += ["--output_dir", out]
+    print(f"training path ({precision}): cli.train_fast {' '.join(argv[:-1])} <tmp>", flush=True)
     reset_launches()
     result = train_fast.main(argv)
     launches = read_launches()
-    print(f"training path: kernel launches during the run {launches}", flush=True)
-    if launches["conv4head_fwd"] < 1 or launches["conv4head_bwd_w"] < 1:
-        raise RuntimeError("the training path never launched B2f or B2w")
-    if launches["conv4head_bwd_x"] != 0:
-        raise RuntimeError("the training path launched B2x: no input gradient is needed")
+    print(f"training path ({precision}): kernel launches during the run {launches}", flush=True)
+    other = "f32" if precision == "bf16" else "bf16"
+    if any(launches[k] < 1 for k in HEAD_KERNELS[precision]):
+        raise RuntimeError(f"the {precision} training path never launched {HEAD_KERNELS[precision]}")
+    if any(launches[k] for k in HEAD_KERNELS[other]) or launches["conv4head_bwd_x"]:
+        raise RuntimeError(f"the {precision} training path launched a head kernel of the other "
+                           f"precision or B2x: {launches}")
     for k, v in result.fit.history.items():
         if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
             raise RuntimeError(f"history {k}: shape {v.shape}, finite {np.isfinite(v).all()}")
@@ -671,31 +824,42 @@ def phase_training(cfg, dev, workdir):
         raise RuntimeError(f"result tree incomplete: {missing[:5]}")
 
     # One subject's best checkpoint, loaded as the serving layout (M = 1),
-    # reproduces its test predictions (unfiltered: the training data is).
+    # reproduces its test predictions (unfiltered: the training data is),
+    # in the run's precision.
+    dtype = TrainConfig(precision=precision).compute_dtype
     si = TRAIN_SUBJECTS - 1
     ckpt = os.path.join(out, f"sub-{subjects[si]}", "best_subject.npz")
     params, _, _ = load_model_npz(ckpt, init_jax_layout_params(cfg, SEED), {"head": {}})
     model = FAST(cfg, device=dev)
     model.load_state_dict(from_jax_params(params))
     subject = synthetic_trials(1000 * si, TRAIN_TRIALS, 64, 800)
-    x_test = subject[0][: TRAIN_TRIALS // 3]
-    y_pred = engine.predict(model, torch.tensor(x_test, device=dev), TRAIN_BATCH)
+    x_test = torch.tensor(subject[0][: TRAIN_TRIALS // 3]).to(dtype)
+    y_pred = engine.predict(model, x_test.to(dev), TRAIN_BATCH)
     saved, _ = load_predictions_csv(os.path.join(out, f"sub-{subjects[si]}", "test_predictions.csv"))
     if not np.array_equal(y_pred, saved):
         raise RuntimeError("the best checkpoint does not reproduce test_predictions.csv")
     cpu = FAST(cfg)
     cpu.load_state_dict(from_jax_params(params))
     with torch.no_grad():
-        logits = model.eval()(torch.tensor(x_test, device=dev)).cpu()
-        logit_err = check_close("best checkpoint logits, card vs CPU", logits,
-                                cpu.eval()(torch.from_numpy(x_test)), POST_RTOL, POST_ATOL)
+        logits = model.eval()(x_test.to(dev)).cpu().float()
+        ref = cpu.eval()(x_test).float()
+    if precision == "f32":
+        logit_err = check_close("best checkpoint logits, card vs CPU", logits, ref, POST_RTOL,
+                                POST_ATOL)
+        how = f"max|err| {logit_err:.3g}"
+    else:
+        logit_err = float((logits - ref).norm() / ref.norm())
+        if not logit_err <= BF16_LOGITS_L2:
+            raise RuntimeError(f"bf16 checkpoint logits, card vs CPU: relative L2 {logit_err:.3g} "
+                               f"> {BF16_LOGITS_L2}")
+        how = f"relative L2 {logit_err:.3g} (max|err| {float((logits - ref).abs().max()):.3g})"
 
     t = result.timings
     m, n_train = TRAIN_SUBJECTS * 5, TRAIN_TRIALS * 4 // 5
-    print(f"training path: all {len(expected)} result files written; sub-{subjects[si]}'s "
-          f"best_subject.npz reproduces its {len(saved)} test predictions; its logits match "
-          f"the plain CPU forward, max|err| {logit_err:.3g}", flush=True)
-    print(f"training path, host clock: corpus generation {t['data_s']:.2f} s, fit "
+    print(f"training path ({precision}): all {len(expected)} result files written; "
+          f"sub-{subjects[si]}'s best_subject.npz reproduces its {len(saved)} test predictions; "
+          f"its logits match the plain CPU forward, {how}", flush=True)
+    print(f"training path ({precision}), host clock: corpus generation {t['data_s']:.2f} s, fit "
           f"{t['fit_s']:.2f} s, artifacts + test eval {t['artifacts_s']:.2f} s", flush=True)
     for ep, (tr, va) in enumerate(zip(t["train_s"], t["val_s"])):
         print(f"  epoch {ep}: train pass {tr:.3f} s ({t['steps_per_epoch']} steps, "
@@ -708,16 +872,18 @@ def phase_training(cfg, dev, workdir):
     return launches, t, (ckpt, subject)
 
 
-def phase_train_step_profile(cfg, dev):
-    """One training step of the 75-model stack at batch 64: CUDA-event
-    span, profiler device time by kernel, device idle share."""
+def phase_train_step_profile(cfg, dev, dtype):
+    """One training step of the 75-model stack at batch 64 on a ``dtype``
+    batch: CUDA-event span, profiler device time by kernel, device idle
+    share. A bf16 step must run B2f-bf16 and B2w-bf16 and no f32 head
+    kernel."""
     m = TRAIN_SUBJECTS * 5
     model = FAST(cfg, n_models=m, device=dev)
     model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
     model.train()
     opt = engine.make_optimizer(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev)
+    x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev).to(dtype)
     y = torch.randint(0, cfg.n_classes, (m, TRAIN_BATCH), generator=gen, device=dev)
 
     def step():
@@ -725,19 +891,23 @@ def phase_train_step_profile(cfg, dev):
 
     step()
     span = cuda_ms(step, 3, warmup=0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
     by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                        for e in prof.key_averages() if e.device_type != DeviceType.CPU),
+                        for e in profiled(step, cpu=True) if e.device_type != DeviceType.CPU),
                        reverse=True)
     busy = sum(ms for ms, _, _ in by_device)
-    print(f"train step M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler device "
-          f"time {busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies "
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"train step {name} M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler "
+          f"device time {busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies "
           f"(device idle {max(0.0, 1 - busy / span):.1%} of the span)", flush=True)
     for ms, calls, key in by_device[:10]:
         print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
               flush=True)
+    ran = {k: any(re.search(k, key) for _, _, key in by_device)
+           for k in ("conv4head_fwd_bf16_kernel", "conv4head_bwd_w_bf16_kernel",
+                     "conv4head_fwd_kernel", "conv4head_bwd_w_kernel")}
+    want = {k: ("bf16" in k) == (name == "bf16") for k in ran}
+    if ran != want:
+        raise RuntimeError(f"the {name} training step ran head kernels {ran}, expected {want}")
     return {"step_ms": span, "busy_ms": busy}
 
 
@@ -808,6 +978,75 @@ def phase_trajectory(cfg, dev):
           f"while the parameters moved up to {moved:.3g}", flush=True)
 
 
+BF16_TRAJ_LOSS_RTOL = 1e-2  # bf16 card vs CPU: train and validation losses
+BF16_TRAJ_GRAD_L2 = 1e-2  # bf16 card vs CPU: the last step's gradients, all parameters, relative L2
+BF16_TRAJ_WEIGHT_DECAY = 0.01  # AdamW's decay in that run (make_fit's default)
+
+
+def phase_trajectory_bf16(cfg, dev):
+    """``phase_trajectory``'s run in bf16, the corpus held in bf16 as
+    ``train.cv`` holds it: the card (B2f-bf16, B2w-bf16, the cuBLAS bf16
+    trunk) against the CPU (the plain bf16 head, the same trunk). bf16
+    rounds every activation, and an element whose f32 sum lies near a
+    rounding boundary rounds one ulp apart on the two devices, so the
+    losses are held at rtol 1e-2 and the last step's gradients (all
+    parameters together) at 1e-2 in relative L2. Far more elements than
+    in f32 have gradients at the rounding-noise level (the key part of the
+    attention in-projection bias, whose exact gradient is 0, always), and
+    Adam moves each by up to lr a step whatever its size, in its own
+    direction on each device. So every parameter is held to two such
+    walks apart: 2 x the summed lr x (1.01 + weight decay x max|p|), the
+    bias-corrected m / sqrt(v) of the run's first two steps being at most
+    1.0014 (Cauchy-Schwarz over Adam's weights) and the decay pulling
+    each walk by at most lr x wd x |p| more. Accuracies (2 validation
+    trials a model: steps of 0.5) and best epochs follow from the losses
+    and are printed, not held."""
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
+    tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
+    m = tidx.shape[0]
+    p0 = from_jax_params(stacked_init(cfg0, 42, m))
+    runs, models = {}, {}
+    for device, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = models[device] = FAST(cfg0, n_models=m, device=d)
+        model.load_state_dict(p0)
+        fit = engine.make_fit(model, cfg.n_classes, epochs=2, batch_size=8, n_train=8, n_val=2,
+                              learning_rate=1e-3, warmup_epochs=0,
+                              weight_decay=BF16_TRAJ_WEIGHT_DECAY)
+        reset_launches()
+        runs[device] = fit(tidx, vidx,
+                           torch.as_tensor(x.reshape(-1, 64, 800), dtype=torch.bfloat16, device=d),
+                           torch.as_tensor(y.reshape(-1).astype(np.int64), device=d), seed=43)
+        launches = read_launches()
+        if device == "card" and (launches["conv4head_fwd_bf16"] < 1
+                                 or launches["conv4head_bwd_w_bf16"] < 1):
+            raise RuntimeError(f"the bf16 trajectory run did not launch the bf16 kernels: {launches}")
+    gpu, cpu = runs["card"], runs["cpu"]
+    loss_err = max(float(np.abs(gpu.history[k] / cpu.history[k] - 1).max())
+                   for k in ("loss", "val_loss"))
+    g_card = torch.cat([p.grad.detach().cpu().flatten() for p in models["card"].parameters()])
+    g_cpu = torch.cat([p.grad.detach().flatten() for p in models["cpu"].parameters()])
+    grad_err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    p_max = max(float(v.abs().max()) for v in p0.values())
+    budget = 2 * float(np.sum(fit.lr_table)) * (1.01 + BF16_TRAJ_WEIGHT_DECAY * p_max)
+    diffs = {f"{which}.{k}": float((getattr(gpu, which)[k].cpu() - getattr(cpu, which)[k])
+                                   .abs().max())
+             for which in ("params", "best_params") for k in gpu.params}
+    worst = max(diffs, key=diffs.get)
+    acc_diff = max(float(np.nanmax(np.abs(gpu.history[k] - cpu.history[k])))
+                   for k in ("acc", "val_acc"))
+    print(f"trajectory bf16: card against CPU over 2 epochs: losses within {loss_err:.3g} "
+          f"relative (rtol {BF16_TRAJ_LOSS_RTOL}), last-step gradients {grad_err:.3g} in relative "
+          f"L2 (<= {BF16_TRAJ_GRAD_L2}), parameters max|card - CPU| {diffs[worst]:.3g} at "
+          f"{worst} (<= two Adam walks, {budget:.4g}); accuracies differ by up to "
+          f"{acc_diff:.3g}, best epochs "
+          f"{'equal' if np.array_equal(gpu.best_epoch, cpu.best_epoch) else 'differ'}",
+          flush=True)
+    if not (loss_err <= BF16_TRAJ_LOSS_RTOL and grad_err <= BF16_TRAJ_GRAD_L2
+            and diffs[worst] <= budget):
+        raise RuntimeError("trajectory bf16: the card and the CPU disagree beyond the bounds above")
+
+
 def phase_explain(cfg, dev, ckpt, subject):
     """Attributions of a trained checkpoint on its subject's trials
     ``subject = (x, y)``; every input gradient runs through B2x. Against
@@ -853,10 +1092,7 @@ def phase_explain(cfg, dev, ckpt, subject):
     attr = eg()
     torch.cuda.synchronize()
     eg_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eg()
-        torch.cuda.synchronize()
-    by_device = [(e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
+    by_device = [(e.self_device_time_total / 1e3, e.key) for e in profiled(eg, cpu=True)
                  if e.device_type != DeviceType.CPU]
     busy = sum(ms for ms, _ in by_device)
     b2x = sum(ms for ms, key in by_device if re.search(B2X_KERNELS, key))
@@ -912,6 +1148,8 @@ def main() -> None:
           f"{sys.version.split()[0]}, device {kind}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs reduce in f32, as the JAX trunk's (train.cv sets it too).
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
 
     info = _lib.build_info()
@@ -930,17 +1168,21 @@ def main() -> None:
         iir = phase_iir(dev, rng)
         head = phase_head(model, dev, rng)
     bwd, _ = phase_head_backward(cfg, dev, rng)
+    bf16, _ = phase_bf16_kernels(cfg, dev, rng)
     with tempfile.TemporaryDirectory() as workdir:
         serving = phase_serving(cfg, params1, params2, rng, workdir)
         phase_device_time(cfg, params1, dev, rng)
-        training, _, (ckpt, subject) = phase_training(cfg, dev, workdir)
+        training, _, (ckpt, subject) = phase_training(cfg, dev, workdir, "f32")
+        training_bf16, _, _ = phase_training(cfg, dev, workdir, "bf16")
         explain = phase_explain(cfg, dev, ckpt, subject)
-    phase_train_step_profile(cfg, dev)
+    phase_train_step_profile(cfg, dev, torch.float32)
+    phase_train_step_profile(cfg, dev, torch.bfloat16)
     phase_trajectory(cfg, dev)
+    phase_trajectory_bf16(cfg, dev)
 
     src = "imagined_speech_decoding_tpu_torch/csrc/"
     pallas = "imagined_speech_decoding_tpu/ops/pallas/"
-    b2, b2x = bwd[BWD_SHAPES[0]], bwd[X_SHAPES[-1]]
+    b2, b2x, b16 = bwd[BWD_SHAPES[0]], bwd[X_SHAPES[-1]], bf16[BF16_SHAPES[-1]]
     # library_ms: no single PyTorch call computes the IIR cascade, the fused
     # windowed head or its gradients.
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
@@ -963,6 +1205,14 @@ def main() -> None:
          "max_abs_err": b2x["x_err"], "ms": b2x["x_ms"], "device_ms": b2x["x_device_ms"],
          "plain_ms": b2x["x_plain_ms"], "bound_ms": b2x["x_bound"][0],
          "bound_by": b2x["x_bound"][1], "library_ms": None},
+        {"name": "conv4head_fwd_bf16", "route": "cuda", "source": src + "conv4head_fwd_bf16.cu",
+         "replaces": pallas + "conv4head.py:303", "launches": training_bf16["conv4head_fwd_bf16"],
+         "max_abs_err": b16["fwd_err"], "ms": b16["fwd_ms"], "plain_ms": b16["fwd_plain_ms"],
+         "bound_ms": b16["fwd_bound"][0], "bound_by": b16["fwd_bound"][1], "library_ms": None},
+        {"name": "conv4head_bwd_w_bf16", "route": "cuda", "source": src + "conv4head_bwd_w_bf16.cu",
+         "replaces": pallas + "conv4head.py:323", "launches": training_bf16["conv4head_bwd_w_bf16"],
+         "max_abs_err": b16["w_err"], "ms": b16["w_ms"], "plain_ms": b16["w_plain_ms"],
+         "bound_ms": b16["w_bound"][0], "bound_by": b16["w_bound"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,10 +9,12 @@ on the CPU with ``main(argv, device="cpu")``; the parser has no device
 flag, as the JAX CLI has none.
 
     python -m imagined_speech_decoding_tpu_torch.cli.train_fast \\
-        --synthetic 2 --synthetic_trials 60 --epochs 2 --precision f32 --output_dir out/
+        --synthetic 2 --synthetic_trials 60 --epochs 2 --output_dir out/
 
-What this slice of the port runs is ``--synthetic`` data, the
-Conv4Layers head and ``--precision f32``; the other options raise
+What this slice of the port runs is ``--synthetic`` data and the
+Conv4Layers head, in either ``--precision``: bf16 (the default, the JAX
+package's ``bf16-mixed``: bf16 activations and head operands, f32
+parameters, optimizer state and loss) or f32; the other options raise
 ``NotImplementedError`` naming their ROADMAP.md item. ``--config`` reads
 YAML with PyYAML, imported only then; without PyYAML the default
 ``configs/default.yaml`` falls back to the built-in defaults, which equal
@@ -171,7 +173,6 @@ def main(argv=None, device="cuda"):
     cfg = resolve_config(args, build_overrides(args))
     if cfg.model.head != "Conv4Layers":
         raise NotImplementedError(f"head {cfg.model.head!r} {_ROADMAP}")
-    cfg.train.compute_dtype  # raises for bf16: the port trains in f32 only
 
     from ..devices import require_device
     from ..train.cv import train_per_subject_cv

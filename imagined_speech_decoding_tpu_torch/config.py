@@ -83,18 +83,15 @@ class TrainConfig:
 
     @property
     def compute_dtype(self):
-        """``torch.float32`` for ``"f32"``. The port trains in f32 only:
-        its kernels are f32, so ``"bf16"`` raises rather than running f32."""
+        """``torch.bfloat16`` for ``"bf16"`` (the default), ``torch.float32``
+        for ``"f32"``, as JAX ``TrainConfig.compute_dtype``; any other
+        precision raises ``ValueError``."""
         import torch
 
-        if self.precision == "f32":
-            return torch.float32
-        if self.precision == "bf16":
-            raise NotImplementedError(
-                "bf16 training is not ported yet (bf16 kernel instantiations and autocast "
-                "in the trunk; see ROADMAP.md): pass --precision f32"
-            )
-        raise ValueError(f"unknown precision {self.precision!r}")
+        dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+        if self.precision not in dtypes:
+            raise ValueError(f"unknown precision {self.precision!r}")
+        return dtypes[self.precision]
 
 
 @dataclass(frozen=True)

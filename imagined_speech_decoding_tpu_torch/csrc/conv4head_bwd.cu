@@ -132,6 +132,7 @@
 
 #include "conv4head_common.cuh"
 #include "conv4head_tc.cuh"
+#include "sum_partials.cuh"
 
 namespace {
 
@@ -161,6 +162,7 @@ using isd::conv_tc;
 using isd::kUnrollTc;
 using isd::stage_rows_async;
 using isd::stage_window_async;
+using isd::sum_partials;
 
 constexpr int kWarpsW = 16;  // B2w's block: 16 warps, one block per SM
 
@@ -367,27 +369,6 @@ conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
       __syncthreads();
     }
   }
-}
-
-// out[m, l] = sum_p part[m, p, l] for l < L, in a fixed order.
-__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int M, int P, int L) {
-  const size_t total = static_cast<size_t>(M) * L;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t m = i / L, l = i - m * L;
-    const float* src = part + m * P * L + l;
-    float acc = 0.f;
-    for (int q = 0; q < P; ++q) acc += src[static_cast<size_t>(q) * L];
-    out[i] = acc;
-  }
-}
-
-cudaError_t sum_partials(const float* part, float* out, int M, int P, int L, cudaStream_t st) {
-  const long long total = static_cast<long long>(M) * L;
-  const int blocks = static_cast<int>((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  sum_partials_kernel<<<blocks, 256, 0, st>>>(part, out, M, P, L);
-  return cudaGetLastError();
 }
 
 // ---- B2x on the tensor cores ----

@@ -16,7 +16,11 @@ models, every parameter with a leading model axis, taking ``(M, B, C, T)``
 and returning ``(M, B, K)`` — the layout the training engine uses where
 the JAX engine ``jax.vmap``s. Both run the same code, one model as M = 1.
 Parameters start at zero (layer-norm scales at one); weights come from a
-JAX-layout tree through ``transplant.from_jax_params``.
+JAX-layout tree through ``transplant.from_jax_params``. The parameters are
+f32 and the input's dtype is the compute dtype: a bf16 input runs the JAX
+package's ``bf16-mixed`` policy (``make_fast_model(compute_dtype=bfloat16)``),
+bf16 activations and operands with f32 accumulation in the head, f32
+attention logits and softmax; the loss is taken in f32 (``train.metrics``).
 """
 
 from __future__ import annotations
@@ -24,13 +28,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import FASTConfig
 from ..data.constants import zone_layout
 from .heads import Conv4LayersHead
-from .modules import LayerNorm, Linear, MultiheadSelfAttention, Stacked, dropout
+from .modules import LayerNorm, Linear, MultiheadSelfAttention, Stacked, dropout, gelu
 
 
 class AttentionBlock(nn.Module):
@@ -48,7 +51,7 @@ class AttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), rate, generator)
-        h = dropout(F.gelu(self.fc1(self.ln2(x))), rate, generator, self.training)
+        h = dropout(gelu(self.fc1(self.ln2(x))), rate, generator, self.training)
         return x + dropout(self.fc2(h), rate, generator, self.training)
 
 
@@ -90,9 +93,10 @@ class FAST(Stacked):
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         m, b, n = feat.shape[:3]
         rate = self.cfg.dropout
-        h = F.gelu(self.input_layer(feat.reshape(m, b, n, -1)))
-        cls = self.per_model(self.cls_token).expand(m, b, 1, h.shape[-1])
-        h = torch.cat([cls, h], dim=2) + self.per_model(self.pos_embedding)[:, :, : n + 1]
+        h = gelu(self.input_layer(feat.reshape(m, b, n, -1)))
+        cls = self.per_model(self.cls_token).to(h.dtype).expand(m, b, 1, h.shape[-1])
+        pos = self.per_model(self.pos_embedding)[:, :, : n + 1].to(h.dtype)
+        h = torch.cat([cls, h], dim=2) + pos
         for blk in self.blocks:
             h = blk(h, rate, generator)
         return self.last_layer(dropout(h[:, :, 0], rate, generator, self.training))

@@ -82,7 +82,10 @@ class Conv4LayersHead(Stacked):
         )
 
     def forward(self, x: torch.Tensor, window_len: int, step: int) -> torch.Tensor:
-        """``x (M, B, C_full, T)`` -> per-window zone features ``(M, B, N, Z, O)``."""
+        """``x (M, B, C_full, T)`` -> per-window zone features ``(M, B, N, Z, O)``
+        in x's dtype. The fused weights stay f32 (the head rounds them to a
+        bf16 x's dtype itself) and the head's f32 features are cast to x's
+        dtype, as JAX ``fast_forward_head`` does (``models/fast.py:170-172``)."""
         w12, b12, w3, w4 = self.fused_weights()
-        feat = fused_conv4_head(x.contiguous(), w12, b12, w3, w4, window_len, step)
+        feat = fused_conv4_head(x.contiguous(), w12, b12, w3, w4, window_len, step).to(x.dtype)
         return feat.view(*feat.shape[:3], w3.shape[1], w3.shape[2])

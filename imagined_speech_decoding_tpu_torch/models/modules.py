@@ -8,6 +8,13 @@ self-attention ``mha`` is ``MultiheadSelfAttention`` and ``dropout`` is
 ``dropout``. Their arithmetic follows the JAX functions step by step;
 none uses a fused PyTorch operator beyond the GEMMs.
 
+Precision: the parameters stay f32 and each is cast to the input's dtype
+where it is used, as the JAX functions do (``.astype(x.dtype)``), so a
+bf16 input runs the whole trunk in bf16 (PyTorch's type promotion would
+otherwise make a bf16 x f32 parameter f32) while the gradients reach the
+f32 parameters as f32, through the casts' backward. In f32 the casts are
+no-ops.
+
 The model axis: where the JAX engine ``jax.vmap``s one model's functions
 over a stack, every module here takes ``n_models``. With ``n_models=M``
 each parameter carries a leading axis of M and every input a leading
@@ -24,6 +31,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+_SQRT_HALF_BF16 = float(torch.tensor(math.sqrt(0.5)).to(torch.bfloat16))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU. In f32, PyTorch's. In bf16, ``jax.nn.gelu(approximate=False)``
+    op by op, ``0.5 * x * erfc(-x * sqrt(0.5))`` with ``sqrt(0.5)`` and every
+    step rounded to bf16, as JAX computes it (PyTorch's fused GELU rounds
+    once and differs in a third of the elements)."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x)
+    return 0.5 * x * torch.erfc(-x * _SQRT_HALF_BF16)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -71,6 +91,12 @@ class Linear(Stacked):
         self.bias = self._param(d_out, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            # As JAX linear: the product is rounded to bf16 before the bias
+            # is added (addmm would add it in f32 and round once).
+            w = self.per_model(self.weight).to(x.dtype)
+            y = torch.bmm(x.reshape(x.shape[0], -1, x.shape[-1]), w.transpose(1, 2))
+            return y.view(*x.shape[:-1], w.shape[1]) + self.broadcast(self.bias, x).to(x.dtype)
         if self.n_models is None:
             # One model: addmm with the bias in the GEMM. baddbmm would first
             # copy the broadcast bias into its output, one more launch per
@@ -94,13 +120,16 @@ class LayerNorm(Stacked):
         mean = x.mean(dim=-1, keepdim=True)
         var = (x - mean).square().mean(dim=-1, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.broadcast(self.weight, x) + self.broadcast(self.bias, x)
+        return (y * self.broadcast(self.weight, x).to(x.dtype)
+                + self.broadcast(self.bias, x).to(x.dtype))
 
 
 class MultiheadSelfAttention(nn.Module):
     """Batch-first self-attention with ``nn.MultiheadAttention``'s packed
     in-projection: ``(M, B, N, D) -> (M, B, N, D)``, as einsum + softmax,
-    with dropout on the attention probabilities."""
+    with dropout on the attention probabilities. As JAX ``mha``: the
+    logits and the softmax are f32, the probabilities then cast to x's
+    dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int, n_models: Optional[int] = None,
                  device=None):
@@ -118,7 +147,7 @@ class MultiheadSelfAttention(nn.Module):
             return t.reshape(m, b, n, self.num_heads, hd).transpose(2, 3)  # (M, B, H, N, hd)
 
         q, k, v = (heads(t) for t in self.in_proj(x).chunk(3, dim=-1))
-        logits = torch.einsum("mbhqd,mbhkd->mbhqk", q, k) / math.sqrt(hd)
-        attn = dropout(torch.softmax(logits, dim=-1), rate, generator, self.training)
+        logits = torch.einsum("mbhqd,mbhkd->mbhqk", q.float(), k.float()) / math.sqrt(hd)
+        attn = dropout(torch.softmax(logits, dim=-1).to(x.dtype), rate, generator, self.training)
         o = torch.einsum("mbhqk,mbhkd->mbhqd", attn, v)
         return self.out_proj(o.transpose(2, 3).reshape(m, b, n, d))

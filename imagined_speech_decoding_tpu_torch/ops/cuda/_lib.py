@@ -42,6 +42,10 @@ _SIGNATURES = {
     "isd_conv4head_bwd_x": ([_P] * 8 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_x_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_fwd_bf16": ([_P] * 6 + [_I] * 12 + [_P], _I),
+    "isd_conv4head_bf16_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_bwd_w_bf16": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    "isd_conv4head_bwd_w_bf16_smem_bytes": ([_I] * 4, _I),
     "isd_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -141,12 +145,12 @@ def require_no_grad(what: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def require_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
-    """The kernels take contiguous f32 device tensors of an exact shape."""
+def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
+    """The kernels take contiguous device tensors of an exact dtype and shape."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

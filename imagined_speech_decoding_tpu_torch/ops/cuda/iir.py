@@ -207,8 +207,8 @@ def _launch_causal(sos: np.ndarray, xt: torch.Tensor, zi: torch.Tensor,
     t_len, rows = xt.shape
     if not 1 <= n_sections <= MAX_SECTIONS:
         raise ValueError(f"the kernel is built for S in 1..{MAX_SECTIONS}, got S={n_sections}")
-    _lib.require_cuda_f32("xt", xt)
-    _lib.require_cuda_f32("zi", zi, (2 * n_sections, rows))
+    _lib.require_cuda("xt", xt, torch.float32)
+    _lib.require_cuda("zi", zi, torch.float32, (2 * n_sections, rows))
     if zi.device != xt.device:
         raise ValueError(f"zi is on {zi.device}, xt on {xt.device}")
     _lib.require_no_grad("the IIR kernel", xt, zi)
@@ -291,7 +291,7 @@ def _launch_chain(filters: Sequence[PreparedFilter], x: torch.Tensor, pads: Tupl
     if extended > MAX_EXTENDED:
         raise ValueError(f"the chain kernel takes rows of up to {MAX_EXTENDED} samples after "
                          f"the odd extension, got {extended}")
-    _lib.require_cuda_f32("x", x)
+    _lib.require_cuda("x", x, torch.float32)
     _lib.require_no_grad("the IIR kernel", x)
     rows = x.numel() // max(t_len, 1)
     _check_lanes(lanes)

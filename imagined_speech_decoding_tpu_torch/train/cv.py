@@ -116,6 +116,10 @@ def train_per_subject_cv(
     ``tc.seed``), as in the JAX function. Runs on ``device``: CUDA unless
     the caller names another, and CUDA without a card raises."""
     device = require_device(device)
+    if device.type == "cuda":
+        # The JAX trunk accumulates bf16 products in f32; cuBLAS may reduce
+        # in bf16 unless told not to (a no-op in f32).
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     s_count, n_trials = X.shape[:2]
     assert s_count == len(subjects)
     k = tc.n_folds

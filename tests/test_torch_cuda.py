@@ -369,3 +369,146 @@ def test_head_kernel_rejects_cpu_operands_on_cuda_input(dev):
     x = torch.zeros((1, 1, 64, 800), device=dev)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_conv4_head(x, *ops, cfg.window_len, cfg.slide_step)
+
+
+# bf16 kernels (B2f-bf16, B2w-bf16) against their plain bf16 versions. Both
+# round h1, h2 (and in B2w dh3, dh2, bf16(dh1)) to bf16 at the Pallas
+# kernel's points; their f32 sums run in different orders, so an element
+# whose sum lies near a rounding boundary rounds one bf16 ulp (2^-8
+# relative) apart, and the outputs move by a fraction of that. Tolerance,
+# per tensor: |err| <= REL * max|ref|, under the bf16-vs-f32 gap of the
+# same outputs (3e-3 of max|ref| for the features, 1.6e-3 to 3.9e-3 for
+# the weight gradients: tests/test_torch_bf16.py).
+BF16_FWD_REL, BF16_BWD_REL = 3e-4, 1e-3
+BF16_MODELS = (0, 37, 74)  # models of a 75-model launch held against the plain version
+
+
+def _bf16_close(got, ref, rel, name):
+    torch.testing.assert_close(got, ref, rtol=0, atol=rel * float(ref.abs().max()),
+                               msg=lambda m: f"{name}: {m}")
+
+
+def _check_bf16_kernels(ops, x, g, geo, models):
+    """B2f-bf16 and B2w-bf16 once each (one launch each, no f32 head
+    launch), held model by model against the plain bf16 versions."""
+    before = (fused_conv4_head.launches, conv4head_bwd_w.launches,
+              fused_conv4_head.launches_bf16, conv4head_bwd_w.launches_bf16)
+    with torch.no_grad():
+        out = fused_conv4_head(x, *ops, *geo)
+    dw = conv4head_bwd_w(g, x, *ops, *geo)
+    torch.cuda.synchronize()
+    assert (fused_conv4_head.launches, conv4head_bwd_w.launches,
+            fused_conv4_head.launches_bf16, conv4head_bwd_w.launches_bf16) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+    assert out.dtype == torch.float32 and all(t.dtype == torch.float32 for t in dw)
+    for i in models:
+        one = [t[i : i + 1] for t in (g, x, *ops)]
+        _bf16_close(out[i : i + 1], fused_conv4_head_plain(*one[1:], *geo), BF16_FWD_REL,
+                    f"B2f-bf16 model {i}")
+        ref = conv4head_bwd_plain(*one, *geo)[1:]
+        for name, got, r in zip(("dw12", "db12", "dw3", "dw4"), dw, ref):
+            assert got[i : i + 1].shape == r.shape
+            _bf16_close(got[i : i + 1], r, BF16_BWD_REL, f"B2w-bf16 model {i} {name}")
+
+
+@pytest.mark.parametrize("m,b", [(2, 8), (1, 64), (75, 24), (75, 35), (1, 1)])
+def test_bf16_kernels_match_plain(dev, m, b):
+    """At full width: chip_smoke.py's shapes, the training run's M = 75 with
+    its ragged tail (24) and validation batch (35), and one trial."""
+    cfg, _, ops, x, g = _full_width_operands(dev, m, b, 19 * m + b)
+    models = BF16_MODELS if m == 75 else range(m)
+    _check_bf16_kernels(ops, x.to(torch.bfloat16), g, (cfg.window_len, cfg.slide_step), models)
+
+
+def test_bf16_kernels_edges_match_plain(dev):
+    """t1 = 116 (not a multiple of 16, window steps of odd parity) with B = 5."""
+    cfg, _, ops, x, g = _full_width_operands(dev, 2, 5, 23, seq_len=230, window_len=120,
+                                             slide_step=37)
+    _check_bf16_kernels(ops, x.to(torch.bfloat16), g, (cfg.window_len, cfg.slide_step), (0, 1))
+
+
+def test_bf16_kernels_take_odd_channel_counts(dev):
+    """C = 10 (not a multiple of 8 or 16) with 4 zones: B2f-bf16 and
+    B2w-bf16 take it (zero-padded channels); f32 B2w refuses it."""
+    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
+                     num_layers=1, num_heads=4)
+    model = FAST(cfg, n_models=2, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, 5, 2)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.normal(size=(2, 3, 10, 800)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.normal(size=(2, 3, cfg.n_tokens, 4 * 32)).astype(np.float32),
+                     device=dev)
+    geo = (cfg.window_len, cfg.slide_step)
+    _check_bf16_kernels(ops, x.to(torch.bfloat16), g, geo, (0, 1))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv4head_bwd_w(g, x, *ops, *geo)
+
+
+def test_bf16_input_gradient_raises(dev):
+    """B2x has no bf16 instantiation: a bf16 dx on the card raises, never
+    upcasts."""
+    cfg, _, ops, x, g = _full_width_operands(dev, 1, 2, 29)
+    geo = (cfg.window_len, cfg.slide_step)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conv4head_bwd_x(g, xb, *ops, *geo)
+    xg = xb.clone().requires_grad_(True)
+    out = fused_conv4_head(xg, *(t.detach() for t in ops), *geo)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+
+
+def test_bf16_kernels_are_deterministic_and_leave_f32_alone(dev):
+    """Reruns are bit-identical, and an f32 launch gives the same bits with
+    or without bf16 launches between (separate kernels, separate counts)."""
+    cfg, _, ops, x, g = _full_width_operands(dev, 2, 8, 31)
+    geo = (cfg.window_len, cfg.slide_step)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        f32_out = fused_conv4_head(x, *ops, *geo)
+        assert torch.equal(fused_conv4_head(xb, *ops, *geo), fused_conv4_head(xb, *ops, *geo))
+        assert torch.equal(fused_conv4_head(x, *ops, *geo), f32_out)
+    f32_dw = conv4head_bwd_w(g, x, *ops, *geo)
+    for a, b in zip(conv4head_bwd_w(g, xb, *ops, *geo), conv4head_bwd_w(g, xb, *ops, *geo)):
+        assert torch.equal(a, b)
+    for a, b in zip(conv4head_bwd_w(g, x, *ops, *geo), f32_dw):
+        assert torch.equal(a, b)
+
+
+def test_bf16_training_step_matches_cpu(dev):
+    """One bf16 training step of a stacked full-width FAST: the card (B2f-bf16,
+    B2w-bf16, cuBLAS bf16 trunk with f32 reductions) against the CPU (plain
+    bf16 head, the same trunk), from the same weights and batch. The loss
+    within 1e-3 relative; the gradients, all parameters together, within
+    3e-3 in relative L2 (bf16 roundings that flip one ulp apart on the two
+    devices, as in the head), under the bf16-vs-f32 gap of the same step
+    (9.1e-3 on the CPU), which is asserted to exceed it."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg, model, _, x, _ = _full_width_operands(dev, 2, 8, 37)
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    y = torch.tensor(np.random.default_rng(37).integers(0, 5, (2, 8)), device=dev)
+    runs = {}
+    for name, d, dtype in (("card", dev, torch.bfloat16), ("cpu", torch.device("cpu"),
+                                                            torch.bfloat16),
+                           ("cpu f32", torch.device("cpu"), torch.float32)):
+        mdl = FAST(cfg, n_models=2, device=d)
+        mdl.load_state_dict({k: v.to(d) for k, v in model.state_dict().items()})
+        before = (fused_conv4_head.launches_bf16, conv4head_bwd_w.launches_bf16,
+                  fused_conv4_head.launches, conv4head_bwd_w.launches, conv4head_bwd_x.launches)
+        logits = mdl.train()(x.to(d, dtype))
+        loss = torch.nn.functional.cross_entropy(logits.float().flatten(0, 1), y.to(d).flatten())
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fused_conv4_head.launches_bf16, conv4head_bwd_w.launches_bf16,
+                    fused_conv4_head.launches, conv4head_bwd_w.launches,
+                    conv4head_bwd_x.launches) == (before[0] + 1, before[1] + 1, *before[2:])
+        grads = torch.cat([p.grad.detach().cpu().flatten() for p in mdl.parameters()])
+        runs[name] = (float(loss.detach()), grads)
+    (l_card, g_card), (l_cpu, g_cpu), (_, g_f32) = runs["card"], runs["cpu"], runs["cpu f32"]
+    assert abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)
+    err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    gap = float((g_f32 - g_cpu).norm() / g_cpu.norm())
+    assert err <= 3e-3 < gap, (err, gap)

@@ -179,9 +179,11 @@ class TestConfig:
         assert dataclasses.asdict(ours.model) == dataclasses.asdict(ref.model)
 
     def test_precision(self):
+        """bf16 (the default) and f32 train; another precision raises."""
         assert config.TrainConfig(precision="f32").compute_dtype is torch.float32
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            config.TrainConfig().compute_dtype
+        assert config.TrainConfig().compute_dtype is torch.bfloat16
+        with pytest.raises(ValueError, match="unknown precision"):
+            config.TrainConfig(precision="f16").compute_dtype
 
     def test_without_pyyaml(self, monkeypatch, capsys):
         monkeypatch.setitem(sys.modules, "yaml", None)
@@ -216,11 +218,20 @@ class TestCLI:
         ["--synthetic", "1", "--profile", "p"], ["--synthetic", "1", "--remat"],
         ["--synthetic", "1", "--head_chunk", "256"], ["--synthetic", "1", "--head", "CVBlock"],
         ["--synthetic", "1", "--checkpoint_every", "2"],
-        ["--synthetic", "1", "--precision", "bf16", "--config", "none.yaml"],
     ])
     def test_unported_options_raise(self, argv, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_fast.main(argv + ["--output_dir", str(tmp_path)])
+
+    def test_bf16_is_ported(self, tmp_path, monkeypatch):
+        """``--precision bf16`` (and the default, which is bf16) no longer
+        raise ``NotImplementedError``: the CLI goes on to the device, which
+        here is a missing card."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        for precision in (["--precision", "bf16"], []):
+            with pytest.raises(RuntimeError, match="is_available"):
+                train_fast.main(["--synthetic", "1", *precision, "--config", "none.yaml",
+                                 "--output_dir", str(tmp_path)])
 
     def test_no_cpu_fallback_without_a_card(self, tmp_path, monkeypatch):
         """The CLI and the CV driver train on CUDA unless told otherwise:
