@@ -8,9 +8,10 @@ paths on one NVIDIA GPU.
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
    build time and, for the tensor-core kernels B2f, B2w and B2x and the
    bf16 instantiations B2f-bf16 and B2w-bf16, their registers and spills
-   (``-Xptxas -v``), shared memory per block and the count of HMMA
-   instructions in their SASS (``cuobjdump``, where the toolkit has it; a
-   count of 0 fails the run).
+   (``-Xptxas -v``), shared memory per block and the count of tensor-core
+   instructions of their route in their SASS (``cuobjdump``, where the
+   toolkit has it): HMMA (``mma.sync``), or HGMMA (``wgmma``) for
+   B2w-bf16; a count of 0 fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
    CUDA events (B1 also by the profiler's device time), beside the kernel's bound (the least time for its work:
@@ -45,7 +46,10 @@ paths on one NVIDIA GPU.
         gradients) x max|ref| per tensor (tests/test_torch_cuda.py says
         why); timed by CUDA events, with their bound (x at 2 bytes a
         sample; one bf16 tensor-core pass at 989 TFLOP/s) and their share
-        of the ``mma.sync`` bf16 floor.
+        of their route's floor (``mma.sync`` bf16 for B2f-bf16, ``wgmma``
+        m64n32k16 for B2w-bf16); B2w-bf16's cycles a (trial, window,
+        zone) unit by phase at M = 75, B = 64 (its debug instantiation,
+        ``b2w_timing.py``'s split).
 4. Serving path: full-width FAST weights from a numpy seed are written
    as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
    ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
@@ -112,7 +116,9 @@ from imagined_speech_decoding_tpu_torch.explain.attribution import (
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    BWD_W_BF16_PHASES,
     KERNEL_TAPS,
+    _launch_bwd_w,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
@@ -177,8 +183,11 @@ HBM_BYTES_S = 3.35e12
 MMA_SYNC_TF32_FLOPS = 323.2e12
 BF16_FLOPS = 989e12  # tensor cores, bf16 dense
 # The rate of mma.sync m16n8k16 bf16 on an H100 80GB HBM3 at 700 W, measured by
-# mma_tf32_ceiling.py --mode bf16: the floor of B2f-bf16's and B2w-bf16's route (one pass).
+# mma_tf32_ceiling.py --mode bf16: the floor of B2f-bf16's route (one pass).
 MMA_SYNC_BF16_FLOPS = 642.3e12
+# The rate of wgmma m64n32k16 bf16 with both operands in shared memory, on the same card,
+# measured by mma_tf32_ceiling.py --mode wgmma: the floor of B2w-bf16's route.
+WGMMA_N32_FLOPS = 653.0e12
 BF16_FWD_REL, BF16_BWD_REL = 3e-4, 1e-3  # atol = REL * max|ref| per tensor (bf16 kernels)
 BF16_LOGITS_L2 = 3e-3  # bf16 logits and gradients, card vs CPU, relative L2
 BF16_SHAPES = ((2, 8), (1, 64))  # (M, B) of the bf16 kernel comparisons; JSON line: the last
@@ -694,29 +703,40 @@ def phase_bf16_kernels(cfg, dev, rng):
     big = {"fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 5),
            "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 5)}
     units = m * TRAIN_BATCH * cfg.n_tokens * cfg.n_zones
-    for k, fma, bound, name in (
+    for k, fma, bound, name, route, rate in (
             ("fwd", HEAD_FMA_FWD, head_bound_bf16(HEAD_FMA_FWD, m, TRAIN_BATCH,
                                                   m * TRAIN_BATCH * 5 * 256, reads_g=False),
-             "B2f-bf16"),
+             "B2f-bf16", "mma.sync bf16", MMA_SYNC_BF16_FLOPS),
             ("w", HEAD_FMA_BWD_W, head_bound_bf16(HEAD_FMA_BWD_W, m, TRAIN_BATCH,
-                                                  m * HEAD_WEIGHT_FLOATS), "B2w-bf16")):
+                                                  m * HEAD_WEIGHT_FLOATS), "B2w-bf16",
+             "wgmma m64n32k16", WGMMA_N32_FLOPS)):
         ms = big[f"{k}_ms"]
-        floor = 1e3 * 2 * units * fma / MMA_SYNC_BF16_FLOPS
+        floor = 1e3 * 2 * units * fma / rate
         big[f"{k}_bound"], big[f"{k}_floor"] = bound, floor
         print(f"{name} alone at M={m} B={TRAIN_BATCH} (kernel only): {ms:.2f} ms "
               f"({units * fma / ms / 1e9:.2f} T FMA/s; bound {bound[0]:.2f} ms, {bound[1]}, "
-              f"{bound[0] / ms:.1%} reached; mma.sync bf16 floor {floor:.2f} ms, "
+              f"{bound[0] / ms:.1%} reached; {route} floor {floor:.2f} ms, "
               f"{floor / ms:.1%} reached)", flush=True)
+    # B2w-bf16 by phase: its debug instantiation's clock counters, per warp and unit.
+    clk = torch.zeros(len(BWD_W_BF16_PHASES) + 2, dtype=torch.int64, device=dev)
+    _launch_bwd_w(g, x, *ops, *geo, clk=clk)
+    c = clk.tolist()
+    big["w_phase_cycles"] = {k: c[i] / 16 / units for i, k in enumerate(BWD_W_BF16_PHASES)}
+    print(f"B2w-bf16 by phase at M={m} B={TRAIN_BATCH}: {c[-2] / units:.0f} cycles a unit at "
+          f"{1e3 * c[-2] / c[-1]:.0f} MHz; cycles a warp and unit: "
+          f"{json.dumps({k: round(v) for k, v in big['w_phase_cycles'].items()})}", flush=True)
     return rows, big
 
 
-TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes function)
-    ("B2f", "conv4head_fwd_kernel", "isd_conv4head_smem_bytes"),
-    ("B2w", "conv4head_bwd_w_kernel", "isd_conv4head_bwd_w_smem_bytes"),
-    ("B2x", "conv4head_bwd_x_kernel", "isd_conv4head_bwd_x_smem_bytes"),
-    ("B2f-bf16", "conv4head_fwd_bf16_kernel", "isd_conv4head_bf16_smem_bytes"),
-    ("B2w-bf16", "conv4head_bwd_w_bf16_kernel", "isd_conv4head_bwd_w_bf16_smem_bytes"),
+TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes function,
+    # the tensor-core instruction of its route in SASS: mma.sync is HMMA, wgmma HGMMA)
+    ("B2f", "conv4head_fwd_kernel", "isd_conv4head_smem_bytes", "HMMA"),
+    ("B2w", "conv4head_bwd_w_kernel", "isd_conv4head_bwd_w_smem_bytes", "HMMA"),
+    ("B2x", "conv4head_bwd_x_kernel", "isd_conv4head_bwd_x_smem_bytes", "HMMA"),
+    ("B2f-bf16", "conv4head_fwd_bf16_kernel", "isd_conv4head_bf16_smem_bytes", "HMMA"),
+    ("B2w-bf16", "conv4head_bwd_w_bf16_kernel", "isd_conv4head_bwd_w_bf16_smem_bytes", "HGMMA"),
 )
+DEBUG_INSTANTIATION = "Lb1EE"  # B2w-bf16's phase counters (kClock = true): not counted
 
 
 def report_iir_build(info) -> None:
@@ -732,13 +752,15 @@ def report_iir_build(info) -> None:
 def report_tc_build(info, cfg) -> None:
     """The tensor-core kernels' registers and spills (each instantiation)
     from the ``-Xptxas -v`` log of this run's build, their dynamic shared
-    memory per block at full width, and the count of tensor-core (HMMA)
-    instructions in each one's SASS; raises if any has none."""
+    memory per block at full width, and the count of tensor-core
+    instructions of each one's route (HMMA, or HGMMA for B2w-bf16's wgmma)
+    in the SASS of its shipped and generic instantiations; raises if any
+    has none."""
     log = info["log"]
     if not log:
         print("ptxas: no build log (the library was already built)", flush=True)
     lib = _lib.library()
-    for what, entry, smem_fn in TC_KERNELS:
+    for what, entry, smem_fn, _ in TC_KERNELS:
         for block in log.split("Compiling entry function")[1:]:
             if entry in block.splitlines()[0]:
                 name = re.search(entry + r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", block)
@@ -751,7 +773,7 @@ def report_tc_build(info, cfg) -> None:
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
-        print("SASS: cuobjdump is missing; HMMA counts not read", flush=True)
+        print("SASS: cuobjdump is missing; HMMA / HGMMA counts not read", flush=True)
         return
     sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
                           check=True).stdout
@@ -759,14 +781,16 @@ def report_tc_build(info, cfg) -> None:
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-        elif "HMMA" in ln and name is not None:
-            counts[name] = counts.get(name, 0) + 1
-    for what, entry, _ in TC_KERNELS:
-        hmma = sum(v for k, v in counts.items() if entry in k)
-        if hmma == 0:
-            raise RuntimeError(f"{what}'s SASS has no HMMA instruction: "
-                               "it does not run on the tensor cores")
-        print(f"{what} SASS: {hmma} HMMA instructions (cuobjdump -sass)", flush=True)
+        elif name is not None and DEBUG_INSTANTIATION not in name:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", ln):
+                    counts[(name, op)] = counts.get((name, op), 0) + 1
+    for what, entry, _, op in TC_KERNELS:
+        n_op = sum(v for (k, o), v in counts.items() if entry in k and o == op)
+        if n_op == 0:
+            raise RuntimeError(f"{what}'s SASS has no {op} instruction: "
+                               "it does not run on the tensor cores by its route")
+        print(f"{what} SASS: {n_op} {op} instructions (cuobjdump -sass)", flush=True)
 
 
 def reset_launches() -> None:

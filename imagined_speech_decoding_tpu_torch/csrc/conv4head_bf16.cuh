@@ -1,7 +1,8 @@
-// bf16 pieces of the Conv4Layers head kernels B2f-bf16
-// (conv4head_fwd_bf16.cu) and B2w-bf16 (conv4head_bwd_w_bf16.cu): the
-// shared-memory plan, staging, and the two GEMM shapes of the head on
-// mma.sync m16n8k16 (mma_bf16.cuh).
+// bf16 pieces of the Conv4Layers head kernel B2f-bf16
+// (conv4head_fwd_bf16.cu): the shared-memory plan, staging, and the conv
+// GEMM of the head on mma.sync m16n8k16 (mma_bf16.cuh). B2w-bf16
+// (conv4head_bwd_w_bf16.cu), on wgmma, shares the raw window's staging,
+// the per-warp column sums and zero_words.
 //
 // Layout: TIME-MAJOR. A bf16 fragment register holds two elements that are
 // consecutive along the reduction axis, so every operand must have that
@@ -17,9 +18,6 @@
 //  * B of a conv is w[o][k*Ch + c] ([n][k], k contiguous): ldmatrix. B of
 //    a conv^T is w[o'][k*O + o] ([k][n]): ldmatrix.trans, so w3 and w4 are
 //    staged once, untransposed.
-//  * The weight gradients reduce over time: dw[o, (k, i)] = sum_t
-//    d[t][o] * src[t + k][i]. Both operands are [t][...], time in rows:
-//    ldmatrix.trans turns them into A = d^T and B fragments.
 // Row strides are 4 mod 8 words, so the eight 16-byte rows of every
 // ldmatrix matrix fall in distinct banks.
 //
@@ -218,61 +216,6 @@ __device__ inline float sum_warps(const float* red, int o) {
 #pragma unroll
   for (int w = 0; w < kWarpsB; ++w) s += red[w * 32 + o];
   return s;
-}
-
-// dw[o * ldw + k * Cg + i] (+)= sum_{t < nt16} d[K/2 + t][o] * src[t + k][i]
-// for o < 32, k < K, i < Cg: the weight gradient of a conv whose input is
-// src (time-major, Ch staged channels a row, i >= Cg zero padding and not
-// stored) and whose output gradient is d (time-major from row K/2, zero
-// from t1 on). Warp tw of a team of kTeam owns the 16-row tile tw % 2 of o
-// and the 8-column tiles tw / 2, tw / 2 + kTeam / 2, ... (NT at a time; a
-// tile past the end is computed as the last one and not stored); each lane
-// adds its fragments into fixed elements of dw, or writes them if first.
-template <int K, int NT, int kTeam>
-__device__ inline void weight_grad_bf16(float* __restrict__ dw, int ldw, int Cg, bool first,
-                                        const uint32_t* d, int ldd, const uint32_t* src, int lds,
-                                        int Ch, int tiles16, int tw) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int r8 = lane & 7, mat = lane >> 3;
-  const int mt = tw & 1, group = tw >> 1;
-  constexpr int kGroups = kTeam / 2;
-  const int tiles = K * Ch / 8;
-  // A = d^T by ldmatrix.trans: matrix i holds rows t 8 (i / 2).., columns o 16 mt + 8 (i % 2)..
-  const uint16_t* pa = reinterpret_cast<const uint16_t*>(d + (K / 2 + r8 + 8 * (mat >> 1)) * ldd) +
-                       16 * mt + 8 * (mat & 1);
-  for (int base = group; base < tiles; base += kGroups * NT) {
-    const uint16_t* pb[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n0 = 8 * min(base + kGroups * j, tiles - 1), k = n0 / Ch;
-      // B by ldmatrix.x2.trans: rows t + k (8 (lane / 8 % 2)..), columns i0..i0+7.
-      pb[j] = reinterpret_cast<const uint16_t*>(src + (k + r8 + 8 * (mat & 1)) * lds) + n0 - k * Ch;
-    }
-    float acc[NT][4] = {};
-    for (int tt = 0; tt < tiles16; ++tt) {
-      uint32_t a[4];
-      ldsm_x4_t(a, pa + tt * 32 * ldd);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t b[2];
-        ldsm_x2_t(b, pb[j] + tt * 32 * lds);
-        mma_bf16(acc[j], a, b[0], b[1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (base + kGroups * j >= tiles) continue;
-      const int n = 8 * (base + kGroups * j) + 2 * q, k = n / Ch, i = n - k * Ch;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* row = dw + static_cast<size_t>(16 * mt + 8 * h + g) * ldw + k * Cg + i;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (i + e < Cg) row[e] = (first ? 0.f : row[e]) + acc[j][2 * h + e];
-        }
-      }
-    }
-  }
 }
 
 // Zeros in `words` 32-bit words from p.

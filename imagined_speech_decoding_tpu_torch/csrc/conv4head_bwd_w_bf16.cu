@@ -21,158 +21,494 @@
 // What bounds it on the H100: work. ~12.6 M multiply-adds per (trial,
 // window, zone) at full width, 2.4 T for a training step of 75 models at
 // batch 64: 4.89 ms at the data sheet's 989 TFLOP/s dense bf16, one pass.
+// On this route the shared-memory operands bound it first: a m64n32k16
+// reads 3 KB for 32 K multiply-adds, and peaks at 653 TFLOP/s on the card
+// (mma_tf32_ceiling.py --mode wgmma), 7.4 ms for that step.
 //
-// The design: B2w's (a block per (model, zone, window, trial range), 16
-// warps, the zone's weights resident, partials per block, no atomics, the
-// next trial's window streamed in by cp.async), on the bf16 pieces of
-// conv4head_bf16.cuh: time-major buffers, the convs and conv^T's as
-// D[t, o] GEMMs, the weight gradients as GEMMs over time through
-// ldmatrix.trans. Three activation buffers: h1 | h2, then dh2 | dh3, then
-// dh1 (bf16; its f32 row sums for db12 are taken in the epilogue, in
-// registers, and added in warp order). 177 KB of shared memory at full
-// width: one block per SM. Any C (padded to 16 with zero channels, whose
-// gradient columns are not stored): B2w's f32 instantiation needs C % 8 ==
-// 0 for its reduction steps of 8 over (tap, channel); here every step of
-// 16 stays in one tap because the staged channels are padded. T even.
+// The design: a block per (model, zone, window, trial range), 16 warps = 4
+// warpgroups, one block per SM, the zone's weights resident, the next
+// trial's window streamed in by cp.async while the current one computes.
+// Every product is a warpgroup GEMM, wgmma.mma_async m64n32k16 with both
+// operands read from shared memory through descriptors (wgmma_bf16.cuh):
+//  * the convs and conv^T's are D[t, o] GEMMs, M = time (a warpgroup takes
+//    64 rows: 4 x 64 >= t1 = 246), N = O = 32, K = (tap, channel);
+//  * the weight gradients are dw^T[(tap, i), o] = sum_t src[t + tap][i]
+//    d[t][o], M = (tap, channel), N = o, K = time, and stay in registers
+//    (f32 accumulators) across the block's whole trial range: each block
+//    writes its partial once. dw12 is K * Cp / 64 tiles (5 at C <= 64),
+//    dw3 and dw4 3 each; a warpgroup holds kSlots = 3 of the 11.
+// One layout serves every GEMM: each time-major buffer (the window, h1,
+// h2, dh3c, dh2c, bf16(dh1)) is stored in chunks of 8 channels,
+// [chunk][row][8], wgmma's no-swizzle core-matrix layout. A tap's shift of
+// one row is +16 bytes, a legal descriptor start; the same bytes read with
+// channels along K feed a conv (K-major A) and with time along K a weight
+// gradient (MN-major A or B). w3 and w4 are staged once, [chunk of (tap,
+// channel)][o][8]: K-major B of a conv, and read MN-major they are the
+// transposed B of a conv^T. A 64-row dw3 / dw4 tile spans two taps whose
+// source rows differ by one, which no descriptor stride expresses: h1 and
+// h2 carry a second copy one row down (channels O..2O-1, written by the
+// same epilogue), so taps 2p and 2p + 1 are chunks 0-3 and 4-7 at one
+// start. That costs 2 x 16.6 KB of shared memory and nothing in products
+// (the other options: padding M = o to 64 doubles dw3's and dw4's work;
+// mma.sync for them keeps the ldmatrix-fed loops this design leaves).
+// The tile of taps 4 and 5 computes a tap past K, not stored.
+//
+// A trial: the window's transpose; h1, h2, h3 -> dh3c; conv4^T -> dh2c
+// with dw4 issued behind it; conv3^T -> bf16(dh1) and db12's f32 column
+// sums (per warp, added in warp order: no atomics) with dw3 behind it;
+// dw12. Each phase's generic stores are fenced for the async proxy
+// (fence.proxy.async) before the barrier after which a wgmma reads them;
+// the weight-gradient groups run on under the next epilogues and are
+// drained before the next trial overwrites the window. C up to 64: the
+// window and w12 are padded with zero channels to Cp = 64 (a dw12 tile is
+// one tap), whose gradient columns are not stored; more channels fit
+// neither 3 tiles a warpgroup nor the shared memory at W = 250.
+// T even. 225 KB of shared memory at full width. The debug instantiation
+// (kClock) adds per-phase clock counters (phase_clock.cuh).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "conv4head_bf16.cuh"
+#include "phase_clock.cuh"
 #include "sum_partials.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using isd::kWarpsB;
 
-// 8-column tiles per warp in the weight gradients at full width: dw12 has
-// K*Cp/8 = 40 column tiles over 8 warp groups, dw3 / dw4 20.
-constexpr int kNtDw12 = 5;
-constexpr int kNtDw = 3;
+constexpr int kRows = 64;             // rows of a wgmma tile
+constexpr int kGroups = kWarpsB / 4;  // warpgroups a block
+constexpr int kSlots = 3;             // weight-gradient tiles a warpgroup holds: 11 at C <= 64
 
-template <int O, int K, int kC, int kW>
+__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
+
+// Shared-memory plan of a block, in bytes; mirrored by bwd_w_bf16_plan in
+// ops/cuda/conv4head.py. Time-major buffers have `rows` rows (time rows
+// 0..W-1 of the window; activation time t at row K/2 + t, zero rows around
+// up to the farthest row a tap reaches) in chunks of 8 channels, `cs`
+// bytes apart.
+struct WgPlan {
+  int cp;        // channels of the staged window and w12: C rounded up to 64
+  int t1, nt;    // valid conv length; the rows the convs compute (t1 up to 64s)
+  int rows, cs;  // rows of a buffer (nt + K - 1); bytes between its chunks
+  int rw;        // raw window row stride, in bf16 elements (even, >= W + 1)
+  int n34, n12;  // weight-gradient tiles of dw4 (= of dw3) and of dw12
+  int xs, raw, h1, h2, d3, d2, d1, w12, w3, w4, bias, gz, red, total;
+};
+
+__host__ __device__ inline WgPlan wg_plan(int C, int W, int O, int K) {
+  WgPlan p;
+  p.cp = (C + kRows - 1) / kRows * kRows;
+  p.t1 = W - K + 1;
+  p.nt = (p.t1 + kRows - 1) / kRows * kRows;
+  p.rows = p.nt + K - 1;
+  p.cs = 16 * p.rows;
+  p.rw = (W + 2) & ~1;
+  p.n34 = (K * O + kRows - 1) / kRows;
+  p.n12 = K * p.cp / kRows;
+  int off = 0;
+  p.xs = off;
+  off += round16(p.cp / 8 * p.cs);
+  p.raw = off;
+  off += round16(2 * C * p.rw);
+  p.h1 = off;  // O channels, then the copy one row down
+  off += round16(O / 4 * p.cs);
+  p.h2 = off;
+  off += round16(O / 4 * p.cs);
+  p.d3 = off;
+  off += round16(O / 8 * p.cs);
+  p.d2 = off;
+  off += round16(O / 8 * p.cs);
+  p.d1 = off;
+  off += round16(O / 8 * p.cs);
+  p.w12 = off;
+  off += round16(2 * K * p.cp * O);
+  p.w3 = off;
+  off += round16(2 * K * O * O);
+  p.w4 = off;
+  off += round16(2 * K * O * O);
+  p.bias = off;
+  off += round16(4 * O);
+  p.gz = off;
+  off += round16(4 * O);
+  p.red = off;
+  off += round16(4 * kWarpsB * O);
+  p.total = off;
+  return p;
+}
+
+// Bytes of (row, channel) from the start of a chunked buffer.
+__host__ __device__ inline int chunk_off(int cs, int row, int ch) {
+  return (ch >> 3) * cs + 16 * row + 2 * (ch & 7);
+}
+
+// Rows o < O of w (f32, K taps of Ch channels, row stride K*Ch) to bf16 at
+// dst, [chunk of (tap, channel)][o][8] (chunks 16 O bytes apart), channels
+// Ch..chp-1 zero (chp a multiple of 8).
+__device__ inline void stage_weights_wg(char* dst, const float* __restrict__ w, int O, int K,
+                                        int Ch, int chp) {
+  const int pairs = K * chp / 2;
+  for (int i = threadIdx.x; i < O * pairs; i += blockDim.x) {
+    const int o = i / pairs, j = 2 * (i - o * pairs), k = j / chp, c = j - k * chp;
+    const float* row = w + static_cast<size_t>(o) * K * Ch + k * Ch;
+    *reinterpret_cast<uint32_t*>(dst + chunk_off(16 * O, o, j)) =
+        isd::pack_bf16(c < Ch ? row[c] : 0.f, c + 1 < Ch ? row[c + 1] : 0.f);
+  }
+}
+
+// The C rows of a window of W samples, from x0 (the even element at or
+// before the window's start in row 0; rows at stride T, T even), to
+// raw[c * rw + j] by 4-byte cp.async: off + W elements rounded up to even,
+// the window starting at j = off. Warp w copies rows w, w + 16, ...: no
+// division a word (one per word cost ~3,000 cycles a trial, PERF.md); a
+// round past a row's end repeats its last word.
+__device__ inline void stage_raw_rows(uint16_t* raw, int rw, const uint16_t* __restrict__ x0,
+                                      int C, int T, int W, int off, int warp) {
+  const int words = (off + W + 1) >> 1, lane = threadIdx.x & 31;
+  for (int c = warp; c < C; c += kWarpsB) {
+    for (int j0 = 0; j0 < words; j0 += 32) {
+      const int j = 2 * min(j0 + lane, words - 1);
+      isd::cp_async4_b32(raw + c * rw + j, x0 + static_cast<size_t>(c) * T + j);
+    }
+  }
+}
+
+// The window into its chunks: (t, c) = x[c, t] for t < W from the raw rows,
+// 16 bytes (8 channels) a store, channels C..cp-1 zero. Rows W.. are not
+// written (zero from the block's start). A round past the last item
+// repeats it; raw rows past C are read and their values dropped (they lie
+// inside the block's shared memory).
+__device__ inline void raw_to_chunks(char* xs, int cs, const uint16_t* raw, int rw, int off,
+                                     int C, int cp, int W) {
+  const int n = (cp >> 3) * W;
+  for (int i0 = 0; i0 < n; i0 += kWarpsB * 32) {
+    const int i = min(i0 + static_cast<int>(threadIdx.x), n - 1);
+    const int ch = i / W, t = i - ch * W;
+    const uint16_t* col = raw + 8 * ch * rw + off + t;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * ch + 2 * e;
+      const uint32_t lo = col[2 * e * rw], hi = col[(2 * e + 1) * rw];
+      v[e] = (c < C ? lo : 0u) | ((c + 1 < C ? hi : 0u) << 16);
+    }
+    *reinterpret_cast<uint4*>(xs + ch * cs + 16 * t) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Issues one 64-row tile of D[t, o] into acc (overwriting it): over the K
+// taps and the k16 steps of Ch channels, A = src from row 64 tile + tap
+// (kT: + K-1-tap), K-major; B = w, K-major [o][(tap, c)] for a conv, or for
+// a conv^T (kT, Ch = O) w[o'][tap * O + o] read MN-major.
+template <int K, int O, bool kT>
+__device__ inline void conv_issue(float (&acc)[16], uint32_t src, int cs, uint32_t w, int Ch,
+                                  int tile) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t a_row = src + 16 * (kRows * tile + (kT ? K - 1 - k : k));
+#pragma unroll
+    for (int c0 = 0; c0 < Ch; c0 += 16) {
+      const uint64_t a = isd::wgmma_desc(a_row + (c0 >> 3) * cs, cs, 128);
+      if (kT) {
+        const uint64_t b = isd::wgmma_desc(w + k * 2 * O * O + 16 * c0, 128, 16 * O);
+        isd::wgmma_m64n32k16<0, 1>(acc, a, b, k | c0);
+      } else {
+        const uint64_t b = isd::wgmma_desc(w + ((k * Ch + c0) >> 3) * 16 * O, 16 * O, 128);
+        isd::wgmma_m64n32k16<0, 0>(acc, a, b, k | c0);
+      }
+    }
+  }
+}
+
+// acc += one weight-gradient tile's k16 steps over time (overwriting acc
+// on the block's first trial): A = src from byte a0 (time along K:
+// MN-major), B = d from byte b0 (MN-major), nt rows.
+__device__ inline void dw_issue(float (&acc)[16], uint32_t a0, uint32_t b0, int cs, int nt,
+                                bool first) {
+  const uint64_t a = isd::wgmma_desc(a0, 128, cs), b = isd::wgmma_desc(b0, 128, cs);
+#pragma unroll
+  for (int t0 = 0; t0 < nt; t0 += 16) {  // +16 rows = +256 bytes = +16 in the start field
+    isd::wgmma_m64n32k16<1, 1>(acc, a + t0, b + t0, t0 > 0 || !first);
+  }
+}
+
+// red[warp * 32 + o] = the sum over this warp's rows of s[j][e], o = 8j +
+// 2q + e: every lane stores (the eight lanes of one o the same value), so
+// no branch runs while the weight gradients' wgmma are in flight (a
+// divergent path there makes ptxas serialise every wgmma of the kernel).
+__device__ inline void col_sums(float* red, const float (&s)[4][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = s[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      red[warp * 32 + 8 * j + 2 * (lane & 3) + e] = v;
+    }
+  }
+}
+
+// Hands each accumulator pair of a conv tile to out(j, t, o, v0, v1):
+// row t, columns o, o + 1 (j = o / 8).
+template <class Out>
+__device__ inline void conv_epilogue(const float (&acc)[16], int tile, Out out) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      out(j, kRows * tile + 16 * w + 8 * h + g, 8 * j + 2 * q, acc[4 * j + 2 * h],
+          acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int O, int K, int kC, int kW, bool kClock>
 __global__ void __launch_bounds__(kWarpsB * 32, 1)
 conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restrict__ x,
                             const float* __restrict__ w12, const float* __restrict__ b12,
                             const float* __restrict__ w3, const float* __restrict__ w4,
                             float* __restrict__ pw12, float* __restrict__ pb12,
                             float* __restrict__ pw3, float* __restrict__ pw4, int B, int C_arg,
-                            int T, int Z, int N, int W_arg, int step, int S) {
-  static_assert(O == 32, "two 16-row tiles and four 8-column tiles of O");
+                            int T, int Z, int N, int W_arg, int step, int S,
+                            unsigned long long* __restrict__ clk) {
+  static_assert(O == 32, "four 8-column chunks of O; dw3 / dw4 tiles of two taps");
   const int C = kC > 0 ? kC : C_arg, W = kW > 0 ? kW : W_arg;
-  extern __shared__ float4 smem4[];
-  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
+  extern __shared__ uint4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const uint32_t base = isd::smem_u32(smem);
+  const WgPlan plan = wg_plan(C, W, O, K);
   const int z = blockIdx.x, p = blockIdx.y, m = blockIdx.z;
   const int n = p / S, s = p - n * S, P = N * S;
-  const int t1 = W - K + 1;
-  const int warp = threadIdx.x >> 5;
-  const isd::Bf16Plan plan = isd::bf16_plan(C, W, O, K, 3);
-  const int ldx = plan.ldx, lda = plan.lda, lw = plan.lw, cp = plan.cp;
-  const int tiles = plan.nt16 / 16;
-  uint32_t* xs = smem + plan.xs;
+  const int t1 = plan.t1, cs = plan.cs, tiles = plan.nt / kRows;
+  // The warpgroup, through a shuffle so that the compiler knows it is the
+  // same across the warp: every branch on it is then warp-uniform.
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int wg = warp >> 2;
   uint16_t* raw = reinterpret_cast<uint16_t*>(smem + plan.raw);
-  uint32_t* ha = smem + plan.act[0];  // h1
-  uint32_t* hb = smem + plan.act[1];  // h2, then dh2
-  uint32_t* hc = smem + plan.act[2];  // dh3, then dh1
-  uint32_t* w12s = smem + plan.w12;
-  uint32_t* w3s = smem + plan.w3;
-  uint32_t* w4s = smem + plan.w4;
-  float* bias = reinterpret_cast<float*>(smem + plan.bias);
+  const float* bias = reinterpret_cast<const float*>(smem + plan.bias);
   float* gz = reinterpret_cast<float*>(smem + plan.gz);
   float* red = reinterpret_cast<float*>(smem + plan.red);
+  isd::PhaseClock<kClock> clock(smem + plan.total);
   const size_t zo = (static_cast<size_t>(m) * Z + z) * O;
   const size_t mp = static_cast<size_t>(m) * P + p;
-  float* dw12z = pw12 + (mp * Z * O + static_cast<size_t>(z) * O) * K * C;
-  float* db12z = pb12 + mp * Z * O + static_cast<size_t>(z) * O;
-  float* dw3z = pw3 + (mp * Z + z) * O * K * O;
-  float* dw4z = pw4 + (mp * Z + z) * O * K * O;
   const int b0 = s * B / S, b1 = (s + 1) * B / S;
   const int off = (n * step) & 1;  // T is even: every row's window starts at this parity
   const uint16_t* x0 = x + (static_cast<size_t>(m) * B + b0) * C * T + n * step - off;
 
-  isd::stage_raw_async(raw, plan.rw, x0, C, T, W, off);
-  isd::zero_words(xs, plan.raw - plan.xs);
-  isd::zero_words(ha, plan.w12 - plan.act[0]);
-  isd::stage_weights_bf16(w12s, plan.lw1, w12 + zo * K * C, O, K, C, cp);
-  isd::stage_weights_bf16(w3s, lw, w3 + zo * K * O, O, K, O, O);
-  isd::stage_weights_bf16(w4s, lw, w4 + zo * K * O, O, K, O, O);
-  if (threadIdx.x < O) bias[threadIdx.x] = b12[zo + threadIdx.x];
+  stage_raw_rows(raw, plan.rw, x0, C, T, W, off, warp);
+  isd::zero_words(reinterpret_cast<uint32_t*>(smem + plan.xs), plan.raw / 4);
+  isd::zero_words(reinterpret_cast<uint32_t*>(smem + plan.h1), (plan.w12 - plan.h1) / 4);
+  stage_weights_wg(smem + plan.w12, w12 + zo * K * C, O, K, C, plan.cp);
+  stage_weights_wg(smem + plan.w3, w3 + zo * K * O, O, K, O, O);
+  stage_weights_wg(smem + plan.w4, w4 + zo * K * O, O, K, O, O);
+  if (threadIdx.x < O) {
+    reinterpret_cast<float*>(smem + plan.bias)[threadIdx.x] = b12[zo + threadIdx.x];
+  }
+  isd::fence_proxy_async();
 
-  const auto store = [&](uint32_t* dst) {  // a bf16 activation, zero from t1 on
+  // Accumulators are defined by their first wgmma (scale-d 0), never by
+  // other instructions: those would serialise the wgmma pipeline.
+  float acc[16];           // a conv tile
+  float accw[kSlots][16];  // this warpgroup's weight-gradient tiles wg, wg + 4, ...
+  float db = 0.f;  // db12's sum over the block's trials (threads o < O keep theirs)
+
+  // This warpgroup's weight-gradient tiles of [lo, hi): dw4 tiles are
+  // 0..n34-1, dw3 n34..2 n34-1, dw12 2 n34..; their sources and dh.
+  bool first = true;  // the block's first trial
+  const auto issue_dw = [&](int lo, int hi) {
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int tile = wg + kGroups * t;
+      if (tile < lo || tile >= hi) continue;
+      uint32_t a0, b0r;
+      if (tile < plan.n34) {  // dw4: taps 2p, 2p + 1 of h2 and its copy; dh3c
+        a0 = base + plan.h2 + 32 * tile;
+        b0r = base + plan.d3 + 16 * (K / 2);
+      } else if (tile < 2 * plan.n34) {  // dw3: h1; dh2c
+        a0 = base + plan.h1 + 32 * (tile - plan.n34);
+        b0r = base + plan.d2 + 16 * (K / 2);
+      } else {  // dw12: (tap, 64 channels) of the window; bf16(dh1)
+        const int i = tile - 2 * plan.n34, blocks = plan.cp / kRows;
+        const int tap = i / blocks, blk = i - tap * blocks;
+        a0 = base + plan.xs + 8 * blk * cs + 16 * tap;
+        b0r = base + plan.d1 + 16 * (K / 2);
+      }
+      dw_issue(accw[t], a0, b0r, cs, plan.nt, first);
+    }
+  };
+  // One conv phase: this warpgroup's time tiles, each issued, waited for
+  // and handed to its epilogue; `extra` (weight-gradient tiles, or nothing:
+  // a phase without them must hold no wgmma at all, or ptxas serialises
+  // every wgmma around its epilogue) is issued behind the first tile and
+  // runs on under the epilogues; then `after`, the fence for the async
+  // proxy and the barrier.
+  const auto conv_phase = [&](auto issue, auto epilogue, auto extra, auto after, int ph_dw,
+                              int ph_conv) {
+    bool issued = false;
+    for (int tile = wg; tile < tiles; tile += kGroups) {
+      isd::wgmma_fence();
+      issue(tile);
+      isd::wgmma_commit();
+      if (!issued) {
+        extra();
+        isd::wgmma_commit();
+        issued = true;
+        clock.mark(ph_dw);
+        isd::wgmma_wait<1>();
+      } else {
+        isd::wgmma_wait<0>();
+      }
+      isd::fence_operand(acc);
+      conv_epilogue(acc, tile, epilogue);
+    }
+    if (!issued) {
+      isd::wgmma_fence();
+      extra();
+      isd::wgmma_commit();
+      clock.mark(ph_dw);
+    }
+    after();
+    isd::fence_proxy_async();
+    clock.sync(ph_conv);
+  };
+  const auto nothing = [] {};
+  const auto put = [&](int buf, int row, int o, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(smem + buf + chunk_off(cs, row, o)) = v;
+  };
+  const auto store = [&](int buf) {  // a bf16 activation, zero from t1 on
     return [=](int, int t, int o, float v0, float v1) {
-      dst[(K / 2 + t) * lda + o / 2] = t < t1 ? isd::pack_bf16(v0, v1) : 0u;
+      put(buf, K / 2 + t, o, t < t1 ? isd::pack_bf16(v0, v1) : 0u);
     };
   };
+  const auto conv = [&](int src, int w) {
+    return [=, &acc](int tile) { conv_issue<K, O, false>(acc, base + src, cs, base + w, O, tile); };
+  };
+  const auto conv_t = [&](int src, int w) {
+    return [=, &acc](int tile) { conv_issue<K, O, true>(acc, base + src, cs, base + w, O, tile); };
+  };
+
   for (int b = b0; b < b1; ++b) {
     const size_t mb = static_cast<size_t>(m) * B + b;
-    const bool first = b == b0;
     isd::cp_async_wait_all();
+    isd::wgmma_wait<0>();  // the last trial's weight gradients read the window and dh1
     __syncthreads();
-    isd::raw_to_window(xs, ldx, raw, plan.rw, off, C, W);
-    if (threadIdx.x < O) gz[threadIdx.x] = g[(mb * N + n) * Z * O + z * O + threadIdx.x] / t1;
-    __syncthreads();
+    clock.mark(isd::kPhWait);
+    raw_to_chunks(smem + plan.xs, cs, raw, plan.rw, off, C, plan.cp, W);
+    // g / t1 (O = 32: every warp stores the same values)
+    gz[threadIdx.x & 31] = g[(mb * N + n) * Z * O + z * O + (threadIdx.x & 31)] / t1;
+    isd::fence_proxy_async();
+    clock.sync(isd::kPhTranspose);
     if (b + 1 < b1) {
-      isd::stage_raw_async(raw, plan.rw, x0 + (b + 1 - b0) * static_cast<size_t>(C) * T, C, T,
-                           W, off);
+      stage_raw_rows(raw, plan.rw, x0 + (b + 1 - b0) * static_cast<size_t>(C) * T, C, T, W, off,
+                     warp);
     }
-    isd::conv_bf16<K, false, kWarpsB>(  // h1
-        xs, ldx, w12s, plan.lw1, cp, tiles, warp, [&](int, int t, int o, float v0, float v1) {
-          ha[(K / 2 + t) * lda + o / 2] = t < t1 ? isd::pack_bf16(v0 + bias[o], v1 + bias[o + 1])
-                                                 : 0u;
-        });
-    __syncthreads();
-    isd::conv_bf16<K, false, kWarpsB>(ha, lda, w3s, lw, O, tiles, warp, store(hb));  // h2
-    __syncthreads();
-    isd::conv_bf16<K, false, kWarpsB>(  // h3 -> dh3c
-        hb, lda, w4s, lw, O, tiles, warp, [&](int, int t, int o, float v0, float v1) {
-          hc[(K / 2 + t) * lda + o / 2] =
+    conv_phase(  // h1 = bf16(w12 . p + b12), and its copy one row down
+        [&](int tile) { conv_issue<K, O, false>(acc, base + plan.xs, cs, base + plan.w12,
+                                                plan.cp, tile); },
+        [&](int, int t, int o, float v0, float v1) {
+          const uint32_t v = t < t1 ? isd::pack_bf16(v0 + bias[o], v1 + bias[o + 1]) : 0u;
+          put(plan.h1, K / 2 + t, o, v);
+          put(plan.h1, K / 2 + t - 1, O + o, v);
+        },
+        nothing, nothing, isd::kPhConv1, isd::kPhConv1);
+    conv_phase(  // h2 = bf16(w3 . pad(h1)), and its copy
+        conv(plan.h1, plan.w3),
+        [&](int, int t, int o, float v0, float v1) {
+          const uint32_t v = t < t1 ? isd::pack_bf16(v0, v1) : 0u;
+          put(plan.h2, K / 2 + t, o, v);
+          put(plan.h2, K / 2 + t - 1, O + o, v);
+        },
+        nothing, nothing, isd::kPhConv2, isd::kPhConv2);
+    conv_phase(  // h3 = w4 . pad(h2) -> dh3c = bf16(g / t1 * gelu'(h3))
+        conv(plan.h2, plan.w4),
+        [&](int, int t, int o, float v0, float v1) {
+          put(plan.d3, K / 2 + t, o,
               t < t1 ? isd::pack_bf16(gz[o] * isd::gelu_grad(v0), gz[o + 1] * isd::gelu_grad(v1))
-                     : 0u;
-        });
-    __syncthreads();
-    isd::weight_grad_bf16<K, kNtDw, kWarpsB>(dw4z, K * O, O, first, hc, lda, hb, lda, O, tiles,
-                                             warp);
-    __syncthreads();
-    isd::conv_bf16<K, true, kWarpsB>(hc, lda, w4s, lw, O, tiles, warp, store(hb));  // dh2c
-    __syncthreads();
-    isd::weight_grad_bf16<K, kNtDw, kWarpsB>(dw3z, K * O, O, first, hb, lda, ha, lda, O, tiles,
-                                             warp);
+                     : 0u);
+        },
+        nothing, nothing, isd::kPhConv3, isd::kPhConv3);
+    conv_phase(conv_t(plan.d3, plan.w4), store(plan.d2),  // dh2c, dw4 behind it
+               [&] { issue_dw(0, plan.n34); }, nothing, isd::kPhDw4, isd::kPhConv4T);
     float sums[4][2] = {};
-    isd::conv_bf16<K, true, kWarpsB>(  // dh1: bf16 for dw12, its f32 row sums for db12
-        hb, lda, w3s, lw, O, tiles, warp, [&](int j, int t, int o, float v0, float v1) {
+    conv_phase(  // dh1: bf16 for dw12, its f32 column sums for db12; dw3 behind it
+        conv_t(plan.d2, plan.w3),
+        [&](int j, int t, int o, float v0, float v1) {
           const bool real = t < t1;
-          hc[(K / 2 + t) * lda + o / 2] = real ? isd::pack_bf16(v0, v1) : 0u;
-          if (real) {
-            sums[j][0] += v0;
-            sums[j][1] += v1;
-          }
-        });
-    isd::warp_col_sums(red, sums);
-    __syncthreads();
-    isd::weight_grad_bf16<K, kNtDw12, kWarpsB>(dw12z, K * C, C, first, hc, lda, xs, ldx, cp,
-                                               tiles, warp);
-    if (threadIdx.x < O) {
-      db12z[threadIdx.x] = (first ? 0.f : db12z[threadIdx.x]) + isd::sum_warps(red, threadIdx.x);
+          put(plan.d1, K / 2 + t, o, real ? isd::pack_bf16(v0, v1) : 0u);
+          sums[j][0] += real ? v0 : 0.f;
+          sums[j][1] += real ? v1 : 0.f;
+        },
+        [&] { issue_dw(plan.n34, 2 * plan.n34); }, [&] { col_sums(red, sums); },
+        isd::kPhDw3, isd::kPhConv3T);
+    isd::wgmma_fence();
+    issue_dw(2 * plan.n34, 2 * plan.n34 + plan.n12);
+    isd::wgmma_commit();
+    clock.mark(isd::kPhDw12);
+    db += isd::sum_warps(red, threadIdx.x & 31);  // every thread: no branch (see col_sums)
+    clock.mark(isd::kPhDb12);
+    first = false;
+  }
+  isd::wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t) isd::fence_operand(accw[t]);
+
+  // Each tile's rows to its gradient: dw4 / dw3 rows r < 32 are tap 2p,
+  // channel r, the rest tap 2p + 1 (not stored past K); dw12 rows are the
+  // channels 64 blk + r of one tap (not stored past C).
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, gq = lane >> 2, q = lane & 3;
+  float* dw12z = pw12 + (mp * Z * O + static_cast<size_t>(z) * O) * K * C;
+  float* dw3z = pw3 + (mp * Z + z) * O * K * O;
+  float* dw4z = pw4 + (mp * Z + z) * O * K * O;
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t) {
+    const int tile = wg + kGroups * t;
+    if (tile >= 2 * plan.n34 + plan.n12) continue;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = 16 * w + 8 * ((i >> 1) & 1) + gq, o = 8 * (i >> 2) + 2 * q + (i & 1);
+      if (tile < 2 * plan.n34) {
+        const int pair = tile < plan.n34 ? tile : tile - plan.n34;
+        const int tap = 2 * pair + r / O, ch = r % O;
+        float* dst = tile < plan.n34 ? dw4z : dw3z;
+        if (tap < K) dst[o * K * O + tap * O + ch] = accw[t][i];
+      } else {
+        const int j = tile - 2 * plan.n34, blocks = plan.cp / kRows;
+        const int tap = j / blocks, ch = kRows * (j - tap * blocks) + r;
+        if (ch < C) dw12z[static_cast<size_t>(o) * K * C + tap * C + ch] = accw[t][i];
+      }
     }
   }
+  if (threadIdx.x < O) pb12[mp * Z * O + static_cast<size_t>(z) * O + threadIdx.x] = db;
+  clock.finish(clk);
 }
 
-template <int O, int K>
+template <int O, int K, bool kClock>
 cudaError_t launch_w(const float* g, const uint16_t* x, const float* w12, const float* b12,
                      const float* w3, const float* w4, float* dw12, float* db12, float* dw3,
                      float* dw4, float* pw12, float* pb12, float* pw3, float* pw4, int M, int B,
-                     int C, int T, int Z, int W, int step, int N, int S, cudaStream_t st) {
-  const size_t smem_bytes = sizeof(uint32_t) * isd::bf16_plan(C, W, O, K, 3).total;
+                     int C, int T, int Z, int W, int step, int N, int S,
+                     unsigned long long* clk, cudaStream_t st) {
+  const WgPlan plan = wg_plan(C, W, O, K);
+  if (2 * plan.n34 + plan.n12 > kGroups * kSlots) {
+    return cudaErrorInvalidValue;  // more weight-gradient tiles than registers hold
+  }
+  const size_t smem_bytes = plan.total + (kClock ? isd::kClockBytes : 0);
   // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
-  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_w_bf16_kernel<O, K, 64, 250>
-                                            : conv4head_bwd_w_bf16_kernel<O, K, 0, 0>;
+  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_w_bf16_kernel<O, K, 64, 250, kClock>
+                                            : conv4head_bwd_w_bf16_kernel<O, K, 0, 0, kClock>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
   const int P = N * S;
   kernel<<<dim3(Z, P, M), kWarpsB * 32, smem_bytes, st>>>(
-      g, x, w12, b12, w3, w4, pw12, pb12, pw3, pw4, B, C, T, Z, N, W, step, S);
+      g, x, w12, b12, w3, w4, pw12, pb12, pw3, pw4, B, C, T, Z, N, W, step, S, clk);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = isd::sum_partials(pw12, dw12, M, P, Z * O * K * C, st)) != cudaSuccess) return err;
   if ((err = isd::sum_partials(pb12, db12, M, P, Z * O, st)) != cudaSuccess) return err;
@@ -180,21 +516,14 @@ cudaError_t launch_w(const float* g, const uint16_t* x, const float* w12, const 
   return isd::sum_partials(pw4, dw4, M, P, Z * O * K * O, st);
 }
 
-}  // namespace
-
-// Dynamic shared memory of one B2w-bf16 block, in bytes.
-extern "C" int isd_conv4head_bwd_w_bf16_smem_bytes(int C, int W, int O, int K) {
-  return static_cast<int>(sizeof(uint32_t)) * isd::bf16_plan(C, W, O, K, 3).total;
-}
-
 // B2w-bf16. Arguments as isd_conv4head_bwd_w's, with x (M, B, C, T) bf16
-// (T even, 4-byte aligned); any C.
-extern "C" int isd_conv4head_bwd_w_bf16(const float* g, const void* x, const float* w12,
-                                        const float* b12, const float* w3, const float* w4,
-                                        float* dw12, float* db12, float* dw3, float* dw4,
-                                        float* pw12, float* pb12, float* pw3, float* pw4, int M,
-                                        int B, int C, int T, int Z, int O, int K1, int K2, int W,
-                                        int step, int N, int S, void* stream) {
+// (T even, 4-byte aligned). `clk` null launches the shipped instantiation;
+// otherwise the debug one, which adds its counters to clk[0, kPhases + 2).
+int bwd_w_bf16(const float* g, const void* x, const float* w12, const float* b12,
+               const float* w3, const float* w4, float* dw12, float* db12, float* dw3,
+               float* dw4, float* pw12, float* pb12, float* pw3, float* pw4, int M, int B, int C,
+               int T, int Z, int O, int K1, int K2, int W, int step, int N, int S,
+               unsigned long long* clk, void* stream) {
   if (M < 1 || B < 1 || C < 1 || Z < 1 || N < 1 || K1 < 1 || K2 < 1 || W < K1 || step < 1 ||
       (N - 1) * step + W > T || T % 2 != 0 || M > 65535 || S < 1 || S > B ||
       static_cast<long long>(N) * S > 65535) {
@@ -202,8 +531,39 @@ extern "C" int isd_conv4head_bwd_w_bf16(const float* g, const void* x, const flo
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (O == 32 && K1 == 5 && K2 == 5) {
-    return launch_w<32, 5>(g, static_cast<const uint16_t*>(x), w12, b12, w3, w4, dw12, db12, dw3,
-                           dw4, pw12, pb12, pw3, pw4, M, B, C, T, Z, W, step, N, S, st);
+    const auto launch = clk ? launch_w<32, 5, true> : launch_w<32, 5, false>;
+    return launch(g, static_cast<const uint16_t*>(x), w12, b12, w3, w4, dw12, db12, dw3, dw4,
+                  pw12, pb12, pw3, pw4, M, B, C, T, Z, W, step, N, S, clk, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Dynamic shared memory of one B2w-bf16 block, in bytes.
+extern "C" int isd_conv4head_bwd_w_bf16_smem_bytes(int C, int W, int O, int K) {
+  return wg_plan(C, W, O, K).total;
+}
+
+extern "C" int isd_conv4head_bwd_w_bf16(const float* g, const void* x, const float* w12,
+                                        const float* b12, const float* w3, const float* w4,
+                                        float* dw12, float* db12, float* dw3, float* dw4,
+                                        float* pw12, float* pb12, float* pw3, float* pw4, int M,
+                                        int B, int C, int T, int Z, int O, int K1, int K2, int W,
+                                        int step, int N, int S, void* stream) {
+  return bwd_w_bf16(g, x, w12, b12, w3, w4, dw12, db12, dw3, dw4, pw12, pb12, pw3, pw4, M, B, C,
+                    T, Z, O, K1, K2, W, step, N, S, nullptr, stream);
+}
+
+// The debug instantiation: as isd_conv4head_bwd_w_bf16, adding its phase
+// counters to clk (kPhases + 2 zeros on the device, see phase_clock.cuh).
+extern "C" int isd_conv4head_bwd_w_bf16_phases(
+    const float* g, const void* x, const float* w12, const float* b12, const float* w3,
+    const float* w4, float* dw12, float* db12, float* dw3, float* dw4, float* pw12, float* pb12,
+    float* pw3, float* pw4, int M, int B, int C, int T, int Z, int O, int K1, int K2, int W,
+    int step, int N, int S, void* clk, void* stream) {
+  if (clk == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_w_bf16(g, x, w12, b12, w3, w4, dw12, db12, dw3, dw4, pw12, pb12, pw3, pw4, M, B, C,
+                    T, Z, O, K1, K2, W, step, N, S, static_cast<unsigned long long*>(clk),
+                    stream);
 }

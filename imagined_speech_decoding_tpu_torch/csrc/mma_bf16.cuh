@@ -51,22 +51,10 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
                : "r"(smem_addr(row)));
 }
 
-// Two matrices: lanes 0..15 give the row addresses (the others' are ignored).
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(row)));
-}
-
 // bf16(lo) in the low half, bf16(hi) in the high half; round to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float v) {
-  const __nv_bfloat16 b = __float2bfloat16_rn(v);
-  return *reinterpret_cast<const uint16_t*>(&b);
 }
 
 // 4 bytes global -> shared by cp.async: dst and src 4-byte aligned.

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "isd_conv4head_bf16_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_bf16": ([_P] * 14 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_w_bf16_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_bwd_w_bf16_phases": ([_P] * 14 + [_I] * 12 + [_P, _P], _I),
+    "isd_wgmma_selftest": ([_P, _I, _P, _P] + [_I] * 7 + [_P, _P], _I),
     "isd_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -10,15 +10,17 @@ header says what bounds it on the H100 and what the design does about it.
 All three run on the tensor cores in 3xTF32 (f32 accuracy), sharing one
 conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32 and
 K1 = K2 = 5. B2f and B2x take any channel count C; B2w needs C to be a
-multiple of 8 and raises for any other C (B2w-bf16 takes any C).
+multiple of 8 and raises for any other C (B2w-bf16 takes any C up to 64).
 
 The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
 an f32 x takes the kernels above; a bf16 x takes their bf16
-instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``) and B2w-bf16
-(``csrc/conv4head_bwd_w_bf16.cu``), one bf16 ``mma.sync`` pass per product
-with f32 accumulators, rounding where the Pallas kernel rounds (any C, an
-even T). The weights come in as f32 either way and the kernels round them
-to bf16 as they stage them; the output and every weight gradient are f32.
+instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``, one bf16
+``mma.sync`` pass per product) and B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``,
+one bf16 ``wgmma`` pass per product, the weight gradients held in
+registers across a block's trials), f32 accumulators, rounding where the
+Pallas kernel rounds (an even T). The weights come in as f32 either way
+and the kernels round them to bf16 as they stage them; the output and
+every weight gradient are f32.
 B2x has no bf16 instantiation: a bf16 x that needs a gradient on the card
 raises ``NotImplementedError`` (ROADMAP.md, Queue 2).
 
@@ -303,39 +305,166 @@ def _trial_splits(m: int, b: int, z: int, n: int, device) -> int:
     return max(1, min(b, -(-2 * sms // (m * z * n))))
 
 
+# B2w-bf16's shared-memory plan and wgmma descriptors, mirrored from
+# csrc/conv4head_bwd_w_bf16.cu (wg_plan, conv_issue, dw_issue and the
+# tiles' sources) and csrc/wgmma_bf16.cuh for the tests: every time-major buffer is stored in
+# chunks of 8 channels, [chunk][row][8] bf16, so the bytes of (row, channel)
+# are chunk_offset(cs, row, channel) from the buffer's start.
+WG_ROWS = 64  # rows of a wgmma tile: a warpgroup's share of time, or of (tap, channel)
+WG_GROUPS = 4  # warpgroups of a B2w-bf16 block (16 warps)
+WG_SLOTS = 3  # weight-gradient tiles a warpgroup holds in registers
+
+
+def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
+    """B2w-bf16's plan for C channels and windows of W: the byte offset of
+    every shared-memory region, the total, and the geometry:
+      cp    channels of the staged window and w12 (C rounded up to 64: one
+            dw12 tile is 64 channels of one tap);
+      nt    time rows the convs compute (t1 rounded up to WG_ROWS);
+      rows  rows of every time-major buffer (nt + K - 1: the farthest tap);
+      cs    bytes between two chunks of 8 channels (rows * 16);
+      n34, n12  weight-gradient tiles of dw3 (= of dw4) and of dw12.
+    h1 and h2 carry 2*O/8 chunks: O channels, then a copy one row down, so
+    one 64-row dw3 / dw4 tile spans two taps at one chunk stride."""
+    cp = -(-c // WG_ROWS) * WG_ROWS
+    t1 = w - k + 1
+    nt = -(-t1 // WG_ROWS) * WG_ROWS
+    rows = nt + k - 1
+    cs = 16 * rows
+    rw = (w + 2) & ~1
+    plan = {"c": c, "w": w, "o": o, "k": k, "cp": cp, "t1": t1, "nt": nt, "rows": rows,
+            "cs": cs, "rw": rw, "n34": -(-k * o // WG_ROWS), "n12": k * cp // WG_ROWS}
+    off = 0
+    for name, nbytes in (("xs", cp // 8 * cs), ("raw", 2 * c * rw),
+                         ("h1", o // 4 * cs), ("h2", o // 4 * cs),
+                         ("d3", o // 8 * cs), ("d2", o // 8 * cs), ("d1", o // 8 * cs),
+                         ("w12", 2 * k * cp * o), ("w3", 2 * k * o * o), ("w4", 2 * k * o * o),
+                         ("bias", 4 * o), ("gz", 4 * o), ("red", 4 * 4 * WG_GROUPS * o)):
+        plan[name] = off
+        off += -(-nbytes // 16) * 16
+    plan["total"] = off
+    return plan
+
+
+def chunk_offset(cs: int, row: int, ch: int) -> int:
+    """Bytes of (row, channel) from the start of a chunked buffer."""
+    return (ch // 8) * cs + 16 * row + 2 * (ch % 8)
+
+
+def bwd_w_bf16_tiles(plan: dict) -> list:
+    """The weight-gradient tiles in the kernel's order, ``(kind, index)``:
+    dw4 and dw3 tiles p (taps 2p, 2p + 1), then dw12 tiles (tap, block of
+    64 channels). Warpgroup ``i % WG_GROUPS`` holds tile ``i``."""
+    blocks = plan["cp"] // WG_ROWS
+    return ([("dw4", p) for p in range(plan["n34"])] + [("dw3", p) for p in range(plan["n34"])]
+            + [("dw12", (i // blocks, i % blocks)) for i in range(plan["n12"])])
+
+
+def bwd_w_bf16_conv_descs(plan: dict, src: str, tile: int, transposed: bool) -> list:
+    """The k16 steps of one 64-row conv tile in issue order, each
+    ``((a_start, k_step, mn_step), (b_start, k_step, mn_step))`` in bytes
+    from the start of shared memory. A (time x channels, K-major) is
+    ``src`` from row 64 tile + tap (a conv^T reads tap K-1-k); B is w12
+    (src ``xs``), w3 (``h1``) or w4 (``h2``; ``d3`` and ``d2`` read w4 and
+    w3 transposed, MN-major): staged [chunk of (tap, channel)][o][8]."""
+    o, k, cs = plan["o"], plan["k"], plan["cs"]
+    ch = plan["cp"] if src == "xs" else o
+    w = {"xs": "w12", "h1": "w3", "h2": "w4", "d3": "w4", "d2": "w3"}[src]
+    steps = []
+    for tap in range(k):
+        row = WG_ROWS * tile + (k - 1 - tap if transposed else tap)
+        for c0 in range(0, ch, 16):
+            a = (plan[src] + chunk_offset(cs, row, c0), cs, 128)
+            if transposed:  # B[o'][o] = w[o'][tap * O + o]: N along the chunk, K along the rows
+                b = (plan[w] + chunk_offset(16 * o, c0, tap * o), 128, 16 * o)
+            else:  # B[(tap, c)][o] = w[o][tap * ch + c]: K along the chunk
+                b = (plan[w] + chunk_offset(16 * o, 0, tap * ch + c0), 16 * o, 128)
+            steps.append((a, b))
+    return steps
+
+
+def bwd_w_bf16_dw_descs(plan: dict, kind: str, index) -> list:
+    """The k16 steps (16 time rows each) of one weight-gradient tile,
+    dw^T[(tap, i), o] = sum_t src[t + tap][i] d[t][o]: A = src (MN-major:
+    time along K, channels along M), B = d from row K/2 (MN-major)."""
+    k, cs = plan["k"], plan["cs"]
+    src, d = {"dw4": ("h2", "d3"), "dw3": ("h1", "d2"), "dw12": ("xs", "d1")}[kind]
+    if kind == "dw12":
+        tap, block = index
+        a0 = plan[src] + chunk_offset(cs, tap, WG_ROWS * block)
+    else:  # taps 2p (chunks 0..3) and 2p + 1 (the copy one row down, chunks 4..7)
+        a0 = plan[src] + chunk_offset(cs, 2 * index, 0)
+    b0 = plan[d] + chunk_offset(cs, k // 2, 0)
+    return [((a0 + 16 * t0, 128, cs), (b0 + 16 * t0, 128, cs))
+            for t0 in range(0, plan["nt"], 16)]
+
+
+def _check_bwd_w_bf16(c: int, w: int, o: int, k: int) -> None:
+    """B2w-bf16 holds its weight-gradient tiles in registers, WG_SLOTS a
+    warpgroup: C <= 64."""
+    plan = bwd_w_bf16_plan(c, w, o, k)
+    if len(bwd_w_bf16_tiles(plan)) > WG_SLOTS * WG_GROUPS:
+        raise ValueError(f"B2w-bf16 holds at most {WG_SLOTS * WG_GROUPS} weight-gradient tiles "
+                         f"in registers; C={c} needs {len(bwd_w_bf16_tiles(plan))}")
+
+
 def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2w: ``(dw12, db12, dw3, dw4)`` of ``<g, fused_conv4_head(x, ...)>``;
-    B2w-bf16 for a bf16 ``x`` (any C), B2w for an f32 one (C % 8 == 0)."""
+    B2w-bf16 for a bf16 ``x`` (C <= 64), B2w for an f32 one (C % 8 == 0)."""
     if x.device.type == "cpu":
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
+    return _launch_bwd_w(g, x, w12, b12, w3, w4, window_len, step)
+
+
+# B2w-bf16's phases, in the order of the counters that its debug
+# instantiation keeps (``_launch_bwd_w(..., clk=...)``; b2w_timing.py).
+BWD_W_BF16_PHASES = ("wait", "transpose", "conv1", "conv2", "conv3", "conv4T", "dw4", "conv3T",
+                     "dw3", "dw12", "db12", "barrier")
+
+
+def _launch_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int, s=None, clk=None):
+    """B2w or B2w-bf16 with ``s`` trial ranges per (model, zone, window),
+    or ``_trial_splits``'s when None. ``clk`` (bf16 only: a CUDA int64
+    tensor of ``len(BWD_W_BF16_PHASES) + 2`` zeros) launches the debug
+    instantiation instead, which adds to it each phase's clock cycles
+    summed over warps and blocks, then every block's cycles and
+    nanoseconds; such a launch is not counted."""
     bf16 = x.dtype == torch.bfloat16
     _, _, c, _, _, _, k1, k2, _ = _geometry(x, w12, w3, window_len, step)
     _check_taps(k1, k2)
     if not bf16:
         _check_bwd_w_channels(c)
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
+    if bf16:
+        _check_bwd_w_bf16(c, window_len, o, k1)
     lib = _lib.library()
     smem = lib.isd_conv4head_bwd_w_bf16_smem_bytes if bf16 else lib.isd_conv4head_bwd_w_smem_bytes
     _check_smem(smem(c, window_len, o, k1), "B2w-bf16" if bf16 else "B2w")
     x = _aligned16(x) if bf16 else x
     w12, w3, w4 = _aligned16(w12), _aligned16(w3), _aligned16(w4)
-    s = _trial_splits(m, b, z, n, x.device)
+    s = _trial_splits(m, b, z, n, x.device) if s is None else s
     p = n * s
     grads = [torch.empty((m,) + tuple(w.shape[1:]), dtype=torch.float32, device=x.device)
              for w in (w12, b12, w3, w4)]
     parts = [torch.empty((m, p) + tuple(w.shape[1:]), dtype=torch.float32, device=x.device)
              for w in (w12, b12, w3, w4)]
     entry = lib.isd_conv4head_bwd_w_bf16 if bf16 else lib.isd_conv4head_bwd_w
+    extra = ()
+    if clk is not None:
+        if not bf16:
+            raise ValueError("only B2w-bf16 has a debug instantiation with phase counters")
+        _lib.require_cuda("clk", clk, torch.int64, (len(BWD_W_BF16_PHASES) + 2,))
+        entry, extra = lib.isd_conv4head_bwd_w_bf16_phases, (clk.data_ptr(),)
     with torch.cuda.device(x.device):
         code = entry(
             g.data_ptr(), x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(),
             w4.data_ptr(), *(t_.data_ptr() for t_ in grads), *(t_.data_ptr() for t_ in parts),
-            m, b, c, t, z, o, k1, k2, window_len, step, n, s, _lib.stream_of(x),
+            m, b, c, t, z, o, k1, k2, window_len, step, n, s, *extra, _lib.stream_of(x),
         )
     _lib.check(code, entry.__name__)
-    if bf16:
+    if clk is None and bf16:
         conv4head_bwd_w.launches_bf16 += 1
-    else:
+    elif clk is None:
         conv4head_bwd_w.launches += 1
     return tuple(grads)
 

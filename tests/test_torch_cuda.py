@@ -8,6 +8,7 @@ file imports no JAX, so it runs on a machine without it:
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.)
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -18,8 +19,11 @@ import torch
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.explain.attribution import attribution_for_predictions
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
+from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    _launch_bwd_w,
     _launch_bwd_x,
+    bwd_w_bf16_plan,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
@@ -41,6 +45,7 @@ from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout_params,
 )
+from wgmma_emulation import selftest_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -512,3 +517,80 @@ def test_bf16_training_step_matches_cpu(dev):
     err = float((g_card - g_cpu).norm() / g_cpu.norm())
     gap = float((g_f32 - g_cpu).norm() / g_cpu.norm())
     assert err <= 3e-3 < gap, (err, gap)
+
+
+def test_bf16_weight_grads_hold_over_a_long_trial_loop(dev):
+    """M = 1, B = 256 with one trial range (S = 1): each block runs 256
+    trials, its weight gradients held in registers across all of them."""
+    cfg, _, ops, x, g = _full_width_operands(dev, 1, 256, 41)
+    xb, geo = x.to(torch.bfloat16), (cfg.window_len, cfg.slide_step)
+    before = conv4head_bwd_w.launches_bf16
+    dw = _launch_bwd_w(g, xb, *ops, *geo, s=1)
+    torch.cuda.synchronize()
+    assert conv4head_bwd_w.launches_bf16 == before + 1
+    ref = conv4head_bwd_plain(g, xb, *ops, *geo)[1:]
+    for name, got, r in zip(("dw12", "db12", "dw3", "dw4"), dw, ref):
+        _bf16_close(got, r, BF16_BWD_REL, f"B2w-bf16 S=1 B=256 {name}")
+
+
+def test_bf16_weight_grads_are_deterministic_over_20_runs(dev):
+    """Twenty launches give the same bits: no atomics, and every shared-memory
+    write that a wgmma reads is fenced (a missing fence shows as a rare
+    mismatch)."""
+    cfg, _, ops, x, g = _full_width_operands(dev, 2, 8, 43)
+    xb, geo = x.to(torch.bfloat16), (cfg.window_len, cfg.slide_step)
+    first = conv4head_bwd_w(g, xb, *ops, *geo)
+    for _ in range(19):
+        for a, b in zip(conv4head_bwd_w(g, xb, *ops, *geo), first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120)])
+def test_bwd_w_bf16_plan_mirror_matches_kernel(dev, c, w):
+    """The Python mirror of B2w-bf16's shared-memory plan gives the kernel's total."""
+    assert bwd_w_bf16_plan(c, w)["total"] == _lib.library().isd_conv4head_bwd_w_bf16_smem_bytes(
+        c, w, 32, 5)
+
+
+def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
+    """One wgmma tile on the card from the image (csrc/wgmma_selftest.cu);
+    ``swap`` exchanges an operand's two core-matrix steps (the other
+    reading of the descriptor's leading and stride offsets)."""
+    bits = img[0].to(torch.bfloat16).view(torch.int16).to(dev)
+    n = len(steps)
+    a_starts = (ctypes.c_int * n)(*(a[0] for a, _ in steps))
+    b_starts = (ctypes.c_int * n)(*(b[0] for _, b in steps))
+    (_, a_k, a_mn), (_, b_k, b_mn) = steps[0]
+    if swap[0]:
+        a_k, a_mn = a_mn, a_k
+    if swap[1]:
+        b_k, b_mn = b_mn, b_k
+    d = torch.empty((64, 32), dtype=torch.float32, device=dev)
+    code = _lib.library().isd_wgmma_selftest(
+        bits.data_ptr(), 2 * bits.numel(), ctypes.cast(a_starts, ctypes.c_void_p),
+        ctypes.cast(b_starts, ctypes.c_void_p), n, a_k, a_mn, b_k, b_mn, int(a_mn_major),
+        int(b_mn_major), d.data_ptr(), _lib.stream_of(d))
+    _lib.check(code, "isd_wgmma_selftest")
+    torch.cuda.synchronize()
+    return d.double().cpu()
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_wgmma_descriptor_forms_match_plain(dev, case):
+    """Each descriptor form that B2w-bf16 issues (tests/wgmma_emulation.py),
+    one tile on the card through the Python mirror's starts and steps,
+    against the plain product of the same bf16 values (f32 sums of exact
+    products: 1e-5 of max|ref|). On a mismatch the message gives the error
+    of each other reading of the two offsets, to tell a wrong convention
+    from a wrong address."""
+    img, cases = selftest_cases(bwd_w_bf16_plan(64, 250))
+    name, steps, a_mn_major, b_mn_major, expected = cases[case]
+    tol = 1e-5 * float(expected.abs().max())
+    got = _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major)
+    err = float((got - expected).abs().max())
+    if err > tol:
+        others = {swap: float((_wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap)
+                               - expected).abs().max())
+                  for swap in ((True, False), (False, True), (True, True))}
+        raise AssertionError(f"{name}: max|err| {err:.3g} > {tol:.3g}; with swapped offsets "
+                             f"(A, B): {others}")
