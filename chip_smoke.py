@@ -11,7 +11,8 @@ paths on one NVIDIA GPU.
    (``-Xptxas -v``), shared memory per block and the count of tensor-core
    instructions of their route in their SASS (``cuobjdump``, where the
    toolkit has it): HMMA (``mma.sync``), or HGMMA (``wgmma``) for
-   B2w-bf16; a count of 0 fails the run.
+   B2f-bf16 and B2w-bf16 (which must have no HMMA); a count of 0 fails
+   the run.
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
    CUDA events (B1 also by the profiler's device time), beside the kernel's bound (the least time for its work:
@@ -44,12 +45,19 @@ paths on one NVIDIA GPU.
         training run's M = 75 at 64, 24 and 35 (models 0, 37, 74), against
         the plain bf16 versions: |err| <= 3e-4 (features) and 1e-3 (weight
         gradients) x max|ref| per tensor (tests/test_torch_cuda.py says
-        why); timed by CUDA events, with their bound (x at 2 bytes a
-        sample; one bf16 tensor-core pass at 989 TFLOP/s) and their share
-        of their route's floor (``mma.sync`` bf16 for B2f-bf16, ``wgmma``
-        m64n32k16 for B2w-bf16); B2w-bf16's cycles a (trial, window,
-        zone) unit by phase at M = 75, B = 64 (its debug instantiation,
-        ``b2w_timing.py``'s split).
+        why); B2f-bf16's two runs at M = 75, B = 64 bit-identical; timed
+        by CUDA events, with their bound (x at 2 bytes a sample; one bf16
+        tensor-core pass at 989 TFLOP/s) and their share of their route's
+        floor (``wgmma`` m64n32k16 for both, B2f-bf16's on its own work:
+        the first conv once per trial); B2f-bf16's cycles a (trial, zone)
+        item and B2w-bf16's a (trial, window, zone) unit by phase at M = 75,
+        B = 64 (their debug instantiations, ``b2f_timing.py``'s and
+        ``b2w_timing.py``'s splits).
+     Head geometries the kernels are not built for, which the wrappers
+        launch on zero-padded or split operands: dim_cnn = 8 trained in
+        f32 and bf16 and a bf16 forward at T = 1001 (N = 7 windows: two
+        B2f-bf16 groups), against the CPU, with the kernels' launches and
+        the adapted calls counted.
 4. Serving path: full-width FAST weights from a numpy seed are written
    as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
    ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
@@ -66,6 +74,9 @@ paths on one NVIDIA GPU.
    complete, and one subject's ``best_subject.npz`` must reproduce its
    ``test_predictions.csv`` on the card, with logits that match the plain
    CPU forward (f32: rtol 1e-4, atol 1e-5; bf16: 3e-3 in relative L2).
+   Every path at the shipped geometry (serving, training in each
+   precision, the bf16 trajectory, attribution) must launch the head's
+   kernels on its operands as they are (``adapted`` 0).
    Then one step at M = 75, B = 64 in each precision under the profiler
    (the bf16 one must run B2f-bf16 and B2w-bf16 and no f32 head kernel),
    and a 2-subject x 10-trial run on the card against the same run on the
@@ -117,8 +128,10 @@ from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     BWD_W_BF16_PHASES,
+    FWD_BF16_PHASES,
     KERNEL_TAPS,
     _launch_bwd_w,
+    _launch_fwd,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
@@ -186,7 +199,7 @@ BF16_FLOPS = 989e12  # tensor cores, bf16 dense
 # mma_tf32_ceiling.py --mode bf16: the floor of B2f-bf16's route (one pass).
 MMA_SYNC_BF16_FLOPS = 642.3e12
 # The rate of wgmma m64n32k16 bf16 with both operands in shared memory, on the same card,
-# measured by mma_tf32_ceiling.py --mode wgmma: the floor of B2w-bf16's route.
+# measured by mma_tf32_ceiling.py --mode wgmma: the floor of B2w-bf16's and B2f-bf16's route.
 WGMMA_N32_FLOPS = 653.0e12
 BF16_FWD_REL, BF16_BWD_REL = 3e-4, 1e-3  # atol = REL * max|ref| per tensor (bf16 kernels)
 BF16_LOGITS_L2 = 3e-3  # bf16 logits and gradients, card vs CPU, relative L2
@@ -267,26 +280,31 @@ def device_ms(fn, kernel: str, iters: int) -> float:
         for _ in range(iters):
             fn()
 
-    total = sum(e.self_device_time_total for e in profiled(calls) if re.search(kernel, e.key))
-    if total <= 0:
-        raise RuntimeError(f"the profiler recorded no {kernel!r} kernel")
+    total = sum(e.self_device_time_total for e in profiled(calls, need=(kernel,))
+                if re.search(kernel, e.key))
     return total / 1e3 / iters
 
 
-def profiled(fn, cpu: bool = False):
+def profiled(fn, cpu: bool = False, need=()):
     """``fn()`` under the profiler (the device's activity, and the host's if
-    ``cpu``): its ``key_averages()``. The profiler now and then returns a
-    session without any device record (seen once on the H100, after a run
-    of sessions), so such a session is profiled again, up to three times."""
+    ``cpu``): its ``key_averages()``. ``need`` holds regular expressions of
+    kernels that ``fn`` launches. The profiler now and then loses device
+    records: a whole session's (seen once on the H100, after a run of
+    sessions), or one kernel's (B2f-bf16 in the bf16 training step, seen once
+    on an H100 whose launch counter showed the launch). A session without
+    device time, or without a record of each kernel in ``need``, is profiled
+    again, up to three times."""
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     for _ in range(3):
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        if any(e.self_device_time_total > 0 for e in events):
+        timed = [e.key for e in events if e.self_device_time_total > 0]
+        if timed and all(any(re.search(k, key) for key in timed) for k in need):
             return events
-    raise RuntimeError("the profiler recorded no device time in three sessions")
+    raise RuntimeError(f"the profiler recorded no device time, or none of {list(need)}, "
+                       "in three sessions")
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
@@ -438,6 +456,7 @@ def phase_serving(cfg, params1, params2, rng, workdir):
                            f"causal one: {launches}")
     if launches["conv4head_fwd"] < 1:
         raise RuntimeError("the serving path never launched the conv4head_fwd kernel")
+    require_unadapted(launches, "serving")
     if info["device"] != "cuda" or info["n_channels"] != 64 or info["n_classes"] != cfg.n_classes:
         raise RuntimeError(f"unexpected INFO {info}")
 
@@ -513,6 +532,11 @@ def phase_device_time(cfg, params, dev, rng):
 
 
 HEAD_FMA_FWD = 5_038_080  # per (trial, window, zone) at full width: conv12 2.52 M + tails 2 x 1.26 M
+# B2f-bf16's own multiply-adds per (trial, zone): the first conv once over the 746 h1 columns
+# its 5 windows use (32 x 320 x 746 = 7.64 M) and the tails (5 x 2 x 1.26 M): 20% fewer than
+# 5 x HEAD_FMA_FWD; with the 64-row tiles' padding it issues 640 wgmma of 32,768 (20.97 M).
+FWD_BF16_FMA_ITEM = 32 * 320 * 746 + 5 * 2 * 32 * 160 * 246
+FWD_BF16_FMA_TILED = 640 * 64 * 32 * 16
 HEAD_FMA_BWD_W = 12_595_200  # recompute 5.04 M + dh2, dh1, dw4, dw3 1.26 M each + dw12 2.52 M
 HEAD_FMA_BWD_X = 10_076_160  # recompute 5.04 M + dh2, dh1 1.26 M each + dx 2.52 M
 
@@ -700,13 +724,19 @@ def phase_bf16_kernels(cfg, dev, rng):
               f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}", flush=True)
     x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev).to(torch.bfloat16)
     g = torch.randn((m, TRAIN_BATCH, cfg.n_tokens, feat), generator=gen, device=dev)
+    with torch.no_grad():
+        first = fused_conv4_head(x, *ops, *geo)
+        if not torch.equal(fused_conv4_head(x, *ops, *geo), first):
+            raise RuntimeError(f"B2f-bf16 at M={m} B={TRAIN_BATCH}: two runs differ in their bits")
+    print(f"B2f-bf16 at M={m} B={TRAIN_BATCH}: two runs are bit-identical", flush=True)
     big = {"fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 5),
            "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 5)}
     units = m * TRAIN_BATCH * cfg.n_tokens * cfg.n_zones
+    items = m * TRAIN_BATCH * cfg.n_zones
     for k, fma, bound, name, route, rate in (
-            ("fwd", HEAD_FMA_FWD, head_bound_bf16(HEAD_FMA_FWD, m, TRAIN_BATCH,
-                                                  m * TRAIN_BATCH * 5 * 256, reads_g=False),
-             "B2f-bf16", "mma.sync bf16", MMA_SYNC_BF16_FLOPS),
+            ("fwd", FWD_BF16_FMA_ITEM * items / units,
+             head_bound_bf16(HEAD_FMA_FWD, m, TRAIN_BATCH, m * TRAIN_BATCH * 5 * 256,
+                             reads_g=False), "B2f-bf16", "wgmma m64n32k16", WGMMA_N32_FLOPS),
             ("w", HEAD_FMA_BWD_W, head_bound_bf16(HEAD_FMA_BWD_W, m, TRAIN_BATCH,
                                                   m * HEAD_WEIGHT_FLOATS), "B2w-bf16",
              "wgmma m64n32k16", WGMMA_N32_FLOPS)):
@@ -714,9 +744,21 @@ def phase_bf16_kernels(cfg, dev, rng):
         floor = 1e3 * 2 * units * fma / rate
         big[f"{k}_bound"], big[f"{k}_floor"] = bound, floor
         print(f"{name} alone at M={m} B={TRAIN_BATCH} (kernel only): {ms:.2f} ms "
-              f"({units * fma / ms / 1e9:.2f} T FMA/s; bound {bound[0]:.2f} ms, {bound[1]}, "
-              f"{bound[0] / ms:.1%} reached; {route} floor {floor:.2f} ms, "
-              f"{floor / ms:.1%} reached)", flush=True)
+              f"({units * fma / ms / 1e9:.2f} T FMA/s of its own work; bound {bound[0]:.2f} ms, "
+              f"{bound[1]}, {bound[0] / ms:.1%} reached; {route} floor on its own work "
+              f"{floor:.2f} ms, {floor / ms:.1%} reached)", flush=True)
+    print(f"B2f-bf16's own work at M={m} B={TRAIN_BATCH}: {FWD_BF16_FMA_ITEM * items / 1e12:.3f} T "
+          f"multiply-adds ({FWD_BF16_FMA_TILED * items / 1e12:.3f} T issued with the tiles' "
+          f"padding) against the bound's {HEAD_FMA_FWD * units / 1e12:.3f} T", flush=True)
+    # B2f-bf16 by phase: its debug instantiation's clock counters, per warp and (trial, zone).
+    clk = torch.zeros(len(FWD_BF16_PHASES) + 2, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        _launch_fwd(x, *ops, *geo, clk=clk)
+    c = clk.tolist()
+    big["fwd_phase_cycles"] = {k: c[i] / 16 / items for i, k in enumerate(FWD_BF16_PHASES)}
+    print(f"B2f-bf16 by phase at M={m} B={TRAIN_BATCH}: {c[-2] / items:.0f} cycles a (trial, "
+          f"zone) item at {1e3 * c[-2] / c[-1]:.0f} MHz; cycles a warp and item: "
+          f"{json.dumps({k: round(v) for k, v in big['fwd_phase_cycles'].items()})}", flush=True)
     # B2w-bf16 by phase: its debug instantiation's clock counters, per warp and unit.
     clk = torch.zeros(len(BWD_W_BF16_PHASES) + 2, dtype=torch.int64, device=dev)
     _launch_bwd_w(g, x, *ops, *geo, clk=clk)
@@ -728,15 +770,88 @@ def phase_bf16_kernels(cfg, dev, rng):
     return rows, big
 
 
-TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem-bytes function,
-    # the tensor-core instruction of its route in SASS: mma.sync is HMMA, wgmma HGMMA)
-    ("B2f", "conv4head_fwd_kernel", "isd_conv4head_smem_bytes", "HMMA"),
-    ("B2w", "conv4head_bwd_w_kernel", "isd_conv4head_bwd_w_smem_bytes", "HMMA"),
-    ("B2x", "conv4head_bwd_x_kernel", "isd_conv4head_bwd_x_smem_bytes", "HMMA"),
-    ("B2f-bf16", "conv4head_fwd_bf16_kernel", "isd_conv4head_bf16_smem_bytes", "HMMA"),
-    ("B2w-bf16", "conv4head_bwd_w_bf16_kernel", "isd_conv4head_bwd_w_bf16_smem_bytes", "HGMMA"),
+def phase_adapted_geometry(cfg, dev, rng):
+    """Head geometries the kernels are not built for, launched on operands
+    ``_adapted`` zero-pads or splits: dim_cnn = 8 (the width
+    cli/zero_shot.py trains), full width otherwise, M = 2, B = 8, features
+    and weight gradients in f32 and in bf16 (zones padded to 32 channels);
+    and a bf16 forward of trials of T = 1001 (N = 7: two groups of windows,
+    each on an even copy of its samples). Each must launch its kernels,
+    count adapted calls, and match the CPU: f32 at HEAD_RTOL / HEAD_ATOL and
+    BWD_RTOL, bf16 at BF16_FWD_REL and BF16_BWD_REL."""
+    cfg8 = dataclasses.replace(cfg, dim_cnn=8)
+    geo = (cfg8.window_len, cfg8.slide_step)
+    m, b = 2, 8
+    model = FAST(cfg8, n_models=m)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg8, SEED, m)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(m, b, cfg8.n_tokens, cfg8.n_zones * 8)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        results = {}
+        for device in (dev, torch.device("cpu")):
+            weights = [t.detach().to(device).requires_grad_(True) for t in ops]
+            reset_launches()
+            out = fused_conv4_head(x.to(device, dtype), *weights, *geo)
+            (out * g.to(device)).sum().backward()
+            if device.type == "cuda":
+                launches = read_launches()
+            results[device.type] = [out.detach().cpu()] + [p.grad.cpu() for p in weights]
+        want = HEAD_KERNELS["bf16" if dtype == torch.bfloat16 else "f32"]
+        if launches["adapted"] != 2 or any(launches[k] != 1 for k in want):
+            raise RuntimeError(f"dim_cnn = 8 must launch {want} once each, adapted: {launches}")
+        errs = {}
+        for name, got, ref in zip(("out", "dw12", "db12", "dw3", "dw4"), results["cuda"],
+                                  results["cpu"]):
+            what = f"adapted dim_cnn=8 {dtype} {name}"
+            if dtype == torch.bfloat16:
+                errs[name] = check_rel(what, got, ref, BF16_FWD_REL if name == "out" else
+                                       BF16_BWD_REL)
+            elif name == "out":
+                errs[name] = check_close(what, got, ref, HEAD_RTOL, HEAD_ATOL)
+            else:
+                errs[name] = check_close(what, got, ref, BWD_RTOL,
+                                         BWD_RTOL * float(ref.abs().max()))
+        print(f"head at dim_cnn=8 ({str(dtype).split('.')[-1]}), M={m} B={b}: zones padded to 32 "
+              f"channels, launches {json.dumps({k: launches[k] for k in want})}, "
+              f"{launches['adapted']} adapted calls; matches the CPU, max|err| "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}", flush=True)
+    z, o, k = cfg.n_zones, cfg.dim_cnn, KERNEL_TAPS
+    ops32 = [torch.tensor(rng.normal(scale=sc, size=shape).astype(np.float32), device=dev)
+             for shape, sc in (((1, z * o, k * 64), (k * 64) ** -0.5), ((1, z * o, 1), 0.1),
+                               ((1, z, o, k * o), (k * o) ** -0.5),
+                               ((1, z, o, k * o), (k * o) ** -0.5))]
+    x = torch.tensor(rng.normal(size=(1, 16, 64, 1001)).astype(np.float32)).to(torch.bfloat16)
+    geo = (cfg.window_len, cfg.slide_step)
+    reset_launches()
+    with torch.no_grad():
+        got = fused_conv4_head(x.to(dev), *ops32, *geo)
+    launches = read_launches()
+    if launches["adapted"] != 1 or launches["conv4head_fwd_bf16"] != 2:
+        raise RuntimeError(f"T = 1001 must take two B2f-bf16 launches, adapted: {launches}")
+    err = check_rel("adapted bf16 forward T=1001", got.cpu(),
+                    fused_conv4_head_plain(x, *(t.cpu() for t in ops32), *geo), BF16_FWD_REL)
+    print(f"bf16 head forward at T=1001 (N=7), M=1 B=16: two B2f-bf16 launches (5 and 2 "
+          f"windows), 1 adapted call; matches the CPU, max|err| {err:.3g}", flush=True)
+
+
+TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem bytes at full width
+    # from the library, the tensor-core instruction of its route in SASS: mma.sync is HMMA,
+    # wgmma HGMMA)
+    ("B2f", "conv4head_fwd_kernel", lambda lib, c: lib.isd_conv4head_smem_bytes(
+        64, c.window_len, c.dim_cnn, KERNEL_TAPS), "HMMA"),
+    ("B2w", "conv4head_bwd_w_kernel", lambda lib, c: lib.isd_conv4head_bwd_w_smem_bytes(
+        64, c.window_len, c.dim_cnn, KERNEL_TAPS), "HMMA"),
+    ("B2x", "conv4head_bwd_x_kernel", lambda lib, c: lib.isd_conv4head_bwd_x_smem_bytes(
+        64, c.window_len, c.dim_cnn, KERNEL_TAPS), "HMMA"),
+    ("B2f-bf16", "conv4head_fwd_bf16_kernel", lambda lib, c: lib.isd_conv4head_fwd_bf16_smem_bytes(
+        64, c.window_len, c.slide_step, c.n_tokens, c.dim_cnn, KERNEL_TAPS), "HGMMA"),
+    ("B2w-bf16", "conv4head_bwd_w_bf16_kernel", lambda lib, c: (
+        lib.isd_conv4head_bwd_w_bf16_smem_bytes(64, c.window_len, c.dim_cnn, KERNEL_TAPS)),
+     "HGMMA"),
 )
-DEBUG_INSTANTIATION = "Lb1EE"  # B2w-bf16's phase counters (kClock = true): not counted
+DEBUG_INSTANTIATION = "Lb1EE"  # B2f-bf16's and B2w-bf16's phase counters (kClock): not counted
 
 
 def report_iir_build(info) -> None:
@@ -768,8 +883,7 @@ def report_tc_build(info, cfg) -> None:
                          if re.search(r"registers|spill", ln)]
                 print(f"{what} ptxas <O, K, C, W> = <{', '.join(name.groups()) if name else '?'}>: "
                       f"{' | '.join(lines)}", flush=True)
-        smem = getattr(lib, smem_fn)(64, cfg.window_len, cfg.dim_cnn, KERNEL_TAPS)
-        print(f"{what} shared memory: {smem} bytes per block (dynamic)", flush=True)
+        print(f"{what} shared memory: {smem_fn(lib, cfg)} bytes per block (dynamic)", flush=True)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -787,10 +901,14 @@ def report_tc_build(info, cfg) -> None:
                     counts[(name, op)] = counts.get((name, op), 0) + 1
     for what, entry, _, op in TC_KERNELS:
         n_op = sum(v for (k, o), v in counts.items() if entry in k and o == op)
+        n_hmma = sum(v for (k, o), v in counts.items() if entry in k and o == "HMMA")
         if n_op == 0:
             raise RuntimeError(f"{what}'s SASS has no {op} instruction: "
                                "it does not run on the tensor cores by its route")
-        print(f"{what} SASS: {n_op} {op} instructions (cuobjdump -sass)", flush=True)
+        if op == "HGMMA" and n_hmma:
+            raise RuntimeError(f"{what} runs on wgmma, yet its SASS has {n_hmma} HMMA")
+        print(f"{what} SASS: {n_op} {op} instructions (cuobjdump -sass)"
+              + (", no HMMA" if op == "HGMMA" else ""), flush=True)
 
 
 def reset_launches() -> None:
@@ -798,6 +916,8 @@ def reset_launches() -> None:
                conv4head_bwd_x):
         fn.launches = 0
     fused_conv4_head.launches_bf16 = conv4head_bwd_w.launches_bf16 = 0
+    for fn in HEAD_WRAPPERS:
+        fn.adapted = 0
 
 
 def read_launches() -> dict:
@@ -807,7 +927,18 @@ def read_launches() -> dict:
             "conv4head_bwd_w": conv4head_bwd_w.launches,
             "conv4head_bwd_x": conv4head_bwd_x.launches,
             "conv4head_fwd_bf16": fused_conv4_head.launches_bf16,
-            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16}
+            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16,
+            "adapted": sum(fn.adapted for fn in HEAD_WRAPPERS)}
+
+
+HEAD_WRAPPERS = (fused_conv4_head, conv4head_bwd_w, conv4head_bwd_x)  # each counts adapted
+
+
+def require_unadapted(launches: dict, path: str) -> None:
+    """The shipped geometry runs every head call on its operands as they are."""
+    if launches["adapted"]:
+        raise RuntimeError(f"the {path} path padded or split the head's operands "
+                           f"{launches['adapted']} times at the shipped geometry")
 
 
 HEAD_KERNELS = {"f32": ("conv4head_fwd", "conv4head_bwd_w"),
@@ -833,6 +964,7 @@ def phase_training(cfg, dev, workdir, precision: str):
     if any(launches[k] for k in HEAD_KERNELS[other]) or launches["conv4head_bwd_x"]:
         raise RuntimeError(f"the {precision} training path launched a head kernel of the other "
                            f"precision or B2x: {launches}")
+    require_unadapted(launches, f"{precision} training")
     for k, v in result.fit.history.items():
         if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
             raise RuntimeError(f"history {k}: shape {v.shape}, finite {np.isfinite(v).all()}")
@@ -915,23 +1047,31 @@ def phase_train_step_profile(cfg, dev, dtype):
 
     step()
     span = cuda_ms(step, 3, warmup=0)
-    by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                        for e in profiled(step, cpu=True) if e.device_type != DeviceType.CPU),
-                       reverse=True)
-    busy = sum(ms for ms, _, _ in by_device)
     name = "bf16" if dtype == torch.bfloat16 else "f32"
+    other = "f32" if name == "bf16" else "bf16"
+    # Which head kernels ran is read from the launch counters; the profiler
+    # is asked only for their times, and profiles again where it lost one.
+    kernels = {"f32": ("conv4head_fwd_kernel", "conv4head_bwd_w_kernel"),
+               "bf16": ("conv4head_fwd_bf16_kernel", "conv4head_bwd_w_bf16_kernel")}
+    reset_launches()
+    events = profiled(step, cpu=True, need=kernels[name])
+    launches = read_launches()
+    if (any(launches[k] < 1 for k in HEAD_KERNELS[name])
+            or any(launches[k] for k in HEAD_KERNELS[other]) or launches["conv4head_bwd_x"]):
+        raise RuntimeError(f"the {name} training step must launch {HEAD_KERNELS[name]} and no "
+                           f"other head kernel: {launches}")
+    require_unadapted(launches, f"{name} training step")
+    by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in events if e.device_type != DeviceType.CPU), reverse=True)
+    busy = sum(ms for ms, _, _ in by_device)
     print(f"train step {name} M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler "
           f"device time {busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies "
           f"(device idle {max(0.0, 1 - busy / span):.1%} of the span)", flush=True)
     for ms, calls, key in by_device[:10]:
         print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
               flush=True)
-    ran = {k: any(re.search(k, key) for _, _, key in by_device)
-           for k in ("conv4head_fwd_bf16_kernel", "conv4head_bwd_w_bf16_kernel",
-                     "conv4head_fwd_kernel", "conv4head_bwd_w_kernel")}
-    want = {k: ("bf16" in k) == (name == "bf16") for k in ran}
-    if ran != want:
-        raise RuntimeError(f"the {name} training step ran head kernels {ran}, expected {want}")
+    if any(re.search(k, key) for k in kernels[other] for _, _, key in by_device):
+        raise RuntimeError(f"the {name} training step's profile holds a {other} head kernel")
     return {"step_ms": span, "busy_ms": busy}
 
 
@@ -1045,6 +1185,8 @@ def phase_trajectory_bf16(cfg, dev):
         if device == "card" and (launches["conv4head_fwd_bf16"] < 1
                                  or launches["conv4head_bwd_w_bf16"] < 1):
             raise RuntimeError(f"the bf16 trajectory run did not launch the bf16 kernels: {launches}")
+        if device == "card":
+            require_unadapted(launches, "bf16 trajectory")
     gpu, cpu = runs["card"], runs["cpu"]
     loss_err = max(float(np.abs(gpu.history[k] / cpu.history[k] - 1).max())
                    for k in ("loss", "val_loss"))
@@ -1156,6 +1298,7 @@ def phase_explain(cfg, dev, ckpt, subject):
     want = IG_STEPS + 3 * EG_SAMPLES + AFP_SAMPLES
     if launches["conv4head_bwd_x"] != want or launches["conv4head_bwd_w"] != 0:
         raise RuntimeError(f"the attribution path must launch B2x {want} times and B2w never")
+    require_unadapted(launches, "attribution")
     return launches
 
 
@@ -1193,6 +1336,7 @@ def main() -> None:
         head = phase_head(model, dev, rng)
     bwd, _ = phase_head_backward(cfg, dev, rng)
     bf16, _ = phase_bf16_kernels(cfg, dev, rng)
+    phase_adapted_geometry(cfg, dev, rng)
     with tempfile.TemporaryDirectory() as workdir:
         serving = phase_serving(cfg, params1, params2, rng, workdir)
         phase_device_time(cfg, params1, dev, rng)

@@ -73,17 +73,22 @@
 #include "conv4head_bf16.cuh"
 #include "phase_clock.cuh"
 #include "sum_partials.cuh"
+#include "conv4head_wgmma.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 using isd::kWarpsB;
+using isd::kRows;
+using isd::kGroups;
+using isd::chunk_off;
+using isd::col_sums;
+using isd::conv_epilogue;
+using isd::conv_issue;
+using isd::round16;
+using isd::stage_weights_wg;
 
-constexpr int kRows = 64;             // rows of a wgmma tile
-constexpr int kGroups = kWarpsB / 4;  // warpgroups a block
-constexpr int kSlots = 3;             // weight-gradient tiles a warpgroup holds: 11 at C <= 64
-
-__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
+constexpr int kSlots = 3;  // weight-gradient tiles a warpgroup holds: 11 at C <= 64
 
 // Shared-memory plan of a block, in bytes; mirrored by bwd_w_bf16_plan in
 // ops/cuda/conv4head.py. Time-major buffers have `rows` rows (time rows
@@ -140,25 +145,6 @@ __host__ __device__ inline WgPlan wg_plan(int C, int W, int O, int K) {
   return p;
 }
 
-// Bytes of (row, channel) from the start of a chunked buffer.
-__host__ __device__ inline int chunk_off(int cs, int row, int ch) {
-  return (ch >> 3) * cs + 16 * row + 2 * (ch & 7);
-}
-
-// Rows o < O of w (f32, K taps of Ch channels, row stride K*Ch) to bf16 at
-// dst, [chunk of (tap, channel)][o][8] (chunks 16 O bytes apart), channels
-// Ch..chp-1 zero (chp a multiple of 8).
-__device__ inline void stage_weights_wg(char* dst, const float* __restrict__ w, int O, int K,
-                                        int Ch, int chp) {
-  const int pairs = K * chp / 2;
-  for (int i = threadIdx.x; i < O * pairs; i += blockDim.x) {
-    const int o = i / pairs, j = 2 * (i - o * pairs), k = j / chp, c = j - k * chp;
-    const float* row = w + static_cast<size_t>(o) * K * Ch + k * Ch;
-    *reinterpret_cast<uint32_t*>(dst + chunk_off(16 * O, o, j)) =
-        isd::pack_bf16(c < Ch ? row[c] : 0.f, c + 1 < Ch ? row[c + 1] : 0.f);
-  }
-}
-
 // The C rows of a window of W samples, from x0 (the even element at or
 // before the window's start in row 0; rows at stride T, T even), to
 // raw[c * rw + j] by 4-byte cp.async: off + W elements rounded up to even,
@@ -199,30 +185,6 @@ __device__ inline void raw_to_chunks(char* xs, int cs, const uint16_t* raw, int 
   }
 }
 
-// Issues one 64-row tile of D[t, o] into acc (overwriting it): over the K
-// taps and the k16 steps of Ch channels, A = src from row 64 tile + tap
-// (kT: + K-1-tap), K-major; B = w, K-major [o][(tap, c)] for a conv, or for
-// a conv^T (kT, Ch = O) w[o'][tap * O + o] read MN-major.
-template <int K, int O, bool kT>
-__device__ inline void conv_issue(float (&acc)[16], uint32_t src, int cs, uint32_t w, int Ch,
-                                  int tile) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const uint32_t a_row = src + 16 * (kRows * tile + (kT ? K - 1 - k : k));
-#pragma unroll
-    for (int c0 = 0; c0 < Ch; c0 += 16) {
-      const uint64_t a = isd::wgmma_desc(a_row + (c0 >> 3) * cs, cs, 128);
-      if (kT) {
-        const uint64_t b = isd::wgmma_desc(w + k * 2 * O * O + 16 * c0, 128, 16 * O);
-        isd::wgmma_m64n32k16<0, 1>(acc, a, b, k | c0);
-      } else {
-        const uint64_t b = isd::wgmma_desc(w + ((k * Ch + c0) >> 3) * 16 * O, 16 * O, 128);
-        isd::wgmma_m64n32k16<0, 0>(acc, a, b, k | c0);
-      }
-    }
-  }
-}
-
 // acc += one weight-gradient tile's k16 steps over time (overwriting acc
 // on the block's first trial): A = src from byte a0 (time along K:
 // MN-major), B = d from byte b0 (MN-major), nt rows.
@@ -232,40 +194,6 @@ __device__ inline void dw_issue(float (&acc)[16], uint32_t a0, uint32_t b0, int 
 #pragma unroll
   for (int t0 = 0; t0 < nt; t0 += 16) {  // +16 rows = +256 bytes = +16 in the start field
     isd::wgmma_m64n32k16<1, 1>(acc, a + t0, b + t0, t0 > 0 || !first);
-  }
-}
-
-// red[warp * 32 + o] = the sum over this warp's rows of s[j][e], o = 8j +
-// 2q + e: every lane stores (the eight lanes of one o the same value), so
-// no branch runs while the weight gradients' wgmma are in flight (a
-// divergent path there makes ptxas serialise every wgmma of the kernel).
-__device__ inline void col_sums(float* red, const float (&s)[4][2]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = s[j][e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      red[warp * 32 + 8 * j + 2 * (lane & 3) + e] = v;
-    }
-  }
-}
-
-// Hands each accumulator pair of a conv tile to out(j, t, o, v0, v1):
-// row t, columns o, o + 1 (j = o / 8).
-template <class Out>
-__device__ inline void conv_epilogue(const float (&acc)[16], int tile, Out out) {
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      out(j, kRows * tile + 16 * w + 8 * h + g, 8 * j + 2 * q, acc[4 * j + 2 * h],
-          acc[4 * j + 2 * h + 1]);
-    }
   }
 }
 
@@ -499,7 +427,7 @@ cudaError_t launch_w(const float* g, const uint16_t* x, const float* w12, const 
   if (2 * plan.n34 + plan.n12 > kGroups * kSlots) {
     return cudaErrorInvalidValue;  // more weight-gradient tiles than registers hold
   }
-  const size_t smem_bytes = plan.total + (kClock ? isd::kClockBytes : 0);
+  const size_t smem_bytes = plan.total + (kClock ? isd::clock_bytes() : 0);
   // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
   const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_w_bf16_kernel<O, K, 64, 250, kClock>
                                             : conv4head_bwd_w_bf16_kernel<O, K, 0, 0, kClock>;
@@ -540,9 +468,12 @@ int bwd_w_bf16(const float* g, const void* x, const float* w12, const float* b12
 
 }  // namespace
 
-// Dynamic shared memory of one B2w-bf16 block, in bytes.
+// Dynamic shared memory of one B2w-bf16 block, in bytes; -1 where its
+// weight-gradient tiles would not fit the registers (C > 64). Mirrored by
+// bwd_w_bf16_smem_bytes in ops/cuda/conv4head.py.
 extern "C" int isd_conv4head_bwd_w_bf16_smem_bytes(int C, int W, int O, int K) {
-  return wg_plan(C, W, O, K).total;
+  const WgPlan plan = wg_plan(C, W, O, K);
+  return 2 * plan.n34 + plan.n12 > kGroups * kSlots ? -1 : plan.total;
 }
 
 extern "C" int isd_conv4head_bwd_w_bf16(const float* g, const void* x, const float* w12,

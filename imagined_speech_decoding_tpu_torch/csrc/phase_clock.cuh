@@ -1,6 +1,7 @@
-// Per-phase clock counters for a debug instantiation of kernel B2w-bf16
-// (conv4head_bwd_w_bf16.cu, kClock = true; b2w_timing.py reads them). The
-// shipped instantiation compiles them out.
+// Per-phase clock counters for the debug instantiations of kernels
+// B2w-bf16 (conv4head_bwd_w_bf16.cu) and B2f-bf16 (conv4head_fwd_bf16.cu),
+// kClock = true; b2w_timing.py and b2f_timing.py read them. The shipped
+// instantiations compile them out.
 //
 // Each warp adds the clock64() cycles since its previous mark to the slot
 // of the phase that just ended, in shared memory ([warp][phase],
@@ -36,9 +37,14 @@ enum BwdWPhase {
 };
 
 constexpr int kClockWarps = 16;
-constexpr int kClockBytes = kClockWarps * kPhases * 8;  // the shared-memory slots
 
-template <bool kOn>
+// The shared-memory slots of kN phases (the last one the barriers).
+template <int kN = kPhases>
+constexpr int clock_bytes() {
+  return kClockWarps * kN * 8;
+}
+
+template <bool kOn, int kN = kPhases>
 struct PhaseClock {
   unsigned long long* slots;
   long long last = 0, start = 0;
@@ -47,7 +53,7 @@ struct PhaseClock {
   // Zeroes the slots at `s` (a barrier must follow before the first mark).
   __device__ explicit PhaseClock(void* s) : slots(static_cast<unsigned long long*>(s)) {
     if constexpr (kOn) {
-      for (int i = threadIdx.x; i < kClockWarps * kPhases; i += blockDim.x) slots[i] = 0;
+      for (int i = threadIdx.x; i < kClockWarps * kN; i += blockDim.x) slots[i] = 0;
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
       last = start = clock64();
     }
@@ -58,32 +64,33 @@ struct PhaseClock {
   __device__ void mark(int phase) {
     if constexpr (kOn) {
       const long long now = clock64();
-      slots[(threadIdx.x >> 5) * kPhases + phase] += now - last;
+      slots[(threadIdx.x >> 5) * kN + phase] += now - last;
       last = now;
     }
   }
 
-  // The phase that just ended, then a block-wide barrier, counted as kPhBarrier.
+  // The phase that just ended, then a block-wide barrier, counted as the
+  // last phase (kPhBarrier for B2w-bf16).
   __device__ void sync(int phase) {
     mark(phase);
     __syncthreads();
-    mark(kPhBarrier);
+    mark(kN - 1);
   }
 
-  // Adds the block's sums to out[0, kPhases + 2).
+  // Adds the block's sums to out[0, kN + 2).
   __device__ void finish(unsigned long long* out) {
     if constexpr (kOn) {
       __syncthreads();
-      for (int p = threadIdx.x; p < kPhases; p += blockDim.x) {
+      for (int p = threadIdx.x; p < kN; p += blockDim.x) {
         unsigned long long sum = 0;
-        for (int w = 0; w < kClockWarps; ++w) sum += slots[w * kPhases + p];
+        for (int w = 0; w < kClockWarps; ++w) sum += slots[w * kN + p];
         atomicAdd(out + p, sum);
       }
       if (threadIdx.x == 0) {
         unsigned long long now_ns;
         asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now_ns));
-        atomicAdd(out + kPhases, static_cast<unsigned long long>(clock64() - start));
-        atomicAdd(out + kPhases + 1, now_ns - ns);
+        atomicAdd(out + kN, static_cast<unsigned long long>(clock64() - start));
+        atomicAdd(out + kN + 1, now_ns - ns);
       }
     }
   }

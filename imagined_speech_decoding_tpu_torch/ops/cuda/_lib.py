@@ -43,7 +43,8 @@ _SIGNATURES = {
     "isd_conv4head_bwd_x_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_fwd_bf16": ([_P] * 6 + [_I] * 12 + [_P], _I),
-    "isd_conv4head_bf16_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_fwd_bf16_smem_bytes": ([_I] * 6, _I),
+    "isd_conv4head_fwd_bf16_phases": ([_P] * 6 + [_I] * 12 + [_P, _P], _I),
     "isd_conv4head_bwd_w_bf16": ([_P] * 14 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_w_bf16_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_bf16_phases": ([_P] * 14 + [_I] * 12 + [_P, _P], _I),

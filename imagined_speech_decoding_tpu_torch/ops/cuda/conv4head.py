@@ -10,17 +10,18 @@ header says what bounds it on the H100 and what the design does about it.
 All three run on the tensor cores in 3xTF32 (f32 accuracy), sharing one
 conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32 and
 K1 = K2 = 5. B2f and B2x take any channel count C; B2w needs C to be a
-multiple of 8 and raises for any other C (B2w-bf16 takes any C up to 64).
+multiple of 8.
 
 The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
 an f32 x takes the kernels above; a bf16 x takes their bf16
-instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``, one bf16
-``mma.sync`` pass per product) and B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``,
-one bf16 ``wgmma`` pass per product, the weight gradients held in
-registers across a block's trials), f32 accumulators, rounding where the
-Pallas kernel rounds (an even T). The weights come in as f32 either way
-and the kernels round them to bf16 as they stage them; the output and
-every weight gradient are f32.
+instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``: the first conv
+once per trial over the columns its windows use, every product one bf16
+``wgmma`` pass) and B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``, one bf16
+``wgmma`` pass per product, the weight gradients held in registers across
+a block's trials), f32 accumulators, rounding where the Pallas kernel
+rounds (an even T; B2w-bf16 C <= 64). The weights come in as
+f32 either way and the kernels round them to bf16 as they stage them; the
+output and every weight gradient are f32.
 B2x has no bf16 instantiation: a bf16 x that needs a gradient on the card
 raises ``NotImplementedError`` (ROADMAP.md, Queue 2).
 
@@ -42,11 +43,16 @@ B2x (``conv4head_bwd_plain``; B2x's alone, dx with the weights held out
 of the graph, is ``conv4head_bwd_x_plain``). In bf16 it rounds at the
 Pallas kernel's points, and its gradient is the written-out bf16 backward
 (``conv4head_bwd_bf16_plain``), which rounds the cotangents where
-``_bwd_zone`` does. A CUDA tensor launches the kernels or raises; there
-is no fallback between the two. On CUDA the forward is a
-``torch.autograd.Function``: it saves only its operands, and its backward
-recomputes the forward inside B2w (when any weight operand needs a
-gradient) and B2x (only when ``x`` needs one; training never asks).
+``_bwd_zone`` does. Off the CPU every wrapper launches its kernel or
+raises; nothing falls back. A geometry the kernels are not built for but
+reach exactly by zero padding (``_adapted``: ``dim_cnn`` 8 or 16, f32 B2w
+at C % 8 != 0, an odd T in bf16, a B2f-bf16 trial longer than its plan
+holds) launches them on padded or split operands and adds one to the
+wrapper's ``adapted``; any other (K != 5, O > 32, C > 64 in B2w-bf16)
+raises. On CUDA the kernel forward is a ``torch.autograd.Function``: it saves only
+its operands, and its backward recomputes the forward inside B2w (when
+any weight operand needs a gradient) and B2x (only when ``x`` needs one;
+training never asks), each routed the same way.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ import torch.nn.functional as F
 
 from . import _lib
 
-KERNEL_WIDTHS = (32,)  # O values the kernels are instantiated for
+KERNEL_WIDTH = 32  # the O the kernels are instantiated for
 KERNEL_TAPS = 5  # K1 = K2 the kernels are instantiated for
 MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on Hopper (227 KB)
 MAX_GRID = 65535
@@ -235,18 +241,153 @@ def _check_cuda(x, w12, b12, w3, w4, window_len: int, step: int, g=None):
     _lib.require_cuda("w4", w4, f32, (m, z, o, k2 * o))
     if g is not None:
         _lib.require_cuda("g", g, f32, (m, b, n, z * o))
-    if x.dtype == torch.bfloat16 and t % 2:
-        raise ValueError(f"the bf16 head kernels copy x in 4-byte pairs: T must be even, got T={t}")
     if any(t_.device != x.device for t_ in (w12, b12, w3, w4) + ((g,) if g is not None else ())):
         raise ValueError("head operands must share x's device")
-    if o not in KERNEL_WIDTHS:
-        raise ValueError(f"the kernels are built for O in {KERNEL_WIDTHS}, got O={o}")
     if max(m, b) > MAX_GRID:
         raise ValueError(f"{m} models or {b} trials exceed the kernel grid's {MAX_GRID}")
     return m, b, c, t, z, o, k1, k2, n
 
 
+def _require_x(x) -> None:
+    """A wrapper's first check off the CPU, before any operand is adapted:
+    x on the card, in a dtype the kernels take (``_check_cuda`` checks the
+    rest at the launch)."""
+    _lib.require_cuda("x", x, x.dtype if x.dtype in X_DTYPES else torch.float32)
+
+
+def _widen(w12, b12, w3, w4, o: int):
+    """The weights of a head of O-wide zones, zero-padded to KERNEL_WIDTH
+    channels a zone (the padded rows of w12 and b12, and the padded rows
+    and input columns of w3 and w4, zero)."""
+    m, zo, kc = w12.shape
+    z, p = zo // o, KERNEL_WIDTH - o
+
+    def same(w):
+        k = w.shape[-1] // o
+        return F.pad(w.reshape(m, z, o, k, o), (0, p, 0, 0, 0, p)).reshape(
+            m, z, KERNEL_WIDTH, k * KERNEL_WIDTH)
+
+    return (F.pad(w12.reshape(m, z, o, kc), (0, 0, 0, p)).reshape(m, z * KERNEL_WIDTH, kc),
+            F.pad(b12.reshape(m, z, o, 1), (0, 0, 0, p)).reshape(m, z * KERNEL_WIDTH, 1),
+            same(w3), same(w4))
+
+
+def _narrow(t, o: int, dims: int):
+    """``t`` with KERNEL_WIDTH-wide zone channels cut back to O: the last
+    axis (Z*O features or a bias, ``dims`` 1), rows and columns of w3 / w4
+    (``dims`` 2), or rows of w12 (``dims`` 0: axis 1)."""
+    if dims == 0:
+        m, zo, kc = t.shape
+        return t.reshape(m, -1, KERNEL_WIDTH, kc)[:, :, :o].reshape(m, -1, kc)
+    if dims == 1:
+        return t.reshape(*t.shape[:-1], -1, KERNEL_WIDTH)[..., :o].reshape(*t.shape[:-1], -1)
+    m, z = t.shape[:2]
+    return t.reshape(m, z, KERNEL_WIDTH, -1, KERNEL_WIDTH)[:, :, :o, :, :o].reshape(m, z, o, -1)
+
+
+def _even_span(x, s0: int, length: int):
+    """Samples [s0, s0 + length) of x's trials in a tensor of its own, one
+    zero sample appended when ``length`` is odd (the bf16 kernels copy x in
+    4-byte pairs: T even)."""
+    span = x[..., s0:s0 + length]
+    return F.pad(span, (0, length % 2)) if length % 2 else span.contiguous()
+
+
+def _fwd_bf16_windows(c: int, window_len: int, step: int, n: int, smem_bytes) -> int:
+    """Windows a B2f-bf16 launch takes: the most, up to N, whose plan
+    ``smem_bytes(c, window_len, step, windows, KERNEL_WIDTH, KERNEL_TAPS)``
+    (the library's ``isd_conv4head_fwd_bf16_smem_bytes``) fits a block; the
+    block holds the h1 of all its windows, so a longer trial, or a wider
+    one, runs in groups of windows."""
+    for g in range(n, 0, -1):
+        if smem_bytes(c, window_len, step, g, KERNEL_WIDTH, KERNEL_TAPS) <= MAX_SMEM_BYTES:
+            return g
+    raise ValueError(f"B2f-bf16 is not built for C={c} at windows of {window_len}: "
+                     f"{smem_bytes(c, window_len, step, 1, KERNEL_WIDTH, KERNEL_TAPS)} bytes "
+                     f"for one window, {MAX_SMEM_BYTES} a block")
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_bf16_windows_built(c: int, window_len: int, step: int, n: int) -> int:
+    """``_fwd_bf16_windows`` on the library's own plan size (kept: a step
+    asks the same)."""
+    return _fwd_bf16_windows(c, window_len, step, n,
+                             _lib.library().isd_conv4head_fwd_bf16_smem_bytes)
+
+
+def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int,
+             smem_bytes=None):
+    """``op``'s result ("fwd": the features, "bwd_w": ``(dw12, db12, dw3,
+    dw4)``, "bwd_x": dx) from ``launch(g, x, w12, b12, w3, w4, window_len,
+    step)``, a kernel launch, given operands of a geometry it is built for,
+    and whether the operands had to be adapted to it first. Each adaptation
+    is exact (a zero weight or sample adds exact zeros to every sum; a
+    window's outputs do not depend on the others):
+      O < KERNEL_WIDTH (dim_cnn 8, 16): every zone zero-padded to 32
+        channels, the outputs and gradients cut back;
+      f32 B2w at C % 8 != 0: x and w12 zero-padded to a multiple of 8
+        channels, dw12 cut back;
+      bf16 at an odd T: the samples the windows use, in a copy of even
+        length, the cotangent padded with zero windows where that adds one;
+      B2f-bf16 with more windows than its plan holds (``smem_bytes``, the
+        library's by default): groups of windows, each on a copy of its
+        samples.
+    Any other geometry (K1 or K2 != KERNEL_TAPS, O > KERNEL_WIDTH) raises,
+    as ``launch`` does for what its kernel refuses (B2w-bf16: C > 64)."""
+    m, b, c, t, z, o, k1, k2, n = _geometry(x, w12, w3, window_len, step)
+    if k1 != KERNEL_TAPS or k2 != KERNEL_TAPS:
+        raise ValueError(f"the head kernels are built for K1 = K2 = {KERNEL_TAPS}, "
+                         f"got K1={k1}, K2={k2}")
+    if o > KERNEL_WIDTH:
+        raise ValueError(f"the head kernels are built for O <= {KERNEL_WIDTH}, got O={o}")
+    bf16 = x.dtype == torch.bfloat16
+    wide = o < KERNEL_WIDTH
+    pad_c = (-c) % 8 if op == "bwd_w" and not bf16 else 0
+    per = n
+    if bf16 and op == "fwd":
+        per = (_fwd_bf16_windows_built(c, window_len, step, n) if smem_bytes is None
+               else _fwd_bf16_windows(c, window_len, step, n, smem_bytes))
+    copies = bf16 and (t % 2 == 1 or per < n)
+    if not (wide or pad_c or copies):
+        return launch(g, x, w12, b12, w3, w4, window_len, step), False
+    if wide:
+        w12, b12, w3, w4 = _widen(w12, b12, w3, w4, o)
+        g = None if g is None else F.pad(g.reshape(m, b, n, z, o), (0, KERNEL_WIDTH - o)).reshape(
+            m, b, n, -1)
+    if pad_c:
+        x = F.pad(x, (0, 0, 0, pad_c))
+        w12 = F.pad(w12.reshape(m, -1, k1, c), (0, pad_c)).reshape(m, -1, k1 * (c + pad_c))
+    parts = []
+    for n0 in range(0, n, per):
+        cnt = min(per, n - n0)
+        xg, gg = x, g
+        if copies:
+            xg = _even_span(x, n0 * step, (cnt - 1) * step + window_len)
+            extra = (xg.shape[-1] - window_len) // step + 1 - cnt  # 1 at step 1 and odd spans
+            gg = None if g is None else F.pad(g[:, :, n0:n0 + cnt], (0, 0, 0, extra))
+        out = launch(gg, xg, w12, b12, w3, w4, window_len, step)
+        parts.append(out[:, :, :cnt] if op == "fwd" else out)
+    if op == "fwd":
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+        out = _narrow(out, o, 1) if wide else out
+    elif op == "bwd_w":
+        dw12, db12, dw3, dw4 = parts[0]
+        if pad_c:
+            dw12 = dw12.reshape(m, -1, k1, c + pad_c)[..., :c].reshape(m, -1, k1 * c)
+        if wide:
+            dw12, db12, dw3, dw4 = (_narrow(dw12, o, 0), _narrow(db12.reshape(m, 1, -1), o, 1)
+                                    .reshape(m, -1, 1), _narrow(dw3, o, 2), _narrow(dw4, o, 2))
+        out = (dw12, db12, dw3, dw4)
+    else:
+        out = parts[0]
+    return out, True
+
+
 def _check_smem(nbytes: int, what: str) -> None:
+    """Raises where a block of ``what`` does not fit the card, or where its
+    library size entry says (-1) that the kernel takes no such geometry."""
+    if nbytes < 0:
+        raise ValueError(f"{what} is not built for this geometry (see its source's header)")
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(
             f"one {what} block needs {nbytes} bytes of shared memory; "
@@ -254,39 +395,42 @@ def _check_smem(nbytes: int, what: str) -> None:
         )
 
 
-def _check_taps(k1: int, k2: int) -> None:
-    if k1 != KERNEL_TAPS or k2 != KERNEL_TAPS:
-        raise ValueError(f"the head kernels are built for K1 = K2 = {KERNEL_TAPS}, "
-                         f"got K1={k1}, K2={k2}")
-
-
-def _check_bwd_w_channels(c: int) -> None:
-    """B2w's reduction steps of 8 rows over ``K1 * C`` must not straddle taps."""
-    if c % 8:
-        raise ValueError(f"B2w needs the channel count C to be a multiple of 8, got C={c}")
-
-
-def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int):
+def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int, clk=None):
+    """B2f, or B2f-bf16 for a bf16 ``x``. ``clk`` (bf16 only: a CUDA int64
+    tensor of ``len(FWD_BF16_PHASES) + 2`` zeros) launches B2f-bf16's debug
+    instantiation instead, which adds to it each phase's clock cycles
+    summed over warps and blocks, then every block's cycles and
+    nanoseconds; such a launch is not counted."""
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step)
-    _check_taps(k1, k2)
     lib = _lib.library()
     bf16 = x.dtype == torch.bfloat16
-    smem = lib.isd_conv4head_bf16_smem_bytes if bf16 else lib.isd_conv4head_smem_bytes
-    _check_smem(smem(c, window_len, o, k1), "B2f-bf16" if bf16 else "B2f")
+    if bf16:  # a persistent grid: at most one block per SM, each a run of (model, zone, trial)
+        _check_smem(lib.isd_conv4head_fwd_bf16_smem_bytes(c, window_len, step, n, o, k1),
+                    "B2f-bf16")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        s = min(m * z * b, sms)
+    else:
+        _check_smem(lib.isd_conv4head_smem_bytes(c, window_len, o, k1), "B2f")
+        s = _trial_splits(m, b, z, n, x.device)
     x, w3, w4 = (_aligned16(x) if bf16 else x), _aligned16(w3), _aligned16(w4)
-    s = _trial_splits(m, b, z, n, x.device)
     out = torch.empty((m, b, n, z * o), dtype=torch.float32, device=x.device)
     entry = lib.isd_conv4head_fwd_bf16 if bf16 else lib.isd_conv4head_fwd
+    extra = ()
+    if clk is not None:
+        if not bf16:
+            raise ValueError("only B2f-bf16 has a debug instantiation with phase counters")
+        _lib.require_cuda("clk", clk, torch.int64, (len(FWD_BF16_PHASES) + 2,))
+        entry, extra = lib.isd_conv4head_fwd_bf16_phases, (clk.data_ptr(),)
     with torch.cuda.device(x.device):
         code = entry(
             x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(), w4.data_ptr(),
-            out.data_ptr(), m, b, c, t, z, o, k1, k2, window_len, step, n, s,
+            out.data_ptr(), m, b, c, t, z, o, k1, k2, window_len, step, n, s, *extra,
             _lib.stream_of(x),
         )
     _lib.check(code, entry.__name__)
-    if bf16:
+    if clk is None and bf16:
         fused_conv4_head.launches_bf16 += 1
-    else:
+    elif clk is None:
         fused_conv4_head.launches += 1
     return out
 
@@ -346,6 +490,14 @@ def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
     return plan
 
 
+def bwd_w_bf16_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_bwd_w_bf16_smem_bytes``: the plan's
+    bytes, or -1 where its weight-gradient tiles exceed the registers,
+    WG_SLOTS a warpgroup (C > 64)."""
+    plan = bwd_w_bf16_plan(c, w, o, k)
+    return -1 if len(bwd_w_bf16_tiles(plan)) > WG_SLOTS * WG_GROUPS else plan["total"]
+
+
 def chunk_offset(cs: int, row: int, ch: int) -> int:
     """Bytes of (row, channel) from the start of a chunked buffer."""
     return (ch // 8) * cs + 16 * row + 2 * (ch % 8)
@@ -399,21 +551,130 @@ def bwd_w_bf16_dw_descs(plan: dict, kind: str, index) -> list:
             for t0 in range(0, plan["nt"], 16)]
 
 
-def _check_bwd_w_bf16(c: int, w: int, o: int, k: int) -> None:
-    """B2w-bf16 holds its weight-gradient tiles in registers, WG_SLOTS a
-    warpgroup: C <= 64."""
-    plan = bwd_w_bf16_plan(c, w, o, k)
-    if len(bwd_w_bf16_tiles(plan)) > WG_SLOTS * WG_GROUPS:
-        raise ValueError(f"B2w-bf16 holds at most {WG_SLOTS * WG_GROUPS} weight-gradient tiles "
-                         f"in registers; C={c} needs {len(bwd_w_bf16_tiles(plan))}")
+# B2f-bf16's shared-memory plan and wgmma descriptors, mirrored from
+# csrc/conv4head_fwd_bf16.cu (fwd_plan, the h1 epilogue's window rows and
+# the conv tiles' sources) for the tests. One block runs (model, zone,
+# trial) items; a trial's first conv runs once over the h1 columns its
+# windows use, in sub-blocks of FWD_SB rows (one 64-row tile a warpgroup),
+# and each window's two 'same' convs read their own copy of its h1
+# columns, stacked window after window with the zero pads between them.
+FWD_SB = WG_GROUPS * WG_ROWS
+
+
+def fwd_bf16_plan(c: int, w: int, step: int, n: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
+    """B2f-bf16's plan for C channels and N windows of W at ``step``: the
+    byte offset of every shared-memory region, the total, and the geometry:
+      cp    channels of the staged x and w12 (C rounded up to 16);
+      t1    a window's conv length; nt  its rows in 64-row tiles;
+      lh    h1 columns the windows use, (N - 1) * step + t1; nsb sub-blocks;
+      lx    x samples they read, (N - 1) * step + W;
+      xr    rows of the staged x sub-block (FWD_SB + K - 1 up to 8s) and
+            the raw sub-block's row stride in samples;
+      rs    h1 rows a window takes: t1 and K - 1 zero pads; rows_h1, rows_h2;
+      cs_x, cs_h1, cs_h2  bytes between two chunks of 8 channels.
+    xs holds its chunks up to a multiple of 4 (the transpose stores four at
+    a time); h2 has two buffers (a window's h2 is written while the one
+    before is read); red two slots of the GELU team's per-warp column sums."""
+    cp = -(-c // 16) * 16
+    t1 = w - k + 1
+    nt = -(-t1 // WG_ROWS) * WG_ROWS
+    lh = (n - 1) * step + t1
+    xr = -(-(FWD_SB + k - 1) // 8) * 8
+    rs = t1 + k - 1
+    rows_h1 = (n - 1) * rs + nt + k - 1
+    rows_h2 = nt + k - 1
+    plan = {"c": c, "w": w, "step": step, "n": n, "o": o, "k": k, "cp": cp, "t1": t1, "nt": nt,
+            "lh": lh, "nsb": -(-lh // FWD_SB), "lx": (n - 1) * step + w, "xr": xr, "rs": rs,
+            "rows_h1": rows_h1, "rows_h2": rows_h2, "cs_x": 16 * xr, "cs_h1": 16 * rows_h1,
+            "cs_h2": 16 * rows_h2}
+    off = 0
+    for name, nbytes in (("xs", -(-cp // 32) * 4 * 16 * xr), ("raw", 2 * c * xr),
+                         ("h1", o // 8 * 16 * rows_h1), ("h2", 2 * o // 8 * 16 * rows_h2),
+                         ("w12", 2 * k * cp * o), ("w3", 2 * k * o * o), ("w4", 2 * k * o * o),
+                         ("bias", 4 * o), ("red", 2 * 4 * 2 * WG_GROUPS * o)):
+        plan[name] = off
+        off += -(-nbytes // 16) * 16
+    plan["total"] = off
+    return plan
+
+
+def fwd_bf16_h1_rows(plan: dict, u: int) -> list:
+    """The h1 rows that column ``u`` of the sequence is stored at, as the
+    kernel's epilogue walks them: row i * rs + K/2 + l of every window i
+    that holds it at l = u - i * step < t1, from the last such window down."""
+    rows, i = [], min(u // plan["step"], plan["n"] - 1)
+    while i >= 0 and u - i * plan["step"] < plan["t1"]:
+        rows.append(i * plan["rs"] + plan["k"] // 2 + u - i * plan["step"])
+        i -= 1
+    return rows
+
+
+def fwd_bf16_conv_descs(plan: dict, conv: str, index: int, tile: int) -> list:
+    """The k16 steps of one 64-row conv tile in issue order, each
+    ``((a_start, k_step, mn_step), (b_start, k_step, mn_step))`` in bytes
+    from the start of shared memory; A K-major (time x channels), B K-major
+    (w staged [chunk of (tap, channel)][o][8]):
+      "h1": x sub-block ``index``'s tile (rows 64 tile + tap of xs) by w12;
+      "h2": window ``index``'s stacked h1 (rows index * rs + 64 tile + tap) by w3;
+      "h3": h2's buffer ``index % 2`` (rows 64 tile + tap) by w4."""
+    o, k = plan["o"], plan["k"]
+    src, cs, row0, ch, w = {
+        "h1": ("xs", plan["cs_x"], 0, plan["cp"], "w12"),
+        "h2": ("h1", plan["cs_h1"], index * plan["rs"], o, "w3"),
+        "h3": ("h2", plan["cs_h2"], 0, o, "w4")}[conv]
+    base = plan[src] + (index % 2) * (o // 8) * cs if conv == "h3" else plan[src]
+    steps = []
+    for tap in range(k):
+        for c0 in range(0, ch, 16):
+            a = (base + chunk_offset(cs, row0 + WG_ROWS * tile + tap, c0), cs, 128)
+            b = (plan[w] + chunk_offset(16 * o, 0, tap * ch + c0), 16 * o, 128)
+            steps.append((a, b))
+    return steps
+
+
+# B2f-bf16's GELU, branch-free (a branch while a wgmma is in flight makes
+# ptxas serialise every wgmma of the kernel): gelu(v) = max(v, 0) -
+# |v| erfc(|v| / sqrt 2) / 2, with erfc(a / sqrt 2) / 2 = 2^(a * P(a) - 1)
+# for a = min(|v|, GELU_CLAMP) (P of degree 4, least squares on [0,
+# GELU_CLAMP] weighted by gelu's absolute error; past the clamp erfc is held
+# at erfc(4) < 2e-8). |error| <= 7.5e-7 in f32, against 1.1e-6 for
+# torch.nn.functional.gelu in f32 (tests/test_torch_conv4head_fwd_bf16_wgmma.py).
+# The kernel holds the same numbers (csrc/conv4head_fwd_bf16.cu, kGeluP).
+GELU_CLAMP = 5.656854152679443  # 4 sqrt 2, in f32
+GELU_EXP2_POLY = (-1.1509909629821777, -0.4596169888973236, -0.05213385075330734,
+                  0.007197307422757149, -0.0004884926602244377)
+
+
+def gelu_fit(v: torch.Tensor) -> torch.Tensor:
+    """B2f-bf16's GELU on an f32 tensor, in f32 as the kernel computes it
+    (Horner from the top coefficient; exp2 exact here, ex2.approx there)."""
+    a = v.abs()
+    ac = torch.clamp(a, max=GELU_CLAMP)
+    p = torch.full_like(v, GELU_EXP2_POLY[-1])
+    for c in GELU_EXP2_POLY[-2::-1]:
+        p = p * ac + c
+    return torch.clamp(v, min=0.0) - a * torch.exp2(p * ac - 1.0)
+
+
+# B2f-bf16's phases, in the order of the counters that its debug
+# instantiation keeps (``_launch_fwd(..., clk=...)``; b2f_timing.py).
+FWD_BF16_PHASES = ("stage", "copy", "h1", "h1_epilogue", "issue", "h3_wait", "gelu", "h2_wait",
+                   "h2_epilogue", "out", "barrier")
+# The debug instantiation's counter slots past the plan (a warp's 8 bytes a
+# phase; phase_clock.cuh's clock_bytes), for the tests' fit at full width.
+FWD_CLOCK_BYTES = 16 * 8 * len(FWD_BF16_PHASES)
 
 
 def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2w: ``(dw12, db12, dw3, dw4)`` of ``<g, fused_conv4_head(x, ...)>``;
-    B2w-bf16 for a bf16 ``x`` (C <= 64), B2w for an f32 one (C % 8 == 0)."""
+    B2w-bf16 for a bf16 ``x`` (C <= 64), B2w for an f32 one (``_adapted``
+    pads C to a multiple of 8)."""
     if x.device.type == "cpu":
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
-    return _launch_bwd_w(g, x, w12, b12, w3, w4, window_len, step)
+    _require_x(x)
+    grads, adapted = _adapted("bwd_w", _launch_bwd_w, g, x, w12, b12, w3, w4, window_len, step)
+    conv4head_bwd_w.adapted += adapted
+    return grads
 
 
 # B2w-bf16's phases, in the order of the counters that its debug
@@ -430,13 +691,7 @@ def _launch_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int, s=None, cl
     summed over warps and blocks, then every block's cycles and
     nanoseconds; such a launch is not counted."""
     bf16 = x.dtype == torch.bfloat16
-    _, _, c, _, _, _, k1, k2, _ = _geometry(x, w12, w3, window_len, step)
-    _check_taps(k1, k2)
-    if not bf16:
-        _check_bwd_w_channels(c)
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
-    if bf16:
-        _check_bwd_w_bf16(c, window_len, o, k1)
     lib = _lib.library()
     smem = lib.isd_conv4head_bwd_w_bf16_smem_bytes if bf16 else lib.isd_conv4head_bwd_w_smem_bytes
     _check_smem(smem(c, window_len, o, k1), "B2w-bf16" if bf16 else "B2w")
@@ -506,7 +761,12 @@ def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
     PyTorch, as the JAX package adds them in XLA."""
     if x.device.type == "cpu":
         return conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len, step)
-    return _launch_bwd_x(g, x, w12, b12, w3, w4, window_len, step)
+    _require_x(x)
+    if x.dtype == torch.bfloat16:
+        _launch_bwd_x(g, x, w12, b12, w3, w4, window_len, step)  # raises: no bf16 B2x
+    dx, adapted = _adapted("bwd_x", _launch_bwd_x, g, x, w12, b12, w3, w4, window_len, step)
+    conv4head_bwd_x.adapted += adapted
+    return dx
 
 
 def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
@@ -518,7 +778,6 @@ def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
             "an input gradient in bf16; hold x in float32 to differentiate with respect to it"
         )
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
-    _check_taps(k1, k2)
     if sz is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         sz = _bwd_x_zone_splits(m, b, n, z, c, window_len, sms)
@@ -549,7 +808,7 @@ class _FusedConv4Head(torch.autograd.Function):
     def forward(ctx, x, w12, b12, w3, w4, window_len, step):
         ctx.save_for_backward(x, w12, b12, w3, w4)
         ctx.geometry = (window_len, step)
-        return _launch_fwd(x, w12, b12, w3, w4, window_len, step)
+        return _forward(x, w12, b12, w3, w4, window_len, step)
 
     @staticmethod
     def backward(ctx, g):
@@ -571,7 +830,16 @@ def fused_conv4_head(x, w12, b12, w3, w4, window_len: int, step: int):
         return fused_conv4_head_plain(x, w12, b12, w3, w4, window_len, step)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w12, b12, w3, w4)):
         return _FusedConv4Head.apply(x, w12, b12, w3, w4, window_len, step)
-    return _launch_fwd(x, w12, b12, w3, w4, window_len, step)
+    return _forward(x, w12, b12, w3, w4, window_len, step)
+
+
+def _forward(x, w12, b12, w3, w4, window_len: int, step: int):
+    """B2f or B2f-bf16 on CUDA operands of any geometry ``_adapted`` takes."""
+    _require_x(x)
+    out, adapted = _adapted("fwd", lambda g, *ops: _launch_fwd(*ops), None, x, w12, b12, w3, w4,
+                            window_len, step)
+    fused_conv4_head.adapted += adapted
+    return out
 
 
 fused_conv4_head.launches = 0  # B2f launches; the CPU route does not count
@@ -579,3 +847,8 @@ fused_conv4_head.launches_bf16 = 0  # B2f-bf16 launches
 conv4head_bwd_w.launches = 0  # B2w launches
 conv4head_bwd_w.launches_bf16 = 0  # B2w-bf16 launches
 conv4head_bwd_x.launches = 0  # B2x launches
+# Calls whose operands _adapted zero-padded or split to a geometry the kernels
+# are built for (each such call's launches count above as well).
+fused_conv4_head.adapted = 0
+conv4head_bwd_w.adapted = 0
+conv4head_bwd_x.adapted = 0

@@ -32,10 +32,11 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     WG_GROUPS,
     WG_ROWS,
     WG_SLOTS,
-    _check_bwd_w_bf16,
+    _check_smem,
     bwd_w_bf16_conv_descs,
     bwd_w_bf16_dw_descs,
     bwd_w_bf16_plan,
+    bwd_w_bf16_smem_bytes,
     bwd_w_bf16_tiles,
     conv4head_bwd_bf16_plain,
 )
@@ -79,7 +80,7 @@ def test_plan_fits_shared_memory(c, w):
     plan = bwd_w_bf16_plan(c, w)
     assert plan["total"] <= MAX_SMEM_BYTES
     assert len(bwd_w_bf16_tiles(plan)) <= WG_SLOTS * WG_GROUPS
-    _check_bwd_w_bf16(c, w, 32, 5)
+    assert bwd_w_bf16_smem_bytes(c, w, 32, 5) == plan["total"]
     if (c, w) == (64, 250):
         assert plan["total"] == 225280 and len(bwd_w_bf16_tiles(plan)) == 11
         assert plan["nt"] == 4 * WG_ROWS and plan["rows"] == 260
@@ -94,12 +95,13 @@ def test_admitted_geometries():
         for w in (60, 120, 250, 260):
             plan = bwd_w_bf16_plan(c, w)
             assert plan["total"] <= MAX_SMEM_BYTES, (c, w)
-            _check_bwd_w_bf16(c, w, 32, 5)
+            assert bwd_w_bf16_smem_bytes(c, w, 32, 5) == plan["total"]
     assert -(-len(bwd_w_bf16_tiles(bwd_w_bf16_plan(64, 250))) // WG_GROUPS) == 3
     assert bwd_w_bf16_plan(65, 250)["total"] > MAX_SMEM_BYTES
     assert bwd_w_bf16_plan(130, 60)["total"] <= MAX_SMEM_BYTES
-    with pytest.raises(ValueError, match="in registers"):
-        _check_bwd_w_bf16(130, 60, 32, 5)
+    assert bwd_w_bf16_smem_bytes(130, 60, 32, 5) == -1  # the library's size: not built
+    with pytest.raises(ValueError, match="B2w-bf16 is not built"):
+        _check_smem(bwd_w_bf16_smem_bytes(130, 60, 32, 5), "B2w-bf16")
 
 
 def _regions(plan):

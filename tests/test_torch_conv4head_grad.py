@@ -18,6 +18,7 @@ from imagined_speech_decoding_tpu.ops.pallas.conv4head import fused_conv4_head a
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    _adapted,
     _bwd_x_zone_splits,
     conv4head_bwd_plain,
     conv4head_bwd_w,
@@ -187,9 +188,12 @@ def test_kernel_wrappers_route_cpu_tensors_to_plain():
 
 @pytest.mark.parametrize("c", [10, 12, 63])
 def test_b2w_refuses_channels_not_a_multiple_of_8(c):
-    """Off the CPU, B2w raises for C % 8 != 0 before it looks at the device
-    (a reduction step of 8 rows must not straddle two taps). Meta tensors
-    take the kernel's route without a card."""
+    """The B2w kernel refuses C % 8 != 0 (a reduction step of 8 rows must
+    not straddle two taps), so the wrapper never hands it one: ``_adapted``
+    zero-pads x and w12 to the next multiple of 8 channels and cuts dw12
+    back. Meta tensors take the kernel's route without a card: the wrapper
+    stops at its CUDA check, with no launch; the padding is shown through a
+    stand-in for the launch."""
     m, b, t, z, o, k, window, step = 1, 2, 200, 4, 32, 5, 100, 50
     n = (t - window) // step + 1
     meta = dict(device="meta", dtype=torch.float32)
@@ -198,9 +202,19 @@ def test_b2w_refuses_channels_not_a_multiple_of_8(c):
     w3 = w4 = torch.empty((m, z, o, k * o), **meta)
     g = torch.empty((m, b, n, z * o), **meta)
     before = conv4head_bwd_w.launches
-    with pytest.raises(ValueError, match="multiple of 8"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         conv4head_bwd_w(g, x, w12, b12, w3, w4, window, step)
     assert conv4head_bwd_w.launches == before
+    seen = []
+
+    def launch(g_, x_, w12_, b12_, w3_, w4_, window_, step_):
+        seen.append(x_.shape[2])
+        assert w12_.shape[-1] == k * x_.shape[2]
+        return tuple(torch.empty_like(w_) for w_ in (w12_, b12_, w3_, w4_))
+
+    grads, adapted = _adapted("bwd_w", launch, g, x, w12, b12, w3, w4, window, step)
+    assert adapted and seen == [c + (-c) % 8]
+    assert [t.shape for t in grads] == [w12.shape, b12.shape, w3.shape, w4.shape]
 
 
 @pytest.mark.parametrize("m,b,want", [

@@ -16,20 +16,25 @@ import pytest
 import scipy.signal as sps
 import torch
 
+from imagined_speech_decoding_tpu_torch.cli import train_fast
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.explain.attribution import attribution_for_predictions
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    FWD_BF16_PHASES,
     _launch_bwd_w,
     _launch_bwd_x,
+    _launch_fwd,
     bwd_w_bf16_plan,
+    bwd_w_bf16_smem_bytes,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
     conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
+    fwd_bf16_plan,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
     default_padlen,
@@ -45,7 +50,7 @@ from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout_params,
 )
-from wgmma_emulation import selftest_cases
+from wgmma_emulation import fwd_selftest_cases, selftest_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -432,9 +437,29 @@ def test_bf16_kernels_edges_match_plain(dev):
     _check_bf16_kernels(ops, x.to(torch.bfloat16), g, (cfg.window_len, cfg.slide_step), (0, 1))
 
 
+@pytest.mark.parametrize("window_len,slide_step,seq_len", [(300, 150, 450), (470, 100, 770)])
+def test_bf16_forward_long_windows_match_plain(dev, window_len, slide_step, seq_len):
+    """Windows past t1 = 256 (five and eight time tiles) take B2f-bf16's
+    generic instantiation in rounds of four tiles a window: one launch a
+    group of windows, held against the plain bf16 forward at BF16_FWD_REL
+    at full width, M = 2, B = 5; reruns bit-identical."""
+    cfg, _, ops, x, _ = _full_width_operands(dev, 2, 5, window_len, seq_len=seq_len,
+                                             window_len=window_len, slide_step=slide_step)
+    xb, geo = x.to(torch.bfloat16), (window_len, slide_step)
+    with torch.no_grad():
+        before = fused_conv4_head.launches_bf16
+        got = fused_conv4_head(xb, *ops, *geo)
+        assert fused_conv4_head.launches_bf16 > before
+        assert torch.equal(fused_conv4_head(xb, *ops, *geo), got)
+    ref = fused_conv4_head_plain(xb.cpu(), *(t.cpu() for t in ops), *geo)
+    _bf16_close(got.cpu(), ref, BF16_FWD_REL, f"out W={window_len}")
+
+
 def test_bf16_kernels_take_odd_channel_counts(dev):
     """C = 10 (not a multiple of 8 or 16) with 4 zones: B2f-bf16 and
-    B2w-bf16 take it (zero-padded channels); f32 B2w refuses it."""
+    B2w-bf16 take it (zero-padded channels); f32 B2w refuses it, so its
+    wrapper launches it on x and w12 zero-padded to 16 channels, and the
+    weight gradients match the plain backward (rtol 1e-4)."""
     cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
                      num_layers=1, num_heads=4)
     model = FAST(cfg, n_models=2, device=dev)
@@ -447,8 +472,12 @@ def test_bf16_kernels_take_odd_channel_counts(dev):
                      device=dev)
     geo = (cfg.window_len, cfg.slide_step)
     _check_bf16_kernels(ops, x.to(torch.bfloat16), g, geo, (0, 1))
-    with pytest.raises(ValueError, match="multiple of 8"):
-        conv4head_bwd_w(g, x, *ops, *geo)
+    before = (conv4head_bwd_w.launches, conv4head_bwd_w.adapted)
+    dw = conv4head_bwd_w(g, x, *ops, *geo)  # f32 B2w at C = 10: on 16 zero-padded channels
+    assert (conv4head_bwd_w.launches, conv4head_bwd_w.adapted) == (before[0] + 1, before[1] + 1)
+    for name, got, r in zip(("dw12", "db12", "dw3", "dw4"), dw, conv4head_bwd_plain(g, x, *ops,
+                                                                                    *geo)[1:]):
+        _assert_grad_close(got, r, name)
 
 
 def test_bf16_input_gradient_raises(dev):
@@ -545,11 +574,14 @@ def test_bf16_weight_grads_are_deterministic_over_20_runs(dev):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120)])
+@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120), (72, 250), (130, 60)])
 def test_bwd_w_bf16_plan_mirror_matches_kernel(dev, c, w):
-    """The Python mirror of B2w-bf16's shared-memory plan gives the kernel's total."""
-    assert bwd_w_bf16_plan(c, w)["total"] == _lib.library().isd_conv4head_bwd_w_bf16_smem_bytes(
+    """The Python mirror of B2w-bf16's shared-memory plan gives the kernel's
+    total, and -1 where it is not built for C (72, 130: more weight-gradient
+    tiles than its registers hold)."""
+    assert bwd_w_bf16_smem_bytes(c, w) == _lib.library().isd_conv4head_bwd_w_bf16_smem_bytes(
         c, w, 32, 5)
+    assert bwd_w_bf16_smem_bytes(c, w) in (-1, bwd_w_bf16_plan(c, w)["total"])
 
 
 def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
@@ -594,3 +626,155 @@ def test_wgmma_descriptor_forms_match_plain(dev, case):
                   for swap in ((True, False), (False, True), (True, True))}
         raise AssertionError(f"{name}: max|err| {err:.3g} > {tol:.3g}; with swapped offsets "
                              f"(A, B): {others}")
+
+
+def test_bf16_forward_edges_match_plain(dev):
+    """B2f-bf16 where a column lies in up to four windows and h1 takes two
+    sub-blocks (windows of 120 at step 37, T = 400: N = 8), and where the
+    persistent blocks' runs cross (model, zone) boundaries (M = 3, B = 64:
+    1,536 items on the SMs), against the plain bf16 forward."""
+    for m, b, geometry in ((1, 3, dict(seq_len=400, window_len=120, slide_step=37)), (3, 64, {})):
+        cfg, _, ops, x, _ = _full_width_operands(dev, m, b, 47 + m, **geometry)
+        geo = (cfg.window_len, cfg.slide_step)
+        xb = x.to(torch.bfloat16)
+        before = fused_conv4_head.launches_bf16
+        with torch.no_grad():
+            out = fused_conv4_head(xb, *ops, *geo)
+        torch.cuda.synchronize()
+        assert fused_conv4_head.launches_bf16 == before + 1
+        _bf16_close(out, fused_conv4_head_plain(xb, *ops, *geo), BF16_FWD_REL, f"M={m} B={b}")
+
+
+def test_bf16_forward_is_deterministic_over_20_runs(dev):
+    """Twenty B2f-bf16 launches give the same bits, and its debug
+    instantiation (phase counters) the same bits again, with every
+    counter moved."""
+    cfg, _, ops, x, _ = _full_width_operands(dev, 2, 8, 53)
+    xb, geo = x.to(torch.bfloat16), (cfg.window_len, cfg.slide_step)
+    with torch.no_grad():
+        first = fused_conv4_head(xb, *ops, *geo)
+        for _ in range(19):
+            assert torch.equal(fused_conv4_head(xb, *ops, *geo), first)
+        clk = torch.zeros(len(FWD_BF16_PHASES) + 2, dtype=torch.int64, device=dev)
+        before = fused_conv4_head.launches_bf16
+        assert torch.equal(_launch_fwd(xb, *ops, *geo, clk=clk), first)
+    assert fused_conv4_head.launches_bf16 == before
+    assert all(v > 0 for v in clk.tolist())
+
+
+@pytest.mark.parametrize("c,w,step,n", [(64, 250, 125, 5), (10, 250, 125, 5), (64, 120, 37, 8),
+                                        (72, 250, 125, 3), (64, 300, 150, 1)])
+def test_fwd_bf16_plan_mirror_matches_kernel(dev, c, w, step, n):
+    """The Python mirror of B2f-bf16's shared-memory plan gives the
+    kernel's total (windows of 300: five time tiles)."""
+    assert fwd_bf16_plan(c, w, step, n)["total"] == (
+        _lib.library().isd_conv4head_fwd_bf16_smem_bytes(c, w, step, n, 32, 5))
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_fwd_bf16_descriptor_forms_match_plain(dev, case):
+    """B2f-bf16's conv tiles (the x sub-block by w12, the last window's
+    stacked h1 rows by w3, h2's second buffer by w4), one tile each on the
+    card through the Python mirror's descriptors, against the plain
+    product of the same bf16 values (1e-5 of max|ref|)."""
+    img, cases = fwd_selftest_cases(fwd_bf16_plan(64, 250, 125, 5))
+    name, steps, a_mn_major, b_mn_major, expected = cases[case]
+    got = _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major)
+    assert float((got - expected).abs().max()) <= 1e-5 * float(expected.abs().max()), name
+
+
+def _head_operands(m, b, c, t, z, o, seed, k=5):
+    """``(x f32, w12, b12, w3, w4)`` on the CPU, from numpy."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        return torch.tensor((scale * rng.normal(size=shape)).astype(np.float32))
+
+    return (normal((m, b, c, t), 1.0), normal((m, z * o, k * c), (k * c) ** -0.5),
+            normal((m, z * o, 1), 0.1), normal((m, z, o, k * o), (k * o) ** -0.5),
+            normal((m, z, o, k * o), (k * o) ** -0.5))
+
+
+def _route_counts():
+    return (fused_conv4_head.launches, fused_conv4_head.launches_bf16, fused_conv4_head.adapted,
+            conv4head_bwd_w.launches, conv4head_bwd_w.launches_bf16, conv4head_bwd_w.adapted)
+
+
+@pytest.mark.parametrize("o,c,t,w,step,dtype,routes", [
+    (8, 10, 200, 100, 50, torch.float32, (1, 0, 1, 1, 0, 1)),  # dim_cnn 8 (cli/zero_shot.py)
+    (16, 10, 200, 100, 50, torch.float32, (1, 0, 1, 1, 0, 1)),  # dim_cnn 16
+    (8, 10, 200, 100, 50, torch.bfloat16, (0, 1, 1, 0, 1, 1)),
+    (16, 10, 200, 100, 50, torch.bfloat16, (0, 1, 1, 0, 1, 1)),
+    (32, 60, 200, 100, 50, torch.float32, (1, 0, 0, 1, 0, 1)),  # B2w on 64 padded channels
+    (32, 10, 202, 100, 50, torch.bfloat16, (0, 1, 0, 0, 1, 0)),  # T even: as they are
+    (32, 10, 201, 100, 50, torch.bfloat16, (0, 1, 1, 0, 1, 1)),  # an odd T: an even copy
+    (32, 64, 1001, 250, 125, torch.bfloat16, (0, 2, 1, 0, 1, 1)),  # N = 7: two B2f-bf16 groups
+    (32, 72, 800, 250, 125, torch.bfloat16, (0, 2, 1, 0, 0, 0)),  # C = 72: B2w-bf16 raises
+])
+def test_adapted_geometries_train_on_the_card(dev, o, c, t, w, step, dtype, routes):
+    """Head geometries the kernels are not built for launch them on
+    zero-padded or split operands: the features and the weight gradients
+    of <g, head> match the CPU (f32: rtol 1e-4, atol 1e-5 / 1e-4 x
+    max|ref|; bf16: 3e-4 and 1e-3 x max|ref|), and the launch and
+    ``adapted`` counters say what ran. At C = 72 in bf16 the forward runs
+    and B2w-bf16 (C <= 64) raises."""
+    x, *weights = _head_operands(2, 3, c, t, 2, o, o + c + t)
+    n = (t - w) // step + 1
+    g = torch.tensor(np.random.default_rng(t).normal(size=(2, 3, n, 2 * o)).astype(np.float32))
+    trains = not (dtype == torch.bfloat16 and c > 64)
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        wd = [p.to(device).requires_grad_(True) for p in weights]
+        before = _route_counts()
+        out = fused_conv4_head(x.to(device, dtype), *wd, w, step)
+        if trains or device.type == "cpu":
+            (out * g.to(device)).sum().backward()
+        else:
+            with pytest.raises(ValueError, match="B2w-bf16 is not built"):
+                (out * g.to(device)).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(_route_counts(), before)) == routes
+        results[device.type] = [out.detach().cpu()] + [p.grad.cpu() for p in wd if trains]
+    names = ("out", "dw12", "db12", "dw3", "dw4")
+    for name, got, ref in zip(names, results["cuda"], results["cpu"]):
+        if dtype == torch.bfloat16:
+            _bf16_close(got, ref, BF16_FWD_REL if name == "out" else BF16_BWD_REL, name)
+        elif name == "out":
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        else:
+            _assert_grad_close(got, ref, name)
+
+
+@pytest.mark.parametrize("o", [8, 16])
+def test_adapted_input_gradient_on_the_card(dev, o):
+    """B2x at dim_cnn 8 and 16 (zones zero-padded to 32 channels): dx
+    matches B2x's plain version on the CPU at the B2x tolerance, one launch,
+    one adapted call."""
+    x, *weights = _head_operands(2, 3, 10, 200, 2, o, 41 + o)
+    g = torch.tensor(np.random.default_rng(o).normal(size=(2, 3, 3, 2 * o)).astype(np.float32))
+    before = (conv4head_bwd_x.launches, conv4head_bwd_x.adapted)
+    got = conv4head_bwd_x(g.to(dev), x.to(dev), *(p.to(dev) for p in weights), 100, 50)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_x.launches, conv4head_bwd_x.adapted) == (before[0] + 1, before[1] + 1)
+    _assert_grad_close(got.cpu(), conv4head_bwd_x_plain(g, x, *weights, 100, 50), "dx")
+
+
+def test_cli_trains_dim_cnn_8_on_the_card(dev, tmp_path):
+    """tests/test_torch_bf16.py's CLI command (a config with dim_cnn: 8,
+    bf16 by default) on the card, the CLI's default device: it trains
+    through B2f-bf16 and B2w-bf16 on zones zero-padded to 32 channels
+    (every head call adapted), no f32 head kernel, and its history is
+    finite."""
+    cfg_path = tmp_path / "small.yaml"
+    cfg_path.write_text("model:\n  dim_cnn: 8\n  dim_token: 16\n  num_layers: 1\n"
+                        "  num_heads: 4\n")
+    before = _route_counts()
+    res = train_fast.main(["--config", str(cfg_path), "--synthetic", "1", "--synthetic_trials",
+                           "10", "--epochs", "2", "--batch_size", "8", "--output_dir",
+                           str(tmp_path / "out")])
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_route_counts(), before))
+    assert moved[0] == moved[3] == 0 and moved[1] > 0 and moved[4] > 0, moved
+    assert moved[2] == moved[1] and moved[5] == moved[4], moved
+    assert all(np.isfinite(v).all() for v in res.fit.history.values())

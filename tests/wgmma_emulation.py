@@ -1,11 +1,13 @@
-"""Byte-level emulation of kernel B2w-bf16's wgmma route, shared by
-``tests/test_torch_conv4head_bwd_w_wgmma.py`` (on the CPU) and the
+"""Byte-level emulation of kernels B2w-bf16's and B2f-bf16's wgmma
+routes, shared by ``tests/test_torch_conv4head_bwd_w_wgmma.py`` and
+``tests/test_torch_conv4head_fwd_bf16_wgmma.py`` (on the CPU) and the
 one-tile descriptor self-tests of ``tests/test_torch_cuda.py`` (on the
 card).
 
 Shared memory is modelled as an image of 2-byte slots (a float tensor of
 bf16 values, one row per block), laid out by the Python mirror of the
-kernel's plan (``ops.cuda.conv4head.bwd_w_bf16_plan``, ``chunk_offset``).
+kernel's plan (``ops.cuda.conv4head.bwd_w_bf16_plan`` or
+``fwd_bf16_plan``, ``chunk_offset``).
 A wgmma k16 step is emulated by gathering its two operand tiles from the
 image through their descriptors (start, byte step between core matrices
 along K and along M or N), as the PTX ISA defines the no-swizzle layout,
@@ -23,12 +25,17 @@ import torch
 
 from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    FWD_SB,
     WG_ROWS,
     bwd_w_bf16_conv_descs,
     bwd_w_bf16_dw_descs,
     bwd_w_bf16_plan,
     bwd_w_bf16_tiles,
     chunk_offset,
+    fwd_bf16_conv_descs,
+    fwd_bf16_h1_rows,
+    fwd_bf16_plan,
+    gelu_fit,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import _bf16 as bf16
 
@@ -204,3 +211,130 @@ def selftest_cases(plan: dict, seed: int = 0):
          bwd_w_bf16_dw_descs(plan, "dw3", p), True, True, dw3),
     ]
     return img, cases
+
+
+def emulate_fwd_bf16(x, w12, b12, w3, w4, window_len: int, step: int, rs: int = None):
+    """B2f-bf16 on the CPU: ``(M, B, N, Z*O)`` f32 as the kernel computes
+    it, one image of shared memory per (model, zone) carried through its
+    trials in order. ``rs`` replaces the plan's h1 rows a window (a test
+    sets it to ``step``: every window then reads the sequence's own
+    columns around its edges instead of its zero pads)."""
+    m, b, c, _, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
+    plan = fwd_bf16_plan(c, window_len, step, n, o, k)
+    if rs is not None:
+        plan = dict(plan, rs=rs)
+    t1, nt, lh, lx, xr, cp = (plan[key] for key in ("t1", "nt", "lh", "lx", "xr", "cp"))
+    u = m * z
+    img = torch.zeros((u, plan["total"] // 2))
+    stage_weights(img, plan["w12"], w12.reshape(u, o, k * c), k, c, cp)
+    stage_weights(img, plan["w3"], w3.reshape(u, o, k * o), k, o, o)
+    stage_weights(img, plan["w4"], w4.reshape(u, o, k * o), k, o, o)
+    bias = b12.reshape(u, 1, o)
+    xf = x.float()
+    out = torch.zeros((m, b, n, z, o))
+    real = (torch.arange(nt) < t1)[None, :, None]
+    # the h1 slots of every (column, window) pair the epilogue writes
+    pairs = [(col, row) for col in range(lh) for row in fwd_bf16_h1_rows(plan, col)]
+    cols = torch.tensor([p[0] for p in pairs])
+    h1_slots = _matrix_slots_rows(plan["h1"], plan["cs_h1"], [p[1] for p in pairs], o)
+
+    def conv(name, index):
+        tiles = range(FWD_SB // WG_ROWS) if name == "h1" else range(nt // WG_ROWS)
+        return torch.cat([wgmma(img, fwd_bf16_conv_descs(plan, name, index, tile), False, False)
+                          for tile in tiles], dim=1)
+
+    for bi in range(b):
+        trial = xf[:, bi][:, None].expand(m, z, c, xf.shape[-1]).reshape(u, c, -1)
+        h1 = torch.zeros((u, plan["nsb"] * FWD_SB, o))
+        for sb in range(plan["nsb"]):
+            rows = min(xr, lx - FWD_SB * sb)  # the staged samples; the rest keep older bytes
+            write(img, plan["xs"], plan["cs_x"], trial[:, :, FWD_SB * sb : FWD_SB * sb + rows].mT)
+            h1[:, FWD_SB * sb : FWD_SB * (sb + 1)] = conv("h1", sb)
+        h1 = bf16(h1[:, :lh] + bias)
+        img[:, h1_slots] = h1[:, cols].reshape(u, -1)
+        h2_cs = plan["cs_h2"]
+        for i in range(n):
+            h2 = torch.where(real, bf16(conv("h2", i)), 0.0)
+            write(img, plan["h2"] + (i % 2) * (o // 8) * h2_cs, h2_cs, h2, row0=k // 2)
+            h3 = conv("h3", i)
+            g = torch.where(real, gelu_fit(h3), 0.0)
+            out[:, bi, i] = (g.sum(dim=1) / t1).reshape(m, z, o)
+    return out.reshape(m, b, n, z * o)
+
+
+def _matrix_slots_rows(base: int, cs: int, rows, ch: int) -> torch.Tensor:
+    """Slot indices of channels 0..ch-1 of each of ``rows``, row after row."""
+    r = torch.tensor(rows)[:, None]
+    cc = torch.arange(ch)[None, :]
+    return ((base + chunk_offset(cs, r, cc)) // 2).flatten()
+
+
+def ldmatrix_transpose(raw: torch.Tensor, plan: dict) -> torch.Tensor:
+    """B2f-bf16's transpose of a raw x sub-block (``raw (C, xr)``, channel
+    rows of xr samples) into its time-major chunks, lane by lane as the
+    kernel's raw_to_xs issues it: ldmatrix .x4 .trans (lane l gives the
+    address of row l % 8 of matrix l / 8 and receives of each matrix i the
+    pair (rows 2 (l % 4), 2 (l % 4) + 1; column l / 4)), then stmatrix .x4
+    (lane l gives the address of row l % 8 of matrix l / 8; row r of matrix
+    i takes the pairs of lanes 4 r .. 4 r + 3). Returns the logical
+    ``(xr, cp)`` matrix read back from the chunks' bytes."""
+    c, xr, cp, cs = raw.shape[0], plan["xr"], plan["cp"], plan["cs_x"]
+    assert plan["raw"] - plan["xs"] >= -(-cp // 32) * 4 * cs  # four chunks a store fit
+    xs = torch.full(((plan["raw"] - plan["xs"]) // 2,), float("nan"))
+    for grp in range(-(-cp // 32)):
+        rows = [min(8 * (4 * grp + lane // 8) + lane % 8, c - 1) for lane in range(32)]
+        for tb in range(xr // 8):
+            regs = [[None] * 4 for _ in range(32)]  # regs[lane][i]: a (lo, hi) pair
+            for lane in range(32):
+                for i in range(4):
+                    src = [rows[8 * i + 2 * (lane % 4) + e] for e in range(2)]
+                    pair = [float(raw[r, 8 * tb + lane // 4]) for r in src]
+                    c0 = 8 * (4 * grp + i) + 2 * (lane % 4)
+                    regs[lane][i] = [v if c0 + e < c else 0.0 for e, v in enumerate(pair)]
+            for lane in range(32):  # stmatrix: this lane's address is row r of matrix i
+                i, r = divmod(lane, 8)
+                byte = (4 * grp + i) * cs + 16 * (8 * tb + r)
+                row = [v for q in range(4) for v in regs[4 * r + q][i]]
+                xs[byte // 2 : byte // 2 + 8] = torch.tensor(row)
+    t = torch.arange(xr)[:, None]
+    ch = torch.arange(cp)[None, :]
+    return xs[chunk_offset(cs, t, ch) // 2]
+
+
+def fwd_selftest_cases(plan: dict, seed: int = 0):
+    """One shared-memory image of random bf16 values laid out by B2f-bf16's
+    ``plan`` and, for each of its conv tiles' sources (the x sub-block, a
+    window's stacked h1 rows, h2's second buffer), the last tile:
+    ``(name, steps, a_mn_major, b_mn_major, expected (64, 32) f64)``."""
+    rng = np.random.default_rng(seed)
+    o, k, cp = plan["o"], plan["k"], plan["cp"]
+
+    def rand(*shape):
+        return bf16(torch.tensor(rng.normal(size=shape).astype(np.float32)))
+
+    xs, h1, h2 = rand(plan["xr"], cp), rand(plan["rows_h1"], o), rand(plan["rows_h2"], o)
+    w12, w3, w4 = rand(o, k * cp), rand(o, k * o), rand(o, k * o)
+    img = torch.zeros((1, plan["total"] // 2))
+    write(img, plan["xs"], plan["cs_x"], xs[None])
+    write(img, plan["h1"], plan["cs_h1"], h1[None])
+    write(img, plan["h2"] + (o // 8) * plan["cs_h2"], plan["cs_h2"], h2[None])
+    for name, mat in (("w12", w12), ("w3", w3), ("w4", w4)):
+        write(img, plan[name], 16 * o, mat[None])
+    t = torch.arange(WG_ROWS)
+    last, window = plan["nt"] // WG_ROWS - 1, plan["n"] - 1
+
+    def product(src, row0, w, ch):
+        src, w = src.double(), w.double()
+        return sum(src[row0 + t + tap] @ w[:, tap * ch : (tap + 1) * ch].T for tap in range(k))
+
+    return img, [
+        ("h1: A the x sub-block (K-major), B w12",
+         fwd_bf16_conv_descs(plan, "h1", 0, FWD_SB // WG_ROWS - 1), False, False,
+         product(xs, FWD_SB - WG_ROWS, w12, cp)),
+        ("h2: A the last window's h1 rows (K-major), B w3",
+         fwd_bf16_conv_descs(plan, "h2", window, last), False, False,
+         product(h1, window * plan["rs"] + WG_ROWS * last, w3, o)),
+        ("h3: A h2's second buffer (K-major), B w4",
+         fwd_bf16_conv_descs(plan, "h3", 1, last), False, False,
+         product(h2, WG_ROWS * last, w4, o)),
+    ]
