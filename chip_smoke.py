@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and attribution
-paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training, attribution and
+real-data paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -21,7 +21,8 @@ paths on one NVIDIA GPU.
      B1 (IIR cascade): the chain entry, 60 Hz notch then 4-40 Hz
         band-pass zero-phase in one launch, on (B, 64, 800) for B = 1, 8,
         64, 350 and on the corpus's 336,000 rows (there also with 8 and 16
-        lanes a row); the causal entry on the band-pass's padded length,
+        lanes a row), and the device time at the preprocessing splits'
+        288,000 and 48,000 rows (the real-data path reads it); the causal entry on the band-pass's padded length,
         y and zf; tolerance rtol 1e-4, atol 1e-4 * max|ref| (the JAX
         package's Pallas IIR tolerance, tests/test_pallas.py). Bounds: x
         read and y written once, or the f32 FMAs of both passes.
@@ -90,6 +91,23 @@ paths on one NVIDIA GPU.
    at the explain CLI's shape (16 trials x 32 samples, 64 background
    trials), its predictions against the CPU's.
 
+7. Real-data path, on a raw tree at the documented schema that
+   ``tests/bcic_fixture.py`` writes (15 subjects, 300 / 50 / 50 trials of
+   64 x 795 samples, v5 ``.mat`` files, an ``.xlsx`` answer sheet; the v7.3
+   test files only where h5py imports): the preprocessing CLI's work
+   (``cli.preprocess`` with h5py; without it the functions it calls:
+   ingest of the v5 splits, ``filter_corpus`` a split) with the 60 Hz
+   notch and the 4-40 Hz band-pass, one B1 chain launch a split, each
+   split's first and last 8 trials against the plain chain (B1's
+   tolerance), timed by CUDA events beside the byte bound and the device
+   time that step 3 takes at its shape with its filters on random data; ``cli.train_fast`` on the tree in its own process, bf16, 50
+   epochs in two segments, once through, and once killed (SIGKILL) in
+   its second segment and run again with ``--resume``: history, best
+   epochs, ``summary_per_subject.csv`` and a ``best_subject.npz`` must
+   equal the uninterrupted run's bit for bit, B2f-bf16 and B2w-bf16 must
+   launch and nothing be adapted; then ``cli.benchmark`` over the result
+   tree, whose ``Acc_Mean`` must be the subjects' mean test accuracy.
+
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script exits non-zero. Without a CUDA device it exits non-zero at once.
@@ -149,7 +167,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
     sosfiltfilt_chain,
     sosfiltfilt_chain_plain,
 )
-from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, notch_ba
+from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, corpus_filters, notch_ba
 from imagined_speech_decoding_tpu_torch.server import DecoderClient
 from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
 from imagined_speech_decoding_tpu_torch.train import engine
@@ -399,6 +417,18 @@ def phase_iir(dev, rng):
               f"{c['plain_ms']:.3f} ms, max|err| {k_err:.3g} (y and zf), bound {c_bound:.4f} ms "
               f"({c_bound_by}, {c_bound / c['ms']:.1%} reached; {c_bound / c['device_ms']:.1%} of "
               f"the device time)", flush=True)
+    # The preprocessing CLI's splits (one chain launch each, its own filters) on
+    # random data, timed here: late in the run the profiler has lost these
+    # records (PERF.md section 7).
+    corpus = corpus_filters(SFREQ, REAL_NOTCH, REAL_BAND)
+    rows["preprocessing"] = {}
+    for n_rows in sorted({n * TRAIN_SUBJECTS * 64 for n in REAL_TRIALS}):
+        x = torch.randn(n_rows // 64, 64, 800, device=dev)
+        rows["preprocessing"][n_rows] = device_ms(lambda: sosfiltfilt_chain(corpus, x),
+                                                  "sosfiltfilt_chain_kernel", 3)
+        print(f"B1 chain R={n_rows} (a preprocessing split's rows, corpus_filters, random "
+              f"data): {rows['preprocessing'][n_rows]:.4f} ms on the device (profiler)",
+              flush=True)
     return rows
 
 
@@ -1302,6 +1332,310 @@ def phase_explain(cfg, dev, ckpt, subject):
     return launches
 
 
+REAL_TRIALS = (300, 50, 50)  # train, validation, test trials a subject (the dataset's)
+REAL_EPOCHS = 50  # two segments of 25 (train.cv's epochs_per_segment)
+REAL_CHECK_TRIALS = 8  # the first and last trials of each split, held against the plain chain
+REAL_NOTCH, REAL_BAND = 60.0, (4.0, 40.0)  # cli/preprocess.py --notch 60 --bandpass 4 40
+SPLIT_ORDER = ("test", "train", "valid")  # the preprocessing CLI's order (its HDF5 visit)
+CHILD_FLAG = "--real-data-child"  # chip_smoke.py runs itself with it: one training run
+
+
+def _tree_bytes(base: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(base)
+               for n in names)
+
+
+def real_data_preprocess(base, workdir, written, have_h5py, dev, device_ms_at):
+    """The preprocessing CLI's work on the fixture tree, on the card: with
+    h5py, ``cli.preprocess`` itself; without, the functions it calls on
+    the v5 splits (``load_training_set``, ``load_validation_set``) and on
+    the test split's arrays, then ``filter_corpus`` a split, as its
+    ``filter_h5`` does. Each split is held against the plain chain on its
+    first and last trials, and timed by CUDA events; ``device_ms_at``
+    holds the chain's device time at each split's row count, with the same
+    filters on random data (phase_iir)."""
+    from imagined_speech_decoding_tpu_torch.cli import preprocess
+    from imagined_speech_decoding_tpu_torch.data import ingest
+    from imagined_speech_decoding_tpu_torch.data.cache import check_split_shape
+    from imagined_speech_decoding_tpu_torch.data.constants import SUBJECTS
+    from imagined_speech_decoding_tpu_torch.ops.filters import filter_corpus
+
+    filters = corpus_filters(SFREQ, REAL_NOTCH, REAL_BAND)
+    raw_test = np.concatenate([ingest._edge_pad_time(written[("Test set", sid)][0])
+                               for sid in SUBJECTS])
+    reset_launches()
+    if have_h5py:
+        from imagined_speech_decoding_tpu_torch.data.cache import load_official_h5
+
+        cache = os.path.join(workdir, "BCIC2020Track3.h5")
+        timings = {}
+        preprocess.main(["--data_folder", base, "--output", cache, "--layout", "official",
+                         "--notch", str(REAL_NOTCH), "--bandpass", *map(str, REAL_BAND),
+                         "--no-compress"], timings=timings)
+        launches = read_launches()
+        filtered = {k: torch.as_tensor(v[0]) for k, v in load_official_h5(cache).items()}
+        raw = {"train": ingest.load_training_set(base, verbose=False)[0],
+               "valid": ingest.load_validation_set(base, verbose=False)[0], "test": raw_test}
+        event_ms = {s: timings[f"X_{s}/filter_ms"] for s in SPLIT_ORDER}
+    else:
+        t0 = time.perf_counter()
+        splits = {"train": ingest.load_training_set(base, verbose=False, strict=True),
+                  "valid": ingest.load_validation_set(base, verbose=False, strict=True)}
+        labels = ingest.load_excel_labels(ingest.resolve_excel_path(base), strict=True)
+        splits["test"] = (raw_test, np.concatenate([labels[sid] for sid in SUBJECTS]))
+        timings = {"ingest_s": time.perf_counter() - t0}
+        for split, (x, y) in splits.items():
+            check_split_shape("the fixture's arrays", split, x.shape, y.shape)
+        raw = {k: v[0] for k, v in splits.items()}
+        filtered, event_ms = {}, {}
+        for split in SPLIT_ORDER:
+            t0 = time.perf_counter()
+            x = torch.from_numpy(raw[split]).to(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = filter_corpus(x, REAL_NOTCH, REAL_BAND)
+            end.record()
+            end.synchronize()
+            event_ms[split] = start.elapsed_time(end)
+            filtered[split] = y.cpu()
+            timings[f"X_{split}"] = time.perf_counter() - t0
+        launches = read_launches()
+    if launches["iir_chain"] < 3:
+        raise RuntimeError(f"the preprocessing path made {launches['iir_chain']} B1 chain "
+                           "launches, one a split expected")
+    print(f"real-data path, preprocessing: B1 chain launches {launches['iir_chain']} "
+          f"(h5py {'present: cli.preprocess' if have_h5py else 'absent: its functions'}); "
+          f"ingest {timings['ingest_s']:.2f} s (scipy loadmat of the v5 splits"
+          + (", h5py of the test split" if have_h5py else "") + ")"
+          + (f", cache write {timings['write_s']:.2f} s" if have_h5py else ""), flush=True)
+    out = {"launches": launches["iir_chain"], "splits": {}}
+    for split in SPLIT_ORDER:
+        x, y = raw[split], filtered[split]
+        n = x.shape[0]
+        idx = np.r_[0:REAL_CHECK_TRIALS, n - REAL_CHECK_TRIALS:n]
+        ref = sosfiltfilt_chain_plain(filters, torch.from_numpy(x[idx]).to(dev))
+        err = check_close(f"preprocessing {split} split, B1 vs plain", y[idx].to(dev), ref,
+                          IIR_RTOL, IIR_RTOL * float(ref.abs().max()))
+        rows = n * 64
+        x_dev = torch.from_numpy(x).to(dev)
+        steady_ms = cuda_ms(lambda: sosfiltfilt_chain(filters, x_dev), 3)
+        dev_ms = device_ms_at[rows]
+        bound, by = chain_bound(rows, filters)
+        out["splits"][split] = {"rows": rows, "path_ms": event_ms[split], "ms": steady_ms,
+                                "device_ms": dev_ms, "bound_ms": bound, "bound_by": by,
+                                "max_abs_err": err, "host_s": timings[f"X_{split}"]}
+        print(f"  {split}: R = {rows} rows x 800: the path's call {event_ms[split]:.4f} ms by "
+              f"CUDA events (filter design included); 3 more launches on the split "
+              f"{steady_ms:.4f} ms by events; {dev_ms:.4f} ms device time (B1 phase, same shape "
+              f"and filters, random data); bound {bound:.4f} ms "
+              f"({by}): {bound / dev_ms:.1%} of it; host {timings[f'X_{split}']:.2f} s with the "
+              f"copies; first and last {REAL_CHECK_TRIALS} trials vs plain max|err| {err:.3g}",
+              flush=True)
+        del x_dev
+    return out
+
+
+def real_data_child(argv) -> None:
+    """One training run of the real-data path, in its own process (so that
+    a run can be killed): ``cli.train_fast`` on the fixture tree with
+    ``argv``. Without h5py its test split comes from the arrays that
+    ``test_npz`` holds (the v7.3 files need h5py), labelled by the answer
+    sheet. Writes ``child.json`` (launches, timings) and ``fit.npz``
+    (history, best epochs and accuracies) into the output directory."""
+    test_npz, argv = argv[0], argv[1:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if test_npz:
+        from imagined_speech_decoding_tpu_torch.data import ingest
+
+        def test_split(base, excel, verbose=True, strict=False):
+            labels = ingest.load_excel_labels(excel, strict=strict)
+            with np.load(test_npz) as f:
+                return {sid: (ingest._edge_pad_time(f[sid]), labels[sid]) for sid in f.files}
+
+        ingest.load_test_set_per_subject = test_split
+    t0 = time.perf_counter()
+    result = train_fast.main(argv)
+    wall = time.perf_counter() - t0
+    out = argv[argv.index("--output_dir") + 1]
+    t = result.timings
+    with open(os.path.join(out, "child.json"), "w") as f:
+        json.dump({"launches": read_launches(), "wall_s": wall,
+                   "timings": {k: t[k] for k in ("data_s", "fit_s", "artifacts_s",
+                                                 "checkpoint_write_s", "checkpoint_bytes",
+                                                 "train_s")}}, f)
+    np.savez(os.path.join(out, "fit.npz"), best_epoch=result.fit.best_epoch,
+             best_val_acc=result.fit.best_val_acc,
+             **{f"history_{k}": v for k, v in result.fit.history.items()})
+
+
+def _child(base, out, test_npz, resume=False):
+    """The command of one real-data training run."""
+    argv = ["--data_folder", base, "--epochs", str(REAL_EPOCHS), "--output_dir", out]
+    return [sys.executable, os.path.abspath(__file__), CHILD_FLAG, test_npz, *argv] + \
+        (["--resume"] if resume else [])
+
+
+def _run_child(cmd, log):
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, timeout=600)
+    if proc.returncode:
+        with open(log) as f:
+            tail = f.read()[-3000:]
+        raise RuntimeError(f"training run {' '.join(cmd[-6:])} failed ({proc.returncode}):\n{tail}")
+    return time.perf_counter() - t0
+
+
+def real_data_training(base, workdir, test_npz):
+    """``cli.train_fast`` on the fixture tree, bf16, 50 epochs in two
+    segments of 25: once uninterrupted; once killed (SIGKILL) in its
+    second segment after the first segment's checkpoint is in place, then
+    run again with ``--resume``. The resumed run must equal the
+    uninterrupted one bit for bit."""
+    import signal
+
+    full = os.path.join(workdir, "results", "FAST")
+    killed = os.path.join(workdir, "killed")
+    wall_full = _run_child(_child(base, full, test_npz), os.path.join(workdir, "full.log"))
+    carry = os.path.join(killed, "checkpoints", "segment_carry.npz")
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "killed.log"), "w") as log:
+        proc = subprocess.Popen(_child(base, killed, test_npz), stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            while not os.path.exists(carry):
+                if proc.poll() is not None:
+                    raise RuntimeError(f"the run to be killed ended ({proc.returncode}) before "
+                                       "its first segment checkpoint")
+                if time.perf_counter() - t0 > 600:
+                    raise RuntimeError("no segment checkpoint after 600 s")
+                time.sleep(0.01)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_killed = time.perf_counter() - t0
+    with np.load(carry) as f:
+        at = (int(f["meta.next_segment"]), int(f["carry.epoch"]))
+    if proc.returncode != -signal.SIGKILL or at != (1, 25) \
+            or os.path.exists(os.path.join(killed, "summary_per_subject.csv")):
+        raise RuntimeError(f"the kill did not land in the second segment: rc {proc.returncode}, "
+                           f"checkpoint at segment {at[0]}, epoch {at[1]}")
+    wall_resumed = _run_child(_child(base, killed, test_npz, resume=True),
+                              os.path.join(workdir, "resumed.log"))
+
+    runs = {}
+    for name, out in (("uninterrupted", full), ("resumed", killed)):
+        with open(os.path.join(out, "child.json")) as f:
+            runs[name] = json.load(f)
+        launches = runs[name]["launches"]
+        if any(launches[k] < 1 for k in HEAD_KERNELS["bf16"]) or \
+                any(launches[k] for k in HEAD_KERNELS["f32"]) or launches["conv4head_bwd_x"]:
+            raise RuntimeError(f"the {name} real-data run's head launches: {launches}")
+        require_unadapted(launches, f"real-data training ({name})")
+    with np.load(os.path.join(full, "fit.npz")) as a, np.load(os.path.join(killed, "fit.npz")) as b:
+        for k in a.files:
+            if not np.array_equal(a[k], b[k], equal_nan=True):
+                raise RuntimeError(f"resumed run differs from the uninterrupted one in {k}")
+        history = a["history_val_acc"]
+    if history.shape != (75, REAL_EPOCHS) or not np.isfinite(history).all():
+        raise RuntimeError(f"real-data history: shape {history.shape}")
+    for rel in ("summary_per_subject.csv", "global_test_predictions.csv",
+                "sub-07/fold-3_history.csv"):
+        with open(os.path.join(full, rel)) as f, open(os.path.join(killed, rel)) as g:
+            if f.read() != g.read():
+                raise RuntimeError(f"resumed run's {rel} differs from the uninterrupted run's")
+    with np.load(os.path.join(full, "sub-15", "best_subject.npz")) as a, \
+            np.load(os.path.join(killed, "sub-15", "best_subject.npz")) as b:
+        if sorted(a.files) != sorted(b.files) or \
+                any(not np.array_equal(a[k], b[k]) for k in a.files):
+            raise RuntimeError("resumed run's sub-15/best_subject.npz differs")
+    u, r = runs["uninterrupted"], runs["resumed"]
+    ut, rt = u["timings"], r["timings"]
+    print(f"real-data path, training: 75 models, {REAL_EPOCHS} epochs in 2 segments, bf16; the "
+          f"run killed (SIGKILL) in segment 2 after {wall_killed:.2f} s and resumed from epoch "
+          f"25 equals the uninterrupted run bit for bit (history, best epochs and accuracies, "
+          f"summary_per_subject.csv, global predictions, sub-15/best_subject.npz); adapted 0; "
+          f"launches (uninterrupted) {u['launches']}", flush=True)
+    print(f"  carry {ut['checkpoint_bytes']} bytes ({ut['checkpoint_bytes'] / 1e6:.1f} MB); "
+          f"checkpoint writes (background thread): uninterrupted "
+          + ", ".join(f"{w:.3f}" for w in ut["checkpoint_write_s"]) + " s; resumed "
+          + ", ".join(f"{w:.3f}" for w in rt["checkpoint_write_s"]) + " s", flush=True)
+    print(f"  wall (process start to exit): uninterrupted {wall_full:.2f} s (data {ut['data_s']:.2f},"
+          f" fit {ut['fit_s']:.2f}, artifacts + test {ut['artifacts_s']:.2f}); killed "
+          f"{wall_killed:.2f} s + resumed {wall_resumed:.2f} s (data {rt['data_s']:.2f}, fit "
+          f"{rt['fit_s']:.2f} for {len(rt['train_s'])} epochs, artifacts + test "
+          f"{rt['artifacts_s']:.2f}); mean val_acc {history[:, -1].mean():.4f}", flush=True)
+    return {"uninterrupted": u, "resumed": r, "wall_s": (wall_full, wall_killed, wall_resumed)}
+
+
+def real_data_benchmark(workdir) -> None:
+    """``cli.benchmark`` over the uninterrupted run's result tree."""
+    import csv
+
+    from imagined_speech_decoding_tpu_torch.cli import benchmark
+
+    def read_csv(path):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        return {c: [r[i] for r in rows[1:]] for i, c in enumerate(rows[0])}
+
+    results = os.path.join(workdir, "results")
+    (summary,) = benchmark.main(["--results_dir", results, "--models", "FAST"])
+    for name in ("FAST_Subject_Metrics.csv", "Model_Summary.csv"):
+        if not os.path.isfile(os.path.join(results, name)):
+            raise RuntimeError(f"cli.benchmark wrote no {name}")
+    rows = read_csv(os.path.join(results, "FAST", "summary_per_subject.csv"))
+    acc = np.mean([float(v) for v in rows["Test_Acc"]])
+    written = read_csv(os.path.join(results, "Model_Summary.csv"))
+    if abs(float(written["Acc_Mean"][0]) - acc) > 1e-12 or summary["Acc_Mean"] != \
+            float(written["Acc_Mean"][0]):
+        raise RuntimeError(f"Acc_Mean {written['Acc_Mean'][0]} is not the mean of the subjects' "
+                           f"test accuracies, {acc}")
+    print(f"real-data path, benchmark: FAST_Subject_Metrics.csv and Model_Summary.csv written; "
+          f"Acc_Mean {summary['Acc_Mean']:.4f} = mean of summary_per_subject.csv's Test_Acc; "
+          f"global acc {summary['Global_Acc']:.4f}, one-sided p {summary['P_Value_OneSided']:.3g}",
+          flush=True)
+
+
+def phase_real_data(dev, device_ms_at):
+    """The real-data path: a raw tree at the documented schema (15
+    subjects, 300 / 50 / 50 trials of 64 x 795 samples, an ``.xlsx``
+    answer sheet), preprocessed on the card, trained with a kill and a
+    resume, and benchmarked."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from bcic_fixture import SUBJECTS, write_tree
+
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+        print("h5py: absent; the v7.3 test split and the HDF5 caches are held on the CPU "
+              "tier only", flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        base = os.path.join(workdir, "BCIC2020Track3")
+        t0 = time.perf_counter()
+        written = write_tree(base, SUBJECTS, REAL_TRIALS, test_files=have_h5py)
+        test_npz = ""
+        if not have_h5py:
+            test_npz = os.path.join(workdir, "test_split.npz")
+            np.savez(test_npz, **{sid: written[("Test set", sid)][0] for sid in SUBJECTS})
+        print(f"real-data path: fixture tree of {len(SUBJECTS)} subjects x {REAL_TRIALS} trials "
+              f"x 64 x 795 written in {time.perf_counter() - t0:.2f} s "
+              f"({_tree_bytes(base) / 1e9:.2f} GB)", flush=True)
+        pre = real_data_preprocess(base, workdir, written, have_h5py, dev, device_ms_at)
+        del written
+        train = real_data_training(base, workdir, test_npz)
+        real_data_benchmark(workdir)
+    print(f"real-data path: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
+    return pre, train
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
@@ -1347,6 +1681,7 @@ def main() -> None:
     phase_train_step_profile(cfg, dev, torch.bfloat16)
     phase_trajectory(cfg, dev)
     phase_trajectory_bf16(cfg, dev)
+    real, _ = phase_real_data(dev, iir["preprocessing"])
 
     src = "imagined_speech_decoding_tpu_torch/csrc/"
     pallas = "imagined_speech_decoding_tpu/ops/pallas/"
@@ -1356,7 +1691,8 @@ def main() -> None:
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": "iir_sosfiltfilt_chain", "route": "cuda", "source": src + "iir.cu",
-         "replaces": pallas + "iir.py:67", "launches": serving["iir_chain"],
+         "replaces": pallas + "iir.py:67", "launches": serving["iir_chain"] + real["launches"],
+         "launches_serving": serving["iir_chain"], "launches_preprocessing": real["launches"],
          **{k: iir[MAIN_BATCH][k] for k in keys}, "library_ms": None},
         {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67", "launches": serving["iir"],
@@ -1388,4 +1724,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [CHILD_FLAG]:
+        real_data_child(sys.argv[2:])
+    else:
+        main()

@@ -4,21 +4,30 @@ Counterpart of ``imagined_speech_decoding_tpu/cli/train_fast.py`` with the
 same parser, on the port's engine (``train.cv``): all subject x fold
 models train together on one device and the run writes the same result
 tree, without the plots. The device is the GPU: without one the run
-raises ``RuntimeError`` before it generates data. A Python caller trains
+raises ``RuntimeError`` before it loads data. A Python caller trains
 on the CPU with ``main(argv, device="cpu")``; the parser has no device
 flag, as the JAX CLI has none.
 
     python -m imagined_speech_decoding_tpu_torch.cli.train_fast \\
         --synthetic 2 --synthetic_trials 60 --epochs 2 --output_dir out/
 
-What this slice of the port runs is ``--synthetic`` data and the
-Conv4Layers head, in either ``--precision``: bf16 (the default, the JAX
-package's ``bf16-mixed``: bf16 activations and head operands, f32
-parameters, optimizer state and loss) or f32; the other options raise
-``NotImplementedError`` naming their ROADMAP.md item. ``--config`` reads
-YAML with PyYAML, imported only then; without PyYAML the default
-``configs/default.yaml`` falls back to the built-in defaults, which equal
-that file's values.
+    python -m imagined_speech_decoding_tpu_torch.cli.train_fast \\
+        --data_folder BCIC2020Track3 --epochs 200 --output_dir out/ [--resume]
+
+What this slice of the port runs is the dataset's raw folder (the
+training and validation ``.mat`` files of all 15 subjects merged into
+each subject's CV pool; the v7.3 test split with the answer sheet's
+labels, ``data.ingest``) or ``--synthetic`` data, and the Conv4Layers
+head, in either ``--precision``: bf16 (the default, the JAX package's
+``bf16-mixed``: bf16 activations and head operands, f32 parameters,
+optimizer state and loss) or f32. The fit runs in segments of 25 epochs
+and writes its carry to ``<output_dir>/checkpoints/segment_carry.npz``
+every ``--checkpoint_every``-th segment and after the last; ``--resume``
+restarts from it, and the run ends as an uninterrupted one would. The
+other options raise ``NotImplementedError`` naming their ROADMAP.md item.
+``--config`` reads YAML with PyYAML, imported only then; without PyYAML
+the default ``configs/default.yaml`` falls back to the built-in defaults,
+which equal that file's values.
 """
 
 from __future__ import annotations
@@ -58,10 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true", help="(not ported)")
     p.add_argument("--head_chunk", type=int, default=None, metavar="N_WINDOWS",
                    help="(not ported)")
-    p.add_argument("--resume", action="store_true", help="(not ported)")
+    p.add_argument("--resume", action="store_true",
+                   help="restart from <output_dir>/checkpoints/segment_carry.npz")
     p.add_argument("--profile", type=str, default=None, metavar="LOGDIR", help="(not ported)")
     p.add_argument("--checkpoint_every", type=int, default=1, metavar="K",
-                   help="segment checkpoints (not ported; only 1 is accepted)")
+                   help="write the segment checkpoint every K-th segment (the last always)")
     p.add_argument("--mesh", type=str, default="none", choices=["none", "model", "data", "2d"])
     p.add_argument("--augment", action="store_true", help="(not ported)")
     p.add_argument("--noise_sigma", type=float, default=0.1)
@@ -99,13 +109,10 @@ def build_overrides(args) -> dict:
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
     unported = [
-        ("real (non-synthetic) data", not args.synthetic),
         ("--loso-pretrain", args.loso_pretrain),
         ("--ensemble > 1", args.ensemble > 1),
         ("--augment", args.augment),
         ("--mesh other than none", args.mesh != "none"),
-        ("--resume", args.resume),
-        ("--checkpoint_every other than 1", args.checkpoint_every != 1),
         ("--hyperparams", args.hyperparams),
         ("--profile", args.profile),
         ("--remat", args.remat),
@@ -137,9 +144,32 @@ def resolve_config(args, overrides: dict):
 
 
 def load_data(args):
-    """The ``--synthetic`` corpus: ``(X (S, N, 64, 800), Y (S, N), subjects,
-    test)`` with the first third of each subject's trials as its test
-    split, and ``--label_noise`` label flips, as the JAX CLI makes them."""
+    """``(X (S, N, 64, 800), Y (S, N), subjects, test)``, as the JAX CLI
+    loads them. Real data: every subject's training and validation trials
+    merged (``load_subject_train_val``) and the test split with the answer
+    sheet's labels, strict unless ``--no-strict``. ``--synthetic``: the
+    first third of each subject's trials as its test split, and
+    ``--label_noise`` label flips."""
+    if not args.synthetic:
+        from ..data.constants import SUBJECTS
+        from ..data.ingest import (
+            load_subject_train_val,
+            load_test_set_per_subject,
+            resolve_data_folder,
+            resolve_excel_path,
+        )
+
+        strict = not args.no_strict
+        base = resolve_data_folder(args.data_folder)
+        excel = resolve_excel_path(base, args.excel_path)
+        test = load_test_set_per_subject(base, excel, strict=strict)
+        xs, ys = [], []
+        for sid in SUBJECTS:
+            x, y = load_subject_train_val(base, sid, strict=strict)
+            xs.append(x)
+            ys.append(y)
+        return np.stack(xs), np.stack(ys), list(SUBJECTS), test
+
     from ..data.synthetic import synthetic_corpus
 
     s = args.synthetic
@@ -176,8 +206,10 @@ def main(argv=None, device="cuda"):
 
     from ..devices import require_device
     from ..train.cv import train_per_subject_cv
+    from ..utils import seed_all
 
     device = require_device(device)
+    seed_all(cfg.train.seed)
     os.makedirs(args.output_dir, exist_ok=True)
     t0 = time.perf_counter()
     X, Y, subjects, test = load_data(args)
@@ -185,6 +217,8 @@ def main(argv=None, device="cuda"):
     result = train_per_subject_cv(
         cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
         test_per_subject=test, save_dir=args.output_dir, device=device,
+        checkpoint_dir=os.path.join(args.output_dir, "checkpoints"), resume=args.resume,
+        checkpoint_every=args.checkpoint_every,
     )
     result.timings["data_s"] = data_s
 

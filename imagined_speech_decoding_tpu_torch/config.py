@@ -1,7 +1,7 @@
-"""FAST architecture and training configs, and their YAML loader.
+"""FAST architecture, training and data configs, and their YAML loader.
 
-Counterparts of ``FASTConfig``, ``TrainConfig`` and ``load_config`` in
-``imagined_speech_decoding_tpu/config.py`` with the same fields and
+Counterparts of ``FASTConfig``, ``TrainConfig``, ``DataConfig`` and
+``load_config`` in ``imagined_speech_decoding_tpu/config.py`` with the same fields and
 defaults, restated here because the JAX package's module imports
 ``yaml`` at import time and its ``default()`` imports ``jax``. Here PyYAML
 is imported only inside ``load_config``, when a file is read. A CPU test
@@ -95,20 +95,32 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Data paths (reference ``configs/default.yaml:5-10``)."""
+
+    raw_folder: str = "BCIC2020Track3"
+    processed_folder: str = "data/processed"
+    results_folder: str = "results"
+    excel_labels: Optional[str] = None
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: FASTConfig = field(default_factory=FASTConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
 
 _MODEL_KEYS = {f.name for f in dataclasses.fields(FASTConfig)}
 _TRAIN_KEYS = {f.name for f in dataclasses.fields(TrainConfig)}
+_DATA_KEYS = {f.name for f in dataclasses.fields(DataConfig)}
 
 
 def load_config(path: Optional[str] = None,
                 overrides: Optional[Dict[str, Any]] = None) -> ExperimentConfig:
     """An ``ExperimentConfig`` from the reference YAML schema (sections
-    ``model`` / ``training`` / ``cv``; others are ignored, as unknown keys
-    are) with flat ``overrides`` applied last: overrides > YAML >
+    ``data`` / ``model`` / ``training`` / ``cv``; others are ignored, as
+    unknown keys are) with flat ``overrides`` applied last: overrides > YAML >
     defaults, as ``load_config`` of the JAX package. PyYAML is imported
     here, only when ``path`` is given."""
     raw: Dict[str, Any] = {}
@@ -120,6 +132,7 @@ def load_config(path: Optional[str] = None,
 
     model_kw: Dict[str, Any] = {}
     train_kw: Dict[str, Any] = {}
+    data_kw: Dict[str, Any] = {}
     for k, v in (raw.get("model") or {}).items():
         if k in _MODEL_KEYS:
             model_kw[k] = v
@@ -133,16 +146,22 @@ def load_config(path: Optional[str] = None,
         train_kw["n_folds"] = cv["n_folds"]
     if "shuffle" in cv:
         train_kw["shuffle_folds"] = cv["shuffle"]
+    for k, v in (raw.get("data") or {}).items():
+        if k in _DATA_KEYS:
+            data_kw[k] = v
 
     for k, v in (overrides or {}).items():
         if k in _MODEL_KEYS:
             model_kw[k] = v
         elif k in _TRAIN_KEYS:
             train_kw[k] = v
+        elif k in _DATA_KEYS:
+            data_kw[k] = v
 
     if "electrodes" not in model_kw or "zone_dict" not in model_kw:
         from .data.constants import Electrodes, Zones
 
         model_kw.setdefault("electrodes", tuple(Electrodes))
         model_kw.setdefault("zone_dict", Zones)
-    return ExperimentConfig(model=FASTConfig(**model_kw), train=TrainConfig(**train_kw))
+    return ExperimentConfig(model=FASTConfig(**model_kw), train=TrainConfig(**train_kw),
+                            data=DataConfig(**data_kw))

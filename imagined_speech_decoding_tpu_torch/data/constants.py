@@ -1,7 +1,8 @@
 """BCI Competition 2020 Track #3 montage, zone atlas and zone geometry.
 
 Counterpart of ``imagined_speech_decoding_tpu/data/constants.py``
-(``Electrodes``, ``Zones``, ``SFREQ``, ``zone_layout``), restated here
+(``NAME``, ``SUBJECTS``, ``CLASSES``, ``Electrodes``, ``Zones``, ``SFREQ``,
+``zone_layout``), restated here
 because importing the JAX package's module imports ``jax``. A CPU test
 holds both field for field.
 """
@@ -13,6 +14,9 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+NAME = "BCIC2020Track3"
+SUBJECTS: Tuple[str, ...] = tuple(f"{i:02d}" for i in range(1, 16))
+CLASSES: Tuple[str, ...] = ("hello", "help-me", "stop", "thank-you", "yes")
 TARGET_TIMEPOINTS = 800  # trials are padded 795 -> 800 samples
 SFREQ = 250  # Hz
 

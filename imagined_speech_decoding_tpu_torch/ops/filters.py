@@ -6,17 +6,19 @@ The causal biquad cascade goes through ``ops.cuda.iir.sosfilt_time_major``
 (kernel B1 on a CUDA tensor, its plain version on a CPU tensor), and
 ``sosfiltfilt`` reproduces ``scipy.signal.sosfiltfilt``'s defaults (odd
 extension, ``sosfilt_zi`` seeding) with the JAX package's exact
-trace-time machinery.
+trace-time machinery. ``filter_corpus`` is the preprocessing CLI's
+notch and band-pass over a whole split, one B1 chain launch a split.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .cuda.iir import default_padlen, sosfilt_time_major
+from ..data.constants import SFREQ
+from .cuda.iir import default_padlen, prepare_filter, sosfilt_time_major, sosfiltfilt_chain
 
 
 def sosfilt(
@@ -130,3 +132,33 @@ def notch_ba(sfreq: float, freq: float, q: float = 30.0) -> Tuple[np.ndarray, np
     from scipy.signal import iirnotch
 
     return iirnotch(freq, q, fs=sfreq)
+
+
+def corpus_filters(sfreq: float, notch: Optional[float] = None,
+                   bandpass: Optional[Sequence[float]] = None) -> list:
+    """The preprocessing CLI's zero-phase stages, prepared for
+    ``sosfiltfilt_chain``: the ``notch`` Hz notch (``iirnotch``, Q 30) as
+    one second-order section with ``filtfilt``'s default padlen,
+    ``3 * max(len(a), len(b))`` = 9, then the order-4 Butterworth
+    ``bandpass`` with ``sosfiltfilt``'s. Either may be None."""
+    from scipy.signal import tf2sos
+
+    filters = []
+    if notch is not None:
+        b, a = notch_ba(sfreq, notch)
+        filters.append(prepare_filter(tf2sos(b, a), padlen=3 * max(len(a), len(b))))
+    if bandpass is not None:
+        filters.append(prepare_filter(butter_sos(sfreq, bandpass[0], bandpass[1])))
+    return filters
+
+
+def filter_corpus(x: torch.Tensor, notch: Optional[float] = None,
+                  bandpass: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """Notch, then band-pass, each zero-phase, over the trailing time axis
+    of ``x (N, C, T)`` sampled at ``SFREQ``: the counterpart of the JAX
+    preprocessing CLI's ``filtfilt(notch)`` then ``sosfiltfilt(band-pass)``.
+    Both stages run in one ``sosfiltfilt_chain`` launch (kernel B1 on a
+    CUDA tensor, its plain version on a CPU tensor). With neither stage
+    ``x`` comes back as it is."""
+    filters = corpus_filters(SFREQ, notch, bandpass)
+    return sosfiltfilt_chain(filters, x) if filters else x

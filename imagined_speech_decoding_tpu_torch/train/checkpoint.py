@@ -7,7 +7,9 @@ rules: nested dicts and lists flatten to dot-joined keys
 ``state.`` prefixes, and ``load_state_dict`` strips a legacy ``model.``
 prefix. Trees hold numpy arrays in the JAX layout; ``transplant`` moves
 them into a module. The JAX rules' NamedTuple case (batch-norm state)
-comes with the batch-norm heads.
+comes with the batch-norm heads. ``save_segment_checkpoint`` and
+``load_segment_checkpoint`` persist a segmented fit's carry
+(``engine.fit_segmented``) in one flat ``.npz``, written atomically.
 """
 
 from __future__ import annotations
@@ -94,3 +96,38 @@ def select_model(tree: Any, index: int) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(select_model(v, index) for v in tree)
     return tree[index]
+
+
+def save_segment_checkpoint(path: str, carry: Any, histories: list, next_segment: int) -> str:
+    """Persist a segmented fit's carry (a tree of numpy arrays: parameters,
+    optimizer state, best snapshot, counters, generator states) and each
+    finished segment's history dict in one flat ``.npz``, with the resume
+    cursor ``meta.next_segment``. Written to a temporary file and renamed,
+    so a crash mid-write keeps the previous checkpoint."""
+    flat = _flatten(carry, "carry.")
+    for i, h in enumerate(histories):
+        flat.update(_flatten(h, f"hist.{i}."))
+    flat["meta.next_segment"] = np.asarray(next_segment, np.int64)
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return path
+
+
+def load_segment_checkpoint(path: str, carry_template: Any):
+    """``(carry, histories, next_segment)`` saved by
+    ``save_segment_checkpoint``; the carry takes the template's structure,
+    shapes and dtypes."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    next_segment = int(flat.pop("meta.next_segment"))
+    carry_flat = {k[len("carry."):]: v for k, v in flat.items() if k.startswith("carry.")}
+    carry = _unflatten_into(carry_template, carry_flat)
+    histories = []
+    for i in range(next_segment):
+        pre = f"hist.{i}."
+        hist = {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)}
+        if hist:
+            histories.append(hist)
+    return carry, histories, next_segment

@@ -9,8 +9,13 @@ JAX package's ``.npz`` key rules (so ``isd-serve`` of either package
 loads it), evaluated on the test split, and the result tree is written
 (``train.artifacts``).
 
+The fit runs in segments of ``epochs_per_segment`` epochs
+(``engine.fit_segmented``), with the carry checkpointed at segment
+boundaries under ``checkpoint_dir`` and a run resumed from the newest
+one, as the JAX function runs.
+
 Not ported (ROADMAP.md): ``_train_grouped`` (subject groups), the device
-mesh strategies, segmented checkpoints and resume, and the plots.
+mesh strategies and the plots.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from ..models.fast import FAST
 from ..transplant import from_jax_params, init_jax_layout_params, to_jax_params
 from . import artifacts
 from .checkpoint import save_model_npz, select_model
-from .engine import FitResult, make_fit, predict
+from .engine import FitResult, fit_segmented, make_fit, predict
 from .metrics import confusion_matrix, f1_from_confusion
 
 
@@ -76,6 +81,17 @@ def build_cv_index_stack(n_subjects: int, n_trials: int, n_folds: int, seed: int
     return np.stack(train_rows), np.stack(val_rows), meta
 
 
+def _segment_length(total_epochs: int, preferred: int) -> int:
+    """Segment length for ``fit_segmented``: the largest divisor of
+    ``total_epochs`` that is at most ``preferred``, so that no segment runs
+    past the budget; ``preferred`` itself when that divisor is below half
+    of it (JAX ``train.cv._segment_length``)."""
+    total = max(int(total_epochs), 1)
+    preferred = max(min(preferred, total), 1)
+    best = max((d for d in range(1, preferred + 1) if total % d == 0), default=1)
+    return best if best >= max(preferred // 2, 1) else preferred
+
+
 def stacked_init(cfg: FASTConfig, seed: int, n_models: int) -> dict:
     """Initial weights of ``n_models`` independent models, stacked on a
     leading axis in the JAX layout, from a numpy seed (the JAX package
@@ -105,8 +121,12 @@ def train_per_subject_cv(
     test_per_subject: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]] = None,
     save_dir: Optional[str] = None,
     warm_start: Optional[dict] = None,  # JAX-layout params stacked over S*K
+    epochs_per_segment: int = 25,
     device="cuda",
     verbose: bool = True,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = True,
+    checkpoint_every: int = 1,
     model_seed: Optional[int] = None,
 ) -> CVRunResult:
     """Train S*K models at once, select the best fold per subject,
@@ -114,7 +134,12 @@ def train_per_subject_cv(
     ``save_dir``. Folds come from ``tc.seed``; the initial weights and the
     fit's permutations and dropout from ``model_seed`` (default
     ``tc.seed``), as in the JAX function. Runs on ``device``: CUDA unless
-    the caller names another, and CUDA without a card raises."""
+    the caller names another, and CUDA without a card raises.
+
+    The fit runs in segments of ``_segment_length(tc.max_epochs,
+    epochs_per_segment)`` epochs, rounded down to whole ``val_every``
+    blocks (at least one); ``checkpoint_dir``, ``resume`` and
+    ``checkpoint_every`` go to ``engine.fit_segmented``."""
     device = require_device(device)
     if device.type == "cuda":
         # The JAX trunk accumulates bf16 products in f32; cuBLAS may reduce
@@ -134,14 +159,16 @@ def train_per_subject_cv(
     model = FAST(cfg, n_models=m_count, device=device)
     model.load_state_dict(from_jax_params(params0))
 
-    # A val_every that does not divide the budget runs whole blocks of
-    # val_every epochs, of which make_fit runs those within the budget (the
-    # JAX package's train_per_subject_cv rounds its segments the same way).
+    # Segments hold whole blocks of val_every epochs (make_fit requires
+    # it); a val_every that does not divide the budget runs whole blocks, of
+    # which make_fit runs those within the budget.
+    seg = _segment_length(tc.max_epochs, epochs_per_segment)
     val_every = tc.val_every or 1
+    if val_every > 1:
+        seg = max((seg // val_every) * val_every, val_every)
     fit = make_fit(
-        model, n_classes, epochs=-(-tc.max_epochs // val_every) * val_every,
-        batch_size=tc.batch_size, n_train=train_idx.shape[1], n_val=val_idx.shape[1],
-        learning_rate=tc.learning_rate, warmup_epochs=tc.warmup_epochs,
+        model, n_classes, epochs=seg, batch_size=tc.batch_size, n_train=train_idx.shape[1],
+        n_val=val_idx.shape[1], learning_rate=tc.learning_rate, warmup_epochs=tc.warmup_epochs,
         final_scale=tc.final_lr_scale, weight_decay=tc.weight_decay,
         val_every=val_every, total_epochs=tc.max_epochs,
     )
@@ -152,8 +179,15 @@ def train_per_subject_cv(
                   f"{float(val_acc.mean()):.4f}", flush=True)
 
     t_fit0 = time.perf_counter()
-    res = fit(train_idx, val_idx, x_flat, y_flat, seed=m_seed + 1, progress=progress)
+    res = fit_segmented(fit, train_idx, val_idx, x_flat, y_flat, seed=m_seed + 1,
+                        progress=progress, checkpoint_dir=checkpoint_dir, resume=resume,
+                        checkpoint_every=checkpoint_every)
     t_fit = time.perf_counter() - t_fit0
+    writes = res.timings.get("checkpoint_write_s")
+    if verbose and writes:
+        print(f"  segment checkpoints: {res.timings['checkpoint_bytes'] / 1e6:.1f} MB carry, "
+              f"{len(writes)} written in " + ", ".join(f"{w:.2f}" for w in writes) + " s",
+              flush=True)
 
     t_art0 = time.perf_counter()
     best_val = res.best_val_acc

@@ -14,8 +14,9 @@ warmup-cosine table; the pad-free ragged tail (280 trials at batch 64
 run as 4 x 64 + 1 x 24 exact-shape steps); the eval batch rule (70 ->
 2 x 35); train and validation history rows, NaN validation rows on the
 epochs ``val_every`` skips; the best snapshot on a strictly greater
-``val_acc``, per model. Sweep mode, early stopping and segmented
-execution (checkpoints and resume) are not ported (ROADMAP.md).
+``val_acc``, per model; segmented execution with checkpoints and resume
+(``fit_segmented``). Sweep mode and early stopping are not ported
+(ROADMAP.md).
 
 Randomness: epoch permutations come from a CPU ``torch.Generator``
 (``data.arrays.epoch_permutations``), so a seed gives the same batches on
@@ -128,6 +129,83 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class FitCarry:
+    """Everything a fit carries from one epoch to the next: the model's
+    parameters (trained in place) and its AdamW optimizer, the best snapshot with
+    ``best_acc`` and ``best_ep``, the epoch and step counters, the finished
+    segments' history rows, and the permutation (CPU) and dropout (the
+    device's) generators. ``arrays`` and ``load_arrays`` move it to and
+    from numpy for a segment checkpoint."""
+
+    def __init__(self, params, opt, tidx, vidx, perm_gen, drop_gen, best, best_acc, best_ep):
+        self.params, self.opt = params, opt
+        self.tidx, self.vidx = tidx, vidx
+        self.perm_gen, self.drop_gen = perm_gen, drop_gen
+        self.best, self.best_acc, self.best_ep = best, best_acc, best_ep
+        self.epoch = 0
+        self.step = 0
+        self.histories = []  # one dict of (M, epochs) numpy arrays a finished run() call
+        self.timings = {"train_s": [], "val_s": []}  # this process's epochs
+
+    def arrays(self) -> dict:
+        """The carry as a tree of numpy arrays, copied to the host now: a
+        private copy, which later steps do not change (``.cpu()`` of a CPU
+        tensor, AdamW's ``step`` among them, would share its memory)."""
+        opt_state = [self.opt.state[p] for p in self.params.values()]
+        if not all(opt_state):
+            raise RuntimeError("the carry has no optimizer state before its first step")
+
+        def host(t):
+            return t.detach().to("cpu", copy=True).numpy()
+
+        names = list(self.params)
+        return {
+            "params": {n: host(p) for n, p in self.params.items()},
+            "opt": {key: {n: host(st[key]) for n, st in zip(names, opt_state)}
+                    for key in ("step", "exp_avg", "exp_avg_sq")},
+            "best": {n: host(b) for n, b in self.best.items()},
+            "best_acc": host(self.best_acc),
+            "best_ep": host(self.best_ep),
+            "epoch": np.asarray(self.epoch, np.int64),
+            "step": np.asarray(self.step, np.int64),
+            "perm_rng": self.perm_gen.get_state().numpy(),
+            "drop_rng": self.drop_gen.get_state().numpy(),
+        }
+
+    def template(self) -> dict:
+        """The structure, shapes and dtypes of ``arrays()``, without a step."""
+        zeros = {n: np.zeros(tuple(p.shape), np.float32) for n, p in self.params.items()}
+        return {
+            "params": zeros, "opt": {"step": {n: np.zeros((), np.float32) for n in zeros},
+                                     "exp_avg": zeros, "exp_avg_sq": zeros},
+            "best": zeros, "best_acc": self.best_acc.cpu().numpy(),
+            "best_ep": self.best_ep.cpu().numpy(), "epoch": np.asarray(0, np.int64),
+            "step": np.asarray(0, np.int64), "perm_rng": self.perm_gen.get_state().numpy(),
+            "drop_rng": self.drop_gen.get_state().numpy(),
+        }
+
+    def load_arrays(self, tree: dict) -> None:
+        """Restore the carry in place from ``arrays()``'s tree."""
+        device = self.best_acc.device
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(torch.from_numpy(tree["params"][n]))
+                self.best[n] = torch.from_numpy(tree["best"][n]).to(device)
+        sd = self.opt.state_dict()
+        sd["state"] = {
+            i: {"step": torch.tensor(tree["opt"]["step"][n]),
+                "exp_avg": torch.from_numpy(tree["opt"]["exp_avg"][n]),
+                "exp_avg_sq": torch.from_numpy(tree["opt"]["exp_avg_sq"][n])}
+            for i, n in enumerate(self.params)
+        }
+        self.opt.load_state_dict(sd)
+        self.best_acc = torch.from_numpy(tree["best_acc"]).to(device)
+        self.best_ep = torch.from_numpy(tree["best_ep"]).to(device)
+        self.epoch, self.step = int(tree["epoch"]), int(tree["step"])
+        self.perm_gen.set_state(torch.from_numpy(tree["perm_rng"]))
+        self.drop_gen.set_state(torch.from_numpy(tree["drop_rng"]))
+
+
 def make_fit(
     model,
     n_classes: int,
@@ -154,82 +232,191 @@ def make_fit(
     (CPU generator) and dropout (generator on ``X``'s device).
     ``progress(epoch, val_acc (M,))`` is called after each epoch.
 
-    ``total_epochs`` is the epoch budget when it is less than ``epochs``
-    (JAX ``make_fit``): the learning-rate table spans the budget and only
-    the budget's epochs run. The JAX engine runs the epochs past it and
+    ``fit`` is ``fit.init_carry``, then ``fit.run`` to the budget, then
+    ``fit.result``; ``fit_segmented`` calls these itself, one ``epochs``
+    segment a ``run``, and checkpoints the carry between segments.
+
+    ``total_epochs`` is the whole run's epoch budget when it is more than
+    one call's ``epochs`` (JAX ``make_fit``): the learning-rate table
+    spans it, and ``fit`` alone runs ``min(epochs, total_epochs)`` epochs.
+    The JAX engine runs a last segment's epochs past the budget and
     discards their updates, because its scanned segments have fixed
-    shapes; the parameters, the best snapshot and the history (cut to the
-    budget there) come out the same. This is how a ``val_every`` that does
-    not divide the budget runs (``train.cv``)."""
+    shapes; here they are not run, and the parameters, the best snapshot
+    and the history (cut to the budget there) come out the same. This is
+    how a ``val_every`` that does not divide the budget runs
+    (``train.cv``)."""
     if val_every < 1 or epochs % val_every != 0:
         raise ValueError(f"val_every must be >= 1 and divide epochs ({epochs}); got {val_every}")
-    budget = min(epochs, total_epochs or epochs)
+    total = total_epochs or epochs
     spe = num_batches(n_train, batch_size)
-    table = warmup_cosine_lr(learning_rate, total_epochs or epochs, spe, warmup_epochs,
-                             final_scale)
+    table = warmup_cosine_lr(learning_rate, total, spe, warmup_epochs, final_scale)
     eval_batch_size = eval_batch_size_for(n_val, batch_size)
 
-    def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None) -> FitResult:
+    def init_carry(train_idx, val_idx, X, *, seed: int) -> FitCarry:
         device = X.device
         tidx = torch.as_tensor(np.asarray(train_idx), dtype=torch.long, device=device)
         vidx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long, device=device)
         m = tidx.shape[0]
-        perm_gen = torch.Generator().manual_seed(seed)
-        drop_gen = torch.Generator(device=device).manual_seed(seed)
-        opt = make_optimizer(model.parameters(), weight_decay)
         params = dict(model.named_parameters())
         best = {k: p.detach().clone() for k, p in params.items()}
-        best_acc = torch.full((m,), -float("inf"), device=device)
-        best_ep = torch.full((m,), -1, dtype=torch.long, device=device)
+        return FitCarry(params, make_optimizer(params.values(), weight_decay), tidx, vidx,
+                        torch.Generator().manual_seed(seed),
+                        torch.Generator(device=device).manual_seed(seed), best,
+                        torch.full((m,), -float("inf"), device=device),
+                        torch.full((m,), -1, dtype=torch.long, device=device))
+
+    def run(carry: FitCarry, X, Y, *, until: int, progress=None) -> FitCarry:
+        """Train from ``carry.epoch`` to epoch ``min(until, total)``, in
+        place, and append those epochs' history rows to the carry."""
+        device = X.device
+        m = carry.tidx.shape[0]
         nan = torch.full((m,), float("nan"), device=device)
         rows = {k: [] for k in HISTORY_KEYS}
-        train_s, val_s = [], []
-        step = 0
         model.train()
-        for ep in range(budget):
+        for ep in range(carry.epoch, min(until, total)):
             t0 = time.perf_counter()
-            gidx = torch.gather(tidx, 1, epoch_permutations(perm_gen, m, n_train).to(device))
+            gidx = torch.gather(carry.tidx, 1,
+                                epoch_permutations(carry.perm_gen, m, n_train).to(device))
             loss_sum = torch.zeros(m, device=device)
             cm = torch.zeros((m, n_classes, n_classes), device=device)
             for i in range(spe):
                 bidx = gidx[:, i * batch_size : (i + 1) * batch_size]
-                ls, c = train_step(model, opt, X[bidx], Y[bidx], lr_at(table, step), n_classes,
-                                   drop_gen)
+                ls, c = train_step(model, carry.opt, X[bidx], Y[bidx], lr_at(table, carry.step),
+                                   n_classes, carry.drop_gen)
                 loss_sum += ls
                 cm += c
-                step += 1
+                carry.step += 1
             for k, v in zip(HISTORY_KEYS[:3], _epoch_metrics(loss_sum, cm)):
                 rows[k].append(v)
             _sync(device)
             t1 = time.perf_counter()
             if (ep + 1) % val_every == 0:
-                va = evaluate(model, X, Y, vidx, eval_batch_size, n_classes)
-                improved = va[1] > best_acc
+                va = evaluate(model, X, Y, carry.vidx, eval_batch_size, n_classes)
+                improved = va[1] > carry.best_acc
                 with torch.no_grad():
-                    for k, p in params.items():
+                    for k, p in carry.params.items():
                         sel = improved.view(-1, *([1] * (p.dim() - 1)))
-                        best[k] = torch.where(sel, p.detach(), best[k])
-                best_acc = torch.where(improved, va[1], best_acc)
-                best_ep = torch.where(improved, torch.full_like(best_ep, ep), best_ep)
+                        carry.best[k] = torch.where(sel, p.detach(), carry.best[k])
+                carry.best_acc = torch.where(improved, va[1], carry.best_acc)
+                carry.best_ep = torch.where(improved, torch.full_like(carry.best_ep, ep),
+                                            carry.best_ep)
             else:
                 va = (nan, nan, nan)
             for k, v in zip(HISTORY_KEYS[3:], va):
                 rows[k].append(v)
             _sync(device)
-            train_s.append(t1 - t0)
-            val_s.append(time.perf_counter() - t1)
+            carry.epoch = ep + 1
+            carry.timings["train_s"].append(t1 - t0)
+            carry.timings["val_s"].append(time.perf_counter() - t1)
             if progress is not None:
                 progress(ep + 1, va[1])
-        history = {k: torch.stack(v, dim=1).cpu().numpy() for k, v in rows.items()}
+        if rows["loss"]:
+            carry.histories.append(
+                {k: torch.stack(v, dim=1).cpu().numpy() for k, v in rows.items()})
+        return carry
+
+    def result(carry: FitCarry) -> FitResult:
+        history = {k: np.concatenate([h[k] for h in carry.histories], axis=1)
+                   for k in HISTORY_KEYS}
         return FitResult(
-            params={k: p.detach().clone() for k, p in params.items()},
-            best_params=best,
-            best_val_acc=best_acc.cpu().numpy(),
-            best_epoch=best_ep.cpu().numpy(),
+            params={k: p.detach().clone() for k, p in carry.params.items()},
+            best_params=carry.best,
+            best_val_acc=carry.best_acc.cpu().numpy(),
+            best_epoch=carry.best_ep.cpu().numpy(),
             history=history,
-            timings={"train_s": train_s, "val_s": val_s, "steps_per_epoch": spe},
+            timings={**carry.timings, "steps_per_epoch": spe},
         )
 
+    def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None) -> FitResult:
+        carry = init_carry(train_idx, val_idx, X, seed=seed)
+        return result(run(carry, X, Y, until=min(epochs, total), progress=progress))
+
+    fit.init_carry, fit.run, fit.result = init_carry, run, result
     fit.lr_table = table
     fit.steps_per_epoch = spe
+    fit.epochs_per_call = epochs
+    fit.total_epochs = total
     return fit
+
+
+def fit_segmented(
+    fit: Callable,
+    train_idx,
+    val_idx,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    *,
+    seed: int,
+    progress=None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = True,
+    checkpoint_every: int = 1,
+) -> FitResult:
+    """The whole run of ``fit`` (``make_fit(epochs=<segment>,
+    total_epochs=<budget>)``) in segments of ``fit.epochs_per_call``
+    epochs: the counterpart of JAX ``fit_many_segmented``.
+
+    ``checkpoint_dir``: the carry (parameters, AdamW state, best snapshot,
+    counters, history, both generators' states) is written to
+    ``<checkpoint_dir>/segment_carry.npz`` at segment boundaries, every
+    ``checkpoint_every``-th one and always after the last; with
+    ``resume`` a run restarts from that file's boundary and continues the
+    same generator streams and learning-rate table, so it ends as the
+    uninterrupted run does, bit for bit.
+
+    Writes run on one background thread, so the next segment trains
+    while the disk is written; the carry is copied to the host first, and
+    the thread writes that private copy. A failed write re-raises as
+    ``RuntimeError`` at the next boundary or at the end, and no segment
+    runs after it."""
+    import os
+    import threading
+
+    from . import checkpoint
+
+    seg, total = fit.epochs_per_call, fit.total_epochs
+    n_segments = -(-total // seg)
+    carry = fit.init_carry(train_idx, val_idx, X, seed=seed)
+    start_seg = 0
+    path = os.path.join(checkpoint_dir, "segment_carry.npz") if checkpoint_dir else None
+    if path and resume and os.path.exists(path):
+        tree, histories, start_seg = checkpoint.load_segment_checkpoint(path, carry.template())
+        carry.load_arrays(tree)
+        carry.histories = histories
+
+    writer: Optional[threading.Thread] = None
+    writer_err: list = []
+    carry.timings["checkpoint_write_s"] = []
+
+    def save(tree, histories, next_segment):
+        try:
+            t0 = time.perf_counter()
+            checkpoint.save_segment_checkpoint(path, tree, histories, next_segment)
+            carry.timings["checkpoint_write_s"].append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 -- re-raised at join
+            writer_err.append(e)
+
+    def join_writer():
+        if writer is not None:
+            writer.join()
+        if writer_err:
+            raise RuntimeError(f"segment-checkpoint write to {path} failed") from writer_err[0]
+
+    try:
+        for s in range(start_seg, n_segments):
+            if writer_err:  # no further segment after a failed write
+                join_writer()
+            fit.run(carry, X, Y, until=(s + 1) * seg, progress=progress)
+            if path and ((s + 1) % max(checkpoint_every, 1) == 0 or s + 1 == n_segments):
+                tree = carry.arrays()
+                join_writer()
+                carry.timings["checkpoint_bytes"] = sum(
+                    a.nbytes for a in checkpoint._flatten(tree).values())
+                writer = threading.Thread(target=save, args=(tree, list(carry.histories), s + 1),
+                                          daemon=True)
+                writer.start()
+        join_writer()
+    finally:
+        if writer is not None:
+            writer.join()
+    return fit.result(carry)

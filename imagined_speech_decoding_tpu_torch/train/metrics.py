@@ -1,7 +1,8 @@
 """Weighted classification metrics over a leading stack of models.
 
-Counterparts of ``cross_entropy``, ``confusion_matrix`` and
-``f1_from_confusion`` in ``imagined_speech_decoding_tpu/train/metrics.py``.
+Counterparts of ``cross_entropy``, ``confusion_matrix``,
+``f1_from_confusion``, ``precision_recall_from_confusion`` and
+``ttest_vs_chance`` in ``imagined_speech_decoding_tpu/train/metrics.py``.
 Every function reduces over the batch axis (the one before the class
 axis) and keeps any leading axes, so one call serves a stack of M
 models.
@@ -9,8 +10,9 @@ models.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -49,3 +51,21 @@ def f1_from_confusion(cm: torch.Tensor) -> torch.Tensor:
     rec = tp / cm.sum(dim=-1).clamp_min(1e-12)
     f1 = 2 * prec * rec / (prec + rec).clamp_min(1e-12)
     return f1.mean(dim=-1)
+
+
+def precision_recall_from_confusion(cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Macro precision and recall of ``cm (..., K, K)``."""
+    tp = torch.diagonal(cm, dim1=-2, dim2=-1)
+    prec = (tp / cm.sum(dim=-2).clamp_min(1e-12)).mean(dim=-1)
+    rec = (tp / cm.sum(dim=-1).clamp_min(1e-12)).mean(dim=-1)
+    return prec, rec
+
+
+def ttest_vs_chance(accs: np.ndarray, chance: float = 0.2) -> Tuple[float, float]:
+    """One-sample, one-sided t-test of per-subject accuracies against
+    chance on the host (scipy): ``(t_stat, p_one_sided)``."""
+    from scipy import stats
+
+    t, p_two = stats.ttest_1samp(np.asarray(accs, np.float64), chance)
+    p_one = p_two / 2.0 if t > 0 else 1.0 - p_two / 2.0
+    return float(t), float(p_one)

@@ -778,3 +778,64 @@ def test_cli_trains_dim_cnn_8_on_the_card(dev, tmp_path):
     assert moved[0] == moved[3] == 0 and moved[1] > 0 and moved[4] > 0, moved
     assert moved[2] == moved[1] and moved[5] == moved[4], moved
     assert all(np.isfinite(v).all() for v in res.fit.history.values())
+
+
+def test_filter_corpus_matches_plain_at_the_corpus_size(dev):
+    """The preprocessing CLI's filter (60 Hz notch, then 4-40 Hz band-pass,
+    each zero-phase) over the train split's R = 4,500 x 64 = 288,000 rows:
+    one B1 chain launch, against the plain chain over all of it."""
+    from imagined_speech_decoding_tpu_torch.ops.filters import corpus_filters, filter_corpus
+
+    x = torch.randn(4500, 64, 800, generator=torch.Generator().manual_seed(3)).to(dev)
+    launches = sosfiltfilt_chain.launches
+    got = filter_corpus(x, 60.0, (4.0, 40.0))
+    torch.cuda.synchronize()
+    assert sosfiltfilt_chain.launches == launches + 1
+    ref = sosfiltfilt_chain_plain(corpus_filters(250.0, 60.0, (4.0, 40.0)), x)
+    _iir_close(got, ref)
+    assert torch.equal(filter_corpus(x, None, None), x)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_kill_and_resume_is_bit_identical_on_the_card(dev, tmp_path, precision):
+    """Full-width FAST, M = 6 stacked models, 4 epochs in segments of 2,
+    dropout on: a run that crashes in its second segment and is resumed
+    from its checkpoint in a new model equals the uninterrupted run bit for
+    bit (parameters, best snapshot, history)."""
+    from imagined_speech_decoding_tpu_torch.config import TrainConfig
+    from imagined_speech_decoding_tpu_torch.train import engine
+
+    cfg = FASTConfig.default()
+    dtype = TrainConfig(precision=precision).compute_dtype
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(40, 64, 800)).astype(np.float32)).to(dev, dtype)
+    y = torch.from_numpy(rng.integers(0, 5, 40)).to(dev)
+    perms = np.stack([rng.permutation(40) for _ in range(6)])
+    p0 = from_jax_params(init_jax_layout_params(cfg, 1, 6))
+
+    class Crash(Exception):
+        pass
+
+    def run(crash_at=None, **kw):
+        model = FAST(cfg, n_models=6, device=dev)
+        model.load_state_dict(p0)
+        fit = engine.make_fit(model, 5, epochs=2, batch_size=16, n_train=32, n_val=8,
+                              total_epochs=4)
+
+        def progress(epoch, _):
+            if epoch == crash_at:
+                raise Crash()
+
+        return engine.fit_segmented(fit, perms[:, :32], perms[:, 32:], x, y, seed=5,
+                                    progress=progress, **kw)
+
+    ref = run()
+    with pytest.raises(Crash):
+        run(crash_at=3, checkpoint_dir=str(tmp_path))
+    resumed = run(checkpoint_dir=str(tmp_path))
+    for k in ref.params:
+        assert torch.equal(resumed.params[k], ref.params[k]), k
+        assert torch.equal(resumed.best_params[k], ref.best_params[k]), k
+    for k in ref.history:
+        np.testing.assert_array_equal(resumed.history[k], ref.history[k])
+    np.testing.assert_array_equal(resumed.best_epoch, ref.best_epoch)

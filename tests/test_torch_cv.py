@@ -212,15 +212,28 @@ class TestCLI:
             jax_build_overrides(jax_build_parser().parse_args(argv))
 
     @pytest.mark.parametrize("argv", [
-        [], ["--synthetic", "1", "--loso-pretrain"], ["--synthetic", "1", "--ensemble", "2"],
+        ["--mesh", "data"], ["--synthetic", "1", "--loso-pretrain"],
+        ["--synthetic", "1", "--ensemble", "2"],
         ["--synthetic", "1", "--augment"], ["--synthetic", "1", "--mesh", "model"],
-        ["--synthetic", "1", "--resume"], ["--synthetic", "1", "--hyperparams", "b.json"],
+        ["--synthetic", "1", "--mesh", "2d"], ["--synthetic", "1", "--hyperparams", "b.json"],
         ["--synthetic", "1", "--profile", "p"], ["--synthetic", "1", "--remat"],
         ["--synthetic", "1", "--head_chunk", "256"], ["--synthetic", "1", "--head", "CVBlock"],
-        ["--synthetic", "1", "--checkpoint_every", "2"],
+        ["--resume", "--head", "EEGNet_Encoder"],
     ])
     def test_unported_options_raise(self, argv, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_fast.main(argv + ["--output_dir", str(tmp_path)])
+
+    @pytest.mark.parametrize("argv", [
+        [], ["--synthetic", "1", "--resume"], ["--synthetic", "1", "--checkpoint_every", "2"],
+        ["--resume", "--checkpoint_every", "3", "--no-strict"],
+    ])
+    def test_real_data_and_resume_are_ported(self, argv, tmp_path, monkeypatch):
+        """Real data, ``--resume`` and ``--checkpoint_every`` no longer raise
+        ``NotImplementedError``: the CLI goes on to the device, which here
+        is a missing card."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="is_available"):
             train_fast.main(argv + ["--output_dir", str(tmp_path)])
 
     def test_bf16_is_ported(self, tmp_path, monkeypatch):

@@ -1,7 +1,9 @@
 """The PyTorch port's import closure reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
-package, ``chip_smoke.py`` fails without a GPU or without the
-repository around it, and ``mma_tf32_ceiling.py`` fails without a GPU."""
+package, the real-data modules import and run without ``h5py`` (which
+they import only inside the functions that open HDF5 files),
+``chip_smoke.py`` fails without a GPU or without the repository around
+it, and ``mma_tf32_ceiling.py`` fails without a GPU."""
 
 import ast
 import os
@@ -52,6 +54,49 @@ print("SERVED", post.tolist())
 """
 
 
+REAL_DATA_WITHOUT_H5PY = r"""
+import os, sys, tempfile
+for name in ("jax", "yaml", "pandas", "sklearn", "matplotlib", "h5py"):
+    sys.modules[name] = None   # any import of these now raises
+import numpy as np, torch
+torch.set_num_threads(1)
+sys.path.insert(0, "tests")
+from bcic_fixture import SUBJECTS, write_tree
+from imagined_speech_decoding_tpu_torch import utils
+from imagined_speech_decoding_tpu_torch.cli import benchmark, preprocess, train_fast
+from imagined_speech_decoding_tpu_torch.data import cache, ingest
+from imagined_speech_decoding_tpu_torch.ops.filters import filter_corpus
+from imagined_speech_decoding_tpu_torch.train import checkpoint, cv, engine
+from imagined_speech_decoding_tpu_torch.train.artifacts import save_predictions_csv
+
+with tempfile.TemporaryDirectory() as d:
+    expected = write_tree(d, SUBJECTS[:1], (3, 2, 2), test_files=False)
+    x, y = ingest.load_subject_train_val(d, "01", strict=True)
+    assert x.shape == (5, 64, 800) and y.dtype == np.uint8
+    labels = ingest.load_excel_labels(ingest.resolve_excel_path(d), strict=True)
+    assert len(labels) == 15
+    out = filter_corpus(torch.from_numpy(x), 60.0, (4.0, 40.0))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    for call in (lambda: cache.build_official_cache(d, os.path.join(d, "c.h5")),
+                 lambda: preprocess.main(["--data_folder", d, "--output", os.path.join(d, "c.h5")],
+                                         device="cpu")):
+        try:
+            call()
+        except ImportError as e:
+            assert "c.h5: reading or writing HDF5 needs h5py" in str(e), e
+        else:
+            raise AssertionError("an HDF5 write without h5py did not raise")
+    save_predictions_csv(os.path.join(d, "res", "FAST", "sub-01", "test_predictions.csv"),
+                         np.arange(10) % 5, np.arange(10) % 5)
+    (summary,) = benchmark.main(["--results_dir", os.path.join(d, "res")])
+    assert summary["Acc_Mean"] == 1.0
+blocked = {"jax", "yaml", "pandas", "sklearn", "matplotlib", "h5py"}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked | {"imagined_speech_decoding_tpu"})
+assert loaded == sorted(blocked), loaded
+print("REAL DATA OK")
+"""
+
+
 def _run(args, cwd, timeout=240):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout)
@@ -75,7 +120,17 @@ def test_port_serves_without_the_jax_package_beside_it(tmp_path):
     assert "SERVED" in proc.stdout
 
 
+def test_real_data_modules_run_without_h5py_or_pandas():
+    """Ingest of the v5 splits and the answer sheet, the corpus filter and
+    the benchmark CLI need neither; an HDF5 cache raises ``ImportError``
+    naming the file."""
+    proc = _run([sys.executable, "-c", REAL_DATA_WITHOUT_H5PY], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "REAL DATA OK" in proc.stdout
+
+
 LAZY_ONLY = ("yaml",)  # PyYAML may be imported inside a function (reading --config), never at import
+FILE_READERS = ("h5py", "scipy.io")  # imported only by the functions that open such files
 
 
 def _imported_modules(path):
@@ -105,6 +160,9 @@ def test_no_port_file_imports_jax_yaml_or_the_jax_package():
     assert not bad, bad
     assert {f for f, _, _ in found} <= {os.path.join("imagined_speech_decoding_tpu_torch", p)
                                         for p in ("config.py", os.path.join("cli", "train_fast.py"))}
+    eager_readers = [(os.path.relpath(f, ROOT), m) for f in files for m, lazy in _imported_modules(f)
+                     if not lazy and any(m == r or m.startswith(r + ".") for r in FILE_READERS)]
+    assert not eager_readers, eager_readers
 
 
 def test_chip_smoke_fails_without_a_gpu():
