@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, attribution and
-real-data paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving (live, fleet, artifact,
+streaming), training, attribution and real-data paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -59,14 +59,39 @@ real-data paths on one NVIDIA GPU.
         f32 and bf16 and a bf16 forward at T = 1001 (N = 7 windows: two
         B2f-bf16 groups), against the CPU, with the kernels' launches and
         the adapted calls counted.
+   B2f also at the fleet's M = 15, B = 1 and 8, on one window broadcast
+   to every model, with its device time.
 4. Serving path: full-width FAST weights from a numpy seed are written
    as a checkpoint, the port's ``cli.serve`` serves it over TCP, and a
    ``DecoderClient`` sends INFO, DECODE at B = 1 and B = 8, RELOAD to a
    second checkpoint, and DECODE again. The posteriors must be finite,
    sum to 1 and match the port's plain CPU forward of the same weights
-   (rtol 1e-4, atol 1e-5), every decode must have made exactly one B1
-   chain launch, and B2f must have launched. In process: device busy
-   time and ``cudaLaunchKernel`` calls per decode (profiler).
+   (rtol 1e-4, atol 1e-5). The decoder captures one CUDA graph a
+   captured batch size: its eager decodes must each have made one B1
+   chain launch and one B2f launch (the launch counts), each capture
+   recorded one of each (the capture counts, apart: a capture runs
+   nothing), the other decodes be replays.
+   Graphs: the live decoder and a fleet of 15 (rows and ensemble) at
+   B = 1 and 8, a replay equal to the un-captured chain bit for bit,
+   host p50 replayed and eager, device busy time, the CUDA-event span
+   and the device's idle share of it, device events and
+   ``cudaLaunchKernel`` / ``cudaGraphLaunch`` calls a decode (profiler,
+   which must show one B1 and one B2f kernel a decode); after
+   ``swap_weights`` replays equal a fresh decoder's bit for bit.
+   Streaming: a producer thread pushes 125-sample chunks into the native
+   ring while ``decode_latest`` runs; every window decoded must be the
+   stream's samples at its end index (untorn) and its posteriors a
+   direct decode's; ``decode_latest`` p50. After the f32 training run,
+   its 15 ``best_subject.npz`` are served by ``cli.serve
+   --checkpoint-dir`` (DECODE_ALL and the ensemble's DECODE at B = 1 and
+   8, p50 / p90 / p99): every row against its checkpoint's single
+   decoder, the first requests against the plain CPU fleet (rtol 1e-4,
+   atol 1e-5), the ensemble against the rows' mean. One checkpoint goes
+   through ``cli.export_decoder`` and ``cli.serve --artifact``: its
+   posteriors must equal the live decoder's bit for bit; loaded alone in a
+   child process that imports torch and ``ops/cuda/library.py`` only, the
+   profiler must show B1's and B2f's kernels and none of the plain
+   versions' ops (``aten::unfold``, ``aten::flip``).
 5. Training path: the port's ``cli.train_fast`` on a 15-subject x 350-trial
    synthetic corpus, 75 stacked full-width models, 2 epochs, at its
    default precision (bf16: B2f-bf16 and B2w-bf16 must have launched, and
@@ -116,6 +141,7 @@ script exits non-zero. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -123,6 +149,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -131,7 +158,7 @@ from scipy.signal import tf2sos
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from imagined_speech_decoding_tpu_torch.cli import train_fast
+from imagined_speech_decoding_tpu_torch.cli import export_decoder, train_fast
 from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_server
 from imagined_speech_decoding_tpu_torch.config import FASTConfig, TrainConfig
 from imagined_speech_decoding_tpu_torch.data.constants import SFREQ
@@ -169,7 +196,12 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
 )
 from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, corpus_filters, notch_ba
 from imagined_speech_decoding_tpu_torch.server import DecoderClient
-from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
+from imagined_speech_decoding_tpu_torch.serving import (
+    StreamingDecoder,
+    make_fleet_decoder,
+    make_online_decoder,
+    stack_checkpoints,
+)
 from imagined_speech_decoding_tpu_torch.train import engine
 from imagined_speech_decoding_tpu_torch.train.artifacts import load_predictions_csv
 from imagined_speech_decoding_tpu_torch.train.checkpoint import load_model_npz, save_model_npz
@@ -188,6 +220,7 @@ BWD_RTOL = 1e-4  # atol = BWD_RTOL * max|ref| per gradient tensor
 TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-5  # card vs CPU training trajectory
 TRAJ_NOISE_SHARE = 1e-4  # parameter elements allowed past it, each within the summed lr
 MAIN_BATCH = 8  # the serving path's largest request; the JSON line's forward shapes
+FLEET_MODELS = 15  # one best_subject.npz a subject (bench.py's N_SUBJECTS)
 REQUESTS = 100  # timed DECODE requests per batch size
 TRAIN_SUBJECTS, TRAIN_TRIALS, TRAIN_EPOCHS = 15, 350, 2  # 75 models, 280 + 70 trials each
 TRAIN_BATCH = 64
@@ -480,12 +513,8 @@ def phase_serving(cfg, params1, params2, rng, workdir):
     launches = read_launches()
     print(f"serving path: INFO {json.dumps(info)}", flush=True)
     print(f"serving path: kernel launches during the requests {launches}", flush=True)
-    decodes = len(batches) + 1
-    if launches["iir_chain"] != decodes or launches["iir"] != 0:
-        raise RuntimeError(f"{decodes} decodes must make one B1 chain launch each and no "
-                           f"causal one: {launches}")
-    if launches["conv4head_fwd"] < 1:
-        raise RuntimeError("the serving path never launched the conv4head_fwd kernel")
+    require_graphed({"DECODE": server.decoders[0]}, len(batches) + 1, launches, "serving")
+    launches["replays"] = server.decoders[0].replays
     require_unadapted(launches, "serving")
     if info["device"] != "cuda" or info["n_channels"] != 64 or info["n_classes"] != cfg.n_classes:
         raise RuntimeError(f"unexpected INFO {info}")
@@ -521,44 +550,384 @@ def check_posteriors(post: np.ndarray, ref: np.ndarray) -> None:
     np.testing.assert_allclose(post, ref, rtol=POST_RTOL, atol=POST_ATOL)
 
 
-def phase_device_time(cfg, params, dev, rng):
-    """In-process decode (no TCP): host clock, CUDA-event span, and the
-    profiler's device time by kernel."""
-    decode = make_online_decoder(FAST(cfg, device=dev), params)
-    for b in (1, MAIN_BATCH):
-        x = rng.normal(size=(b, 64, 800)).astype(np.float32)
-        decode(x)
-        host, span = [], []
-        for _ in range(20):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+def require_graphed(decoders, decodes: int, launches: dict, path: str) -> None:
+    """Each graphed decoder of a path (``decoders``: request name -> decoder)
+    served ``decodes`` decodes: its eager ones (each one B1 chain launch and
+    one B2f launch, counted) and its replays (each a graph that holds one
+    of each, as ``profile_decode`` shows); each capture records one of each
+    in the capture counts and runs nothing."""
+    runs = sum(d.eager for d in decoders.values())
+    captures = sum(len(d.graphs) for d in decoders.values())
+    for what, d in decoders.items():
+        if d.eager + d.replays != decodes:
+            raise RuntimeError(f"the {path} path's {what} made {d.eager} eager decodes and "
+                               f"{d.replays} replays for {decodes} decodes")
+        print(f"{path} path, {what}: {decodes} decodes = {d.eager} eager + {d.replays} replays "
+              f"of {len(d.graphs)} CUDA graphs (shapes {sorted(d.graphs)})", flush=True)
+    if (launches["iir_chain"], launches["conv4head_fwd"], launches["iir"]) != (runs, runs, 0):
+        raise RuntimeError(f"the {path} path's eager decodes ({runs}) must each make one B1 "
+                           f"chain launch and one B2f launch, and no causal B1 one: {launches}")
+    if (launches["iir_chain_captures"], launches["conv4head_fwd_captures"]) != (captures,) * 2:
+        raise RuntimeError(f"the {path} path's {captures} captures must each record one B1 "
+                           f"chain launch and one B2f launch: {launches}")
+    require_unadapted(launches, path)
+
+
+DECODE_KERNELS = ("sosfiltfilt_chain_kernel", "conv4head_fwd_kernel")  # B1, B2f: in every decode
+
+
+def event_span_ms(fn, calls: int = 20) -> float:
+    """p50 of a decode's CUDA-event span: from an event recorded before
+    ``fn()`` to one recorded after it (each decode ends in a device-to-host
+    copy), so host work between the decode's launches counts in it."""
+    spans = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return float(np.median(spans))
+
+
+def profile_decode(fn, what: str, calls: int = 5) -> dict:
+    """``fn()`` (one decode) ``calls`` times under the profiler: device busy
+    time (kernels and copies) and device events a decode, the host's
+    ``cudaLaunchKernel`` (+ ``cudaLaunchKernelExC``) and ``cudaGraphLaunch``
+    calls a decode; the device's records must hold one B1 and one B2f
+    kernel a decode. A session that lost a record of them (``profiled``:
+    seen once on a replayed decode, 4 B1 records of 5 with every replay
+    bit-identical) is profiled again, up to three times. Then the decode's
+    CUDA-event span (``event_span_ms``) and the device's idle share of it,
+    1 - busy / span."""
+    for _ in range(3):
+        events = profiled(lambda: [fn() for _ in range(calls)], cpu=True, need=DECODE_KERNELS)
+        device = [e for e in events if e.device_type != DeviceType.CPU]
+        seen = {k: sum(e.count for e in device if k in e.key) / calls for k in DECODE_KERNELS}
+        if all(n == 1 for n in seen.values()):
+            break
+        print(f"{what}: the profiler recorded {seen} a decode; profiling again", flush=True)
+    else:
+        raise RuntimeError(f"{what}: not one B1 and one B2f kernel a decode in three "
+                           f"profiler sessions: {seen}")
+    host = {e.key: e.count / calls for e in events if e.device_type == DeviceType.CPU}
+    row = {
+        "busy_ms": sum(e.self_device_time_total for e in device) / 1e3 / calls,
+        "device_events": sum(e.count for e in device) / calls,
+        "launch_kernel": host.get("cudaLaunchKernel", 0) + host.get("cudaLaunchKernelExC", 0),
+        "graph_launch": host.get("cudaGraphLaunch", 0),
+        "span_ms": event_span_ms(fn),
+    }
+    row["idle"] = 1 - row["busy_ms"] / row["span_ms"]
+    print(f"{what}: device busy {row['busy_ms']:.4f} ms a decode over {row['device_events']:.0f} "
+          f"kernels and copies; CUDA-event span p50 {row['span_ms']:.4f} ms, device idle "
+          f"{row['idle']:.1%} of it; {row['launch_kernel']:.0f} cudaLaunchKernel(ExC) and "
+          f"{row['graph_launch']:.0f} cudaGraphLaunch calls a decode", flush=True)
+    return row
+
+
+def host_ms(fn, calls: int = 50) -> list:
+    """Host-clock milliseconds of ``calls`` calls of ``fn`` (each ends in a
+    device-to-host copy, so the device is done)."""
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def eager(decode, x: np.ndarray) -> np.ndarray:
+    """The un-captured chain of a graphed decoder on ``x`` (B = 1 and 8 are
+    captured batch sizes: the graph runs the same batch, unpadded)."""
+    with torch.inference_mode():
+        return decode.fn(torch.tensor(x, device=decode.device)).cpu().numpy()
+
+
+def phase_graphs(cfg, params, swap_params, fleet_params, fleet_swap, dev, rng):
+    """One CUDA graph a decode, for the live decoder and the fleet (all rows
+    and the ensemble) at B = 1 and 8: a replay equals the un-captured chain
+    bit for bit (B1 and B2f are deterministic); each decode's host p50,
+    eager and replayed; device busy time and launches a decode of each
+    (profiler); after ``swap_weights``, replays equal a fresh decoder on the
+    new weights bit for bit."""
+    live = make_online_decoder(FAST(cfg, device=dev), params)
+    fleet = make_fleet_decoder(FAST(cfg, n_models=FLEET_MODELS, device=dev), fleet_params)
+    rows, xs = {}, {}
+    for name, dec in (("live", live), ("fleet", fleet), ("fleet ensemble", fleet.ensemble)):
+        for b in (1, MAIN_BATCH):
+            x = xs.setdefault(b, rng.normal(size=(b, 64, 800)).astype(np.float32))
+            first = dec(x)  # eager, then the capture
+            replay = dec(x)
+            if not (np.array_equal(replay, eager(dec, x)) and np.array_equal(first, replay)):
+                raise RuntimeError(f"{name} B={b}: the replay differs from the un-captured chain "
+                                   f"(max|diff| {np.abs(replay - eager(dec, x)).max():.3g})")
+            ms_eager, ms_replay = np.median(host_ms(lambda: eager(dec, x))), \
+                np.median(host_ms(lambda: dec(x)))
+            print(f"graph, {name} B={b}: replay == un-captured chain bit for bit; in-process host "
+                  f"p50 {ms_replay:.3f} ms replayed, {ms_eager:.3f} ms eager", flush=True)
+            rows[(name, b)] = {
+                "host_p50_ms": ms_replay, "eager_host_p50_ms": ms_eager,
+                "replay": profile_decode(lambda: dec(x), f"graph, {name} B={b}, replayed"),
+                "eager": profile_decode(lambda: eager(dec, x), f"graph, {name} B={b}, eager"),
+            }
+            if rows[(name, b)]["replay"]["graph_launch"] != 1:
+                raise RuntimeError(f"{name} B={b}: a replayed decode is not one graph launch")
+    live.swap_weights(swap_params)
+    fleet.swap_weights(fleet_swap)
+    fresh_live = make_online_decoder(FAST(cfg, device=dev), swap_params)
+    fresh_fleet = make_fleet_decoder(FAST(cfg, n_models=FLEET_MODELS, device=dev), fleet_swap)
+    for name, dec, fresh in (("live", live, fresh_live), ("fleet", fleet, fresh_fleet),
+                             ("fleet ensemble", fleet.ensemble, fresh_fleet.ensemble)):
+        for b, x in xs.items():
+            before = dec.replays
+            if not np.array_equal(dec(x), fresh(x)) or dec.replays != before + 1:
+                raise RuntimeError(f"{name} B={b}: after swap_weights the replay differs from a "
+                                   "fresh decoder on the new weights")
+    print("graph: after swap_weights every replay equals a fresh decoder on the new weights "
+          "bit for bit (live and fleet, B = 1 and 8)", flush=True)
+    return rows
+
+
+def percentiles(ms: list) -> str:
+    p50, p90, p99 = np.percentile(ms, [50, 90, 99])
+    return f"p50 {p50:.3f} ms, p90 {p90:.3f} ms, p99 {p99:.3f} ms ({len(ms)} requests)"
+
+
+def phase_fleet(cfg, dev, rng, results_dir):
+    """The f32 training run's 15 ``best_subject.npz`` served as one fleet by
+    ``cli.serve --checkpoint-dir`` over TCP: DECODE_ALL and DECODE (the
+    ensemble) at B = 1 and 8, REQUESTS each after a warm-up. Every row
+    against the single-model decoder of its checkpoint and, on the first
+    requests, against the plain CPU fleet (rtol 1e-4, atol 1e-5); the
+    ensemble against the rows' mean."""
+    paths = sorted(glob.glob(os.path.join(results_dir, "sub-*", "best_subject.npz")))
+    if len(paths) != FLEET_MODELS:
+        raise RuntimeError(f"{len(paths)} best_subject.npz under {results_dir}, not {FLEET_MODELS}")
+    server = build_server(build_parser().parse_args(["--checkpoint-dir", results_dir,
+                                                     "--port", "0"]))
+    sizes = [1, MAIN_BATCH] + [1] * REQUESTS + [MAIN_BATCH] * REQUESTS
+    batches = [rng.normal(size=(b, 64, 800)).astype(np.float32) for b in sizes]
+    reset_launches()
+    rows, ens, t_all, t_ens = [], [], [], []
+    with server, DecoderClient(*server.address) as client:
+        info = client.info()
+        for x in batches:
             t0 = time.perf_counter()
-            start.record()
-            decode(x)  # ends in a device-to-host copy, so the device is done
-            end.record()
-            host.append(1e3 * (time.perf_counter() - t0))
-            end.synchronize()
-            span.append(start.elapsed_time(end))
-        # Kernels and copies are events of their own; an op's device time
-        # repeats its kernels', so only the device-side events are summed.
-        events = profiled(lambda: [decode(x) for _ in range(5)], cpu=True)
-        by_device = sorted(((e.self_device_time_total / 5e3, e.count // 5, e.key)
-                            for e in events if e.device_type != DeviceType.CPU), reverse=True)
-        by_host = sorted(((e.self_cpu_time_total / 5e3, e.count // 5, e.key)
-                          for e in events if e.device_type == DeviceType.CPU), reverse=True)
-        busy = sum(ms for ms, _, _ in by_device)
-        device_ops = sum(calls for _, calls, _ in by_device)
-        launches = sum(calls for _, calls, key in by_host if key == "cudaLaunchKernel")
-        launches_ex = sum(calls for _, calls, key in by_host if key == "cudaLaunchKernelExC")
-        print(f"decode B={b} in process: host p50 {np.median(host):.3f} ms; CUDA-event span "
-              f"p50 {np.median(span):.3f} ms; profiler device time {busy:.3f} ms per decode "
-              f"over {device_ops} kernels and copies (device idle "
-              f"{1 - busy / np.median(span):.0%} of the span); {launches} cudaLaunchKernel "
-              f"and {launches_ex} cudaLaunchKernelExC calls per decode", flush=True)
-        for ms, calls, key in by_device[:8]:
-            print(f"    device {ms:9.4f} ms  {calls:4d} calls  {key[:70]}", flush=True)
-        for ms, calls, key in by_host[:8]:
-            print(f"    host   {ms:9.4f} ms  {calls:4d} calls  {key[:70]}", flush=True)
+            rows.append(client.decode_all(x))
+            t1 = time.perf_counter()
+            ens.append(client.decode(x))
+            t_all.append(1e3 * (t1 - t0))
+            t_ens.append(1e3 * (time.perf_counter() - t1))
+    launches = read_launches()
+    subjects = [os.path.basename(os.path.dirname(p)) for p in paths]
+    if (info["mode"], info["n_models"], info["subjects"], info["device"]) != \
+            ("fleet", FLEET_MODELS, subjects, dev.type):
+        raise RuntimeError(f"unexpected fleet INFO {info}")
+    _, decode_all = server.decoders
+    print(f"fleet: kernel launches during the requests {launches}", flush=True)
+    require_graphed({"DECODE_ALL": decode_all, "DECODE": decode_all.ensemble}, len(batches),
+                    launches, "fleet")
+    launches["replays"] = decode_all.replays + decode_all.ensemble.replays
+
+    rows_all = np.concatenate(rows, axis=1)  # (M, all trials, K)
+    x_all = np.concatenate(batches)
+    single = make_online_decoder(FAST(cfg, device=dev), init_jax_layout_params(cfg, SEED))
+    template = to_jax_params(FAST(cfg).state_dict())
+    for i, path in enumerate(paths):
+        single.swap_weights(load_model_npz(path, template, {"head": {}})[0])
+        np.testing.assert_allclose(rows_all[i], single(x_all), rtol=POST_RTOL, atol=POST_ATOL,
+                                   err_msg=f"fleet row {subjects[i]} vs its single decoder")
+    np.testing.assert_allclose(np.concatenate(ens), rows_all.mean(axis=0), rtol=1e-6, atol=1e-7,
+                               err_msg="the ensemble is not the rows' mean")
+    n_cpu = 4  # the two warm-ups and the first timed request of each size
+    cpu = make_fleet_decoder(FAST(cfg, n_models=FLEET_MODELS),
+                             stack_checkpoints(paths, FAST(cfg)))
+    ref = cpu(np.concatenate(batches[:n_cpu]))
+    got = np.concatenate(rows[:n_cpu], axis=1)
+    np.testing.assert_allclose(got, ref, rtol=POST_RTOL, atol=POST_ATOL)
+    print(f"fleet: INFO {json.dumps(info)}", flush=True)
+    print(f"fleet: {FLEET_MODELS} rows x {x_all.shape[0]} trials match each checkpoint's single "
+          f"decoder, the first {n_cpu} requests' ({got.shape[1]} trials) the plain CPU fleet "
+          f"(rtol {POST_RTOL}, atol {POST_ATOL}, max|err| {np.abs(got - ref).max():.3g}); the "
+          "ensemble equals the rows' mean", flush=True)
+    for b in (1, MAIN_BATCH):
+        pick = [i for i, x in enumerate(batches) if i >= 2 and x.shape[0] == b]
+        print(f"fleet: DECODE_ALL B={b} over TCP, closed loop, one client, host clock: "
+              f"{percentiles([t_all[i] for i in pick])}", flush=True)
+        print(f"fleet: DECODE (ensemble) B={b} over TCP: {percentiles([t_ens[i] for i in pick])}",
+              flush=True)
+    return launches
+
+
+def phase_fleet_head(cfg, dev, rng):
+    """B2f at the fleet's M = 15 on one window broadcast to every model (the
+    fleet decode's operand), B = 1 and 8, against its plain version."""
+    model = FAST(cfg, n_models=FLEET_MODELS, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, FLEET_MODELS)))
+    geo = (cfg.window_len, cfg.slide_step)
+    rows = {}
+    with torch.inference_mode():
+        ops = model.head.fused_weights()
+        for b in (1, MAIN_BATCH):
+            xb = torch.tensor(rng.normal(size=(b, 64, 800)).astype(np.float32), device=dev)
+            x = xb.expand(FLEET_MODELS, *xb.shape).contiguous()
+            ref = fused_conv4_head_plain(x, *ops, *geo)
+            err = check_close(f"B2f M={FLEET_MODELS} B={b}", fused_conv4_head(x, *ops, *geo), ref,
+                              HEAD_RTOL, HEAD_ATOL)
+            bound, bound_by = head_bound(HEAD_FMA_FWD, FLEET_MODELS, b,
+                                         FLEET_MODELS * b * 5 * 256, reads_g=False)
+            row = rows[b] = {
+                "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+                "ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 50),
+                "device_ms": device_ms(lambda: fused_conv4_head(x, *ops, *geo),
+                                       "conv4head_fwd_kernel", 50),
+                "plain_ms": cuda_ms(lambda: fused_conv4_head_plain(x, *ops, *geo), 5),
+            }
+            print(f"B2f M={FLEET_MODELS} B={b} (the fleet's head): kernel {row['ms']:.4f} ms a "
+                  f"call back to back (CUDA events), {row['device_ms']:.4f} ms on the device, "
+                  f"plain {row['plain_ms']:.4f} ms, max|err| {err:.3g}, bound {bound:.4f} ms "
+                  f"({bound_by}, {bound / row['device_ms']:.1%} of the device time)", flush=True)
+    return rows
+
+
+ARTIFACT_CHILD = r"""
+import json, sys
+import numpy as np, torch
+from torch.export.passes import move_to_device_pass
+from torch.profiler import ProfilerActivity, profile
+from imagined_speech_decoding_tpu_torch.ops.cuda import library  # noqa: F401 (the isd:: operators)
+
+path, x_path, out_path = sys.argv[1:4]
+program = move_to_device_pass(torch.export.load(path), "cuda")
+module = program.module()
+x = torch.tensor(np.load(x_path), device="cuda")
+with torch.inference_mode():
+    module(x)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        post = module(x).cpu().numpy()
+        torch.cuda.synchronize()
+keys = {e.key for e in prof.key_averages()}
+np.save(out_path, post)
+port = sorted(m for m in sys.modules if m.startswith("imagined_speech_decoding_tpu_torch"))
+print(json.dumps({"keys": sorted(keys), "modules": port}))
+"""
+PLAIN_ROUTE_OPS = ("aten::unfold", "aten::flip")  # the plain head's patches, the plain IIR's passes
+
+
+def phase_artifact(cfg, dev, ckpt, workdir, rng):
+    """``cli.export_decoder`` on one trained checkpoint, ``cli.serve
+    --artifact`` over TCP against the live decoder of the same weights;
+    then the artifact alone in a child process that imports torch and the
+    ``isd::`` operators only, where the profiler must show B1's and B2f's
+    kernels and none of the plain versions' ops."""
+    out = os.path.join(workdir, "decoder.pt2")
+    t0 = time.perf_counter()
+    export_decoder.main(["--checkpoint", ckpt, "--out", out])
+    export_s = time.perf_counter() - t0
+    params = load_model_npz(ckpt, init_jax_layout_params(cfg, SEED), {"head": {}})[0]
+    live = make_online_decoder(FAST(cfg, device=dev), params)
+    server = build_server(build_parser().parse_args(["--artifact", out, "--port", "0"]))
+    sizes = [1, MAIN_BATCH] + [1] * REQUESTS + [MAIN_BATCH] * REQUESTS
+    batches = [rng.normal(size=(b, 64, 800)).astype(np.float32) for b in sizes]
+    posts, times = [], []
+    with server, DecoderClient(*server.address) as client:
+        info = client.info()
+        for x in batches:
+            t1 = time.perf_counter()
+            posts.append(client.decode(x))
+            times.append(1e3 * (time.perf_counter() - t1))
+    if (info["mode"], info["n_channels"], info["seq_len"], info["n_classes"], info["reloadable"]) \
+            != ("artifact", 64, 800, cfg.n_classes, False):
+        raise RuntimeError(f"unexpected artifact INFO {info}")
+    # The same kernels and trunk ops on the same operands: bit for bit.
+    if not all(np.array_equal(p, live(x)) for p, x in zip(posts, batches)):
+        raise RuntimeError("the artifact's posteriors differ from the live decoder's")
+    print(f"artifact: cli.export_decoder {export_s:.2f} s, {os.path.getsize(out) / 1e6:.2f} MB; "
+          f"INFO {json.dumps(info)}; served posteriors equal the live decoder's bit for bit",
+          flush=True)
+    for b in (1, MAIN_BATCH):
+        pick = [times[i] for i, x in enumerate(batches) if i >= 2 and x.shape[0] == b]
+        print(f"artifact: DECODE B={b} over TCP, host clock: {percentiles(pick)}", flush=True)
+
+    x_path, post_path = os.path.join(workdir, "artifact_x.npy"), os.path.join(workdir, "post.npy")
+    np.save(x_path, batches[1])
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, out, x_path, post_path],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"the artifact's child process failed:\n{proc.stderr[-3000:]}")
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = [k for k in DECODE_KERNELS if not any(k in key for key in seen["keys"])]
+    plain = [k for k in PLAIN_ROUTE_OPS if k in seen["keys"]]
+    models = [m for m in seen["modules"] if ".models" in m or m.endswith(".serving")]
+    if missing or plain or models:
+        raise RuntimeError(f"the artifact alone: kernels missing {missing}, plain-route ops "
+                           f"{plain}, model code imported {models}")
+    if not np.array_equal(np.load(post_path), posts[1]):
+        raise RuntimeError("the artifact alone differs from the served artifact")
+    print(f"artifact: alone in a child process (torch and ops/cuda/library.py): the profiler "
+          f"shows {', '.join(DECODE_KERNELS)} and none of {', '.join(PLAIN_ROUTE_OPS)}; "
+          f"{len(seen['modules'])} port modules loaded, none of models/ or serving; its "
+          "posteriors equal the server's", flush=True)
+
+
+STREAM_STEP = 125  # samples a producer push: one window step (0.5 s at 250 Hz)
+STREAM_PUSHES = 120
+
+
+def phase_streaming(cfg, params, dev, rng):
+    """The streaming decoder over the native ring: a producer thread pushes
+    ``STREAM_STEP``-sample chunks while ``decode_latest`` runs. Every window
+    decoded must be the stream's samples that end at its end index (no
+    torn snapshot), and its posteriors a direct decode of those samples."""
+    decode = make_online_decoder(FAST(cfg, device=dev), params)
+    stream = rng.normal(size=(64, cfg.seq_len + STREAM_STEP * STREAM_PUSHES)).astype(np.float32)
+    windows = []
+
+    def recording(x):
+        windows.append(x[0].copy())
+        return decode(x)
+
+    sd = StreamingDecoder(recording, 64, cfg.seq_len, native=True)
+    sd.push(stream[:, :cfg.seq_len])
+    sd.decode_latest()  # the first window: eager, then the capture
+    windows.clear()
+
+    def produce():
+        for i in range(STREAM_PUSHES):
+            lo = cfg.seq_len + i * STREAM_STEP
+            sd.push(stream[:, lo:lo + STREAM_STEP])
+            time.sleep(0.002)
+
+    producer = threading.Thread(target=produce)
+    posts, ends, times = [], [], []
+    producer.start()
+    try:
+        while producer.is_alive():
+            t0 = time.perf_counter()
+            posts.append(sd.decode_latest())
+            times.append(1e3 * (time.perf_counter() - t0))
+            ends.append(sd.last_end)
+    finally:
+        producer.join(timeout=60)
+        sd.close()
+    if producer.is_alive() or not posts:
+        raise RuntimeError("the streaming producer did not finish, or nothing was decoded")
+    if any(b < a for a, b in zip(ends, ends[1:])):
+        raise RuntimeError("the ring's end index went back")
+    for w, post, end in zip(windows, posts, ends):
+        want = stream[:, end - cfg.seq_len:end]
+        if not np.array_equal(w, want):
+            raise RuntimeError(f"a torn or misplaced window at end index {end}")
+        if not np.array_equal(post, decode(want[None])[0]):
+            raise RuntimeError(f"decode_latest at end index {end} differs from a direct decode")
+    print(f"streaming: {len(posts)} decode_latest calls ({len(set(ends))} distinct windows) while "
+          f"a producer pushed {STREAM_PUSHES} x {STREAM_STEP} samples into the native ring; every "
+          f"window untorn and equal to a direct decode; decode_latest p50 "
+          f"{np.median(times):.3f} ms, p90 {np.percentile(times, 90):.3f} ms", flush=True)
+    return np.median(times)
 
 
 HEAD_FMA_FWD = 5_038_080  # per (trial, window, zone) at full width: conv12 2.52 M + tails 2 x 1.26 M
@@ -944,7 +1313,7 @@ def report_tc_build(info, cfg) -> None:
 def reset_launches() -> None:
     for fn in (sosfiltfilt_chain, sosfilt_time_major, fused_conv4_head, conv4head_bwd_w,
                conv4head_bwd_x):
-        fn.launches = 0
+        fn.launches = fn.captures = 0
     fused_conv4_head.launches_bf16 = conv4head_bwd_w.launches_bf16 = 0
     for fn in HEAD_WRAPPERS:
         fn.adapted = 0
@@ -958,7 +1327,9 @@ def read_launches() -> dict:
             "conv4head_bwd_x": conv4head_bwd_x.launches,
             "conv4head_fwd_bf16": fused_conv4_head.launches_bf16,
             "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16,
-            "adapted": sum(fn.adapted for fn in HEAD_WRAPPERS)}
+            "adapted": sum(fn.adapted for fn in HEAD_WRAPPERS),
+            "iir_chain_captures": sosfiltfilt_chain.captures,
+            "conv4head_fwd_captures": fused_conv4_head.captures}
 
 
 HEAD_WRAPPERS = (fused_conv4_head, conv4head_bwd_w, conv4head_bwd_x)  # each counts adapted
@@ -1668,13 +2039,18 @@ def main() -> None:
     with torch.inference_mode():
         iir = phase_iir(dev, rng)
         head = phase_head(model, dev, rng)
+    fleet_head = phase_fleet_head(cfg, dev, rng)
     bwd, _ = phase_head_backward(cfg, dev, rng)
     bf16, _ = phase_bf16_kernels(cfg, dev, rng)
     phase_adapted_geometry(cfg, dev, rng)
     with tempfile.TemporaryDirectory() as workdir:
         serving = phase_serving(cfg, params1, params2, rng, workdir)
-        phase_device_time(cfg, params1, dev, rng)
+        phase_graphs(cfg, params1, params2, init_jax_layout_params(cfg, SEED, FLEET_MODELS),
+                     init_jax_layout_params(cfg, SEED + 1, FLEET_MODELS), dev, rng)
+        phase_streaming(cfg, params1, dev, rng)
         training, _, (ckpt, subject) = phase_training(cfg, dev, workdir, "f32")
+        fleet = phase_fleet(cfg, dev, rng, os.path.join(workdir, "train_f32"))
+        phase_artifact(cfg, dev, ckpt, workdir, rng)
         training_bf16, _, _ = phase_training(cfg, dev, workdir, "bf16")
         explain = phase_explain(cfg, dev, ckpt, subject)
     phase_train_step_profile(cfg, dev, torch.float32)
@@ -1687,19 +2063,33 @@ def main() -> None:
     pallas = "imagined_speech_decoding_tpu/ops/pallas/"
     b2, b2x, b16 = bwd[BWD_SHAPES[0]], bwd[X_SHAPES[-1]], bf16[BF16_SHAPES[-1]]
     # library_ms: no single PyTorch call computes the IIR cascade, the fused
-    # windowed head or its gradients.
+    # windowed head or its gradients. launches: the wrappers' counts of
+    # kernels run outside a graph; graph_captures: launches recorded into the
+    # serving and fleet graphs (run nothing); graph_replays: those graphs'
+    # replays, each of which runs one B1 chain and one B2f kernel.
+    captures = {k: serving[k + "_captures"] + fleet[k + "_captures"]
+                for k in ("iir_chain", "conv4head_fwd")}
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": "iir_sosfiltfilt_chain", "route": "cuda", "source": src + "iir.cu",
-         "replaces": pallas + "iir.py:67", "launches": serving["iir_chain"] + real["launches"],
+         "replaces": pallas + "iir.py:67",
+         "launches": serving["iir_chain"] + real["launches"] + fleet["iir_chain"],
          "launches_serving": serving["iir_chain"], "launches_preprocessing": real["launches"],
+         "launches_fleet": fleet["iir_chain"], "graph_captures": captures["iir_chain"],
+         "graph_replays": serving["replays"] + fleet["replays"],
          **{k: iir[MAIN_BATCH][k] for k in keys}, "library_ms": None},
         {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67", "launches": serving["iir"],
          **{k: iir[MAIN_BATCH]["causal"][k] for k in keys}, "library_ms": None},
         {"name": "conv4head_fwd", "route": "cuda", "source": src + "conv4head.cu",
-         "replaces": pallas + "conv4head.py:303", "launches": training["conv4head_fwd"],
-         **head[MAIN_BATCH], "library_ms": None},
+         "replaces": pallas + "conv4head.py:303",
+         "launches": serving["conv4head_fwd"] + training["conv4head_fwd"] + fleet["conv4head_fwd"],
+         "launches_serving": serving["conv4head_fwd"],
+         "launches_training": training["conv4head_fwd"], "launches_fleet": fleet["conv4head_fwd"],
+         "graph_captures": captures["conv4head_fwd"],
+         "graph_replays": serving["replays"] + fleet["replays"],
+         **head[MAIN_BATCH], "library_ms": None,
+         "fleet_m15": {b: fleet_head[b] for b in (1, MAIN_BATCH)}},
         {"name": "conv4head_bwd_w", "route": "cuda", "source": src + "conv4head_bwd.cu",
          "replaces": pallas + "conv4head.py:323", "launches": training["conv4head_bwd_w"],
          "max_abs_err": b2["w_err"], "ms": b2["w_ms"], "plain_ms": b2["plain_ms"],

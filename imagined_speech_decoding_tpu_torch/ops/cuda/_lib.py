@@ -139,6 +139,18 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def count(fn, counter: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to a wrapper's ``fn.<counter>`` when its kernel ran. While
+    the current stream captures a CUDA graph, a launch only records its
+    kernel (each replay runs it, uncounted): it adds to ``fn.captures``
+    instead, and another counter (``adapted``) does not move. (A CPU build
+    of torch, where tests stand in for the launches, captures nothing.)"""
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        setattr(fn, counter, getattr(fn, counter) + n)
+    elif counter.startswith("launches"):
+        fn.captures += n
+
+
 def require_no_grad(what: str, *tensors: torch.Tensor) -> None:
     """A forward-only kernel refuses to cut an autograd graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

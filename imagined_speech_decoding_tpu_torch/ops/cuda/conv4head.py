@@ -37,7 +37,9 @@ operands without the model axis (``x (B, C, T)``, ``w12 (Z*O, K1*C)``
 ...) and runs them as M = 1; the backward functions take the model axis
 only (``g (M, B, N, Z*O)``), as the autograd Function passes it.
 
-Routing: a CPU tensor goes to ``fused_conv4_head_plain``. In f32 autograd
+Routing: a CPU tensor goes to ``fused_conv4_head_plain`` (without a
+gradient to take, through the ``isd::conv4head_fwd`` operator of
+``library.py``, which launches B2f on a CUDA tensor). In f32 autograd
 differentiates it; that autograd backward is the plain version of B2w and
 B2x (``conv4head_bwd_plain``; B2x's alone, dx with the weights held out
 of the graph, is ``conv4head_bwd_x_plain``). In bf16 it rounds at the
@@ -429,9 +431,9 @@ def _launch_fwd(x, w12, b12, w3, w4, window_len: int, step: int, clk=None):
         )
     _lib.check(code, entry.__name__)
     if clk is None and bf16:
-        fused_conv4_head.launches_bf16 += 1
+        _lib.count(fused_conv4_head, "launches_bf16")
     elif clk is None:
-        fused_conv4_head.launches += 1
+        _lib.count(fused_conv4_head)
     return out
 
 
@@ -673,7 +675,7 @@ def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
     _require_x(x)
     grads, adapted = _adapted("bwd_w", _launch_bwd_w, g, x, w12, b12, w3, w4, window_len, step)
-    conv4head_bwd_w.adapted += adapted
+    _lib.count(conv4head_bwd_w, "adapted", adapted)
     return grads
 
 
@@ -718,9 +720,9 @@ def _launch_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int, s=None, cl
         )
     _lib.check(code, entry.__name__)
     if clk is None and bf16:
-        conv4head_bwd_w.launches_bf16 += 1
+        _lib.count(conv4head_bwd_w, "launches_bf16")
     elif clk is None:
-        conv4head_bwd_w.launches += 1
+        _lib.count(conv4head_bwd_w)
     return tuple(grads)
 
 
@@ -765,7 +767,7 @@ def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
     if x.dtype == torch.bfloat16:
         _launch_bwd_x(g, x, w12, b12, w3, w4, window_len, step)  # raises: no bf16 B2x
     dx, adapted = _adapted("bwd_x", _launch_bwd_x, g, x, w12, b12, w3, w4, window_len, step)
-    conv4head_bwd_x.adapted += adapted
+    _lib.count(conv4head_bwd_x, "adapted", adapted)
     return dx
 
 
@@ -794,7 +796,7 @@ def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
             m, b, c, t, z, o, k1, k2, window_len, step, n, sz, _lib.stream_of(x),
         )
     _lib.check(code, "isd_conv4head_bwd_x")
-    conv4head_bwd_x.launches += 1
+    _lib.count(conv4head_bwd_x)
     dx = torch.zeros_like(x)
     for i in range(n):
         dx[..., i * step : i * step + window_len] += dxw[:, :, i]
@@ -825,11 +827,17 @@ class _FusedConv4Head(torch.autograd.Function):
 @_model_axis(5)
 def fused_conv4_head(x, w12, b12, w3, w4, window_len: int, step: int):
     """Sliding-window Conv4Layers head: ``x (M, B, C, T)`` -> ``(M, B, N, Z*O)``
-    (or ``(B, C, T)`` -> ``(B, N, Z*O)`` without the model axis)."""
-    if x.device.type == "cpu":
-        return fused_conv4_head_plain(x, w12, b12, w3, w4, window_len, step)
+    (or ``(B, C, T)`` -> ``(B, N, Z*O)`` without the model axis). Without a
+    gradient to take, a CPU or CUDA x goes through the ``isd::conv4head_fwd``
+    operator (``library.py``: the plain version on the CPU, B2f on the card),
+    which CUDA graphs and ``torch.export`` capture as one node; any other
+    device takes the kernel's route, which raises off the card."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w12, b12, w3, w4)):
+        if x.device.type == "cpu":
+            return fused_conv4_head_plain(x, w12, b12, w3, w4, window_len, step)
         return _FusedConv4Head.apply(x, w12, b12, w3, w4, window_len, step)
+    if x.device.type in ("cpu", "cuda"):
+        return torch.ops.isd.conv4head_fwd(x, w12, b12, w3, w4, window_len, step)
     return _forward(x, w12, b12, w3, w4, window_len, step)
 
 
@@ -838,7 +846,7 @@ def _forward(x, w12, b12, w3, w4, window_len: int, step: int):
     _require_x(x)
     out, adapted = _adapted("fwd", lambda g, *ops: _launch_fwd(*ops), None, x, w12, b12, w3, w4,
                             window_len, step)
-    fused_conv4_head.adapted += adapted
+    _lib.count(fused_conv4_head, "adapted", adapted)
     return out
 
 
@@ -852,3 +860,8 @@ conv4head_bwd_x.launches = 0  # B2x launches
 fused_conv4_head.adapted = 0
 conv4head_bwd_w.adapted = 0
 conv4head_bwd_x.adapted = 0
+# Launches recorded into a CUDA graph being captured (counted in none of the
+# above: a capture runs nothing; each replay runs them again, uncounted).
+fused_conv4_head.captures = conv4head_bwd_w.captures = conv4head_bwd_x.captures = 0
+
+from . import library  # noqa: E402,F401  (registers the isd:: operators; imports this module)

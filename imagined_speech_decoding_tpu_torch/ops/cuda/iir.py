@@ -12,8 +12,9 @@ walks time in parallel. Two entries share one device routine:
 - ``sosfiltfilt_chain(filters, x (..., T))``: a chain of one or two
   zero-phase filters (SciPy's ``sosfiltfilt`` defaults each: odd
   extension, ``sosfilt_zi`` seeding, forward and reverse pass, crop) in
-  one launch, on filters made once by ``prepare_filter``. The online
-  decoder runs its notch and band-pass through it.
+  one launch, on filters made once by ``prepare_filter``. The
+  preprocessing runs its notch and band-pass through it; the online
+  decoder calls its operator with the table it holds.
 
 Both take a row's time axis in chunks, one per lane of a warp: each
 chunk runs from a zero state, the chunks' end states are combined by a
@@ -23,14 +24,17 @@ each chunk adds its homogeneous response to the carry it receives.
 ``section_table`` lays these constants out for the kernel.
 
 Routing: a CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises. There is no fallback between the two.
+the kernel or raises. There is no fallback between the two. Every caller
+of the chain goes through the ``isd::sosfiltfilt_chain`` operator
+(``library.py``), which takes the filters as one ``chain_table``: this
+module owns that table's layout (``chain_table``, ``filters_of_table``).
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -140,11 +144,32 @@ def prepare_filter(sos: np.ndarray, padlen: Optional[int] = None) -> PreparedFil
                           default_padlen(sos) if padlen is None else int(padlen))
 
 
-def load_tables(filters: Sequence[PreparedFilter], device) -> None:
-    """Put the chain kernel's constants on ``device`` now, so that no later
-    call copies them."""
-    for f in filters:
-        f.table(CHUNK_MAX, device)
+def chain_table(filters: Sequence[PreparedFilter], device) -> torch.Tensor:
+    """The chain kernel's constants of ``filters`` in one ``(sum S,
+    SECTION_FLOATS)`` table on ``device``: what the ``isd::sosfiltfilt_chain``
+    operator (``ops/cuda/library.py``) takes, with each filter's section
+    count and padlen."""
+    if not filters:
+        return torch.empty((0, SECTION_FLOATS), device=device)
+    return torch.cat([f.table(CHUNK_MAX, device) for f in filters])
+
+
+def filters_of_table(table: torch.Tensor, sections: Sequence[int],
+                     padlens: Sequence[int]) -> List[PreparedFilter]:
+    """The filters a ``chain_table`` holds, for the plain version: each
+    record's a0-normalised f32 coefficients and f32 ``zi``, which are the
+    values the plain chain computes with (``coefficients`` rounds the
+    sections so, and the chain casts ``zi`` to x's dtype)."""
+    rec = table.detach().cpu().double().numpy()
+    out, row = [], 0
+    for s, p in zip(sections, padlens):
+        r = rec[row:row + s]
+        row += s
+        sos = np.concatenate([r[:, 0:3], np.ones((s, 1)), r[:, 3:5]], axis=1)
+        out.append(PreparedFilter(sos, r[:, 5:7].copy(), int(p)))
+    if row != rec.shape[0]:
+        raise ValueError(f"sections {list(sections)} do not cover the table's {rec.shape[0]} rows")
+    return out
 
 
 def sosfilt_time_major_plain(
@@ -224,11 +249,12 @@ def _launch_causal(sos: np.ndarray, xt: torch.Tensor, zi: torch.Tensor,
             n_sections, t_len, rows, tile, chunk, lanes, _lib.stream_of(xt),
         )
     _lib.check(code, "isd_sosfilt_time_major")
-    sosfilt_time_major.launches += 1
+    _lib.count(sosfilt_time_major)
     return y, zf
 
 
 sosfilt_time_major.launches = 0  # kernel launches; the CPU route does not count
+sosfilt_time_major.captures = 0  # launches recorded into a CUDA graph (runs nothing)
 
 
 def _padlens(filters: Sequence[PreparedFilter], padlens) -> Tuple[int, ...]:
@@ -263,51 +289,76 @@ def sosfiltfilt_chain(
     """Zero-phase filtering of the trailing axis of ``x (..., T)`` by each
     of ``filters`` in turn (``prepare_filter``), each as
     ``scipy.signal.sosfiltfilt`` with its defaults; ``padlens`` overrides
-    the filters' own. On a CUDA tensor the whole chain is one launch of
-    B1: ``x`` is read once and the result written once."""
+    the filters' own. Runs the ``isd::sosfiltfilt_chain`` operator: on a
+    CUDA tensor the whole chain is one launch of B1 (``x`` read once, the
+    result written once), on a CPU tensor the plain version; any other
+    device takes the kernel's route, which raises off the card."""
+    from . import library  # imports this module
+
     filters = list(filters)
-    if not 1 <= len(filters) <= MAX_CHAIN:
-        raise ValueError(f"a chain holds 1 to {MAX_CHAIN} filters, got {len(filters)}")
     pads = _padlens(filters, padlens)
-    t_len = x.shape[-1]
+    if x.device.type not in ("cpu", "cuda"):
+        return _launch_chain(filters, x, pads, lanes_for(x.numel() // max(x.shape[-1], 1)))
+    return library.sosfiltfilt_chain(x, chain_table(filters, x.device),
+                                     [f.n_sections for f in filters], list(pads))
+
+
+def check_chain(n_filters: int, pads: Sequence[int], t_len: int) -> None:
+    """A chain holds 1 to ``MAX_CHAIN`` filters, and each padlen is shorter
+    than the row (``scipy.signal.sosfiltfilt``'s rule)."""
+    if not 1 <= n_filters <= MAX_CHAIN:
+        raise ValueError(f"a chain holds 1 to {MAX_CHAIN} filters, got {n_filters}")
     for p in pads:
         if t_len <= p:
             raise ValueError(
                 f"The length of the input vector x must be greater than padlen, "
                 f"which is {p} (got {t_len} samples)"
             )
-    if x.device.type == "cpu":
-        return sosfiltfilt_chain_plain(filters, x, pads)
-    return _launch_chain(filters, x, pads, lanes_for(x.numel() // max(t_len, 1)))
 
 
 def _launch_chain(filters: Sequence[PreparedFilter], x: torch.Tensor, pads: Tuple[int, ...],
                   lanes: int) -> torch.Tensor:
     """``sosfiltfilt_chain``'s launch on a CUDA tensor with ``lanes``
     lanes a row (the card tests and ``chip_smoke.py`` sweep it)."""
-    filters = list(filters)
+    return launch_chain_tables([f.table(CHUNK_MAX, x.device) for f in filters], x, pads, lanes)
+
+
+def launch_chain_tables(tables: Sequence[torch.Tensor], x: torch.Tensor, pads: Sequence[int],
+                        lanes: int) -> torch.Tensor:
+    """The chain's launch on a CUDA tensor, each filter given by its
+    ``(S, SECTION_FLOATS)`` table on x's device (``PreparedFilter.table``, or
+    a slice of a ``chain_table``)."""
+    tables, pads = list(tables), tuple(pads)
     t_len = x.shape[-1]
+    check_chain(len(tables), pads, t_len)
     extended = max(t_len + 2 * p for p in pads)
     if extended > MAX_EXTENDED:
         raise ValueError(f"the chain kernel takes rows of up to {MAX_EXTENDED} samples after "
                          f"the odd extension, got {extended}")
     _lib.require_cuda("x", x, torch.float32)
     _lib.require_no_grad("the IIR kernel", x)
+    for t in tables:
+        _lib.require_cuda("table", t, torch.float32)
+        if t.dim() != 2 or t.shape[1] != SECTION_FLOATS or not 1 <= t.shape[0] <= MAX_SECTIONS \
+                or t.device != x.device:
+            raise ValueError(f"a filter's table is ({MAX_SECTIONS} or fewer, {SECTION_FLOATS}) "
+                             f"on x's device, got {tuple(t.shape)} on {t.device}")
     rows = x.numel() // max(t_len, 1)
     _check_lanes(lanes)
     plans = []  # (table, sections, padlen) per filter; an unused slot repeats the first
-    for f, p in zip(filters + filters[:1], pads + pads[:1]):
-        plans += [f.table(CHUNK_MAX, x.device).data_ptr(), f.n_sections, p]
+    for t, p in zip(tables + tables[:1], pads + pads[:1]):
+        plans += [t.data_ptr(), t.shape[0], p]
     y = torch.empty_like(x)
     lib = _lib.library()
     with torch.cuda.device(x.device):
         code = lib.isd_sosfiltfilt_chain(
-            x.data_ptr(), y.data_ptr(), rows, t_len, len(filters), lanes,
+            x.data_ptr(), y.data_ptr(), rows, t_len, len(tables), lanes,
             *plans[: 3 * MAX_CHAIN], _lib.stream_of(x),
         )
     _lib.check(code, "isd_sosfiltfilt_chain")
-    sosfiltfilt_chain.launches += 1
+    _lib.count(sosfiltfilt_chain)
     return y
 
 
 sosfiltfilt_chain.launches = 0  # kernel launches; the CPU route does not count
+sosfiltfilt_chain.captures = 0  # launches recorded into a CUDA graph (runs nothing)

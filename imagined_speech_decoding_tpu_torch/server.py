@@ -26,6 +26,7 @@ set, RELOAD and SHUTDOWN payloads must start with ``<token>\\n``
 header has arrived, its whole payload must arrive within ``io_timeout``
 seconds. Connections are persistent, one thread each, and the decoder
 calls are serialised by one lock: one decoder on one device.
+``artifact_meta`` reads the served shapes from an exported decoder.
 """
 
 from __future__ import annotations
@@ -297,6 +298,11 @@ class DecoderServer:
         return dict(self._meta)
 
     @property
+    def decoders(self) -> Tuple[Callable, Optional[Callable]]:
+        """The served ``(decode_fn, decode_all_fn)``."""
+        return self._decode, self._decode_all
+
+    @property
     def requests_served(self) -> int:
         return self._served
 
@@ -378,3 +384,19 @@ class DecoderClient:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def artifact_meta(program) -> Dict[str, int]:
+    """``(n_channels, seq_len, n_classes)`` of an exported decode program
+    (``torch.export.ExportedProgram`` of ``(b, C, T) -> (b, K)``, as
+    ``serving.load_decoder_artifact`` gives it in ``decode.program``), read
+    from its input and output specs; the batch dimension may be symbolic."""
+    nodes = {n.name: n for n in program.graph.nodes}
+    sig = program.graph_signature
+    in_shape = nodes[sig.user_inputs[0]].meta["val"].shape
+    out_shape = nodes[sig.user_outputs[0]].meta["val"].shape
+    return {
+        "n_channels": int(in_shape[-2]),
+        "seq_len": int(in_shape[-1]),
+        "n_classes": int(out_shape[-1]),
+    }

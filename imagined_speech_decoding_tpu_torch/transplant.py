@@ -88,15 +88,17 @@ def init_jax_layout_params(cfg: FASTConfig, seed: int, n_models: Optional[int] =
     if n_models is None:
         return _draw_params(cfg, rng)
     trees = [_draw_params(cfg, rng) for _ in range(n_models)]
-    return _stack(trees)
+    return stack_trees(trees)
 
 
-def _stack(trees):
+def stack_trees(trees):
+    """Stack same-structured trees (dicts, lists, array leaves) leaf by leaf
+    on a new leading model axis, as ``jax.vmap(fast_init)`` lays them out."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
     if isinstance(first, list):
-        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+        return [stack_trees([t[i] for t in trees]) for i in range(len(first))]
     return np.stack(trees)
 
 

@@ -45,7 +45,14 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
     sosfiltfilt_chain_plain,
 )
 from imagined_speech_decoding_tpu_torch.ops.filters import butter_sos, notch_ba, sosfiltfilt
-from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
+from imagined_speech_decoding_tpu_torch.serving import (
+    GRAPH_BATCHES,
+    GraphedChain,
+    export_decoder_artifact,
+    load_decoder_artifact,
+    make_fleet_decoder,
+    make_online_decoder,
+)
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout_params,
@@ -132,20 +139,135 @@ def test_iir_kernels_are_deterministic(dev):
         assert torch.equal(a, b)
 
 
+SERVE_CFG = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
+                       num_layers=1, num_heads=4)
+
+
 def test_decode_makes_one_filter_launch(dev):
     """A decode runs its notch and band-pass as one chain launch and never
-    the causal entry."""
-    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, dim_cnn=32, dim_token=16,
-                     num_layers=1, num_heads=4)
-    params = init_jax_layout_params(cfg, 2)
+    the causal entry: the first decode of a shape eagerly (one counted
+    launch), its capture records one (counted as a capture, not a launch),
+    and each later decode replays the graph that holds it."""
+    params = init_jax_layout_params(SERVE_CFG, 2)
     x = np.random.default_rng(4).normal(size=(2, 10, 800)).astype(np.float32)
-    decode = make_online_decoder(FAST(cfg, device=dev), params)
-    before = (sosfiltfilt_chain.launches, sosfilt_time_major.launches)
+    decode = make_online_decoder(FAST(SERVE_CFG, device=dev), params)
+    before = (sosfiltfilt_chain.launches, sosfiltfilt_chain.captures,
+              sosfilt_time_major.launches)
     for _ in range(3):
         post = decode(x)
-    assert (sosfiltfilt_chain.launches, sosfilt_time_major.launches) == (before[0] + 3, before[1])
-    ref = make_online_decoder(FAST(cfg), params)(x)
+    assert (decode.eager, len(decode.graphs), decode.replays) == (1, 1, 2)
+    assert (sosfiltfilt_chain.launches, sosfiltfilt_chain.captures,
+            sosfilt_time_major.launches) == (before[0] + 1, before[1] + 1, before[2])
+    ref = make_online_decoder(FAST(SERVE_CFG), params)(x)
     np.testing.assert_allclose(post, ref, rtol=1e-4, atol=1e-5)
+
+
+def _eager(decode, x, served=None):
+    """The un-captured chain on ``x``, zero-padded to ``served`` trials and
+    cropped back, as a graph of that batch computes it."""
+    xt = torch.zeros((served or len(x), *x.shape[1:]), device=decode.device)
+    xt[:len(x)] = torch.tensor(x)
+    with torch.inference_mode():
+        return decode.fn(xt).narrow(decode.batch_axis, 0, len(x)).cpu().numpy()
+
+
+@pytest.mark.parametrize("fleet", [False, True], ids=["live", "fleet"])
+def test_graph_replay_equals_eager_with_a_graph_per_batch(dev, fleet):
+    """One CUDA graph per captured batch size (B = 3 runs in the graph of
+    4); each replay equals the un-captured chain on the same padded batch
+    bit for bit (B1 and B2f are deterministic) and the chain on the
+    request alone to f32 rounding; its launches run in the replay, not
+    through the wrappers' counts."""
+    if fleet:
+        decode = make_fleet_decoder(FAST(SERVE_CFG, n_models=3, device=dev),
+                                    init_jax_layout_params(SERVE_CFG, 2, 3))
+    else:
+        decode = make_online_decoder(FAST(SERVE_CFG, device=dev),
+                                     init_jax_layout_params(SERVE_CFG, 2))
+    rng = np.random.default_rng(5)
+    for b, served in ((1, 1), (3, 4), (8, 8)):
+        x = rng.normal(size=(b, 10, 800)).astype(np.float32)
+        first = decode(x)
+        before = (sosfiltfilt_chain.launches, fused_conv4_head.launches)
+        replays = [decode(x) for _ in range(3)]
+        assert (sosfiltfilt_chain.launches, fused_conv4_head.launches) == before
+        for post in replays:
+            np.testing.assert_array_equal(post, first)
+            np.testing.assert_array_equal(post, _eager(decode, x, served))
+            np.testing.assert_allclose(post, _eager(decode, x), rtol=1e-5, atol=1e-6)
+    assert sorted(decode.graphs) == [(b, 10, 800) for b in (1, 4, 8)]
+    assert (decode.eager, decode.replays) == (3, 9)
+
+
+def test_graphs_and_memory_stay_bounded_over_batch_sizes(dev):
+    """Every batch size from 1 to 70, then larger ones, against the fleet
+    (its rows and ensemble share one pool): at most one graph per entry of
+    GRAPH_BATCHES each, requests above the largest run in slices of it,
+    and once every graph is captured no request reserves more memory."""
+    decode = make_fleet_decoder(FAST(SERVE_CFG, n_models=3, device=dev),
+                                init_jax_layout_params(SERVE_CFG, 2, 3))
+    x = np.random.default_rng(9).normal(size=(300, 10, 800)).astype(np.float32)
+    for b in range(1, 71):
+        assert decode(x[:b]).shape == (3, b, 5) and decode.ensemble(x[:b]).shape == (b, 5)
+    assert sorted(decode.graphs) == sorted(decode.ensemble.graphs) == \
+        [(n, 10, 800) for n in GRAPH_BATCHES]
+    assert decode.ensemble.pool == decode.pool
+    reserved = torch.cuda.memory_reserved(dev)
+    replays = decode.replays
+    for b in (71, 100, 129, 150, 300, 5, 17):
+        rows = decode(x[:b])
+        np.testing.assert_allclose(decode.ensemble(x[:b]), rows.mean(axis=0), rtol=1e-6,
+                                   atol=1e-7)
+    assert torch.cuda.memory_reserved(dev) == reserved
+    assert decode.replays - replays == sum(-(-b // GRAPH_BATCHES[-1])
+                                           for b in (71, 100, 129, 150, 300, 5, 17))
+    assert len(decode.graphs) == len(GRAPH_BATCHES) and decode.eager == len(GRAPH_BATCHES)
+    np.testing.assert_allclose(rows, _eager(decode, x[:17]), rtol=1e-5, atol=1e-6)
+
+
+def test_swap_weights_is_seen_by_the_replay(dev):
+    p1, p2 = init_jax_layout_params(SERVE_CFG, 2), init_jax_layout_params(SERVE_CFG, 3)
+    x = np.random.default_rng(6).normal(size=(2, 10, 800)).astype(np.float32)
+    decode = make_online_decoder(FAST(SERVE_CFG, device=dev), p1)
+    decode(x)
+    before = decode(x)
+    decode.swap_weights(p2)
+    after = decode(x)
+    assert decode.replays == 2 and not np.allclose(before, after)
+    np.testing.assert_array_equal(after, make_online_decoder(FAST(SERVE_CFG, device=dev), p2)(x))
+
+
+def test_artifact_runs_the_kernels_on_the_card(dev, tmp_path):
+    """The exported chain, loaded onto the card, launches B1 and B2f through
+    its operators, and agrees with the artifact on the CPU (plain versions)."""
+    params = init_jax_layout_params(SERVE_CFG, 2)
+    path = export_decoder_artifact(str(tmp_path / "d.pt2"), FAST(SERVE_CFG), params,
+                                   n_channels=10, seq_len=800)
+    x = np.random.default_rng(7).normal(size=(3, 10, 800)).astype(np.float32)
+    before = (sosfiltfilt_chain.launches, fused_conv4_head.launches)
+    post = load_decoder_artifact(path)(x)
+    assert (sosfiltfilt_chain.launches, fused_conv4_head.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    np.testing.assert_allclose(post, load_decoder_artifact(path, device="cpu")(x),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(post, make_online_decoder(FAST(SERVE_CFG, device=dev),
+                                                            params)(x))
+
+
+def test_fleet_of_15_matches_the_plain_cpu_fleet(dev):
+    """The full-width fleet (M = 15, one B2f launch) against the plain CPU fleet."""
+    cfg = FASTConfig.default()
+    params = init_jax_layout_params(cfg, 8, 15)
+    x = np.random.default_rng(8).normal(size=(2, 64, 800)).astype(np.float32)
+    card = make_fleet_decoder(FAST(cfg, n_models=15, device=dev), params)
+    before = (fused_conv4_head.launches, fused_conv4_head.captures)
+    rows = card(x)  # the eager decode's launch, then the capture's
+    assert (fused_conv4_head.launches, fused_conv4_head.captures) == (before[0] + 1,
+                                                                       before[1] + 1)
+    assert rows.shape == (15, 2, 5)
+    cpu = make_fleet_decoder(FAST(cfg, n_models=15), params)
+    np.testing.assert_allclose(rows, cpu(x), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.ensemble(x), rows.mean(axis=0), rtol=1e-6, atol=1e-7)
 
 
 def test_sosfiltfilt_on_card_matches_scipy(dev):
@@ -839,3 +961,16 @@ def test_kill_and_resume_is_bit_identical_on_the_card(dev, tmp_path, precision):
     for k in ref.history:
         np.testing.assert_array_equal(resumed.history[k], ref.history[k])
     np.testing.assert_array_equal(resumed.best_epoch, ref.best_epoch)
+
+
+def test_failed_capture_raises(dev):
+    """A chain that cannot be captured (here: it waits for the device) raises;
+    the decoder never serves such a shape eagerly instead."""
+    decode = GraphedChain(lambda x: x * float(x.sum()), dev)
+    x = np.ones((1, 4), np.float32)
+    with pytest.raises(RuntimeError):
+        decode(x)
+    assert decode.graphs == {}
+    # the card serves on after the failed capture
+    live = make_online_decoder(FAST(SERVE_CFG, device=dev), init_jax_layout_params(SERVE_CFG, 2))
+    assert [live(np.zeros((1, 10, 800), np.float32)).shape for _ in range(2)] == [(1, 5)] * 2

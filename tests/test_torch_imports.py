@@ -25,6 +25,10 @@ torch.set_num_threads(1)
 import imagined_speech_decoding_tpu_torch
 import imagined_speech_decoding_tpu_torch.serving
 import imagined_speech_decoding_tpu_torch.cli.train_fast
+import imagined_speech_decoding_tpu_torch._native
+import imagined_speech_decoding_tpu_torch.ringbuf
+import imagined_speech_decoding_tpu_torch.ops.cuda.library
+from imagined_speech_decoding_tpu_torch.cli import export_decoder
 import imagined_speech_decoding_tpu_torch.explain.attribution
 from imagined_speech_decoding_tpu_torch.train import artifacts, cv, engine, metrics, schedule
 from imagined_speech_decoding_tpu_torch.data import arrays, synthetic
@@ -40,9 +44,24 @@ with tempfile.TemporaryDirectory() as d:
     save_model_npz(path, init_jax_layout_params(FASTConfig.default(), 0), {"head": {}})
     server = build_server(build_parser().parse_args(["--checkpoint", path, "--port", "0"]),
                           device="cpu")
+    x = np.random.default_rng(0).normal(size=(1, 64, 800)).astype(np.float32)
     with server, DecoderClient(*server.address) as client:
-        post = client.decode(np.random.default_rng(0).normal(size=(1, 64, 800)).astype(np.float32))
+        post = client.decode(x)
+    # the fleet and the exported artifact, from the CPU
+    save_model_npz(os.path.join(d, "FAST", "sub-02", "best_subject.npz"),
+                   init_jax_layout_params(FASTConfig.default(), 1), {"head": {}})
+    server = build_server(build_parser().parse_args(
+        ["--checkpoint-dir", os.path.join(d, "FAST"), "--port", "0"]), device="cpu")
+    with server, DecoderClient(*server.address) as client:
+        rows = client.decode_all(x)
+    art = export_decoder.main(["--checkpoint", path, "--out", os.path.join(d, "decoder.pt2")])
+    server = build_server(build_parser().parse_args(["--artifact", art, "--port", "0"]),
+                          device="cpu")
+    with server, DecoderClient(*server.address) as client:
+        art_post = client.decode(x)
 assert post.shape == (1, 5) and abs(float(post.sum()) - 1.0) < 1e-5, post
+assert rows.shape == (2, 1, 5) and np.allclose(rows[0], post, rtol=1e-4, atol=1e-5), rows
+assert np.array_equal(art_post, post), (art_post, post)
 # the training CLI's default config falls back to built-in defaults without PyYAML
 from imagined_speech_decoding_tpu_torch.cli.train_fast import build_parser as train_parser, resolve_config
 os.chdir(os.path.dirname(os.path.abspath(chip_smoke.__file__)))

@@ -19,7 +19,7 @@ from imagined_speech_decoding_tpu.train import checkpoint as jax_ckpt
 from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_server
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
-from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
+from imagined_speech_decoding_tpu_torch.serving import GRAPH_BATCHES, graph_batch, make_online_decoder
 from imagined_speech_decoding_tpu_torch.train import checkpoint
 from imagined_speech_decoding_tpu_torch.transplant import to_jax_params
 
@@ -90,6 +90,24 @@ class TestOnlineDecoder:
         np.testing.assert_allclose(after, np.asarray(ref), rtol=RTOL, atol=ATOL)
         fresh = make_online_decoder(FAST(FASTConfig(**SMALL)), p2, **CHAIN)(x)
         np.testing.assert_array_equal(after, fresh)
+
+    def test_cpu_decoder_calls_the_chain_directly(self, small):
+        """Graphs are captured on a card only: on the CPU every decode is an
+        eager call of the chain."""
+        _, p1, _, _, x = small
+        dec = make_online_decoder(FAST(FASTConfig(**SMALL)), p1, **CHAIN)
+        first, second = dec(x), dec(x[:2])
+        assert (dec.eager, dec.replays, dec.graphs) == (2, 0, {})
+        np.testing.assert_allclose(first[:2], second, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,served", [(1, 1), (2, 2), (3, 4), (5, 8), (8, 8), (9, 16),
+                                      (31, 32), (33, 64), (64, 64)])
+def test_graph_batch_is_the_smallest_that_holds_the_slice(b, served):
+    """A card's decoder serves a slice of ``b`` trials at one of a fixed
+    set of captured batch sizes, so clients cannot make it capture (and
+    hold memory for) a graph per batch size they send."""
+    assert graph_batch(b) == served and served in GRAPH_BATCHES
 
 
 class TestCheckpoints:
@@ -165,22 +183,10 @@ class TestServeCLI:
         np.testing.assert_allclose(second, jsecond, rtol=RTOL, atol=ATOL)
         assert not np.allclose(first, second)
 
-    @pytest.mark.parametrize("flag,value", [
-        ("--artifact", "decoder.stablehlo"), ("--checkpoint-dir", "results/FAST")])
-    def test_unported_sources_raise(self, flag, value):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_server(build_parser().parse_args([flag, value]))
-
     def test_no_cpu_fallback_without_a_card(self, tmp_path, monkeypatch):
         """The server runs on CUDA unless told otherwise: with no card it
         raises instead of serving from the CPU."""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         args = build_parser().parse_args(["--checkpoint", str(tmp_path / "w.npz"), "--port", "0"])
         with pytest.raises(RuntimeError, match="is_available"):
-            build_server(args)
-
-    def test_yaml_config_not_ported(self, tmp_path):
-        args = build_parser().parse_args(
-            ["--checkpoint", str(tmp_path / "w.npz"), "--config", "configs/default.yaml"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_server(args)
