@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving (live, fleet, artifact,
-streaming), training, attribution and real-data paths on one NVIDIA GPU.
+streaming), training, attribution, real-data and campaign (sweep, LOSO,
+ensemble, zero-shot, native cache) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -103,7 +104,8 @@ streaming), training, attribution and real-data paths on one NVIDIA GPU.
    Every path at the shipped geometry (serving, training in each
    precision, the bf16 trajectory, attribution) must launch the head's
    kernels on its operands as they are (``adapted`` 0).
-   Then one step at M = 75, B = 64 in each precision under the profiler
+   Then one step at M = 75, B = 64 in each precision under the profiler,
+   in a child process of its own (``--step-profile-child``)
    (the bf16 one must run B2f-bf16 and B2w-bf16 and no f32 head kernel),
    and a 2-subject x 10-trial run on the card against the same run on the
    CPU (plain path), in each precision.
@@ -133,6 +135,31 @@ streaming), training, attribution and real-data paths on one NVIDIA GPU.
    launch and nothing be adapted; then ``cli.benchmark`` over the result
    tree, whose ``Acc_Mean`` must be the subjects' mean test accuracy.
 
+8. Campaign programs, at full width on the training path's 15 x 350
+   corpus (synthetic, cli.train_fast's): the head kernels at their new
+   shapes against their plain versions (B2f-bf16 / B2w-bf16 at LOSO's
+   M = 15, B = 64 and 58, B2f-bf16 also at 62 and 56; f32 B2f at
+   zero-shot's M = 15, B = 50); ``cv_sweep`` on one subject with the
+   CLI's default 5 lr x 3 wd grid x 5 folds (75 models, bf16, 2 epochs),
+   B2f-bf16 and B2w-bf16 launched exactly as its batches count them; a
+   grid of one (lr, wd) twice, whose rows must be equal bit for bit; an
+   f32 2-config sweep against plain fits at the rebuilt learning rates and
+   weight decays (history rtol 1e-4 / atol 1e-5, parameters within twice
+   the summed lr); ``pretrain_loso`` over the 15 subjects (bf16, 2
+   epochs; its launches counted exactly at B = 64 / 58 / 62 / 56; every
+   row leaves its subject out; a second call launches nothing and returns
+   the saved rows bit for bit; a CV warm start begins at them exactly);
+   ``cli.train_fast --ensemble 2`` in a child process (member 0 equals
+   the bf16 training run bit for bit; every subject's decision is the
+   argmax of the members' mean posterior from their best checkpoints);
+   the zero-shot matrix over the real-data run's 15 checkpoints on the
+   fixture's test split (f32, one B2f launch a target; two targets'
+   columns against the plain CPU forward, where a flipped prediction
+   must sit inside B2f's tolerance); the corpus through the native cache
+   (bit for bit, the read's GB/s); and one bf16 step of the sweep (M =
+   75, ``RowAdamW``) and of LOSO (M = 15) beside the CV step, by device
+   time and CUDA-event span.
+
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script exits non-zero. Without a CUDA device it exits non-zero at once.
@@ -156,7 +183,7 @@ import numpy as np
 import torch
 from scipy.signal import tf2sos
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from imagined_speech_decoding_tpu_torch.cli import export_decoder, train_fast
 from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_server
@@ -202,10 +229,20 @@ from imagined_speech_decoding_tpu_torch.serving import (
     make_online_decoder,
     stack_checkpoints,
 )
-from imagined_speech_decoding_tpu_torch.train import engine
+from imagined_speech_decoding_tpu_torch.train import checkpoint, engine
 from imagined_speech_decoding_tpu_torch.train.artifacts import load_predictions_csv
 from imagined_speech_decoding_tpu_torch.train.checkpoint import load_model_npz, save_model_npz
-from imagined_speech_decoding_tpu_torch.train.cv import build_cv_index_stack, stacked_init
+from imagined_speech_decoding_tpu_torch.train.cv import (
+    build_cv_index_stack,
+    stacked_init,
+    train_per_subject_cv,
+)
+from imagined_speech_decoding_tpu_torch.train.loso import (
+    build_loso_index_stack,
+    pretrain_loso,
+    stack_pretrained_for_cv,
+)
+from imagined_speech_decoding_tpu_torch.train.sweep import cv_sweep, hyper_grid
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout_params,
@@ -356,6 +393,15 @@ def profiled(fn, cpu: bool = False, need=()):
             return events
     raise RuntimeError(f"the profiler recorded no device time, or none of {list(need)}, "
                        "in three sessions")
+
+
+def device_records(events):
+    """The device's kernel and copy records among ``key_averages()``'s
+    events. A ``record_function`` range (``Optimizer.step#AdamW.step``, the
+    schedule's ``ProfilerStep#N``) also comes back as a device-side user
+    annotation spanning its kernels, which a sum of device time would count
+    twice; it is left out."""
+    return [e for e in events if e.device_type != DeviceType.CPU and not e.is_user_annotation]
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
@@ -596,14 +642,27 @@ def profile_decode(fn, what: str, calls: int = 5) -> dict:
     time (kernels and copies) and device events a decode, the host's
     ``cudaLaunchKernel`` (+ ``cudaLaunchKernelExC``) and ``cudaGraphLaunch``
     calls a decode; the device's records must hold one B1 and one B2f
-    kernel a decode. A session that lost a record of them (``profiled``:
-    seen once on a replayed decode, 4 B1 records of 5 with every replay
-    bit-identical) is profiled again, up to three times. Then the decode's
-    CUDA-event span (``event_span_ms``) and the device's idle share of it,
-    1 - busy / span."""
+    kernel a decode. Each session first runs one decode in a warm-up cycle
+    whose records it drops: late in a run the profiler has lost one B1
+    record of 5 replayed decodes (4 of 5 with every replay bit-identical;
+    on an H100, three sessions in a row), while a session in a fresh
+    process recorded all. A session that lost a record all the same is
+    profiled again, up to three times. Then the decode's CUDA-event span
+    (``event_span_ms``) and the device's idle share of it, 1 - busy / span."""
     for _ in range(3):
-        events = profiled(lambda: [fn() for _ in range(calls)], cpu=True, need=DECODE_KERNELS)
-        device = [e for e in events if e.device_type != DeviceType.CPU]
+        got = {}
+        with profile(activities=[ProfilerActivity.CUDA, ProfilerActivity.CPU],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.update(events=p.key_averages())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = got["events"]
+        device = device_records(events)
         seen = {k: sum(e.count for e in device if k in e.key) / calls for k in DECODE_KERNELS}
         if all(n == 1 for n in seen.values()):
             break
@@ -1429,26 +1488,35 @@ def phase_training(cfg, dev, workdir, precision: str):
     return launches, t, (ckpt, subject)
 
 
-def phase_train_step_profile(cfg, dev, dtype):
-    """One training step of the 75-model stack at batch 64 on a ``dtype``
-    batch: CUDA-event span, profiler device time by kernel, device idle
-    share. A bf16 step must run B2f-bf16 and B2w-bf16 and no f32 head
-    kernel."""
-    m = TRAIN_SUBJECTS * 5
+def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False):
+    """One training step of an M-model stack (the CV run's 75 by default) at
+    batch 64 on a ``dtype`` batch: CUDA-event span, profiler device time by
+    kernel, device idle share. ``sweep``: the sweep's step, ``RowAdamW``
+    at a learning rate and weight decay per row (the default grid's). A bf16
+    step must run B2f-bf16 and B2w-bf16 and no f32 head kernel."""
     model = FAST(cfg, n_models=m, device=dev)
     model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
     model.train()
-    opt = engine.make_optimizer(model.parameters())
+    lr = 1e-4
+    if sweep:
+        hyper, _ = hyper_grid(SWEEP_LR, SWEEP_WD)
+        rows = lambda v: torch.as_tensor(np.repeat(v, m // len(v)), device=dev)  # noqa: E731
+        opt = engine.RowAdamW(model.parameters(), torch.zeros(m, device=dev),
+                              0.01 * rows(hyper["wd_scale"]))
+        lr = 1e-4 * rows(hyper["lr_scale"])
+    else:
+        opt = engine.make_optimizer(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev).to(dtype)
     y = torch.randint(0, cfg.n_classes, (m, TRAIN_BATCH), generator=gen, device=dev)
 
     def step():
-        engine.train_step(model, opt, x, y, 1e-4, cfg.n_classes, gen)
+        engine.train_step(model, opt, x, y, lr, cfg.n_classes, gen)
 
     step()
     span = cuda_ms(step, 3, warmup=0)
-    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    name = ("bf16" if dtype == torch.bfloat16 else "f32")
+    what = f"{'sweep' if sweep else 'train'} step {name}"
     other = "f32" if name == "bf16" else "bf16"
     # Which head kernels ran is read from the launch counters; the profiler
     # is asked only for their times, and profiles again where it lost one.
@@ -1461,11 +1529,11 @@ def phase_train_step_profile(cfg, dev, dtype):
             or any(launches[k] for k in HEAD_KERNELS[other]) or launches["conv4head_bwd_x"]):
         raise RuntimeError(f"the {name} training step must launch {HEAD_KERNELS[name]} and no "
                            f"other head kernel: {launches}")
-    require_unadapted(launches, f"{name} training step")
+    require_unadapted(launches, f"{what}")
     by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                        for e in events if e.device_type != DeviceType.CPU), reverse=True)
+                        for e in device_records(events)), reverse=True)
     busy = sum(ms for ms, _, _ in by_device)
-    print(f"train step {name} M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler "
+    print(f"{what} M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler "
           f"device time {busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies "
           f"(device idle {max(0.0, 1 - busy / span):.1%} of the span)", flush=True)
     for ms, calls, key in by_device[:10]:
@@ -1474,6 +1542,50 @@ def phase_train_step_profile(cfg, dev, dtype):
     if any(re.search(k, key) for k in kernels[other] for _, _, key in by_device):
         raise RuntimeError(f"the {name} training step's profile holds a {other} head kernel")
     return {"step_ms": span, "busy_ms": busy}
+
+
+STEP_PROFILE_FLAG = "--step-profile-child"  # chip_smoke.py runs itself with it: the step profiles
+
+
+def step_profile_child(out: str) -> None:
+    """The training steps' profiles in a process of their own: f32 and bf16
+    CV steps (M = 75), the sweep's (M = 75, ``RowAdamW``) and LOSO's (M = 15),
+    at B = 64. The profiler has lost whole sessions' records late in a long
+    run (on an H100: three sessions in a row after the campaign phases),
+    and a fresh process recorded them all. Writes the rows to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg, dev = FASTConfig.default(), torch.device("cuda")
+    rows = {"f32": phase_train_step_profile(cfg, dev, torch.float32),
+            "cv": phase_train_step_profile(cfg, dev, torch.bfloat16),
+            "sweep": phase_train_step_profile(cfg, dev, torch.bfloat16, sweep=True),
+            "loso": phase_train_step_profile(cfg, dev, torch.bfloat16, m=FLEET_MODELS)}
+    with open(out, "w") as f:
+        json.dump(rows, f)
+
+
+def phase_step_profiles() -> dict:
+    """``step_profile_child`` in a child process; its output is printed
+    here. The bf16 sweep and LOSO steps beside the CV step."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        out, log = os.path.join(workdir, "steps.json"), os.path.join(workdir, "steps.log")
+        try:
+            _run_child([sys.executable, os.path.abspath(__file__), STEP_PROFILE_FLAG, out], log)
+        finally:
+            with open(log) as f:
+                print(f.read(), end="", flush=True)
+        with open(out) as f:
+            rows = json.load(f)
+    cv, sweep, loso = rows["cv"], rows["sweep"], rows["loso"]
+    print(f"steps bf16 at B={TRAIN_BATCH}, device time / CUDA-event span: CV M=75 "
+          f"{cv['busy_ms']:.2f} / {cv['step_ms']:.2f} ms, sweep M=75 "
+          f"{sweep['busy_ms']:.2f} / {sweep['step_ms']:.2f} ms "
+          f"({sweep['busy_ms'] / cv['busy_ms'] - 1:+.1%} device), LOSO M=15 "
+          f"{loso['busy_ms']:.2f} / {loso['step_ms']:.2f} ms "
+          f"({loso['busy_ms'] / cv['busy_ms']:.1%} of the CV step's device time)", flush=True)
+    return rows
 
 
 def phase_trajectory(cfg, dev):
@@ -1659,8 +1771,8 @@ def phase_explain(cfg, dev, ckpt, subject):
     attr = eg()
     torch.cuda.synchronize()
     eg_s = time.perf_counter() - t0
-    by_device = [(e.self_device_time_total / 1e3, e.key) for e in profiled(eg, cpu=True)
-                 if e.device_type != DeviceType.CPU]
+    by_device = [(e.self_device_time_total / 1e3, e.key)
+                 for e in device_records(profiled(eg, cpu=True))]
     busy = sum(ms for ms, _ in by_device)
     b2x = sum(ms for ms, key in by_device if re.search(B2X_KERNELS, key))
     b2f = sum(ms for ms, key in by_device if "conv4head_fwd_kernel" in key)
@@ -1701,6 +1813,399 @@ def phase_explain(cfg, dev, ckpt, subject):
         raise RuntimeError(f"the attribution path must launch B2x {want} times and B2w never")
     require_unadapted(launches, "attribution")
     return launches
+
+
+SWEEP_LR, SWEEP_WD = (0.25, 0.5, 1.0, 2.0, 4.0), (0.0, 1.0, 10.0)  # cli/sweep.py's default grid
+SWEEP_F32_LR, SWEEP_F32_WD = (0.5, 2.0), (10.0,)  # the f32 sweep held against plain fits
+CAMPAIGN_EPOCHS = 2
+LOSO_TRAIN, LOSO_VAL = 4410, 490  # 15 x 350 trials: the 14 others' 4,900, 10% held out
+LOSO_BATCHES = (TRAIN_BATCH, LOSO_TRAIN % TRAIN_BATCH,
+                engine.eval_batch_size_for(LOSO_VAL, TRAIN_BATCH),
+                LOSO_VAL % engine.eval_batch_size_for(LOSO_VAL, TRAIN_BATCH))  # 64, 58, 62, 56
+ZS_BATCH = 50  # the real-data fixture's test trials a subject: one chunk a target
+ZS_CPU_TARGETS = (0, FLEET_MODELS - 1)  # the targets whose columns the CPU recomputes
+CAMPAIGN_MODELS = (0, FLEET_MODELS // 2, FLEET_MODELS - 1)  # held against the plain versions
+
+
+def campaign_launches(key: str, training: dict, sweep: dict, loso: dict, ensemble: dict) -> dict:
+    """A bf16 head kernel's launches on the training, sweep, LOSO and
+    ensemble paths, each counted from 0 over its own run, and their sum."""
+    parts = {"training": training[key], "sweep": sweep["launches"][key],
+             "loso": loso["launches"][key], "ensemble": ensemble["launches"][key]}
+    return {"launches": sum(parts.values()), **{f"launches_{k}": v for k, v in parts.items()}}
+
+
+def expected_head_launches(epochs: int, n_train: int, n_val: int, batch: int):
+    """(B2f, B2w) launches of a fit with validation every epoch: a forward a
+    training step and a validation batch, a weight gradient a step."""
+    steps = -(-n_train // batch)
+    evals = -(-n_val // engine.eval_batch_size_for(n_val, batch))
+    return epochs * (steps + evals), epochs * steps
+
+
+def require_bf16_launches(launches: dict, want, path: str) -> None:
+    """A bf16 path's head launches: exactly ``want`` = (B2f-bf16, B2w-bf16),
+    no f32 head kernel, no B2x, nothing adapted."""
+    got = (launches["conv4head_fwd_bf16"], launches["conv4head_bwd_w_bf16"])
+    if got != tuple(want) or launches["conv4head_fwd"] or launches["conv4head_bwd_w"] \
+            or launches["conv4head_bwd_x"]:
+        raise RuntimeError(f"the {path} path's head launches {launches}, expected (B2f-bf16, "
+                           f"B2w-bf16) = {tuple(want)} and no other head kernel")
+    require_unadapted(launches, path)
+
+
+def phase_campaign_kernels(cfg, dev, rng):
+    """The head kernels at the campaign programs' new shapes, against their
+    plain versions on models 0, 7 and 14, timed by CUDA events beside their
+    bounds: B2f-bf16 and B2w-bf16 at LOSO's M = 15, B = 64 and its 58-trial
+    tail, B2f-bf16 also at its validation batches 62 and 56; f32 B2f at
+    zero-shot's M = 15, B = 50 on one chunk broadcast to every model."""
+    geo = (cfg.window_len, cfg.slide_step)
+    feat = cfg.n_zones * cfg.dim_cnn
+    m = FLEET_MODELS
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED + 2, m)))
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+    rows = {}
+    for b in LOSO_BATCHES:
+        x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32),
+                         device=dev).to(torch.bfloat16)
+        g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, feat)).astype(np.float32),
+                         device=dev)
+        train_batch = b in LOSO_BATCHES[:2]
+        if train_batch:
+            errs = compare_bf16(ops, x, g, geo, CAMPAIGN_MODELS, f"LOSO M={m} B={b}")
+        else:
+            with torch.no_grad():
+                out = fused_conv4_head(x, *ops, *geo)
+            errs = {"out": max(check_rel(f"B2f-bf16 LOSO M={m} B={b} model {i}", out[i : i + 1],
+                                         fused_conv4_head_plain(x[i : i + 1],
+                                                                *[t[i : i + 1] for t in ops],
+                                                                *geo), BF16_FWD_REL)
+                               for i in CAMPAIGN_MODELS)}
+        r = rows[f"bf16_m{m}_b{b}"] = {
+            "fwd_err": errs["out"], "fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 10),
+            "fwd_plain_ms": cuda_ms(lambda: fused_conv4_head_plain(x, *ops, *geo), 1),
+            "fwd_bound": head_bound_bf16(HEAD_FMA_FWD, m, b, m * b * 5 * 256, reads_g=False)}
+        if train_batch:
+            r.update({"w_err": max(errs[k] for k in ("dw12", "db12", "dw3", "dw4")),
+                      "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 10),
+                      "w_plain_ms": cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 1),
+                      "w_bound": head_bound_bf16(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS)})
+        for k, name in (("fwd", "B2f-bf16 forward"), ("w", "B2w-bf16 weight grads")):
+            if f"{k}_ms" in r:
+                bound, by = r[f"{k}_bound"]
+                print(f"{name} LOSO M={m} B={b:<3}: kernel {r[f'{k}_ms']:.4f} ms, plain bf16 "
+                      f"{r[f'{k}_plain_ms']:.3f} ms, max|err| {r[f'{k}_err']:.3g} (models "
+                      f"{CAMPAIGN_MODELS}), bound {bound:.4f} ms ({by}, "
+                      f"{bound / r[f'{k}_ms']:.1%} reached)", flush=True)
+    with torch.inference_mode():
+        xb = torch.tensor(rng.normal(size=(ZS_BATCH, 64, 800)).astype(np.float32), device=dev)
+        x = xb.expand(m, *xb.shape).contiguous()  # the head's operand (heads.py materialises it)
+        out = fused_conv4_head(x, *ops, *geo)
+        err = max(check_close(f"B2f zero-shot M={m} B={ZS_BATCH} model {i}", out[i : i + 1],
+                              fused_conv4_head_plain(xb[None], *[t[i : i + 1] for t in ops], *geo),
+                              HEAD_RTOL, HEAD_ATOL) for i in CAMPAIGN_MODELS)
+        bound, by = head_bound(HEAD_FMA_FWD, m, ZS_BATCH, m * ZS_BATCH * 5 * 256, reads_g=False)
+        r = rows[f"f32_m{m}_b{ZS_BATCH}"] = {
+            "fwd_err": err, "fwd_bound": (bound, by),
+            "fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 10),
+            "fwd_plain_ms": cuda_ms(lambda: fused_conv4_head_plain(x, *ops, *geo), 1)}
+    print(f"B2f (f32) zero-shot M={m} B={ZS_BATCH}: kernel {r['fwd_ms']:.4f} ms, plain "
+          f"{r['fwd_plain_ms']:.3f} ms, max|err| {err:.3g} (models {CAMPAIGN_MODELS}), bound "
+          f"{bound:.4f} ms ({by}, {bound / r['fwd_ms']:.1%} reached)", flush=True)
+    return rows
+
+
+def _hold_rows_to_plain_fits(cfg, dev, report, x, y):
+    """The f32 sweep's rows against plain fits rebuilt at each config's
+    learning rate and weight decay, on the same folds, initial weights and
+    draws: history at the f32 trajectory phase's rtol / atol, parameters
+    within twice the summed learning rate. Returns the largest parameter
+    difference and its budget."""
+    tr, va, _ = build_cv_index_stack(1, TRAIN_TRIALS, 5, 42)
+    worst, budget = 0.0, 0.0
+    for h, (c, w) in enumerate(report.meta):
+        model = FAST(cfg, n_models=5, device=dev)
+        model.load_state_dict(from_jax_params(stacked_init(cfg, 42, 5)))
+        fit = engine.make_fit(model, cfg.n_classes, epochs=CAMPAIGN_EPOCHS,
+                              batch_size=TRAIN_BATCH, n_train=tr.shape[1], n_val=va.shape[1],
+                              learning_rate=5e-4 * c, weight_decay=0.01 * w)
+        ref = fit(tr, va, x, y, seed=43)
+        rows = slice(5 * h, 5 * h + 5)
+        for k in engine.HISTORY_KEYS:
+            np.testing.assert_allclose(report.fit.history[k][rows], ref.history[k],
+                                       rtol=TRAJ_RTOL, atol=TRAJ_ATOL,
+                                       err_msg=f"sweep row {h} (lr x{c}, wd x{w}) {k}")
+        budget = max(budget, 2 * float(np.sum(fit.lr_table)))
+        for which in ("params", "best_params"):
+            for k, v in getattr(report.fit, which).items():
+                d = float((v[rows] - getattr(ref, which)[k]).abs().max())
+                worst = max(worst, d)
+                if d > 2 * float(np.sum(fit.lr_table)):
+                    raise RuntimeError(f"sweep row {h} {which} {k}: {d:.3g} from the plain fit, "
+                                       "over twice the summed lr")
+    return worst, budget
+
+
+def phase_sweep(cfg, dev, x, y):
+    """``train.sweep.cv_sweep`` on one synthetic subject's 350 trials: the
+    CLI's default 5 lr x 3 wd grid x 5 folds = 75 models, bf16, 2 epochs,
+    with B2f-bf16 and B2w-bf16 launched exactly as its batches count them
+    and nothing adapted; a 2-config grid of one (lr, wd) twice, whose rows
+    must be equal bit for bit; an f32 2-config sweep held against plain fits
+    at the rebuilt learning rates and weight decays."""
+    kw = dict(n_trials=TRAIN_TRIALS, n_folds=5, epochs=CAMPAIGN_EPOCHS, batch_size=TRAIN_BATCH,
+              seed=42, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = cv_sweep(cfg, cfg.n_classes, x, y, lr_scales=SWEEP_LR, wd_scales=SWEEP_WD,
+                      data_dtype=torch.bfloat16, **kw)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_train, n_val = TRAIN_TRIALS * 4 // 5, TRAIN_TRIALS // 5
+    want = expected_head_launches(CAMPAIGN_EPOCHS, n_train, n_val, TRAIN_BATCH)
+    require_bf16_launches(launches, want, "sweep")
+    h = len(SWEEP_LR) * len(SWEEP_WD)
+    for k, v in report.history.items():
+        if v.shape != (h, 5, CAMPAIGN_EPOCHS) or not np.isfinite(v).all():
+            raise RuntimeError(f"sweep history {k}: shape {v.shape}, finite {np.isfinite(v).all()}")
+    b = report.best
+    print(f"sweep: {len(SWEEP_LR)} lr x {len(SWEEP_WD)} wd x 5 folds = {h * 5} models, bf16, "
+          f"{CAMPAIGN_EPOCHS} epochs in {wall:.2f} s (host clock); launches B2f-bf16 "
+          f"{want[0]}, B2w-bf16 {want[1]} as counted, adapted 0; best lr {b['learning_rate']:g} "
+          f"wd {b['weight_decay']:g}, mean val_acc {b['mean_val_acc']:.4f}", flush=True)
+
+    dup = cv_sweep(cfg, cfg.n_classes, x, y, lr_scales=(1.0, 1.0), wd_scales=(1.0,),
+                   data_dtype=torch.bfloat16, **kw)
+    for which in ("params", "best_params"):
+        for k, v in getattr(dup.fit, which).items():
+            if not torch.equal(v[:5], v[5:]):
+                raise RuntimeError(f"sweep: two configs of one (lr, wd) differ in {which} {k}")
+    for k, v in dup.history.items():
+        if not np.array_equal(v[0], v[1], equal_nan=True):
+            raise RuntimeError(f"sweep: two configs of one (lr, wd) differ in history {k}")
+    print("sweep: two grid rows of one (lr, wd), 5 folds each, bf16 with dropout, trained bit "
+          "for bit alike (parameters, best snapshots, history)", flush=True)
+
+    xf = torch.as_tensor(x, device=dev)
+    yf = torch.as_tensor(y.astype(np.int64), device=dev)
+    f32 = cv_sweep(cfg, cfg.n_classes, xf, yf, lr_scales=SWEEP_F32_LR, wd_scales=SWEEP_F32_WD, **kw)
+    worst, budget = _hold_rows_to_plain_fits(cfg, dev, f32, xf, yf)
+    print(f"sweep f32: {len(f32.meta)} configs x 5 folds against plain fits at lr / wd "
+          f"{[(5e-4 * c, 0.01 * w) for c, w in f32.meta]}: history within rtol {TRAJ_RTOL}, atol "
+          f"{TRAJ_ATOL}; parameters max|sweep - plain| {worst:.3g} <= twice the summed lr "
+          f"{budget:.3g}", flush=True)
+    return {"launches": launches, "wall_s": wall, "best": b}
+
+
+def phase_loso(cfg, dev, X, Y, workdir):
+    """``train.loso.pretrain_loso`` over 15 synthetic subjects x 350 trials,
+    bf16, 2 epochs: B2f-bf16 and B2w-bf16 launched exactly as LOSO's batches
+    (64 x 68 + 58 a training epoch, 62 x 7 + 56 a validation pass) count
+    them, nothing adapted; every row's indices leave its subject out; a
+    second call launches nothing and returns the saved rows bit for bit; a
+    CV run warm-started from ``stack_pretrained_for_cv`` begins at them
+    exactly (a 0-learning-rate epoch ends where it began)."""
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    save = os.path.join(workdir, "loso")
+    kw = dict(epochs=CAMPAIGN_EPOCHS, batch_size=TRAIN_BATCH, data_dtype=torch.bfloat16,
+              device=dev, verbose=False, checkpoint_dir=os.path.join(save, "checkpoints"))
+    reset_launches()
+    t0 = time.perf_counter()
+    pre, res = pretrain_loso(cfg, X, Y, subjects, cfg.n_classes, save, return_result=True, **kw)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = expected_head_launches(CAMPAIGN_EPOCHS, LOSO_TRAIN, LOSO_VAL, TRAIN_BATCH)
+    require_bf16_launches(launches, want, "LOSO")
+    tr, va = build_loso_index_stack(Y, seed=42)
+    n = TRAIN_TRIALS
+    if tr.shape != (TRAIN_SUBJECTS, LOSO_TRAIN) or va.shape != (TRAIN_SUBJECTS, LOSO_VAL) or any(
+            ((np.r_[tr[s], va[s]] >= s * n) & (np.r_[tr[s], va[s]] < (s + 1) * n)).any()
+            for s in range(TRAIN_SUBJECTS)):
+        raise RuntimeError("LOSO: a row's indices include its own subject, or sizes differ")
+    for k, v in res.history.items():
+        if v.shape != (TRAIN_SUBJECTS, CAMPAIGN_EPOCHS) or not np.isfinite(v).all():
+            raise RuntimeError(f"LOSO history {k}: shape {v.shape}")
+    print(f"LOSO: {TRAIN_SUBJECTS} exclusions x ({LOSO_TRAIN} + {LOSO_VAL}) trials, bf16, "
+          f"{CAMPAIGN_EPOCHS} epochs in {wall:.2f} s (host clock); launches B2f-bf16 {want[0]}, "
+          f"B2w-bf16 {want[1]} as counted at B = {LOSO_BATCHES}, adapted 0; every row leaves its "
+          f"subject out; mean best val_acc {res.best_val_acc.mean():.4f}", flush=True)
+
+    reset_launches()
+    again = pretrain_loso(cfg, X, Y, subjects, cfg.n_classes, save, **kw)
+    quiet = read_launches()
+    if any(quiet[k] for k in ("conv4head_fwd", "conv4head_fwd_bf16", "conv4head_bwd_w",
+                              "conv4head_bwd_w_bf16", "conv4head_bwd_x")):
+        raise RuntimeError(f"LOSO's second call launched {quiet}")
+    for a, b in zip(pre, again):
+        fa, fb = checkpoint._flatten(a), checkpoint._flatten(b)
+        if fa.keys() != fb.keys() or any(not np.array_equal(fa[k], fb[k]) for k in fa):
+            raise RuntimeError("LOSO's second call returned other rows than the saved ones")
+
+    tc = TrainConfig(max_epochs=1, learning_rate=0.0, batch_size=TRAIN_BATCH)
+    warm = stack_pretrained_for_cv(pre, tc.n_folds)
+    cv_res = train_per_subject_cv(cfg, tc, X, Y, subjects, cfg.n_classes, warm_start=warm,
+                                  device=dev, verbose=False)
+    got = checkpoint._flatten(to_jax_params(cv_res.fit.params))
+    for k, v in checkpoint._flatten(warm).items():
+        if not np.array_equal(got[k], v):
+            raise RuntimeError(f"the CV warm start does not begin at the LOSO rows: {k}")
+    print("LOSO: a second call launched nothing and returned the saved rows bit for bit; a CV "
+          f"run of {TRAIN_SUBJECTS * tc.n_folds} models warm-started from "
+          "stack_pretrained_for_cv begins at them exactly", flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
+def phase_ensemble(cfg, dev, workdir, X):
+    """``cli.train_fast --synthetic 15 --ensemble 2`` at 2 epochs in a child
+    process: its member-0 tree equals the bf16 training phase's run (the
+    same flags) bit for bit; the root decision of every subject equals the
+    argmax of the mean of the members' posteriors, recomputed from their
+    best checkpoints on the card and voted on the host, and, on the last
+    subject's first 16 test trials, on the CPU (a disagreement only where
+    the mean posterior's top two are within 1e-2)."""
+    out = os.path.join(workdir, "ensemble")
+    cmd = [sys.executable, os.path.abspath(__file__), CHILD_FLAG, "", "--synthetic",
+           str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS), "--epochs",
+           str(TRAIN_EPOCHS), "--ensemble", "2", "--output_dir", out]
+    wall = _run_child(cmd, os.path.join(workdir, "ensemble.log"))
+    with open(os.path.join(out, "child.json")) as f:
+        child = json.load(f)
+    launches = child["launches"]
+    if any(launches[k] < 1 for k in HEAD_KERNELS["bf16"]) or \
+            any(launches[k] for k in HEAD_KERNELS["f32"]) or launches["conv4head_bwd_x"]:
+        raise RuntimeError(f"the ensemble run's head launches: {launches}")
+    require_unadapted(launches, "ensemble training")
+    plain = os.path.join(workdir, "train_bf16")
+    for rel in ("summary_per_subject.csv", "global_test_predictions.csv"):
+        with open(os.path.join(out, "member-0", rel), "rb") as f, \
+                open(os.path.join(plain, rel), "rb") as g:
+            if f.read() != g.read():
+                raise RuntimeError(f"the ensemble's member-0/{rel} differs from a plain run's")
+    template = init_jax_layout_params(cfg, SEED)
+    single, cpu = FAST(cfg, device=dev), FAST(cfg)
+    n_test = TRAIN_TRIALS // 3
+    for si in range(TRAIN_SUBJECTS):
+        sid = f"{si + 1:02d}"
+        x = torch.as_tensor(X[si, :n_test], dtype=torch.bfloat16)
+        trees = [load_model_npz(os.path.join(out, f"member-{e}", f"sub-{sid}", "best_subject.npz"),
+                                template, {"head": {}})[0] for e in range(2)]
+        probs = []
+        for tree in trees:
+            single.load_state_dict(from_jax_params(tree))
+            probs.append(engine.predict_proba(single, x.to(dev), TRAIN_BATCH))
+        mean = np.mean(np.stack(probs), axis=0)
+        pred, _ = load_predictions_csv(os.path.join(out, f"sub-{sid}", "test_predictions.csv"))
+        if not np.array_equal(pred, mean.argmax(-1)):
+            raise RuntimeError(f"the ensemble's sub-{sid} decision is not the argmax of the "
+                               "members' mean posterior")
+    cpu_probs = []
+    for tree in trees:  # the last subject's, on the CPU
+        cpu.load_state_dict(from_jax_params(tree))
+        cpu_probs.append(engine.predict_proba(cpu, x[:16], 16))
+    cpu_mean = np.mean(np.stack(cpu_probs), axis=0)
+    top2 = np.sort(cpu_mean, axis=-1)[:, -2:]
+    flips = np.flatnonzero(cpu_mean.argmax(-1) != pred[:16])
+    if (top2[flips, 1] - top2[flips, 0] > 1e-2).any():
+        raise RuntimeError(f"the CPU's vote differs from the card's on trials {flips.tolist()} "
+                           "beyond a near-tie")
+    print(f"ensemble: cli.train_fast --synthetic {TRAIN_SUBJECTS} --ensemble 2 in a child process "
+          f"({wall:.2f} s wall); member-0's summary_per_subject.csv and "
+          "global_test_predictions.csv equal the plain bf16 run's bit for bit; every subject's "
+          "decision is the argmax of the members' mean posterior from their best checkpoints; "
+          f"on the CPU, sub-{sid}'s first 16 trials vote alike but for {len(flips)} near-ties "
+          f"(max |CPU - card| posterior {np.abs(cpu_mean - mean[:16]).max():.3g}); launches "
+          f"{launches}", flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
+def phase_zero_shot(cfg, dev, results_dir, tests):
+    """``cli.zero_shot.transfer_matrix`` in f32 over the real-data run's 15
+    ``best_subject.npz`` on the fixture's test split (15 x 50 trials): one
+    f32 B2f launch a target at M = 15, B = 50, nothing adapted; the columns
+    of ``ZS_CPU_TARGETS`` recomputed by the plain CPU forward, where a trial
+    whose prediction differs must have a top-2 logit margin inside B2f's
+    tolerance."""
+    from imagined_speech_decoding_tpu_torch.cli.zero_shot import transfer_matrix
+
+    paths = [os.path.join(results_dir, f"sub-{i + 1:02d}", "best_subject.npz")
+             for i in range(FLEET_MODELS)]
+    stacked = stack_checkpoints(paths, FAST(cfg))
+    model = FAST(cfg, n_models=FLEET_MODELS, device=dev)
+    model.load_state_dict(from_jax_params(stacked))
+    reset_launches()
+    t0 = time.perf_counter()
+    matrix = transfer_matrix(model, tests)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["conv4head_fwd"] != len(tests) or launches["conv4head_fwd_bf16"]:
+        raise RuntimeError(f"zero-shot made {launches} head launches, one f32 B2f a target expected")
+    require_unadapted(launches, "zero-shot")
+    cpu = FAST(cfg, n_models=FLEET_MODELS).eval()
+    cpu.load_state_dict(from_jax_params(stacked))
+    flips = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in ZS_CPU_TARGETS:
+            x, y = tests[t]
+            xb = torch.as_tensor(np.asarray(x, np.float32))
+            y = torch.as_tensor(np.asarray(y).astype(np.int64))
+            ref = cpu(xb.expand(FLEET_MODELS, *xb.shape))
+            got = model(xb.to(dev).expand(FLEET_MODELS, *xb.shape)).cpu()
+            if not np.array_equal(matrix[:, t], (got.argmax(-1) == y).float().mean(-1).numpy()):
+                raise RuntimeError(f"zero-shot: column {t + 1:02d} is not its logits' accuracy")
+            differ = (ref.argmax(-1) != got.argmax(-1)).nonzero().tolist()
+            for i, j in differ:
+                top = ref[i, j].topk(2).values
+                margin = float(top[0] - top[1])
+                print(f"  zero-shot: model {i + 1:02d} on target {t + 1:02d} trial {j}: card and "
+                      f"CPU predictions differ at a top-2 logit margin {margin:.3g}", flush=True)
+                if margin > HEAD_ATOL + HEAD_RTOL * float(top[0].abs()):
+                    raise RuntimeError("zero-shot: a prediction differs beyond B2f's tolerance")
+            cpu_col = (ref.argmax(-1) == y).float().mean(-1).numpy()
+            if not differ and not np.array_equal(matrix[:, t], cpu_col):
+                raise RuntimeError(f"zero-shot: column {t + 1:02d} differs from the plain CPU's")
+            flips += len(differ)
+    cpu_s = time.perf_counter() - t0
+    diag = np.diag(matrix)
+    off = matrix[~np.eye(FLEET_MODELS, dtype=bool)]
+    print(f"zero-shot: {FLEET_MODELS} x {FLEET_MODELS} transfer matrix, f32, {wall:.3f} s (host "
+          f"clock); {launches['conv4head_fwd']} B2f launches at M={FLEET_MODELS} B={ZS_BATCH}, "
+          f"adapted 0; columns {[t + 1 for t in ZS_CPU_TARGETS]} against the plain CPU forward "
+          f"({cpu_s:.1f} s): {flips} predictions differ; diagonal mean {diag.mean():.4f}, off-diagonal mean "
+          f"{off.mean():.4f}", flush=True)
+    return {"launches": launches, "wall_s": wall, "diag": float(diag.mean()),
+            "off_diag": float(off.mean())}
+
+
+def phase_native_cache(X, workdir):
+    """The 15 x 350 x 64 x 800 f32 corpus through the port's native cache
+    (``data/fastcache.py``): written, read back bit for bit (all of it with
+    8 threads, and one subject's rows), with the read's rate on the host."""
+    from imagined_speech_decoding_tpu_torch.data import fastcache
+
+    path = os.path.join(workdir, "corpus.eegc")
+    flat = X.reshape(-1, *X.shape[2:])
+    t0 = time.perf_counter()
+    fastcache.write_cache(path, flat)
+    write_s = time.perf_counter() - t0
+    with fastcache.FastCache(path) as c:
+        t0 = time.perf_counter()
+        back = c.read_all(n_threads=8)
+        read_s = time.perf_counter() - t0
+        rows = c.read_rows(TRAIN_TRIALS, TRAIN_TRIALS)
+    same = (np.array_equal(back.view(np.uint32), flat.view(np.uint32))
+            and np.array_equal(rows.view(np.uint32), flat[TRAIN_TRIALS : 2 * TRAIN_TRIALS].view(np.uint32)))
+    os.remove(path)
+    if not same:
+        raise RuntimeError("the native cache did not read the corpus back bit for bit")
+    gb = flat.nbytes / 1e9
+    print(f"native cache: {flat.shape} f32 ({gb:.2f} GB) written in {write_s:.2f} s, read back "
+          f"bit for bit in {read_s:.3f} s ({gb / read_s:.2f} GB/s, 8 threads, page cache warm "
+          f"from the write), one subject's rows too", flush=True)
+    return {"gb": gb, "write_s": write_s, "read_s": read_s, "read_gb_s": gb / read_s}
 
 
 REAL_TRIALS = (300, 50, 50)  # train, validation, test trials a subject (the dataset's)
@@ -1807,12 +2312,13 @@ def real_data_preprocess(base, workdir, written, have_h5py, dev, device_ms_at):
 
 
 def real_data_child(argv) -> None:
-    """One training run of the real-data path, in its own process (so that
-    a run can be killed): ``cli.train_fast`` on the fixture tree with
-    ``argv``. Without h5py its test split comes from the arrays that
-    ``test_npz`` holds (the v7.3 files need h5py), labelled by the answer
-    sheet. Writes ``child.json`` (launches, timings) and ``fit.npz``
-    (history, best epochs and accuracies) into the output directory."""
+    """One training run in its own process (so that a run can be killed):
+    ``cli.train_fast`` with ``argv``, on the fixture tree (the real-data
+    path) or synthetic data (the ensemble phase). Without h5py the fixture's
+    test split comes from the arrays that ``test_npz`` holds (the v7.3 files
+    need h5py), labelled by the answer sheet. Writes ``child.json``
+    (launches, timings) and ``fit.npz`` (history, best epochs and
+    accuracies; an ensemble's member 0's) into the output directory."""
     test_npz, argv = argv[0], argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1829,15 +2335,16 @@ def real_data_child(argv) -> None:
     result = train_fast.main(argv)
     wall = time.perf_counter() - t0
     out = argv[argv.index("--output_dir") + 1]
-    t = result.timings
+    first = result.members[0] if hasattr(result, "members") else result  # an ensemble's member 0
+    t = {**first.timings, **result.timings}
     with open(os.path.join(out, "child.json"), "w") as f:
         json.dump({"launches": read_launches(), "wall_s": wall,
                    "timings": {k: t[k] for k in ("data_s", "fit_s", "artifacts_s",
                                                  "checkpoint_write_s", "checkpoint_bytes",
                                                  "train_s")}}, f)
-    np.savez(os.path.join(out, "fit.npz"), best_epoch=result.fit.best_epoch,
-             best_val_acc=result.fit.best_val_acc,
-             **{f"history_{k}": v for k, v in result.fit.history.items()})
+    np.savez(os.path.join(out, "fit.npz"), best_epoch=first.fit.best_epoch,
+             best_val_acc=first.fit.best_val_acc,
+             **{f"history_{k}": v for k, v in first.fit.history.items()})
 
 
 def _child(base, out, test_npz, resume=False):
@@ -1976,7 +2483,8 @@ def phase_real_data(dev, device_ms_at):
     """The real-data path: a raw tree at the documented schema (15
     subjects, 300 / 50 / 50 trials of 64 x 795 samples, an ``.xlsx``
     answer sheet), preprocessed on the card, trained with a kill and a
-    resume, and benchmarked."""
+    resume, benchmarked, and its 15 best checkpoints' zero-shot transfer
+    matrix on the test split."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from bcic_fixture import SUBJECTS, write_tree
 
@@ -2000,11 +2508,18 @@ def phase_real_data(dev, device_ms_at):
               f"x 64 x 795 written in {time.perf_counter() - t0:.2f} s "
               f"({_tree_bytes(base) / 1e9:.2f} GB)", flush=True)
         pre = real_data_preprocess(base, workdir, written, have_h5py, dev, device_ms_at)
+        from imagined_speech_decoding_tpu_torch.data import ingest
+
+        labels = ingest.load_excel_labels(ingest.resolve_excel_path(base), strict=True)
+        tests = [(ingest._edge_pad_time(written[("Test set", sid)][0]), labels[sid])
+                 for sid in SUBJECTS]
         del written
         train = real_data_training(base, workdir, test_npz)
         real_data_benchmark(workdir)
+        zero = phase_zero_shot(FASTConfig.default(), dev, os.path.join(workdir, "results", "FAST"),
+                               tests)
     print(f"real-data path: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
-    return pre, train
+    return pre, train, zero
 
 
 def main() -> None:
@@ -2043,6 +2558,11 @@ def main() -> None:
     bwd, _ = phase_head_backward(cfg, dev, rng)
     bf16, _ = phase_bf16_kernels(cfg, dev, rng)
     phase_adapted_geometry(cfg, dev, rng)
+    campaign_kernels = phase_campaign_kernels(cfg, dev, rng)
+    t0 = time.perf_counter()
+    X, Y = synthetic_corpus(0, TRAIN_SUBJECTS, TRAIN_TRIALS, 64, 800)  # cli.train_fast's corpus
+    print(f"campaign corpus {X.shape} generated in {time.perf_counter() - t0:.2f} s (host)",
+          flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         serving = phase_serving(cfg, params1, params2, rng, workdir)
         phase_graphs(cfg, params1, params2, init_jax_layout_params(cfg, SEED, FLEET_MODELS),
@@ -2052,12 +2572,16 @@ def main() -> None:
         fleet = phase_fleet(cfg, dev, rng, os.path.join(workdir, "train_f32"))
         phase_artifact(cfg, dev, ckpt, workdir, rng)
         training_bf16, _, _ = phase_training(cfg, dev, workdir, "bf16")
+        ensemble = phase_ensemble(cfg, dev, workdir, X)
         explain = phase_explain(cfg, dev, ckpt, subject)
-    phase_train_step_profile(cfg, dev, torch.float32)
-    phase_train_step_profile(cfg, dev, torch.bfloat16)
+        sweep = phase_sweep(cfg, dev, X[0], Y[0])
+        loso = phase_loso(cfg, dev, X, Y, workdir)
+        phase_native_cache(X, workdir)
+    del X, Y
+    phase_step_profiles()
     phase_trajectory(cfg, dev)
     phase_trajectory_bf16(cfg, dev)
-    real, _ = phase_real_data(dev, iir["preprocessing"])
+    real, _, zero = phase_real_data(dev, iir["preprocessing"])
 
     src = "imagined_speech_decoding_tpu_torch/csrc/"
     pallas = "imagined_speech_decoding_tpu/ops/pallas/"
@@ -2070,6 +2594,7 @@ def main() -> None:
     captures = {k: serving[k + "_captures"] + fleet[k + "_captures"]
                 for k in ("iir_chain", "conv4head_fwd")}
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    loso_rows = [campaign_kernels[f"bf16_m{FLEET_MODELS}_b{b}"] for b in LOSO_BATCHES]
     kernels = [
         {"name": "iir_sosfiltfilt_chain", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67",
@@ -2083,13 +2608,16 @@ def main() -> None:
          **{k: iir[MAIN_BATCH]["causal"][k] for k in keys}, "library_ms": None},
         {"name": "conv4head_fwd", "route": "cuda", "source": src + "conv4head.cu",
          "replaces": pallas + "conv4head.py:303",
-         "launches": serving["conv4head_fwd"] + training["conv4head_fwd"] + fleet["conv4head_fwd"],
+         "launches": serving["conv4head_fwd"] + training["conv4head_fwd"] + fleet["conv4head_fwd"]
+         + zero["launches"]["conv4head_fwd"],
          "launches_serving": serving["conv4head_fwd"],
          "launches_training": training["conv4head_fwd"], "launches_fleet": fleet["conv4head_fwd"],
+         "launches_zero_shot": zero["launches"]["conv4head_fwd"],
          "graph_captures": captures["conv4head_fwd"],
          "graph_replays": serving["replays"] + fleet["replays"],
          **head[MAIN_BATCH], "library_ms": None,
-         "fleet_m15": {b: fleet_head[b] for b in (1, MAIN_BATCH)}},
+         "fleet_m15": {b: fleet_head[b] for b in (1, MAIN_BATCH)},
+         "zero_shot_m15_b50": campaign_kernels[f"f32_m{FLEET_MODELS}_b{ZS_BATCH}"]},
         {"name": "conv4head_bwd_w", "route": "cuda", "source": src + "conv4head_bwd.cu",
          "replaces": pallas + "conv4head.py:323", "launches": training["conv4head_bwd_w"],
          "max_abs_err": b2["w_err"], "ms": b2["w_ms"], "plain_ms": b2["plain_ms"],
@@ -2100,13 +2628,19 @@ def main() -> None:
          "plain_ms": b2x["x_plain_ms"], "bound_ms": b2x["x_bound"][0],
          "bound_by": b2x["x_bound"][1], "library_ms": None},
         {"name": "conv4head_fwd_bf16", "route": "cuda", "source": src + "conv4head_fwd_bf16.cu",
-         "replaces": pallas + "conv4head.py:303", "launches": training_bf16["conv4head_fwd_bf16"],
+         "replaces": pallas + "conv4head.py:303",
+         **campaign_launches("conv4head_fwd_bf16", training_bf16, sweep, loso, ensemble),
          "max_abs_err": b16["fwd_err"], "ms": b16["fwd_ms"], "plain_ms": b16["fwd_plain_ms"],
-         "bound_ms": b16["fwd_bound"][0], "bound_by": b16["fwd_bound"][1], "library_ms": None},
+         "bound_ms": b16["fwd_bound"][0], "bound_by": b16["fwd_bound"][1], "library_ms": None,
+         "loso_m15": {b: {k[4:]: v for k, v in r.items() if k.startswith("fwd_")}
+                      for b, r in zip(LOSO_BATCHES, loso_rows)}},
         {"name": "conv4head_bwd_w_bf16", "route": "cuda", "source": src + "conv4head_bwd_w_bf16.cu",
-         "replaces": pallas + "conv4head.py:323", "launches": training_bf16["conv4head_bwd_w_bf16"],
+         "replaces": pallas + "conv4head.py:323",
+         **campaign_launches("conv4head_bwd_w_bf16", training_bf16, sweep, loso, ensemble),
          "max_abs_err": b16["w_err"], "ms": b16["w_ms"], "plain_ms": b16["w_plain_ms"],
-         "bound_ms": b16["w_bound"][0], "bound_by": b16["w_bound"][1], "library_ms": None},
+         "bound_ms": b16["w_bound"][0], "bound_by": b16["w_bound"][1], "library_ms": None,
+         "loso_m15": {b: {k[2:]: v for k, v in r.items() if k.startswith("w_")}
+                      for b, r in zip(LOSO_BATCHES[:2], loso_rows[:2])}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2116,5 +2650,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CHILD_FLAG]:
         real_data_child(sys.argv[2:])
+    elif sys.argv[1:2] == [STEP_PROFILE_FLAG]:
+        step_profile_child(sys.argv[2])
     else:
         main()

@@ -23,7 +23,12 @@ head, in either ``--precision``: bf16 (the default, the JAX package's
 optimizer state and loss) or f32. The fit runs in segments of 25 epochs
 and writes its carry to ``<output_dir>/checkpoints/segment_carry.npz``
 every ``--checkpoint_every``-th segment and after the last; ``--resume``
-restarts from it, and the run ends as an uninterrupted one would. The
+restarts from it, and the run ends as an uninterrupted one would.
+``--hyperparams best.json`` (from ``cli.sweep``) sets the learning rate,
+weight decay and warmup, explicit flags winning; ``--loso-pretrain``
+pretrains the leave-one-subject-out stack (``train.loso``) and starts each
+subject's folds from its model; ``--ensemble N`` trains an N-member seed
+ensemble (``train.ensemble``), the root tree holding its soft vote. The
 other options raise ``NotImplementedError`` naming their ROADMAP.md item.
 ``--config`` reads YAML with PyYAML, imported only then; without PyYAML
 the default ``configs/default.yaml`` falls back to the built-in defaults,
@@ -58,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning_rate", type=float, default=None)
     p.add_argument("--weight_decay", type=float, default=None)
     p.add_argument("--hyperparams", type=str, default=None, metavar="BEST_JSON",
-                   help="best.json from isd-sweep (not ported)")
+                   help="best.json from cli.sweep: its learning_rate / weight_decay / "
+                   "warmup_epochs (explicit flags win)")
     p.add_argument("--data_folder", type=str, default="BCIC2020Track3")
     p.add_argument("--excel_path", type=str, default=None)
     p.add_argument("--output_dir", type=str, default="results/finetune_official/FAST")
@@ -76,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--augment", action="store_true", help="(not ported)")
     p.add_argument("--noise_sigma", type=float, default=0.1)
     p.add_argument("--ch_drop", type=float, default=0.1)
-    p.add_argument("--ensemble", type=int, default=1, metavar="N_MEMBERS")
+    p.add_argument("--ensemble", type=int, default=1, metavar="N_MEMBERS",
+                   help="train an N-member seed ensemble and soft-vote its test posteriors")
     p.add_argument("--synthetic", type=int, default=0, metavar="N_SUBJECTS",
                    help="run on synthetic data with N subjects (no dataset needed)")
     p.add_argument("--synthetic_trials", type=int, default=60)
@@ -87,8 +94,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_overrides(args) -> dict:
-    """Flat config overrides from the CLI flags (``--hyperparams`` aside,
-    which the port refuses)."""
+    """Flat config overrides from the CLI flags; ``--hyperparams best.json``
+    applies its ``learning_rate``, ``weight_decay`` and ``warmup_epochs``,
+    explicit ``--learning_rate`` / ``--weight_decay`` flags winning."""
+    sweep_hp = {}
+    if args.hyperparams:
+        import json
+
+        with open(args.hyperparams) as f:
+            best = json.load(f)
+        sweep_hp = {k: best[k] for k in ("learning_rate", "weight_decay", "warmup_epochs")
+                    if k in best}
+        print(f"hyperparams from {args.hyperparams}: {sweep_hp}")
     return {
         k: v
         for k, v in {
@@ -99,8 +116,11 @@ def build_overrides(args) -> dict:
             "precision": args.precision,
             "val_every": args.val_every,
             "head": args.head,
-            "learning_rate": args.learning_rate,
-            "weight_decay": args.weight_decay,
+            "learning_rate": (args.learning_rate if args.learning_rate is not None
+                              else sweep_hp.get("learning_rate")),
+            "weight_decay": (args.weight_decay if args.weight_decay is not None
+                             else sweep_hp.get("weight_decay")),
+            "warmup_epochs": sweep_hp.get("warmup_epochs"),
         }.items()
         if v is not None
     }
@@ -109,11 +129,8 @@ def build_overrides(args) -> dict:
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
     unported = [
-        ("--loso-pretrain", args.loso_pretrain),
-        ("--ensemble > 1", args.ensemble > 1),
         ("--augment", args.augment),
         ("--mesh other than none", args.mesh != "none"),
-        ("--hyperparams", args.hyperparams),
         ("--profile", args.profile),
         ("--remat", args.remat),
         ("--head_chunk", args.head_chunk),
@@ -187,18 +204,38 @@ def load_data(args):
 
 
 def format_summary(rows) -> str:
-    from ..train.cv import SUMMARY_COLUMNS
-
-    lines = ["  ".join(f"{c:>12}" for c in SUMMARY_COLUMNS)]
+    columns = list(rows[0]) if rows else []
+    lines = ["  ".join(f"{c:>12}" for c in columns)]
     for row in rows:
         lines.append("  ".join(
             f"{row[c]:>12}" if isinstance(row[c], str) else f"{row[c]:>12.4f}"
-            for c in SUMMARY_COLUMNS))
+            for c in columns))
     return "\n".join(lines)
 
 
+def loso_warm_start(args, cfg, X, Y, subjects, device) -> dict:
+    """``--loso-pretrain``: the LOSO stack pretrained (or loaded) under
+    ``<output_dir>/loso_pretrain``, each subject's model repeated over its
+    folds, as the JAX CLI builds its warm start."""
+    from ..train.loso import pretrain_loso, stack_pretrained_for_cv
+
+    save_dir = os.path.join(args.output_dir, "loso_pretrain")
+    pretrained = pretrain_loso(
+        cfg.model, X, Y, subjects, cfg.model.n_classes, save_dir=save_dir,
+        epochs=args.loso_epochs, batch_size=cfg.train.batch_size,
+        learning_rate=cfg.train.learning_rate, seed=cfg.train.seed,
+        data_dtype=cfg.train.compute_dtype, checkpoint_dir=os.path.join(save_dir, "checkpoints"),
+        resume=args.resume, device=device,
+    )
+    return stack_pretrained_for_cv(pretrained, cfg.train.n_folds)
+
+
 def main(argv=None, device="cuda"):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.ensemble > 1 and args.loso_pretrain:
+        # A shared warm start would collapse the members' init diversity.
+        parser.error("--ensemble is incompatible with --loso-pretrain")
     refuse_unported(args)
     cfg = resolve_config(args, build_overrides(args))
     if cfg.model.head != "Conv4Layers":
@@ -214,13 +251,20 @@ def main(argv=None, device="cuda"):
     t0 = time.perf_counter()
     X, Y, subjects, test = load_data(args)
     data_s = time.perf_counter() - t0
-    result = train_per_subject_cv(
-        cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
-        test_per_subject=test, save_dir=args.output_dir, device=device,
-        checkpoint_dir=os.path.join(args.output_dir, "checkpoints"), resume=args.resume,
-        checkpoint_every=args.checkpoint_every,
-    )
-    result.timings["data_s"] = data_s
+    common = dict(test_per_subject=test, save_dir=args.output_dir, device=device,
+                  checkpoint_dir=os.path.join(args.output_dir, "checkpoints"),
+                  resume=args.resume, checkpoint_every=args.checkpoint_every)
+    if args.ensemble > 1:
+        from ..train.ensemble import train_seed_ensemble
+
+        result = train_seed_ensemble(cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
+                                     n_members=args.ensemble, **common)
+        result.timings["data_s"] = data_s
+    else:
+        warm = loso_warm_start(args, cfg, X, Y, subjects, device) if args.loso_pretrain else None
+        result = train_per_subject_cv(cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
+                                      warm_start=warm, **common)
+        result.timings["data_s"] = data_s
 
     print("\n" + "=" * 60)
     print("FINETUNE COMPLETE")

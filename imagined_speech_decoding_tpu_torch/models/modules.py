@@ -46,17 +46,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * torch.erfc(-x * _SQRT_HALF_BF16)
 
 
+class SharedRowsGenerator(torch.Generator):
+    """A ``torch.Generator`` whose dropout draws groups of model rows share:
+    with ``row_repeats = R`` (set on the instance), ``dropout`` draws the
+    masks of the first ``M / R`` rows of its ``(M, ...)`` input and repeats
+    them R times along the model axis. The sweep trains R configs of the
+    same folds so (``train.engine.make_fit(row_repeats=...)``)."""
+
+    row_repeats = 1
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             train: bool) -> torch.Tensor:
     """Inverted dropout, as ``modules.dropout``: the identity at eval or at
     rate 0; else keep with probability ``1 - rate`` and scale by
     ``1 / (1 - rate)``. ``generator`` lives on ``x``'s device; training
-    with dropout and no generator raises, as the JAX model needs an rng."""
+    with dropout and no generator raises, as the JAX model needs an rng.
+    ``x``'s first axis is the model axis; a ``SharedRowsGenerator`` repeats
+    its rows' masks."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError(f"dropout at rate {rate} in training mode needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    repeats = getattr(generator, "row_repeats", 1)
+    if repeats == 1:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    else:
+        shape = (x.shape[0] // repeats,) + tuple(x.shape[1:])
+        keep = (torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate).repeat(
+            repeats, *([1] * (x.dim() - 1)))
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

@@ -12,9 +12,9 @@ artifacts.py`` (which writes them with pandas). The result tree::
       global_test_predictions.csv   all subjects' test predictions
 
 Floats are written as pandas writes them: shortest round-trip text, NaN
-as an empty field. The learning-curve and per-subject accuracy plots
-need matplotlib, which the port does not depend on; they are left out
-(ROADMAP.md).
+as an empty field. The learning-curve plots need matplotlib, which the
+port does not depend on; they are left out (ROADMAP.md). The per-subject
+accuracy bar is drawn when matplotlib imports (``plot_subject_accuracy_bar``).
 """
 
 from __future__ import annotations
@@ -65,3 +65,33 @@ def save_predictions_csv(path: str, y_pred: np.ndarray, y_true: np.ndarray) -> s
 def load_predictions_csv(path: str):
     arr = np.atleast_2d(np.loadtxt(path, delimiter=",", skiprows=1, dtype=int))
     return arr[:, 0], arr[:, 1]
+
+
+def plot_subject_accuracy_bar(path: str, subjects: Sequence[str], accuracies: Sequence[float],
+                              title: str = "Test Accuracy per Subject (Finetune CV)"):
+    """The JAX package's per-subject bar chart with a mean line; returns
+    ``path``, or None (nothing written) when matplotlib does not import."""
+    try:
+        from matplotlib.figure import Figure
+    except ImportError:
+        return None
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    accs = np.asarray(accuracies, dtype=float)
+    fig = Figure(figsize=(12, 6))
+    ax = fig.add_subplot(1, 1, 1)
+    bars = ax.bar(list(subjects), accs, color="skyblue", edgecolor="black")
+    mean_acc = float(np.nanmean(accs)) if len(accs) else 0.0
+    ax.axhline(y=mean_acc, color="red", linestyle="--", linewidth=2, label=f"Mean: {mean_acc:.4f}")
+    for bar in bars:
+        height = bar.get_height()
+        ax.text(bar.get_x() + bar.get_width() / 2, height, f"{height:.2f}", ha="center",
+                va="bottom", fontsize=9)
+    ax.set_title(title, fontsize=14)
+    ax.set_xlabel("Subject ID", fontsize=12)
+    ax.set_ylabel("Accuracy", fontsize=12)
+    top = max(float(np.nanmax(accs)) if len(accs) else 0.0, mean_acc)
+    ax.set_ylim(0, max(top * 1.15, 0.01))
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(path)
+    return path

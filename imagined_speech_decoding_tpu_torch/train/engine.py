@@ -15,13 +15,18 @@ run as 4 x 64 + 1 x 24 exact-shape steps); the eval batch rule (70 ->
 2 x 35); train and validation history rows, NaN validation rows on the
 epochs ``val_every`` skips; the best snapshot on a strictly greater
 ``val_acc``, per model; segmented execution with checkpoints and resume
-(``fit_segmented``). Sweep mode and early stopping are not ported
-(ROADMAP.md).
+(``fit_segmented``); sweep mode (``make_fit(sweep=True)``: a learning
+rate and weight decay per model row, ``RowAdamW``). Early stopping is not
+ported (ROADMAP.md).
 
 Randomness: epoch permutations come from a CPU ``torch.Generator``
 (``data.arrays.epoch_permutations``), so a seed gives the same batches on
 any device; dropout draws from a generator on the training device.
-Neither reproduces the JAX package's ``jax.random`` streams.
+Neither reproduces the JAX package's ``jax.random`` streams. With
+``row_repeats=R`` a stack of ``M = R x G`` rows draws both for its first
+G rows and repeats them R times, so that row ``r*G + g`` sees row g's
+batches and dropout masks (the sweep's configs share each fold's
+stream, as the JAX sweep gives them the same keys).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ..data.arrays import epoch_permutations, num_batches
+from ..models.modules import SharedRowsGenerator
 from .metrics import confusion_matrix, cross_entropy, f1_from_confusion
 from .schedule import lr_at, warmup_cosine_lr
 
@@ -61,10 +67,66 @@ def make_optimizer(params, weight_decay: float = 0.01) -> torch.optim.AdamW:
                              weight_decay=weight_decay)
 
 
-def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor, lr: float,
+class RowAdamW(torch.optim.Optimizer):
+    """AdamW over stacked parameters (model axis first) with a learning rate
+    and a weight decay per model row: the sweep mode's optimizer.
+
+    ``lr`` and ``weight_decay`` of its group are ``(M,)`` tensors on the
+    parameters' device, broadcast along axis 0; ``train_step`` sets ``lr``
+    each step. The update is optax ``adamw``'s, row by row::
+
+        m <- b1 m + (1 - b1) g;  v <- b2 v + (1 - b2) g^2   (``make_optimizer``'s moments)
+        p <- p - lr * (m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps) + wd * p)
+
+    which is the JAX sweep's ``-lr_t (adam_dir + wd' p)`` (JAX
+    ``train/engine.py:219-236``). Its state has ``torch.optim.AdamW``'s keys
+    and layout (``step`` a CPU f32 scalar, ``exp_avg``, ``exp_avg_sq``), so
+    ``FitCarry.arrays`` / ``load_arrays`` carry it unchanged."""
+
+    def __init__(self, params, lr: torch.Tensor, weight_decay: torch.Tensor,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p] = {"step": torch.tensor(0.0),
+                                     "exp_avg": torch.zeros_like(p),
+                                     "exp_avg_sq": torch.zeros_like(p)}
+            states = [self.state[p] for p in params]
+            grads = [p.grad for p in params]
+            m = [st["exp_avg"] for st in states]
+            v = [st["exp_avg_sq"] for st in states]
+            torch._foreach_add_([st["step"] for st in states], 1.0)
+            # The bias corrections in f32 from the f32 step count, as optax's
+            # and torch's AdamW compute them.
+            t = states[0]["step"]
+            bc1, bc2 = float(1 - b1 ** t), float(1 - b2 ** t)
+            torch._foreach_lerp_(m, grads, 1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, 1 - b2)
+            denom = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(m, bc1)
+            torch._foreach_div_(upd, denom)
+            rows = [(p.shape[0],) + (1,) * (p.dim() - 1) for p in params]
+            torch._foreach_addcmul_(upd, params, [group["weight_decay"].view(r) for r in rows])
+            torch._foreach_mul_(upd, [group["lr"].view(r) for r in rows])
+            torch._foreach_sub_(params, upd)
+
+
+def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor, lr,
                n_classes: int, generator: Optional[torch.Generator] = None):
     """One optimizer step of every model on its batch ``x (M, b, C, T)``,
-    ``y (M, b)``. Returns ``(loss * b (M,), confusion (M, K, K))``, the
+    ``y (M, b)``, at learning rate ``lr`` (a float; a ``(M,)`` tensor for
+    ``RowAdamW``). Returns ``(loss * b (M,), confusion (M, K, K))``, the
     sums the epoch metrics are made of."""
     for group in opt.param_groups:
         group["lr"] = lr
@@ -113,6 +175,18 @@ def predict(model, x: torch.Tensor, batch_size: int = 64) -> np.ndarray:
     return torch.cat(preds).numpy()
 
 
+def predict_proba(model, x: torch.Tensor, batch_size: int = 64) -> np.ndarray:
+    """Class posteriors ``(N, K)`` over the trials of ``x`` (``(N, C, T)``
+    for one model): an f32 softmax of the logits, upcast from the compute
+    dtype first, in sequential batches (``engine.predict_proba``): the unit
+    of the seed ensemble's soft vote."""
+    model.eval()
+    with torch.no_grad():
+        probs = [torch.softmax(model(x[s : s + batch_size]).float(), dim=-1).cpu()
+                 for s in range(0, x.shape[0], batch_size)]
+    return torch.cat(probs).numpy()
+
+
 def eval_batch_size_for(n_val: int, batch_size: int) -> int:
     """Never more eval steps than the train size would take; among those,
     the fewest padded slots, then the largest batch (70 -> 35, 71 -> 36)."""
@@ -131,7 +205,8 @@ def _sync(device: torch.device) -> None:
 
 class FitCarry:
     """Everything a fit carries from one epoch to the next: the model's
-    parameters (trained in place) and its AdamW optimizer, the best snapshot with
+    parameters (trained in place) and its AdamW optimizer (``RowAdamW`` in
+    sweep mode), the best snapshot with
     ``best_acc`` and ``best_ep``, the epoch and step counters, the finished
     segments' history rows, and the permutation (CPU) and dropout (the
     device's) generators. ``arrays`` and ``load_arrays`` move it to and
@@ -142,6 +217,7 @@ class FitCarry:
         self.tidx, self.vidx = tidx, vidx
         self.perm_gen, self.drop_gen = perm_gen, drop_gen
         self.best, self.best_acc, self.best_ep = best, best_acc, best_ep
+        self.lr_rows = None  # sweep mode: each step's row learning rates, (steps, M)
         self.epoch = 0
         self.step = 0
         self.histories = []  # one dict of (M, epochs) numpy arrays a finished run() call
@@ -220,6 +296,8 @@ def make_fit(
     weight_decay: float = 0.01,
     val_every: int = 1,
     total_epochs: Optional[int] = None,
+    sweep: bool = False,
+    row_repeats: int = 1,
 ) -> Callable:
     """Build the fit of a stacked ``model`` (``FAST(cfg, n_models=M)`` with
     its initial parameters loaded). Returned signature::
@@ -244,7 +322,17 @@ def make_fit(
     shapes; here they are not run, and the parameters, the best snapshot
     and the history (cut to the budget there) come out the same. This is
     how a ``val_every`` that does not divide the budget runs
-    (``train.cv``)."""
+    (``train.cv``).
+
+    ``sweep=True`` makes the learning rate and weight decay per model row
+    (JAX ``make_fit(sweep=True)``): ``fit`` and ``init_carry`` then take
+    ``hyper={"lr_scale": (M,), "wd_scale": (M,)[, "lr_table": (M, steps)]}``
+    and row m trains with ``RowAdamW`` at ``lr_t = lr_scale[m] *
+    (lr_table[m, min(step, steps - 1)]`` or the built-in table's
+    ``lr_t``) and ``weight_decay * wd_scale[m]``. ``row_repeats=R``: the
+    stack is R repeats of its first ``M / R`` rows' randomness (see the
+    module docstring). The defaults leave the plain path as it was:
+    ``torch.optim.AdamW`` and one draw a row."""
     if val_every < 1 or epochs % val_every != 0:
         raise ValueError(f"val_every must be >= 1 and divide epochs ({epochs}); got {val_every}")
     total = total_epochs or epochs
@@ -252,18 +340,56 @@ def make_fit(
     table = warmup_cosine_lr(learning_rate, total, spe, warmup_epochs, final_scale)
     eval_batch_size = eval_batch_size_for(n_val, batch_size)
 
-    def init_carry(train_idx, val_idx, X, *, seed: int) -> FitCarry:
+    def init_carry(train_idx, val_idx, X, *, seed: int, hyper=None) -> FitCarry:
         device = X.device
         tidx = torch.as_tensor(np.asarray(train_idx), dtype=torch.long, device=device)
         vidx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long, device=device)
         m = tidx.shape[0]
+        if m % row_repeats:
+            raise ValueError(f"row_repeats={row_repeats} does not divide the {m} model rows")
         params = dict(model.named_parameters())
         best = {k: p.detach().clone() for k, p in params.items()}
-        return FitCarry(params, make_optimizer(params.values(), weight_decay), tidx, vidx,
-                        torch.Generator().manual_seed(seed),
-                        torch.Generator(device=device).manual_seed(seed), best,
-                        torch.full((m,), -float("inf"), device=device),
-                        torch.full((m,), -1, dtype=torch.long, device=device))
+        if sweep:
+            opt, lr_rows = _sweep_optimizer(params, hyper, m, device)
+        elif hyper is not None:
+            raise ValueError("hyper is for a sweep-mode fit (make_fit(sweep=True))")
+        else:
+            opt, lr_rows = make_optimizer(params.values(), weight_decay), None
+        if row_repeats == 1:
+            drop_gen = torch.Generator(device=device)
+        else:
+            drop_gen = SharedRowsGenerator(device=device)
+            drop_gen.row_repeats = row_repeats
+        carry = FitCarry(params, opt, tidx, vidx, torch.Generator().manual_seed(seed),
+                         drop_gen.manual_seed(seed), best,
+                         torch.full((m,), -float("inf"), device=device),
+                         torch.full((m,), -1, dtype=torch.long, device=device))
+        carry.lr_rows = lr_rows
+        return carry
+
+    def _sweep_optimizer(params, hyper, m, device):
+        """``RowAdamW`` at each row's weight decay, and each step's row
+        learning rates as a ``(steps, M)`` f32 table on ``device``."""
+        if hyper is None:
+            raise ValueError("a sweep-mode fit needs hyper={'lr_scale', 'wd_scale'}")
+
+        def rows(v):
+            t = torch.as_tensor(np.asarray(v, np.float32), device=device)
+            if t.shape[0] != m:
+                raise ValueError(f"hyper has {t.shape[0]} rows for {m} models")
+            return t
+
+        lr_scale = rows(hyper["lr_scale"])
+        base = (rows(hyper["lr_table"]).T if "lr_table" in hyper
+                else torch.as_tensor(table, dtype=torch.float32, device=device)[:, None])
+        wd = weight_decay * rows(hyper["wd_scale"])
+        return RowAdamW(params.values(), torch.zeros(m, device=device), wd), \
+            (base * lr_scale).contiguous()
+
+    def lr_of(carry: FitCarry, step: int):
+        if carry.lr_rows is None:
+            return lr_at(table, step)
+        return carry.lr_rows[min(step, carry.lr_rows.shape[0] - 1)]
 
     def run(carry: FitCarry, X, Y, *, until: int, progress=None) -> FitCarry:
         """Train from ``carry.epoch`` to epoch ``min(until, total)``, in
@@ -275,13 +401,15 @@ def make_fit(
         model.train()
         for ep in range(carry.epoch, min(until, total)):
             t0 = time.perf_counter()
-            gidx = torch.gather(carry.tidx, 1,
-                                epoch_permutations(carry.perm_gen, m, n_train).to(device))
+            perm = epoch_permutations(carry.perm_gen, m // row_repeats, n_train)
+            if row_repeats > 1:
+                perm = perm.repeat(row_repeats, 1)
+            gidx = torch.gather(carry.tidx, 1, perm.to(device))
             loss_sum = torch.zeros(m, device=device)
             cm = torch.zeros((m, n_classes, n_classes), device=device)
             for i in range(spe):
                 bidx = gidx[:, i * batch_size : (i + 1) * batch_size]
-                ls, c = train_step(model, carry.opt, X[bidx], Y[bidx], lr_at(table, carry.step),
+                ls, c = train_step(model, carry.opt, X[bidx], Y[bidx], lr_of(carry, carry.step),
                                    n_classes, carry.drop_gen)
                 loss_sum += ls
                 cm += c
@@ -327,8 +455,8 @@ def make_fit(
             timings={**carry.timings, "steps_per_epoch": spe},
         )
 
-    def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None) -> FitResult:
-        carry = init_carry(train_idx, val_idx, X, seed=seed)
+    def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None, hyper=None) -> FitResult:
+        carry = init_carry(train_idx, val_idx, X, seed=seed, hyper=hyper)
         return result(run(carry, X, Y, until=min(epochs, total), progress=progress))
 
     fit.init_carry, fit.run, fit.result = init_carry, run, result
@@ -351,6 +479,7 @@ def fit_segmented(
     checkpoint_dir: Optional[str] = None,
     resume: bool = True,
     checkpoint_every: int = 1,
+    hyper=None,
 ) -> FitResult:
     """The whole run of ``fit`` (``make_fit(epochs=<segment>,
     total_epochs=<budget>)``) in segments of ``fit.epochs_per_call``
@@ -362,7 +491,9 @@ def fit_segmented(
     ``checkpoint_every``-th one and always after the last; with
     ``resume`` a run restarts from that file's boundary and continues the
     same generator streams and learning-rate table, so it ends as the
-    uninterrupted run does, bit for bit.
+    uninterrupted run does, bit for bit. ``hyper``: a sweep-mode fit's
+    per-row hyperparameters (``make_fit(sweep=True)``), the same for every
+    segment; a resumed sweep is given them again.
 
     Writes run on one background thread, so the next segment trains
     while the disk is written; the carry is copied to the host first, and
@@ -376,7 +507,7 @@ def fit_segmented(
 
     seg, total = fit.epochs_per_call, fit.total_epochs
     n_segments = -(-total // seg)
-    carry = fit.init_carry(train_idx, val_idx, X, seed=seed)
+    carry = fit.init_carry(train_idx, val_idx, X, seed=seed, hyper=hyper)
     start_seg = 0
     path = os.path.join(checkpoint_dir, "segment_carry.npz") if checkpoint_dir else None
     if path and resume and os.path.exists(path):

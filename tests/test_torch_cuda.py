@@ -974,3 +974,110 @@ def test_failed_capture_raises(dev):
     # the card serves on after the failed capture
     live = make_online_decoder(FAST(SERVE_CFG, device=dev), init_jax_layout_params(SERVE_CFG, 2))
     assert [live(np.zeros((1, 10, 800), np.float32)).shape for _ in range(2)] == [(1, 5)] * 2
+
+
+# --- the campaign programs: sweep, LOSO, zero-shot, seed ensemble -------------------
+
+
+def _head_counts():
+    """(B2f, B2f-bf16, B2w, B2w-bf16 launches, adapted calls of both)."""
+    return (fused_conv4_head.launches, fused_conv4_head.launches_bf16, conv4head_bwd_w.launches,
+            conv4head_bwd_w.launches_bf16, fused_conv4_head.adapted + conv4head_bwd_w.adapted)
+
+
+def _moved(before):
+    torch.cuda.synchronize()
+    return tuple(a - b for a, b in zip(_head_counts(), before))
+
+
+def test_sweep_cli_on_the_card(dev, tmp_path):
+    """``cli.sweep --synthetic`` at full width in its default bf16 on the
+    card: 3 configs x 3 folds of 20 + 10 trials, batch 8, 2 epochs launch
+    B2f-bf16 2 x (3 + 2) and B2w-bf16 2 x 3 times, no f32 head kernel,
+    nothing adapted; the two configs of one (lr, wd) train bit for bit
+    alike; the artifacts are written."""
+    from imagined_speech_decoding_tpu_torch.cli import sweep as cli_sweep
+
+    before = _head_counts()
+    report = cli_sweep.main(["--synthetic", "30", "--lr_scales", "1,1,2", "--wd_scales", "1",
+                             "--n_folds", "3", "--epochs", "2", "--batch_size", "8",
+                             "--config", "none.yaml", "--output_dir", str(tmp_path)])
+    assert _moved(before) == (0, 10, 0, 6, 0)
+    for k, v in report.fit.params.items():
+        assert torch.equal(v[:3], v[3:6]), k
+    for k in report.history:
+        np.testing.assert_array_equal(report.history[k][0], report.history[k][1])
+    assert all(np.isfinite(v).all() for v in report.history.values())
+    assert (tmp_path / "sweep_results.csv").exists() and (tmp_path / "best.json").exists()
+
+
+def test_loso_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``pretrain_loso`` at tiny width in f32, dropout 0: the card against
+    the CPU (trajectory tolerances, rtol 1e-4, atol 1e-5); the card's
+    second call launches nothing and returns its saved rows; bf16 runs
+    B2f-bf16 and B2w-bf16."""
+    from imagined_speech_decoding_tpu_torch.data.synthetic import synthetic_corpus
+    from imagined_speech_decoding_tpu_torch.train import loso
+
+    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, seq_len=200, window_len=100,
+                     slide_step=50, dim_token=16, num_layers=1, num_heads=4, dropout=0.0)
+    X, Y = synthetic_corpus(0, 3, 20, 10, 200)
+    subs = ["01", "02", "03"]
+    kw = dict(epochs=2, batch_size=8, learning_rate=1e-3, warmup_epochs=0, verbose=False)
+    card, res = loso.pretrain_loso(cfg, X, Y, subs, 5, str(tmp_path / "card"), device=dev,
+                                   return_result=True, **kw)
+    cpu, ref = loso.pretrain_loso(cfg, X, Y, subs, 5, str(tmp_path / "cpu"), device="cpu",
+                                  return_result=True, **kw)
+    for k in ("loss", "val_loss"):
+        np.testing.assert_allclose(res.history[k], ref.history[k], rtol=1e-4, atol=1e-5)
+    before = _head_counts()
+    again = loso.pretrain_loso(cfg, X, Y, subs, 5, str(tmp_path / "card"), device=dev, **kw)
+    assert _moved(before) == (0,) * 5
+    for a, b in zip(card, again):
+        for x, y in zip(a["head"]["cnn2"].values(), b["head"]["cnn2"].values()):
+            np.testing.assert_array_equal(x, y)
+    before = _head_counts()
+    loso.pretrain_loso(cfg, X, Y, subs, 5, str(tmp_path / "bf16"), device=dev,
+                       data_dtype=torch.bfloat16, **kw)
+    moved = _moved(before)
+    assert moved[0] == moved[2] == 0 and moved[1] > 0 and moved[3] > 0, moved
+
+
+def test_zero_shot_cli_synthetic_on_the_adapted_route(dev, tmp_path):
+    """``cli.zero_shot --synthetic``: its 16-electrode, dim_cnn 8 models
+    train and evaluate in f32 on the card through B2f and B2w on zones
+    zero-padded to 32 channels (``adapted`` > 0); no bf16 kernel."""
+    from imagined_speech_decoding_tpu_torch.cli import zero_shot
+
+    before = _head_counts()
+    matrix = zero_shot.main(["--synthetic", "3", "--synthetic_trials", "16",
+                             "--synthetic_epochs", "2", "--config", "none.yaml",
+                             "--output_dir", str(tmp_path)])
+    moved = _moved(before)
+    assert moved[0] > 0 and moved[2] > 0 and moved[1] == moved[3] == 0 and moved[4] > 0, moved
+    assert matrix.shape == (3, 3) and ((matrix >= 0) & (matrix <= 1)).all()
+    assert (tmp_path / "zero_shot_matrix.csv").exists()
+
+
+def test_train_fast_ensemble_with_hyperparams_on_the_card(dev, tmp_path, capsys):
+    """``cli.train_fast --ensemble 2 --hyperparams best.json`` on the card
+    at full width: the sweep's winner is applied, both members train
+    through B2f-bf16 and B2w-bf16 with nothing adapted, and the root
+    predictions are the argmax of the members' mean posteriors."""
+    from imagined_speech_decoding_tpu_torch.train.artifacts import load_predictions_csv
+
+    best = tmp_path / "best.json"
+    best.write_text('{"learning_rate": 0.001, "weight_decay": 0.05, "warmup_epochs": 1}')
+    before = _head_counts()
+    res = train_fast.main(["--synthetic", "2", "--synthetic_trials", "15", "--epochs", "2",
+                           "--n_folds", "3", "--batch_size", "8", "--ensemble", "2",
+                           "--hyperparams", str(best), "--config", "none.yaml",
+                           "--output_dir", str(tmp_path / "out")])
+    moved = _moved(before)
+    assert moved[0] == moved[2] == moved[4] == 0 and moved[1] > 0 and moved[3] > 0, moved
+    assert "hyperparams from" in capsys.readouterr().out
+    assert len(res.members) == 2
+    for sid, proba in res.proba_per_subject.items():
+        pred, _ = load_predictions_csv(str(tmp_path / "out" / f"sub-{sid}" / "test_predictions.csv"))
+        np.testing.assert_array_equal(pred, proba.argmax(-1))
+        assert (tmp_path / "out" / "member-1" / f"sub-{sid}" / "best_subject.npz").exists()

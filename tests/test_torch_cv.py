@@ -212,10 +212,9 @@ class TestCLI:
             jax_build_overrides(jax_build_parser().parse_args(argv))
 
     @pytest.mark.parametrize("argv", [
-        ["--mesh", "data"], ["--synthetic", "1", "--loso-pretrain"],
-        ["--synthetic", "1", "--ensemble", "2"],
+        ["--mesh", "data"],
         ["--synthetic", "1", "--augment"], ["--synthetic", "1", "--mesh", "model"],
-        ["--synthetic", "1", "--mesh", "2d"], ["--synthetic", "1", "--hyperparams", "b.json"],
+        ["--synthetic", "1", "--mesh", "2d"],
         ["--synthetic", "1", "--profile", "p"], ["--synthetic", "1", "--remat"],
         ["--synthetic", "1", "--head_chunk", "256"], ["--synthetic", "1", "--head", "CVBlock"],
         ["--resume", "--head", "EEGNet_Encoder"],
@@ -227,11 +226,17 @@ class TestCLI:
     @pytest.mark.parametrize("argv", [
         [], ["--synthetic", "1", "--resume"], ["--synthetic", "1", "--checkpoint_every", "2"],
         ["--resume", "--checkpoint_every", "3", "--no-strict"],
+        ["--synthetic", "1", "--loso-pretrain"], ["--synthetic", "1", "--ensemble", "2"],
+        ["--synthetic", "1", "--hyperparams", "best.json"],
     ])
     def test_real_data_and_resume_are_ported(self, argv, tmp_path, monkeypatch):
-        """Real data, ``--resume`` and ``--checkpoint_every`` no longer raise
+        """Real data, ``--resume``, ``--checkpoint_every``, ``--loso-pretrain``,
+        ``--ensemble`` and ``--hyperparams`` no longer raise
         ``NotImplementedError``: the CLI goes on to the device, which here
         is a missing card."""
+        best = tmp_path / "best.json"
+        best.write_text('{"learning_rate": 0.001, "weight_decay": 0.0}')
+        argv = [str(best) if a == "best.json" else a for a in argv]
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="is_available"):
             train_fast.main(argv + ["--output_dir", str(tmp_path)])
