@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving (live, fleet, artifact,
 streaming), training, attribution, real-data and campaign (sweep, LOSO,
-ensemble, zero-shot, native cache) paths on one NVIDIA GPU.
+ensemble, zero-shot, native cache) paths, and of the models with
+batch-norm state (the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version
+heads, TSception) with their decoders and train-time augmentation, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -127,7 +130,7 @@ ensemble, zero-shot, native cache) paths on one NVIDIA GPU.
    notch and the 4-40 Hz band-pass, one B1 chain launch a split, each
    split's first and last 8 trials against the plain chain (B1's
    tolerance), timed by CUDA events beside the byte bound and the device
-   time that step 3 takes at its shape with its filters on random data; ``cli.train_fast`` on the tree in its own process, bf16, 50
+   time that step 3 takes at its shape with its filters on random data; ``cli.train_fast`` on the tree in its own process, bf16, 30
    epochs in two segments, once through, and once killed (SIGKILL) in
    its second segment and run again with ``--resume``: history, best
    epochs, ``summary_per_subject.csv`` and a ``best_subject.npz`` must
@@ -159,6 +162,36 @@ ensemble, zero-shot, native cache) paths on one NVIDIA GPU.
    (bit for bit, the read's GB/s); and one bf16 step of the sweep (M =
    75, ``RowAdamW``) and of LOSO (M = 15) beside the CV step, by device
    time and CUDA-event span.
+
+9. The models with batch-norm state, which run no hand-written kernel
+   but B1 in front of a decoder (cuDNN convolutions and plain tensor code;
+   none of the kernels' launch counts may move in their training runs):
+   (a) the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version heads at full
+   width in bf16 on the training path's corpus (75 models, batch 64, 2
+   epochs), CVBlock through ``cli.train_fast --head CVBlock`` and the two
+   others through ``train_per_subject_cv`` on the same corpus: the
+   history finite, the tree complete with the running statistics in every
+   ``best_subject.npz``, the last subject's file (weights and state)
+   reproducing its test predictions, the fit's peak device memory;
+   (b) ``cli.train_tsception --synthetic 15 --synthetic_trials 350
+   --epochs 2 --subject_group 15`` (75 models, f32, batch 32), likewise;
+   (c) ``cli.train_fast --augment`` (bf16, Conv4Layers): B2f-bf16 and
+   B2w-bf16 launched exactly as the batches count them, nothing adapted,
+   and an evaluation of the trained stack on the f32 corpus cast per batch
+   equal to the un-augmented evaluation on the bf16 corpus bit for bit;
+   (d) a live decoder and a 15-model fleet over (a)'s CVBlock checkpoints:
+   replays equal the eager chain bit for bit, one B1 chain launch an eager
+   decode and one a capture, the posteriors against the plain CPU
+   decoders (rtol 1e-4, atol 1e-5), and after ``swap_weights(params,
+   state)`` replays equal fresh decoders bit for bit. In the step-profile
+   child, one step of each head (M = 75, B = 64, bf16) and of TSception
+   (M = 75, B = 32, f32): CUDA-event span, device time, idle share, peak
+   allocated memory. Card against CPU, f32 with TF32 off, 2 subjects x 10
+   trials, 2 epochs, dropout off, for each head and TSception: the
+   history at rtol 1e-4 / atol 1e-5, the running statistics after the
+   first step at the same tolerance, the parameters within twice the
+   summed learning rate; the final statistics are printed beside them
+   (``phase_trajectory_stateful`` says why they are not held to 1e-4).
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -243,9 +276,12 @@ from imagined_speech_decoding_tpu_torch.train.loso import (
     stack_pretrained_for_cv,
 )
 from imagined_speech_decoding_tpu_torch.train.sweep import cv_sweep, hyper_grid
+from imagined_speech_decoding_tpu_torch.models.api import make_tsception_model
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
+    init_jax_layout,
     init_jax_layout_params,
+    stack_trees,
     to_jax_params,
 )
 
@@ -382,17 +418,50 @@ def profiled(fn, cpu: bool = False, need=()):
     on an H100 whose launch counter showed the launch). A session without
     device time, or without a record of each kernel in ``need``, is profiled
     again, up to three times."""
+    return _profile(fn, cpu, need).key_averages()
+
+
+def _profile(fn, cpu: bool, need):
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     for _ in range(3):
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        timed = [e.key for e in events if e.self_device_time_total > 0]
+        timed = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
         if timed and all(any(re.search(k, key) for key in timed) for k in need):
-            return events
+            return prof
     raise RuntimeError(f"the profiler recorded no device time, or none of {list(need)}, "
                        "in three sessions")
+
+
+def profiled_step(fn, what: str, need=()):
+    """``profiled(fn)`` (the device's activity only, so that the host runs
+    at its own pace) with CUDA events around ``fn`` inside the session:
+    ``(events, span_ms, union_ms)``, the span of the profiled call itself
+    and the length of the union of the device's kernel and copy records on
+    the profiler's clock. Records of two streams may overlap (a training
+    step's sum of records exceeds its span), so the device's busy share is
+    the union's; a union longer than the span by more than 1% (the two
+    clocks, and the events' own records) means records that do not belong
+    to the call, and raises."""
+    box = {}
+
+    def timed():
+        box["span"] = cuda_ms(fn, 1, warmup=0)
+
+    prof = _profile(timed, False, need)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type != DeviceType.CPU and not e.is_user_annotation)
+    union, reach = 0.0, float("-inf")
+    for a, b in spans:
+        if b > reach:
+            union += b - max(a, reach)
+            reach = b
+    union /= 1e3
+    if union > 1.01 * box["span"]:
+        raise RuntimeError(f"{what}: the device's records cover {union:.2f} ms of a "
+                           f"{box['span']:.2f} ms call")
+    return prof.key_averages(), box["span"], union
 
 
 def device_records(events):
@@ -802,7 +871,7 @@ def phase_fleet(cfg, dev, rng, results_dir):
                                err_msg="the ensemble is not the rows' mean")
     n_cpu = 4  # the two warm-ups and the first timed request of each size
     cpu = make_fleet_decoder(FAST(cfg, n_models=FLEET_MODELS),
-                             stack_checkpoints(paths, FAST(cfg)))
+                             *stack_checkpoints(paths, FAST(cfg)))
     ref = cpu(np.concatenate(batches[:n_cpu]))
     got = np.concatenate(rows[:n_cpu], axis=1)
     np.testing.assert_allclose(got, ref, rtol=POST_RTOL, atol=POST_ATOL)
@@ -1491,11 +1560,16 @@ def phase_training(cfg, dev, workdir, precision: str):
 def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False):
     """One training step of an M-model stack (the CV run's 75 by default) at
     batch 64 on a ``dtype`` batch: CUDA-event span, profiler device time by
-    kernel, device idle share. ``sweep``: the sweep's step, ``RowAdamW``
-    at a learning rate and weight decay per row (the default grid's). A bf16
-    step must run B2f-bf16 and B2w-bf16 and no f32 head kernel."""
+    kernel, device idle share, and the peak of allocated device memory
+    from the model's construction on. ``sweep``: the sweep's step,
+    ``RowAdamW`` at a learning rate and weight decay per row (the default
+    grid's). A bf16 step of the Conv4Layers head must run B2f-bf16 and
+    B2w-bf16 and no f32 head kernel; a batch-norm head's step runs no
+    head kernel (its convolutions are cuDNN's)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     model = FAST(cfg, n_models=m, device=dev)
-    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+    model.load_state_dict(from_jax_params(*init_jax_layout(cfg, SEED, m)))
     model.train()
     lr = 1e-4
     if sweep:
@@ -1514,16 +1588,19 @@ def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False)
         engine.train_step(model, opt, x, y, lr, cfg.n_classes, gen)
 
     step()
-    span = cuda_ms(step, 3, warmup=0)
+    # a batch-norm head's step takes ~2 s: one timed step is enough
+    span = cuda_ms(step, 3 if cfg.head == "Conv4Layers" else 1, warmup=0)
     name = ("bf16" if dtype == torch.bfloat16 else "f32")
     what = f"{'sweep' if sweep else 'train'} step {name}"
+    if cfg.head != "Conv4Layers":
+        return stateful_step_row(f"{what} {cfg.head}", step, span, m, TRAIN_BATCH)
     other = "f32" if name == "bf16" else "bf16"
     # Which head kernels ran is read from the launch counters; the profiler
     # is asked only for their times, and profiles again where it lost one.
     kernels = {"f32": ("conv4head_fwd_kernel", "conv4head_bwd_w_kernel"),
                "bf16": ("conv4head_fwd_bf16_kernel", "conv4head_bwd_w_bf16_kernel")}
     reset_launches()
-    events = profiled(step, cpu=True, need=kernels[name])
+    events, p_span, union = profiled_step(step, what, need=kernels[name])
     launches = read_launches()
     if (any(launches[k] < 1 for k in HEAD_KERNELS[name])
             or any(launches[k] for k in HEAD_KERNELS[other]) or launches["conv4head_bwd_x"]):
@@ -1535,13 +1612,69 @@ def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False)
     busy = sum(ms for ms, _, _ in by_device)
     print(f"{what} M={m} B={TRAIN_BATCH}: CUDA-event span {span:.2f} ms; profiler "
           f"device time {busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies "
-          f"(device idle {max(0.0, 1 - busy / span):.1%} of the span)", flush=True)
+          f"(device idle {1 - union / p_span:.1%} of the profiled step's {p_span:.2f} ms span, "
+          f"busy {union:.2f} ms)", flush=True)
     for ms, calls, key in by_device[:10]:
         print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
               flush=True)
     if any(re.search(k, key) for k in kernels[other] for _, _, key in by_device):
         raise RuntimeError(f"the {name} training step's profile holds a {other} head kernel")
-    return {"step_ms": span, "busy_ms": busy}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"    peak allocated device memory {peak:.2f} GB", flush=True)
+    return {"step_ms": span, "busy_ms": busy, "peak_gb": peak, "idle": 1 - union / p_span}
+
+
+CONV4_KERNEL_NAMES = "conv4head_"  # every Conv4Layers head kernel's name starts so
+
+
+def stateful_step_row(what: str, step, span: float, m: int, b: int) -> dict:
+    """A batch-norm model's training step (``step``, already run and timed:
+    ``span``) under the profiler: device time by kernel, idle share of the
+    profiled step's span, peak allocated memory; no head kernel of
+    Conv4Layers and no B1 launch."""
+    reset_launches()
+    events, p_span, union = profiled_step(step, what)
+    launches = read_launches()
+    if any(v for k, v in launches.items() if k != "adapted"):
+        raise RuntimeError(f"{what}: a hand-written kernel launched: {launches}")
+    by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in device_records(events)), reverse=True)
+    if not by_device or any(CONV4_KERNEL_NAMES in key for _, _, key in by_device):
+        raise RuntimeError(f"{what}: no device records, or a Conv4Layers head kernel ran")
+    busy = sum(ms for ms, _, _ in by_device)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{what} M={m} B={b}: CUDA-event span {span:.2f} ms; profiler device time "
+          f"{busy:.2f} ms over {sum(c for _, c, _ in by_device)} kernels and copies, whose "
+          f"union is {union:.2f} ms (device idle {1 - union / p_span:.1%} of the profiled "
+          f"step's {p_span:.2f} ms span); peak allocated device memory {peak:.2f} GB",
+          flush=True)
+    for ms, calls, key in by_device[:8]:
+        print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
+              flush=True)
+    return {"step_ms": span, "busy_ms": busy, "peak_gb": peak, "idle": 1 - union / p_span}
+
+
+def tsception_step_profile(dev) -> dict:
+    """One TSception training step of the CLI's stack of 15 subjects x 5
+    folds at its batch of 32, f32: span, device time, idle share, peak."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = TRAIN_SUBJECTS * 5
+    mdef = make_tsception_model(64, 800)
+    model = mdef.build(m, dev)
+    mdef.load(model, *mdef.init(SEED, m))
+    model.train()
+    opt = engine.make_optimizer(model.parameters(), 0.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((m, TS_BATCH, 64, 800), generator=gen, device=dev)
+    y = torch.randint(0, 5, (m, TS_BATCH), generator=gen, device=dev)
+
+    def step():
+        engine.train_step(model, opt, x, y, 1e-3, 5, gen)
+
+    step()
+    return stateful_step_row("train step f32 TSception", step, cuda_ms(step, 1, warmup=0), m,
+                             TS_BATCH)
 
 
 STEP_PROFILE_FLAG = "--step-profile-child"  # chip_smoke.py runs itself with it: the step profiles
@@ -1561,6 +1694,10 @@ def step_profile_child(out: str) -> None:
             "cv": phase_train_step_profile(cfg, dev, torch.bfloat16),
             "sweep": phase_train_step_profile(cfg, dev, torch.bfloat16, sweep=True),
             "loso": phase_train_step_profile(cfg, dev, torch.bfloat16, m=FLEET_MODELS)}
+    for head in BN_HEADS:
+        rows[head] = phase_train_step_profile(dataclasses.replace(cfg, head=head), dev,
+                                              torch.bfloat16)
+    rows["TSception"] = tsception_step_profile(dev)
     with open(out, "w") as f:
         json.dump(rows, f)
 
@@ -1827,11 +1964,14 @@ ZS_CPU_TARGETS = (0, FLEET_MODELS - 1)  # the targets whose columns the CPU reco
 CAMPAIGN_MODELS = (0, FLEET_MODELS // 2, FLEET_MODELS - 1)  # held against the plain versions
 
 
-def campaign_launches(key: str, training: dict, sweep: dict, loso: dict, ensemble: dict) -> dict:
-    """A bf16 head kernel's launches on the training, sweep, LOSO and
-    ensemble paths, each counted from 0 over its own run, and their sum."""
+def campaign_launches(key: str, training: dict, sweep: dict, loso: dict, ensemble: dict,
+                      augment: dict) -> dict:
+    """A bf16 head kernel's launches on the training, sweep, LOSO, ensemble
+    and augmented training paths, each counted from 0 over its own run,
+    and their sum."""
     parts = {"training": training[key], "sweep": sweep["launches"][key],
-             "loso": loso["launches"][key], "ensemble": ensemble["launches"][key]}
+             "loso": loso["launches"][key], "ensemble": ensemble["launches"][key],
+             "augment": augment[key]}
     return {"launches": sum(parts.values()), **{f"launches_{k}": v for k, v in parts.items()}}
 
 
@@ -2132,9 +2272,9 @@ def phase_zero_shot(cfg, dev, results_dir, tests):
 
     paths = [os.path.join(results_dir, f"sub-{i + 1:02d}", "best_subject.npz")
              for i in range(FLEET_MODELS)]
-    stacked = stack_checkpoints(paths, FAST(cfg))
+    stacked, stacked_state = stack_checkpoints(paths, FAST(cfg))
     model = FAST(cfg, n_models=FLEET_MODELS, device=dev)
-    model.load_state_dict(from_jax_params(stacked))
+    model.load_state_dict(from_jax_params(stacked, stacked_state))
     reset_launches()
     t0 = time.perf_counter()
     matrix = transfer_matrix(model, tests)
@@ -2209,7 +2349,7 @@ def phase_native_cache(X, workdir):
 
 
 REAL_TRIALS = (300, 50, 50)  # train, validation, test trials a subject (the dataset's)
-REAL_EPOCHS = 50  # two segments of 25 (train.cv's epochs_per_segment)
+REAL_EPOCHS = 30  # two segments of 15 (train.cv's _segment_length(30, 25))
 REAL_CHECK_TRIALS = 8  # the first and last trials of each split, held against the plain chain
 REAL_NOTCH, REAL_BAND = 60.0, (4.0, 40.0)  # cli/preprocess.py --notch 60 --bandpass 4 40
 SPLIT_ORDER = ("test", "train", "valid")  # the preprocessing CLI's order (its HDF5 visit)
@@ -2366,8 +2506,8 @@ def _run_child(cmd, log):
 
 
 def real_data_training(base, workdir, test_npz):
-    """``cli.train_fast`` on the fixture tree, bf16, 50 epochs in two
-    segments of 25: once uninterrupted; once killed (SIGKILL) in its
+    """``cli.train_fast`` on the fixture tree, bf16, 30 epochs in two
+    segments of 15: once uninterrupted; once killed (SIGKILL) in its
     second segment after the first segment's checkpoint is in place, then
     run again with ``--resume``. The resumed run must equal the
     uninterrupted one bit for bit."""
@@ -2398,7 +2538,7 @@ def real_data_training(base, workdir, test_npz):
     wall_killed = time.perf_counter() - t0
     with np.load(carry) as f:
         at = (int(f["meta.next_segment"]), int(f["carry.epoch"]))
-    if proc.returncode != -signal.SIGKILL or at != (1, 25) \
+    if proc.returncode != -signal.SIGKILL or at != (1, REAL_EPOCHS // 2) \
             or os.path.exists(os.path.join(killed, "summary_per_subject.csv")):
         raise RuntimeError(f"the kill did not land in the second segment: rc {proc.returncode}, "
                            f"checkpoint at segment {at[0]}, epoch {at[1]}")
@@ -2435,7 +2575,8 @@ def real_data_training(base, workdir, test_npz):
     ut, rt = u["timings"], r["timings"]
     print(f"real-data path, training: 75 models, {REAL_EPOCHS} epochs in 2 segments, bf16; the "
           f"run killed (SIGKILL) in segment 2 after {wall_killed:.2f} s and resumed from epoch "
-          f"25 equals the uninterrupted run bit for bit (history, best epochs and accuracies, "
+          f"{REAL_EPOCHS // 2} equals the uninterrupted run bit for bit (history, best epochs and "
+          f"accuracies, "
           f"summary_per_subject.csv, global predictions, sub-15/best_subject.npz); adapted 0; "
           f"launches (uninterrupted) {u['launches']}", flush=True)
     print(f"  carry {ut['checkpoint_bytes']} bytes ({ut['checkpoint_bytes'] / 1e6:.1f} MB); "
@@ -2522,6 +2663,421 @@ def phase_real_data(dev, device_ms_at):
     return pre, train, zero
 
 
+BN_HEADS = ("CVBlock", "EEGNet_Encoder", "HeadConv_Paper_Version")
+BN_FIRST = {"CVBlock": "bn1", "EEGNet_Encoder": "bn1", "HeadConv_Paper_Version": "norm1"}
+TS_BATCH = 32  # cli.train_tsception's batch
+KERNEL_KEYS = ("iir_chain", "iir", "conv4head_fwd", "conv4head_bwd_w", "conv4head_bwd_x",
+               "conv4head_fwd_bf16", "conv4head_bwd_w_bf16")
+
+
+def check_result_tree(out: str, subjects, state_keys, what: str) -> None:
+    """The CLI's result tree under ``out``, every ``best_subject.npz`` with
+    the model state's keys (``state.head.bn1.mean`` ...) beside the weights."""
+    expected = [os.path.join(out, n) for n in
+                ("summary_per_subject.csv", "global_test_predictions.csv")]
+    for sid in subjects:
+        expected += [os.path.join(out, f"sub-{sid}", n) for n in
+                     [f"fold-{k}_history.csv" for k in range(5)]
+                     + ["fold_metrics.csv", "best_subject.npz", "test_predictions.csv"]]
+    missing = [p for p in expected if not os.path.isfile(p)]
+    if missing:
+        raise RuntimeError(f"{what}: result tree incomplete: {missing[:5]}")
+    for sid in subjects:
+        with np.load(os.path.join(out, f"sub-{sid}", "best_subject.npz")) as f:
+            lacking = set(state_keys) - set(f.files)
+            if lacking or not all(np.isfinite(f[k]).all() for k in state_keys):
+                raise RuntimeError(f"{what}: sub-{sid}'s best_subject.npz lacks or has "
+                                   f"non-finite state {sorted(lacking)[:4]}")
+
+
+def reproduce_predictions(mdef, out: str, sid: str, x_test: np.ndarray, dtype, dev,
+                          batch: int, what: str) -> int:
+    """``sub-<sid>/best_subject.npz`` (weights and state) in one model on the
+    card reproduces the subject's ``test_predictions.csv``."""
+    sd = mdef.build(None).state_dict()
+    template = mdef.dump(sd)
+    params, state, had_state = load_model_npz(os.path.join(out, f"sub-{sid}", "best_subject.npz"),
+                                              *template)
+    if not had_state:
+        raise RuntimeError(f"{what}: sub-{sid}'s checkpoint has no state")
+    model = mdef.build(None, dev)
+    mdef.load(model, params, state)
+    y_pred = engine.predict(model, torch.tensor(x_test, dtype=dtype, device=dev), batch)
+    saved, _ = load_predictions_csv(os.path.join(out, f"sub-{sid}", "test_predictions.csv"))
+    if not np.array_equal(y_pred, saved):
+        raise RuntimeError(f"{what}: sub-{sid}'s best_subject.npz (weights and state) does not "
+                           "reproduce its test_predictions.csv")
+    return len(saved)
+
+
+def report_fit(what: str, result, wall: float, peak_gb: float) -> dict:
+    t = result.timings
+    acc = [row["Test_Acc"] for row in result.summary]
+    for ep, (tr, va) in enumerate(zip(t.get("train_s", []), t.get("val_s", []))):
+        print(f"  {what} epoch {ep}: train pass {tr:.3f} s, validation {va:.3f} s", flush=True)
+    print(f"{what}: {wall:.2f} s in all (fit {t['fit_s']:.2f} s, artifacts + test eval "
+          f"{t['artifacts_s']:.2f} s); peak allocated device memory {peak_gb:.2f} GB; mean val_acc "
+          f"{np.nanmean(result.fit.history['val_acc'][:, -1]):.4f}, mean test acc "
+          f"{np.mean(acc):.4f}", flush=True)
+    return {"wall_s": wall, "fit_s": t["fit_s"], "peak_gb": peak_gb}
+
+
+def phase_bn_heads(cfg, dev, X, Y, workdir):
+    """(a) The batch-norm heads at full width in bf16 (the default): 15 x 350
+    trials, 75 models, batch 64, 2 epochs. CVBlock through
+    ``cli.train_fast --head CVBlock`` (its ``load_data`` handed the corpus
+    it would generate, which the caller made once), EEGNet_Encoder and
+    HeadConv_Paper_Version through ``train_per_subject_cv`` on the same
+    corpus and test split. No hand-written kernel runs (the heads are
+    cuDNN convolutions and plain tensor code); the history is finite, the
+    tree complete with the state in every ``best_subject.npz``, and the
+    last subject's reproduces its test predictions."""
+    from imagined_speech_decoding_tpu_torch.models.api import make_fast_model
+
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    n_test = TRAIN_TRIALS // 3
+    test = {sid: (X[i, :n_test], Y[i, :n_test]) for i, sid in enumerate(subjects)}
+    rows, outs = {}, {}
+    for head in BN_HEADS:
+        hcfg = dataclasses.replace(cfg, head=head)
+        out = outs[head] = os.path.join(workdir, f"heads_{head}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        if head == "CVBlock":
+            argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+                    "--epochs", str(TRAIN_EPOCHS), "--head", head, "--output_dir", out]
+            print(f"heads: cli.train_fast {' '.join(argv[:-1])} <tmp>", flush=True)
+            load_data = train_fast.load_data
+            train_fast.load_data = lambda args: (X, Y, subjects, test)
+            try:
+                result = train_fast.main(argv)
+            finally:
+                train_fast.load_data = load_data
+        else:
+            print(f"heads: train_per_subject_cv, {head}, bf16, the same corpus", flush=True)
+            result = train_per_subject_cv(hcfg, TrainConfig(max_epochs=TRAIN_EPOCHS), X, Y,
+                                          subjects, cfg.n_classes, test_per_subject=test,
+                                          save_dir=out, device=dev, verbose=False,
+                                          checkpoint_dir=os.path.join(out, "checkpoints"))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_launches()
+        if any(launches[k] for k in KERNEL_KEYS):
+            raise RuntimeError(f"heads {head}: a hand-written kernel launched: {launches}")
+        for k, v in result.fit.history.items():
+            if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
+                raise RuntimeError(f"heads {head}: history {k} {v.shape}")
+        bn1 = BN_FIRST[head]
+        first = result.fit.best_model_state[f"head.{bn1}.mean"]
+        if not torch.isfinite(first).all() or not first.abs().max() > 0:
+            raise RuntimeError(f"heads {head}: the best snapshot's running mean did not move")
+        check_result_tree(out, subjects, (f"state.head.{bn1}.mean", f"state.head.{bn1}.var"),
+                          f"heads {head}")
+        si = TRAIN_SUBJECTS - 1
+        n = reproduce_predictions(make_fast_model(hcfg), out, subjects[si], X[si, :n_test],
+                                  torch.bfloat16, dev, TRAIN_BATCH, f"heads {head}")
+        print(f"heads {head}: no hand-written kernel launched; history finite; the tree and "
+              f"every best_subject.npz's state written; sub-{subjects[si]}'s reproduces its "
+              f"{n} test predictions", flush=True)
+        rows[head] = report_fit(f"heads {head} (bf16, M={TRAIN_SUBJECTS * 5})", result, wall, peak)
+        del result
+    return rows, outs
+
+
+def phase_tsception(dev, X, Y, workdir):
+    """(b) ``cli.train_tsception --synthetic 15 --synthetic_trials 350
+    --epochs 2 --subject_group 15``: all 75 models of the 15 subjects in
+    one stack (the CLI's default of 1 subject a group would run 15 stacks
+    of 5), f32, batch 32; the tree with the state, the last subject's
+    checkpoint reproducing its predictions, the peak memory. The CLI's
+    ``load_data`` is handed the training path's corpus (its own synthetic
+    corpus has seed 1; the shapes and the test split's rule, each
+    subject's first 20 trials, are its own), saving the ~15 s of numpy
+    that generating it takes."""
+    from imagined_speech_decoding_tpu_torch.cli import train_tsception
+
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    test = {sid: (X[i, :20], Y[i, :20]) for i, sid in enumerate(subjects)}
+
+    out = os.path.join(workdir, "tsception")
+    argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+            "--epochs", str(TRAIN_EPOCHS), "--subject_group", str(TRAIN_SUBJECTS),
+            "--output_dir", out]
+    print(f"tsception: cli.train_tsception {' '.join(argv[:-1])} <tmp>", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    load_data = train_tsception.load_data
+    train_tsception.load_data = lambda args: (X, Y, subjects, test)
+    try:
+        t0 = time.perf_counter()
+        result = train_tsception.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        train_tsception.load_data = load_data
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = read_launches()
+    if any(launches[k] for k in KERNEL_KEYS):
+        raise RuntimeError(f"tsception: a hand-written kernel launched: {launches}")
+    for k, v in result.fit.history.items():
+        if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
+            raise RuntimeError(f"tsception: history {k} {v.shape}")
+    check_result_tree(out, subjects, ("state.bn_t.mean", "state.bn_t.var", "state.bn_s.mean",
+                                      "state.bn_s.var"), "tsception")
+    si = TRAIN_SUBJECTS - 1
+    n = reproduce_predictions(make_tsception_model(64, 800), out, subjects[si], X[si, :20],
+                              torch.float32, dev, TS_BATCH, "tsception")
+    print(f"tsception: history finite; the tree and every best_subject.npz's state written; "
+          f"sub-{subjects[si]}'s reproduces its {n} test predictions", flush=True)
+    return report_fit(f"tsception (f32, M={TRAIN_SUBJECTS * 5})", result, wall, peak)
+
+
+def phase_augment(cfg, dev, X, Y, workdir) -> dict:
+    """(c) ``cli.train_fast --augment`` (its ``load_data`` handed the same
+    corpus), bf16, Conv4Layers, 2 epochs: B2f-bf16 and B2w-bf16 launch as
+    the batches count them (plus the test predictions' forwards), nothing
+    adapted; an evaluation of the trained stack on the f32 corpus cast per
+    batch equals the un-augmented evaluation on the bf16 corpus bit for
+    bit."""
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    n_test = TRAIN_TRIALS // 3
+    test = {sid: (X[i, :n_test], Y[i, :n_test]) for i, sid in enumerate(subjects)}
+    out = os.path.join(workdir, "augment")
+    argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+            "--epochs", str(TRAIN_EPOCHS), "--augment", "--output_dir", out]
+    print(f"augment: cli.train_fast {' '.join(argv[:-1])} <tmp>", flush=True)
+    reset_launches()
+    load_data = train_fast.load_data
+    train_fast.load_data = lambda args: (X, Y, subjects, test)
+    try:
+        t0 = time.perf_counter()
+        result = train_fast.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        train_fast.load_data = load_data
+    launches = read_launches()
+    n_train, n_val = TRAIN_TRIALS * 4 // 5, TRAIN_TRIALS // 5
+    fwd, bwd = expected_head_launches(TRAIN_EPOCHS, n_train, n_val, TRAIN_BATCH)
+    fwd += TRAIN_SUBJECTS * -(-n_test // TRAIN_BATCH)  # the test predictions, one model a subject
+    require_bf16_launches(launches, (fwd, bwd), "augment")
+    for k, v in result.fit.history.items():
+        if not np.isfinite(v).all():
+            raise RuntimeError(f"augment: history {k} not finite")
+    m = TRAIN_SUBJECTS * 5
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(result.fit.params)
+    _, vidx, _ = build_cv_index_stack(TRAIN_SUBJECTS, TRAIN_TRIALS, 5, 42)
+    x32 = torch.as_tensor(X.reshape(-1, 64, 800), device=dev)
+    y = torch.as_tensor(Y.reshape(-1).astype(np.int64), device=dev)
+    idx = torch.as_tensor(vidx, device=dev)
+    eb = engine.eval_batch_size_for(n_val, TRAIN_BATCH)
+    got = engine.evaluate(model, x32, y, idx, eb, cfg.n_classes, torch.bfloat16)
+    want = engine.evaluate(model, x32.to(torch.bfloat16), y, idx, eb, cfg.n_classes)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("augment: the evaluation of the f32 corpus cast per batch differs "
+                           "from the un-augmented evaluation of the bf16 corpus")
+    print(f"augment: {wall:.2f} s; B2f-bf16 / B2w-bf16 launched {fwd} / {bwd} times as the "
+          f"batches count them, nothing adapted; the evaluation (val loss "
+          f"{float(got[0].mean()):.4f}) equals the un-augmented one bit for bit", flush=True)
+    del x32
+    return {"wall_s": wall, **{k: launches[k] for k in ("conv4head_fwd_bf16",
+                                                         "conv4head_bwd_w_bf16")}}
+
+
+def phase_stateful_decoders(cfg, dev, rng, results_dir) -> dict:
+    """(d) A live decoder and a fleet over the 15 CVBlock checkpoints of (a)
+    (f32 serving, weights and running statistics from the files): at B = 1
+    and 8, a replay equals the eager chain bit for bit; the eager decodes
+    each launch B1's chain once and the captures record one each, and no
+    head kernel runs; the posteriors match the plain CPU decoders (rtol
+    1e-4, atol 1e-5); after ``swap_weights(params, state)`` a replay
+    equals a fresh decoder on the new weights and statistics."""
+    from imagined_speech_decoding_tpu_torch.train.checkpoint import select_model
+
+    hcfg = dataclasses.replace(cfg, head="CVBlock")
+    paths = [os.path.join(results_dir, f"sub-{i + 1:02d}", "best_subject.npz")
+             for i in range(FLEET_MODELS)]
+    params, state = stack_checkpoints(paths, FAST(hcfg))
+    p0, s0 = select_model(params, 0), select_model(state, 0)
+    p1, s1 = select_model(params, 1), select_model(state, 1)
+    reset_launches()
+    live = make_online_decoder(FAST(hcfg, device=dev), p0, s0)
+    fleet = make_fleet_decoder(FAST(hcfg, n_models=FLEET_MODELS, device=dev), params, state)
+    cpu_live = make_online_decoder(FAST(hcfg), p0, s0)
+    cpu_fleet = make_fleet_decoder(FAST(hcfg, n_models=FLEET_MODELS), params, state)
+    xs = {b: rng.normal(size=(b, 64, 800)).astype(np.float32) for b in (1, MAIN_BATCH)}
+    cases = (("live", live, cpu_live), ("fleet", fleet, cpu_fleet),
+             ("fleet ensemble", fleet.ensemble, cpu_fleet.ensemble))
+    outs = {(name, b): (dec(x), dec(x)) for name, dec, _ in cases for b, x in xs.items()}
+    decoders = {"live": live, "fleet": fleet, "fleet ensemble": fleet.ensemble}
+    launches = read_launches()  # the decodes' alone: the eager chains below launch B1 too
+    worst = 0.0
+    for name, dec, ref in cases:
+        for b, x in xs.items():
+            first, replay = outs[(name, b)]
+            if not (np.array_equal(replay, eager(dec, x)) and np.array_equal(first, replay)):
+                raise RuntimeError(f"stateful {name} B={b}: the replay differs from the eager "
+                                   "chain")
+            want = ref(x)
+            check_posteriors(replay, want)
+            worst = max(worst, float(np.abs(replay - want).max()))
+    runs = sum(d.eager for d in decoders.values())
+    captures = sum(len(d.graphs) for d in decoders.values())
+    if (launches["iir_chain"], launches["iir_chain_captures"]) != (runs, captures) or any(
+            launches[k] for k in KERNEL_KEYS if k != "iir_chain"):
+        raise RuntimeError(f"stateful decoders: {runs} eager decodes and {captures} captures "
+                           f"must launch / record one B1 chain each and nothing else: {launches}")
+    live.swap_weights(p1, s1)
+    swapped = (stack_trees([p1] + [select_model(params, i) for i in range(1, FLEET_MODELS)]),
+               stack_trees([s1] + [select_model(state, i) for i in range(1, FLEET_MODELS)]))
+    fleet.swap_weights(*swapped)
+    fresh_live = make_online_decoder(FAST(hcfg, device=dev), p1, s1)
+    fresh_fleet = make_fleet_decoder(FAST(hcfg, n_models=FLEET_MODELS, device=dev), *swapped)
+    for name, dec, fresh in (("live", live, fresh_live), ("fleet", fleet, fresh_fleet),
+                             ("fleet ensemble", fleet.ensemble, fresh_fleet.ensemble)):
+        for b, x in xs.items():
+            before = dec.replays
+            if not np.array_equal(dec(x), fresh(x)) or dec.replays != before + 1:
+                raise RuntimeError(f"stateful {name} B={b}: after swap_weights(params, state) "
+                                   "the replay differs from a fresh decoder")
+    print(f"stateful decoders (CVBlock, 15 checkpoints of the heads run): live, fleet and "
+          f"ensemble at B = 1 and {MAIN_BATCH}: replays == eager bit for bit; {runs} eager decodes "
+          f"= {launches['iir_chain']} B1 chain launches, {captures} captures recorded one each; "
+          f"posteriors match the CPU decoders (max|err| {worst:.3g}, rtol {POST_RTOL}, atol "
+          f"{POST_ATOL}); after swap_weights(params, state) replays equal fresh decoders bit for "
+          "bit", flush=True)
+    return {"iir_chain": launches["iir_chain"], "iir_chain_captures": captures,
+            "replays": sum(d.replays for d in decoders.values())}
+
+
+# The running mean that follows a bias whose exact gradient is 0, the bias,
+# and the spatial conv between them: (state key, bias key, weight key).
+SHIFTED_MEANS = {"CVBlock": ("head.bn2.mean", "head.bn1.bias", "head.conv2.w"),
+                 "EEGNet_Encoder": ("head.bn2.mean", "head.bn1.bias", "head.spatial.w"),
+                 "HeadConv_Paper_Version": ("head.norm1.mean", "head.cnn1_t.b", "head.cnn1_s.w")}
+
+
+def shifted_mean_bound(name: str, params: dict, mask: torch.Tensor, lr_sum: float):
+    """How far the card's and the CPU's values of ``SHIFTED_MEANS[name]``'s
+    running mean may part, per element. The bias in front of a batch norm
+    has an exact gradient of 0; AdamW moves it by up to lr a step whatever
+    its gradient's size, so its rounding-noise gradient moves it up to
+    ``lr_sum`` from the start in a direction of its own on each device:
+    the two differ by at most ``2 * lr_sum``. The spatial conv carries a
+    shift d of its input channel f to its output channel o as d * sum_c
+    w[o, f, c] over the real rows c, and each weight is within ``lr_sum``
+    of its final value, so the batch mean of o moves by at most ``2 *
+    lr_sum * sum_f sum_c (|w[o, f, c]| + lr_sum)``; the running mean, a
+    convex mix of its start and the batch means, moves by no more.
+    ``params``: one device's final (or best) parameters; ``mask (Z, C)``."""
+    _, _, wkey = SHIFTED_MEANS[name]
+    w = params[wkey].cpu()
+    m, z, o, f, c = w.shape[:5]  # (M, Z, O, F, C, 1); F = 1 for a depthwise conv
+    rows = mask.cpu().to(w.dtype).reshape(1, z, 1, 1, c)
+    per_out = ((w.reshape(m, z, o, f, c).abs() + lr_sum) * rows).sum(dim=(3, 4))
+    return 2 * lr_sum * per_out  # (M, Z, O), the running mean's shape
+
+
+def phase_trajectory_stateful(cfg, dev) -> dict:
+    """Card against CPU for each batch-norm head and for TSception, f32 with
+    TF32 off (cuBLAS and cuDNN): 2 subjects x 10 trials (10 models, 8 + 2
+    trials, batch 8: one step an epoch), 2 epochs, dropout off (the
+    trunk's, and the heads' and TSception's fixed rates, so that the runs
+    draw nothing), the same weights and CPU-generator permutations: the
+    history at rtol 1e-4 / atol 1e-5, the running statistics after the
+    first step (both devices' parameters still equal) at the same
+    tolerance, every parameter within twice the summed learning rate, and
+    the final and best running statistics at the same tolerance, except
+    the running means that follow a bias of exact gradient 0
+    (``SHIFTED_MEANS``), which are held within ``shifted_mean_bound``."""
+    from imagined_speech_decoding_tpu_torch.models import heads as heads_mod
+    from imagined_speech_decoding_tpu_torch.models.api import make_fast_model
+
+    x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
+    tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
+    m = tidx.shape[0]
+    saved = heads_mod.CVBlockHead.DROPOUT, heads_mod.EEGNetEncoderHead.DROPOUT
+    heads_mod.CVBlockHead.DROPOUT = heads_mod.EEGNetEncoderHead.DROPOUT = 0.0
+    rows = {}
+    try:
+        cases = [(h, make_fast_model(dataclasses.replace(cfg, head=h, dropout=0.0)), 0.01)
+                 for h in BN_HEADS]
+        cases.append(("TSception", make_tsception_model(64, 800, dropout=0.0), 0.0))
+        for name, mdef, wd in cases:
+            p0, s0 = mdef.init(42, m)
+            runs, first = {}, {}
+            t0 = time.perf_counter()
+            for device, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                model = mdef.build(m, d)
+                mdef.load(model, p0, s0)
+                fit = engine.make_fit(model, cfg.n_classes, epochs=2, batch_size=8, n_train=8,
+                                      n_val=2, learning_rate=1e-3, warmup_epochs=0,
+                                      weight_decay=wd)
+                xd = torch.as_tensor(x.reshape(-1, 64, 800), device=d)
+                yd = torch.as_tensor(y.reshape(-1).astype(np.int64), device=d)
+                carry = fit.init_carry(tidx, vidx, xd, seed=43)
+                fit.run(carry, xd, yd, until=1)
+                first[device] = {k: b.detach().cpu().clone() for k, b in carry.buffers.items()}
+                runs[device] = fit.result(fit.run(carry, xd, yd, until=2))
+            gpu, cpu = runs["card"], runs["cpu"]
+            for k in engine.HISTORY_KEYS:
+                np.testing.assert_allclose(gpu.history[k], cpu.history[k], rtol=TRAJ_RTOL,
+                                           atol=TRAJ_ATOL, err_msg=f"{name} history {k}")
+            if sorted(first["card"]) != sorted(first["cpu"]) or not first["card"]:
+                raise RuntimeError(f"{name}: running-statistics keys {sorted(first['card'])}")
+            stat_err = max(check_close(f"{name} running statistics after the first step {k}",
+                                       first["card"][k], first["cpu"][k], TRAJ_RTOL, TRAJ_ATOL)
+                           for k in first["card"])
+            lr_sum = float(np.sum(fit.lr_table))
+            budget = 2 * lr_sum
+            final, shifted, bound_max = {}, SHIFTED_MEANS.get(name, (None,))[0], 0.0
+            for which, pwhich in (("model_state", "params"), ("best_model_state", "best_params")):
+                a_all, b_all = getattr(gpu, which), getattr(cpu, which)
+                if sorted(a_all) != sorted(b_all) or not a_all:
+                    raise RuntimeError(f"{name}: {which} keys {sorted(a_all)}")
+                for k in a_all:
+                    a, b = a_all[k].cpu(), b_all[k]
+                    tol = TRAJ_ATOL + TRAJ_RTOL * b.abs()
+                    if k == shifted:
+                        bound = shifted_mean_bound(name, getattr(cpu, pwhich),
+                                                   model.head.zone_mask, lr_sum)
+                        bound_max = max(bound_max, float(bound.max()))
+                        tol = tol + bound
+                    far = int(((a - b).abs() > tol).sum())
+                    final[f"{which}.{k}"] = (far, float((a - b).abs().max()))
+                    if far:
+                        raise RuntimeError(
+                            f"{name}: {far} of {b.numel()} elements of the {which} {k} beyond "
+                            f"rtol {TRAJ_RTOL}, atol {TRAJ_ATOL}"
+                            + (" plus the bias shift's bound" if k == shifted else "")
+                            + f"; max|card - CPU| {final[f'{which}.{k}'][1]:.3g}")
+            worst = 0.0
+            for which in ("params", "best_params"):
+                a_all, b_all = getattr(gpu, which), getattr(cpu, which)
+                for k in a_all:
+                    worst = max(worst, float((a_all[k].cpu() - b_all[k]).abs().max()))
+            if worst > budget:
+                raise RuntimeError(f"{name}: parameters max|card - CPU| {worst:.3g} > twice the "
+                                   f"summed lr {budget:.3g}")
+            held = {k: v[1] for k, v in final.items() if shifted is None or shifted not in k}
+            worst_held = max(held, key=held.get)
+            worst_shift = max((v[1] for k, v in final.items() if k not in held), default=0.0)
+            print(f"trajectory {name} f32 ({time.perf_counter() - t0:.1f} s): card and CPU agree "
+                  f"over 2 epochs: history (rtol {TRAJ_RTOL}, atol {TRAJ_ATOL}); running "
+                  f"statistics after the first step (max|err| {stat_err:.3g}), final and best "
+                  f"(max|err| {held[worst_held]:.3g} at {worst_held}"
+                  + (f"; {shifted} within the bias shift's bound (at most {bound_max:.3g}), "
+                     f"max|err| {worst_shift:.3g}" if shifted else "")
+                  + f"); parameters max|card - CPU| {worst:.3g} <= {budget:.3g}", flush=True)
+            rows[name] = {"stat_err": stat_err, "param_err": worst,
+                          "final_max_err": held[worst_held], "shifted_max_err": worst_shift}
+    finally:
+        heads_mod.CVBlockHead.DROPOUT, heads_mod.EEGNetEncoderHead.DROPOUT = saved
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
@@ -2577,10 +3133,25 @@ def main() -> None:
         sweep = phase_sweep(cfg, dev, X[0], Y[0])
         loso = phase_loso(cfg, dev, X, Y, workdir)
         phase_native_cache(X, workdir)
+        heads, head_dirs = phase_bn_heads(cfg, dev, X, Y, workdir)
+        stateful = phase_stateful_decoders(cfg, dev, rng, head_dirs["CVBlock"])
+        augmented = phase_augment(cfg, dev, X, Y, workdir)
+        tsception = phase_tsception(dev, X, Y, workdir)
     del X, Y
-    phase_step_profiles()
+    steps = phase_step_profiles()
     phase_trajectory(cfg, dev)
     phase_trajectory_bf16(cfg, dev)
+    stateful_traj = phase_trajectory_stateful(cfg, dev)
+    for name in BN_HEADS + ("TSception",):
+        run = tsception if name == "TSception" else heads[name]
+        st = steps[name]
+        traj = stateful_traj[name]
+        print(f"stateful model {name}: step device {st['busy_ms']:.2f} ms / CUDA-event span "
+              f"{st['step_ms']:.2f} ms (device idle {st['idle']:.1%}), step peak "
+              f"{st['peak_gb']:.2f} GB, fit peak {run['peak_gb']:.2f} GB of 80 GB, fit "
+              f"{run['fit_s']:.2f} s, card vs CPU running statistics max|err| "
+              f"{traj['stat_err']:.3g} after the first step, {traj['final_max_err']:.3g} final",
+              flush=True)
     real, _, zero = phase_real_data(dev, iir["preprocessing"])
 
     src = "imagined_speech_decoding_tpu_torch/csrc/"
@@ -2598,10 +3169,12 @@ def main() -> None:
     kernels = [
         {"name": "iir_sosfiltfilt_chain", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67",
-         "launches": serving["iir_chain"] + real["launches"] + fleet["iir_chain"],
+         "launches": serving["iir_chain"] + real["launches"] + fleet["iir_chain"]
+         + stateful["iir_chain"],
          "launches_serving": serving["iir_chain"], "launches_preprocessing": real["launches"],
-         "launches_fleet": fleet["iir_chain"], "graph_captures": captures["iir_chain"],
-         "graph_replays": serving["replays"] + fleet["replays"],
+         "launches_fleet": fleet["iir_chain"], "launches_stateful_decoders": stateful["iir_chain"],
+         "graph_captures": captures["iir_chain"] + stateful["iir_chain_captures"],
+         "graph_replays": serving["replays"] + fleet["replays"] + stateful["replays"],
          **{k: iir[MAIN_BATCH][k] for k in keys}, "library_ms": None},
         {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67", "launches": serving["iir"],
@@ -2629,14 +3202,16 @@ def main() -> None:
          "bound_by": b2x["x_bound"][1], "library_ms": None},
         {"name": "conv4head_fwd_bf16", "route": "cuda", "source": src + "conv4head_fwd_bf16.cu",
          "replaces": pallas + "conv4head.py:303",
-         **campaign_launches("conv4head_fwd_bf16", training_bf16, sweep, loso, ensemble),
+         **campaign_launches("conv4head_fwd_bf16", training_bf16, sweep, loso, ensemble,
+                            augmented),
          "max_abs_err": b16["fwd_err"], "ms": b16["fwd_ms"], "plain_ms": b16["fwd_plain_ms"],
          "bound_ms": b16["fwd_bound"][0], "bound_by": b16["fwd_bound"][1], "library_ms": None,
          "loso_m15": {b: {k[4:]: v for k, v in r.items() if k.startswith("fwd_")}
                       for b, r in zip(LOSO_BATCHES, loso_rows)}},
         {"name": "conv4head_bwd_w_bf16", "route": "cuda", "source": src + "conv4head_bwd_w_bf16.cu",
          "replaces": pallas + "conv4head.py:323",
-         **campaign_launches("conv4head_bwd_w_bf16", training_bf16, sweep, loso, ensemble),
+         **campaign_launches("conv4head_bwd_w_bf16", training_bf16, sweep, loso, ensemble,
+                            augmented),
          "max_abs_err": b16["w_err"], "ms": b16["w_ms"], "plain_ms": b16["w_plain_ms"],
          "bound_ms": b16["w_bound"][0], "bound_by": b16["w_bound"][1], "library_ms": None,
          "loso_m15": {b: {k[2:]: v for k, v in r.items() if k.startswith("w_")}

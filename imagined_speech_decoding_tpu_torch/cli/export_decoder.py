@@ -53,19 +53,19 @@ def main(argv=None):
     from ..models.fast import FAST
     from ..serving import export_decoder_artifact
     from ..train.checkpoint import load_model_npz
-    from ..transplant import init_jax_layout_params
+    from ..transplant import init_jax_layout
     from .train_fast import resolve_config
 
     cfg = resolve_config(args, {}).model
-    params = init_jax_layout_params(cfg, args.seed)
+    params, state = init_jax_layout(cfg, args.seed)
     if args.checkpoint:
-        params, _, _ = load_model_npz(args.checkpoint, params, {"head": {}})
+        params, state, _ = load_model_npz(args.checkpoint, params, state)
     else:
         print("note: no --checkpoint given; exporting freshly initialized weights")
 
     band = tuple(args.band) if args.band and args.band[0] > 0 else None
     path = export_decoder_artifact(
-        args.out, FAST(cfg), params,
+        args.out, FAST(cfg), params, state,
         n_channels=cfg.n_channels, seq_len=cfg.seq_len, sfreq=SFREQ,
         notch_hz=args.notch or None, band=band,
         batch_size=args.batch_size,

@@ -89,7 +89,7 @@ def build_server(args, device="cuda"):
     from ..models.fast import FAST
     from ..serving import make_fleet_decoder, make_online_decoder, stack_checkpoints
     from ..train.checkpoint import load_model_npz
-    from ..transplant import to_jax_params
+    from ..transplant import to_jax_params, to_jax_state
     from .train_fast import resolve_config
 
     cfg = resolve_config(args, {}).model
@@ -103,8 +103,8 @@ def build_server(args, device="cuda"):
         paths = sorted(glob.glob(os.path.join(args.checkpoint_dir, "sub-*", "best_subject.npz")))
         if not paths:
             raise SystemExit(f"no sub-*/best_subject.npz under {args.checkpoint_dir}")
-        fleet = make_fleet_decoder(FAST(cfg, n_models=len(paths), device=device),
-                                   stack_checkpoints(paths, model),
+        params, state = stack_checkpoints(paths, model)
+        fleet = make_fleet_decoder(FAST(cfg, n_models=len(paths), device=device), params, state,
                                    notch_hz=args.notch or None, band=band)
         return DecoderServer(
             fleet.ensemble,
@@ -118,18 +118,20 @@ def build_server(args, device="cuda"):
             **shape, **common,
         )
 
-    template = to_jax_params(model.state_dict())
+    sd = model.state_dict()
+    template, state_template = to_jax_params(sd), to_jax_state(sd)
 
     def load(path: str):
-        params, _, _ = load_model_npz(path, template, {"head": {}})
-        return params
+        """The checkpoint's weights and model state (batch-norm statistics)."""
+        params, state, _ = load_model_npz(path, template, state_template)
+        return params, state
 
     decode = make_online_decoder(
-        model, load(args.checkpoint), notch_hz=args.notch or None, band=band
+        model, *load(args.checkpoint), notch_hz=args.notch or None, band=band
     )
 
     def reload_weights(path: str) -> None:
-        decode.swap_weights(load(path))
+        decode.swap_weights(*load(path))
 
     # RELOAD confinement: the results tree that holds the served
     # checkpoint (…/results/FAST for …/results/FAST/sub-01/best_subject.npz).

@@ -17,8 +17,10 @@ flag, as the JAX CLI has none.
 What this slice of the port runs is the dataset's raw folder (the
 training and validation ``.mat`` files of all 15 subjects merged into
 each subject's CV pool; the v7.3 test split with the answer sheet's
-labels, ``data.ingest``) or ``--synthetic`` data, and the Conv4Layers
-head, in either ``--precision``: bf16 (the default, the JAX package's
+labels, ``data.ingest``) or ``--synthetic`` data, and every ``--head``
+(Conv4Layers, CVBlock, EEGNet_Encoder, HeadConv_Paper_Version; the
+batch-norm heads' running statistics are saved in ``best_subject.npz``
+with the weights), in either ``--precision``: bf16 (the default, the JAX package's
 ``bf16-mixed``: bf16 activations and head operands, f32 parameters,
 optimizer state and loss) or f32. The fit runs in segments of 25 epochs
 and writes its carry to ``<output_dir>/checkpoints/segment_carry.npz``
@@ -28,8 +30,11 @@ restarts from it, and the run ends as an uninterrupted one would.
 weight decay and warmup, explicit flags winning; ``--loso-pretrain``
 pretrains the leave-one-subject-out stack (``train.loso``) and starts each
 subject's folds from its model; ``--ensemble N`` trains an N-member seed
-ensemble (``train.ensemble``), the root tree holding its soft vote. The
-other options raise ``NotImplementedError`` naming their ROADMAP.md item.
+ensemble (``train.ensemble``), the root tree holding its soft vote;
+``--augment`` adds per-trial noise (``--noise_sigma``) and channel dropout
+(``--ch_drop``) to every training batch (``models.api.make_augmented_model``).
+``--loso-pretrain`` takes the Conv4Layers head only. The other options
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 ``--config`` reads YAML with PyYAML, imported only then; without PyYAML
 the default ``configs/default.yaml`` falls back to the built-in defaults,
 which equal that file's values.
@@ -79,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=1, metavar="K",
                    help="write the segment checkpoint every K-th segment (the last always)")
     p.add_argument("--mesh", type=str, default="none", choices=["none", "model", "data", "2d"])
-    p.add_argument("--augment", action="store_true", help="(not ported)")
+    p.add_argument("--augment", action="store_true",
+                   help="train-time noise + channel dropout in the train step (eval untouched)")
     p.add_argument("--noise_sigma", type=float, default=0.1)
     p.add_argument("--ch_drop", type=float, default=0.1)
     p.add_argument("--ensemble", type=int, default=1, metavar="N_MEMBERS",
@@ -129,12 +135,10 @@ def build_overrides(args) -> dict:
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
     unported = [
-        ("--augment", args.augment),
         ("--mesh other than none", args.mesh != "none"),
         ("--profile", args.profile),
         ("--remat", args.remat),
         ("--head_chunk", args.head_chunk),
-        ("a --head other than Conv4Layers", args.head not in (None, "Conv4Layers")),
     ]
     for what, used in unported:
         if used:
@@ -238,12 +242,22 @@ def main(argv=None, device="cuda"):
         parser.error("--ensemble is incompatible with --loso-pretrain")
     refuse_unported(args)
     cfg = resolve_config(args, build_overrides(args))
-    if cfg.model.head != "Conv4Layers":
-        raise NotImplementedError(f"head {cfg.model.head!r} {_ROADMAP}")
+    if args.loso_pretrain and cfg.model.head != "Conv4Layers":
+        raise NotImplementedError(
+            f"--loso-pretrain with the {cfg.model.head} head {_ROADMAP}")
 
     from ..devices import require_device
+    from ..models.api import make_augmented_model, make_fast_model
+    from ..models.heads import get_head
     from ..train.cv import train_per_subject_cv
     from ..utils import seed_all
+
+    get_head(cfg.model.head)  # an unknown head fails before the data loads
+    model = cfg.model
+    if args.augment:
+        model = make_augmented_model(make_fast_model(cfg.model), args.noise_sigma, args.ch_drop)
+        print(f"augment: noise_sigma={args.noise_sigma} ch_drop={args.ch_drop} "
+              "(train step only)", flush=True)
 
     device = require_device(device)
     seed_all(cfg.train.seed)
@@ -257,12 +271,12 @@ def main(argv=None, device="cuda"):
     if args.ensemble > 1:
         from ..train.ensemble import train_seed_ensemble
 
-        result = train_seed_ensemble(cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
+        result = train_seed_ensemble(model, cfg.train, X, Y, subjects, cfg.model.n_classes,
                                      n_members=args.ensemble, **common)
         result.timings["data_s"] = data_s
     else:
         warm = loso_warm_start(args, cfg, X, Y, subjects, device) if args.loso_pretrain else None
-        result = train_per_subject_cv(cfg.model, cfg.train, X, Y, subjects, cfg.model.n_classes,
+        result = train_per_subject_cv(model, cfg.train, X, Y, subjects, cfg.model.n_classes,
                                       warm_start=warm, **common)
         result.timings["data_s"] = data_s
 

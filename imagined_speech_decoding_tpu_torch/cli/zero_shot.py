@@ -151,21 +151,34 @@ def synthetic_models(cfg, args, device):
 
 def checkpoint_models(cfg, args, device):
     """The test split of every subject with a ``<results_dir>/sub-XX/
-    best_subject.npz``, and those checkpoints as one stacked model:
-    ``(model, subjects, tests)``."""
+    best_subject.npz``, and those checkpoints, weights and model state, as
+    one stacked model: ``(model, subjects, tests)``. A params-only file of
+    a head with batch-norm state is evaluated with the initial statistics,
+    and a warning says so (JAX ``zero_shot.py:185-190``)."""
     from ..data.constants import SUBJECTS
     from ..data.ingest import load_test_set_per_subject, resolve_data_folder, resolve_excel_path
     from ..models.fast import FAST
-    from ..serving import stack_checkpoints
-    from ..transplant import from_jax_params
+    from ..train.checkpoint import load_model_npz
+    from ..transplant import from_jax_params, stack_trees, to_jax_params, to_jax_state
 
     base = resolve_data_folder(args.data_folder)
     per_subject = load_test_set_per_subject(base, resolve_excel_path(base, args.excel_path),
                                             strict=not args.no_strict)
     subjects = [s for s in SUBJECTS if s in per_subject]
     paths = [os.path.join(args.results_dir, f"sub-{sid}", "best_subject.npz") for sid in subjects]
+    sd = FAST(cfg.model).state_dict()
+    template_p, template_s = to_jax_params(sd), to_jax_state(sd)
+    ps, ss = [], []
+    for path in paths:
+        p, s, had_state = load_model_npz(path, template_p, template_s)
+        if not had_state and template_s["head"]:
+            print(f"WARNING: {path} is a legacy params-only checkpoint but the "
+                  f"{cfg.model.head} head is stateful — evaluating with INIT "
+                  "batch-norm statistics (retrain to persist state).", flush=True)
+        ps.append(p)
+        ss.append(s)
     model = FAST(cfg.model, n_models=len(subjects), device=device)
-    model.load_state_dict(from_jax_params(stack_checkpoints(paths, FAST(cfg.model))))
+    model.load_state_dict(from_jax_params(stack_trees(ps), stack_trees(ss)))
     return model, subjects, [per_subject[sid] for sid in subjects]
 
 

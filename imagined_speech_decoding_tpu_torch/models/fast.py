@@ -1,14 +1,21 @@
 """FAST — Functional Areas Spatio-Temporal Transformer, in PyTorch.
 
-Counterpart of ``imagined_speech_decoding_tpu/models/fast.py``: the
-Conv4Layers zone head over sliding windows (``fast_forward_head``), a
+Counterpart of ``imagined_speech_decoding_tpu/models/fast.py``: a zone
+head over sliding windows (``fast_forward_head``), a
 pre-LN transformer over the window tokens plus a CLS token
 (``fast_forward_transformer``), and the CLS classifier — the ``default``
 forward mode of ``fast_apply``, at eval and in training. Dropout sits
 where the JAX model puts it (attention probabilities, after ``fc1``'s
 GELU, after ``fc2``, on the CLS output) and draws from the
-``torch.Generator`` passed to ``forward``, on the model's device; the
-head has none.
+``torch.Generator`` passed to ``forward``, on the model's device, as do
+the CVBlock and EEGNet_Encoder heads' (none without a generator).
+
+The head is any of ``models.heads.HEAD_REGISTRY``: Conv4Layers runs its
+fused kernels (B2f / B2w / B2x) over the un-gathered input; CVBlock,
+EEGNet_Encoder and HeadConv_Paper_Version run on the gathered windows as
+grouped convolutions, with their batch-norm running statistics in the
+module's buffers (``head.bn1.mean`` ...), written in training mode and
+read in eval mode (``model.train()`` / ``model.eval()``).
 
 ``FAST(cfg)`` is one model with the JAX parameter shapes (serving,
 checkpoints); ``FAST(cfg, n_models=M)`` is a stack of M independent
@@ -32,7 +39,7 @@ from torch import nn
 
 from ..config import FASTConfig
 from ..data.constants import zone_layout
-from .heads import Conv4LayersHead
+from .heads import Conv4LayersHead, get_head
 from .modules import LayerNorm, Linear, MultiheadSelfAttention, Stacked, dropout, gelu
 
 
@@ -56,21 +63,22 @@ class AttentionBlock(nn.Module):
 
 
 class FAST(Stacked):
-    """FAST with the Conv4Layers head: raw ``(B, C, T)`` -> logits ``(B, K)``,
+    """FAST with the head ``cfg.head``: raw ``(B, C, T)`` -> logits ``(B, K)``,
     or ``(M, B, C, T)`` -> ``(M, B, K)`` with ``n_models=M``."""
 
     def __init__(self, cfg: FASTConfig, n_models: Optional[int] = None, device=None):
         super().__init__(n_models)
-        if cfg.head != "Conv4Layers":
-            raise NotImplementedError(
-                f"head {cfg.head!r}: the port has only Conv4Layers so far (see ROADMAP.md)"
-            )
+        head_cls = get_head(cfg.head)
         self.cfg = cfg
         layout = zone_layout(cfg.electrodes, cfg.zone_dict)
         d = cfg.dim_token
-        self.head = Conv4LayersHead(
-            layout.indices, layout.mask, cfg.n_channels, cfg.dim_cnn, n_models, device=device
-        )
+        if head_cls is Conv4LayersHead:
+            self.head = Conv4LayersHead(
+                layout.indices, layout.mask, cfg.n_channels, cfg.dim_cnn, n_models, device=device
+            )
+        else:
+            self.head = head_cls(layout.indices, layout.mask, cfg.dim_cnn, cfg.window_len,
+                                 n_models, device=device)
         self.input_layer = Linear(cfg.dim_cnn * layout.n_zones, d, n_models, device=device)
         self.blocks = nn.ModuleList(
             AttentionBlock(d, 2 * d, cfg.num_heads, n_models, device=device)
@@ -86,8 +94,10 @@ class FAST(Stacked):
             return fn(x, *args)
         return fn(x.unsqueeze(0), *args)[0]
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(x, self.cfg.window_len, self.cfg.slide_step)
+    def _head(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if isinstance(self.head, Conv4LayersHead):
+            return self.head(x, self.cfg.window_len, self.cfg.slide_step)
+        return self.head(x, self.cfg.window_len, self.cfg.slide_step, generator)
 
     def _transformer(self, feat: torch.Tensor,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -101,9 +111,10 @@ class FAST(Stacked):
             h = blk(h, rate, generator)
         return self.last_layer(dropout(h[:, :, 0], rate, generator, self.training))
 
-    def forward_head(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_head(self, x: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Tokenize + encode: ``([M,] B, C, T) -> ([M,] B, N, Z, F)`` (``fast_forward_head``)."""
-        return self._own_layout(self._head, x)
+        return self._own_layout(self._head, x, generator)
 
     def forward_transformer(self, feat: torch.Tensor,
                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -121,4 +132,5 @@ class FAST(Stacked):
                 f"forward_mode {forward_mode!r}: only 'default' is ported; "
                 "train_head and train_transformer are queued in ROADMAP.md"
             )
-        return self._own_layout(lambda xm: self._transformer(self._head(xm), generator), x)
+        return self._own_layout(
+            lambda xm: self._transformer(self._head(xm, generator), generator), x)

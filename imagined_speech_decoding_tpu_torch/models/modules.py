@@ -8,6 +8,14 @@ self-attention ``mha`` is ``MultiheadSelfAttention`` and ``dropout`` is
 ``dropout``. Their arithmetic follows the JAX functions step by step;
 none uses a fused PyTorch operator beyond the GEMMs.
 
+The convolutional blocks of the batch-norm heads and of TSception
+(``conv2d``, ``temporal_conv``, ``avg_pool``, ``adaptive_avg_pool_1``,
+``elu``, ``leaky_relu``) are the JAX functions of the same names over the
+JAX layouts (NCHW inputs, OIHW weights). A stack of models, and of zones
+within a model, runs as ONE grouped convolution: the ``(M, Z)`` instances
+are folded into ``groups`` and the batch stays first, ``(B, M*Z*F, H,
+W)``, where the JAX package ``jax.vmap``s over them.
+
 Precision: the parameters stay f32 and each is cast to the input's dtype
 where it is used, as the JAX functions do (``.astype(x.dtype)``), so a
 bf16 input runs the whole trunk in bf16 (PyTorch's type promotion would
@@ -78,6 +86,80 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
+def group_dropout(x: torch.Tensor, n_models: int, rate: float,
+                  generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """``dropout`` of a batch-first ``x (B, M*..., ...)`` whose axis 1 leads
+    with the model axis: the masks are drawn model-first, so a
+    ``SharedRowsGenerator`` repeats them by model row. Off without a
+    generator, as the JAX heads' dropout is off with ``rng=None``."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    b = x.shape[0]
+    rows = x.reshape(b, n_models, -1).transpose(0, 1)  # (M, B, rest)
+    return dropout(rows, rate, generator, True).transpose(0, 1).reshape(x.shape)
+
+
+def _pad_pairs(padding) -> tuple:
+    """Explicit lax padding ``[(lo, hi), (lo, hi)]`` (H, W) as ``F.pad``'s
+    ``(w_lo, w_hi, h_lo, h_hi)``."""
+    (h_lo, h_hi), (w_lo, w_hi) = padding
+    return (w_lo, w_hi, h_lo, h_hi)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           stride=(1, 1), padding=((0, 0), (0, 0)), groups: int = 1) -> torch.Tensor:
+    """``modules.conv2d``: ``x (B, C, H, W)`` with an OIHW weight, explicit
+    (possibly uneven) padding, stride and groups. The weight and bias are
+    cast to x's dtype and the bias is added after the convolution, in x's
+    dtype, as the JAX function adds it."""
+    pads = _pad_pairs(padding)
+    if any(pads):
+        x = F.pad(x, pads)
+    y = F.conv2d(x, w.to(x.dtype), None, stride=tuple(stride), groups=groups)
+    if b is not None:
+        y = y + b.to(x.dtype).view(1, -1, 1, 1)
+    return y
+
+
+def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                  pad: int = 0) -> torch.Tensor:
+    """``modules.temporal_conv`` per group: ``x (B, G, C, T)``, ``w (G, O, C,
+    K)``, ``b (G, O)`` -> ``(B, G, O, T + 2*pad - K + 1)`` as K shifted
+    GEMMs, each rounded to x's dtype and summed in tap order, as JAX sums
+    them."""
+    if pad:
+        x = F.pad(x, (pad, pad))
+    k = w.shape[-1]
+    t_out = x.shape[-1] - k + 1
+    w = w.to(x.dtype)
+    out = None
+    for i in range(k):
+        term = torch.einsum("bgct,goc->bgot", x[..., i:i + t_out], w[..., i])
+        out = term if out is None else out + term
+    if b is not None:
+        out = out + b.to(x.dtype)[None, :, :, None]
+    return out
+
+
+def avg_pool(x: torch.Tensor, window, stride=None) -> torch.Tensor:
+    """Average pool over the trailing two axes of ``(B, C, H, W)``, floor
+    semantics (``modules.avg_pool``)."""
+    return F.avg_pool2d(x, tuple(window), tuple(stride or window))
+
+
+def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d((1, 1)): the mean over the trailing two axes."""
+    return x.mean(dim=(-2, -1))
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    return F.elu(x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.01, inplace: bool = False) -> torch.Tensor:
+    return F.leaky_relu(x, slope, inplace=inplace)
+
+
 class Stacked(nn.Module):
     """A module whose parameters may carry a leading model axis."""
 
@@ -98,6 +180,21 @@ class Stacked(nn.Module):
         ``x (M, ..., D)``."""
         p = self.per_model(p)
         return p.view(p.shape[0], *([1] * (x.dim() - 2)), p.shape[-1])
+
+
+class Leaves(Stacked):
+    """The parameters of one JAX leaf dict, e.g. ``Leaves(w=(O, I, kh, kw),
+    b=(O,))``, each after a leading model axis when stacked; named as the
+    JAX keys, so the ``state_dict`` keys are the JAX tree's paths."""
+
+    def __init__(self, n_models: Optional[int] = None, device=None, **shapes):
+        super().__init__(n_models)
+        for name, shape in shapes.items():
+            setattr(self, name, self._param(*shape, device=device))
+
+    def stacked(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` with its leading model axis."""
+        return self.per_model(getattr(self, name))
 
 
 class Linear(Stacked):

@@ -23,8 +23,13 @@ replays the graph (``GraphedChain``). So a decoder holds at most
 ``len(GRAPH_BATCHES)`` graphs, all in one memory pool, whatever batch
 sizes its clients send. A failed capture raises; the decoder never falls
 back to eager decodes. On the CPU it calls the chain directly. Weights
-are runtime state: ``swap_weights`` copies a new checkpoint into the same
-parameter storage, which the graphs read.
+are runtime state: ``swap_weights(params, state)`` copies a new
+checkpoint into the same parameter storage, which the graphs read, and
+its model state (the batch-norm heads' running statistics) into the same
+buffers, which the graphs read too. The state travels with the weights
+everywhere here: ``make_online_decoder``, ``stack_checkpoints``,
+``make_fleet_decoder`` and the exported artifact (as its buffers); the
+Conv4Layers FAST has none (``{"head": {}}``).
 
 Also here: the fleet decoder (M models stacked, the window filtered
 once), the streaming decoder over a numpy or a native ring, the exported
@@ -44,7 +49,7 @@ from .data.constants import SFREQ
 from .ops.cuda import library
 from .ops.cuda.iir import chain_table, prepare_filter
 from .ops.filters import butter_sos, notch_ba
-from .transplant import from_jax_params, stack_trees, to_jax_params
+from .transplant import from_jax_params, stack_trees, to_jax_params, to_jax_state
 
 # The batch sizes a card's decoder captures. Trials never interact, so a
 # request runs at the smallest that holds it, its padding rows zero.
@@ -166,15 +171,23 @@ class GraphedChain:
 
 
 def _weight_swapper(model: torch.nn.Module) -> Callable:
-    """``swap_weights(params)``: copy a JAX-layout tree into ``model``'s own
-    parameter storage (``load_state_dict`` copies in place), so captured
-    graphs read the new weights; raises if any storage moved."""
-    ptrs = [p.data_ptr() for p in model.parameters()]
+    """``swap_weights(params, state=None)``: copy a JAX-layout tree and its
+    model state into ``model``'s own parameter and buffer storage
+    (``load_state_dict`` copies in place), so captured graphs read the new
+    weights and running statistics; raises if any storage moved, or if a
+    model with running statistics is given no state."""
+    from .train.engine import model_buffers
 
-    def swap_weights(new_params) -> None:
-        """Replace the serving weights in place (same shapes)."""
-        model.load_state_dict(from_jax_params(new_params))
-        if [p.data_ptr() for p in model.parameters()] != ptrs:
+    tensors = list(model.parameters()) + list(model_buffers(model).values())
+    ptrs = [t.data_ptr() for t in tensors]
+    stateful = bool(model_buffers(model))
+
+    def swap_weights(new_params, new_state=None) -> None:
+        """Replace the serving weights (and model state) in place, same shapes."""
+        if stateful and new_state is None:
+            raise ValueError("this model carries batch-norm state: swap_weights(params, state)")
+        model.load_state_dict(from_jax_params(new_params, new_state if stateful else None))
+        if [t.data_ptr() for t in tensors] != ptrs:
             raise RuntimeError("swap_weights moved the parameters' storage; "
                                "the captured graphs would read the old weights")
 
@@ -184,22 +197,25 @@ def _weight_swapper(model: torch.nn.Module) -> Callable:
 def make_online_decoder(
     model: torch.nn.Module,
     params,
+    state=None,
     *,
     sfreq: float = SFREQ,
     notch_hz: Optional[float] = 60.0,
     band: Optional[Tuple[float, float]] = (4.0, 40.0),
 ) -> GraphedChain:
-    """Serve ``model`` (a ``FAST``) with the JAX-layout weights ``params``.
+    """Serve ``model`` (a ``FAST``) with the JAX-layout weights ``params`` and
+    model state ``state`` (its batch-norm running statistics; ``None`` or
+    ``{"head": {}}`` for Conv4Layers).
 
     Returns ``decode(x (B, C, T) array) -> posteriors (B, K)`` float32
     array, computed on the model's device (a ``GraphedChain``: one CUDA
     graph per captured batch size on a card), with
-    ``decode.swap_weights(params)`` that copies new weights into the same
-    parameters, which every graph sees. The Conv4Layers FAST has no
-    mutable state, so no ``state`` tree travels with the weights."""
+    ``decode.swap_weights(params, state)`` that copies new weights and
+    statistics into the same parameters and buffers, which every graph
+    sees."""
     model.eval()
     swap_weights = _weight_swapper(model)
-    swap_weights(params)
+    swap_weights(params, state)
     chain = DecodeChain(model, sfreq, notch_hz, band)
     decode = GraphedChain(chain, chain.table.device)
     decode.swap_weights = swap_weights
@@ -207,31 +223,37 @@ def make_online_decoder(
 
 
 def stack_checkpoints(paths, model: torch.nn.Module):
-    """Load per-model ``.npz`` checkpoints into ONE stacked JAX-layout tree.
+    """Load per-model ``.npz`` checkpoints into ONE stacked JAX-layout
+    ``(params, state)``.
 
-    ``model`` is a ``FAST(cfg)`` whose parameters give the leaf templates;
-    every checkpoint must match its geometry. Returns the tree with a
-    leading model axis of length ``len(paths)`` on every leaf, the layout
+    ``model`` is a ``FAST(cfg)`` whose parameters and buffers give the leaf
+    templates; every checkpoint must match its geometry (a params-only
+    file takes the template's state). Returns both trees with a leading
+    model axis of length ``len(paths)`` on every leaf, the layout
     ``FAST(cfg, n_models=len(paths))`` and ``make_fleet_decoder`` take."""
     from .train.checkpoint import load_model_npz
 
     if not paths:
         raise ValueError("stack_checkpoints needs at least one checkpoint path")
-    template = to_jax_params(model.state_dict())
-    return stack_trees([load_model_npz(p, template, {"head": {}})[0] for p in paths])
+    sd = model.state_dict()
+    template, state_template = to_jax_params(sd), to_jax_state(sd)
+    loaded = [load_model_npz(p, template, state_template)[:2] for p in paths]
+    return stack_trees([p for p, _ in loaded]), stack_trees([s for _, s in loaded])
 
 
 def make_fleet_decoder(
     model: torch.nn.Module,
     stacked_params,
+    stacked_state=None,
     *,
     sfreq: float = SFREQ,
     notch_hz: Optional[float] = 60.0,
     band: Optional[Tuple[float, float]] = (4.0, 40.0),
 ) -> GraphedChain:
     """Serve a whole fleet (e.g. all 15 subjects' best checkpoints) as one
-    chain: ``model`` is ``FAST(cfg, n_models=M)``, ``stacked_params`` its
-    stacked JAX-layout tree (``stack_checkpoints``). The raw window is
+    chain: ``model`` is ``FAST(cfg, n_models=M)``, ``stacked_params`` and
+    ``stacked_state`` its stacked JAX-layout trees (``stack_checkpoints``;
+    no state for Conv4Layers). The raw window is
     filtered once (one B1 launch), broadcast to the M models, and their
     stacked forward runs the head as one B2f launch.
 
@@ -241,14 +263,14 @@ def make_fleet_decoder(
     * ``decode_all.ensemble(x) -> (B, K)``: the soft-vote mean over the
       fleet, computed on the device (graphs of its own, in the same pool);
     * ``decode_all.n_models``: M;
-    * ``decode_all.swap_weights(stacked_params)``: the whole fleet's
-      weights, copied into the same storage.
+    * ``decode_all.swap_weights(stacked_params, stacked_state)``: the whole
+      fleet's weights and statistics, copied into the same storage.
     """
     if model.n_models is None:
         raise ValueError("make_fleet_decoder serves a stacked FAST(cfg, n_models=M)")
     model.eval()
     swap_weights = _weight_swapper(model)
-    swap_weights(stacked_params)
+    swap_weights(stacked_params, stacked_state)
     chain = DecodeChain(model, sfreq, notch_hz, band)
     device = chain.table.device
     decode_all = GraphedChain(chain, device, batch_axis=1)
@@ -335,6 +357,7 @@ def export_decoder_artifact(
     path: str,
     model: torch.nn.Module,
     params,
+    state=None,
     *,
     n_channels: int,
     seq_len: int,
@@ -344,7 +367,9 @@ def export_decoder_artifact(
     batch_size: Optional[int] = None,
 ) -> str:
     """Export the full serving chain (filters, FAST forward, softmax) with
-    the weights ``params`` inside it, through ``torch.export``, to one file
+    the weights ``params`` inside it, and the model state ``state`` (the
+    batch-norm running statistics) as its buffers, through
+    ``torch.export``, to one file
     at ``path`` (``torch.export.save``). Serving it needs no model code,
     only ``torch`` and the operators of ``ops/cuda/library.py``:
 
@@ -361,7 +386,7 @@ def export_decoder_artifact(
     ``load_decoder_artifact`` moves it. Write and read an artifact with
     one version of torch."""
     model = copy.deepcopy(model).cpu().eval()
-    model.load_state_dict(from_jax_params(params))
+    _weight_swapper(model)(params, state)
     model.requires_grad_(False)
     chain = DecodeChain(model, sfreq, notch_hz, band)
     # An example batch of 1 would specialise the batch to 1: trace at 2.
@@ -397,19 +422,23 @@ def load_decoder_artifact(path: str, device="cuda") -> Callable:
     return decode
 
 
-def export_decoder_weights(path: str, params) -> str:
-    """Persist serving weights (flat ``.npz``, see ``train.checkpoint``); the
-    file reads back with the JAX package's ``load_decoder_weights``."""
+def export_decoder_weights(path: str, params, state=None) -> str:
+    """Persist serving weights and model state (flat ``.npz``, see
+    ``train.checkpoint``; no state is ``{"head": {}}``); the file reads back
+    with the JAX package's ``load_decoder_weights``."""
     from .train.checkpoint import save_state_dict
 
-    return save_state_dict(path, {"params": params, "state": {"head": {}}})
+    return save_state_dict(path, {"params": params,
+                                  "state": {"head": {}} if state is None else state})
 
 
-def load_decoder_weights(path: str, params_template):
-    """The ``params`` tree of an ``export_decoder_weights`` file (or of the
-    JAX package's), in the structure of ``params_template``."""
+def load_decoder_weights(path: str, params_template, state_template=None):
+    """``(params, state)`` of an ``export_decoder_weights`` file (or of the
+    JAX package's), in the structures of ``params_template`` and
+    ``state_template`` (default ``{"head": {}}``, Conv4Layers' empty state)."""
     from .train.checkpoint import load_state_dict
 
-    tree = load_state_dict(path, {"params": params_template, "state": {"head": {}}},
-                           strip_prefix="")
-    return tree["params"]
+    tree = load_state_dict(path, {"params": params_template,
+                                  "state": {"head": {}} if state_template is None
+                                  else state_template}, strip_prefix="")
+    return tree["params"], tree["state"]

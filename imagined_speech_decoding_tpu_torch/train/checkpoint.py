@@ -5,9 +5,9 @@ Counterpart of the ``.npz`` half of
 rules: nested dicts and lists flatten to dot-joined keys
 (``params.blocks.0.attn.in_w``), ``save_model_npz`` writes ``params.`` and
 ``state.`` prefixes, and ``load_state_dict`` strips a legacy ``model.``
-prefix. Trees hold numpy arrays in the JAX layout; ``transplant`` moves
-them into a module. The JAX rules' NamedTuple case (batch-norm state)
-comes with the batch-norm heads. ``save_segment_checkpoint`` and
+prefix, and a NamedTuple (``BNState``, the batch-norm running statistics)
+flattens by field name (``state.head.bn1.mean``). Trees hold numpy arrays
+in the JAX layout; ``transplant`` moves them into a module. ``save_segment_checkpoint`` and
 ``load_segment_checkpoint`` persist a segmented fit's carry
 (``engine.fit_segmented``) in one flat ``.npz``, written atomically.
 """
@@ -25,6 +25,9 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}."))
+    elif hasattr(tree, "_fields"):  # NamedTuple (BNState)
+        for k in tree._fields:
+            out.update(_flatten(getattr(tree, k), f"{prefix}{k}."))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}."))
@@ -36,6 +39,9 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 def _unflatten_into(template: Any, flat: Dict[str, np.ndarray], prefix: str = "") -> Any:
     if isinstance(template, dict):
         return {k: _unflatten_into(v, flat, f"{prefix}{k}.") for k, v in template.items()}
+    if hasattr(template, "_fields"):
+        return type(template)(*(_unflatten_into(getattr(template, k), flat, f"{prefix}{k}.")
+                                for k in template._fields))
     if isinstance(template, (list, tuple)):
         seq = [_unflatten_into(v, flat, f"{prefix}{i}.") for i, v in enumerate(template)]
         return type(template)(seq)
@@ -93,6 +99,8 @@ def select_model(tree: Any, index: int) -> Any:
     leaves may be numpy arrays or tensors, containers dicts and lists."""
     if isinstance(tree, dict):
         return {k: select_model(v, index) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(select_model(v, index) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(select_model(v, index) for v in tree)
     return tree[index]

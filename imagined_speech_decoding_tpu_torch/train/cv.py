@@ -1,12 +1,14 @@
 """Per-subject K-fold cross-validation over a stack of models.
 
 Counterpart of ``imagined_speech_decoding_tpu/train/cv.py``: every
-(subject, fold) pair is one model of a ``FAST(cfg, n_models=S*K)`` stack,
-and all of them train together (``engine.make_fit``). Then, per subject,
-the fold with the best validation accuracy is selected (ties to the
-lowest fold), its best snapshot is saved as ``best_subject.npz`` with the
-JAX package's ``.npz`` key rules (so ``isd-serve`` of either package
-loads it), evaluated on the test split, and the result tree is written
+(subject, fold) pair is one model of a stack of S*K (``FAST(cfg,
+n_models=S*K)``, or any ``models.api.ModelDef``'s module), and all of
+them train together (``engine.make_fit``). Then, per subject, the fold
+with the best validation accuracy is selected (ties to the lowest fold),
+its best snapshot (parameters and model state, the batch-norm running
+statistics) is saved as ``best_subject.npz`` with the JAX package's
+``.npz`` key rules (so either package loads it), evaluated on the test
+split with that state, and the result tree is written
 (``train.artifacts``).
 
 The fit runs in segments of ``epochs_per_segment`` epochs
@@ -14,8 +16,11 @@ The fit runs in segments of ``epochs_per_segment`` epochs
 boundaries under ``checkpoint_dir`` and a run resumed from the newest
 one, as the JAX function runs.
 
-Not ported (ROADMAP.md): ``_train_grouped`` (subject groups), the device
-mesh strategies and the plots.
+``subject_group_size`` trains the subjects in sequential groups
+(``_train_grouped``), each group's stack starting from the weights the
+ungrouped run would give its models.
+
+Not ported (ROADMAP.md): the device mesh strategies and the plots.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ import torch
 
 from ..config import FASTConfig, TrainConfig
 from ..devices import require_device
-from ..models.fast import FAST
-from ..transplant import from_jax_params, init_jax_layout_params, to_jax_params
+from ..models.api import ModelDef, make_fast_model
+from ..transplant import init_jax_layout_params
 from . import artifacts
 from .checkpoint import save_model_npz, select_model
 from .engine import FitResult, fit_segmented, make_fit, predict
@@ -111,8 +116,20 @@ class CVRunResult:
 SUMMARY_COLUMNS = ("Subject", "Best_Val_Acc", "Test_Acc", "Test_F1")
 
 
+def _slice_models(tree, start: int, stop: int):
+    """Models ``start:stop`` of a stacked JAX-layout tree (a subject
+    group's block of a warm start)."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_slice_models(v, start, stop) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _slice_models(v, start, stop) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_slice_models(v, start, stop) for v in tree)
+    return tree[start:stop]
+
+
 def train_per_subject_cv(
-    cfg: FASTConfig,
+    model,
     tc: TrainConfig,
     X: np.ndarray,  # (S, N, C, T) train+val pool per subject
     Y: np.ndarray,  # (S, N)
@@ -120,7 +137,7 @@ def train_per_subject_cv(
     n_classes: int,
     test_per_subject: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]] = None,
     save_dir: Optional[str] = None,
-    warm_start: Optional[dict] = None,  # JAX-layout params stacked over S*K
+    warm_start=None,  # JAX-layout params, or (params, state), stacked over S*K
     epochs_per_segment: int = 25,
     device="cuda",
     verbose: bool = True,
@@ -128,19 +145,39 @@ def train_per_subject_cv(
     resume: bool = True,
     checkpoint_every: int = 1,
     model_seed: Optional[int] = None,
+    subject_group_size: Optional[int] = None,
+    _key_block: Optional[Tuple[int, int]] = None,
 ) -> CVRunResult:
     """Train S*K models at once, select the best fold per subject,
     evaluate it on the test split and write the result tree under
-    ``save_dir``. Folds come from ``tc.seed``; the initial weights and the
-    fit's permutations and dropout from ``model_seed`` (default
-    ``tc.seed``), as in the JAX function. Runs on ``device``: CUDA unless
-    the caller names another, and CUDA without a card raises.
+    ``save_dir``. ``model`` is a ``FASTConfig`` (FAST with its head) or a
+    ``models.api.ModelDef`` (its module stacked for the fit and single for
+    the test split, its initial ``(params, state)``). Folds come from
+    ``tc.seed``; the initial weights and the fit's permutations, dropout
+    and augmentation from ``model_seed`` (default ``tc.seed``), as in the
+    JAX function. Runs on ``device``: CUDA unless the caller names
+    another, and CUDA without a card raises.
 
     The fit runs in segments of ``_segment_length(tc.max_epochs,
     epochs_per_segment)`` epochs, rounded down to whole ``val_every``
     blocks (at least one); ``checkpoint_dir``, ``resume`` and
-    ``checkpoint_every`` go to ``engine.fit_segmented``."""
+    ``checkpoint_every`` go to ``engine.fit_segmented``.
+
+    ``subject_group_size``: train the subjects in sequential groups of at
+    most this many (``_train_grouped``), each group's S_g*K models at
+    once: the memory lever for models whose activations do not fit a
+    whole stack. A group's models start from the weights of the same
+    models of the ungrouped run (``_key_block = (offset, total)``); its
+    permutations, dropout and augmentation come from its own generators,
+    seeded ``model_seed + 1 + offset``."""
     device = require_device(device)
+    s_count = X.shape[0]
+    if subject_group_size and s_count > subject_group_size:
+        return _train_grouped(
+            model, tc, X, Y, subjects, n_classes, test_per_subject, save_dir, warm_start,
+            epochs_per_segment, device, verbose, checkpoint_dir, resume, checkpoint_every,
+            model_seed, subject_group_size)
+    mdef = model if isinstance(model, ModelDef) else make_fast_model(model)
     if device.type == "cuda":
         # The JAX trunk accumulates bf16 products in f32; cuBLAS may reduce
         # in bf16 unless told not to (a no-op in f32).
@@ -151,13 +188,22 @@ def train_per_subject_cv(
     m_count = s_count * k
     m_seed = tc.seed if model_seed is None else model_seed
 
-    x_flat = torch.as_tensor(X.reshape((-1,) + X.shape[2:]), dtype=tc.compute_dtype, device=device)
+    # Augmentation runs on the f32 batch before the cast to the compute
+    # dtype (JAX augments before fast_apply casts), so the corpus stays f32.
+    data_dtype = torch.float32 if mdef.augment else tc.compute_dtype
+    x_flat = torch.as_tensor(X.reshape((-1,) + X.shape[2:]), dtype=data_dtype, device=device)
     y_flat = torch.as_tensor(Y.reshape(-1).astype(np.int64), device=device)
     train_idx, val_idx, meta = build_cv_index_stack(s_count, n_trials, k, tc.seed,
                                                     tc.shuffle_folds)
-    params0 = warm_start if warm_start is not None else stacked_init(cfg, m_seed, m_count)
-    model = FAST(cfg, n_models=m_count, device=device)
-    model.load_state_dict(from_jax_params(params0))
+    key_off, key_total = _key_block if _key_block else (0, m_count)
+    if isinstance(warm_start, tuple):
+        params0, state0 = warm_start
+    elif warm_start is not None:
+        params0, state0 = warm_start, None
+    else:
+        params0, state0 = mdef.init(m_seed, m_count, total=key_total, offset=key_off)
+    stack = mdef.build(m_count, device)
+    mdef.load(stack, params0, state0)
 
     # Segments hold whole blocks of val_every epochs (make_fit requires
     # it); a val_every that does not divide the budget runs whole blocks, of
@@ -167,10 +213,11 @@ def train_per_subject_cv(
     if val_every > 1:
         seg = max((seg // val_every) * val_every, val_every)
     fit = make_fit(
-        model, n_classes, epochs=seg, batch_size=tc.batch_size, n_train=train_idx.shape[1],
+        stack, n_classes, epochs=seg, batch_size=tc.batch_size, n_train=train_idx.shape[1],
         n_val=val_idx.shape[1], learning_rate=tc.learning_rate, warmup_epochs=tc.warmup_epochs,
         final_scale=tc.final_lr_scale, weight_decay=tc.weight_decay,
         val_every=val_every, total_epochs=tc.max_epochs,
+        augment=mdef.augment, compute_dtype=tc.compute_dtype,
     )
 
     def progress(done, val_acc):
@@ -179,7 +226,7 @@ def train_per_subject_cv(
                   f"{float(val_acc.mean()):.4f}", flush=True)
 
     t_fit0 = time.perf_counter()
-    res = fit_segmented(fit, train_idx, val_idx, x_flat, y_flat, seed=m_seed + 1,
+    res = fit_segmented(fit, train_idx, val_idx, x_flat, y_flat, seed=m_seed + 1 + key_off,
                         progress=progress, checkpoint_dir=checkpoint_dir, resume=resume,
                         checkpoint_every=checkpoint_every)
     t_fit = time.perf_counter() - t_fit0
@@ -191,8 +238,8 @@ def train_per_subject_cv(
 
     t_art0 = time.perf_counter()
     best_val = res.best_val_acc
-    best_tree = to_jax_params(res.best_params)
-    single = FAST(cfg, device=device)
+    best_tree, best_state = mdef.dump({**res.best_params, **res.best_model_state})
+    single = mdef.build(None, device)
     summary, global_pred, global_true = [], [], []
     best_fold_per_subject: Dict[str, int] = {}
     for si, sid in enumerate(subjects):
@@ -210,13 +257,16 @@ def train_per_subject_cv(
                                 ["Fold", "Best_Val_Acc"], list(enumerate(fold_accs)))
 
         best_params = select_model(best_tree, best_m)
+        best_mstate = select_model(best_state, best_m)
         if sub_dir:
-            save_model_npz(os.path.join(sub_dir, "best_subject.npz"), best_params, {"head": {}})
+            # params + mutable state (BN running statistics), as a torch
+            # state_dict carries its buffers with the weights
+            save_model_npz(os.path.join(sub_dir, "best_subject.npz"), best_params, best_mstate)
 
         test_acc, test_f1 = np.nan, np.nan
         if test_per_subject and sid in test_per_subject:
             x_test, y_test = test_per_subject[sid]
-            single.load_state_dict(from_jax_params(best_params))
+            mdef.load(single, best_params, best_mstate)
             y_pred = predict(single, torch.as_tensor(x_test, dtype=tc.compute_dtype, device=device),
                              tc.batch_size)
             y_true = y_test.astype(int)
@@ -249,3 +299,74 @@ def train_per_subject_cv(
     return CVRunResult(summary=summary, fit=res, meta=meta,
                        best_fold_per_subject=best_fold_per_subject,
                        timings={"fit_s": t_fit, "artifacts_s": t_art, **res.timings})
+
+
+def _train_grouped(model, tc, X, Y, subjects, n_classes, test_per_subject, save_dir,
+                   warm_start, epochs_per_segment, device, verbose, checkpoint_dir, resume,
+                   checkpoint_every, model_seed, group: int) -> CVRunResult:
+    """Sequential subject groups for ``train_per_subject_cv`` (JAX
+    ``_train_grouped``): each group runs the stacked engine over its own
+    S_g*K models, with the key block (model offset, total) of its models
+    in the ungrouped run and a checkpoint directory ``group-<i>`` of its
+    own; the per-subject artifacts land in the shared tree, and the
+    summary and the global predictions are rewritten from the groups'."""
+    k = tc.n_folds
+    s_total = len(subjects)
+    summaries, fits, best_folds, timings = [], [], {}, {}
+    for g0 in range(0, s_total, group):
+        gsl = slice(g0, g0 + group)
+        ws = None
+        if warm_start is not None:
+            parts = warm_start if isinstance(warm_start, tuple) else (warm_start,)
+            ws = tuple(_slice_models(p, g0 * k, (g0 + group) * k) for p in parts)
+            ws = ws if isinstance(warm_start, tuple) else ws[0]
+        res = train_per_subject_cv(
+            model, tc, X[gsl], Y[gsl], list(subjects[gsl]), n_classes,
+            test_per_subject=test_per_subject, save_dir=save_dir, warm_start=ws,
+            epochs_per_segment=epochs_per_segment, device=device, verbose=verbose,
+            checkpoint_dir=(os.path.join(checkpoint_dir, f"group-{g0 // group}")
+                            if checkpoint_dir else None),
+            resume=resume, checkpoint_every=checkpoint_every, model_seed=model_seed,
+            _key_block=(g0 * k, s_total * k),
+        )
+        summaries.extend(res.summary)
+        fits.append(res.fit)
+        best_folds.update(res.best_fold_per_subject)
+        for name in ("fit_s", "artifacts_s"):
+            timings[name] = timings.get(name, 0.0) + res.timings[name]
+
+    def cat(*vs):
+        if isinstance(vs[0], dict):
+            return {key: cat(*(v[key] for v in vs)) for key in vs[0]}
+        if isinstance(vs[0], torch.Tensor):
+            return torch.cat(vs)
+        return np.concatenate(vs)
+
+    fit = FitResult(
+        params=cat(*(f.params for f in fits)), best_params=cat(*(f.best_params for f in fits)),
+        best_val_acc=cat(*(f.best_val_acc for f in fits)),
+        best_epoch=cat(*(f.best_epoch for f in fits)), history=cat(*(f.history for f in fits)),
+        timings={"groups": [f.timings for f in fits]},
+        model_state=cat(*(f.model_state for f in fits)),
+        best_model_state=cat(*(f.best_model_state for f in fits)),
+    )
+    meta = [(si, ki) for si in range(s_total) for ki in range(k)]
+    if save_dir:
+        artifacts.write_csv(os.path.join(save_dir, "summary_per_subject.csv"), SUMMARY_COLUMNS,
+                            [[row[c] for c in SUMMARY_COLUMNS] for row in summaries])
+        # The global predictions from the per-subject files this run wrote
+        # (a stale file of an earlier run is not read).
+        preds, trues = [], []
+        for sid in subjects:
+            if not (test_per_subject and sid in test_per_subject):
+                continue
+            p = os.path.join(save_dir, f"sub-{sid}", "test_predictions.csv")
+            if os.path.exists(p):
+                y_pred, y_true = artifacts.load_predictions_csv(p)
+                preds.append(y_pred)
+                trues.append(y_true)
+        if preds:
+            artifacts.save_predictions_csv(os.path.join(save_dir, "global_test_predictions.csv"),
+                                           np.concatenate(preds), np.concatenate(trues))
+    return CVRunResult(summary=summaries, fit=fit, meta=meta, best_fold_per_subject=best_folds,
+                       timings=timings)

@@ -19,6 +19,23 @@ epochs ``val_every`` skips; the best snapshot on a strictly greater
 rate and weight decay per model row, ``RowAdamW``). Early stopping is not
 ported (ROADMAP.md).
 
+Model state: a model's persistent buffers (the batch-norm heads' and
+TSception's running statistics) are its mutable state, the JAX engine's
+``mstate``. A train step updates them in the forward (training mode);
+``evaluate`` and ``predict`` run in eval mode, on them; the best
+snapshot takes them with the parameters, and ``FitResult`` and the
+segment carry hold them (``model_state``, ``best_model_state``). The
+ragged tail's step is exact-shape, so its batch statistics are taken
+over its real rows, as JAX's zero-weight padding rows are masked out of
+them.
+
+Augmentation (``make_fit(augment=(noise_sigma, ch_drop))``): each train
+step draws the noise and channel keeps from the dropout generator, before
+the model's own dropout masks, and applies them to the gathered batch
+before it is cast to the compute dtype (``compute_dtype``), as JAX's
+augmented model applies them before ``fast_apply`` casts; evaluation sees
+the batch as it is.
+
 Randomness: epoch permutations come from a CPU ``torch.Generator``
 (``data.arrays.epoch_permutations``), so a seed gives the same batches on
 any device; dropout draws from a generator on the training device.
@@ -39,6 +56,7 @@ import torch
 
 from ..data.arrays import epoch_permutations, num_batches
 from ..models.modules import SharedRowsGenerator
+from ..ops.augment import augment_batch
 from .metrics import confusion_matrix, cross_entropy, f1_from_confusion
 from .schedule import lr_at, warmup_cosine_lr
 
@@ -52,6 +70,19 @@ class FitResult(NamedTuple):
     best_epoch: np.ndarray  # (M,), -1 if no validation epoch ran
     history: Dict[str, np.ndarray]  # each (M, E)
     timings: Dict[str, object]  # host seconds: per-epoch train and validation passes
+    model_state: Dict[str, torch.Tensor] = {}  # final persistent buffers (BN statistics)
+    best_model_state: Dict[str, torch.Tensor] = {}  # the buffers of each model's best snapshot
+
+
+def model_buffers(model) -> Dict[str, torch.Tensor]:
+    """The module's persistent buffers by ``state_dict`` key: its mutable
+    state (the batch-norm running statistics; none for the Conv4Layers FAST)."""
+    out = {}
+    for mname, mod in model.named_modules():
+        for bname, b in mod.named_buffers(recurse=False):
+            if b is not None and bname not in mod._non_persistent_buffers_set:
+                out[f"{mname}.{bname}" if mname else bname] = b
+    return out
 
 
 def make_optimizer(params, weight_decay: float = 0.01) -> torch.optim.AdamW:
@@ -123,13 +154,20 @@ class RowAdamW(torch.optim.Optimizer):
 
 
 def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor, lr,
-               n_classes: int, generator: Optional[torch.Generator] = None):
+               n_classes: int, generator: Optional[torch.Generator] = None,
+               augment=None, compute_dtype=None):
     """One optimizer step of every model on its batch ``x (M, b, C, T)``,
     ``y (M, b)``, at learning rate ``lr`` (a float; a ``(M,)`` tensor for
-    ``RowAdamW``). Returns ``(loss * b (M,), confusion (M, K, K))``, the
-    sums the epoch metrics are made of."""
+    ``RowAdamW``). ``augment``: ``(noise_sigma, ch_drop)`` applied to x
+    first, from ``generator``; ``compute_dtype``: x's dtype for the model.
+    Returns ``(loss * b (M,), confusion (M, K, K))``, the sums the epoch
+    metrics are made of."""
     for group in opt.param_groups:
         group["lr"] = lr
+    if augment is not None:
+        x = augment_batch(x, augment[0], augment[1], generator)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     logits = model(x, generator=generator)
     loss = cross_entropy(logits, y)
     opt.zero_grad(set_to_none=True)
@@ -146,9 +184,11 @@ def _epoch_metrics(loss_sum: torch.Tensor, cm: torch.Tensor):
 
 
 def evaluate(model, X: torch.Tensor, Y: torch.Tensor, idx: torch.Tensor, batch_size: int,
-             n_classes: int):
+             n_classes: int, compute_dtype=None):
     """``(loss, acc, f1)``, each ``(M,)``, of every model on its trials
-    ``idx (M, n)`` in sequential batches of ``batch_size``."""
+    ``idx (M, n)`` in sequential batches of ``batch_size``, in eval mode
+    (the running statistics); ``compute_dtype``: the batches' dtype for
+    the model (default X's)."""
     was_training = model.training
     model.eval()
     m = idx.shape[0]
@@ -158,7 +198,8 @@ def evaluate(model, X: torch.Tensor, Y: torch.Tensor, idx: torch.Tensor, batch_s
         for s in range(0, idx.shape[1], batch_size):
             bidx = idx[:, s : s + batch_size]
             y = Y[bidx]
-            logits = model(X[bidx])
+            xb = X[bidx]
+            logits = model(xb if compute_dtype is None else xb.to(compute_dtype))
             loss_sum += cross_entropy(logits, y) * bidx.shape[1]
             cm += confusion_matrix(logits, y, n_classes)
     model.train(was_training)
@@ -205,15 +246,19 @@ def _sync(device: torch.device) -> None:
 
 class FitCarry:
     """Everything a fit carries from one epoch to the next: the model's
-    parameters (trained in place) and its AdamW optimizer (``RowAdamW`` in
-    sweep mode), the best snapshot with
+    parameters (trained in place), its persistent buffers (the model
+    state, updated in place) and its AdamW optimizer (``RowAdamW`` in
+    sweep mode), the best snapshot of both with
     ``best_acc`` and ``best_ep``, the epoch and step counters, the finished
     segments' history rows, and the permutation (CPU) and dropout (the
     device's) generators. ``arrays`` and ``load_arrays`` move it to and
     from numpy for a segment checkpoint."""
 
-    def __init__(self, params, opt, tidx, vidx, perm_gen, drop_gen, best, best_acc, best_ep):
+    def __init__(self, params, opt, tidx, vidx, perm_gen, drop_gen, best, best_acc, best_ep,
+                 buffers=None):
         self.params, self.opt = params, opt
+        self.buffers = buffers or {}
+        self.best_buffers = {k: b.detach().clone() for k, b in self.buffers.items()}
         self.tidx, self.vidx = tidx, vidx
         self.perm_gen, self.drop_gen = perm_gen, drop_gen
         self.best, self.best_acc, self.best_ep = best, best_acc, best_ep
@@ -240,6 +285,8 @@ class FitCarry:
             "opt": {key: {n: host(st[key]) for n, st in zip(names, opt_state)}
                     for key in ("step", "exp_avg", "exp_avg_sq")},
             "best": {n: host(b) for n, b in self.best.items()},
+            "buffers": {n: host(b) for n, b in self.buffers.items()},
+            "best_buffers": {n: host(b) for n, b in self.best_buffers.items()},
             "best_acc": host(self.best_acc),
             "best_ep": host(self.best_ep),
             "epoch": np.asarray(self.epoch, np.int64),
@@ -251,10 +298,12 @@ class FitCarry:
     def template(self) -> dict:
         """The structure, shapes and dtypes of ``arrays()``, without a step."""
         zeros = {n: np.zeros(tuple(p.shape), np.float32) for n, p in self.params.items()}
+        bufs = {n: np.zeros(tuple(b.shape), np.float32) for n, b in self.buffers.items()}
         return {
             "params": zeros, "opt": {"step": {n: np.zeros((), np.float32) for n in zeros},
                                      "exp_avg": zeros, "exp_avg_sq": zeros},
-            "best": zeros, "best_acc": self.best_acc.cpu().numpy(),
+            "best": zeros, "buffers": bufs, "best_buffers": bufs,
+            "best_acc": self.best_acc.cpu().numpy(),
             "best_ep": self.best_ep.cpu().numpy(), "epoch": np.asarray(0, np.int64),
             "step": np.asarray(0, np.int64), "perm_rng": self.perm_gen.get_state().numpy(),
             "drop_rng": self.drop_gen.get_state().numpy(),
@@ -267,6 +316,9 @@ class FitCarry:
             for n, p in self.params.items():
                 p.copy_(torch.from_numpy(tree["params"][n]))
                 self.best[n] = torch.from_numpy(tree["best"][n]).to(device)
+            for n, b in self.buffers.items():
+                b.copy_(torch.from_numpy(tree["buffers"][n]))
+                self.best_buffers[n] = torch.from_numpy(tree["best_buffers"][n]).to(device)
         sd = self.opt.state_dict()
         sd["state"] = {
             i: {"step": torch.tensor(tree["opt"]["step"][n]),
@@ -298,6 +350,8 @@ def make_fit(
     total_epochs: Optional[int] = None,
     sweep: bool = False,
     row_repeats: int = 1,
+    augment=None,
+    compute_dtype=None,
 ) -> Callable:
     """Build the fit of a stacked ``model`` (``FAST(cfg, n_models=M)`` with
     its initial parameters loaded). Returned signature::
@@ -332,7 +386,9 @@ def make_fit(
     ``lr_t``) and ``weight_decay * wd_scale[m]``. ``row_repeats=R``: the
     stack is R repeats of its first ``M / R`` rows' randomness (see the
     module docstring). The defaults leave the plain path as it was:
-    ``torch.optim.AdamW`` and one draw a row."""
+    ``torch.optim.AdamW`` and one draw a row. ``augment=(noise_sigma,
+    ch_drop)`` augments each train batch, and ``compute_dtype`` is the
+    dtype every batch is cast to after that (see the module docstring)."""
     if val_every < 1 or epochs % val_every != 0:
         raise ValueError(f"val_every must be >= 1 and divide epochs ({epochs}); got {val_every}")
     total = total_epochs or epochs
@@ -363,7 +419,8 @@ def make_fit(
         carry = FitCarry(params, opt, tidx, vidx, torch.Generator().manual_seed(seed),
                          drop_gen.manual_seed(seed), best,
                          torch.full((m,), -float("inf"), device=device),
-                         torch.full((m,), -1, dtype=torch.long, device=device))
+                         torch.full((m,), -1, dtype=torch.long, device=device),
+                         buffers=model_buffers(model))
         carry.lr_rows = lr_rows
         return carry
 
@@ -410,7 +467,7 @@ def make_fit(
             for i in range(spe):
                 bidx = gidx[:, i * batch_size : (i + 1) * batch_size]
                 ls, c = train_step(model, carry.opt, X[bidx], Y[bidx], lr_of(carry, carry.step),
-                                   n_classes, carry.drop_gen)
+                                   n_classes, carry.drop_gen, augment, compute_dtype)
                 loss_sum += ls
                 cm += c
                 carry.step += 1
@@ -419,12 +476,15 @@ def make_fit(
             _sync(device)
             t1 = time.perf_counter()
             if (ep + 1) % val_every == 0:
-                va = evaluate(model, X, Y, carry.vidx, eval_batch_size, n_classes)
+                va = evaluate(model, X, Y, carry.vidx, eval_batch_size, n_classes, compute_dtype)
                 improved = va[1] > carry.best_acc
                 with torch.no_grad():
                     for k, p in carry.params.items():
                         sel = improved.view(-1, *([1] * (p.dim() - 1)))
                         carry.best[k] = torch.where(sel, p.detach(), carry.best[k])
+                    for k, b in carry.buffers.items():
+                        sel = improved.view(-1, *([1] * (b.dim() - 1)))
+                        carry.best_buffers[k] = torch.where(sel, b, carry.best_buffers[k])
                 carry.best_acc = torch.where(improved, va[1], carry.best_acc)
                 carry.best_ep = torch.where(improved, torch.full_like(carry.best_ep, ep),
                                             carry.best_ep)
@@ -453,6 +513,8 @@ def make_fit(
             best_epoch=carry.best_ep.cpu().numpy(),
             history=history,
             timings={**carry.timings, "steps_per_epoch": spe},
+            model_state={k: b.detach().clone() for k, b in carry.buffers.items()},
+            best_model_state=carry.best_buffers,
         )
 
     def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None, hyper=None) -> FitResult:

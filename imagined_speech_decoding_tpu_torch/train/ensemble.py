@@ -27,6 +27,7 @@ import torch
 
 from ..config import FASTConfig, TrainConfig
 from ..devices import require_device
+from ..models.api import ModelDef
 from ..models.fast import FAST
 from . import artifacts
 from .cv import CVRunResult, train_per_subject_cv
@@ -52,22 +53,23 @@ class EnsembleResult:
 
 def _best_fold_proba(single, member: CVRunResult, row: int, x: torch.Tensor,
                      batch_size: int) -> np.ndarray:
-    """Posteriors of ``member``'s stack row ``row`` (its best snapshot),
-    through the one-model ``single``."""
-    single.load_state_dict({n: v[row] for n, v in member.fit.best_params.items()})
+    """Posteriors of ``member``'s stack row ``row`` (its best snapshot: the
+    parameters and the model state), through the one-model ``single``."""
+    best = {**member.fit.best_params, **member.fit.best_model_state}
+    single.load_state_dict({n: v[row] for n, v in best.items()})
     return predict_proba(single, x, batch_size)
 
 
-def soft_vote(cfg: FASTConfig, tc: TrainConfig, members: Sequence[CVRunResult],
+def soft_vote(cfg, tc: TrainConfig, members: Sequence[CVRunResult],
               subjects: Sequence[str], n_classes: int,
               test_per_subject: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]],
               save_dir: Optional[str], device, verbose: bool = True):
     """The ensemble's decision from trained ``members``: per subject, the mean
     over members of their best fold's posteriors on the test split. Writes
     the root tree under ``save_dir``; returns ``(summary rows,
-    proba_per_subject)``."""
+    proba_per_subject)``. ``cfg``: a ``FASTConfig`` or a ``models.api.ModelDef``."""
     k = tc.n_folds
-    single = FAST(cfg, device=device)
+    single = cfg.build(None, device) if isinstance(cfg, ModelDef) else FAST(cfg, device=device)
     rows, proba_per_subject = [], {}
     global_pred, global_true = [], []
     for si, sid in enumerate(subjects):
@@ -124,7 +126,7 @@ def soft_vote(cfg: FASTConfig, tc: TrainConfig, members: Sequence[CVRunResult],
 
 
 def train_seed_ensemble(
-    cfg: FASTConfig,
+    cfg,
     tc: TrainConfig,
     X: np.ndarray,
     Y: np.ndarray,
@@ -138,8 +140,8 @@ def train_seed_ensemble(
     device="cuda",
     **cv_kwargs,
 ) -> EnsembleResult:
-    """Train ``n_members`` per-subject CV runs and soft-vote them (JAX
-    ``train_seed_ensemble``). ``cv_kwargs`` go to ``train_per_subject_cv``
+    """Train ``n_members`` per-subject CV runs of ``cfg`` (a ``FASTConfig`` or
+    a ``models.api.ModelDef``) and soft-vote them (JAX ``train_seed_ensemble``). ``cv_kwargs`` go to ``train_per_subject_cv``
     (``resume``, ``checkpoint_every``, ...); ``save_dir`` and
     ``checkpoint_dir`` get a ``member-{e}/`` each. Runs on ``device``: CUDA
     unless the caller names another, and CUDA without a card raises."""

@@ -132,6 +132,10 @@ def pretrain_loso(
     nothing trains. ``return_result=True`` returns ``(trees, FitResult)``
     (``None`` on that path). Runs on ``device``: CUDA unless the caller
     names another, and CUDA without a card raises."""
+    if cfg.head != "Conv4Layers":
+        raise NotImplementedError(
+            f"LOSO pretraining of the {cfg.head} head (batch-norm state) is not ported yet "
+            "(see ROADMAP.md, Queue 1)")
     device = require_device(device)
     os.makedirs(save_dir, exist_ok=True)
     s_count = len(subjects)

@@ -159,6 +159,10 @@ def cv_sweep(
     ``engine.fit_segmented`` in segments of that many epochs (the same
     trajectory). Runs on ``device``: CUDA unless the caller names another,
     and CUDA without a card raises."""
+    if cfg.head != "Conv4Layers":
+        raise NotImplementedError(
+            f"the hyperparameter sweep of the {cfg.head} head (batch-norm state) is not ported yet "
+            "(see ROADMAP.md, Queue 1)")
     device = require_device(device)
     tr, va, _ = cv.build_cv_index_stack(1, n_trials, n_folds, seed)
     n_train, n_val = tr.shape[1], va.shape[1]

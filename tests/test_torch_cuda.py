@@ -1081,3 +1081,156 @@ def test_train_fast_ensemble_with_hyperparams_on_the_card(dev, tmp_path, capsys)
         pred, _ = load_predictions_csv(str(tmp_path / "out" / f"sub-{sid}" / "test_predictions.csv"))
         np.testing.assert_array_equal(pred, proba.argmax(-1))
         assert (tmp_path / "out" / "member-1" / f"sub-{sid}" / "best_subject.npz").exists()
+
+
+BN_HEADS = ("CVBlock", "EEGNet_Encoder", "HeadConv_Paper_Version")
+
+
+class _PoolRouting:
+    """``heads.max_pool_time2`` that records the share of each pair's
+    gradient that the max gives its first element (1, 0, or 1/2 at an
+    exact tie, as ``amax`` splits it) in the card's run (``replay``
+    None: the function itself), or, in a reference run, gives the
+    recorded share where the pair is within 1e-5 (relative) of a tie and
+    checks that the shares agree everywhere else. The pool's gradient
+    jumps at a tie, so a tie that the card's rounding breaks otherwise, or
+    makes exact, moves the gradients upstream of it (by up to 5e-4 of
+    their largest in HeadConv's step)."""
+
+    def __init__(self, pool):
+        self.pool, self.shares, self.replay, self.rerouted = pool, [], None, []
+
+    def __call__(self, h):
+        t = h.shape[-1] // 2 * 2
+        p = h[..., :t].reshape(*h.shape[:-1], t // 2, 2)
+        a, b = p[..., 0], p[..., 1]
+        share = (a > b).to(p.dtype) + 0.5 * (a == b).to(p.dtype)
+        if self.replay is None:
+            self.shares.append(share.detach().cpu())
+            return self.pool(h)
+        card = self.replay.pop(0).to(p.dtype)
+        near = (a - b).abs() <= 1e-5 * p.abs().amax(-1)
+        assert bool((share == card)[~near].all()), "max-pool choices differ away from a tie"
+        self.rerouted.append(int((near & (share != card)).sum()))
+        share = torch.where(near, card, share.detach())
+        return share * a + (1 - share) * b
+
+
+@pytest.mark.parametrize("head", BN_HEADS)
+def test_bn_head_step_matches_cpu(dev, head, monkeypatch):
+    """One f32 training step of a stack of 2 full-width FASTs with a
+    batch-norm head (cuDNN convolutions, TF32 off) against the CPU from
+    the same weights and batch: the logits and new running statistics at
+    rtol 1e-4 / atol 1e-5, and each gradient tensor at rtol 1e-4, atol
+    1e-4 x max|ref| of that tensor, as TSception's test holds them; no
+    hand-written kernel runs.
+
+    A leaf whose f32 gradient is rounding noise is held against the f64
+    gradient of the CPU instead, at atol 1e-4 x the largest |f64
+    gradient| of the head: a leaf is noise where the CPU's own f32
+    gradient misses the f64 one by more than the tolerance above. These
+    are the leaves whose exact gradient is 0 or nearly so: ``bn1.bias``
+    and HeadConv's ``cnn1_t.b`` (a shift that the next batch norm takes
+    out) and ``bn1.scale`` (a scale that it takes out but for its eps).
+    HeadConv's max pools share the CPU's gradients within 1e-5 of a tie as
+    the card's did (``_PoolRouting``)."""
+    from imagined_speech_decoding_tpu_torch.models import heads
+    from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout
+
+    cfg = dataclasses.replace(FASTConfig.default(), head=head, dropout=0.0)
+    params, state = init_jax_layout(cfg, 3, 2)
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(size=(2, 6, 64, 800)).astype(np.float32))
+    out, routing = {}, _PoolRouting(heads.max_pool_time2)
+    monkeypatch.setattr(heads, "max_pool_time2", routing)
+    for name, d, dtype in (("cuda", dev, torch.float32), ("cpu", torch.device("cpu"), torch.float32),
+                           ("f64", torch.device("cpu"), torch.float64)):
+        if name != "cuda":
+            routing.replay = list(routing.shares)
+        model = FAST(cfg, n_models=2, device=d).to(dtype)
+        model.load_state_dict(from_jax_params(params, state))
+        before = _head_counts()
+        logits = model.train()(x.to(d, dtype))
+        (logits ** 2).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert _head_counts() == before
+        out[name] = (logits.detach().cpu(), {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+    (lg, sd, g), (lc, sdc, gc), (_, _, g64) = out["cuda"], out["cpu"], out["f64"]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+    for k in sdc:
+        if k.endswith((".mean", ".var")):
+            torch.testing.assert_close(sd[k], sdc[k], rtol=1e-4, atol=1e-5, msg=k)
+    head_scale = max(float(g64[k].abs().max()) for k in g64 if k.startswith("head."))
+    noise, seen = set(), {}
+    for k in gc:
+        scale = float(g64[k].abs().max())
+        cpu_err = (gc[k].double() - g64[k]).abs()
+        card_err = (g[k].double() - g64[k]).abs()
+        seen[k] = (f"{scale:.2e}", f"{float(cpu_err.max()):.2e}", f"{float(card_err.max()):.2e}")
+        if bool((cpu_err > 1e-4 * float(gc[k].abs().max()) + 1e-4 * g64[k].abs()).any()):
+            noise.add(k)
+    print(head, "gradients, max|f64| and max|err| of the CPU's f32 and of the card against it; "
+          f"rounding noise: {sorted(noise)}; the head's largest |gradient| {head_scale:.3g}; "
+          f"max-pool pairs shared as on the card, by pool and run: {routing.rerouted}:",
+          {k: v for k, v in seen.items() if k.startswith("head.")})
+    for k in gc:
+        if k in noise:
+            torch.testing.assert_close(g[k].double(), g64[k], rtol=0.0, atol=1e-4 * head_scale,
+                                       msg=lambda m, k=k: f"{k}: {m}")
+        else:
+            torch.testing.assert_close(g[k], gc[k], rtol=1e-4, atol=1e-4 * float(gc[k].abs().max()),
+                                       msg=lambda m, k=k: f"{k}: {m}")
+    assert noise <= {"head.bn1.scale", "head.bn1.bias", "head.cnn1_t.b"}, noise
+
+
+def test_tsception_step_matches_cpu(dev):
+    """One f32 TSception training step of a stack of 2 at 64 x 800: logits,
+    running statistics and gradients on the card against the CPU."""
+    from imagined_speech_decoding_tpu_torch.models.api import make_tsception_model
+
+    mdef = make_tsception_model(64, 800, dropout=0.0)
+    params, state = mdef.init(5, 2)
+    x = torch.tensor(np.random.default_rng(6).normal(size=(2, 4, 64, 800)).astype(np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = mdef.build(2, d)
+        mdef.load(model, params, state)
+        logits = model.train()(x.to(d))
+        (logits ** 2).sum().backward()
+        out[d.type] = (logits.detach().cpu(), {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                       {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+    (lg, sd, g), (lc, sdc, gc) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+    for k in ("bn_t.mean", "bn_t.var", "bn_s.mean", "bn_s.var"):
+        torch.testing.assert_close(sd[k], sdc[k], rtol=1e-4, atol=1e-5)
+    for k in gc:
+        torch.testing.assert_close(g[k], gc[k], rtol=1e-4, atol=1e-4 * float(gc[k].abs().max()))
+
+
+def test_stateful_checkpoint_live_decode(dev, tmp_path):
+    """A CVBlock checkpoint with moved running statistics, served live on
+    the card: B1's chain launches once an eager decode, a replay equals
+    the eager chain bit for bit, the posteriors match the CPU decoder, and
+    ``swap_weights(params, state)`` is seen by the next replay."""
+    from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout
+
+    cfg = dataclasses.replace(FASTConfig.default(), head="CVBlock")
+    params, state = init_jax_layout(cfg, 7)
+    moved = {"head": {k: type(v)(v.mean + 0.3, v.var * 1.7) for k, v in state["head"].items()}}
+    x = np.random.default_rng(8).normal(size=(3, 64, 800)).astype(np.float32)
+    launches = sosfiltfilt_chain.launches
+    decode = make_online_decoder(FAST(cfg, device=dev), params, moved)
+    first = decode(x)
+    replay = decode(x)
+    torch.cuda.synchronize()
+    assert sosfiltfilt_chain.launches == launches + 1 and decode.replays == 1
+    np.testing.assert_array_equal(first, replay)
+    np.testing.assert_array_equal(replay, _eager(decode, x, served=4))  # B = 3 runs at 4
+    cpu = make_online_decoder(FAST(cfg), params, moved)
+    np.testing.assert_allclose(replay, cpu(x), rtol=1e-4, atol=1e-5)
+    decode.swap_weights(params, state)
+    fresh = make_online_decoder(FAST(cfg, device=dev), params, state)
+    np.testing.assert_array_equal(decode(x), fresh(x))
+    assert not np.array_equal(decode(x), replay)

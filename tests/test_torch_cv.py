@@ -213,11 +213,11 @@ class TestCLI:
 
     @pytest.mark.parametrize("argv", [
         ["--mesh", "data"],
-        ["--synthetic", "1", "--augment"], ["--synthetic", "1", "--mesh", "model"],
+        ["--synthetic", "1", "--mesh", "model"],
         ["--synthetic", "1", "--mesh", "2d"],
         ["--synthetic", "1", "--profile", "p"], ["--synthetic", "1", "--remat"],
-        ["--synthetic", "1", "--head_chunk", "256"], ["--synthetic", "1", "--head", "CVBlock"],
-        ["--resume", "--head", "EEGNet_Encoder"],
+        ["--synthetic", "1", "--head_chunk", "256"],
+        ["--synthetic", "1", "--loso-pretrain", "--head", "CVBlock"],
     ])
     def test_unported_options_raise(self, argv, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -228,10 +228,13 @@ class TestCLI:
         ["--resume", "--checkpoint_every", "3", "--no-strict"],
         ["--synthetic", "1", "--loso-pretrain"], ["--synthetic", "1", "--ensemble", "2"],
         ["--synthetic", "1", "--hyperparams", "best.json"],
+        ["--synthetic", "1", "--augment"], ["--synthetic", "1", "--head", "CVBlock"],
+        ["--resume", "--head", "EEGNet_Encoder"],
     ])
     def test_real_data_and_resume_are_ported(self, argv, tmp_path, monkeypatch):
         """Real data, ``--resume``, ``--checkpoint_every``, ``--loso-pretrain``,
-        ``--ensemble`` and ``--hyperparams`` no longer raise
+        ``--ensemble``, ``--hyperparams``, ``--augment`` and the batch-norm
+        heads no longer raise
         ``NotImplementedError``: the CLI goes on to the device, which here
         is a missing card."""
         best = tmp_path / "best.json"

@@ -185,8 +185,8 @@ def test_self_contained_load_needs_no_model_code(artifact):
 def test_decoder_weights_round_trip_both_ways(artifact, tmp_path):
     _, params, state, _ = artifact
     template = to_jax_params(FAST(FASTConfig(**SMALL)).state_dict())
-    ours = load_decoder_weights(jax_export_weights(str(tmp_path / "j.npz"), params, state),
-                                template)
+    ours, _ = load_decoder_weights(jax_export_weights(str(tmp_path / "j.npz"), params, state),
+                                   template)
     theirs, _ = jax_load_weights(export_decoder_weights(str(tmp_path / "p.npz"), params),
                                  params, state)
     for a, b, c in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs), jax.tree.leaves(params)):

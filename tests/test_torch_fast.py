@@ -107,6 +107,21 @@ class TestLogits:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model(torch.zeros(1, 10, 250), forward_mode="train_head")
 
-    def test_other_heads_not_ported_yet(self):
-        with pytest.raises(NotImplementedError, match="Conv4Layers"):
-            FAST(config.FASTConfig(**SMALL, head="CVBlock"))
+    @pytest.mark.parametrize("head", ["CVBlock", "EEGNet_Encoder", "HeadConv_Paper_Version"])
+    def test_other_heads_not_ported_yet(self, head):
+        """Once refused, the other heads are ported: FAST builds with each,
+        takes JAX's weights and running statistics, and its eval logits
+        equal ``fast_apply``'s (tests/test_torch_heads.py holds the rest);
+        an unknown head raises JAX's ``KeyError``."""
+        kw = dict(SMALL, head=head)
+        jcfg, params, state = _jax_params(kw, 4)
+        model = FAST(config.FASTConfig(**kw)).eval()
+        model.load_state_dict(transplant.from_jax_params(params, jax.tree.map(np.asarray, state)))
+        x = np.random.default_rng(6).normal(size=(3, jcfg.n_channels, jcfg.seq_len))
+        x = x.astype(np.float32)
+        ref, _ = fast_apply(params, state, jnp.asarray(x), jcfg, train=False)
+        with torch.no_grad():
+            ours = model(torch.from_numpy(x))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+        with pytest.raises(KeyError, match="unknown head"):
+            FAST(config.FASTConfig(**dict(SMALL, head="NoSuchHead")))

@@ -62,14 +62,16 @@ def fleet(tmp_path_factory):
     return model, str(root), paths, weights, x
 
 
-def _port_fleet(params, **chain):
-    return make_fleet_decoder(FAST(FASTConfig(**SMALL), n_models=N_MODELS), params, **chain)
+def _port_fleet(params, state=None, **chain):
+    return make_fleet_decoder(FAST(FASTConfig(**SMALL), n_models=N_MODELS), params, state,
+                              **chain)
 
 
 def test_stack_checkpoints_matches_jax(fleet):
     model, _, paths, _, _ = fleet
-    ours = stack_checkpoints(paths, FAST(FASTConfig(**SMALL)))
+    ours, ours_state = stack_checkpoints(paths, FAST(FASTConfig(**SMALL)))
     theirs, _ = jax_stack_checkpoints(paths, model)
+    assert ours_state == {"head": {}}  # Conv4Layers has no batch-norm state
     flat_ours, flat_theirs = jax.tree.leaves(ours), jax.tree.leaves(theirs)
     assert len(flat_ours) == len(flat_theirs)
     for a, b in zip(flat_ours, flat_theirs):
@@ -85,7 +87,7 @@ def test_rows_and_ensemble_match_jax(fleet, chain):
     model, _, paths, _, x = fleet
     sp, ss = jax_stack_checkpoints(paths, model)
     theirs = jax_make_fleet_decoder(model.apply, sp, ss, use_pallas=False, **chain)
-    ours = _port_fleet(stack_checkpoints(paths, FAST(FASTConfig(**SMALL))), **chain)
+    ours = _port_fleet(*stack_checkpoints(paths, FAST(FASTConfig(**SMALL))), **chain)
     rows = ours(x)
     assert rows.shape == (N_MODELS, 6, 5) and rows.dtype == np.float32 and ours.n_models == 3
     np.testing.assert_allclose(rows, np.asarray(theirs(x)), rtol=RTOL, atol=ATOL)

@@ -1,4 +1,5 @@
-"""The PyTorch port's import closure reaches none of ``jax``, ``yaml``,
+"""The PyTorch port's import closure (the batch-norm heads, TSception, the
+augmentation and their CLIs among it) reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
 package, the real-data modules import and run without ``h5py`` (which
 they import only inside the functions that open HDF5 files),
@@ -41,6 +42,12 @@ from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout_params
 from imagined_speech_decoding_tpu_torch.train import ensemble, loso, sweep
 from imagined_speech_decoding_tpu_torch.cli import sweep as cli_sweep, zero_shot
 from imagined_speech_decoding_tpu_torch.data import fastcache
+from imagined_speech_decoding_tpu_torch.models import api, heads, tsception
+from imagined_speech_decoding_tpu_torch.ops import augment, norm
+from imagined_speech_decoding_tpu_torch.cli import train_tsception
+from imagined_speech_decoding_tpu_torch.models.fast import FAST
+from imagined_speech_decoding_tpu_torch.serving import make_online_decoder
+from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout
 
 with tempfile.TemporaryDirectory() as d:
     # the sweep, LOSO and zero-shot helpers without sklearn, pandas or matplotlib
@@ -78,6 +85,13 @@ with tempfile.TemporaryDirectory() as d:
                           device="cpu")
     with server, DecoderClient(*server.address) as client:
         art_post = client.decode(x)
+# a batch-norm head's decoder carries its running statistics; TSception's stack builds
+import dataclasses
+cv_cfg = dataclasses.replace(FASTConfig.default(), head="CVBlock")
+stateful = make_online_decoder(FAST(cv_cfg), *init_jax_layout(cv_cfg, 0))
+assert stateful(x).shape == (1, 5)
+ts = api.make_tsception_model(64, 800)
+assert ts.build(2).bn_t.mean.shape == (2, 45)
 assert post.shape == (1, 5) and abs(float(post.sum()) - 1.0) < 1e-5, post
 assert rows.shape == (2, 1, 5) and np.allclose(rows[0], post, rtol=1e-4, atol=1e-5), rows
 assert np.array_equal(art_post, post), (art_post, post)

@@ -26,8 +26,8 @@ import imagined_speech_decoding_tpu.config as jax_config
 from imagined_speech_decoding_tpu.cli import train_fast as jax_train_fast
 from imagined_speech_decoding_tpu.models.api import make_fast_model
 from imagined_speech_decoding_tpu.train import cv as jax_cv
+from imagined_speech_decoding_tpu_torch import transplant
 from imagined_speech_decoding_tpu_torch.cli import train_fast
-from imagined_speech_decoding_tpu_torch.train import cv
 
 torch.set_num_threads(1)
 
@@ -51,13 +51,13 @@ def runs(tmp_path_factory):
     cfg_path.write_text(SMALL_YAML)
     argv = ARGV + ["--config", str(cfg_path)]
 
-    def jax_init(cfg, seed, n_models):
+    def jax_init(cfg, seed, n_models=None, *, total=None, offset=0):
         model = make_fast_model(jax_config.FASTConfig(**dataclasses.asdict(cfg)))
-        params, _ = jax_cv.stacked_init(model, jax.random.PRNGKey(seed), n_models)
-        return jax.tree.map(np.asarray, params)
+        trees = jax_cv.stacked_init(model, jax.random.PRNGKey(seed), total or n_models)
+        return jax.tree.map(lambda a: np.asarray(a)[offset:offset + n_models], trees)
 
     mp = pytest.MonkeyPatch()
-    mp.setattr(cv, "stacked_init", jax_init)
+    mp.setattr(transplant, "init_jax_layout", jax_init)
     try:
         ours = train_fast.main(argv + ["--output_dir", str(root / "port")], device="cpu")
     finally:
