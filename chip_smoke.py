@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving (live, fleet, artifact,
 streaming), training, attribution, real-data and campaign (sweep, LOSO,
-ensemble, zero-shot, native cache) paths, and of the models with
-batch-norm state (the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version
-heads, TSception) with their decoders and train-time augmentation, on one
-NVIDIA GPU.
+ensemble, zero-shot, native cache) paths, of the models with batch-norm
+state (the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version heads,
+TSception) with their decoders and train-time augmentation, and of the
+feature baselines (band-power MLP, STFT EEGNet, CNN-BiLSTM), on one NVIDIA
+GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -62,7 +63,10 @@ NVIDIA GPU.
         launch on zero-padded or split operands: dim_cnn = 8 trained in
         f32 and bf16 and a bf16 forward at T = 1001 (N = 7 windows: two
         B2f-bf16 groups), against the CPU, with the kernels' launches and
-        the adapted calls counted.
+        the adapted calls counted; bf16 geometries B2w-bf16 has no plan for
+        (C = 72; windows of 280 at C = 64) on the f32 route, one B2w launch
+        on the bf16 operands, within 1e-2 in relative L2 of the plain bf16
+        backward; C = 128 raises (neither plan fits).
    B2f also at the fleet's M = 15, B = 1 and 8, on one window broadcast
    to every model, with its device time.
 4. Serving path: full-width FAST weights from a numpy seed are written
@@ -193,6 +197,26 @@ NVIDIA GPU.
    summed learning rate; the final statistics are printed beside them
    (``phase_trajectory_stateful`` says why they are not held to 1e-4).
 
+10. The feature baselines (BASELINE.json configs #1, #3, #4), each through
+   ``cli.train_baselines --pipeline <p> --synthetic 15 --synthetic_trials
+   350 --epochs 2`` at full width (75 models, batch 64, bf16, the training
+   path's corpus): the band-power featurizer's notch and 8-70 Hz band-pass
+   as B1 chain launches (exactly two: the corpus and the test sets; B1 held
+   against the plain chain at that shape and timed there), its features
+   and the STFT planes of subject 01 against the CPU's plain featurizer
+   (rtol 1e-4, atol 1e-5; the stop band's Delta log power atol 1e-2: there
+   the two filters part by their f32 roundings); no other kernel launched; the history finite,
+   the tree complete with the state in every ``best_subject.npz``, and the
+   last subject's reproducing its test predictions. In the step-profile
+   child, one bf16 step of each model (M = 75, B = 64) and an f32 step of
+   the CNN-BiLSTM (in subject groups if the stack does not fit): span,
+   device time, idle share, peak memory; and each featurizer over the
+   corpus on the card: host seconds and device time. Card against CPU, f32
+   with TF32 off, 2 subjects x 10 trials, 2 epochs, dropout off, on the
+   CPU's features: the history at rtol 1e-4 / atol 1e-5, the running
+   statistics at the same tolerance, the parameters within twice the
+   summed learning rate.
+
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script exits non-zero. Without a CUDA device it exits non-zero at once.
@@ -218,7 +242,8 @@ from scipy.signal import tf2sos
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from imagined_speech_decoding_tpu_torch.cli import export_decoder, train_fast
+from imagined_speech_decoding_tpu_torch import pipelines
+from imagined_speech_decoding_tpu_torch.cli import export_decoder, train_baselines, train_fast
 from imagined_speech_decoding_tpu_torch.cli.serve import build_parser, build_server
 from imagined_speech_decoding_tpu_torch.config import FASTConfig, TrainConfig
 from imagined_speech_decoding_tpu_torch.data.constants import SFREQ
@@ -1363,6 +1388,56 @@ def phase_adapted_geometry(cfg, dev, rng):
           f"windows), 1 adapted call; matches the CPU, max|err| {err:.3g}", flush=True)
 
 
+F32_ROUTE_REL_L2 = 1e-2  # bf16 geometries on the f32 kernels (tests/test_torch_conv4head_route.py)
+
+
+def phase_bf16_f32_route(dev, rng) -> dict:
+    """bf16 head geometries that B2w-bf16 has no plan for, on the f32 route
+    (``_adapted``): C = 72 at windows of 250 (its weight-gradient tiles) and
+    windows of 280 at C = 64 (its shared memory). One B2w launch on the bf16
+    kernel's operands, counted adapted, within ``F32_ROUTE_REL_L2`` in
+    relative L2 of the plain bf16 backward on the CPU; C = 128, where the f32
+    plan does not fit either, raises naming both."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    errs = {}
+    for c, w, step in ((72, 250, 125), (64, 280, 130)):
+        n = (800 - w) // step + 1
+        shapes = (((1, 8 * 32, 5 * c), (5 * c) ** -0.5), ((1, 8 * 32, 1), 0.1),
+                  ((1, 8, 32, 160), 160 ** -0.5), ((1, 8, 32, 160), 160 ** -0.5))
+        ops = [torch.tensor(rng.normal(scale=sc, size=sh).astype(np.float32)) for sh, sc in shapes]
+        x = torch.tensor(rng.normal(size=(1, 16, c, 800)).astype(np.float32)).to(torch.bfloat16)
+        g = torch.tensor(rng.normal(size=(1, 16, n, 256)).astype(np.float32))
+        reset_launches()
+        got = conv4head_bwd_w(g.to(dev), x.to(dev), *[t.to(dev) for t in ops], w, step)
+        launches = read_launches()
+        if (launches["conv4head_bwd_w"], launches["conv4head_bwd_w_bf16"],
+                launches["adapted"]) != (1, 0, 1):
+            raise RuntimeError(f"bf16 C={c} W={w}: the f32 route must launch B2w once, adapted: "
+                               f"{launches}")
+        ref = conv4head_bwd_bf16_plain(g, x, *ops, w, step)[1:]
+        errs[(c, w)] = max(float((a.cpu() - r).norm() / r.norm()) for a, r in zip(got, ref))
+        if errs[(c, w)] > F32_ROUTE_REL_L2:
+            raise RuntimeError(f"bf16 C={c} W={w} on the f32 route: relative L2 "
+                               f"{errs[(c, w)]:.3g} > {F32_ROUTE_REL_L2}")
+    x = torch.zeros((1, 2, 128, 800), device=dev, dtype=torch.bfloat16)
+    w128 = [torch.zeros(sh, device=dev) for sh in ((1, 256, 640), (1, 256, 1), (1, 8, 32, 160),
+                                                   (1, 8, 32, 160))]
+    try:
+        with torch.no_grad():
+            fused_conv4_head(x, *w128, 250, 125)
+    except ValueError as e:
+        if "its f32 route does not fit either" not in str(e):
+            raise
+    else:
+        raise RuntimeError("bf16 C=128 must raise: neither head kernel's plan fits")
+    print(f"bf16 head geometries on the f32 route (B2w on the bf16 operands, one launch, "
+          f"adapted): relative L2 against the plain bf16 backward "
+          f"{json.dumps({f'C={c} W={w}': float(f'{v:.3g}') for (c, w), v in errs.items()})} "
+          f"(<= {F32_ROUTE_REL_L2}); C=128 raises naming both plans", flush=True)
+    return errs
+
+
 TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem bytes at full width
     # from the library, the tensor-core instruction of its route in SASS: mma.sync is HMMA,
     # wgmma HGMMA)
@@ -1698,6 +1773,21 @@ def step_profile_child(out: str) -> None:
         rows[head] = phase_train_step_profile(dataclasses.replace(cfg, head=head), dev,
                                               torch.bfloat16)
     rows["TSception"] = tsception_step_profile(dev)
+    for name in BASELINES:
+        rows[f"baseline {name}"] = baseline_step_profile(dev, name, torch.bfloat16)
+    # The CNN-BiLSTM in f32: its frontend's activations are twice bf16's; a
+    # stack that does not fit runs in subject groups (--subject_group).
+    for group in (TRAIN_SUBJECTS, 10, 5):
+        try:
+            rows["baseline cnn_bilstm f32"] = {
+                **baseline_step_profile(dev, "cnn_bilstm", torch.float32, group),
+                "subject_group": group}
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"train step f32 cnn_bilstm at {group} subjects: out of memory ({e})",
+                  flush=True)
+    for name in BASELINES[:2]:
+        rows[f"featurize {name}"] = featurize_profile(dev, name)
     with open(out, "w") as f:
         json.dump(rows, f)
 
@@ -3078,6 +3168,308 @@ def phase_trajectory_stateful(cfg, dev) -> dict:
     return rows
 
 
+BASELINES = ("bandpower_mlp", "stft_eegnet", "cnn_bilstm")
+BASELINE_STATE = {"bandpower_mlp": (), "stft_eegnet": ("state.bn1.mean", "state.bn1.var"),
+                  "cnn_bilstm": ("state.bn.mean", "state.bn.var")}
+FEAT_RTOL, FEAT_ATOL = 1e-4, 1e-5  # the features, card vs CPU (tests/test_torch_pipelines.py)
+# The band-power features' Delta band (0.5-4 Hz) lies in the 8-70 Hz band-pass's
+# stop band, its power ~1e-7 of the passband's: there B1 and the plain chain part
+# by their f32 roundings, a ~0.1% power difference (1.56e-3 in the log on an H100;
+# 4.4e-4 with B1's walk emulated on the CPU, tests/test_torch_iir_scan.py). Its log
+# is held at this atol (a 1% power difference); the other bands at FEAT_ATOL.
+FEAT_DELTA_ATOL = 1e-2
+# One trial's input to each baseline model at full width: 64 channels x 5
+# bands, 5 band planes of 101 STFT frames, raw 64 x 800.
+FEATURE_SHAPES = {"bandpower_mlp": (64 * 5,), "stft_eegnet": (5, 64, 101),
+                  "cnn_bilstm": (64, 800)}
+
+
+def phase_bandpower_iir(dev, X) -> dict:
+    """B1 at the band-power featurizer's shape: its notch (1 section, padlen
+    9) and 8-70 Hz band-pass (4 sections, padlen 27) in one chain launch
+    over the training corpus's 336,000 rows of 800 samples, against the
+    plain chain on the same data (B1's tolerance), timed by CUDA events
+    and by the profiler's device time, beside the byte bound."""
+    filters = list(pipelines.bandpower_filters(SFREQ))
+    x = torch.as_tensor(X.reshape(-1, 64, 800), device=dev)
+    rows = x.numel() // 800
+    with torch.inference_mode():
+        ref = sosfiltfilt_chain_plain(filters, x)
+        err = check_close(f"B1 chain, bandpower filters, R={rows}", sosfiltfilt_chain(filters, x),
+                          ref, IIR_RTOL, IIR_RTOL * float(ref.abs().max()))
+        del ref
+        bound, bound_by = chain_bound(rows, filters)
+        row = {"rows": rows, "max_abs_err": err, "bound_ms": bound, "bound_by": bound_by,
+               "ms": cuda_ms(lambda: sosfiltfilt_chain(filters, x), 5),
+               "device_ms": device_ms(lambda: sosfiltfilt_chain(filters, x),
+                                      "sosfiltfilt_chain_kernel", 5),
+               "plain_ms": cuda_ms(lambda: sosfiltfilt_chain_plain(filters, x), 1, warmup=0)}
+    print(f"B1 chain at the band-power featurizer's shape, R={rows} (the 15 x 350 corpus), "
+          f"60 Hz notch + 8-70 Hz band-pass zero-phase, one launch: kernel {row['ms']:.4f} ms a "
+          f"call back to back (CUDA events), {row['device_ms']:.4f} ms on the device "
+          f"(profiler), plain {row['plain_ms']:.3f} ms, max|err| {err:.3g}, bound {bound:.4f} ms "
+          f"({bound_by}, {bound / row['device_ms']:.1%} of the device time)", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_features(name: str, got: np.ndarray, ref: np.ndarray) -> dict:
+    """A featurizer's output on the card against the CPU's plain featurizer,
+    each feature at rtol ``FEAT_RTOL`` and atol ``FEAT_ATOL``, the band
+    powers' Delta band at ``FEAT_DELTA_ATOL``: the max error and its share
+    of the tolerance (<= 1), by band for the band powers."""
+    if name != "bandpower_mlp":
+        groups = {"planes": (got, ref, FEAT_ATOL)}
+    else:
+        g, r = got.reshape(-1, 5), ref.reshape(-1, 5)
+        groups = {band: (g[:, i], r[:, i], FEAT_DELTA_ATOL if band == "Delta" else FEAT_ATOL)
+                  for i, band in enumerate(("Delta", "Theta", "Alpha", "Beta", "Gamma"))}
+    out = {}
+    for what, (a, b, atol) in groups.items():
+        err = np.abs(a - b)
+        share = float((err / (atol + FEAT_RTOL * np.abs(b))).max())
+        out[what] = [float(f"{err.max():.3g}"), float(f"{share:.3g}")]
+        if share > 1.0:
+            raise RuntimeError(f"baseline {name}: {what} features, card vs CPU, max|err| "
+                               f"{err.max():.3g} beyond rtol {FEAT_RTOL}, atol {atol}")
+    return out
+
+
+def phase_baselines(dev, X, Y, workdir) -> dict:
+    """(10) The feature baselines at full width, each through
+    ``cli.train_baselines --pipeline <p> --synthetic 15 --synthetic_trials
+    350 --epochs 2`` at its default bf16 (75 models, batch 64; its
+    ``load_data`` handed the corpus it would generate). The featurization
+    runs on the card: the band-power one makes exactly two B1 chain
+    launches (the corpus, then all the test sets) and nothing else, the
+    others none; its features for the first subject equal the CPU's plain
+    featurizer's (``FEAT_RTOL`` / ``FEAT_ATOL``). The history is finite,
+    the tree complete with the state in every ``best_subject.npz``, and the
+    last subject's reproduces its test predictions."""
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    n_test = TRAIN_TRIALS // 3
+    test = {sid: (X[i, :n_test], Y[i, :n_test]) for i, sid in enumerate(subjects)}
+    rows = {}
+    for name in BASELINES:
+        pipe = pipelines.PIPELINES[name]
+        out = os.path.join(workdir, f"baseline_{name}")
+        argv = ["--pipeline", name, "--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials",
+                str(TRAIN_TRIALS), "--epochs", str(TRAIN_EPOCHS), "--output_dir", out]
+        print(f"baselines: cli.train_baselines {' '.join(argv[:-1])} <tmp>", flush=True)
+        feat = {}
+        featurize = pipelines.featurize_corpus
+
+        def timed_featurize(p, xs, tests, device="cuda"):
+            before = read_launches()
+            t0 = time.perf_counter()
+            res = featurize(p, xs, tests, device=device)
+            torch.cuda.synchronize()
+            feat.update(seconds=time.perf_counter() - t0, features=res,
+                        launches={k: v - before[k] for k, v in read_launches().items()})
+            return res
+
+        load_data = train_fast.load_data
+        train_fast.load_data = lambda args: (X, Y, subjects, test)
+        pipelines.featurize_corpus = timed_featurize
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            result = train_baselines.main(argv)
+        finally:
+            train_fast.load_data = load_data
+            pipelines.featurize_corpus = featurize
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_launches()
+        want = 2 if name == "bandpower_mlp" and dev.type == "cuda" else 0  # the CPU's: plain
+        others = {k: v for k, v in launches.items() if k != "iir_chain" and v}
+        if launches["iir_chain"] != want or others:
+            raise RuntimeError(f"baseline {name}: kernel launches {launches}; the featurizer "
+                               f"must make {want} B1 chain launches and nothing else run")
+        if pipe.featurize is not None and feat["launches"]["iir_chain"] != want:
+            raise RuntimeError(f"baseline {name}: the featurization made "
+                               f"{feat['launches']['iir_chain']} B1 launches, not {want}")
+        for k, v in result.fit.history.items():
+            if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
+                raise RuntimeError(f"baseline {name}: history {k} {v.shape}")
+        check_result_tree(out, subjects, BASELINE_STATE[name], f"baseline {name}")
+        si = TRAIN_SUBJECTS - 1
+        if pipe.featurize is None:
+            x_test, feat_err = X[si, :n_test], None
+        else:
+            Xf, testf = feat["features"]
+            x_test = testf[subjects[si]][0]
+            with torch.no_grad():
+                cpu = pipe.featurize(torch.from_numpy(X[0])).numpy()
+            feat_err = check_features(name, Xf[0], cpu)
+        n = reproduce_predictions(pipe.make_model(64, 800, 5), out, subjects[si], x_test,
+                                  torch.bfloat16, dev, TRAIN_BATCH, f"baseline {name}")
+        print(f"baseline {name}: launches {launches['iir_chain']} B1 chain (featurization "
+              f"{feat.get('seconds', 0.0):.2f} s host)"
+              + ("" if feat_err is None else f"; subject 01's features, card vs CPU plain "
+                 f"featurizer, max|err| {json.dumps(feat_err)}")
+              + f"; history finite; the tree written; sub-{subjects[si]}'s best_subject.npz "
+              f"reproduces its {n} test predictions", flush=True)
+        rows[name] = {**report_fit(f"baseline {name} (bf16, M={TRAIN_SUBJECTS * 5})", result,
+                                   wall, peak),
+                      "launches": launches["iir_chain"], "featurize_s": feat.get("seconds"),
+                      "feature_err": feat_err}
+        del result, feat
+    return rows
+
+
+def baseline_step_profile(dev, name: str, dtype, subjects: int = TRAIN_SUBJECTS) -> dict:
+    """One training step of a baseline model's stack (``subjects`` x 5 folds)
+    at batch 64 on random inputs of its feature shape, in ``dtype``:
+    span, device time, idle share, peak allocated memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = subjects * 5
+    mdef = pipelines.PIPELINES[name].make_model(64, 800, 5)
+    model = mdef.build(m, dev)
+    mdef.load(model, *mdef.init(SEED, m))
+    model.train()
+    opt = engine.make_optimizer(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((m, TRAIN_BATCH) + FEATURE_SHAPES[name], generator=gen, device=dev).to(dtype)
+    y = torch.randint(0, 5, (m, TRAIN_BATCH), generator=gen, device=dev)
+
+    def step():
+        engine.train_step(model, opt, x, y, 1e-4, 5, gen)
+
+    step()
+    precision = "bf16" if dtype == torch.bfloat16 else "f32"
+    return stateful_step_row(f"train step {precision} {name}", step, cuda_ms(step, 1, warmup=0),
+                             m, TRAIN_BATCH)
+
+
+def featurize_profile(dev, name: str) -> dict:
+    """A featurizer over a 15 x 350 x 64 x 800 corpus drawn on the card, as
+    ``featurize_corpus`` calls it (the band power over the whole split in
+    one call, the STFT a subject a call): host seconds (synchronised),
+    device time, CUDA-event span, idle share."""
+    pipe = pipelines.PIPELINES[name]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((TRAIN_SUBJECTS, TRAIN_TRIALS, 64, 800), generator=gen, device=dev)
+
+    def run():
+        with torch.no_grad():
+            if pipe.whole_split:
+                pipe.featurize(x)
+            else:
+                for s in range(TRAIN_SUBJECTS):
+                    pipe.featurize(x[s])
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    need = ("sosfiltfilt_chain_kernel",) if name == "bandpower_mlp" else ()
+    reset_launches()
+    events, span, union = profiled_step(run, f"featurize {name}", need=need)
+    launches = read_launches()
+    if launches["iir_chain"] != (1 if name == "bandpower_mlp" else 0):
+        raise RuntimeError(f"featurize {name}: B1 chain launches {launches['iir_chain']}")
+    by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in device_records(events)), reverse=True)
+    busy = sum(ms for ms, _, _ in by_device)
+    print(f"featurize {name} over {TRAIN_SUBJECTS} x {TRAIN_TRIALS} x 64 x 800 on the card: "
+          f"host {host:.4f} s, CUDA-event span {span:.2f} ms, device time {busy:.2f} ms (idle "
+          f"{1 - union / span:.1%})", flush=True)
+    for ms, calls, key in by_device[:5]:
+        print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
+              flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return {"host_s": host, "step_ms": span, "busy_ms": busy, "idle": 1 - union / span}
+
+
+def phase_trajectory_baselines(dev) -> dict:
+    """Card against CPU for each baseline, f32 with TF32 off: 2 subjects x 10
+    trials (10 models, 8 + 2 trials, batch 8: one step an epoch), 2 epochs,
+    dropout off, the same weights, permutations and input features (the
+    CPU's featurizer, so that only the training differs): the history at
+    rtol 1e-4 / atol 1e-5, the running statistics after the first step at
+    the same tolerance, every parameter within twice the summed learning
+    rate, the final and best running statistics at the same tolerance; the
+    EEGNet's ``bn2.mean`` follows ``bn1.bias``, whose exact gradient is 0
+    (a depthwise conv and a batch norm follow it), and is held within
+    ``2 * lr_sum * sum |spatial.w| + lr_sum``, as ``shifted_mean_bound``."""
+    from imagined_speech_decoding_tpu_torch.models.api import (make_cnn_bilstm_model,
+                                                               make_mlp_model,
+                                                               make_stft_eegnet_model)
+
+    x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
+    tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
+    m = tidx.shape[0]
+    models = {"bandpower_mlp": make_mlp_model(320, 5, dropout=0.0),
+              "stft_eegnet": make_stft_eegnet_model(64, 800, 5, dropout=0.0),
+              "cnn_bilstm": make_cnn_bilstm_model(64, 800, 5, dropout=0.0)}
+    rows = {}
+    for name in BASELINES:
+        pipe, mdef = pipelines.PIPELINES[name], models[name]
+        xs = x.reshape(-1, 64, 800)
+        if pipe.featurize is not None:
+            with torch.no_grad():
+                xs = pipe.featurize(torch.from_numpy(xs)).numpy()
+        p0, s0 = mdef.init(42, m)
+        runs, first = {}, {}
+        t0 = time.perf_counter()
+        for device, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = mdef.build(m, d)
+            mdef.load(model, p0, s0)
+            fit = engine.make_fit(model, 5, epochs=2, batch_size=8, n_train=8, n_val=2,
+                                  learning_rate=1e-3, warmup_epochs=0)
+            xd = torch.as_tensor(xs, device=d)
+            yd = torch.as_tensor(y.reshape(-1).astype(np.int64), device=d)
+            carry = fit.init_carry(tidx, vidx, xd, seed=43)
+            fit.run(carry, xd, yd, until=1)
+            first[device] = {k: b.detach().cpu().clone() for k, b in carry.buffers.items()}
+            runs[device] = fit.result(fit.run(carry, xd, yd, until=2))
+        gpu, cpu = runs["card"], runs["cpu"]
+        for k in engine.HISTORY_KEYS:
+            np.testing.assert_allclose(gpu.history[k], cpu.history[k], rtol=TRAJ_RTOL,
+                                       atol=TRAJ_ATOL, err_msg=f"baseline {name} history {k}")
+        stat_err = max((check_close(f"baseline {name} running statistics after the first step "
+                                    f"{k}", first["card"][k], first["cpu"][k], TRAJ_RTOL,
+                                    TRAJ_ATOL) for k in first["card"]), default=0.0)
+        lr_sum = float(np.sum(fit.lr_table))
+        final_err, shift_err = 0.0, 0.0
+        for which, pwhich in (("model_state", "params"), ("best_model_state", "best_params")):
+            for k, b in getattr(cpu, which).items():
+                a = getattr(gpu, which)[k].cpu()
+                tol = TRAJ_ATOL + TRAJ_RTOL * b.abs()
+                if name == "stft_eegnet" and k == "bn2.mean":
+                    w = getattr(cpu, pwhich)["spatial.w"].abs()  # (M, 16, 1, C, 1)
+                    tol = tol + 2 * lr_sum * (w + lr_sum).sum(dim=(2, 3, 4))
+                    shift_err = max(shift_err, float((a - b).abs().max()))
+                else:
+                    final_err = max(final_err, float((a - b).abs().max()))
+                far = int(((a - b).abs() > tol).sum())
+                if far:
+                    raise RuntimeError(f"baseline {name}: {far} of {b.numel()} elements of the "
+                                       f"{which} {k} beyond tolerance")
+        worst = max(float((getattr(gpu, w)[k].cpu() - getattr(cpu, w)[k]).abs().max())
+                    for w in ("params", "best_params") for k in getattr(cpu, w))
+        if worst > 2 * lr_sum:
+            raise RuntimeError(f"baseline {name}: parameters max|card - CPU| {worst:.3g} > twice "
+                               f"the summed lr {2 * lr_sum:.3g}")
+        print(f"trajectory baseline {name} f32 ({time.perf_counter() - t0:.1f} s): card and CPU "
+              f"agree over 2 epochs: history (rtol {TRAJ_RTOL}, atol {TRAJ_ATOL}); running "
+              f"statistics after the first step (max|err| {stat_err:.3g}), final and best "
+              f"(max|err| {final_err:.3g}"
+              + (f"; bn2.mean within the bias shift's bound, max|err| {shift_err:.3g}"
+                 if name == "stft_eegnet" else "")
+              + f"); parameters max|card - CPU| {worst:.3g} <= {2 * lr_sum:.3g}", flush=True)
+        rows[name] = {"stat_err": stat_err, "param_err": worst, "final_max_err": final_err}
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
@@ -3114,6 +3506,7 @@ def main() -> None:
     bwd, _ = phase_head_backward(cfg, dev, rng)
     bf16, _ = phase_bf16_kernels(cfg, dev, rng)
     phase_adapted_geometry(cfg, dev, rng)
+    phase_bf16_f32_route(dev, rng)
     campaign_kernels = phase_campaign_kernels(cfg, dev, rng)
     t0 = time.perf_counter()
     X, Y = synthetic_corpus(0, TRAIN_SUBJECTS, TRAIN_TRIALS, 64, 800)  # cli.train_fast's corpus
@@ -3137,6 +3530,8 @@ def main() -> None:
         stateful = phase_stateful_decoders(cfg, dev, rng, head_dirs["CVBlock"])
         augmented = phase_augment(cfg, dev, X, Y, workdir)
         tsception = phase_tsception(dev, X, Y, workdir)
+        bandpower_b1 = phase_bandpower_iir(dev, X)
+        baselines = phase_baselines(dev, X, Y, workdir)
     del X, Y
     steps = phase_step_profiles()
     phase_trajectory(cfg, dev)
@@ -3152,6 +3547,23 @@ def main() -> None:
               f"{run['fit_s']:.2f} s, card vs CPU running statistics max|err| "
               f"{traj['stat_err']:.3g} after the first step, {traj['final_max_err']:.3g} final",
               flush=True)
+    baseline_traj = phase_trajectory_baselines(dev)
+    for name in BASELINES:
+        st, run, traj = steps[f"baseline {name}"], baselines[name], baseline_traj[name]
+        feat = steps.get(f"featurize {name}")
+        print(f"baseline {name}: bf16 step device {st['busy_ms']:.2f} ms / CUDA-event span "
+              f"{st['step_ms']:.2f} ms (device idle {st['idle']:.1%}), step peak "
+              f"{st['peak_gb']:.2f} GB, fit peak {run['peak_gb']:.2f} GB of 80 GB, fit "
+              f"{run['fit_s']:.2f} s"
+              + (f"; featurization device {feat['busy_ms']:.2f} ms, host {feat['host_s']:.4f} s"
+                 if feat else "")
+              + f"; card vs CPU parameters max|err| {traj['param_err']:.3g}", flush=True)
+    f32 = steps.get("baseline cnn_bilstm f32")
+    if f32 is None:
+        raise RuntimeError("the f32 CNN-BiLSTM step ran out of memory at every subject group")
+    print(f"baseline cnn_bilstm f32 step ({f32['subject_group']} subjects a group): device "
+          f"{f32['busy_ms']:.2f} ms / span {f32['step_ms']:.2f} ms, peak {f32['peak_gb']:.2f} GB",
+          flush=True)
     real, _, zero = phase_real_data(dev, iir["preprocessing"])
 
     src = "imagined_speech_decoding_tpu_torch/csrc/"
@@ -3176,6 +3588,10 @@ def main() -> None:
          "graph_captures": captures["iir_chain"] + stateful["iir_chain_captures"],
          "graph_replays": serving["replays"] + fleet["replays"] + stateful["replays"],
          **{k: iir[MAIN_BATCH][k] for k in keys}, "library_ms": None},
+        {"name": "iir_sosfiltfilt_chain_bandpower", "route": "cuda", "source": src + "iir.cu",
+         "replaces": pallas + "iir.py:67", "launches": baselines["bandpower_mlp"]["launches"],
+         "rows": bandpower_b1["rows"], **{k: bandpower_b1[k] for k in keys},
+         "library_ms": None},
         {"name": "iir_sosfilt_time_major", "route": "cuda", "source": src + "iir.cu",
          "replaces": pallas + "iir.py:67", "launches": serving["iir"],
          **{k: iir[MAIN_BATCH]["causal"][k] for k in keys}, "library_ms": None},

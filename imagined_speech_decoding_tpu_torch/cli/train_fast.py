@@ -170,7 +170,8 @@ def load_data(args):
     merged (``load_subject_train_val``) and the test split with the answer
     sheet's labels, strict unless ``--no-strict``. ``--synthetic``: the
     first third of each subject's trials as its test split, and
-    ``--label_noise`` label flips."""
+    ``--label_noise`` label flips. ``cli.train_baselines`` shares it; its
+    parser has neither ``--no-strict`` nor ``--label_noise``."""
     if not args.synthetic:
         from ..data.constants import SUBJECTS
         from ..data.ingest import (
@@ -180,7 +181,7 @@ def load_data(args):
             resolve_excel_path,
         )
 
-        strict = not args.no_strict
+        strict = not getattr(args, "no_strict", False)  # the baselines' parser has none
         base = resolve_data_folder(args.data_folder)
         excel = resolve_excel_path(base, args.excel_path)
         test = load_test_set_per_subject(base, excel, strict=strict)
@@ -196,7 +197,7 @@ def load_data(args):
     s = args.synthetic
     subjects = [f"{i + 1:02d}" for i in range(s)]
     X, Y = synthetic_corpus(0, s, args.synthetic_trials, 64, 800)
-    if args.label_noise:
+    if getattr(args, "label_noise", 0.0):
         rng = np.random.default_rng(12345)
         flip = rng.random(Y.shape) < args.label_noise
         Y = np.where(flip, rng.integers(0, 5, Y.shape), Y).astype(Y.dtype)

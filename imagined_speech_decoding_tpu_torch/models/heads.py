@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.conv4head import fused_conv4_head
 from ..ops.norm import BNState, StackedBatchNorm, batch_norm
+from ..ops.windowing import sliding_window, zone_gather
 from .modules import (Leaves, Stacked, adaptive_avg_pool_1, avg_pool, conv2d, elu, gelu,
                       group_dropout, temporal_conv)
 
@@ -264,10 +265,10 @@ class ZoneHead(Stacked):
         (``sliding_window``), trial-major, gathered into the zone layout
         with the padded rows zeroed (``zone_gather``)."""
         m, b = x.shape[:2]
-        xz = x[:, :, self.gather_index] * self.zone_mask.reshape(-1, 1).to(x.dtype)
-        w = xz.unfold(-1, window_len, step)  # (M, B, Z*C_max, N, W)
-        n = w.shape[3]
-        w = w.permute(1, 3, 0, 2, 4).reshape(b * n, m * self.z, self.c_max, window_len)
+        xz, _ = zone_gather(x, self.gather_index.view(self.z, self.c_max), self.zone_mask)
+        w = sliding_window(xz, window_len, step)  # (M, B, Z, C_max, N, W)
+        n = w.shape[4]
+        w = w.permute(1, 4, 0, 2, 3, 5).reshape(b * n, m * self.z, self.c_max, window_len)
         return w.contiguous()
 
     def row_mask(self, f: int) -> torch.Tensor:

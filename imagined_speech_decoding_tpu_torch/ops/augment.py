@@ -51,6 +51,9 @@ def augment_batch(x: torch.Tensor, noise_sigma: float = 0.1, ch_drop: float = 0.
     ``x (M, B, C, T)``, model axis first."""
     if generator is None:
         raise ValueError("augment_batch needs a torch.Generator")
+    if x.dim() != 4:
+        raise ValueError(f"augment_batch takes raw trials (M, B, C, T), got {tuple(x.shape)}: "
+                         "noise and channel dropout have no meaning on features")
     shape, reps = _rows(x.shape, generator)
     noise = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
     keep = torch.rand(shape[:-1], generator=generator, device=x.device) < 1.0 - ch_drop

@@ -50,8 +50,10 @@ raises; nothing falls back. A geometry the kernels are not built for but
 reach exactly by zero padding (``_adapted``: ``dim_cnn`` 8 or 16, f32 B2w
 at C % 8 != 0, an odd T in bf16, a B2f-bf16 trial longer than its plan
 holds) launches them on padded or split operands and adds one to the
-wrapper's ``adapted``; any other (K != 5, O > 32, C > 64 in B2w-bf16)
-raises. On CUDA the kernel forward is a ``torch.autograd.Function``: it saves only
+wrapper's ``adapted``; so does a bf16 geometry the bf16 kernel has no plan
+for (C > 64 in B2w-bf16), run on the f32 kernel with the bf16 kernel's
+operands where that kernel's plan fits; any other (K != 5, O > 32, no plan
+fitting) raises. On CUDA the kernel forward is a ``torch.autograd.Function``: it saves only
 its operands, and its backward recomputes the forward inside B2w (when
 any weight operand needs a gradient) and B2x (only when ``x`` needs one;
 training never asks), each routed the same way.
@@ -317,8 +319,41 @@ def _fwd_bf16_windows_built(c: int, window_len: int, step: int, n: int) -> int:
                              _lib.library().isd_conv4head_fwd_bf16_smem_bytes)
 
 
+@functools.lru_cache(maxsize=64)
+def _bwd_w_bf16_bytes_built(c: int, window_len: int) -> int:
+    """The library's ``isd_conv4head_bwd_w_bf16_smem_bytes`` at O = 32, K = 5."""
+    return _lib.library().isd_conv4head_bwd_w_bf16_smem_bytes(c, window_len, KERNEL_WIDTH,
+                                                              KERNEL_TAPS)
+
+
+def _bf16_refusal(op: str, c: int, window_len: int, step: int, n: int, smem_bytes,
+                  bwd_w_smem_bytes):
+    """Why B2f-bf16 (``op`` "fwd") or B2w-bf16 ("bwd_w") takes no plan for C
+    channels at windows of ``window_len``, or None: B2f-bf16 when not even
+    one window's plan fits a block, B2w-bf16 past its weight-gradient
+    registers (C > 64) or its shared memory (t1 > 256 at C = 64). Plan
+    sizes from the library, or from ``smem_bytes`` / ``bwd_w_smem_bytes``
+    (the Python mirrors: ``fwd_bf16_plan``, ``bwd_w_bf16_smem_bytes``)."""
+    if op == "fwd":
+        try:
+            if smem_bytes is None:
+                _fwd_bf16_windows_built(c, window_len, step, n)
+            else:
+                _fwd_bf16_windows(c, window_len, step, n, smem_bytes)
+        except ValueError as e:
+            return str(e)
+        return None
+    nbytes = (_bwd_w_bf16_bytes_built(c, window_len) if bwd_w_smem_bytes is None
+              else bwd_w_smem_bytes(c, window_len, KERNEL_WIDTH, KERNEL_TAPS))
+    if 0 <= nbytes <= MAX_SMEM_BYTES:
+        return None
+    return (f"B2w-bf16 is not built for C={c} at windows of {window_len}: "
+            + ("its weight-gradient tiles exceed the registers" if nbytes < 0
+               else f"{nbytes} bytes a block, {MAX_SMEM_BYTES} on the card"))
+
+
 def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int,
-             smem_bytes=None):
+             smem_bytes=None, bwd_w_smem_bytes=None):
     """``op``'s result ("fwd": the features, "bwd_w": ``(dw12, db12, dw3,
     dw4)``, "bwd_x": dx) from ``launch(g, x, w12, b12, w3, w4, window_len,
     step)``, a kernel launch, given operands of a geometry it is built for,
@@ -334,8 +369,16 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
       B2f-bf16 with more windows than its plan holds (``smem_bytes``, the
         library's by default): groups of windows, each on a copy of its
         samples.
-    Any other geometry (K1 or K2 != KERNEL_TAPS, O > KERNEL_WIDTH) raises,
-    as ``launch`` does for what its kernel refuses (B2w-bf16: C > 64)."""
+    One adaptation is not exact: a bf16 geometry that B2f-bf16 or B2w-bf16
+    takes no plan for (``_bf16_refusal``: B2w-bf16 at C > 64, B2f-bf16 at C >
+    104 for windows of 250 or windows past 580 samples at C = 64) runs the
+    f32 kernel (``_f32_route``) on the bf16 kernel's operands: x as f32
+    (exact), the weights rounded to bf16 and back, b12 and g as they are.
+    It differs from the bf16 kernel by the bf16 roundings of h1, h2 and the
+    cotangents that the f32 kernel does not make.
+    Any other geometry (K1 or K2 != KERNEL_TAPS, O > KERNEL_WIDTH, a bf16 one
+    whose f32 route does not fit either) raises, as ``launch`` does for what
+    its kernel refuses."""
     m, b, c, t, z, o, k1, k2, n = _geometry(x, w12, w3, window_len, step)
     if k1 != KERNEL_TAPS or k2 != KERNEL_TAPS:
         raise ValueError(f"the head kernels are built for K1 = K2 = {KERNEL_TAPS}, "
@@ -343,6 +386,10 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     if o > KERNEL_WIDTH:
         raise ValueError(f"the head kernels are built for O <= {KERNEL_WIDTH}, got O={o}")
     bf16 = x.dtype == torch.bfloat16
+    if bf16 and op in ("fwd", "bwd_w"):
+        refusal = _bf16_refusal(op, c, window_len, step, n, smem_bytes, bwd_w_smem_bytes)
+        if refusal:
+            return _f32_route(refusal, op, launch, g, x, w12, b12, w3, w4, window_len, step), True
     wide = o < KERNEL_WIDTH
     pad_c = (-c) % 8 if op == "bwd_w" and not bf16 else 0
     per = n
@@ -383,6 +430,20 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     else:
         out = parts[0]
     return out, True
+
+
+def _f32_route(refusal: str, op: str, launch, g, x, w12, b12, w3, w4, window_len: int,
+               step: int):
+    """``op`` of a bf16 x on the f32 kernel (through ``_adapted``'s f32
+    adaptations), on the operands the bf16 kernel would read: f32 copies of
+    x and of the weights rounded to bf16 (b12 and g are f32 already). Where
+    the f32 plan does not fit either, raises naming both."""
+    try:
+        out, _ = _adapted(op, launch, g, x.float(), _bf16(w12), b12, _bf16(w3), _bf16(w4),
+                          window_len, step)
+    except ValueError as e:
+        raise ValueError(f"{refusal}; its f32 route does not fit either: {e}") from e
+    return out
 
 
 def _check_smem(nbytes: int, what: str) -> None:
@@ -498,6 +559,39 @@ def bwd_w_bf16_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> 
     WG_SLOTS a warpgroup (C > 64)."""
     plan = bwd_w_bf16_plan(c, w, o, k)
     return -1 if len(bwd_w_bf16_tiles(plan)) > WG_SLOTS * WG_GROUPS else plan["total"]
+
+
+def _stride_4mod8(v: int) -> int:
+    return ((v + 3) & ~7) + 4
+
+
+def _round_up4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _tc_strides(ch: int, w: int, o: int, k: int):
+    """``isd::tc_strides`` (csrc/conv4head_tc.cuh): ``(nt8, ld, lw1, lw)``."""
+    nt8 = (w - k + 1 + 7) & ~7
+    return nt8, _stride_4mod8(nt8 + k - 1), _stride_4mod8(k * ch), _stride_4mod8(k * o)
+
+
+def fwd_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_smem_bytes`` (B2f's ``fwd_plan``,
+    csrc/conv4head.cu)."""
+    cp = (c + 7) & ~7
+    _, ld, lw1, lw = _tc_strides(cp, w, o, k)
+    floats = (_round_up4(cp * ld) + 2 * _round_up4(o * ld) + _round_up4(o * lw1)
+              + 2 * _round_up4(o * lw) + _round_up4(o))
+    return 4 * floats
+
+
+def bwd_w_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_bwd_w_smem_bytes`` (B2w's ``tc_plan``,
+    csrc/conv4head_bwd.cu; C a multiple of 8)."""
+    _, ld, lw1, lw = _tc_strides(c, w, o, k)
+    hsz = _round_up4(max(o * ld, 16 * lw1))
+    rsz = _round_up4(max(c * ld, o * ld + hsz))
+    return 4 * (2 * rsz + hsz + 2 * _round_up4(o * lw) + 2 * _round_up4(o))
 
 
 def chunk_offset(cs: int, row: int, ch: int) -> int:

@@ -1,4 +1,4 @@
-"""Batched zero-phase IIR filtering over the trailing time axis, in PyTorch.
+"""Batched zero-phase IIR and FIR filtering over the trailing time axis, in PyTorch.
 
 Counterpart of ``imagined_speech_decoding_tpu/ops/filters.py``: filter
 design stays host-side SciPy; application runs on the tensor's device.
@@ -7,15 +7,22 @@ The causal biquad cascade goes through ``ops.cuda.iir.sosfilt_time_major``
 ``sosfiltfilt`` reproduces ``scipy.signal.sosfiltfilt``'s defaults (odd
 extension, ``sosfilt_zi`` seeding) with the JAX package's exact
 trace-time machinery. ``filter_corpus`` is the preprocessing CLI's
-notch and band-pass over a whole split, one B1 chain launch a split.
+notch and band-pass over a whole split, one B1 chain launch a split;
+``bandpass_filter(method="iir")`` and ``notch_filter`` are one-filter
+chains. ``lfilter`` / ``filtfilt`` are the direct-form II transposed
+recurrence of any order, a loop over time (the JAX ``lax.scan``), and
+``fir_filter`` one f32 convolution (``F.conv1d``, TF32 off: the JAX
+function convolves at ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.constants import SFREQ
 from .cuda.iir import default_padlen, prepare_filter, sosfilt_time_major, sosfiltfilt_chain
@@ -111,6 +118,86 @@ def sosfiltfilt(
     )
 
 
+def lfilter(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi: Optional[torch.Tensor] = None):
+    """Causal IIR/FIR filter over the trailing axis of ``x (..., T)``, Direct
+    Form II transposed, one step a sample (the JAX ``lax.scan``). ``b`` /
+    ``a`` are 1-D coefficients (``a[0]`` is normalised away in f64, then
+    both are rounded to x's dtype); ``zi (..., K)``, ``K = max(len(a),
+    len(b)) - 1``, is the initial state. Returns ``y``, or ``(y, zf)`` when
+    ``zi`` is given, as ``scipy.signal.lfilter``."""
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    k = max(len(a), len(b)) - 1
+    bt = torch.as_tensor(np.pad(b / a[0], (0, k + 1 - len(b))), dtype=x.dtype, device=x.device)
+    at = torch.as_tensor(np.pad(a / a[0], (0, k + 1 - len(a))), dtype=x.dtype, device=x.device)
+    batch_shape = x.shape[:-1]
+    if zi is None:
+        z = x.new_zeros(batch_shape + (k,))
+    else:
+        z = torch.broadcast_to(zi.to(x.dtype), batch_shape + (k,))
+    tail = x.new_zeros(batch_shape + (1,))
+    ys = []
+    for n in range(x.shape[-1]):
+        xn = x[..., n]
+        yn = bt[0] * xn + z[..., 0]
+        # z_i' = b_{i+1} x - a_{i+1} y + z_{i+1}   (z_K taken as 0)
+        z = bt[1:] * xn[..., None] - at[1:] * yn[..., None] + torch.cat([z[..., 1:], tail], -1)
+        ys.append(yn)
+    y = torch.stack(ys, dim=-1)
+    return y if zi is None else (y, z)
+
+
+def filtfilt(b: np.ndarray, a: np.ndarray, x: torch.Tensor,
+             padlen: Optional[int] = None) -> torch.Tensor:
+    """Zero-phase forward-backward ``lfilter`` = ``scipy.signal.filtfilt``
+    defaults: odd extension by ``padlen`` (default ``3 * max(len(a),
+    len(b))``) and ``lfilter_zi`` steady-state initial conditions."""
+    from scipy.signal import lfilter_zi  # host-side design only
+
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    if padlen is None:
+        padlen = 3 * max(len(a), len(b))
+    zi = torch.as_tensor(np.asarray(lfilter_zi(b, a), np.float64), dtype=x.dtype, device=x.device)
+    ext = _odd_ext(x, padlen)
+    y, _ = lfilter(b, a, ext, zi=zi * ext[..., :1])
+    y = torch.flip(y, dims=(-1,))
+    y, _ = lfilter(b, a, y, zi=zi * y[..., :1])
+    y = torch.flip(y, dims=(-1,))
+    return y[..., padlen : y.shape[-1] - padlen] if padlen > 0 else y
+
+
+@contextlib.contextmanager
+def _cudnn_tf32_off():
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def fir_filter(taps: np.ndarray, x: torch.Tensor, zero_phase: bool = True) -> torch.Tensor:
+    """A linear-phase FIR filter over the trailing axis of ``x (..., T)`` as
+    one batched convolution. ``zero_phase=True`` compensates the group
+    delay: a centred convolution over the signal edge-reflected (numpy's
+    ``reflect``; each side's pad must be shorter than the signal), the MNE
+    ``filter_data`` application; else causal, zero-padded in front. The
+    taps are rounded to x's dtype; f32 runs without TF32."""
+    taps = np.asarray(taps, np.float64)
+    n = len(taps)
+    t = x.shape[-1]
+    flat = x.reshape(-1, 1, t)
+    if zero_phase:
+        flat = F.pad(flat, ((n - 1) // 2, n - 1 - (n - 1) // 2), mode="reflect")
+    else:
+        flat = F.pad(flat, (n - 1, 0))
+    kern = torch.as_tensor(taps[::-1].copy(), dtype=x.dtype, device=x.device).view(1, 1, n)
+    with _cudnn_tf32_off():
+        y = F.conv1d(flat, kern)
+    return y.reshape(x.shape)
+
+
 def butter_sos(
     sfreq: float, l_freq: Optional[float], h_freq: Optional[float], order: int = 4
 ) -> np.ndarray:
@@ -162,3 +249,59 @@ def filter_corpus(x: torch.Tensor, notch: Optional[float] = None,
     ``x`` comes back as it is."""
     filters = corpus_filters(SFREQ, notch, bandpass)
     return sosfiltfilt_chain(filters, x) if filters else x
+
+
+def mne_style_fir_taps(
+    sfreq: float,
+    l_freq: Optional[float],
+    h_freq: Optional[float],
+    l_trans_bandwidth: Optional[float] = None,
+    h_trans_bandwidth: Optional[float] = None,
+) -> np.ndarray:
+    """A windowed-sinc (hamming) FIR band-pass with MNE ``filter_data``'s
+    default geometry: transition bandwidths ``min(max(f * 0.25, 2), f)``
+    (low) and ``min(max(f * 0.25, 2), nyq - f)`` (high), length ``3.3 /
+    min(transition) * sfreq`` rounded to odd, and ``l_freq`` / ``h_freq``
+    as the passband edges: the -6 dB points sit half a transition outside
+    them, so ``firwin`` gets the shifted cutoffs."""
+    from scipy.signal import firwin
+
+    nyq = sfreq / 2.0
+    lt = ht = None
+    if l_freq is not None:
+        lt = l_trans_bandwidth or min(max(l_freq * 0.25, 2.0), l_freq)
+    if h_freq is not None:
+        ht = h_trans_bandwidth or min(max(h_freq * 0.25, 2.0), nyq - h_freq)
+    trans = min(w for w in (lt, ht) if w is not None)
+    n = int(round(3.3 / trans * sfreq))
+    n |= 1  # odd length: exact zero phase
+    if l_freq is not None and h_freq is not None:
+        return firwin(n, [l_freq - lt / 2.0, h_freq + ht / 2.0], fs=sfreq, pass_zero=False,
+                      window="hamming")
+    if h_freq is not None:
+        return firwin(n, h_freq + ht / 2.0, fs=sfreq, pass_zero=True, window="hamming")
+    return firwin(n, l_freq - lt / 2.0, fs=sfreq, pass_zero=False, window="hamming")
+
+
+def bandpass_filter(x: torch.Tensor, sfreq: float, l_freq: Optional[float],
+                    h_freq: Optional[float], method: str = "iir", order: int = 4) -> torch.Tensor:
+    """Zero-phase band-pass over the trailing axis, batched.
+    ``method="iir"``: the Butterworth sections, ``sosfiltfilt``'s defaults,
+    as one ``sosfiltfilt_chain`` launch (kernel B1 on a CUDA tensor).
+    ``method="fir"``: ``mne_style_fir_taps`` through ``fir_filter``."""
+    if method == "iir":
+        return sosfiltfilt_chain([prepare_filter(butter_sos(sfreq, l_freq, h_freq, order))], x)
+    if method == "fir":
+        return fir_filter(mne_style_fir_taps(sfreq, l_freq, h_freq), x, zero_phase=True)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def notch_filter(x: torch.Tensor, sfreq: float, freq: float = 60.0, q: float = 30.0) -> torch.Tensor:
+    """Zero-phase power-line notch over the trailing axis, batched: the JAX
+    function's ``filtfilt`` of ``iirnotch(freq, q)``, as one second-order
+    section with ``filtfilt``'s padlen in one ``sosfiltfilt_chain`` launch
+    (kernel B1 on a CUDA tensor), as ``filter_corpus`` runs its notch."""
+    from scipy.signal import tf2sos
+
+    b, a = notch_ba(sfreq, freq, q)
+    return sosfiltfilt_chain([prepare_filter(tf2sos(b, a), padlen=3 * max(len(a), len(b)))], x)

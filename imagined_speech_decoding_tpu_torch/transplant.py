@@ -18,6 +18,10 @@ mutable state, ``BNState(mean, var)`` leaves, maps to the running-
 statistics buffers (``state.head.bn1.mean`` is ``head.bn1.mean``).
 ``from_jax_params(params, state)`` takes both; ``to_jax_params`` and
 ``to_jax_state`` read them back.
+
+The baseline models: EEGNet and the CNN-BiLSTM keep the JAX layout as
+TSception does (``tree_to_flat`` / ``flat_to_trees``); the MLP's layers
+are stacked ``Linear``s (``mlp_from_jax`` / ``mlp_to_jax``).
 """
 
 from __future__ import annotations
@@ -109,6 +113,28 @@ def flat_to_trees(state_dict, prefix: str = "") -> Tuple[dict, dict]:
             node = node.setdefault(p, {})
         node[parts[-1]] = BNState(fields["mean"], fields["var"])
     return params, state
+
+
+def mlp_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX MLP tree (``fc{i}: {"w": ([M,] d_in, d_out), "b"}``) ->
+    ``models.mlp.MLP``'s ``state_dict`` (``fc.{i}.weight`` transposed)."""
+    out = {}
+    for i in range(len(params)):
+        leaf = params[f"fc{i}"]
+        out[f"fc.{i}.weight"] = _tensor(np.swapaxes(np.asarray(leaf["w"]), -1, -2))
+        out[f"fc.{i}.bias"] = _tensor(leaf["b"])
+    return out
+
+
+def mlp_to_jax(state_dict) -> dict:
+    """``models.mlp.MLP``'s ``state_dict`` -> the JAX MLP tree, numpy leaves."""
+    n = len({k.split(".")[1] for k in state_dict if k.startswith("fc.")})
+
+    def arr(key):
+        return state_dict[key].detach().cpu().numpy()
+
+    return {f"fc{i}": {"w": np.ascontiguousarray(np.swapaxes(arr(f"fc.{i}.weight"), -1, -2)),
+                       "b": arr(f"fc.{i}.bias").copy()} for i in range(n)}
 
 
 def from_jax_params(params, state=None) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """The PyTorch port's import closure (the batch-norm heads, TSception, the
-augmentation and their CLIs among it) reaches none of ``jax``, ``yaml``,
+augmentation, the feature baselines and their CLIs among it) reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
 package, the real-data modules import and run without ``h5py`` (which
 they import only inside the functions that open HDF5 files),
@@ -99,6 +99,19 @@ assert np.array_equal(art_post, post), (art_post, post)
 from imagined_speech_decoding_tpu_torch.cli.train_fast import build_parser as train_parser, resolve_config
 os.chdir(os.path.dirname(os.path.abspath(chip_smoke.__file__)))
 assert resolve_config(train_parser().parse_args([]), {}).train.max_epochs == 200
+# the feature baselines: featurizers, spectral ops and their CLI, without the blocked packages
+from imagined_speech_decoding_tpu_torch import pipelines
+from imagined_speech_decoding_tpu_torch.ops import filters, spectral, windowing
+from imagined_speech_decoding_tpu_torch.models import eegnet, mlp, rnn
+from imagined_speech_decoding_tpu_torch.cli import train_baselines
+assert pipelines.bandpower_featurize(torch.from_numpy(x)).shape == (1, 320)
+assert pipelines.stft_image_featurize(torch.from_numpy(x)).shape == (1, 5, 64, 101)
+assert filters.bandpass_filter(torch.from_numpy(x), 250.0, 4.0, 40.0, method="fir").shape == x.shape
+with tempfile.TemporaryDirectory() as d:
+    res = train_baselines.main(["--pipeline", "stft_eegnet", "--synthetic", "1",
+                                "--synthetic_trials", "10", "--epochs", "1", "--output_dir", d],
+                               device="cpu")
+    assert os.path.exists(os.path.join(d, "sub-01", "best_subject.npz"))
 blocked = {"jax", "yaml", "pandas", "sklearn", "matplotlib"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked | {"imagined_speech_decoding_tpu"})
 assert loaded == sorted(blocked), loaded  # only the blocking None entries
