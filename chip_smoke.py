@@ -217,6 +217,33 @@ GPU.
    statistics at the same tolerance, the parameters within twice the
    summed learning rate.
 
+11. The training engine's remaining paths: (a) ``cli.train_fast
+   --synthetic 15 --synthetic_trials 350 --head CVBlock --loso-pretrain
+   --loso-epochs 1 --epochs 1 --augment --profile <dir>`` in a child
+   process (bf16; the parent's corpus handed over as ``.npy``): no
+   hand-written kernel launched in LOSO or the CV, every LOSO row leaves
+   its subject out, the ``Pretrain_excludes`` files hold no running
+   statistics, the CV begins at the LOSO rows and at a fresh draw's
+   running statistics, a second LOSO call trains nothing and returns the
+   saved rows bit for bit, ``<dir>/trace.json`` loads and holds kernel
+   records and the CLI's fit range; LOSO's host seconds and peak memory,
+   and (step-profile child) its CVBlock step at M = 15 by device time;
+   (b) ``cv_sweep`` of CVBlock on one subject (2 lr x 1 wd x 5 folds,
+   bf16, 2 epochs), and a grid of one (lr, wd) twice whose rows' parameters,
+   best snapshots, running statistics and history are equal bit for bit;
+   (c) in the step-profile child, one bf16 step (M = 75, B = 64) of
+   ``train_transformer`` (B2f-bf16 once, B2w-bf16 never; the head's
+   weights move by the weight decay alone, ``DECAY_REL``) and of
+   ``train_head`` (each once), by device time beside the default step;
+   (d) early stopping on the Conv4Layers stack (75 models, bf16, threshold
+   0, 3 epochs): every row stops after epoch 1 and epochs 2-3 leave
+   parameters, AdamW moments and best snapshots bit for bit, the head
+   kernels launched as all 3 epochs' batches count them; (e) dense tokens,
+   ``forward_head(step_override=25)`` (23 windows) at M = 1, B = 64 through
+   B2f (one launch) and B2f-bf16 (groups of the windows its plan holds)
+   against their plain versions, timed beside their bounds, and
+   ``batched_forward_head`` over 256 trials equal to one call bit for bit.
+
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script exits non-zero. Without a CUDA device it exits non-zero at once.
@@ -254,12 +281,13 @@ from imagined_speech_decoding_tpu_torch.explain.attribution import (
     expected_gradients_from_draws,
     integrated_gradients,
 )
-from imagined_speech_decoding_tpu_torch.models.fast import FAST
+from imagined_speech_decoding_tpu_torch.models.fast import FAST, FORWARD_MODES
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     BWD_W_BF16_PHASES,
     FWD_BF16_PHASES,
     KERNEL_TAPS,
+    _fwd_bf16_windows_built,
     _launch_bwd_w,
     _launch_fwd,
     conv4head_bwd_plain,
@@ -288,6 +316,7 @@ from imagined_speech_decoding_tpu_torch.serving import (
     stack_checkpoints,
 )
 from imagined_speech_decoding_tpu_torch.train import checkpoint, engine
+from imagined_speech_decoding_tpu_torch.train import loso as loso_module
 from imagined_speech_decoding_tpu_torch.train.artifacts import load_predictions_csv
 from imagined_speech_decoding_tpu_torch.train.checkpoint import load_model_npz, save_model_npz
 from imagined_speech_decoding_tpu_torch.train.cv import (
@@ -301,7 +330,12 @@ from imagined_speech_decoding_tpu_torch.train.loso import (
     stack_pretrained_for_cv,
 )
 from imagined_speech_decoding_tpu_torch.train.sweep import cv_sweep, hyper_grid
-from imagined_speech_decoding_tpu_torch.models.api import make_tsception_model
+from imagined_speech_decoding_tpu_torch.models.api import (
+    make_augmented_model,
+    make_fast_model,
+    make_tsception_model,
+)
+from imagined_speech_decoding_tpu_torch.profiling import TRACE_FILE
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
     init_jax_layout,
@@ -352,6 +386,9 @@ MMA_SYNC_BF16_FLOPS = 642.3e12
 WGMMA_N32_FLOPS = 653.0e12
 BF16_FWD_REL, BF16_BWD_REL = 3e-4, 1e-3  # atol = REL * max|ref| per tensor (bf16 kernels)
 BF16_LOGITS_L2 = 3e-3  # bf16 logits and gradients, card vs CPU, relative L2
+# A weight that only decays, p <- p - lr*wd*p, against that product in f64:
+# two f32 roundings (the factor and the product), relative to |p|.
+DECAY_REL = 2.5e-7
 BF16_SHAPES = ((2, 8), (1, 64))  # (M, B) of the bf16 kernel comparisons; JSON line: the last
 IIR_FMA_PER_SECTION = 5  # per sample: csrc/iir.cu's transposed direct form II
 
@@ -382,24 +419,26 @@ def chain_bound(rows: int, filters, t_len: int = 800):
 HEAD_WEIGHT_FLOATS = 256 * 320 + 256 + 2 * 8 * 32 * 160  # w12, b12, w3, w4 of one model
 
 
-def head_bound(fma_per_unit: int, m: int, b: int, n_out_floats: int, reads_g: bool = True):
-    """A head kernel at full width (C = 64, T = 800, 5 windows, 8 zones,
-    O = 32, K = 5) on M models of B trials. The fastest f32-accurate route
-    for its products is three TF32 tensor-core passes: 3 x 2 FLOPs per FMA
-    at the TF32 peak. Reads x, the weights and (backward) the cotangent g;
-    writes ``n_out_floats``."""
-    n_in = m * b * 64 * 800 + m * HEAD_WEIGHT_FLOATS + reads_g * m * b * 5 * 256
-    return bound_ms(4 * (n_in + n_out_floats), 3 * 2 * fma_per_unit * m * b * 5 * 8, TF32_FLOPS)
+def head_bound(fma_per_unit: int, m: int, b: int, n_out_floats: int, reads_g: bool = True,
+               windows: int = 5):
+    """A head kernel at full width (C = 64, T = 800, 8 zones, O = 32, K =
+    5; 5 windows, or ``windows`` at a dense step) on M models of B trials.
+    The fastest f32-accurate route for its products is three TF32
+    tensor-core passes: 3 x 2 FLOPs per FMA at the TF32 peak. Reads x, the
+    weights and (backward) the cotangent g; writes ``n_out_floats``."""
+    n_in = m * b * 64 * 800 + m * HEAD_WEIGHT_FLOATS + reads_g * m * b * windows * 256
+    return bound_ms(4 * (n_in + n_out_floats), 3 * 2 * fma_per_unit * m * b * windows * 8,
+                    TF32_FLOPS)
 
 
 def head_bound_bf16(fma_per_unit: int, m: int, b: int, n_out_floats: int,
-                    reads_g: bool = True):
+                    reads_g: bool = True, windows: int = 5):
     """``head_bound`` for a bf16 kernel: x at 2 bytes a sample, the f32
     weights, cotangent and outputs at 4; its products as one bf16
     tensor-core pass at the bf16 peak."""
-    nbytes = 2 * m * b * 64 * 800 + 4 * (m * HEAD_WEIGHT_FLOATS + reads_g * m * b * 5 * 256
-                                         + n_out_floats)
-    return bound_ms(nbytes, 2 * fma_per_unit * m * b * 5 * 8, BF16_FLOPS)
+    nbytes = 2 * m * b * 64 * 800 + 4 * (m * HEAD_WEIGHT_FLOATS
+                                         + reads_g * m * b * windows * 256 + n_out_floats)
+    return bound_ms(nbytes, 2 * fma_per_unit * m * b * windows * 8, BF16_FLOPS)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -1632,18 +1671,23 @@ def phase_training(cfg, dev, workdir, precision: str):
     return launches, t, (ckpt, subject)
 
 
-def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False):
+def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False,
+                             forward_mode="default"):
     """One training step of an M-model stack (the CV run's 75 by default) at
     batch 64 on a ``dtype`` batch: CUDA-event span, profiler device time by
     kernel, device idle share, and the peak of allocated device memory
     from the model's construction on. ``sweep``: the sweep's step,
     ``RowAdamW`` at a learning rate and weight decay per row (the default
-    grid's). A bf16 step of the Conv4Layers head must run B2f-bf16 and
-    B2w-bf16 and no f32 head kernel; a batch-norm head's step runs no
-    head kernel (its convolutions are cuDNN's)."""
+    grid's). ``forward_mode``: the model's mode (``FAST(forward_mode=)``).
+    A step of the Conv4Layers head must launch its precision's forward
+    kernel once and its weight-gradient kernel once, none under
+    ``train_transformer`` (the head runs outside autograd, and there its
+    weights must move by the weight decay alone), and no other head
+    kernel; a batch-norm head's step runs no head kernel (its convolutions
+    are cuDNN's)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = FAST(cfg, n_models=m, device=dev)
+    model = FAST(cfg, n_models=m, device=dev, forward_mode=forward_mode)
     model.load_state_dict(from_jax_params(*init_jax_layout(cfg, SEED, m)))
     model.train()
     lr = 1e-4
@@ -1662,26 +1706,42 @@ def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False)
     def step():
         engine.train_step(model, opt, x, y, lr, cfg.n_classes, gen)
 
+    name = ("bf16" if dtype == torch.bfloat16 else "f32")
+    what = f"{'sweep' if sweep else 'train'} step {name}" + (
+        f" {forward_mode}" if forward_mode != "default" else "")
+    frozen_head = forward_mode == "train_transformer"
+    head0 = {k: p.detach().clone() for k, p in model.named_parameters() if k.startswith("head.")}
+    reset_launches()
     step()
+    one = read_launches()  # the first step alone: each head kernel's launches a step
+    if frozen_head and cfg.head == "Conv4Layers":
+        decay = 1 - lr * opt.param_groups[0]["weight_decay"]
+        worst = max(float(((p.detach().double() - head0[k].double() * decay).abs()
+                           / head0[k].double().abs().clamp_min(1e-30)).max())
+                    for k, p in model.named_parameters() if k in head0)
+        if not worst <= DECAY_REL:
+            raise RuntimeError(f"{what}: the head's weights moved by more than the weight decay "
+                               f"(relative {worst:.3g} > {DECAY_REL})")
+        print(f"{what}: the head's weights moved by -lr*wd*p alone (relative max|err| "
+              f"{worst:.3g})", flush=True)
     # a batch-norm head's step takes ~2 s: one timed step is enough
     span = cuda_ms(step, 3 if cfg.head == "Conv4Layers" else 1, warmup=0)
-    name = ("bf16" if dtype == torch.bfloat16 else "f32")
-    what = f"{'sweep' if sweep else 'train'} step {name}"
     if cfg.head != "Conv4Layers":
         return stateful_step_row(f"{what} {cfg.head}", step, span, m, TRAIN_BATCH)
     other = "f32" if name == "bf16" else "bf16"
+    fwd, bwd_w = HEAD_KERNELS[name]
+    want = {fwd: 1, bwd_w: 0 if frozen_head else 1}
+    if any(one[k] != v for k, v in want.items()) or any(one[k] for k in HEAD_KERNELS[other]) \
+            or one["conv4head_bwd_x"]:
+        raise RuntimeError(f"{what}: one step must launch {want} and no other head kernel: "
+                           f"{one}")
+    require_unadapted(one, what)
     # Which head kernels ran is read from the launch counters; the profiler
     # is asked only for their times, and profiles again where it lost one.
     kernels = {"f32": ("conv4head_fwd_kernel", "conv4head_bwd_w_kernel"),
                "bf16": ("conv4head_fwd_bf16_kernel", "conv4head_bwd_w_bf16_kernel")}
-    reset_launches()
-    events, p_span, union = profiled_step(step, what, need=kernels[name])
-    launches = read_launches()
-    if (any(launches[k] < 1 for k in HEAD_KERNELS[name])
-            or any(launches[k] for k in HEAD_KERNELS[other]) or launches["conv4head_bwd_x"]):
-        raise RuntimeError(f"the {name} training step must launch {HEAD_KERNELS[name]} and no "
-                           f"other head kernel: {launches}")
-    require_unadapted(launches, f"{what}")
+    events, p_span, union = profiled_step(step, what,
+                                          need=kernels[name][:1 if frozen_head else 2])
     by_device = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                         for e in device_records(events)), reverse=True)
     busy = sum(ms for ms, _, _ in by_device)
@@ -1692,11 +1752,14 @@ def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False)
     for ms, calls, key in by_device[:10]:
         print(f"    device {ms:10.3f} ms {100 * ms / busy:5.1f}%  {calls:4d} calls  {key[:60]}",
               flush=True)
-    if any(re.search(k, key) for k in kernels[other] for _, _, key in by_device):
-        raise RuntimeError(f"the {name} training step's profile holds a {other} head kernel")
+    if any(re.search(k, key) for k in kernels[other] for _, _, key in by_device) or (
+            frozen_head and any(kernels[name][1] in key for _, _, key in by_device)):
+        raise RuntimeError(f"the {what}'s profile holds a head kernel it must not run")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"    peak allocated device memory {peak:.2f} GB", flush=True)
-    return {"step_ms": span, "busy_ms": busy, "peak_gb": peak, "idle": 1 - union / p_span}
+    print(f"    peak allocated device memory {peak:.2f} GB; one step's head launches "
+          f"{fwd} {one[fwd]}, {bwd_w} {one[bwd_w]}", flush=True)
+    return {"step_ms": span, "busy_ms": busy, "peak_gb": peak, "idle": 1 - union / p_span,
+            "launches": {k: one[k] for k in HEAD_KERNELS[name]}}
 
 
 CONV4_KERNEL_NAMES = "conv4head_"  # every Conv4Layers head kernel's name starts so
@@ -1755,16 +1818,28 @@ def tsception_step_profile(dev) -> dict:
 STEP_PROFILE_FLAG = "--step-profile-child"  # chip_smoke.py runs itself with it: the step profiles
 
 
-def step_profile_child(out: str) -> None:
+def step_profile_child(out: str, group: str = "campaign") -> None:
     """The training steps' profiles in a process of their own: f32 and bf16
     CV steps (M = 75), the sweep's (M = 75, ``RowAdamW``) and LOSO's (M = 15),
-    at B = 64. The profiler has lost whole sessions' records late in a long
-    run (on an H100: three sessions in a row after the campaign phases),
-    and a fresh process recorded them all. Writes the rows to ``out``."""
+    at B = 64, the batch-norm models' and the baselines' (``group``
+    "campaign"); or (``group`` "engine") the bf16 steps of the
+    ``train_head`` and ``train_transformer`` modes and CVBlock's LOSO step
+    at M = 15. The profiler has lost whole sessions' records late in a long
+    run (on an H100: three sessions in a row after the campaign phases; and
+    the featurizers' after the engine's steps joined this child), and a
+    fresh process recorded them all. Writes the rows to ``out``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg, dev = FASTConfig.default(), torch.device("cuda")
+    if group == "engine":
+        rows = {mode: phase_train_step_profile(cfg, dev, torch.bfloat16, forward_mode=mode)
+                for mode in FORWARD_MODES[1:]}
+        rows["loso CVBlock"] = phase_train_step_profile(
+            dataclasses.replace(cfg, head="CVBlock"), dev, torch.bfloat16, m=FLEET_MODELS)
+        with open(out, "w") as f:
+            json.dump(rows, f)
+        return
     rows = {"f32": phase_train_step_profile(cfg, dev, torch.float32),
             "cv": phase_train_step_profile(cfg, dev, torch.bfloat16),
             "sweep": phase_train_step_profile(cfg, dev, torch.bfloat16, sweep=True),
@@ -1793,19 +1868,34 @@ def step_profile_child(out: str) -> None:
 
 
 def phase_step_profiles() -> dict:
-    """``step_profile_child`` in a child process; its output is printed
-    here. The bf16 sweep and LOSO steps beside the CV step."""
+    """``step_profile_child`` in two child processes, one a group; their
+    output is printed here. The bf16 sweep and LOSO steps beside the CV
+    step, and the forward modes' steps beside the default one."""
     torch.cuda.empty_cache()
+    rows = {}
     with tempfile.TemporaryDirectory() as workdir:
-        out, log = os.path.join(workdir, "steps.json"), os.path.join(workdir, "steps.log")
-        try:
-            _run_child([sys.executable, os.path.abspath(__file__), STEP_PROFILE_FLAG, out], log)
-        finally:
-            with open(log) as f:
-                print(f.read(), end="", flush=True)
-        with open(out) as f:
-            rows = json.load(f)
+        for group in ("campaign", "engine"):
+            out = os.path.join(workdir, f"steps_{group}.json")
+            log = os.path.join(workdir, f"steps_{group}.log")
+            try:
+                _run_child([sys.executable, os.path.abspath(__file__), STEP_PROFILE_FLAG, out,
+                            group], log)
+            finally:
+                with open(log) as f:
+                    print(f.read(), end="", flush=True)
+            with open(out) as f:
+                rows.update(json.load(f))
     cv, sweep, loso = rows["cv"], rows["sweep"], rows["loso"]
+    print(f"forward modes, bf16 steps at M=75, B={TRAIN_BATCH}, device time / CUDA-event span "
+          f"(B2f-bf16, B2w-bf16 launches a step): default {cv['busy_ms']:.2f} / "
+          f"{cv['step_ms']:.2f} ms {tuple(cv['launches'].values())}, "
+          + ", ".join(f"{mode} {rows[mode]['busy_ms']:.2f} / {rows[mode]['step_ms']:.2f} ms "
+                      f"{tuple(rows[mode]['launches'].values())}" for mode in FORWARD_MODES[1:]),
+          flush=True)
+    bn = rows["loso CVBlock"]
+    print(f"LOSO step CVBlock bf16 M={FLEET_MODELS} B={TRAIN_BATCH}: device {bn['busy_ms']:.2f} ms "
+          f"/ span {bn['step_ms']:.2f} ms (the CV step M=75: {rows['CVBlock']['busy_ms']:.2f} ms), "
+          f"peak {bn['peak_gb']:.2f} GB", flush=True)
     print(f"steps bf16 at B={TRAIN_BATCH}, device time / CUDA-event span: CV M=75 "
           f"{cv['busy_ms']:.2f} / {cv['step_ms']:.2f} ms, sweep M=75 "
           f"{sweep['busy_ms']:.2f} / {sweep['step_ms']:.2f} ms "
@@ -1823,7 +1913,7 @@ def phase_trajectory(cfg, dev):
     x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
     tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
     m = tidx.shape[0]
-    p0 = from_jax_params(stacked_init(cfg0, 42, m))
+    p0 = from_jax_params(*stacked_init(cfg0, 42, m))
     runs, models = {}, {}
     for device, d in (("card", dev), ("cpu", torch.device("cpu"))):
         model = models[device] = FAST(cfg0, n_models=m, device=d)
@@ -1909,7 +1999,7 @@ def phase_trajectory_bf16(cfg, dev):
     x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
     tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
     m = tidx.shape[0]
-    p0 = from_jax_params(stacked_init(cfg0, 42, m))
+    p0 = from_jax_params(*stacked_init(cfg0, 42, m))
     runs, models = {}, {}
     for device, d in (("card", dev), ("cpu", torch.device("cpu"))):
         model = models[device] = FAST(cfg0, n_models=m, device=d)
@@ -2158,7 +2248,7 @@ def _hold_rows_to_plain_fits(cfg, dev, report, x, y):
     worst, budget = 0.0, 0.0
     for h, (c, w) in enumerate(report.meta):
         model = FAST(cfg, n_models=5, device=dev)
-        model.load_state_dict(from_jax_params(stacked_init(cfg, 42, 5)))
+        model.load_state_dict(from_jax_params(*stacked_init(cfg, 42, 5)))
         fit = engine.make_fit(model, cfg.n_classes, epochs=CAMPAIGN_EPOCHS,
                               batch_size=TRAIN_BATCH, n_train=tr.shape[1], n_val=va.shape[1],
                               learning_rate=5e-4 * c, weight_decay=0.01 * w)
@@ -3470,6 +3560,313 @@ def phase_trajectory_baselines(dev) -> dict:
     return rows
 
 
+# --- 11. The engine's remaining paths: batch-norm LOSO and sweep, forward modes, early
+# stopping, dense tokens -----------------------------------------------------------------
+
+BN_LOSO_FLAG = "--bn-loso-child"  # chip_smoke.py runs itself with it: phase (a)'s CLI run
+DENSE_STEP = 25  # forward_head(step_override=25): 23 windows of 250 over 800 samples
+DENSE_WINDOWS = (800 - 250) // DENSE_STEP + 1
+EARLY_STOP_EPOCHS = 3
+
+
+def bn_loso_child(argv) -> None:
+    """``cli.train_fast`` with ``argv`` in a process of its own, on the corpus
+    that the parent saved as ``<dir>/X.npy`` / ``Y.npy`` (``argv[0]``) and
+    the test split ``load_data`` would cut from it. Its LOSO warm start is
+    timed apart: host seconds, peak allocated memory and launches of LOSO,
+    then of the CV; the warm start it hands the CV is saved as
+    ``warm.npz`` (parameters and state). Writes ``child.json``."""
+    src, argv = argv[0], argv[1:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    X, Y = np.load(os.path.join(src, "X.npy")), np.load(os.path.join(src, "Y.npy"))
+    subjects = [f"{i + 1:02d}" for i in range(X.shape[0])]
+    n_test = X.shape[1] // 3
+    train_fast.load_data = lambda args: (
+        X, Y, subjects, {sid: (X[i, :n_test], Y[i, :n_test]) for i, sid in enumerate(subjects)})
+    out = argv[argv.index("--output_dir") + 1]
+    loso_row = {}
+    warm_start = train_fast.loso_warm_start
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        warm = warm_start(*a, **k)
+        torch.cuda.synchronize()
+        loso_row.update(wall_s=time.perf_counter() - t0, launches=read_launches(),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        params, state = warm
+        np.savez(os.path.join(out, "warm.npz"),
+                 **checkpoint._flatten({"params": params, "state": state}))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        return warm
+
+    train_fast.loso_warm_start = timed
+    t0 = time.perf_counter()
+    result = train_fast.main(argv)
+    wall = time.perf_counter() - t0
+    hist = result.fit.history
+    with open(os.path.join(out, "child.json"), "w") as f:
+        json.dump({"loso": loso_row, "cv": {"launches": read_launches(),
+                                            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                            "fit_s": result.timings["fit_s"]},
+                   "wall_s": wall, "history_shape": list(hist["loss"].shape),
+                   "history_finite": bool(all(np.isfinite(v).all() for v in hist.values()))}, f)
+
+
+def phase_bn_loso(cfg, dev, X, Y, workdir) -> dict:
+    """(a) ``cli.train_fast --synthetic 15 --synthetic_trials 350 --head
+    CVBlock --loso-pretrain --loso-epochs 1 --epochs 1 --augment --profile
+    <dir>`` in a child process (a fresh profiler), bf16: 15 LOSO models of
+    4,410 + 490 trials at B = 64, then 75 CV models. No hand-written kernel
+    launches; every LOSO row leaves its subject out; the CV begins at the
+    LOSO rows (each subject's over its 5 folds) and at the initial running
+    statistics of a fresh draw; a second LOSO call trains nothing and
+    returns the saved rows bit for bit; the trace (``<dir>/trace.json``)
+    loads and holds device kernel records and the CLI's fit range."""
+    hcfg = dataclasses.replace(cfg, head="CVBlock")
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    out, prof = os.path.join(workdir, "bn_loso"), os.path.join(workdir, "bn_loso_trace")
+    os.makedirs(out, exist_ok=True)
+    np.save(os.path.join(workdir, "X.npy"), X)
+    np.save(os.path.join(workdir, "Y.npy"), Y)
+    argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+            "--head", "CVBlock", "--loso-pretrain", "--loso-epochs", "1", "--epochs", "1",
+            "--augment", "--profile", prof, "--output_dir", out]
+    print(f"bn LOSO: cli.train_fast {' '.join(argv[:-3])} <tmp> in a child process", flush=True)
+    cmd = [sys.executable, os.path.abspath(__file__), BN_LOSO_FLAG, workdir, *argv]
+    wall = _run_child(cmd, os.path.join(workdir, "bn_loso.log"))
+    for name in ("X.npy", "Y.npy"):
+        os.remove(os.path.join(workdir, name))
+    with open(os.path.join(out, "child.json")) as f:
+        child = json.load(f)
+    loso_row, cv_row = child["loso"], child["cv"]
+    for what, launches in (("LOSO", loso_row["launches"]), ("CV", cv_row["launches"])):
+        if any(launches[k] for k in KERNEL_KEYS):
+            raise RuntimeError(f"bn LOSO: the {what} run launched a hand-written kernel: "
+                               f"{launches}")
+    if child["history_shape"] != [TRAIN_SUBJECTS * 5, 1] or not child["history_finite"]:
+        raise RuntimeError(f"bn LOSO: the CV history {child['history_shape']}, finite "
+                           f"{child['history_finite']}")
+    tr, va = build_loso_index_stack(Y, seed=42)
+    n = TRAIN_TRIALS
+    if tr.shape != (TRAIN_SUBJECTS, LOSO_TRAIN) or any(
+            ((np.r_[tr[s], va[s]] >= s * n) & (np.r_[tr[s], va[s]] < (s + 1) * n)).any()
+            for s in range(TRAIN_SUBJECTS)):
+        raise RuntimeError("bn LOSO: a row's indices include its own subject, or sizes differ")
+
+    save = os.path.join(out, "loso_pretrain")
+    files = []
+    for sid in subjects:
+        with np.load(os.path.join(save, f"Pretrain_excludes_sub{sid}.npz")) as f:
+            files.append({k: f[k] for k in f.files})
+    if any(k.endswith((".mean", ".var")) for k in files[0]):
+        raise RuntimeError("bn LOSO: a Pretrain_excludes file holds running statistics")
+    with np.load(os.path.join(out, "warm.npz")) as f:
+        warm = {k: f[k] for k in f.files}
+    fresh = checkpoint._flatten(stacked_init(hcfg, 42, TRAIN_SUBJECTS * 5)[1])
+    for si, row in enumerate(files):
+        for k, v in row.items():
+            got = warm[f"params.{k}"][si * 5:(si + 1) * 5]
+            if not all(np.array_equal(g, v) for g in got):
+                raise RuntimeError(f"bn LOSO: the CV's sub-{subjects[si]} rows do not begin at "
+                                   f"its LOSO row ({k})")
+    state_keys = sorted(k for k in warm if k.startswith("state."))
+    if state_keys != sorted(f"state.{k}" for k in fresh) or not state_keys or any(
+            not np.array_equal(warm[f"state.{k}"], v) for k, v in fresh.items()):
+        raise RuntimeError("bn LOSO: the CV's running statistics are not a fresh draw's")
+
+    mdef = make_augmented_model(make_fast_model(hcfg), 0.1, 0.1)
+    def trained(*a, **k):
+        raise RuntimeError("bn LOSO: the second call trained")
+
+    fit_segmented = loso_module.fit_segmented
+    loso_module.fit_segmented = trained
+    reset_launches()
+    try:
+        again = pretrain_loso(mdef, X, Y, subjects, cfg.n_classes, save, epochs=1,
+                              data_dtype=torch.bfloat16, device=dev, verbose=False)
+    finally:
+        loso_module.fit_segmented = fit_segmented
+    quiet = read_launches()
+    if any(quiet[k] for k in KERNEL_KEYS):
+        raise RuntimeError(f"bn LOSO: the second call launched {quiet}")
+    for a, b in zip(again, files):
+        fa = checkpoint._flatten(a)
+        if fa.keys() != b.keys() or any(not np.array_equal(fa[k], b[k]) for k in b):
+            raise RuntimeError("bn LOSO: the second call returned other rows than the saved ones")
+
+    trace_path = os.path.join(prof, TRACE_FILE)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    fit = [e for e in events if e.get("name") == "cli.train_fast: fit"]
+    if not kernels or not fit:
+        raise RuntimeError(f"bn LOSO: the trace holds {kernels} kernel records and {len(fit)} "
+                           "fit ranges")
+    print(f"bn LOSO: {wall:.2f} s in the child (CLI {child['wall_s']:.2f} s); LOSO of "
+          f"{TRAIN_SUBJECTS} CVBlock models x ({LOSO_TRAIN} + {LOSO_VAL}) trials, augmented, 1 "
+          f"epoch: {loso_row['wall_s']:.2f} s host, peak {loso_row['peak_gb']:.2f} GB; CV of "
+          f"{TRAIN_SUBJECTS * 5} models: fit {cv_row['fit_s']:.2f} s, peak {cv_row['peak_gb']:.2f}"
+          f" GB; no hand-written kernel launched; every row leaves its subject out; the CV began "
+          f"at the LOSO rows and at a fresh draw's running statistics; a second LOSO call "
+          f"trained nothing and returned the saved rows bit for bit; trace "
+          f"{os.path.getsize(trace_path) / 1e6:.1f} MB, {len(events)} events, {kernels} kernel "
+          "records, the fit's range", flush=True)
+    return {"wall_s": wall, "loso_s": loso_row["wall_s"], "loso_peak_gb": loso_row["peak_gb"],
+            "cv_peak_gb": cv_row["peak_gb"]}
+
+
+def phase_bn_sweep(cfg, dev, x, y) -> dict:
+    """(b) ``cv_sweep`` of CVBlock on one subject's 350 trials, bf16: 2 lr x 1
+    wd x 5 folds, 2 epochs (no hand-written kernel, history finite, running
+    statistics moved); then a grid of one (lr, wd) twice, whose two
+    configs' parameters, best snapshots, running statistics and history
+    must be equal bit for bit (dropout on: the rows share their fold's
+    draws)."""
+    hcfg = dataclasses.replace(cfg, head="CVBlock")
+    kw = dict(n_trials=TRAIN_TRIALS, n_folds=5, epochs=CAMPAIGN_EPOCHS, batch_size=TRAIN_BATCH,
+              seed=42, data_dtype=torch.bfloat16, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = cv_sweep(hcfg, cfg.n_classes, x, y, lr_scales=(0.5, 2.0), wd_scales=(1.0,), **kw)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if any(launches[k] for k in KERNEL_KEYS):
+        raise RuntimeError(f"bn sweep: a hand-written kernel launched: {launches}")
+    for k, v in report.history.items():
+        if v.shape != (2, 5, CAMPAIGN_EPOCHS) or not np.isfinite(v).all():
+            raise RuntimeError(f"bn sweep history {k}: shape {v.shape}")
+    if not report.fit.model_state["head.bn1.mean"].abs().max() > 0:
+        raise RuntimeError("bn sweep: the running statistics did not move")
+    dup = cv_sweep(hcfg, cfg.n_classes, x, y, lr_scales=(1.0, 1.0), wd_scales=(1.0,), **kw)
+    for which in ("params", "best_params", "model_state", "best_model_state"):
+        for k, v in getattr(dup.fit, which).items():
+            if not torch.equal(v[:5], v[5:]):
+                raise RuntimeError(f"bn sweep: two configs of one (lr, wd) differ in {which} {k}")
+    for k, v in dup.history.items():
+        if not np.array_equal(v[0], v[1], equal_nan=True):
+            raise RuntimeError(f"bn sweep: two configs of one (lr, wd) differ in history {k}")
+    print(f"bn sweep: CVBlock, 2 lr x 1 wd x 5 folds, bf16, {CAMPAIGN_EPOCHS} epochs in "
+          f"{wall:.2f} s (host clock), no hand-written kernel; best lr "
+          f"{report.best['learning_rate']:g}, mean val_acc {report.best['mean_val_acc']:.4f}; two "
+          "grid rows of one (lr, wd) trained bit for bit alike (parameters, best snapshots, "
+          "running statistics, history)", flush=True)
+    return {"wall_s": wall}
+
+
+def phase_early_stop(cfg, dev, X, Y) -> dict:
+    """(d) Early stopping on the Conv4Layers stack (75 models, bf16, the CV
+    index stack, 3 epochs, ``early_stop_threshold=0.0``): every row stops
+    after epoch 1; epochs 2 and 3 run (B2f-bf16 and B2w-bf16 launched as
+    the batches of all 3 epochs count them: a frozen row costs as much as a
+    live one) and leave parameters, AdamW moments and best snapshots bit
+    for bit at epoch 1's end; the history is finite for all 3 epochs."""
+    m = TRAIN_SUBJECTS * 5
+    tr, va, _ = build_cv_index_stack(TRAIN_SUBJECTS, TRAIN_TRIALS, 5, 42)
+    model = FAST(cfg, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(*stacked_init(cfg, 42, m)))
+    fit = engine.make_fit(model, cfg.n_classes, epochs=EARLY_STOP_EPOCHS, batch_size=TRAIN_BATCH,
+                          n_train=tr.shape[1], n_val=va.shape[1], early_stop_threshold=0.0,
+                          compute_dtype=torch.bfloat16)
+    xs = torch.as_tensor(X.reshape(-1, 64, 800), dtype=torch.bfloat16, device=dev)
+    ys = torch.as_tensor(Y.reshape(-1).astype(np.int64), device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    carry = fit.run(fit.init_carry(tr, va, xs, seed=43), xs, ys, until=1)
+    if not bool(carry.stopped.all()):
+        raise RuntimeError("early stop: a row did not stop after epoch 1 at threshold 0")
+    snap = {k: (p.detach().clone(), carry.opt.state[p]["exp_avg"].clone(),
+                carry.opt.state[p]["exp_avg_sq"].clone(), carry.best[k].clone())
+            for k, p in carry.params.items()}
+    fit.run(carry, xs, ys, until=EARLY_STOP_EPOCHS)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    for k, p in carry.params.items():
+        got = (p.detach(), carry.opt.state[p]["exp_avg"], carry.opt.state[p]["exp_avg_sq"],
+               carry.best[k])
+        if not all(torch.equal(a, b) for a, b in zip(got, snap[k])):
+            raise RuntimeError(f"early stop: a stopped row moved in epochs 2-3 ({k})")
+    res = fit.result(carry)
+    if res.history["loss"].shape != (m, EARLY_STOP_EPOCHS) or not all(
+            np.isfinite(v).all() for v in res.history.values()):
+        raise RuntimeError("early stop: the history is not finite for all 3 epochs")
+    want = expected_head_launches(EARLY_STOP_EPOCHS, tr.shape[1], va.shape[1], TRAIN_BATCH)
+    require_bf16_launches(launches, want, "early stop")
+    print(f"early stop: {m} models, bf16, threshold 0, {EARLY_STOP_EPOCHS} epochs in {wall:.2f} s "
+          "(host clock): every row stopped after epoch 1, and epochs 2-3 left parameters, AdamW "
+          f"moments and best snapshots bit for bit; launches B2f-bf16 {want[0]}, B2w-bf16 "
+          f"{want[1]} as the 3 epochs' batches count them; history finite", flush=True)
+    del xs
+    return {k: launches[k] for k in HEAD_KERNELS["bf16"]}
+
+
+def phase_dense_tokens(cfg, dev, rng) -> dict:
+    """(e) Dense tokenization: ``forward_head(x, step_override=25)`` (23
+    windows) of one full-width model at B = 64, f32 (B2f, one launch) and
+    bf16 (B2f-bf16 in groups of the windows its plan holds), against the
+    plain version on the same fused weights (f32 rtol 1e-4 / atol 1e-5,
+    bf16 ``BF16_FWD_REL``), timed by CUDA events beside the bound at 23
+    windows; ``batched_forward_head(micro_batch=64)`` over 256 trials
+    equals one call bit for bit."""
+    model = FAST(cfg, device=dev).eval()
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED + 3)))
+    x32 = torch.tensor(rng.normal(size=(256, 64, 800)).astype(np.float32), device=dev)
+    geo = (cfg.window_len, DENSE_STEP)
+    rows = {}
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            b64 = x[:TRAIN_BATCH]
+            reset_launches()
+            feat = model.forward_head(b64, step_override=DENSE_STEP)
+            launches = read_launches()
+            if feat.shape != (TRAIN_BATCH, DENSE_WINDOWS, cfg.n_zones, cfg.dim_cnn):
+                raise RuntimeError(f"dense tokens {name}: shape {tuple(feat.shape)}")
+            # the kernel's f32 features, of which forward_head's are the cast to x's dtype
+            out = fused_conv4_head(b64[None], *ops, *geo)
+            if not torch.equal(out[0].to(dtype).view(feat.shape), feat):
+                raise RuntimeError(f"dense tokens {name}: forward_head is not the kernel's output")
+            ref = fused_conv4_head_plain(b64[None], *ops, *geo)
+            if name == "f32":
+                err = check_close("B2f dense", out, ref, HEAD_RTOL, HEAD_ATOL)
+                bound = head_bound(HEAD_FMA_FWD, 1, TRAIN_BATCH, TRAIN_BATCH * DENSE_WINDOWS * 256,
+                                   reads_g=False, windows=DENSE_WINDOWS)
+                key, want = "conv4head_fwd", (1, 0)
+            else:
+                err = check_rel("B2f-bf16 dense", out, ref, BF16_FWD_REL)
+                bound = head_bound_bf16(HEAD_FMA_FWD, 1, TRAIN_BATCH,
+                                        TRAIN_BATCH * DENSE_WINDOWS * 256, reads_g=False,
+                                        windows=DENSE_WINDOWS)
+                groups = -(-DENSE_WINDOWS // _fwd_bf16_windows_built(64, cfg.window_len,
+                                                                     DENSE_STEP, DENSE_WINDOWS))
+                key, want = "conv4head_fwd_bf16", (groups, 1)
+            if (launches[key], launches["adapted"]) != want:
+                raise RuntimeError(f"dense tokens {name}: launches {launches}, expected {key} "
+                                   f"and adapted {want}")
+            ms = cuda_ms(lambda: model.forward_head(b64, step_override=DENSE_STEP), 10)
+            plain_ms = cuda_ms(lambda: fused_conv4_head_plain(b64[None], *ops, *geo), 1)
+            whole = model.forward_head(x, step_override=DENSE_STEP)
+            batched = model.batched_forward_head(x, step=DENSE_STEP, micro_batch=TRAIN_BATCH)
+            if not torch.equal(whole, batched):
+                raise RuntimeError(f"dense tokens {name}: batched_forward_head differs from one "
+                                   "call")
+            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound[0], "bound_by": bound[1], "launches": launches[key],
+                          "adapted": launches["adapted"]}
+            print(f"dense tokens {name}: forward_head(step_override={DENSE_STEP}) M=1 "
+                  f"B={TRAIN_BATCH} N={DENSE_WINDOWS}: kernel {ms:.4f} ms ({launches[key]} "
+                  f"launch{'es' if launches[key] > 1 else ''}, adapted {launches['adapted']}), "
+                  f"plain {plain_ms:.3f} ms, max|err| {err:.3g}, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}, {bound[0] / ms:.1%} reached); batched_forward_head over 256 "
+                  "trials equals one call bit for bit", flush=True)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
@@ -3508,6 +3905,7 @@ def main() -> None:
     phase_adapted_geometry(cfg, dev, rng)
     phase_bf16_f32_route(dev, rng)
     campaign_kernels = phase_campaign_kernels(cfg, dev, rng)
+    dense = phase_dense_tokens(cfg, dev, rng)
     t0 = time.perf_counter()
     X, Y = synthetic_corpus(0, TRAIN_SUBJECTS, TRAIN_TRIALS, 64, 800)  # cli.train_fast's corpus
     print(f"campaign corpus {X.shape} generated in {time.perf_counter() - t0:.2f} s (host)",
@@ -3529,6 +3927,10 @@ def main() -> None:
         heads, head_dirs = phase_bn_heads(cfg, dev, X, Y, workdir)
         stateful = phase_stateful_decoders(cfg, dev, rng, head_dirs["CVBlock"])
         augmented = phase_augment(cfg, dev, X, Y, workdir)
+        torch.cuda.empty_cache()
+        bn_loso = phase_bn_loso(cfg, dev, X, Y, workdir)
+        phase_bn_sweep(cfg, dev, X[0], Y[0])
+        early = phase_early_stop(cfg, dev, X, Y)
         tsception = phase_tsception(dev, X, Y, workdir)
         bandpower_b1 = phase_bandpower_iir(dev, X)
         baselines = phase_baselines(dev, X, Y, workdir)
@@ -3633,6 +4035,24 @@ def main() -> None:
          "loso_m15": {b: {k[2:]: v for k, v in r.items() if k.startswith("w_")}
                       for b, r in zip(LOSO_BATCHES[:2], loso_rows[:2])}},
     ]
+    # The engine's remaining paths (section 11): early stopping, one step of
+    # each training mode (the step-profile child), dense tokens.
+    modes = {k: sum(steps[mode]["launches"][k] for mode in FORWARD_MODES[1:])
+             for k in HEAD_KERNELS["bf16"]}
+    for key, dense_row in (("conv4head_fwd", dense["f32"]), ("conv4head_fwd_bf16", dense["bf16"]),
+                           ("conv4head_bwd_w_bf16", None)):
+        entry = next(k for k in kernels if k["name"] == key)
+        parts = {} if key == "conv4head_fwd" else {"early_stop": early[key],
+                                                   "forward_modes": modes[key]}
+        if dense_row is not None:
+            parts["dense_tokens"] = dense_row["launches"]
+            entry[f"dense_m1_b{TRAIN_BATCH}_n{DENSE_WINDOWS}"] = dense_row
+        for part, n in parts.items():
+            entry[f"launches_{part}"] = n
+            entry["launches"] += n
+    print(f"bn LOSO (section 11a): LOSO {bn_loso['loso_s']:.2f} s, peak "
+          f"{bn_loso['loso_peak_gb']:.2f} GB; step device time "
+          f"{steps['loso CVBlock']['busy_ms']:.2f} ms at M={FLEET_MODELS}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3642,6 +4062,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == [CHILD_FLAG]:
         real_data_child(sys.argv[2:])
     elif sys.argv[1:2] == [STEP_PROFILE_FLAG]:
-        step_profile_child(sys.argv[2])
+        step_profile_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == [BN_LOSO_FLAG]:
+        bn_loso_child(sys.argv[2:])
     else:
         main()

@@ -13,6 +13,10 @@ together on the card. It writes::
 
     python -m imagined_speech_decoding_tpu_torch.cli.sweep --synthetic 350 --epochs 30
 
+The model is FAST with the head of ``--config`` (Conv4Layers,
+CVBlock, EEGNet_Encoder or HeadConv_Paper_Version; a batch-norm head's
+running statistics ride in each row), as the JAX CLI builds it.
+
 Data: one subject of the raw dataset (``--subject``, ``--data_folder``)
 or ``--synthetic N`` trials. Trailing trials that would make the folds
 uneven are dropped, as the JAX CLI drops them. The device is the GPU:

@@ -32,9 +32,13 @@ pretrains the leave-one-subject-out stack (``train.loso``) and starts each
 subject's folds from its model; ``--ensemble N`` trains an N-member seed
 ensemble (``train.ensemble``), the root tree holding its soft vote;
 ``--augment`` adds per-trial noise (``--noise_sigma``) and channel dropout
-(``--ch_drop``) to every training batch (``models.api.make_augmented_model``).
-``--loso-pretrain`` takes the Conv4Layers head only. The other options
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+(``--ch_drop``) to every training batch (``models.api.make_augmented_model``),
+in LOSO pretraining too, which trains the model the CV trains; ``--profile
+LOGDIR`` traces the CV or ensemble fit (not the data loading, not LOSO)
+into ``LOGDIR/trace.json`` (``profiling.trace``), a Chrome trace for
+Perfetto or ``chrome://tracing``, with the fit as the annotated range
+``cli.train_fast: fit``. ``--mesh``, ``--remat`` and ``--head_chunk``
+raise ``NotImplementedError`` naming ROADMAP.md.
 ``--config`` reads YAML with PyYAML, imported only then; without PyYAML
 the default ``configs/default.yaml`` falls back to the built-in defaults,
 which equal that file's values.
@@ -43,6 +47,7 @@ which equal that file's values.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -80,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(not ported)")
     p.add_argument("--resume", action="store_true",
                    help="restart from <output_dir>/checkpoints/segment_carry.npz")
-    p.add_argument("--profile", type=str, default=None, metavar="LOGDIR", help="(not ported)")
+    p.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
+                   help="write a Chrome trace of the fit to LOGDIR/trace.json")
     p.add_argument("--checkpoint_every", type=int, default=1, metavar="K",
                    help="write the segment checkpoint every K-th segment (the last always)")
     p.add_argument("--mesh", type=str, default="none", choices=["none", "model", "data", "2d"])
@@ -136,7 +142,6 @@ def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
     unported = [
         ("--mesh other than none", args.mesh != "none"),
-        ("--profile", args.profile),
         ("--remat", args.remat),
         ("--head_chunk", args.head_chunk),
     ]
@@ -218,21 +223,26 @@ def format_summary(rows) -> str:
     return "\n".join(lines)
 
 
-def loso_warm_start(args, cfg, X, Y, subjects, device) -> dict:
-    """``--loso-pretrain``: the LOSO stack pretrained (or loaded) under
-    ``<output_dir>/loso_pretrain``, each subject's model repeated over its
-    folds, as the JAX CLI builds its warm start."""
+def loso_warm_start(args, cfg, model, X, Y, subjects, device):
+    """``--loso-pretrain``: the LOSO stack of ``model`` (the model the CV
+    trains, augmented or not) pretrained (or loaded) under
+    ``<output_dir>/loso_pretrain``; returns the CV's ``(params, state)``, as
+    the JAX CLI builds them: each subject's parameters repeated over its
+    folds, and the initial model state of a fresh ``cv.stacked_init`` of
+    the S*K stack (LOSO's running statistics are not carried over)."""
+    from ..train.cv import stacked_init
     from ..train.loso import pretrain_loso, stack_pretrained_for_cv
 
     save_dir = os.path.join(args.output_dir, "loso_pretrain")
     pretrained = pretrain_loso(
-        cfg.model, X, Y, subjects, cfg.model.n_classes, save_dir=save_dir,
+        model, X, Y, subjects, cfg.model.n_classes, save_dir=save_dir,
         epochs=args.loso_epochs, batch_size=cfg.train.batch_size,
         learning_rate=cfg.train.learning_rate, seed=cfg.train.seed,
         data_dtype=cfg.train.compute_dtype, checkpoint_dir=os.path.join(save_dir, "checkpoints"),
         resume=args.resume, device=device,
     )
-    return stack_pretrained_for_cv(pretrained, cfg.train.n_folds)
+    _, state0 = stacked_init(model, cfg.train.seed, len(subjects) * cfg.train.n_folds)
+    return stack_pretrained_for_cv(pretrained, cfg.train.n_folds), state0
 
 
 def main(argv=None, device="cuda"):
@@ -243,13 +253,11 @@ def main(argv=None, device="cuda"):
         parser.error("--ensemble is incompatible with --loso-pretrain")
     refuse_unported(args)
     cfg = resolve_config(args, build_overrides(args))
-    if args.loso_pretrain and cfg.model.head != "Conv4Layers":
-        raise NotImplementedError(
-            f"--loso-pretrain with the {cfg.model.head} head {_ROADMAP}")
 
     from ..devices import require_device
     from ..models.api import make_augmented_model, make_fast_model
     from ..models.heads import get_head
+    from ..profiling import TRACE_FILE, annotate, trace
     from ..train.cv import train_per_subject_cv
     from ..utils import seed_all
 
@@ -269,17 +277,21 @@ def main(argv=None, device="cuda"):
     common = dict(test_per_subject=test, save_dir=args.output_dir, device=device,
                   checkpoint_dir=os.path.join(args.output_dir, "checkpoints"),
                   resume=args.resume, checkpoint_every=args.checkpoint_every)
-    if args.ensemble > 1:
-        from ..train.ensemble import train_seed_ensemble
+    warm = loso_warm_start(args, cfg, model, X, Y, subjects, device) if args.loso_pretrain else None
+    with (trace(args.profile) if args.profile else contextlib.nullcontext()), \
+            annotate("cli.train_fast: fit"):
+        if args.ensemble > 1:
+            from ..train.ensemble import train_seed_ensemble
 
-        result = train_seed_ensemble(model, cfg.train, X, Y, subjects, cfg.model.n_classes,
-                                     n_members=args.ensemble, **common)
-        result.timings["data_s"] = data_s
-    else:
-        warm = loso_warm_start(args, cfg, X, Y, subjects, device) if args.loso_pretrain else None
-        result = train_per_subject_cv(model, cfg.train, X, Y, subjects, cfg.model.n_classes,
-                                      warm_start=warm, **common)
-        result.timings["data_s"] = data_s
+            result = train_seed_ensemble(model, cfg.train, X, Y, subjects, cfg.model.n_classes,
+                                         n_members=args.ensemble, **common)
+        else:
+            result = train_per_subject_cv(model, cfg.train, X, Y, subjects,
+                                          cfg.model.n_classes, warm_start=warm, **common)
+    result.timings["data_s"] = data_s
+    if args.profile:
+        print(f"trace of the fit written to {os.path.join(args.profile, TRACE_FILE)} (open it "
+              "in https://ui.perfetto.dev or chrome://tracing)", flush=True)
 
     print("\n" + "=" * 60)
     print("FINETUNE COMPLETE")

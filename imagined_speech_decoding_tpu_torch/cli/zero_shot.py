@@ -140,7 +140,7 @@ def synthetic_models(cfg, args, device):
     tidx = np.stack([i * nt + np.arange(n_train) for i in range(s)])
     vidx = np.stack([i * nt + np.arange(n_train, nt) for i in range(s)])
     model = FAST(mcfg, n_models=s, device=device)
-    model.load_state_dict(from_jax_params(stacked_init(mcfg, 0, s)))
+    model.load_state_dict(from_jax_params(*stacked_init(mcfg, 0, s)))
     fit = make_fit(model, mcfg.n_classes, epochs=args.synthetic_epochs, batch_size=16,
                    n_train=n_train, n_val=nt - n_train, warmup_epochs=1)
     res = fit(tidx, vidx, torch.as_tensor(X.reshape(-1, *X.shape[2:]), device=device),

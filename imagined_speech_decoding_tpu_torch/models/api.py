@@ -48,13 +48,18 @@ class ModelDef(NamedTuple):
     augment: Optional[Tuple[float, float]] = None
 
 
-def make_fast_model(cfg: FASTConfig) -> ModelDef:
-    """FAST with ``cfg.head``; the compute dtype is the input's."""
+def make_fast_model(cfg: FASTConfig, forward_mode: str = "default") -> ModelDef:
+    """FAST with ``cfg.head``, its modules bound to ``forward_mode`` (one of
+    ``models.fast.FORWARD_MODES``) for training, evaluation and prediction,
+    as JAX's ``make_fast_model(cfg, forward_mode)`` binds it into ``apply``;
+    the compute dtype is the input's."""
     from .. import transplant
-    from .fast import FAST
+    from .fast import FAST, check_forward_mode
+
+    check_forward_mode(forward_mode)
 
     def build(n_models=None, device=None):
-        return FAST(cfg, n_models=n_models, device=device)
+        return FAST(cfg, n_models=n_models, device=device, forward_mode=forward_mode)
 
     def init(seed, n_models, total=None, offset=0):
         return transplant.init_jax_layout(cfg, seed, n_models, total=total, offset=offset)

@@ -211,6 +211,20 @@ def head_init(rng: np.random.Generator, head_name: str, n_zones: int, c_max: int
 # The batch-norm heads
 # ---------------------------------------------------------------------------
 
+def chunk_groups(models: int, zones: int, fit: int) -> int:
+    """(model, zone) groups a chunk of the first block, given that ``fit``
+    of them fit a chunk: whole models when one fits (the most whose count
+    divides the models), else the most zones of a model that divide its
+    zones (at least one). Every chunk is the same size, so the card runs
+    each with the same convolution algorithms, and a model computes alike
+    at any row of the stack: two sweep rows of one configuration stay
+    equal bit for bit (on an H100 a smaller last chunk took other
+    algorithms, and its rows parted in the last bits)."""
+    if fit >= zones:
+        return zones * max(k for k in range(1, models + 1) if models % k == 0 and k * zones <= fit)
+    return max(d for d in range(1, zones + 1) if zones % d == 0 and d <= max(fit, 1))
+
+
 class ZoneHead(Stacked):
     """Base of the batch-norm heads: builds the parameters of ``head_spec``
     (each zone-stacked, after a leading model axis when stacked), gathers
@@ -295,7 +309,8 @@ class ZoneHead(Stacked):
         The statistics are per channel, so the block runs in chunks of
         whole (model, zone) groups, each at most ``CHUNK_ELEMS`` elements of
         the temporal conv's output (cuDNN indexes a tensor with 32 bits: the
-        whole output is 5.8e9 elements at M = 75, B = 64). Training with
+        whole output is 5.8e9 elements at M = 75, B = 64), all of one size
+        (``chunk_groups``). Training with
         gradients, each chunk is checkpointed: the backward keeps only the
         gathered windows and recomputes the chunk. Kept instead, the
         chunks' activations do not fit an 80 GB H100 at that size, in bf16
@@ -311,7 +326,7 @@ class ZoneHead(Stacked):
         step = groups
         if isinstance(b, int):
             per_group = b * f * self.c_max * (xz.shape[-1] + 1)
-            step = max(1, min(groups, self.CHUNK_ELEMS // per_group))
+            step = chunk_groups(self.models, self.z, self.CHUNK_ELEMS // per_group)
         params, state = bn.flat()
         # The forward's copy: the buffers change in place before the
         # recompute reads its inputs again.

@@ -33,10 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import FASTConfig, TrainConfig
+from ..config import TrainConfig
 from ..devices import require_device
 from ..models.api import ModelDef, make_fast_model
-from ..transplant import init_jax_layout_params
 from . import artifacts
 from .checkpoint import save_model_npz, select_model
 from .engine import FitResult, fit_segmented, make_fit, predict
@@ -97,11 +96,18 @@ def _segment_length(total_epochs: int, preferred: int) -> int:
     return best if best >= max(preferred // 2, 1) else preferred
 
 
-def stacked_init(cfg: FASTConfig, seed: int, n_models: int) -> dict:
-    """Initial weights of ``n_models`` independent models, stacked on a
-    leading axis in the JAX layout, from a numpy seed (the JAX package
-    draws them from ``jax.random``, which torch cannot reproduce)."""
-    return init_jax_layout_params(cfg, seed, n_models)
+def stacked_init(model, seed: int, n_models: int, *, total: Optional[int] = None,
+                 offset: int = 0):
+    """``(params, state)``: the initial weights and model state (the
+    batch-norm running statistics; ``{"head": {}}`` for Conv4Layers) of
+    ``n_models`` independent models, stacked on a leading axis in the JAX
+    layout, from a numpy seed (the JAX package draws them from
+    ``jax.random``, which torch cannot reproduce). ``model``: a
+    ``FASTConfig`` or a ``models.api.ModelDef``; ``total`` / ``offset``: the
+    block of models ``offset ..`` of a ``total``-model draw (JAX
+    ``stacked_init``)."""
+    mdef = model if isinstance(model, ModelDef) else make_fast_model(model)
+    return mdef.init(seed, n_models, total=total, offset=offset)
 
 
 @dataclass

@@ -172,6 +172,15 @@ def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tens
     loss = cross_entropy(logits, y)
     opt.zero_grad(set_to_none=True)
     loss.sum().backward()  # models are independent: each gets its own loss's gradient
+    # optax's adamw decays every parameter, one the loss does not reach too
+    # (the train_head and train_transformer modes leave whole subtrees
+    # out); torch's AdamW and RowAdamW skip a parameter whose .grad is None,
+    # so such a parameter takes a zero gradient: its moments stay 0 and it
+    # moves by -lr * wd * p, as in JAX.
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     opt.step()
     logits = logits.detach()
     return loss.detach() * y.shape[-1], confusion_matrix(logits, y, n_classes)
@@ -249,9 +258,10 @@ class FitCarry:
     parameters (trained in place), its persistent buffers (the model
     state, updated in place) and its AdamW optimizer (``RowAdamW`` in
     sweep mode), the best snapshot of both with
-    ``best_acc`` and ``best_ep``, the epoch and step counters, the finished
-    segments' history rows, and the permutation (CPU) and dropout (the
-    device's) generators. ``arrays`` and ``load_arrays`` move it to and
+    ``best_acc`` and ``best_ep``, each model's early-stopped flag
+    (``stopped``), the epoch and step counters, the finished segments'
+    history rows, and the permutation (CPU) and dropout (the device's)
+    generators. ``arrays`` and ``load_arrays`` move it to and
     from numpy for a segment checkpoint."""
 
     def __init__(self, params, opt, tidx, vidx, perm_gen, drop_gen, best, best_acc, best_ep,
@@ -262,6 +272,7 @@ class FitCarry:
         self.tidx, self.vidx = tidx, vidx
         self.perm_gen, self.drop_gen = perm_gen, drop_gen
         self.best, self.best_acc, self.best_ep = best, best_acc, best_ep
+        self.stopped = torch.zeros(best_acc.shape, dtype=torch.bool, device=best_acc.device)
         self.lr_rows = None  # sweep mode: each step's row learning rates, (steps, M)
         self.epoch = 0
         self.step = 0
@@ -289,6 +300,7 @@ class FitCarry:
             "best_buffers": {n: host(b) for n, b in self.best_buffers.items()},
             "best_acc": host(self.best_acc),
             "best_ep": host(self.best_ep),
+            "stopped": host(self.stopped),
             "epoch": np.asarray(self.epoch, np.int64),
             "step": np.asarray(self.step, np.int64),
             "perm_rng": self.perm_gen.get_state().numpy(),
@@ -304,7 +316,8 @@ class FitCarry:
                                      "exp_avg": zeros, "exp_avg_sq": zeros},
             "best": zeros, "buffers": bufs, "best_buffers": bufs,
             "best_acc": self.best_acc.cpu().numpy(),
-            "best_ep": self.best_ep.cpu().numpy(), "epoch": np.asarray(0, np.int64),
+            "best_ep": self.best_ep.cpu().numpy(),
+            "stopped": np.zeros(tuple(self.stopped.shape), bool), "epoch": np.asarray(0, np.int64),
             "step": np.asarray(0, np.int64), "perm_rng": self.perm_gen.get_state().numpy(),
             "drop_rng": self.drop_gen.get_state().numpy(),
         }
@@ -329,6 +342,7 @@ class FitCarry:
         self.opt.load_state_dict(sd)
         self.best_acc = torch.from_numpy(tree["best_acc"]).to(device)
         self.best_ep = torch.from_numpy(tree["best_ep"]).to(device)
+        self.stopped = torch.from_numpy(tree["stopped"]).to(device)
         self.epoch, self.step = int(tree["epoch"]), int(tree["step"])
         self.perm_gen.set_state(torch.from_numpy(tree["perm_rng"]))
         self.drop_gen.set_state(torch.from_numpy(tree["drop_rng"]))
@@ -352,6 +366,8 @@ def make_fit(
     row_repeats: int = 1,
     augment=None,
     compute_dtype=None,
+    early_stop_threshold: Optional[float] = None,
+    early_stop_patience: Optional[int] = None,
 ) -> Callable:
     """Build the fit of a stacked ``model`` (``FAST(cfg, n_models=M)`` with
     its initial parameters loaded). Returned signature::
@@ -388,7 +404,16 @@ def make_fit(
     module docstring). The defaults leave the plain path as it was:
     ``torch.optim.AdamW`` and one draw a row. ``augment=(noise_sigma,
     ch_drop)`` augments each train batch, and ``compute_dtype`` is the
-    dtype every batch is cast to after that (see the module docstring)."""
+    dtype every batch is cast to after that (see the module docstring).
+
+    Early stopping, as JAX ``make_fit`` (``train/engine.py:320-366``): after
+    a validation pass a model stops once its ``val_acc >=
+    early_stop_threshold`` or once ``epoch - best_epoch >=
+    early_stop_patience``. From the next epoch on its epochs still run and
+    enter the history, but its parameters, buffers and AdamW moments end
+    each one where it began, and its best snapshot no longer moves. The
+    flag is sticky and rides in the carry (segments, ``--resume``); with
+    ``val_every > 1`` it moves on validation epochs only."""
     if val_every < 1 or epochs % val_every != 0:
         raise ValueError(f"val_every must be >= 1 and divide epochs ({epochs}); got {val_every}")
     total = total_epochs or epochs
@@ -448,6 +473,8 @@ def make_fit(
             return lr_at(table, step)
         return carry.lr_rows[min(step, carry.lr_rows.shape[0] - 1)]
 
+    early_stop = early_stop_threshold is not None or early_stop_patience is not None
+
     def run(carry: FitCarry, X, Y, *, until: int, progress=None) -> FitCarry:
         """Train from ``carry.epoch`` to epoch ``min(until, total)``, in
         place, and append those epochs' history rows to the carry."""
@@ -458,6 +485,8 @@ def make_fit(
         model.train()
         for ep in range(carry.epoch, min(until, total)):
             t0 = time.perf_counter()
+            halted = carry.stopped.clone()
+            frozen = _epoch_start(carry) if early_stop and bool(halted.any()) else None
             perm = epoch_permutations(carry.perm_gen, m // row_repeats, n_train)
             if row_repeats > 1:
                 perm = perm.repeat(row_repeats, 1)
@@ -471,13 +500,15 @@ def make_fit(
                 loss_sum += ls
                 cm += c
                 carry.step += 1
+            if frozen is not None:
+                _restore_rows(carry, frozen, halted)
             for k, v in zip(HISTORY_KEYS[:3], _epoch_metrics(loss_sum, cm)):
                 rows[k].append(v)
             _sync(device)
             t1 = time.perf_counter()
             if (ep + 1) % val_every == 0:
                 va = evaluate(model, X, Y, carry.vidx, eval_batch_size, n_classes, compute_dtype)
-                improved = va[1] > carry.best_acc
+                improved = (va[1] > carry.best_acc) & ~halted
                 with torch.no_grad():
                     for k, p in carry.params.items():
                         sel = improved.view(-1, *([1] * (p.dim() - 1)))
@@ -488,6 +519,10 @@ def make_fit(
                 carry.best_acc = torch.where(improved, va[1], carry.best_acc)
                 carry.best_ep = torch.where(improved, torch.full_like(carry.best_ep, ep),
                                             carry.best_ep)
+                if early_stop_threshold is not None:
+                    carry.stopped |= va[1] >= early_stop_threshold
+                if early_stop_patience is not None:
+                    carry.stopped |= ep - carry.best_ep >= early_stop_patience
             else:
                 va = (nan, nan, nan)
             for k, v in zip(HISTORY_KEYS[3:], va):
@@ -527,6 +562,41 @@ def make_fit(
     fit.epochs_per_call = epochs
     fit.total_epochs = total
     return fit
+
+
+def _epoch_start(carry: FitCarry):
+    """Copies of the parameters, buffers and AdamW moments at an epoch's
+    start, for ``_restore_rows``."""
+    moments = [carry.opt.state[p] for p in carry.params.values()]
+    with torch.no_grad():
+        return ({k: p.detach().clone() for k, p in carry.params.items()},
+                {k: b.clone() for k, b in carry.buffers.items()},
+                {k: (st["exp_avg"].clone(), st["exp_avg_sq"].clone())
+                 for k, st in zip(carry.params, moments)})
+
+
+def _restore_rows(carry: FitCarry, frozen, rows: torch.Tensor) -> None:
+    """Put the model rows ``rows`` (a ``(M,)`` mask) of the parameters,
+    buffers and AdamW moments back to ``frozen`` (``_epoch_start``): an
+    early-stopped model's epoch leaves it where it began.
+
+    One stacked tensor holds every model's row, and the optimizer's
+    ``step`` is one count a tensor, so freezing is this per-row restore of
+    ``p``, ``exp_avg`` and ``exp_avg_sq``; the count keeps going for every
+    row. It would matter to a row's bias correction only if the row
+    resumed, and ``stopped`` is sticky: no row resumes."""
+    params, buffers, moments = frozen
+
+    def put(t, old):
+        t.copy_(torch.where(rows.view(-1, *([1] * (t.dim() - 1))), old, t))
+
+    with torch.no_grad():
+        for k, p in carry.params.items():
+            put(p, params[k])
+            put(carry.opt.state[p]["exp_avg"], moments[k][0])
+            put(carry.opt.state[p]["exp_avg_sq"], moments[k][1])
+        for k, b in carry.buffers.items():
+            put(b, buffers[k])
 
 
 def fit_segmented(

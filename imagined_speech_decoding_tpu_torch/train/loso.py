@@ -3,11 +3,13 @@
 Counterpart of ``imagined_speech_decoding_tpu/train/loso.py``. For each
 target subject the other subjects' trials are pooled, a stratified 10%
 validation split is held out, and a model is trained and kept at its best
-validation accuracy (``Pretrain_excludes_sub{sid}.npz``, in the JAX key
-layout, so either package reads the other's files). All S exclusions
-train at once as one ``FAST(cfg, n_models=S)`` stack through the CV
-engine; each row's index vectors leave its subject out. If every
-subject's file exists, they are loaded and nothing trains.
+validation accuracy (``Pretrain_excludes_sub{sid}.npz``, its parameters
+in the JAX key layout, so either package reads the other's files). All S
+exclusions train at once as one stack of the model (``FAST(cfg,
+n_models=S)``, or a ``models.api.ModelDef``'s module: a batch-norm head,
+an augmented model) through the CV engine; each row's index vectors leave
+its subject out. If every subject's file exists, they are loaded and
+nothing trains.
 
 The stratified split is sklearn's ``train_test_split(stratify=...)``,
 restated with ``np.random.RandomState`` (the card's machine has no
@@ -24,10 +26,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import FASTConfig
 from ..devices import require_device
-from ..models.fast import FAST
-from ..transplant import from_jax_params, init_jax_layout_params, stack_trees, to_jax_params
+from ..models.api import ModelDef, make_fast_model
+from ..transplant import stack_trees
 from . import cv
 from .checkpoint import load_state_dict, save_state_dict, select_model
 from .engine import FitResult, fit_segmented, make_fit
@@ -101,7 +102,7 @@ def _ckpt_path(save_dir: str, sid: str) -> str:
 
 
 def pretrain_loso(
-    cfg: FASTConfig,
+    model,
     X: np.ndarray,  # (S, N, C, T)
     Y: np.ndarray,  # (S, N)
     subjects: List[str],
@@ -119,47 +120,53 @@ def pretrain_loso(
     return_result: bool = False,
     device="cuda",
 ) -> List:
-    """Train the S LOSO models at once and save each one's best weights;
-    returns their JAX-layout trees (numpy leaves), one per excluded subject.
+    """Train the S LOSO models at once and save each one's best parameters;
+    returns their JAX-layout parameter trees (numpy leaves), one per
+    excluded subject.
 
-    As JAX ``pretrain_loso``: weight decay 0.01, final lr scale 0.1, a
-    validation pass every epoch, initial weights ``cv.stacked_init(cfg,
+    ``model``: a ``FASTConfig`` or a ``models.api.ModelDef``, as
+    ``cv.train_per_subject_cv`` takes it; an augmented model
+    (``make_augmented_model``) trains on augmented batches. As JAX
+    ``pretrain_loso``: weight decay 0.01, final lr scale 0.1, a validation
+    pass every epoch, initial weights and state ``cv.stacked_init(model,
     seed, S)``, the fit seeded with ``seed + 1``, in segments of
     ``cv._segment_length(epochs, 25)`` epochs (``checkpoint_dir`` and
-    ``resume`` go to ``engine.fit_segmented``). ``data_dtype`` is the
-    corpus's dtype on the device, the compute dtype (f32 when None).
+    ``resume`` go to ``engine.fit_segmented``). Each file holds the
+    parameters only, as JAX's does: a batch-norm head's running
+    statistics stay in the ``FitResult``. ``data_dtype`` is the compute
+    dtype (f32 when None); the corpus is held in it on the device, or in
+    f32 for an augmented model, which augments before the cast.
     Idempotent: when every subject's file exists they are loaded and
     nothing trains. ``return_result=True`` returns ``(trees, FitResult)``
-    (``None`` on that path). Runs on ``device``: CUDA unless the caller
-    names another, and CUDA without a card raises."""
-    if cfg.head != "Conv4Layers":
-        raise NotImplementedError(
-            f"LOSO pretraining of the {cfg.head} head (batch-norm state) is not ported yet "
-            "(see ROADMAP.md, Queue 1)")
+    (``None`` on that path; its ``model_state`` / ``best_model_state`` hold
+    the statistics). Runs on ``device``: CUDA unless the caller names
+    another, and CUDA without a card raises."""
+    mdef = model if isinstance(model, ModelDef) else make_fast_model(model)
     device = require_device(device)
     os.makedirs(save_dir, exist_ok=True)
     s_count = len(subjects)
     if all(os.path.exists(_ckpt_path(save_dir, sid)) for sid in subjects):
         if verbose:
             print(f"LOSO: all {s_count} checkpoints exist; skipping pretraining", flush=True)
-        template = init_jax_layout_params(cfg, 0)
+        template, _ = mdef.init(0, None)
         loaded = [load_state_dict(_ckpt_path(save_dir, sid), template) for sid in subjects]
         return (loaded, None) if return_result else loaded
 
     train_idx, val_idx = build_loso_index_stack(Y, val_frac=0.1, seed=seed)
-    x_flat = torch.as_tensor(X.reshape((-1,) + X.shape[2:]), dtype=data_dtype or torch.float32,
-                             device=device)
+    compute = data_dtype or torch.float32
+    x_flat = torch.as_tensor(X.reshape((-1,) + X.shape[2:]),
+                             dtype=torch.float32 if mdef.augment else compute, device=device)
     y_flat = torch.as_tensor(Y.reshape(-1).astype(np.int64), device=device)
-    model = FAST(cfg, n_models=s_count, device=device)
-    model.load_state_dict(from_jax_params(cv.stacked_init(cfg, seed, s_count)))
-    fit = make_fit(model, n_classes, epochs=cv._segment_length(epochs, 25), batch_size=batch_size,
+    stack = mdef.build(s_count, device)
+    mdef.load(stack, *cv.stacked_init(model, seed, s_count))
+    fit = make_fit(stack, n_classes, epochs=cv._segment_length(epochs, 25), batch_size=batch_size,
                    n_train=train_idx.shape[1], n_val=val_idx.shape[1],
                    learning_rate=learning_rate, warmup_epochs=warmup_epochs,
-                   total_epochs=epochs)
+                   total_epochs=epochs, augment=mdef.augment, compute_dtype=compute)
     res: FitResult = fit_segmented(fit, train_idx, val_idx, x_flat, y_flat, seed=seed + 1,
                                    checkpoint_dir=checkpoint_dir, resume=resume)
 
-    best_tree = to_jax_params(res.best_params)
+    best_tree, _ = mdef.dump(res.best_params)
     best = []
     for si, sid in enumerate(subjects):
         p = select_model(best_tree, si)

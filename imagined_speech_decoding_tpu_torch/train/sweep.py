@@ -3,14 +3,19 @@
 Counterpart of ``imagined_speech_decoding_tpu/train/sweep.py``. The JAX
 sweep ``jax.vmap``s a sweep-mode fit over a (config x fold) model axis
 (``sweep_many``), its inits and keys tiled over the configs
-(``_tile_models``). Here the same grid is one ``FAST(cfg, n_models=H*F)``
-stack trained by ``engine.make_fit(sweep=True, row_repeats=H)``: row
-``h*F + f`` is config h on fold f (config-major, as JAX lays it out), with
-its own learning rate and weight decay (``engine.RowAdamW``). ``tile_rows``
-tiles the F per-fold initial weights over the H configs, and
-``row_repeats`` gives every config the same fold's permutations and
-dropout masks, so a grid row differs from another of the same fold only
-in its optimizer arithmetic, as in JAX.
+(``_tile_models``). Here the same grid is one stack of H*F models
+(``FAST(cfg, n_models=H*F)``, or a ``models.api.ModelDef``'s module)
+trained by ``engine.make_fit(sweep=True, row_repeats=H)``: row ``h*F +
+f`` is config h on fold f (config-major, as JAX lays it out), with its
+own learning rate and weight decay (``engine.RowAdamW``). ``tile_rows``
+tiles the F per-fold initial weights and model state (a batch-norm
+head's running statistics) over the H configs, and ``row_repeats`` gives
+every config the same fold's permutations, dropout masks and
+augmentation draws, so a grid row differs from another of the same fold
+only in its optimizer arithmetic, as in JAX. ``RowAdamW`` optimises the
+parameters; the running statistics are buffers, updated by the forward,
+and ride in the fit's carry with its best snapshot, so a segmented sweep
+resumes with them.
 
 Runtime-sweepable: the learning rate, the weight decay and the whole
 learning-rate schedule (each row may carry its own per-step table, as the
@@ -20,16 +25,15 @@ fixed for one stack.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import FASTConfig
 from ..devices import require_device
-from ..models.fast import FAST
-from ..transplant import from_jax_params
+from ..models.api import ModelDef, make_fast_model
 from . import cv
 from .engine import FitResult, fit_segmented, make_fit
 from .schedule import cosine_scheduler
@@ -66,11 +70,35 @@ def hyper_grid(
     }, meta
 
 
+@contextlib.contextmanager
+def deterministic_convolutions(device):
+    """cuDNN's deterministic algorithms for the body, on the card (restored
+    after). Otherwise cuDNN may take algorithms whose gradients are not
+    reproducible from one run to the next (measured on an H100 for the
+    batch-norm heads' convolutions: the gradients of ``conv1.w`` ...
+    ``bn2.bias`` parted in the last bits), and two rows of one
+    configuration would part too, where the sweep promises that they
+    differ only in their optimizer arithmetic. A no-op on the CPU, and for
+    the Conv4Layers head, which runs no cuDNN convolution."""
+    if device.type != "cuda":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
 def tile_rows(tree, reps: int):
     """Repeat a stacked tree's model axis ``reps`` times, config axis outer
     (row ``h * F + f`` is config h, fold f): JAX ``_tile_models``."""
     if isinstance(tree, dict):
         return {k: tile_rows(v, reps) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):  # BNState
+        return type(tree)(*(tile_rows(v, reps) for v in tree))
     if isinstance(tree, list):
         return [tile_rows(v, reps) for v in tree]
     return np.tile(tree, (reps,) + (1,) * (np.ndim(tree) - 1))
@@ -123,7 +151,7 @@ class SweepReport:
 
 
 def cv_sweep(
-    cfg: FASTConfig,
+    model,
     n_classes: int,
     X,
     Y,
@@ -145,24 +173,24 @@ def cv_sweep(
     device="cuda",
 ) -> SweepReport:
     """K-fold CV over an (lr x wd [x warmup]) grid as one stacked fit of
-    H x F models (JAX ``cv_sweep``).
+    H x F models (JAX ``cv_sweep``) of ``model``: a ``FASTConfig`` or a
+    ``models.api.ModelDef`` (its module, initial state and augmentation).
 
     ``X (n_trials, C, T)`` / ``Y (n_trials,)`` is one subject's corpus
     (numpy or tensors); it goes to ``device`` in ``data_dtype`` (f32 when
-    None), which is the compute dtype, as in ``train.cv``. Folds are
+    None), which is the compute dtype, as in ``train.cv`` (in f32 for an
+    augmented model, which augments before the cast). Folds are
     ``cv.build_cv_index_stack(1, n_trials, n_folds, seed)``'s; the F
-    per-fold initial weights are ``cv.stacked_init(cfg, seed, F)``, tiled
-    over the configs; the fit's streams are seeded with ``seed + 1``.
+    per-fold initial weights and state are ``cv.stacked_init(model, seed,
+    F)``, tiled over the configs; the fit's streams are seeded with
+    ``seed + 1``.
     Absolute hyperparameters are ``base_* x scale``; ``warmup_epochs_list``
     sweeps the warmup length through per-row learning-rate tables from
     ``schedule.cosine_scheduler``. ``segment_epochs`` runs the fit through
     ``engine.fit_segmented`` in segments of that many epochs (the same
     trajectory). Runs on ``device``: CUDA unless the caller names another,
     and CUDA without a card raises."""
-    if cfg.head != "Conv4Layers":
-        raise NotImplementedError(
-            f"the hyperparameter sweep of the {cfg.head} head (batch-norm state) is not ported yet "
-            "(see ROADMAP.md, Queue 1)")
+    mdef = model if isinstance(model, ModelDef) else make_fast_model(model)
     device = require_device(device)
     tr, va, _ = cv.build_cv_index_stack(1, n_trials, n_folds, seed)
     n_train, n_val = tr.shape[1], va.shape[1]
@@ -180,24 +208,26 @@ def cv_sweep(
     h_count, f_count = len(meta), n_folds
 
     # One init and one permutation / dropout stream per FOLD, shared by the configs.
-    params0 = tile_rows(cv.stacked_init(cfg, seed, f_count), h_count)
+    params0, state0 = (tile_rows(t, h_count) for t in cv.stacked_init(model, seed, f_count))
     hyper = {k: np.repeat(v, f_count, axis=0) for k, v in hyper1.items()}
     tidx, vidx = np.tile(tr, (h_count, 1)), np.tile(va, (h_count, 1))
-    model = FAST(cfg, n_models=h_count * f_count, device=device)
-    model.load_state_dict(from_jax_params(params0))
-    x = torch.as_tensor(X, dtype=data_dtype or torch.float32, device=device)
+    stack = mdef.build(h_count * f_count, device)
+    mdef.load(stack, params0, state0)
+    compute = data_dtype or torch.float32
+    x = torch.as_tensor(X, dtype=torch.float32 if mdef.augment else compute, device=device)
     y = torch.as_tensor(Y, dtype=torch.long, device=device)
     fit = make_fit(
-        model, n_classes, epochs=segment_epochs or epochs, batch_size=batch_size,
+        stack, n_classes, epochs=segment_epochs or epochs, batch_size=batch_size,
         n_train=n_train, n_val=n_val, learning_rate=base_learning_rate,
         warmup_epochs=warmup_epochs, final_scale=final_lr_scale,
         weight_decay=base_weight_decay, total_epochs=epochs if segment_epochs else None,
-        sweep=True, row_repeats=h_count,
+        sweep=True, row_repeats=h_count, augment=mdef.augment, compute_dtype=compute,
     )
-    if segment_epochs:
-        res = fit_segmented(fit, tidx, vidx, x, y, seed=seed + 1, hyper=hyper)
-    else:
-        res = fit(tidx, vidx, x, y, seed=seed + 1, hyper=hyper)
+    with deterministic_convolutions(device):
+        if segment_epochs:
+            res = fit_segmented(fit, tidx, vidx, x, y, seed=seed + 1, hyper=hyper)
+        else:
+            res = fit(tidx, vidx, x, y, seed=seed + 1, hyper=hyper)
 
     acc = np.asarray(res.best_val_acc, np.float64).reshape(h_count, f_count)
     history = {k: np.asarray(v, np.float32).reshape(h_count, f_count, -1)

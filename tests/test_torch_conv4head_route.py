@@ -144,14 +144,18 @@ def assert_matches(got, want, bf16):
      [dict(c=72, t=500, n=3), dict(c=72, t=376, n=2)]),
     ("fwd", dict(SHIPPED, t=1001, b=1, z=1), torch.bfloat16,
      [dict(c=64, t=750, n=5), dict(c=64, t=376, n=2)]),
+    ("fwd", dict(SHIPPED, step=25, b=1, z=1), torch.bfloat16,
+     [dict(c=64, t=350, n=5)] * 4 + [dict(c=64, t=300, n=3)]),
 ])
 def test_adapted_geometry_launches_the_kernels_exactly(op, geometry, dtype, launches):
     """dim_cnn 8 and 16 (zones zero-padded to 32 channels), f32 B2w at C =
     60 (padded to 64), an odd T in bf16 (the windows' samples in an even
     copy; at step 1 one more, zero-cotangent window), C = 72 and T = 1001
-    in bf16 (B2f-bf16 in groups of the windows its plan holds): every launch
-    gets a geometry its kernel takes, and the result is the plain
-    version's on the original operands."""
+    in bf16 (B2f-bf16 in groups of the windows its plan holds), and dense
+    tokens at step 25 in bf16 (``forward_head(step_override=25)``: 23
+    windows in groups of 5, 5, 5, 5 and 3): every launch gets a geometry
+    its kernel takes, and the result is the plain version's on the
+    original operands."""
     ops, geo = operands(dtype=dtype, **geometry)
     calls = []
     got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
@@ -166,9 +170,12 @@ def test_adapted_geometry_launches_the_kernels_exactly(op, geometry, dtype, laun
 def test_shipped_geometry_launches_unadapted(op, dtype):
     """FASTConfig.default()'s head (C = 64, O = 32, K = 5, T = 800, windows
     of 250 step 125; one trial, one zone here), and C = 10 in B2f and B2x
-    (which take any C): one launch on the operands as they are. (B2x has
+    (which take any C), and dense tokens at step 25 (23 windows; B2f-bf16
+    groups them, above): one launch on the operands as they are. (B2x has
     no bf16 instantiation.)"""
-    for geometry in (dict(SHIPPED, b=1, z=1), dict(c=10)):
+    for geometry in (dict(SHIPPED, b=1, z=1), dict(c=10), dict(SHIPPED, step=25, b=1, z=1)):
+        if geometry.get("step") == 25 and dtype == torch.bfloat16 and op == "fwd":
+            continue  # dense tokens: B2f-bf16 groups their windows (above)
         if geometry["c"] == 10 and (op == "bwd_w" or dtype == torch.bfloat16):
             continue
         ops, geo = operands(dtype=dtype, **geometry)

@@ -1395,3 +1395,194 @@ def test_f32_plan_mirrors_match_the_library(dev, c, w):
     lib = _lib.library()
     assert fwd_smem_bytes(c, w) == lib.isd_conv4head_smem_bytes(c, w, 32, 5)
     assert bwd_w_smem_bytes(c, w) == lib.isd_conv4head_bwd_w_smem_bytes(c, w, 32, 5)
+
+
+# --- the engine's remaining paths: forward modes, early stopping, dense tokens,
+# batch-norm LOSO and sweep ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode,want", [("default", (0, 1, 0, 1, 0)),
+                                       ("train_head", (0, 1, 0, 1, 0)),
+                                       ("train_transformer", (0, 1, 0, 0, 0))])
+def test_forward_mode_step_routes_on_the_card(dev, mode, want):
+    """One bf16 engine step of a stack of 2 full-width FASTs bound to each
+    mode: B2f-bf16 once, B2w-bf16 once but under ``train_transformer`` (its
+    head runs outside autograd), no f32 head kernel, no B2x, nothing
+    adapted. Under ``train_transformer`` the head's weights move by the
+    weight decay alone, ``p - lr * wd * p`` within two f32 roundings."""
+    from imagined_speech_decoding_tpu_torch.models.api import make_fast_model
+    from imagined_speech_decoding_tpu_torch.train import engine
+    from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout
+
+    lr, wd = 1e-3, 0.01
+    cfg = FASTConfig.default()
+    mdef = make_fast_model(cfg, forward_mode=mode)
+    model = mdef.build(2, dev)
+    mdef.load(model, *init_jax_layout(cfg, 5, 2))
+    model.train()
+    opt = engine.make_optimizer(model.parameters(), wd)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 8, 64, 800), generator=gen, device=dev).to(torch.bfloat16)
+    y = torch.randint(0, 5, (2, 8), generator=gen, device=dev)
+    head0 = {k: p.detach().clone() for k, p in model.named_parameters() if k.startswith("head.")}
+    before, bwd_x = _head_counts(), conv4head_bwd_x.launches
+    engine.train_step(model, opt, x, y, lr, 5, gen)
+    assert _moved(before) == want and conv4head_bwd_x.launches == bwd_x
+    for k, p in model.named_parameters():
+        if k in head0 and mode == "train_transformer":
+            ref = head0[k].double() * (1 - lr * wd)
+            err = (p.detach().double() - ref).abs() / head0[k].double().abs().clamp_min(1e-30)
+            assert float(err.max()) <= 2.5e-7, k
+        elif k in head0:
+            assert not torch.equal(p.detach(), head0[k]), k
+
+
+def test_early_stop_freezes_rows_on_the_card(dev):
+    """Early stopping at threshold 0 on a bf16 stack of 2 full-width models,
+    3 epochs: every row stops after epoch 1; epochs 2-3 launch B2f-bf16 and
+    B2w-bf16 as their batches count them and leave parameters, AdamW
+    moments and best snapshots bit for bit."""
+    from imagined_speech_decoding_tpu_torch.train import engine
+    from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout
+
+    cfg = FASTConfig.default()
+    model = FAST(cfg, n_models=2, device=dev)
+    model.load_state_dict(from_jax_params(*init_jax_layout(cfg, 6, 2)))
+    fit = engine.make_fit(model, 5, epochs=3, batch_size=8, n_train=16, n_val=8,
+                          early_stop_threshold=0.0, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(24, 64, 800)).astype(np.float32), device=dev)
+    y = torch.tensor(rng.integers(0, 5, 24), device=dev)
+    perms = np.stack([rng.permutation(24) for _ in range(2)])
+    carry = fit.run(fit.init_carry(perms[:, :16], perms[:, 16:], x, seed=0), x, y, until=1)
+    assert bool(carry.stopped.all())
+    snap = {k: (p.detach().clone(), carry.opt.state[p]["exp_avg"].clone(),
+                carry.opt.state[p]["exp_avg_sq"].clone(), carry.best[k].clone())
+            for k, p in carry.params.items()}
+    before = _head_counts()
+    fit.run(carry, x, y, until=3)
+    assert _moved(before) == (0, 2 * (2 + 1), 0, 2 * 2, 0)
+    for k, p in carry.params.items():
+        got = (p.detach(), carry.opt.state[p]["exp_avg"], carry.opt.state[p]["exp_avg_sq"],
+               carry.best[k])
+        assert all(torch.equal(a, b) for a, b in zip(got, snap[k])), k
+    assert all(np.isfinite(v).all() for v in fit.result(carry).history.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_tokens_on_the_card(dev, dtype):
+    """``forward_head(x, step_override=25)`` (23 windows of 250) of one
+    full-width model on the card: B2f once (f32), or B2f-bf16 in 5 groups
+    of the windows its plan holds (bf16, counted in ``adapted``); the
+    kernel's features against the plain version (f32 rtol 1e-4 / atol
+    1e-5, bf16 3e-4 x max|ref|), forward_head's their cast; and
+    ``batched_forward_head(micro_batch=8)`` over 32 trials equals one call
+    bit for bit."""
+    cfg = FASTConfig.default()
+    model = FAST(cfg, device=dev).eval()
+    model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, 8)))
+    x = torch.tensor(np.random.default_rng(9).normal(size=(32, 64, 800)).astype(np.float32),
+                     device=dev).to(dtype)
+    with torch.no_grad():
+        ops = model.head.fused_weights()
+        before = _head_counts()
+        feat = model.forward_head(x[:8], step_override=25)
+        moved = _moved(before)
+        assert moved == ((1, 0, 0, 0, 0) if dtype == torch.float32 else (0, 5, 0, 0, 1)), moved
+        assert feat.shape == (8, 23, 8, 32) and feat.dtype == dtype
+        out = fused_conv4_head(x[None, :8], *ops, 250, 25)
+        assert torch.equal(out[0].to(dtype).view(feat.shape), feat)
+        ref = fused_conv4_head_plain(x[None, :8], *ops, 250, 25)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+        else:
+            _bf16_close(out, ref, 3e-4, "dense B2f-bf16")
+        whole = model.forward_head(x, step_override=25)
+    assert torch.equal(model.batched_forward_head(x, step=25, micro_batch=8), whole)
+
+
+def test_bn_head_loso_and_sweep_on_the_card(dev, tmp_path):
+    """CVBlock under LOSO and the sweep at tiny width in f32, dropout off
+    (the head's too): the card against the CPU (loss and validation
+    histories at rtol 1e-4 / atol 1e-5), no hand-written kernel launched,
+    the running statistics in the fit, and two sweep rows of one (lr, wd)
+    bit for bit alike on the card."""
+    from imagined_speech_decoding_tpu_torch.data.synthetic import synthetic_corpus
+    from imagined_speech_decoding_tpu_torch.models import heads
+    from imagined_speech_decoding_tpu_torch.train import loso, sweep
+
+    cfg = FASTConfig(electrodes=ELECTRODES, zone_dict=ZONES, seq_len=200, window_len=100,
+                     slide_step=50, dim_cnn=8, dim_token=16, num_layers=1, num_heads=4,
+                     dropout=0.0, head="CVBlock")
+    X, Y = synthetic_corpus(0, 3, 10, 10, 200)
+    subs = ["01", "02", "03"]
+    kw = dict(epochs=2, batch_size=8, learning_rate=1e-3, warmup_epochs=0, verbose=False)
+    drop = heads.CVBlockHead.DROPOUT
+    heads.CVBlockHead.DROPOUT = 0.0
+    try:
+        before = _head_counts()
+        _, res = loso.pretrain_loso(cfg, X, Y, subs, 5, str(tmp_path / "card"), device=dev,
+                                    return_result=True, **kw)
+        assert _moved(before) == (0,) * 5
+        _, ref = loso.pretrain_loso(cfg, X, Y, subs, 5, str(tmp_path / "cpu"), device="cpu",
+                                    return_result=True, **kw)
+        for k in ("loss", "val_loss"):
+            np.testing.assert_allclose(res.history[k], ref.history[k], rtol=1e-4, atol=1e-5)
+        assert "head.bn1.mean" in res.model_state
+        grid = dict(n_trials=10, lr_scales=[1.0, 1.0], n_folds=2, epochs=2, batch_size=8)
+        card = sweep.cv_sweep(cfg, 5, X[0], Y[0], device=dev, **grid)
+        cpu = sweep.cv_sweep(cfg, 5, X[0], Y[0], device="cpu", **grid)
+    finally:
+        heads.CVBlockHead.DROPOUT = drop
+    for k in ("loss", "val_loss"):
+        np.testing.assert_allclose(card.history[k], cpu.history[k], rtol=1e-4, atol=1e-5)
+    for which in ("params", "model_state"):
+        for k, v in getattr(card.fit, which).items():
+            assert torch.equal(v[:2], v[2:]), (which, k)
+
+
+def test_bn_head_rows_are_reproducible_on_the_card(dev, monkeypatch):
+    """A bf16 CVBlock stack of 4 full-width models whose rows 2 and 3 repeat
+    rows 0 and 1 (a sweep's two configs of one (lr, wd)), its first block
+    in chunks (``CHUNK_ELEMS`` cut to 12 (model, zone) groups: equal chunks
+    of one model, where the old rule cut 12, 12 and 8), one training step
+    twice: under ``sweep.deterministic_convolutions`` the repeated rows'
+    gradients and running statistics equal the first rows' and the second
+    run equals the first, bit for bit. Without it, the largest differences
+    are printed (cuDNN's default algorithms)."""
+    import dataclasses as dc
+
+    from imagined_speech_decoding_tpu_torch.models import heads
+    from imagined_speech_decoding_tpu_torch.train.sweep import deterministic_convolutions, tile_rows
+    from imagined_speech_decoding_tpu_torch.transplant import init_jax_layout
+
+    cfg = dc.replace(FASTConfig.default(), head="CVBlock", dropout=0.0)
+    b = 16
+    monkeypatch.setattr(heads.ZoneHead, "CHUNK_ELEMS", 12 * b * 5 * 8 * 15 * 251)
+    monkeypatch.setattr(heads.CVBlockHead, "DROPOUT", 0.0)
+    params, state = (tile_rows(t, 2) for t in init_jax_layout(cfg, 3, 2))
+    x = torch.randn((2, b, 64, 800), generator=torch.Generator().manual_seed(4)).repeat(2, 1, 1, 1)
+    x = x.to(dev, torch.bfloat16)
+
+    def step():
+        model = FAST(cfg, n_models=4, device=dev)
+        model.load_state_dict(from_jax_params(params, state))
+        model.train()(x).float().pow(2).sum().backward()
+        return ({k: p.grad for k, p in model.named_parameters()},
+                {k: v for k, v in model.state_dict().items() if k.endswith((".mean", ".var"))})
+
+    def parted(a, b_):
+        return {k: float((a[k].float() - b_[k].float()).abs().max())
+                for k in a if not torch.equal(a[k], b_[k])}
+
+    g, _ = step()
+    rows = parted({k: v[:2] for k, v in g.items()}, {k: v[2:] for k, v in g.items()})
+    print("cuDNN defaults: repeated rows' gradients part by", rows)
+    with deterministic_convolutions(dev):
+        runs = [step() for _ in range(2)]
+    for grads, stats in runs:
+        for t in (grads, stats):
+            for k, v in t.items():
+                assert torch.equal(v[:2], v[2:]), k
+    for a, b_ in zip(runs[0], runs[1]):
+        assert not parted(a, b_)

@@ -215,9 +215,8 @@ class TestCLI:
         ["--mesh", "data"],
         ["--synthetic", "1", "--mesh", "model"],
         ["--synthetic", "1", "--mesh", "2d"],
-        ["--synthetic", "1", "--profile", "p"], ["--synthetic", "1", "--remat"],
+        ["--synthetic", "1", "--remat"],
         ["--synthetic", "1", "--head_chunk", "256"],
-        ["--synthetic", "1", "--loso-pretrain", "--head", "CVBlock"],
     ])
     def test_unported_options_raise(self, argv, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -230,11 +229,13 @@ class TestCLI:
         ["--synthetic", "1", "--hyperparams", "best.json"],
         ["--synthetic", "1", "--augment"], ["--synthetic", "1", "--head", "CVBlock"],
         ["--resume", "--head", "EEGNet_Encoder"],
+        ["--synthetic", "1", "--profile", "p"],
+        ["--synthetic", "1", "--loso-pretrain", "--head", "CVBlock"],
     ])
     def test_real_data_and_resume_are_ported(self, argv, tmp_path, monkeypatch):
-        """Real data, ``--resume``, ``--checkpoint_every``, ``--loso-pretrain``,
-        ``--ensemble``, ``--hyperparams``, ``--augment`` and the batch-norm
-        heads no longer raise
+        """Real data, ``--resume``, ``--checkpoint_every``, ``--loso-pretrain``
+        (with a batch-norm head too), ``--ensemble``, ``--hyperparams``,
+        ``--augment``, ``--profile`` and the batch-norm heads no longer raise
         ``NotImplementedError``: the CLI goes on to the device, which here
         is a missing card."""
         best = tmp_path / "best.json"

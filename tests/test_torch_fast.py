@@ -102,10 +102,23 @@ class TestLogits:
             ours = model(torch.from_numpy(x))
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 
-    def test_training_modes_not_ported_yet(self):
-        model = FAST(config.FASTConfig(**SMALL))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(torch.zeros(1, 10, 250), forward_mode="train_head")
+    @pytest.mark.parametrize("mode", ["train_head", "train_transformer"])
+    def test_training_modes_match_jax_fast_apply(self, mode):
+        """Once refused, the training modes are ported: the eval logits of
+        each equal ``fast_apply(forward_mode=...)``'s, named in the call or
+        bound at construction; an unknown mode raises JAX's error
+        (``tests/test_torch_forward_modes.py`` holds the rest)."""
+        jcfg, params, state = _jax_params(SMALL, 5)
+        x = np.random.default_rng(5).normal(size=(2, 10, 250)).astype(np.float32)
+        ref, _ = fast_apply(params, state, jnp.asarray(x), jcfg, forward_mode=mode, train=False)
+        for model, kw in ((FAST(config.FASTConfig(**SMALL)), {"forward_mode": mode}),
+                          (FAST(config.FASTConfig(**SMALL), forward_mode=mode), {})):
+            model.load_state_dict(transplant.from_jax_params(params))
+            with torch.no_grad():
+                ours = model.eval()(torch.from_numpy(x), **kw)
+            np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+        with pytest.raises(NotImplementedError, match="unknown forward_mode"):
+            FAST(config.FASTConfig(**SMALL))(torch.zeros(1, 10, 250), forward_mode="train_all")
 
     @pytest.mark.parametrize("head", ["CVBlock", "EEGNet_Encoder", "HeadConv_Paper_Version"])
     def test_other_heads_not_ported_yet(self, head):

@@ -285,16 +285,26 @@ def test_resume_is_bit_exact_with_state(head, tmp_path):
 
 
 @pytest.mark.parametrize("head", ["CVBlock", "HeadConv_Paper_Version"])
-def test_sweep_and_loso_refuse_batch_norm_heads(head, tmp_path):
-    """The sweep's tiled rows and the LOSO stack carry no model state yet:
-    both raise ``NotImplementedError`` naming ROADMAP.md for a batch-norm
-    head, before they touch a device."""
-    from imagined_speech_decoding_tpu_torch.train import loso, sweep
+def test_sweep_and_loso_carry_batch_norm_state(head, tmp_path):
+    """Once refused, the sweep's tiled rows and the LOSO stack carry the
+    batch-norm state: both train a batch-norm head on the CPU, their fits
+    hold running statistics that moved from the initial state, and LOSO's
+    files hold the parameters only (``tests/test_torch_loso_stateful.py``
+    and ``test_torch_sweep_stateful.py`` hold them against JAX)."""
+    from imagined_speech_decoding_tpu_torch.train import cv, loso, sweep
 
     _, cfg = _cfgs(head)
-    x = np.zeros((2, 10, 11, 250), np.float32)
-    y = np.zeros((2, 10), np.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweep.cv_sweep(cfg, 5, x[0], y[0], n_trials=10, lr_scales=[1.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loso.pretrain_loso(cfg, x, y, ["01", "02"], 5, save_dir=str(tmp_path), device="cpu")
+    x = np.random.default_rng(0).normal(size=(2, 10, 11, 250)).astype(np.float32)
+    y = np.tile(np.arange(5), (2, 2))
+    bn1 = "head.norm1.mean" if head == "HeadConv_Paper_Version" else "head.bn1.mean"
+    _, state0 = cv.stacked_init(cfg, 42, 2)
+    init_mean = torch.as_tensor(transplant.tree_to_flat(state0["head"], "head.")[bn1])
+    rep = sweep.cv_sweep(cfg, 5, x[0], y[0], n_trials=10, lr_scales=[1.0, 2.0], n_folds=2,
+                         epochs=1, batch_size=8, device="cpu")
+    assert rep.fit.model_state[bn1].shape[0] == 4
+    assert not torch.equal(rep.fit.model_state[bn1][:2], init_mean)
+    _, res = loso.pretrain_loso(cfg, x, y, ["01", "02"], 5, save_dir=str(tmp_path), epochs=1,
+                                batch_size=8, device="cpu", verbose=False, return_result=True)
+    assert not torch.equal(res.model_state[bn1], init_mean)
+    with np.load(tmp_path / "Pretrain_excludes_sub01.npz") as f:
+        assert f.files and not any(k.endswith((".mean", ".var")) for k in f.files)

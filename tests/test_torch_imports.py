@@ -1,5 +1,6 @@
 """The PyTorch port's import closure (the batch-norm heads, TSception, the
-augmentation, the feature baselines and their CLIs among it) reaches none of ``jax``, ``yaml``,
+augmentation, the feature baselines and their CLIs, profiling among it)
+reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
 package, the real-data modules import and run without ``h5py`` (which
 they import only inside the functions that open HDF5 files),
@@ -112,6 +113,13 @@ with tempfile.TemporaryDirectory() as d:
                                 "--synthetic_trials", "10", "--epochs", "1", "--output_dir", d],
                                device="cpu")
     assert os.path.exists(os.path.join(d, "sub-01", "best_subject.npz"))
+# profiling: a Chrome trace of an annotated range, the step timer
+from imagined_speech_decoding_tpu_torch import profiling
+with tempfile.TemporaryDirectory() as d:
+    with profiling.trace(d), profiling.annotate("imports-check"):
+        profiling.sync_scalar(torch.ones(2, 2) @ torch.ones(2, 2))
+    assert os.path.exists(os.path.join(d, profiling.TRACE_FILE))
+assert profiling.StepTimer(warmup=0).lap() is None
 blocked = {"jax", "yaml", "pandas", "sklearn", "matplotlib"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked | {"imagined_speech_decoding_tpu"})
 assert loaded == sorted(blocked), loaded  # only the blocking None entries

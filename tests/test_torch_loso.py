@@ -62,8 +62,7 @@ def test_stratified_split_refuses_a_singleton_class():
 
 def _jax_init(cfg, seed, n_models):
     model = make_fast_model(jax_config.FASTConfig(**dataclasses.asdict(cfg)))
-    params, _ = jax_cv.stacked_init(model, jax.random.PRNGKey(seed), n_models)
-    return jax.tree.map(np.asarray, params)
+    return jax.tree.map(np.asarray, jax_cv.stacked_init(model, jax.random.PRNGKey(seed), n_models))
 
 
 KW = dict(epochs=3, batch_size=64, learning_rate=1e-3, warmup_epochs=1, seed=42, verbose=False)

@@ -279,8 +279,8 @@ def cli_runs(tmp_path_factory):
 
     def jax_init(cfg, seed, n_models):
         model = make_fast_model(jax_config.FASTConfig(**dataclasses.asdict(cfg)))
-        params, _ = jax_cv.stacked_init(model, jax.random.PRNGKey(seed), n_models)
-        return jax.tree.map(np.asarray, params)
+        return jax.tree.map(np.asarray, jax_cv.stacked_init(model, jax.random.PRNGKey(seed),
+                                                            n_models))
 
     mp = pytest.MonkeyPatch()
     mp.setattr(cv, "stacked_init", jax_init)
