@@ -3,9 +3,10 @@
 streaming), training, attribution, real-data and campaign (sweep, LOSO,
 ensemble, zero-shot, native cache) paths, of the models with batch-norm
 state (the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version heads,
-TSception) with their decoders and train-time augmentation, and of the
-feature baselines (band-power MLP, STFT EEGNet, CNN-BiLSTM), on one NVIDIA
-GPU.
+TSception) with their decoders and train-time augmentation, of the
+feature baselines (band-power MLP, STFT EEGNet, CNN-BiLSTM), and of the
+explain and QC programs (attribution maps, PSD and FastICA, the CSP
+pipeline), on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -210,8 +211,9 @@ GPU.
    last subject's reproducing its test predictions. In the step-profile
    child, one bf16 step of each model (M = 75, B = 64) and an f32 step of
    the CNN-BiLSTM (in subject groups if the stack does not fit): span,
-   device time, idle share, peak memory; and each featurizer over the
-   corpus on the card: host seconds and device time. Card against CPU, f32
+   device time, idle share, peak memory; and, in a step-profile child of
+   its own, each featurizer over the corpus on the card: host seconds and
+   device time. Card against CPU, f32
    with TF32 off, 2 subjects x 10 trials, 2 epochs, dropout off, on the
    CPU's features: the history at rtol 1e-4 / atol 1e-5, the running
    statistics at the same tolerance, the parameters within twice the
@@ -243,6 +245,21 @@ GPU.
    B2f (one launch) and B2f-bf16 (groups of the windows its plan holds)
    against their plain versions, timed beside their bounds, and
    ``batched_forward_head`` over 256 trials equal to one call bit for bit.
+12. Explain and QC: ``cli.explain_fast``'s ``explain_arrays`` at the CLI's
+   defaults (16 trials x 32 samples against 64, f32) on the f32 run's
+   checkpoint, held against the CPU on the same draws (attributions,
+   predictions, zone importance, class means, zone x time, band heatmap),
+   B2x 32 launches, B2f 33, B2w none; ``cli.global_explain`` at its
+   defaults on 3 synthetic subjects over the f32 run's first checkpoints
+   (B2x and B2f 16 launches a subject), its device time, B2x's share and
+   idle share, one subject's pooled arrays against the CPU;
+   ``cli.artifact_analysis`` on 100 synthetic trials (its PSD against the
+   CPU's ``welch_psd``) and ``fast_ica`` of its (80,000 x 64) input on the
+   card against the CPU in f32 and f64, with iterations and seconds; the
+   CSP pipeline's ``fir`` and ``iir`` band-passes, ``csp_fit`` and
+   ``csp_transform`` on one 350-trial subject against the CPU (the ``iir``
+   route one B1 chain launch), by device time. The SVC is not run (the
+   card's machine has no scikit-learn).
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -253,6 +270,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import importlib.util
 import json
 import os
 import re
@@ -494,7 +512,7 @@ def _profile(fn, cpu: bool, need):
         timed = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
         if timed and all(any(re.search(k, key) for key in timed) for k in need):
             return prof
-    raise RuntimeError(f"the profiler recorded no device time, or none of {list(need)}, "
+    raise RuntimeError(f"{PROFILER_LOST}, or none of {list(need)}, "
                        "in three sessions")
 
 
@@ -1824,14 +1842,22 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
     at B = 64, the batch-norm models' and the baselines' (``group``
     "campaign"); or (``group`` "engine") the bf16 steps of the
     ``train_head`` and ``train_transformer`` modes and CVBlock's LOSO step
-    at M = 15. The profiler has lost whole sessions' records late in a long
-    run (on an H100: three sessions in a row after the campaign phases; and
-    the featurizers' after the engine's steps joined this child), and a
-    fresh process recorded them all. Writes the rows to ``out``."""
+    at M = 15; or (``group`` "featurize") the band-power and STFT
+    featurizers over the 15-subject corpus. The profiler has lost whole
+    sessions' records late in a long run (on an H100: three sessions in a
+    row after the campaign phases; the featurizers' after the engine's steps
+    joined this child; and the featurizers' again, three sessions in a row,
+    at the end of the campaign child), and a fresh process recorded them
+    all. Writes the rows to ``out``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg, dev = FASTConfig.default(), torch.device("cuda")
+    if group == "featurize":
+        rows = {f"featurize {name}": featurize_profile(dev, name) for name in BASELINES[:2]}
+        with open(out, "w") as f:
+            json.dump(rows, f)
+        return
     if group == "engine":
         rows = {mode: phase_train_step_profile(cfg, dev, torch.bfloat16, forward_mode=mode)
                 for mode in FORWARD_MODES[1:]}
@@ -1861,28 +1887,39 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
         except torch.cuda.OutOfMemoryError as e:
             print(f"train step f32 cnn_bilstm at {group} subjects: out of memory ({e})",
                   flush=True)
-    for name in BASELINES[:2]:
-        rows[f"featurize {name}"] = featurize_profile(dev, name)
     with open(out, "w") as f:
         json.dump(rows, f)
 
 
+PROFILER_LOST = "the profiler recorded no device time"  # _profile's error, after three sessions
+
+
 def phase_step_profiles() -> dict:
-    """``step_profile_child`` in two child processes, one a group; their
-    output is printed here. The bf16 sweep and LOSO steps beside the CV
-    step, and the forward modes' steps beside the default one."""
+    """``step_profile_child`` in three child processes, one a group; their
+    output is printed here. A child whose profiler lost records (``_profile``
+    gave up after three sessions) is run once more, in a fresh process; any
+    other failure, or a second loss, fails the run. The bf16 sweep and LOSO
+    steps beside the CV step, and the forward modes' steps beside the
+    default one."""
     torch.cuda.empty_cache()
     rows = {}
     with tempfile.TemporaryDirectory() as workdir:
-        for group in ("campaign", "engine"):
+        for group in ("featurize", "campaign", "engine"):
             out = os.path.join(workdir, f"steps_{group}.json")
             log = os.path.join(workdir, f"steps_{group}.log")
-            try:
-                _run_child([sys.executable, os.path.abspath(__file__), STEP_PROFILE_FLAG, out,
-                            group], log)
-            finally:
-                with open(log) as f:
-                    print(f.read(), end="", flush=True)
+            cmd = [sys.executable, os.path.abspath(__file__), STEP_PROFILE_FLAG, out, group]
+            for attempt in (1, 2):
+                try:
+                    _run_child(cmd, log)
+                    break
+                except RuntimeError as e:
+                    if attempt == 2 or PROFILER_LOST not in str(e):
+                        raise
+                    print(f"step profiles ({group}): the profiler lost records in three "
+                          "sessions; the child runs once more in a fresh process", flush=True)
+                finally:
+                    with open(log) as f:
+                        print(f.read(), end="", flush=True)
             with open(out) as f:
                 rows.update(json.load(f))
     cv, sweep, loso = rows["cv"], rows["sweep"], rows["loso"]
@@ -2130,6 +2167,238 @@ def phase_explain(cfg, dev, ckpt, subject):
         raise RuntimeError(f"the attribution path must launch B2x {want} times and B2w never")
     require_unadapted(launches, "attribution")
     return launches
+
+
+# --- 12. Explain and QC: the attribution CLIs' computing functions, the artifact CLI's
+# PSD and FastICA, the CSP pipeline's device work ---------------------------------------
+
+GE_SUBJECTS = 3  # cli/global_explain.py's --n_synth_subjects
+QC_TRIALS = 100  # cli/artifact_analysis.py's synthetic --n_trials: an (80,000 x 64) ICA input
+QC_COMPONENTS = 15
+PSD_RTOL = 1e-4  # atol = PSD_RTOL * max|ref|: cuFFT against pocketfft, f32
+# FastICA card vs CPU, atol = REL * max|ref|: the float32 and float64 tolerances that
+# tests/test_torch_ica.py holds against sklearn on this input.
+ICA_F32_REL, ICA_F64_REL = 5e-4, 1e-6
+# CSP filters and features card vs CPU, atol = CSP_REL * max|ref|: the eigenvectors
+# amplify the band-passed trials' rounding, where B1 and its plain chain part at up to
+# IIR_RTOL.
+CSP_REL = 1e-3
+
+
+def check_rel_np(name: str, got, ref, rel: float, rtol: float = 0.0) -> float:
+    """``check_close`` of arrays (or CPU tensors) in f64 at atol ``rel * max|ref|``:
+    max|got - ref| / max|ref|."""
+    got, ref = (torch.as_tensor(np.asarray(a)).double() for a in (got, ref))
+    scale = float(ref.abs().max())
+    return check_close(name, got, ref, rtol, rel * scale) / scale
+
+
+def idle_share(fn, what: str, need=()):
+    """``fn`` once under the profiler: ``(device ms, CUDA-event span ms, device idle share,
+    events)``, the device's busy time as the union of its records."""
+    events, span, union = profiled_step(fn, what, need)
+    return union, span, max(0.0, 1 - union / span), events
+
+
+def phase_explain_cli(cfg, dev, ckpt, subject, results_dir, x_csp, y_csp) -> dict:
+    """The attribution CLIs' computing functions at their defaults on the f32
+    run's checkpoints, the artifact CLI (PSD, FastICA) on 100 synthetic trials,
+    and the CSP pipeline's band-pass and CSP on one 350-trial subject, each
+    held against the CPU; returns the launches of the counted runs."""
+    from imagined_speech_decoding_tpu_torch.cli import (
+        artifact_analysis,
+        explain_fast,
+        global_explain,
+    )
+    from imagined_speech_decoding_tpu_torch.explain.attribution import draw_samples
+    from imagined_speech_decoding_tpu_torch.models.classical import CSPClassifierPipeline
+    from imagined_speech_decoding_tpu_torch.ops.ica import fast_ica
+    from imagined_speech_decoding_tpu_torch.ops.spectral import welch_psd
+
+    t_phase = time.perf_counter()
+    counted = {}
+    # (a) explain_fast's arrays: 64 background and 16 explained trials, 32 samples.
+    x_all, y_all = subject
+    bg, xt, yt = explain_fast.split_trials(x_all, y_all, AFP_BACKGROUND, AFP_TRIALS, SEED)
+    draws = draw_samples(torch.Generator().manual_seed(SEED), AFP_SAMPLES, AFP_TRIALS,
+                         AFP_BACKGROUND)
+    model = explain_fast.load_fast(cfg, ckpt, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    arrays = explain_fast.explain_arrays(model, bg, xt, yt, *draws)
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    launches = read_launches()
+    if (launches["conv4head_bwd_x"], launches["conv4head_fwd"], launches["conv4head_bwd_w"]) \
+            != (AFP_SAMPLES, AFP_SAMPLES + 1, 0):
+        raise RuntimeError(f"explain_fast must launch B2x {AFP_SAMPLES}, B2f {AFP_SAMPLES + 1} "
+                           f"and B2w 0 times: {launches}")
+    require_unadapted(launches, "explain_fast")
+    counted["explain_fast"] = launches
+    busy, span, idle, events = idle_share(
+        lambda: explain_fast.explain_arrays(model, bg, xt, yt, *draws), "explain_fast",
+        (B2X_KERNELS,))
+    b2x = sum(e.self_device_time_total for e in device_records(events)
+              if re.search(B2X_KERNELS, e.key)) / 1e3
+    t0 = time.perf_counter()
+    ref = explain_fast.explain_arrays(explain_fast.load_fast(cfg, ckpt, "cpu"), bg, xt, yt,
+                                      *draws)
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(arrays["preds"], ref["preds"]):
+        raise RuntimeError("explain_fast: predictions differ from the CPU's")
+    errs = {k: check_rel_np(f"explain_fast {k}", arrays[k], ref[k], BWD_RTOL, BWD_RTOL)
+            for k in ("attr", "zone_importance", "zone_time", "bands")}
+    for name, per_class in ref["class_means"].items():
+        if list(per_class) != list(arrays["class_means"][name]):
+            raise RuntimeError(f"explain_fast {name}: classes differ from the CPU's")
+        for cname, v in per_class.items():
+            errs[f"{name} {cname}"] = check_rel_np(f"explain_fast {name} {cname}",
+                                                   arrays["class_means"][name][cname], v,
+                                                   BWD_RTOL, BWD_RTOL)
+    print(f"explain and QC: explain_fast's arrays at its defaults ({AFP_TRIALS} trials x "
+          f"{AFP_SAMPLES} samples against {AFP_BACKGROUND}, f32) on "
+          f"{os.path.basename(os.path.dirname(ckpt))}'s checkpoint: {ef_s:.3f} s on the host clock (first call), device {busy:.2f} ms of a "
+          f"{span:.2f} ms CUDA-event span (device idle {idle:.1%}; B2x {b2x:.2f} ms); CPU "
+          f"{cpu_s:.2f} s; predictions equal the CPU's (accuracy {arrays['accuracy']:.3f}), "
+          f"max|err| / max|ref| attributions {errs['attr']:.3g}, zone importance "
+          f"{errs['zone_importance']:.3g}, class means "
+          f"{max(v for k, v in errs.items() if '_only' in k):.3g}, zone x time "
+          f"{errs['zone_time']:.3g}, bands {errs['bands']:.3g}; launches {launches}", flush=True)
+
+    # (b) global_explain at its defaults on 3 synthetic subjects, the f32 run's first
+    # three checkpoints laid out as sub-{index}/best_subject.npz.
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(GE_SUBJECTS):
+            os.symlink(os.path.join(results_dir, f"sub-{i + 1:02d}"), os.path.join(d, f"sub-{i}"))
+        argv = ["--synthetic", "--n_synth_subjects", str(GE_SUBJECTS), "--n_bg",
+                str(EG_BACKGROUND), "--n_test", str(EG_TRIALS), "--n_grad_samples",
+                str(EG_SAMPLES), "--model_dir", d, "--output_dir", os.path.join(d, "out"),
+                "--seed", str(SEED)]
+        reset_launches()
+        t0 = time.perf_counter()
+        global_explain.main(argv, device=dev)
+        torch.cuda.synchronize()
+        ge_s = time.perf_counter() - t0
+        launches = read_launches()
+        want = GE_SUBJECTS * EG_SAMPLES
+        if (launches["conv4head_bwd_x"], launches["conv4head_fwd"], launches["conv4head_bwd_w"]) \
+                != (want, want, 0):
+            raise RuntimeError(f"global_explain must launch B2x and B2f {want} times and B2w "
+                               f"never: {launches}")
+        require_unadapted(launches, "global_explain")
+        counted["global_explain"] = launches
+        busy, span, idle, events = idle_share(lambda: global_explain.main(argv, device=dev),
+                                              "global_explain", (B2X_KERNELS,))
+        b2x = sum(e.self_device_time_total for e in device_records(events)
+                  if re.search(B2X_KERNELS, e.key)) / 1e3
+    X, Y = synthetic_corpus(SEED, n_subjects=1, n_trials=EG_BACKGROUND + EG_TRIALS)
+    bg, xt, yt = explain_fast.split_trials(X[0], Y[0].astype(int), EG_BACKGROUND, EG_TRIALS, SEED)
+    draws = draw_samples(torch.Generator().manual_seed(SEED), EG_SAMPLES, EG_TRIALS, EG_BACKGROUND)
+    ckpt0 = os.path.join(results_dir, "sub-01", "best_subject.npz")
+    res = global_explain.explain_subject(explain_fast.load_fast(cfg, ckpt0, dev), bg, xt, yt,
+                                         *draws)
+    t0 = time.perf_counter()
+    ref = global_explain.explain_subject(explain_fast.load_fast(cfg, ckpt0, "cpu"), bg, xt, yt,
+                                         *draws)
+    cpu_s = time.perf_counter() - t0
+    pooled, pooled_ref = (global_explain.pool_subjects([r]) for r in (res, ref))
+    if list(pooled["topomaps"]) != list(pooled_ref["topomaps"]):
+        raise RuntimeError("global_explain: the classes differ from the CPU's")
+    pairs = [("attributions", res["attr"], ref["attr"])]
+    pairs += [(f"topomap {k}", v, pooled_ref["topomaps"][k]) for k, v in pooled["topomaps"].items()]
+    pairs += [(k, pooled[k], pooled_ref[k]) for k in ("zone_time", "bands")]
+    ge_err = max(check_rel_np(f"global_explain {k}", got, want, BWD_RTOL, BWD_RTOL)
+                 for k, got, want in pairs)
+    print(f"explain and QC: global_explain at its defaults ({GE_SUBJECTS} subjects x "
+          f"{EG_TRIALS} trials x {EG_SAMPLES} samples against {EG_BACKGROUND}): {ge_s:.2f} s on "
+          f"the host clock (first call, corpus generation included); under the profiler device "
+          f"{busy:.2f} ms of a {span:.2f} ms CUDA-event span (device idle {idle:.1%}), B2x "
+          f"{b2x:.2f} ms ({b2x / busy:.1%} of the device time); launches {launches}; subject 0's "
+          f"pooled arrays match the CPU's ({cpu_s:.2f} s there), max|err| / max|ref| "
+          f"{ge_err:.3g}", flush=True)
+
+    # (c) artifact_analysis on 100 synthetic trials: PSD, then FastICA, card against CPU.
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        artifact_analysis.main(["--synthetic", "--n_trials", str(QC_TRIALS), "--n_components",
+                                str(QC_COMPONENTS), "--seed", str(SEED), "--output_dir", d],
+                               device=dev)
+        torch.cuda.synchronize()
+        qc_s = time.perf_counter() - t0
+        psd = np.load(os.path.join(d, "psd.npz"))
+        x, _ = synthetic_trials(SEED, QC_TRIALS, 64, 800)
+        freqs, pxx = welch_psd(torch.from_numpy(x), fs=SFREQ, nperseg=256)
+        psd_err = check_close("artifact_analysis PSD", torch.from_numpy(psd["pxx"]),
+                              pxx.mean(0), PSD_RTOL, PSD_RTOL * float(pxx.abs().max()))
+        if not np.array_equal(psd["freqs"], freqs):
+            raise RuntimeError("artifact_analysis: PSD frequencies differ from the CPU's")
+    cont = np.transpose(x, (1, 0, 2)).reshape(64, -1).T
+    cont = cont - cont.mean(0)
+    ica_rows = {}
+    for dtype, rel in ((np.float32, ICA_F32_REL), (np.float64, ICA_F64_REL)):
+        xc = torch.from_numpy(cont.astype(dtype))
+        fast_ica(xc.to(dev), QC_COMPONENTS, seed=SEED)  # warm-up: cuSOLVER's set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fast_ica(xc.to(dev), QC_COMPONENTS, seed=SEED)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = fast_ica(xc, QC_COMPONENTS, seed=SEED)
+        cpu_s = time.perf_counter() - t0
+        if dtype == np.float64 and got.n_iter != ref.n_iter:
+            raise RuntimeError(f"fast_ica f64: {got.n_iter} iterations on the card, {ref.n_iter} "
+                               "on the CPU")
+        err = max(check_rel_np(f"fast_ica {dtype.__name__} {k}", getattr(got, k).cpu(),
+                            getattr(ref, k), rel) for k in ("mixing", "components", "sources"))
+        ica_rows[dtype.__name__] = {"s": card_s, "cpu_s": cpu_s, "n_iter": got.n_iter,
+                                    "cpu_n_iter": ref.n_iter, "err": err}
+    f32 = ica_rows["float32"]
+    print(f"explain and QC: artifact_analysis on {QC_TRIALS} synthetic trials {qc_s:.2f} s on the "
+          f"host clock (first call); PSD matches the CPU's welch_psd, max|err| {psd_err:.3g}; "
+          f"fast_ica ({cont.shape[0]:,} x {cont.shape[1]}, {QC_COMPONENTS} components) on the "
+          f"card: f32 {f32['n_iter']} iterations in {f32['s']:.3f} s (CPU {f32['cpu_n_iter']} in "
+          f"{f32['cpu_s']:.3f} s), max|err| / max|ref| {f32['err']:.3g}; f64 "
+          f"{ica_rows['float64']['n_iter']} iterations in {ica_rows['float64']['s']:.3f} s, "
+          f"{ica_rows['float64']['err']:.3g}", flush=True)
+
+    # (d) The CSP pipeline's device work at full width: one subject's 350 trials, each
+    # band-pass, CSP fit and transform (5 classes, 10 components), card against CPU.
+    csp_rows = {}
+    for method in ("fir", "iir"):
+        def features(device):
+            pipe = CSPClassifierPipeline(filter_method=method, device=device)
+            return pipe.features(x_csp, y_csp), pipe.csp_models[0]
+
+        reset_launches()
+        t0 = time.perf_counter()
+        feats, csp_model = features(str(dev))
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = read_launches()
+        chain = launches["iir_chain"]
+        if chain != (method == "iir") or launches["iir"]:
+            raise RuntimeError(f"the CSP pipeline's {method} band-pass made {chain} B1 chain "
+                               f"launches: {launches}")
+        counted[f"csp_{method}"] = launches
+        busy, span, idle, _ = idle_share(lambda: features(str(dev)), f"csp {method}")
+        t0 = time.perf_counter()
+        ref_feats, ref_model = features("cpu")
+        cpu_s = time.perf_counter() - t0
+        err = max(check_rel_np(f"CSP {method} filters", csp_model.filters.cpu(), ref_model.filters,
+                            CSP_REL),
+                  check_rel_np(f"CSP {method} features", feats, ref_feats, CSP_REL))
+        csp_rows[method] = busy
+        print(f"explain and QC: CSP pipeline, {method} band-pass + csp_fit + csp_transform on "
+              f"{x_csp.shape[0]} x {x_csp.shape[1]} x {x_csp.shape[2]}: {host_s:.3f} s on the host "
+              f"clock (first call), device {busy:.2f} ms of a {span:.2f} ms span (device idle "
+              f"{idle:.1%}), B1 chain launches {chain}; CPU {cpu_s:.2f} s; filters and features "
+              f"max|err| / max|ref| {err:.3g}", flush=True)
+    why = ("the smoke drives the device work only" if importlib.util.find_spec("sklearn")
+           else "scikit-learn is not installed on this machine")
+    print(f"explain and QC: the SVC / LDA of cli.svm_baseline is not run here: {why}", flush=True)
+    print(f"explain and QC: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counted
 
 
 SWEEP_LR, SWEEP_WD = (0.25, 0.5, 1.0, 2.0, 4.0), (0.0, 1.0, 10.0)  # cli/sweep.py's default grid
@@ -3921,6 +4190,8 @@ def main() -> None:
         training_bf16, _, _ = phase_training(cfg, dev, workdir, "bf16")
         ensemble = phase_ensemble(cfg, dev, workdir, X)
         explain = phase_explain(cfg, dev, ckpt, subject)
+        explain_cli = phase_explain_cli(cfg, dev, ckpt, subject,
+                                        os.path.join(workdir, "train_f32"), X[0], Y[0])
         sweep = phase_sweep(cfg, dev, X[0], Y[0])
         loso = phase_loso(cfg, dev, X, Y, workdir)
         phase_native_cache(X, workdir)
@@ -4050,6 +4321,13 @@ def main() -> None:
         for part, n in parts.items():
             entry[f"launches_{part}"] = n
             entry["launches"] += n
+    # Explain and QC (section 12): the attribution CLIs' computing functions and the
+    # CSP pipeline's iir band-pass.
+    for name, key in (("conv4head_fwd", "conv4head_fwd"), ("conv4head_bwd_x", "conv4head_bwd_x"),
+                      ("iir_sosfiltfilt_chain", "iir_chain")):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["launches_explain_cli"] = sum(run[key] for run in explain_cli.values())
+        entry["launches"] += entry["launches_explain_cli"]
     print(f"bn LOSO (section 11a): LOSO {bn_loso['loso_s']:.2f} s, peak "
           f"{bn_loso['loso_peak_gb']:.2f} GB; step device time "
           f"{steps['loso CVBlock']['busy_ms']:.2f} ms at M={FLEET_MODELS}", flush=True)

@@ -1,6 +1,9 @@
 """The PyTorch port's attributions (plain path on the CPU) against the JAX
 package's ``integrated_gradients``, ``expected_gradients`` and
-``attribution_for_predictions``."""
+``attribution_for_predictions``; its zone maps (at 1e-6), electrode
+positions (exactly) and plots against JAX's."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -128,3 +131,72 @@ def test_attribution_for_predictions_matches_jax():
     np.testing.assert_array_equal(preds.numpy(), np.asarray(jpreds))
     ref = expected_gradients(model, xt, bgt, preds, torch.Generator().manual_seed(3), 3)
     assert attr.shape == (8, 10, 200) and torch.equal(attr, ref)
+
+
+def test_zone_maps_match_jax():
+    """``zone_importance`` and ``zone_time_matrix`` (of an array or a
+    tensor) against JAX's, on the shipped montage's zone layout (zones of 4
+    to 15 channels: both take the mean over a zone's channels)."""
+    from imagined_speech_decoding_tpu.data import zone_layout as jax_zone_layout
+    from imagined_speech_decoding_tpu.explain.attribution import (
+        zone_importance as jax_zone_importance,
+    )
+    from imagined_speech_decoding_tpu.explain.attribution import (
+        zone_time_matrix as jax_zone_time_matrix,
+    )
+    from imagined_speech_decoding_tpu_torch.data.constants import zone_layout
+    from imagined_speech_decoding_tpu_torch.explain import zone_importance, zone_time_matrix
+
+    zl, jzl = zone_layout(), jax_zone_layout()
+    attr = np.random.default_rng(3).normal(size=(4, 64, 120)).astype(np.float32)
+    ref = np.asarray(jax_zone_importance(jnp.asarray(attr), jzl.indices, jzl.mask))
+    ours = zone_importance(torch.from_numpy(attr), zl.indices, zl.mask)
+    assert ours.shape == (4, 8)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    ref_zt = jax_zone_time_matrix(attr[1], jzl.indices, jzl.mask)
+    for got in (zone_time_matrix(attr[1], zl.indices, zl.mask).numpy(),
+                zone_time_matrix(torch.from_numpy(attr[1]), zl.indices, zl.mask).numpy()):
+        assert got.shape == (8, 120)
+        np.testing.assert_allclose(got, ref_zt, rtol=1e-6, atol=1e-6 * np.abs(ref_zt).max())
+
+
+def test_montage_positions_equal_jax():
+    """Every electrode of the montage, a 9/10-ring name and a name outside
+    the 10-10 grammar (the schematic fallback) sit where JAX's put them,
+    exactly."""
+    from imagined_speech_decoding_tpu.explain import topomap as jax_topomap
+    from imagined_speech_decoding_tpu_torch.data.constants import Electrodes
+    from imagined_speech_decoding_tpu_torch.explain import topomap
+
+    names = list(Electrodes) + ["F9", "P10", "Oz", "FCz"]
+    np.testing.assert_array_equal(topomap.montage_positions(names),
+                                  jax_topomap.montage_positions(names))
+    for name in ("T7", "FT9", "AF7"):
+        assert topomap.schematic_position(name) == jax_topomap.schematic_position(name)
+        assert topomap.electrode_position(name) == jax_topomap.electrode_position(name)
+
+
+def test_plots_write_the_jax_files(tmp_path):
+    """Each drawing function writes its file, from the arguments JAX's
+    takes, and ``symmetric_vlim`` equals JAX's."""
+    from imagined_speech_decoding_tpu.explain import plots as jax_plots
+    from imagined_speech_decoding_tpu_torch.data.constants import Electrodes, zone_layout
+    from imagined_speech_decoding_tpu_torch.explain import plots, save_topomap
+
+    rng = np.random.default_rng(4)
+    attr = rng.normal(size=(64, 100)).astype(np.float32)
+    assert plots.symmetric_vlim(attr) == jax_plots.symmetric_vlim(attr)
+    zl = zone_layout()
+    paths = [
+        plots.plot_attribution_heatmap(str(tmp_path / "h.png"), attr, Electrodes),
+        plots.plot_zone_importance(str(tmp_path / "z.png"), rng.normal(size=8), zl.names),
+        plots.plot_class_topomaps(str(tmp_path / "c.png"), {"a": attr.mean(-1), "b": attr[:, 0]},
+                                  Electrodes),
+        plots.plot_zone_time_heatmap(str(tmp_path / "zt.png"), rng.normal(size=(8, 100)),
+                                     zl.names),
+        plots.plot_band_heatmap(str(tmp_path / "b.png"), rng.random((5, 7)),
+                                ("Delta", "Theta", "Alpha", "Beta", "Gamma"), np.arange(7) / 4),
+        save_topomap(str(tmp_path / "sub" / "t.png"), attr.mean(-1), Electrodes, title="t"),
+    ]
+    for p in paths:
+        assert os.path.getsize(p) > 0, p

@@ -2,7 +2,11 @@
 augmentation, the feature baselines and their CLIs, profiling among it)
 reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
-package, the real-data modules import and run without ``h5py`` (which
+package, matplotlib is imported only inside the drawing functions of the
+files that draw, ``sklearn`` and ``joblib`` only inside functions of the
+CSP + SVM baseline, the attribution and QC CLIs compute without
+matplotlib or sklearn and the SVM CLI raises ``ImportError`` naming
+sklearn, the real-data modules import and run without ``h5py`` (which
 they import only inside the functions that open HDF5 files),
 ``chip_smoke.py`` fails without a GPU or without the repository around
 it, and ``mma_tf32_ceiling.py`` fails without a GPU."""
@@ -207,7 +211,14 @@ LAZY_ONLY = ("yaml",)  # PyYAML may be imported inside a function (reading --con
 PLOTS = ("matplotlib",)
 PLOTTING_FILES = {os.path.join("imagined_speech_decoding_tpu_torch", *p)
                   for p in (("cli", "sweep.py"), ("cli", "zero_shot.py"),
-                            ("train", "artifacts.py"))}
+                            ("train", "artifacts.py"), ("explain", "plots.py"),
+                            ("explain", "topomap.py"), ("cli", "explain_fast.py"),
+                            ("cli", "global_explain.py"), ("cli", "artifact_analysis.py"))}
+# scikit-learn (the SVC / LDA and the folds) and joblib (the pipeline's file) only
+# inside the functions of the CSP + SVM baseline that need them
+SKLEARN = ("sklearn", "joblib")
+SKLEARN_FILES = {os.path.join("imagined_speech_decoding_tpu_torch", *p)
+                 for p in (("models", "classical.py"), ("cli", "svm_baseline.py"))}
 FILE_READERS = ("h5py", "scipy.io")  # imported only by the functions that open such files
 
 
@@ -236,14 +247,79 @@ def test_no_port_file_imports_jax_yaml_or_the_jax_package():
     ]
     bad = [(f, m) for f, m, lazy in found
            if not (lazy and (m.split(".")[0] in LAZY_ONLY
-                             or (m.split(".")[0] in PLOTS and f in PLOTTING_FILES)))]
+                             or (m.split(".")[0] in PLOTS and f in PLOTTING_FILES)
+                             or (m.split(".")[0] in SKLEARN and f in SKLEARN_FILES)))]
     assert not bad, bad
+    joblib_users = [(os.path.relpath(f, ROOT), lazy) for f in files
+                    for m, lazy in _imported_modules(f) if m.split(".")[0] == "joblib"]
+    assert joblib_users and all(lazy and f in SKLEARN_FILES for f, lazy in joblib_users), \
+        joblib_users
     assert {f for f, m, _ in found if m.split(".")[0] in LAZY_ONLY} <= {
         os.path.join("imagined_speech_decoding_tpu_torch", p)
         for p in ("config.py", os.path.join("cli", "train_fast.py"))}
     eager_readers = [(os.path.relpath(f, ROOT), m) for f in files for m, lazy in _imported_modules(f)
                      if not lazy and any(m == r or m.startswith(r + ".") for r in FILE_READERS)]
     assert not eager_readers, eager_readers
+
+
+EXPLAIN_AND_QC_WITHOUT_PLOTS = r"""
+import os, sys, tempfile
+for name in ("jax", "yaml", "pandas", "sklearn", "matplotlib", "joblib"):
+    sys.modules[name] = None   # any import of these now raises
+import numpy as np, torch
+torch.set_num_threads(1)
+import imagined_speech_decoding_tpu_torch.explain
+from imagined_speech_decoding_tpu_torch.cli import (
+    artifact_analysis, explain_fast, global_explain, svm_baseline)
+from imagined_speech_decoding_tpu_torch.models import classical
+from imagined_speech_decoding_tpu_torch.ops import csp, ica
+
+with tempfile.TemporaryDirectory() as d:
+    out = explain_fast.main(["--synthetic", "--n_background", "4", "--n_test", "3",
+                             "--n_grad_samples", "1", "--output_dir", os.path.join(d, "ef")],
+                            device="cpu")
+    assert os.listdir(out) == []
+    out = global_explain.main(["--synthetic", "--n_synth_subjects", "1", "--n_bg", "4",
+                               "--n_test", "4", "--n_grad_samples", "1",
+                               "--model_dir", os.path.join(d, "none"),
+                               "--output_dir", os.path.join(d, "ge")], device="cpu")
+    assert os.listdir(out) == []
+    out = artifact_analysis.main(["--synthetic", "--n_trials", "4", "--n_components", "3",
+                                  "--output_dir", os.path.join(d, "qc")], device="cpu")
+    assert os.listdir(out) == ["psd.npz"]
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(20, 8, 300)).astype(np.float32))
+    model = csp.csp_fit(x, torch.arange(20) % 2, 2, 4)
+    pipe = classical.CSPClassifierPipeline(n_classes=2, n_components=4, device="cpu")
+    assert pipe.features(x.numpy(), (np.arange(20) % 2)).shape == (20, 4)
+    try:
+        pipe.fit(x.numpy(), np.arange(20) % 2)
+    except ImportError as e:
+        assert "sklearn" in str(e), e
+    else:
+        raise AssertionError("the pipeline fitted without sklearn")
+    try:
+        svm_baseline.main(["--synthetic", "1", "--output_dir", os.path.join(d, "svm")],
+                          device="cpu")
+    except ImportError as e:
+        assert "sklearn" in str(e), e
+    else:
+        raise AssertionError("cli.svm_baseline ran without sklearn")
+blocked = {"jax", "yaml", "pandas", "sklearn", "matplotlib", "joblib"}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked | {"imagined_speech_decoding_tpu"})
+assert loaded == sorted(blocked), loaded
+print("EXPLAIN AND QC OK")
+"""
+
+
+def test_explain_and_qc_compute_without_matplotlib_or_sklearn():
+    """The attribution and QC CLIs finish their computation with matplotlib
+    and sklearn blocked (one line says the plots were skipped; ``psd.npz``
+    is written); CSP runs; the SVM fit and CLI raise ``ImportError`` naming
+    sklearn, with no fallback."""
+    proc = _run([sys.executable, "-c", EXPLAIN_AND_QC_WITHOUT_PLOTS], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "EXPLAIN AND QC OK" in proc.stdout
+    assert proc.stdout.count("plots skipped: matplotlib is not installed") == 3
 
 
 def test_chip_smoke_fails_without_a_gpu():
