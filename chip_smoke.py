@@ -4,9 +4,10 @@ streaming), training, attribution, real-data and campaign (sweep, LOSO,
 ensemble, zero-shot, native cache) paths, of the models with batch-norm
 state (the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version heads,
 TSception) with their decoders and train-time augmentation, of the
-feature baselines (band-power MLP, STFT EEGNet, CNN-BiLSTM), and of the
+feature baselines (band-power MLP, STFT EEGNet, CNN-BiLSTM), of the
 explain and QC programs (attribution maps, PSD and FastICA, the CSP
-pipeline), on one NVIDIA GPU.
+pipeline) and of multi-GPU training (the ``--mesh`` strategies), on one
+NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -220,9 +221,10 @@ pipeline), on one NVIDIA GPU.
    summed learning rate.
 
 11. The training engine's remaining paths: (a) ``cli.train_fast
-   --synthetic 15 --synthetic_trials 350 --head CVBlock --loso-pretrain
+   --synthetic 15 --synthetic_trials 70 --head CVBlock --loso-pretrain
    --loso-epochs 1 --epochs 1 --augment --profile <dir>`` in a child
-   process (bf16; the parent's corpus handed over as ``.npy``): no
+   process (bf16; the parent corpus's first 70 trials a subject handed
+   over as ``.npy``): no
    hand-written kernel launched in LOSO or the CV, every LOSO row leaves
    its subject out, the ``Pretrain_excludes`` files hold no running
    statistics, the CV begins at the LOSO rows and at a fresh draw's
@@ -260,6 +262,21 @@ pipeline), on one NVIDIA GPU.
    ``csp_transform`` on one 350-trial subject against the CPU (the ``iir``
    route one B1 chain launch), by device time. The SVC is not run (the
    card's machine has no scikit-learn).
+13. Multi-GPU (``parallel``): (a) ``dryrun_multichip`` over the visible
+   cards, one rank a card on NCCL (its five sections held to the
+   unsharded run at the JAX dry run's bounds); (b) two ranks sharing the
+   card over gloo with CUDA tensors (``chip_smoke.py --mesh-child``, the
+   parent's corpus handed over as ``.npy``) run ``cli.train_fast
+   --synthetic 15 --synthetic_trials 350 --epochs 2`` under ``--mesh
+   model``, ``data`` and ``2d`` in bf16 and ``data`` in f32, each held to
+   the training path's unsharded run of its precision (``MESH_LOSS_TOL``),
+   with each rank's wall time, peak memory and launches, and one profiled
+   bf16 step at its local shapes (M = 38, B = 64 under ``model``; M = 75,
+   B = 32 under a data axis); (c) the head kernels at the ranks' local
+   shapes against their plain versions (bf16 at M = 38, B = 64 / 24 / 35
+   and M = 75, B = 32 / 12 / 18 / 17; f32 at the data axis's), B2f-bf16 and
+   B2w-bf16 timed beside their bounds. The ``kernels`` line's
+   ``launches_mesh`` counts (b)'s launches, over both ranks and every run.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -283,6 +300,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.signal import tf2sos
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
@@ -300,6 +318,7 @@ from imagined_speech_decoding_tpu_torch.explain.attribution import (
     integrated_gradients,
 )
 from imagined_speech_decoding_tpu_torch.models.fast import FAST, FORWARD_MODES
+from imagined_speech_decoding_tpu_torch.models.modules import SharedRowsGenerator
 from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     BWD_W_BF16_PHASES,
@@ -353,6 +372,9 @@ from imagined_speech_decoding_tpu_torch.models.api import (
     make_fast_model,
     make_tsception_model,
 )
+from imagined_speech_decoding_tpu_torch.parallel.dryrun import dryrun_multichip
+from imagined_speech_decoding_tpu_torch.parallel.mesh import (StackShard, free_port, init_world,
+                                                              mesh_strategy)
 from imagined_speech_decoding_tpu_torch.profiling import TRACE_FILE
 from imagined_speech_decoding_tpu_torch.transplant import (
     from_jax_params,
@@ -1686,7 +1708,7 @@ def phase_training(cfg, dev, workdir, precision: str):
     acc = [row["Test_Acc"] for row in result.summary]
     print(f"  mean val_acc {result.fit.history['val_acc'][:, -1].mean():.4f}, mean test acc "
           f"{np.mean(acc):.4f} after {TRAIN_EPOCHS} epochs", flush=True)
-    return launches, t, (ckpt, subject)
+    return launches, t, (ckpt, subject), result.fit
 
 
 def phase_train_step_profile(cfg, dev, dtype, m=TRAIN_SUBJECTS * 5, sweep=False,
@@ -3833,6 +3855,9 @@ def phase_trajectory_baselines(dev) -> dict:
 # stopping, dense tokens -----------------------------------------------------------------
 
 BN_LOSO_FLAG = "--bn-loso-child"  # chip_smoke.py runs itself with it: phase (a)'s CLI run
+# (a)'s trials a subject: the corpus's first 70 (14 a fold), a fifth of it, so that the
+# child's LOSO (15 x (882 + 98) trials) and CV keep the smoke inside its time limit
+BN_LOSO_TRIALS = 70
 DENSE_STEP = 25  # forward_head(step_override=25): 23 windows of 250 over 800 samples
 DENSE_WINDOWS = (800 - 250) // DENSE_STEP + 1
 EARLY_STOP_EPOCHS = 3
@@ -3887,22 +3912,25 @@ def bn_loso_child(argv) -> None:
 
 
 def phase_bn_loso(cfg, dev, X, Y, workdir) -> dict:
-    """(a) ``cli.train_fast --synthetic 15 --synthetic_trials 350 --head
+    """(a) ``cli.train_fast --synthetic 15 --synthetic_trials 70 --head
     CVBlock --loso-pretrain --loso-epochs 1 --epochs 1 --augment --profile
-    <dir>`` in a child process (a fresh profiler), bf16: 15 LOSO models of
-    4,410 + 490 trials at B = 64, then 75 CV models. No hand-written kernel
+    <dir>`` in a child process (a fresh profiler), bf16, on the corpus's
+    first ``BN_LOSO_TRIALS`` trials a subject: 15 LOSO models of 882 + 98
+    trials at B = 64, then 75 CV models. No hand-written kernel
     launches; every LOSO row leaves its subject out; the CV begins at the
     LOSO rows (each subject's over its 5 folds) and at the initial running
     statistics of a fresh draw; a second LOSO call trains nothing and
     returns the saved rows bit for bit; the trace (``<dir>/trace.json``)
     loads and holds device kernel records and the CLI's fit range."""
     hcfg = dataclasses.replace(cfg, head="CVBlock")
+    n = BN_LOSO_TRIALS
+    X, Y = X[:, :n], Y[:, :n]
     subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
     out, prof = os.path.join(workdir, "bn_loso"), os.path.join(workdir, "bn_loso_trace")
     os.makedirs(out, exist_ok=True)
     np.save(os.path.join(workdir, "X.npy"), X)
     np.save(os.path.join(workdir, "Y.npy"), Y)
-    argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+    argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(n),
             "--head", "CVBlock", "--loso-pretrain", "--loso-epochs", "1", "--epochs", "1",
             "--augment", "--profile", prof, "--output_dir", out]
     print(f"bn LOSO: cli.train_fast {' '.join(argv[:-3])} <tmp> in a child process", flush=True)
@@ -3921,8 +3949,8 @@ def phase_bn_loso(cfg, dev, X, Y, workdir) -> dict:
         raise RuntimeError(f"bn LOSO: the CV history {child['history_shape']}, finite "
                            f"{child['history_finite']}")
     tr, va = build_loso_index_stack(Y, seed=42)
-    n = TRAIN_TRIALS
-    if tr.shape != (TRAIN_SUBJECTS, LOSO_TRAIN) or any(
+    pool = (TRAIN_SUBJECTS - 1) * n
+    if tr.shape[0] != TRAIN_SUBJECTS or tr.shape[1] + va.shape[1] != pool or any(
             ((np.r_[tr[s], va[s]] >= s * n) & (np.r_[tr[s], va[s]] < (s + 1) * n)).any()
             for s in range(TRAIN_SUBJECTS)):
         raise RuntimeError("bn LOSO: a row's indices include its own subject, or sizes differ")
@@ -3977,7 +4005,8 @@ def phase_bn_loso(cfg, dev, X, Y, workdir) -> dict:
         raise RuntimeError(f"bn LOSO: the trace holds {kernels} kernel records and {len(fit)} "
                            "fit ranges")
     print(f"bn LOSO: {wall:.2f} s in the child (CLI {child['wall_s']:.2f} s); LOSO of "
-          f"{TRAIN_SUBJECTS} CVBlock models x ({LOSO_TRAIN} + {LOSO_VAL}) trials, augmented, 1 "
+          f"{TRAIN_SUBJECTS} CVBlock models x ({tr.shape[1]} + {va.shape[1]}) trials, augmented, "
+          "1 "
           f"epoch: {loso_row['wall_s']:.2f} s host, peak {loso_row['peak_gb']:.2f} GB; CV of "
           f"{TRAIN_SUBJECTS * 5} models: fit {cv_row['fit_s']:.2f} s, peak {cv_row['peak_gb']:.2f}"
           f" GB; no hand-written kernel launched; every row leaves its subject out; the CV began "
@@ -4136,7 +4165,333 @@ def phase_dense_tokens(cfg, dev, rng) -> dict:
     return rows
 
 
+# --- 13. Multi-GPU (``parallel``): the dry run on NCCL over the visible cards;
+# ``cli.train_fast`` at full width under each --mesh strategy on two ranks that
+# share the card over gloo (CUDA tensors), held to the unsharded bf16 run of the
+# training path; the head kernels at the ranks' local shapes.
+
+MESH_FLAG = "--mesh-child"  # chip_smoke.py runs itself with it: one rank of section 13
+MESH_RANKS = 2
+# (strategy, precision) of each CLI run; the f32 one is held to the f32 training run
+MESH_RUNS = (("model", "bf16"), ("data", "bf16"), ("2d", "bf16"), ("data", "f32"))
+# train_per_subject_cv's bounds in the JAX package's checks (tests/test_parallel.py):
+# loss rows (rtol, atol); best val_acc within one validation trial a model. In bf16 a
+# split batch rounds otherwise (bf16 GEMMs over other row counts, gradient sums in
+# another order), and a model near chance turns near-tie validation trials: there at
+# most MESH_BF16_MOVED of the 75 models may move, each by at most MESH_BF16_TRIALS
+# trials. Both are set from mesh_drift.py's readings on an H100 (PERF.md): sound
+# runs against runs with a sharding fault put in.
+MESH_LOSS_TOL = {"model": (5e-3, 1e-3), "data": (1e-3, 1e-5), "2d": (1e-3, 1e-5)}
+MESH_VAL = TRAIN_TRIALS // 5  # 70 validation trials a fold
+MESH_BF16_MOVED, MESH_BF16_TRIALS = 4, 5
+MESH_TIMEOUT_S = 420
+
+
+def mesh_step_profile(cfg, dev, strategy: str) -> dict:
+    """One bf16 training step of this rank's share of the 75-model stack at
+    batch 64 under ``strategy`` (its rows, its part of every batch; under a
+    data axis the step's collectives with the other rank), profiled: the
+    CUDA-event span and the device time of this rank's kernels and copies
+    (both ranks step at once on the shared card, so each time includes
+    waits the card's time-slicing puts in it). The profiler is not asked
+    again where it lost records (a retry on one rank alone would leave the
+    other in a collective): the device time is then None."""
+    m = TRAIN_SUBJECTS * 5
+    mesh, stack_axis, data_axis = mesh_strategy(strategy, dev)
+    shard = StackShard(mesh, m, stack_axis, data_axis)
+    params, state = shard.rows_of(init_jax_layout(cfg, SEED, m))
+    model = FAST(cfg, n_models=shard.m_local, device=dev)
+    model.load_state_dict(from_jax_params(params, state))
+    opt = engine.make_optimizer(model.parameters())
+    c0, c1 = shard.batch_cols(TRAIN_BATCH)
+    gen = SharedRowsGenerator(dev, (m, *shard.rows) if shard.stacked else None).manual_seed(SEED)
+    draw = torch.Generator(device=dev).manual_seed(SEED + 1 + dist.get_rank())
+    x = torch.randn((shard.m_local, c1 - c0, 64, 800), generator=draw, device=dev).to(
+        torch.bfloat16)
+    y = torch.randint(0, cfg.n_classes, (shard.m_local, c1 - c0), generator=draw, device=dev)
+    data = (shard.data_group, TRAIN_BATCH) if shard.split_batch else None
+
+    def step():
+        if data is not None:
+            gen.set_batch((TRAIN_BATCH, c0, c1))
+        engine.train_step(model, opt, x, y, 1e-4, cfg.n_classes, gen, None, None, data)
+
+    step()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        span = cuda_ms(step, 1, warmup=0)
+    busy = sum(e.self_device_time_total for e in device_records(prof.key_averages())) / 1e3
+    dist.barrier()
+    return {"m": shard.m_local, "b": c1 - c0, "span_ms": span, "busy_ms": busy or None}
+
+
+def mesh_child(argv) -> None:
+    """Rank ``argv[1]`` of two that share the card: joins their gloo group
+    (``init_world`` from the torchrun environment the parent gave it), then
+    runs ``cli.train_fast --synthetic 15 --synthetic_trials 350 --epochs 2
+    --mesh <strategy>`` for each strategy on the corpus the parent saved in ``argv[0]`` (the CLI's
+    own ``--synthetic`` corpus), with its wall time, peak memory and the
+    head kernels' launches, then one profiled step at this rank's shapes.
+    Writes ``mesh_rank<r>.json``."""
+    src, rank = argv[0], int(argv[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_world("cuda", backend="gloo")  # the CLI runs on the ranks it finds
+    X, Y = np.load(os.path.join(src, "X.npy")), np.load(os.path.join(src, "Y.npy"))
+    subjects = [f"{i + 1:02d}" for i in range(X.shape[0])]
+    n_test = X.shape[1] // 3
+    train_fast.load_data = lambda args: (
+        X, Y, subjects, {sid: (X[i, :n_test], Y[i, :n_test]) for i, sid in enumerate(subjects)})
+    rows = {}
+    for strategy, precision in MESH_RUNS:
+        argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
+                "--epochs", str(TRAIN_EPOCHS), "--mesh", strategy, "--precision", precision,
+                "--output_dir", os.path.join(src, f"mesh_{strategy}_{precision}")]
+        dist.barrier()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = train_fast.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t = result.timings
+        rows[f"{strategy} {precision}"] = {
+            "wall_s": wall, "fit_s": t["fit_s"], "train_s": t["train_s"],
+            "steps_per_epoch": t["steps_per_epoch"], "peak_gb": peak, "launches": launches,
+            "history": {k: v.tolist() for k, v in result.fit.history.items()},
+            "best_val_acc": result.fit.best_val_acc.tolist(),
+            "step": (mesh_step_profile(FASTConfig.default(), dev, strategy)
+                     if precision == "bf16" else None)}
+        torch.cuda.synchronize()
+    with open(os.path.join(src, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dist.destroy_process_group()
+
+
+def run_mesh_ranks(workdir: str) -> list:
+    """The two ranks of ``mesh_child`` at once; both are waited for, and
+    both stopped if one fails or runs past ``MESH_TIMEOUT_S``."""
+    port = str(free_port())
+    logs = [os.path.join(workdir, f"mesh_rank{r}.log") for r in range(MESH_RANKS)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), MESH_FLAG, workdir, str(r)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                             WORLD_SIZE=str(MESH_RANKS), MASTER_ADDR="localhost",
+                             MASTER_PORT=port)))
+        deadline = time.perf_counter() + MESH_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > deadline or any(p.poll() for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        tails = []
+        for r, log in enumerate(logs):
+            with open(log) as f:
+                tails.append(f"rank {r} ({procs[r].returncode}):\n{f.read()[-2500:]}")
+        raise RuntimeError("the mesh ranks failed:\n" + "\n".join(tails))
+    out = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(workdir, f"mesh_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_mesh(cfg, dev, X, Y, workdir, unsharded: dict) -> dict:
+    """(a) ``dryrun_multichip`` over the visible cards, on NCCL: its five
+    sections, each held to the unsharded run at the JAX dry run's bounds.
+    (b) ``cli.train_fast`` at full width under each strategy on two ranks
+    sharing the card over gloo (``MESH_RUNS``): every rank's history
+    against the unsharded run of its precision (``unsharded``, the
+    training path's fits), loss rows at the JAX package's bounds for the
+    strategy, best val_acc as ``MESH_LOSS_TOL``'s note says; both ranks'
+    histories equal; the precision's head kernels launched in every rank,
+    no other, nothing adapted. Returns the launches summed over the ranks
+    and runs, and the rows."""
+    t0 = time.perf_counter()
+    dryrun_multichip(torch.cuda.device_count())
+    dry_s = time.perf_counter() - t0
+    print(f"multi-GPU (a): dryrun_multichip({torch.cuda.device_count()}) on NCCL passed in "
+          f"{dry_s:.2f} s (host clock; one card: its one rank in this process)", flush=True)
+    np.save(os.path.join(workdir, "X.npy"), X)
+    np.save(os.path.join(workdir, "Y.npy"), Y)
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks(workdir)
+    ranks_s = time.perf_counter() - t0
+    for name in ("X.npy", "Y.npy"):
+        os.remove(os.path.join(workdir, name))
+    total = dict.fromkeys(next(iter(ranks[0].values()))["launches"], 0)
+    report = {}
+    for strategy, precision in MESH_RUNS:
+        key, ref = f"{strategy} {precision}", unsharded[precision]
+        rtol, atol = MESH_LOSS_TOL[strategy]
+        deltas = {}
+        for r, rank in enumerate(ranks):
+            row = rank[key]
+            hist = {k: np.asarray(v) for k, v in row["history"].items()}
+            for k in ("loss", "val_loss"):
+                deltas[k] = float(np.max(np.abs(hist[k] - ref.history[k])))
+                np.testing.assert_allclose(hist[k], ref.history[k], rtol=rtol, atol=atol,
+                                           err_msg=f"--mesh {key} rank {r} {k}")
+            flips = np.abs(np.asarray(row["best_val_acc"]) - ref.best_val_acc) * MESH_VAL
+            deltas.update(flips_max=float(flips.max()), flips_mean=float(flips.mean()),
+                          models_moved=int((flips > 0.5).sum()))
+            exact = strategy == "model" or precision == "f32"
+            moved, most = (len(flips), 1) if exact else (MESH_BF16_MOVED, MESH_BF16_TRIALS)
+            if deltas["models_moved"] > moved or not flips.max() <= most + 1e-4:
+                raise RuntimeError(f"--mesh {key} rank {r}: best val_acc moved in "
+                                   f"{deltas['models_moved']} models, by "
+                                   f"{flips.max():.2f} validation trials at most (bound: "
+                                   f"{moved} models, {most} trials)")
+            if r and row["history"] != ranks[0][key]["history"]:
+                raise RuntimeError(f"--mesh {key}: the ranks' histories differ")
+            got = row["launches"]
+            other = "f32" if precision == "bf16" else "bf16"
+            if (any(got[k] < 1 for k in HEAD_KERNELS[precision]) or got["conv4head_bwd_x"]
+                    or any(got[k] for k in HEAD_KERNELS[other])):
+                raise RuntimeError(f"--mesh {key} rank {r}: head launches {got}")
+            require_unadapted(got, f"--mesh {key} rank {r}")
+            for k in total:
+                total[k] += got[k]
+        report[key] = {"deltas": deltas, "ranks": [rank[key] for rank in ranks]}
+        print(f"multi-GPU (b) --mesh {strategy} --precision {precision}, 2 ranks on one card "
+              f"over gloo, 75 models: max |delta| vs the unsharded run: loss "
+              f"{deltas['loss']:.3g}, val_loss {deltas['val_loss']:.3g}; best val_acc moved in "
+              f"{deltas['models_moved']} of 75 models, by {deltas['flips_max']:.0f} validation "
+              f"trials at most, {deltas['flips_mean']:.3f} on average", flush=True)
+        for r, rank in enumerate(ranks):
+            row, st = rank[key], rank[key]["step"]
+            step = ""
+            if st is not None:
+                busy = "not measured" if st["busy_ms"] is None else f"{st['busy_ms']:.2f} ms"
+                step = (f"; a step at M={st['m']} B={st['b']}: span {st['span_ms']:.2f} ms, "
+                        f"device {busy}")
+            heads = HEAD_KERNELS[precision]
+            print(f"    rank {r}: CLI wall {row['wall_s']:.2f} s (fit {row['fit_s']:.2f} s; "
+                  f"epoch 2 train pass {1e3 * row['train_s'][-1] / row['steps_per_epoch']:.1f} "
+                  f"ms/step), peak {row['peak_gb']:.2f} GB{step}; launches {heads[0]} "
+                  f"{row['launches'][heads[0]]}, {heads[1]} {row['launches'][heads[1]]}",
+                  flush=True)
+    print(f"multi-GPU (b): both ranks' {len(MESH_RUNS)} CLI runs and step profiles in "
+          f"{ranks_s:.2f} s (wall, the ranks' start included)", flush=True)
+    return {"launches": total, "report": report, "dry_s": dry_s, "ranks_s": ranks_s}
+
+
+def mesh_local_shapes(m: int = TRAIN_SUBJECTS * 5) -> dict:
+    """``{(M, B, precision): train?}``: the head's shapes in a rank of two in
+    ``MESH_RUNS``: the model axis's M = 38 (75 padded to 76) at B = 64, its
+    tail 24 and validation 35; the data axis's M = 75 at 32, 12 and 18 / 17
+    (in bf16, and in f32 for the f32 run)."""
+    shapes = {}
+    m_local = -(-m // MESH_RANKS)
+    for b in TRAIN_STEP_BATCHES:
+        train = b != TRAIN_STEP_BATCHES[-1]
+        shapes[(m_local, b, "bf16")] = train
+        for part in {-(-b // MESH_RANKS), b // MESH_RANKS}:
+            for precision in ("bf16", "f32"):
+                shapes[(m, part, precision)] = shapes.get((m, part, precision), False) or train
+    return shapes
+
+
+def compare_f32(ops, x, g, geo, models, what: str) -> dict:
+    """``compare_bf16``'s checks for B2f and B2w on an f32 x, at their
+    tolerances (forward rtol 1e-4 / atol 1e-5, weight gradients rtol 1e-4 /
+    atol 1e-4 * max|ref|)."""
+    with torch.no_grad():
+        out = fused_conv4_head(x, *ops, *geo)
+    dw = conv4head_bwd_w(g, x, *ops, *geo)
+    errs = dict.fromkeys(("out", "dw12", "db12", "dw3", "dw4"), 0.0)
+    for i in models:
+        one = [t[i : i + 1] for t in (g, x, *ops)]
+        errs["out"] = max(errs["out"], check_close(
+            f"B2f {what} model {i}", out[i : i + 1], fused_conv4_head_plain(*one[1:], *geo),
+            HEAD_RTOL, HEAD_ATOL))
+        for name, a, r in zip(("dw12", "db12", "dw3", "dw4"), dw,
+                              conv4head_bwd_plain(*one, *geo)[1:]):
+            errs[name] = max(errs[name], check_close(f"B2w {what} model {i} {name}",
+                                                     a[i : i + 1], r, BWD_RTOL,
+                                                     BWD_RTOL * float(r.abs().max())))
+    return errs
+
+
+def phase_mesh_kernels(cfg, dev, rng) -> dict:
+    """(c) The head kernels at the ranks' local shapes
+    (``mesh_local_shapes``: B2w-bf16 and B2w at the train batches), models
+    0, M/2 and M - 1 against the plain versions (``compare_bf16``,
+    ``compare_f32``); B2f-bf16 and B2w-bf16 timed by CUDA events beside
+    their bounds at each axis's full batch."""
+    geo = (cfg.window_len, cfg.slide_step)
+    feat = cfg.n_zones * cfg.dim_cnn
+    rows, head_ops = {}, {}
+    for (m, b, precision), train in sorted(mesh_local_shapes().items()):
+        if m not in head_ops:  # the fused head weights of an M-model stack
+            model = FAST(cfg, n_models=m, device=dev)
+            model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED + 3, m)))
+            with torch.no_grad():
+                head_ops[m] = model.head.fused_weights()
+            del model
+        ops = head_ops[m]
+        bf16 = precision == "bf16"
+        x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32), device=dev)
+        x = x.to(torch.bfloat16) if bf16 else x
+        g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, feat)).astype(np.float32),
+                         device=dev)
+        models = (0, m // 2, m - 1)
+        what = f"mesh M={m} B={b}"
+        if train:
+            errs = (compare_bf16 if bf16 else compare_f32)(ops, x, g, geo, models, what)
+        else:
+            with torch.no_grad():
+                out = fused_conv4_head(x, *ops, *geo)
+            ref = [fused_conv4_head_plain(x[i:i + 1], *[t[i:i + 1] for t in ops], *geo)
+                   for i in models]
+            errs = {"out": max(
+                check_rel(f"B2f-bf16 {what} model {i}", out[i:i + 1], r, BF16_FWD_REL) if bf16
+                else check_close(f"B2f {what} model {i}", out[i:i + 1], r, HEAD_RTOL, HEAD_ATOL)
+                for i, r in zip(models, ref))}
+        r = rows[f"{precision}_m{m}_b{b}"] = {"fwd_err": errs["out"]}
+        if train:
+            r["w_err"] = max(errs[k] for k in ("dw12", "db12", "dw3", "dw4"))
+        if bf16 and train and b in (TRAIN_BATCH, TRAIN_BATCH // MESH_RANKS):  # full batches
+            r.update({
+                "fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 5),
+                "fwd_plain_ms": cuda_ms(lambda: fused_conv4_head_plain(x, *ops, *geo), 1),
+                "fwd_bound": head_bound_bf16(HEAD_FMA_FWD, m, b, m * b * 5 * 256, reads_g=False),
+                "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 5),
+                "w_plain_ms": cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 1),
+                "w_bound": head_bound_bf16(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS)})
+            for k, name in (("fwd", "B2f-bf16 forward"), ("w", "B2w-bf16 weight grads")):
+                bound, by = r[f"{k}_bound"]
+                print(f"multi-GPU (c) {name} {what}: kernel {r[f'{k}_ms']:.4f} ms, plain bf16 "
+                      f"{r[f'{k}_plain_ms']:.3f} ms, max|err| {r[f'{k}_err']:.3g} (models "
+                      f"{models}), bound {bound:.4f} ms ({by}, {bound / r[f'{k}_ms']:.1%} "
+                      "reached)", flush=True)
+        else:
+            suffix = "-bf16" if bf16 else ""
+            print(f"multi-GPU (c) {what}: B2f{suffix} max|err| {r['fwd_err']:.3g}"
+                  + (f", B2w{suffix} {r['w_err']:.3g}" if train else "")
+                  + f" (models {models})", flush=True)
+        del x, g
+    del head_ops
+    torch.cuda.empty_cache()
+    return rows
+
+
+
 def main() -> None:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -4184,10 +4539,10 @@ def main() -> None:
         phase_graphs(cfg, params1, params2, init_jax_layout_params(cfg, SEED, FLEET_MODELS),
                      init_jax_layout_params(cfg, SEED + 1, FLEET_MODELS), dev, rng)
         phase_streaming(cfg, params1, dev, rng)
-        training, _, (ckpt, subject) = phase_training(cfg, dev, workdir, "f32")
+        training, _, (ckpt, subject), unsharded_f32 = phase_training(cfg, dev, workdir, "f32")
         fleet = phase_fleet(cfg, dev, rng, os.path.join(workdir, "train_f32"))
         phase_artifact(cfg, dev, ckpt, workdir, rng)
-        training_bf16, _, _ = phase_training(cfg, dev, workdir, "bf16")
+        training_bf16, _, _, unsharded = phase_training(cfg, dev, workdir, "bf16")
         ensemble = phase_ensemble(cfg, dev, workdir, X)
         explain = phase_explain(cfg, dev, ckpt, subject)
         explain_cli = phase_explain_cli(cfg, dev, ckpt, subject,
@@ -4205,7 +4560,14 @@ def main() -> None:
         tsception = phase_tsception(dev, X, Y, workdir)
         bandpower_b1 = phase_bandpower_iir(dev, X)
         baselines = phase_baselines(dev, X, Y, workdir)
+        torch.cuda.empty_cache()
+        t_mesh = time.perf_counter()
+        mesh = phase_mesh(cfg, dev, X, Y, workdir, {"bf16": unsharded, "f32": unsharded_f32})
+        mesh["wall_s"] = time.perf_counter() - t_mesh
     del X, Y
+    t_mesh = time.perf_counter()
+    mesh_kernels = phase_mesh_kernels(cfg, dev, rng)
+    mesh["kernels_s"] = time.perf_counter() - t_mesh
     steps = phase_step_profiles()
     phase_trajectory(cfg, dev)
     phase_trajectory_bf16(cfg, dev)
@@ -4328,9 +4690,30 @@ def main() -> None:
         entry = next(k for k in kernels if k["name"] == name)
         entry["launches_explain_cli"] = sum(run[key] for run in explain_cli.values())
         entry["launches"] += entry["launches_explain_cli"]
+    # Multi-GPU (section 13): the head kernels' launches in the ranks' CLI runs, and
+    # B2f-bf16 / B2w-bf16 at the ranks' local shapes.
+    mesh_keys = {"iir_sosfiltfilt_chain": "iir_chain", "iir_sosfilt_time_major": "iir"}
+    for entry in kernels:
+        key = mesh_keys.get(entry["name"], entry["name"])
+        entry["launches_mesh"] = mesh["launches"].get(key, 0)
+        entry["launches"] += entry["launches_mesh"]
+    local = {"conv4head_fwd_bf16": ("bf16", "fwd_"), "conv4head_bwd_w_bf16": ("bf16", "w_"),
+             "conv4head_fwd": ("f32", "fwd_"), "conv4head_bwd_w": ("f32", "w_")}
+    for entry in kernels:
+        if entry["name"] in local:
+            precision, prefix = local[entry["name"]]
+            entry["mesh_local"] = {k[len(precision) + 1:]: {n[len(prefix):]: v
+                                                              for n, v in r.items()
+                                                              if n.startswith(prefix)}
+                                   for k, r in mesh_kernels.items()
+                                   if k.startswith(precision) and f"{prefix}err" in r}
     print(f"bn LOSO (section 11a): LOSO {bn_loso['loso_s']:.2f} s, peak "
           f"{bn_loso['loso_peak_gb']:.2f} GB; step device time "
           f"{steps['loso CVBlock']['busy_ms']:.2f} ms at M={FLEET_MODELS}", flush=True)
+    print(f"multi-GPU (section 13), host clock: (a) the dry run {mesh['dry_s']:.1f} s, (b) the "
+          f"ranks {mesh['ranks_s']:.1f} s, (a) and (b) with the corpus handed over "
+          f"{mesh['wall_s']:.1f} s, (c) the kernels {mesh['kernels_s']:.1f} s; the smoke "
+          f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -4343,5 +4726,7 @@ if __name__ == "__main__":
         step_profile_child(*sys.argv[2:4])
     elif sys.argv[1:2] == [BN_LOSO_FLAG]:
         bn_loso_child(sys.argv[2:])
+    elif sys.argv[1:2] == [MESH_FLAG]:
+        mesh_child(sys.argv[2:])
     else:
         main()

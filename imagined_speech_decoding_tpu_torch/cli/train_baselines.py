@@ -18,9 +18,10 @@ folder). ``--resume`` restarts the fit from
 ``<output_dir>/checkpoints/segment_carry.npz``; ``--subject_group`` trains
 the subjects in sequential groups (the memory lever for the CNN-BiLSTM's
 frontend at full width). ``--augment`` takes a raw-EEG pipeline only, as
-in the JAX CLI. ``--mesh`` other than ``none`` raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 7). The device is the
-GPU: without one the run raises ``RuntimeError`` before it loads data;
+in the JAX CLI. ``--mesh model|data|2d`` trains the stack on several
+ranks, as ``cli.train_fast`` does (under ``torchrun``, or one rank per
+visible card), rank 0 writing the tree. The device is the GPU: without
+one the run raises ``RuntimeError`` before it loads data;
 ``main(argv, device="cpu")`` runs on the CPU.
 """
 
@@ -63,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the segment checkpoint under --output_dir")
     p.add_argument("--mesh", type=str, default="none", choices=["none", "model", "data", "2d"],
-                   help="device-mesh strategy (not ported)")
+                   help="device-mesh strategy (see isd-train-fast --help)")
     p.add_argument("--subject_group", type=int, default=None,
                    help="subjects trained per stacked group (the memory lever for models "
                    "whose activations do not fit the whole subject x fold stack)")
@@ -82,7 +83,7 @@ def main(argv=None, device="cuda"):
     from ..pipelines import PIPELINES, featurize_corpus
     from ..train.cv import train_per_subject_cv
     from ..utils import seed_all
-    from .train_fast import format_summary, load_data, resolve_config
+    from .train_fast import format_summary, launch_mesh, load_data, mesh_axis_of, resolve_config
 
     pipe = PIPELINES[args.pipeline]
     if args.augment and not pipe.augmentable:
@@ -91,9 +92,6 @@ def main(argv=None, device="cuda"):
             "on precomputed features (noise/channel-dropout semantics don't "
             "transfer to feature space)"
         )
-    if args.mesh != "none":
-        raise NotImplementedError(
-            "--mesh other than none is not ported yet (see ROADMAP.md, Queue 1 item 7)")
     overrides = {
         k: v
         for k, v in {
@@ -108,29 +106,42 @@ def main(argv=None, device="cuda"):
         if v is not None
     }
     cfg = resolve_config(args, overrides)
+    if launch_mesh(main, argv, args, device):
+        return None
     device = require_device(device)
+    mesh_axis = mesh_axis_of(args)
+    lead = True
+    if mesh_axis:
+        from ..parallel.mesh import init_world, is_lead
+
+        device = init_world(device)
+        lead = is_lead()
     seed_all(cfg.train.seed)
     out_dir = args.output_dir or os.path.join("results", "finetune_official", pipe.name)
     os.makedirs(out_dir, exist_ok=True)
 
     X, Y, subjects, test = load_data(args)
     n_channels, n_samples = X.shape[-2], X.shape[-1]
-    print(f"pipeline {pipe.name}: {pipe.description}", flush=True)
+    if lead:
+        print(f"pipeline {pipe.name}: {pipe.description}", flush=True)
     Xf, testf = featurize_corpus(pipe, X, test, device=device)
-    if pipe.featurize is not None:
+    if pipe.featurize is not None and lead:
         print(f"  features: {X.shape[2:]} -> {Xf.shape[2:]}", flush=True)
 
     model = pipe.make_model(n_channels, n_samples, cfg.model.n_classes)
     if args.augment:
         model = make_augmented_model(model, args.noise_sigma, args.ch_drop)
-        print(f"  augment: noise_sigma={args.noise_sigma} ch_drop={args.ch_drop} "
-              "(train step only)", flush=True)
+        if lead:
+            print(f"  augment: noise_sigma={args.noise_sigma} ch_drop={args.ch_drop} "
+                  "(train step only)", flush=True)
     result = train_per_subject_cv(
         model, cfg.train, Xf, Y, subjects, cfg.model.n_classes,
         test_per_subject=testf, save_dir=out_dir, device=device,
         checkpoint_dir=os.path.join(out_dir, "checkpoints"), resume=args.resume,
-        subject_group_size=args.subject_group,
+        subject_group_size=args.subject_group, mesh_axis=mesh_axis,
     )
+    if result is None or not lead:  # a rank outside a '2d' grid, or not rank 0
+        return result
     print("\n" + "=" * 60)
     print(f"BASELINE PIPELINE COMPLETE ({pipe.name})")
     print(f"Summary saved to {out_dir}/summary_per_subject.csv")

@@ -37,8 +37,17 @@ in LOSO pretraining too, which trains the model the CV trains; ``--profile
 LOGDIR`` traces the CV or ensemble fit (not the data loading, not LOSO)
 into ``LOGDIR/trace.json`` (``profiling.trace``), a Chrome trace for
 Perfetto or ``chrome://tracing``, with the fit as the annotated range
-``cli.train_fast: fit``. ``--mesh``, ``--remat`` and ``--head_chunk``
-raise ``NotImplementedError`` naming ROADMAP.md.
+``cli.train_fast: fit``. ``--mesh model|data|2d`` trains the stack on
+several ranks (``parallel.mesh``: the stack split over them, every model's
+batch, or both), with the unsharded run's result; under ``torchrun`` the
+ranks are its processes::
+
+    torchrun --nproc_per_node 4 -m imagined_speech_decoding_tpu_torch.cli.train_fast \\
+        --mesh model --synthetic 15 --synthetic_trials 350 --output_dir out/
+
+and without it the run starts one rank per visible card (one card: this
+process alone). Rank 0 writes the result tree and prints. ``--remat`` and
+``--head_chunk`` raise ``NotImplementedError`` naming ROADMAP.md.
 ``--config`` reads YAML with PyYAML, imported only then; without PyYAML
 the default ``configs/default.yaml`` falls back to the built-in defaults,
 which equal that file's values.
@@ -54,7 +63,7 @@ import time
 import numpy as np
 
 DEFAULT_CONFIG = "configs/default.yaml"
-_ROADMAP = "is not ported yet (see ROADMAP.md, Queue 1)"
+_ROADMAP = "is a decided non-port of the JAX CLI (see ROADMAP.md, Queue 1)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -139,9 +148,9 @@ def build_overrides(args) -> dict:
 
 
 def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
+    """Raise ``NotImplementedError`` for the options the port does not run
+    (ROADMAP.md)."""
     unported = [
-        ("--mesh other than none", args.mesh != "none"),
         ("--remat", args.remat),
         ("--head_chunk", args.head_chunk),
     ]
@@ -223,6 +232,37 @@ def format_summary(rows) -> str:
     return "\n".join(lines)
 
 
+def mesh_axis_of(args):
+    """``--mesh`` as ``train.cv``'s ``mesh_axis`` (None for none)."""
+    return None if args.mesh == "none" else args.mesh
+
+
+def launch_mesh(main_fn, argv, args, device) -> bool:
+    """Start one rank per visible card for ``--mesh`` on CUDA when the run
+    has no ranks yet (no ``torchrun`` environment, no process group) and
+    more than one card is visible: ``main_fn(argv)`` runs in each, and this
+    process only waits (the kernels are built here first, once). Returns
+    whether it did."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import TORCHRUN_ENV, spawn_ranks
+
+    if (args.mesh == "none" or torch.device(device).type != "cuda" or dist.is_initialized()
+            or all(k in os.environ for k in TORCHRUN_ENV)):
+        return False
+    from ..devices import require_device
+
+    require_device(device)
+    if torch.cuda.device_count() < 2:
+        return False
+    from ..ops.cuda import _lib
+
+    _lib.library()
+    spawn_ranks(main_fn, torch.cuda.device_count(), list(argv or []), device)
+    return True
+
+
 def loso_warm_start(args, cfg, model, X, Y, subjects, device):
     """``--loso-pretrain``: the LOSO stack of ``model`` (the model the CV
     trains, augmented or not) pretrained (or loaded) under
@@ -239,8 +279,10 @@ def loso_warm_start(args, cfg, model, X, Y, subjects, device):
         epochs=args.loso_epochs, batch_size=cfg.train.batch_size,
         learning_rate=cfg.train.learning_rate, seed=cfg.train.seed,
         data_dtype=cfg.train.compute_dtype, checkpoint_dir=os.path.join(save_dir, "checkpoints"),
-        resume=args.resume, device=device,
+        resume=args.resume, device=device, mesh_axis=mesh_axis_of(args),
     )
+    if pretrained is None:  # a rank outside a '2d' grid
+        return None
     _, state0 = stacked_init(model, cfg.train.seed, len(subjects) * cfg.train.n_folds)
     return stack_pretrained_for_cv(pretrained, cfg.train.n_folds), state0
 
@@ -253,6 +295,8 @@ def main(argv=None, device="cuda"):
         parser.error("--ensemble is incompatible with --loso-pretrain")
     refuse_unported(args)
     cfg = resolve_config(args, build_overrides(args))
+    if launch_mesh(main, argv, args, device):
+        return None
 
     from ..devices import require_device
     from ..models.api import make_augmented_model, make_fast_model
@@ -269,6 +313,13 @@ def main(argv=None, device="cuda"):
               "(train step only)", flush=True)
 
     device = require_device(device)
+    mesh_axis = mesh_axis_of(args)
+    lead = True
+    if mesh_axis:
+        from ..parallel.mesh import init_world, is_lead
+
+        device = init_world(device)
+        lead = is_lead()
     seed_all(cfg.train.seed)
     os.makedirs(args.output_dir, exist_ok=True)
     t0 = time.perf_counter()
@@ -276,9 +327,11 @@ def main(argv=None, device="cuda"):
     data_s = time.perf_counter() - t0
     common = dict(test_per_subject=test, save_dir=args.output_dir, device=device,
                   checkpoint_dir=os.path.join(args.output_dir, "checkpoints"),
-                  resume=args.resume, checkpoint_every=args.checkpoint_every)
+                  resume=args.resume, checkpoint_every=args.checkpoint_every,
+                  mesh_axis=mesh_axis)
     warm = loso_warm_start(args, cfg, model, X, Y, subjects, device) if args.loso_pretrain else None
-    with (trace(args.profile) if args.profile else contextlib.nullcontext()), \
+    profile = args.profile if lead else None  # one trace, rank 0's
+    with (trace(profile) if profile else contextlib.nullcontext()), \
             annotate("cli.train_fast: fit"):
         if args.ensemble > 1:
             from ..train.ensemble import train_seed_ensemble
@@ -288,6 +341,8 @@ def main(argv=None, device="cuda"):
         else:
             result = train_per_subject_cv(model, cfg.train, X, Y, subjects,
                                           cfg.model.n_classes, warm_start=warm, **common)
+    if result is None or not lead:  # a rank outside a '2d' grid, or not rank 0
+        return result
     result.timings["data_s"] = data_s
     if args.profile:
         print(f"trace of the fit written to {os.path.join(args.profile, TRACE_FILE)} (open it "

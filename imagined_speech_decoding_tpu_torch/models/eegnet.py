@@ -117,7 +117,7 @@ class EEGNet(Stacked):
         h = self.bn3(conv2d(h, self._w("sep_point"), groups=m))
         h = avg_pool(elu(h), (1, 8))
         h = group_dropout(h, m, self.rate, generator, self.training)
-        z = h.reshape(b, m, -1).transpose(0, 1)  # (M, B, 16 * t_out)
+        z = h.flatten(1).unflatten(1, (m, -1)).transpose(0, 1)  # (M, B, 16 * t_out)
         w, bias = self.classifier.stacked("w"), self.classifier.stacked("b")
         return torch.bmm(z, w.to(z.dtype)) + bias[:, None, :].to(z.dtype)
 

@@ -127,7 +127,7 @@ class FAST(Stacked):
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         m, b, n = feat.shape[:3]
         rate = self.cfg.dropout
-        h = gelu(self.input_layer(feat.reshape(m, b, n, -1)))
+        h = gelu(self.input_layer(feat.flatten(3)))
         cls = self.per_model(self.cls_token).to(h.dtype).expand(m, b, 1, h.shape[-1])
         pos = self.per_model(self.pos_embedding)[:, :, : n + 1].to(h.dtype)
         h = torch.cat([cls, h], dim=2) + pos
@@ -139,7 +139,7 @@ class FAST(Stacked):
         """``train_head``'s classifier: every window token through
         ``input_layer`` (GELU) and ``last_layer``, averaged over the tokens."""
         m, b, n = feat.shape[:3]
-        tokens = gelu(self.input_layer(feat.reshape(m, b, n, -1)))
+        tokens = gelu(self.input_layer(feat.flatten(3)))
         return self.last_layer(tokens).mean(2)
 
     def _logits(self, xm: torch.Tensor, mode: str,

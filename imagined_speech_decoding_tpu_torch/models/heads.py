@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.cuda.conv4head import fused_conv4_head
 from ..ops.norm import BNState, StackedBatchNorm, batch_norm
 from ..ops.windowing import sliding_window, zone_gather
+from ..parallel.mesh import group_total
 from .modules import (Leaves, Stacked, adaptive_avg_pool_1, avg_pool, conv2d, elu, gelu,
                       group_dropout, temporal_conv)
 
@@ -324,8 +325,11 @@ class ZoneHead(Stacked):
         checkpointed = train and torch.is_grad_enabled()
         b = xz.shape[0]
         step = groups
+        group = bn.sync_group if train else None
         if isinstance(b, int):
-            per_group = b * f * self.c_max * (xz.shape[-1] + 1)
+            if group is not None:  # the whole batch's chunks, so every rank's collectives pair up
+                b = group_total(b, group, xz.device)
+            per_group = max(b, 1) * f * self.c_max * (xz.shape[-1] + 1)
             step = chunk_groups(self.models, self.z, self.CHUNK_ELEMS // per_group)
         params, state = bn.flat()
         # The forward's copy: the buffers change in place before the
@@ -338,7 +342,7 @@ class ZoneHead(Stacked):
         def block(xc, w1c, scale, bias, mean, var, mask, w2c):
             h = conv2d(xc, w1c, padding=((0, 0), (32, 32)), groups=xc.shape[1])
             y, new = batch_norm(h, {"scale": scale, "bias": bias}, BNState(mean, var),
-                                train=train, mask=mask)
+                                train=train, mask=mask, group=group)
             return conv2d(y, w2c, groups=h.shape[1]), new.mean, new.var
 
         cf = step * f
@@ -376,7 +380,7 @@ class ZoneHead(Stacked):
         m, b = x.shape[:2]
         xz = self.gather(x, window_len, step)
         feat = self.encode(xz, generator)  # (B*N, M*Z, F)
-        n = xz.shape[0] // b
+        n = (x.shape[-1] - window_len) // step + 1
         feat = feat.reshape(b, n, m, self.z, feat.shape[-1])
         return feat.permute(2, 0, 1, 3, 4)
 
@@ -398,7 +402,7 @@ class CVBlockHead(ZoneHead):
         h = conv2d(h, self.w("conv3"), padding=((0, 0), (8, 8)), groups=g)
         h = avg_pool(elu(self.bn3(h)), (1, 2))
         h = group_dropout(h, self.models, self.DROPOUT, generator, self.training)
-        return self.project(h.reshape(h.shape[0], g, -1))
+        return self.project(h.flatten(1).unflatten(1, (g, -1)))
 
 
 class EEGNetEncoderHead(ZoneHead):
@@ -420,7 +424,7 @@ class EEGNetEncoderHead(ZoneHead):
         h = avg_pool(elu(self.bn3(h)), (1, 8))
         h = group_dropout(h, self.models, self.DROPOUT, generator, self.training)
         h = adaptive_avg_pool_1(h)  # (B', G*16)
-        return self.project(h.reshape(h.shape[0], g, -1))
+        return self.project(h.flatten(1).unflatten(1, (g, -1)))
 
 
 def fuse_temporal_spatial(w_t: torch.Tensor, b_t: torch.Tensor, w_s: torch.Tensor,

@@ -55,13 +55,84 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class SharedRowsGenerator(torch.Generator):
-    """A ``torch.Generator`` whose dropout draws groups of model rows share:
-    with ``row_repeats = R`` (set on the instance), ``dropout`` draws the
-    masks of the first ``M / R`` rows of its ``(M, ...)`` input and repeats
-    them R times along the model axis. The sweep trains R configs of the
-    same folds so (``train.engine.make_fit(row_repeats=...)``)."""
+    """A ``torch.Generator`` whose draws over a stack of models are made as
+    the unsharded stack makes them (``draw_rows``).
+
+    ``row_repeats = R``: the draw covers the first ``M / R`` model rows and
+    is repeated R times along the model axis, so row ``r*G + g`` shares row
+    g's masks (the sweep's R configs of the same folds,
+    ``train.engine.make_fit(row_repeats=...)``).
+
+    A shard of the stack (``parallel.mesh``): every draw is made at the
+    unsharded shape, so that the stream stays the unsharded run's, and
+    this rank's part is kept. ``rows = (m_count, start, stop)``: the draw
+    covers the whole stack's ``m_count`` rows (axis 0), padded to the mesh
+    with copies of the last row's draws, and rows ``[start, stop)`` of that
+    are kept. ``set_batch((b_full, start, stop))``, each step: axis 1 holds
+    this rank's trials ``[start, stop)`` of a batch of ``b_full``, each
+    trial ``k`` entries long (``k`` windows in a head's ``(M, B*N, ...)``
+    layout); the draw covers all ``b_full`` and keeps this rank's. A rank
+    with no trials in a step takes each draw's ``k`` from the same draw of
+    an earlier step."""
 
     row_repeats = 1
+
+    def __new__(cls, device=None, rows=None):
+        return super().__new__(cls, device=device)
+
+    def __init__(self, device=None, rows=None):
+        self.rows = rows
+        self.batch = None
+        self._draw = 0
+        self._per_trial = {}
+
+    def set_batch(self, batch) -> None:
+        self.batch, self._draw = batch, 0
+
+    def split(self, shape):
+        """``(unsharded shape, cut)`` of a draw whose local shape is
+        ``shape``; ``cut(t)`` keeps this rank's part of a draw at the
+        unsharded shape."""
+        full = list(shape)
+        keep = []
+        if self.rows is not None:
+            m_count, r0, r1 = self.rows
+            full[0] = m_count
+            idx = torch.arange(r0, r1).clamp_max(m_count - 1)
+            keep.append(lambda t: t[idx.to(t.device)])
+        if self.batch is not None:
+            b_full, c0, c1 = self.batch
+            i, self._draw = self._draw, self._draw + 1
+            if c1 > c0:
+                self._per_trial[i] = shape[1] // (c1 - c0)
+            elif i not in self._per_trial:
+                raise RuntimeError("a rank with no trials in its first step cannot size the "
+                                   "unsharded draw; give every rank a trial of the first batch")
+            k = self._per_trial[i]
+            full[1] = k * b_full
+            keep.append(lambda t: t[:, k * c0:k * c1])
+
+        def cut(t):
+            for f in keep:
+                t = f(t)
+            return t
+
+        return tuple(full), cut
+
+
+def draw_rows(generator: torch.Generator, shape, sample):
+    """``sample(shape)``, a draw from ``generator``, made as the unsharded
+    stack makes it (``SharedRowsGenerator``; a plain generator draws
+    ``shape``)."""
+    shape = tuple(shape)
+    cut = None
+    if isinstance(generator, SharedRowsGenerator):
+        shape, cut = generator.split(shape)
+    repeats = getattr(generator, "row_repeats", 1)
+    t = sample(shape if repeats == 1 else (shape[0] // repeats,) + shape[1:])
+    if repeats > 1:
+        t = t.repeat(repeats, *([1] * (t.dim() - 1)))
+    return t if cut is None else cut(t)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -70,19 +141,14 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     rate 0; else keep with probability ``1 - rate`` and scale by
     ``1 / (1 - rate)``. ``generator`` lives on ``x``'s device; training
     with dropout and no generator raises, as the JAX model needs an rng.
-    ``x``'s first axis is the model axis; a ``SharedRowsGenerator`` repeats
-    its rows' masks."""
+    ``x``'s first axis is the model axis; the masks are drawn by
+    ``draw_rows``."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError(f"dropout at rate {rate} in training mode needs a torch.Generator")
-    repeats = getattr(generator, "row_repeats", 1)
-    if repeats == 1:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    else:
-        shape = (x.shape[0] // repeats,) + tuple(x.shape[1:])
-        keep = (torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate).repeat(
-            repeats, *([1] * (x.dim() - 1)))
+    keep = draw_rows(generator, x.shape, lambda s: torch.rand(
+        s, generator=generator, device=x.device) < 1.0 - rate)
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -90,12 +156,11 @@ def group_dropout(x: torch.Tensor, n_models: int, rate: float,
                   generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
     """``dropout`` of a batch-first ``x (B, M*..., ...)`` whose axis 1 leads
     with the model axis: the masks are drawn model-first, so a
-    ``SharedRowsGenerator`` repeats them by model row. Off without a
+    ``SharedRowsGenerator`` repeats or cuts them by model row. Off without a
     generator, as the JAX heads' dropout is off with ``rng=None``."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    b = x.shape[0]
-    rows = x.reshape(b, n_models, -1).transpose(0, 1)  # (M, B, rest)
+    rows = x.flatten(1).unflatten(1, (n_models, -1)).transpose(0, 1)  # (M, B, rest)
     return dropout(rows, rate, generator, True).transpose(0, 1).reshape(x.shape)
 
 

@@ -175,9 +175,10 @@ class CNNBiLSTM(Stacked):
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     def _forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        m, b = x.shape[:2]
+        m = x.shape[0]
         h = avg_pool(elu(self.bn(self.frontend(x))), (1, POOL))  # (B, M*F, 1, T/8)
-        seq = h.reshape(b, m, self.conv_dim, -1).permute(1, 0, 3, 2)  # (M, B, T/8, F)
+        # (M, B, T/8, F)
+        seq = h.flatten(1).unflatten(1, (m, self.conv_dim, -1)).permute(1, 0, 3, 2)
         params = {d: {k: getattr(self.rnn, d).stacked(k) for k in ("wi", "wh", "bi", "bh")}
                   for d in ("fwd", "bwd")}
         _, final = bilstm(params, seq, outputs=False)

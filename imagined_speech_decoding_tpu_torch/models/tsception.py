@@ -134,7 +134,8 @@ class TSception(Stacked):
         s1 = avg_pool(leaky_relu(self._conv("s1", y), 0.01, inplace=True), (1, 4))
         s2 = avg_pool(leaky_relu(self._conv("s2", y, stride=(half, 1)), 0.01, inplace=True), (1, 4))
         ys = self.bn_s(torch.cat([s1, s2], dim=2))  # (B, M*num_s, 3, T/16)
-        z = adaptive_avg_pool_w(ys, 8).reshape(b, m, -1).transpose(0, 1)  # (M, B, 360)
+        z = adaptive_avg_pool_w(ys, 8).flatten(1).unflatten(1, (m, -1))  # (B, M, 360)
+        z = z.transpose(0, 1)
         z = torch.relu(self._linear("fc1", z))
         z = dropout(z, self.rate, generator, self.training) if generator is not None else z
         return self._linear("fc2", z)

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from ..models.modules import draw_rows
+
 
 def gaussian_noise(x: torch.Tensor, noise: torch.Tensor, sigma: float = 0.1) -> torch.Tensor:
     """``x + sigma * std * noise``, ``std`` each trial's (biased) standard
@@ -35,29 +37,19 @@ def augment_with_draws(x: torch.Tensor, noise: torch.Tensor, keep: torch.Tensor,
     return channel_dropout(gaussian_noise(x, noise, noise_sigma), keep)
 
 
-def _rows(shape, generator: torch.Generator):
-    """``(shape drawn, repeats)``: a ``SharedRowsGenerator`` draws the first
-    ``M / R`` rows of the leading model axis and repeats them."""
-    repeats = getattr(generator, "row_repeats", 1)
-    if repeats == 1:
-        return tuple(shape), 1
-    return (shape[0] // repeats,) + tuple(shape[1:]), repeats
-
-
 def augment_batch(x: torch.Tensor, noise_sigma: float = 0.1, ch_drop: float = 0.1,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``augment_with_draws`` on standard-normal noise and Bernoulli(1 -
-    ``ch_drop``) channel keeps drawn from ``generator``, in that order.
-    ``x (M, B, C, T)``, model axis first."""
+    ``ch_drop``) channel keeps drawn from ``generator``, in that order
+    (``models.modules.draw_rows``: shared or sharded rows as the
+    generator says). ``x (M, B, C, T)``, model axis first."""
     if generator is None:
         raise ValueError("augment_batch needs a torch.Generator")
     if x.dim() != 4:
         raise ValueError(f"augment_batch takes raw trials (M, B, C, T), got {tuple(x.shape)}: "
                          "noise and channel dropout have no meaning on features")
-    shape, reps = _rows(x.shape, generator)
-    noise = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
-    keep = torch.rand(shape[:-1], generator=generator, device=x.device) < 1.0 - ch_drop
-    if reps > 1:
-        noise = noise.repeat(reps, *([1] * (x.dim() - 1)))
-        keep = keep.repeat(reps, *([1] * (x.dim() - 2)))
+    noise = draw_rows(generator, x.shape, lambda s: torch.randn(
+        s, generator=generator, device=x.device, dtype=x.dtype))
+    keep = draw_rows(generator, x.shape[:-1], lambda s: torch.rand(
+        s, generator=generator, device=x.device) < 1.0 - ch_drop)
     return augment_with_draws(x, noise, keep, noise_sigma)

@@ -126,7 +126,7 @@ def fused_conv4_head_plain(x, w12, b12, w3, w4, window_len: int, step: int):
     if x.dtype == torch.bfloat16:
         return _PlainBf16Head.apply(x, w12, b12, w3, w4, window_len, step)
     m, b, _, _, z, o, _, _, n = _geometry(x, w12, w3, window_len, step)
-    h = _conv1_windows(x, w12, window_len, step).view(m, b, n, z, o, -1)
+    h = _conv1_windows(x, w12, window_len, step).unflatten(3, (z, o))
     h = h + b12.view(m, 1, 1, z, o, 1)
     for w in (w3, w4):
         h = _same_conv(h, w)
@@ -171,7 +171,7 @@ def _bf16_forward(x, w12, b12, w3, w4, window_len: int, step: int):
     h1 = bf16(w12 . p + b12), h2 = bf16(w3 . pad(h1)), h3 = w4 . pad(h2) in f32."""
     m, b, _, _, z, o, _, _, n = _geometry(x, w12, w3, window_len, step)
     h = _conv1_windows(x.float(), _bf16(w12), window_len, step)
-    h1 = _bf16(h.view(m, b, n, z, o, -1) + b12.view(m, 1, 1, z, o, 1))
+    h1 = _bf16(h.unflatten(3, (z, o)) + b12.view(m, 1, 1, z, o, 1))
     h2 = _bf16(_same_conv(h1, _bf16(w3)))
     return h1, h2, _same_conv(h2, _bf16(w4))
 
@@ -380,6 +380,13 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     whose f32 route does not fit either) raises, as ``launch`` does for what
     its kernel refuses."""
     m, b, c, t, z, o, k1, k2, n = _geometry(x, w12, w3, window_len, step)
+    if b == 0:  # a rank's empty share of a batch (parallel.mesh): nothing to launch
+        if op == "fwd":
+            return x.new_zeros((m, 0, n, z * o), dtype=torch.float32), False
+        if op == "bwd_w":
+            return tuple(torch.zeros_like(w, dtype=torch.float32)
+                         for w in (w12, b12, w3, w4)), False
+        return torch.zeros_like(x), False
     if k1 != KERNEL_TAPS or k2 != KERNEL_TAPS:
         raise ValueError(f"the head kernels are built for K1 = K2 = {KERNEL_TAPS}, "
                          f"got K1={k1}, K2={k2}")

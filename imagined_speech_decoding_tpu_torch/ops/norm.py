@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..models.modules import Stacked
+from ..parallel.mesh import all_reduce_sum
 
 
 class BNState(NamedTuple):
@@ -52,32 +53,66 @@ def _scalar(v: float, like: torch.Tensor) -> float:
     return float(torch.tensor(v, dtype=like.dtype))
 
 
-def _batch_stats(x: torch.Tensor, mask: Optional[torch.Tensor], axes: Sequence[int]):
+def _batch_stats(x: torch.Tensor, mask: Optional[torch.Tensor], axes: Sequence[int],
+                 group=None):
     """``(mean, var, n)`` over ``axes`` in x's dtype (``n`` a float for no
-    mask, else a tensor of x's dtype), each rounding where JAX rounds."""
+    mask, else a tensor of x's dtype), each rounding where JAX rounds.
+
+    ``group``: a process group over which x's batch (axis 0) is split
+    (``parallel.mesh``'s data axis). The f32 sums and counts are then summed
+    over it inside autograd (``all_reduce_sum``: the gradient flows through
+    the other ranks' rows too) before the same roundings, which gives the
+    statistics of the whole batch, and the gradients through them, as JAX's
+    GSPMD program computes them (counts below 2**24 stay exact in f32);
+    ``n`` is then an f64 tensor for no mask."""
     xd = x.dtype
     if mask is None:
+        m, xm = None, x
         n = 1.0
         for i in axes:
             n *= x.shape[i]
-        mean = (x.sum(dim=axes, dtype=torch.float32) / n).to(xd)
+    else:
+        m, n = _mask_count(x, mask, axes)
+        xm = x * m
+    s1 = xm.sum(dim=axes, dtype=torch.float32)
+    if group is not None:  # the whole batch's sum and count, in one collective
+        count = n.expand(s1.shape) if m is not None else torch.full_like(s1, n)
+        s1, count = all_reduce_sum(torch.cat([s1.reshape(-1), count.reshape(-1)]),
+                                   group).split(s1.numel())
+        s1, n = s1.view(_keep_shape(x, axes)), count.detach().view(_keep_shape(x, axes))
+
+    def total(t):
+        return t if group is None else all_reduce_sum(t, group)
+
+    if m is None:
+        mean = (s1 / n).to(xd)
         d = x - mean.reshape(_keep(x, axes))
-        var = ((d * d).sum(dim=axes, dtype=torch.float32) / n).to(xd)
-        return mean, var, n
-    m = mask.to(xd)
+        var = (total((d * d).sum(dim=axes, dtype=torch.float32)) / n).to(xd)
+        return mean, var, (n if group is None else n.double())
+    n = n.to(xd)
+    n1 = n.clamp_min(1.0)
+    mean = s1.to(xd) / n1
+    d = x - mean.reshape(_keep(x, axes))
+    var = total((m * (d * d)).sum(dim=axes, dtype=torch.float32)).to(xd) / n1
+    return mean, var, n
+
+
+def _mask_count(x: torch.Tensor, mask: torch.Tensor, axes: Sequence[int]):
+    """``(mask in x's dtype, broadcast to x's rank; its f32 count over axes)``.
+    The count is exact (an integer sum); JAX sums the broadcast mask in f32
+    and rounds it to x's dtype, as the callers do."""
+    m = mask.to(x.dtype)
     m = m.reshape((1,) * (x.dim() - m.dim()) + tuple(m.shape))
-    # The count is exact (an integer sum); JAX sums the broadcast mask in
-    # f32 and rounds to x's dtype, as does this.
     reps = 1
     for i in axes:
         if m.shape[i] == 1:
             reps *= x.shape[i]
-    n = (m.double().sum(dim=axes) * reps).to(torch.float32).to(xd)
-    n1 = n.clamp_min(1.0)
-    mean = (x * m).sum(dim=axes, dtype=torch.float32).to(xd) / n1
-    d = x - mean.reshape(_keep(x, axes))
-    var = (m * (d * d)).sum(dim=axes, dtype=torch.float32).to(xd) / n1
-    return mean, var, n
+    return m, (m.double().sum(dim=axes) * reps).to(torch.float32)
+
+
+def _keep_shape(x: torch.Tensor, axes: Sequence[int]) -> Tuple[int, ...]:
+    """The shape of a sum of x over ``axes``."""
+    return tuple(x.shape[i] for i in range(x.dim()) if i not in axes)
 
 
 def _keep(x: torch.Tensor, axes: Sequence[int]) -> Tuple[int, ...]:
@@ -94,12 +129,15 @@ def batch_norm(
     feature_axis: int = 1,
     momentum: float = 0.1,
     eps: float = 1e-5,
+    group=None,
 ) -> Tuple[torch.Tensor, BNState]:
     """Batch normalization over all axes except ``feature_axis``
     (``ops.norm.batch_norm``). ``mask`` broadcasts against ``x``; entries
     where it is 0 are left out of the statistics (their outputs are still
-    normalized: callers re-mask if they need to). Returns ``(y, new
-    state)``; ``y`` has the promoted dtype of x and the parameters."""
+    normalized: callers re-mask if they need to). ``group``: the process
+    group x's batch is split over, in training (``_batch_stats``). Returns
+    ``(y, new state)``; ``y`` has the promoted dtype of x and the
+    parameters."""
     feature_axis %= x.dim()
     shape = [1] * x.dim()
     shape[feature_axis] = x.shape[feature_axis]
@@ -107,9 +145,11 @@ def batch_norm(
     bias = params["bias"].reshape(shape)
     axes = tuple(i for i in range(x.dim()) if i != feature_axis)
     if train:
-        mean, var, n = _batch_stats(x, mask, axes)
+        mean, var, n = _batch_stats(x, mask, axes, group)
         if isinstance(n, float):
             factor = _scalar(n / max(n - 1.0, 1.0), var)
+        elif n.dtype == torch.float64:  # a float count summed over a group: as above
+            factor = (n / (n - 1.0).clamp_min(1.0)).to(var.dtype)
         else:
             factor = n / (n - 1.0).clamp_min(1.0)
         unbiased = var * factor
@@ -151,10 +191,14 @@ class StackedBatchNorm(Stacked):
     of a grouped convolution over the stacked models and zones), and
     normalises per channel over axes 0, 2 and 3. In training mode it
     uses the batch statistics and writes the new running statistics into
-    the buffers in place; in eval mode it uses the buffers."""
+    the buffers in place; in eval mode it uses the buffers. ``sync_group``
+    (None, or the process group the batch is split over: set by
+    ``train.engine.make_fit`` under a data axis) sums the statistics over
+    it."""
 
     def __init__(self, *features: int, n_models: Optional[int] = None, device=None):
         super().__init__(n_models)
+        self.sync_group = None
         self.scale = self._param(*features, fill=1.0, device=device)
         self.bias = self._param(*features, device=device)
         lead = () if n_models is None else (n_models,)
@@ -174,7 +218,8 @@ class StackedBatchNorm(Stacked):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         params, state = self.flat()
-        y, new = batch_norm(x, params, state, train=self.training, mask=mask)
+        y, new = batch_norm(x, params, state, train=self.training, mask=mask,
+                            group=self.sync_group)
         if self.training:
             self.update(new)
         return y

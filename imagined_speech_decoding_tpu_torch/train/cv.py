@@ -20,7 +20,11 @@ one, as the JAX function runs.
 (``_train_grouped``), each group's stack starting from the weights the
 ungrouped run would give its models.
 
-Not ported (ROADMAP.md): the device mesh strategies and the plots.
+``mesh_axis`` runs the stack on the run's ranks (``parallel.mesh``):
+'model' splits the stack over them, 'data' every model's batch, '2d'
+both; each gives the unsharded result. Rank 0 alone writes the result
+tree and prints. Not drawn: the JAX function's learning curves and
+accuracy bar.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from ..config import TrainConfig
 from ..devices import require_device
 from ..models.api import ModelDef, make_fast_model
+from ..parallel.mesh import StackShard, fail_together, is_lead, mesh_strategy
 from . import artifacts
 from .checkpoint import save_model_npz, select_model
 from .engine import FitResult, fit_segmented, make_fit, predict
@@ -152,6 +157,7 @@ def train_per_subject_cv(
     checkpoint_every: int = 1,
     model_seed: Optional[int] = None,
     subject_group_size: Optional[int] = None,
+    mesh_axis: Optional[str] = None,
     _key_block: Optional[Tuple[int, int]] = None,
 ) -> CVRunResult:
     """Train S*K models at once, select the best fold per subject,
@@ -175,14 +181,29 @@ def train_per_subject_cv(
     whole stack. A group's models start from the weights of the same
     models of the ungrouped run (``_key_block = (offset, total)``); its
     permutations, dropout and augmentation come from its own generators,
-    seeded ``model_seed + 1 + offset``."""
+    seeded ``model_seed + 1 + offset``.
+
+    ``mesh_axis`` ('model', 'data' or '2d'; JAX's mesh strategies): the
+    stack trains on the ranks of the run (``parallel.mesh.init_world``:
+    ``torchrun``'s, or this process alone), every rank calling this with
+    the same arguments; the fit's result is the whole stack's on every
+    rank, and only rank 0 writes files and prints. A rank that an odd
+    count leaves out of a '2d' grid trains nothing and returns None."""
     device = require_device(device)
+    mesh = stack_axis = data_axis = None
+    if mesh_axis:
+        mesh, stack_axis, data_axis = mesh_strategy(mesh_axis, device)
+        if not mesh.member:
+            return None
+        device = mesh.device
+        if not is_lead():
+            save_dir, verbose = None, False
     s_count = X.shape[0]
     if subject_group_size and s_count > subject_group_size:
         return _train_grouped(
             model, tc, X, Y, subjects, n_classes, test_per_subject, save_dir, warm_start,
             epochs_per_segment, device, verbose, checkpoint_dir, resume, checkpoint_every,
-            model_seed, subject_group_size)
+            model_seed, subject_group_size, mesh_axis)
     mdef = model if isinstance(model, ModelDef) else make_fast_model(model)
     if device.type == "cuda":
         # The JAX trunk accumulates bf16 products in f32; cuBLAS may reduce
@@ -208,7 +229,11 @@ def train_per_subject_cv(
         params0, state0 = warm_start, None
     else:
         params0, state0 = mdef.init(m_seed, m_count, total=key_total, offset=key_off)
-    stack = mdef.build(m_count, device)
+    shard = None
+    if mesh is not None:
+        shard = StackShard(mesh, m_count, stack_axis, data_axis)
+        params0, state0 = shard.rows_of((params0, state0))
+    stack = mdef.build(m_count if shard is None else shard.m_local, device)
     mdef.load(stack, params0, state0)
 
     # Segments hold whole blocks of val_every epochs (make_fit requires
@@ -223,7 +248,7 @@ def train_per_subject_cv(
         n_val=val_idx.shape[1], learning_rate=tc.learning_rate, warmup_epochs=tc.warmup_epochs,
         final_scale=tc.final_lr_scale, weight_decay=tc.weight_decay,
         val_every=val_every, total_epochs=tc.max_epochs,
-        augment=mdef.augment, compute_dtype=tc.compute_dtype,
+        augment=mdef.augment, compute_dtype=tc.compute_dtype, shard=shard,
     )
 
     def progress(done, val_acc):
@@ -242,66 +267,71 @@ def train_per_subject_cv(
               f"{len(writes)} written in " + ", ".join(f"{w:.2f}" for w in writes) + " s",
               flush=True)
 
-    t_art0 = time.perf_counter()
-    best_val = res.best_val_acc
-    best_tree, best_state = mdef.dump({**res.best_params, **res.best_model_state})
-    single = mdef.build(None, device)
-    summary, global_pred, global_true = [], [], []
-    best_fold_per_subject: Dict[str, int] = {}
-    for si, sid in enumerate(subjects):
-        fold_ms = [si * k + ki for ki in range(k)]
-        fold_accs = best_val[fold_ms]
-        best_k = int(np.argmax(fold_accs))  # ties -> lowest fold
-        best_m = fold_ms[best_k]
-        best_fold_per_subject[sid] = best_k
-        sub_dir = os.path.join(save_dir, f"sub-{sid}") if save_dir else None
-        if sub_dir:
-            for ki, mi in enumerate(fold_ms):
-                h = {name: res.history[name][mi] for name in ("loss", "acc", "val_loss", "val_acc")}
-                artifacts.save_history_csv(os.path.join(sub_dir, f"fold-{ki}_history.csv"), h)
-            artifacts.write_csv(os.path.join(sub_dir, "fold_metrics.csv"),
-                                ["Fold", "Best_Val_Acc"], list(enumerate(fold_accs)))
-
-        best_params = select_model(best_tree, best_m)
-        best_mstate = select_model(best_state, best_m)
-        if sub_dir:
-            # params + mutable state (BN running statistics), as a torch
-            # state_dict carries its buffers with the weights
-            save_model_npz(os.path.join(sub_dir, "best_subject.npz"), best_params, best_mstate)
-
-        test_acc, test_f1 = np.nan, np.nan
-        if test_per_subject and sid in test_per_subject:
-            x_test, y_test = test_per_subject[sid]
-            mdef.load(single, best_params, best_mstate)
-            y_pred = predict(single, torch.as_tensor(x_test, dtype=tc.compute_dtype, device=device),
-                             tc.batch_size)
-            y_true = y_test.astype(int)
-            cm = confusion_matrix(torch.as_tensor(y_pred), torch.as_tensor(y_true), n_classes)
-            test_acc = float(np.trace(cm.numpy()) / max(len(y_true), 1))
-            test_f1 = float(f1_from_confusion(cm))
-            global_pred.append(y_pred)
-            global_true.append(y_true)
+    # rank 0 writes the tree: every rank leaves together, failed or not
+    with fail_together(mesh):
+        t_art0 = time.perf_counter()
+        best_val = res.best_val_acc
+        best_tree, best_state = mdef.dump({**res.best_params, **res.best_model_state})
+        single = mdef.build(None, device)
+        summary, global_pred, global_true = [], [], []
+        best_fold_per_subject: Dict[str, int] = {}
+        for si, sid in enumerate(subjects):
+            fold_ms = [si * k + ki for ki in range(k)]
+            fold_accs = best_val[fold_ms]
+            best_k = int(np.argmax(fold_accs))  # ties -> lowest fold
+            best_m = fold_ms[best_k]
+            best_fold_per_subject[sid] = best_k
+            sub_dir = os.path.join(save_dir, f"sub-{sid}") if save_dir else None
             if sub_dir:
-                artifacts.save_predictions_csv(os.path.join(sub_dir, "test_predictions.csv"),
-                                               y_pred, y_true)
-        if verbose:
-            print(f"Subject {sid}: best fold {best_k + 1} val_acc={fold_accs[best_k]:.4f}"
-                  + (f" | test acc={test_acc:.4f} f1={test_f1:.4f}"
-                     if not np.isnan(test_acc) else ""), flush=True)
-        summary.append(dict(zip(SUMMARY_COLUMNS,
-                                (sid, float(fold_accs[best_k]), test_acc, test_f1))))
+                for ki, mi in enumerate(fold_ms):
+                    h = {name: res.history[name][mi]
+                         for name in ("loss", "acc", "val_loss", "val_acc")}
+                    artifacts.save_history_csv(os.path.join(sub_dir, f"fold-{ki}_history.csv"), h)
+                artifacts.write_csv(os.path.join(sub_dir, "fold_metrics.csv"),
+                                    ["Fold", "Best_Val_Acc"], list(enumerate(fold_accs)))
 
-    t_art = time.perf_counter() - t_art0
-    if verbose:
-        print(f"  phases: fit {t_fit:.1f}s | per-subject artifacts+eval {t_art:.1f}s", flush=True)
-    if save_dir:
-        artifacts.write_csv(os.path.join(save_dir, "summary_per_subject.csv"), SUMMARY_COLUMNS,
-                            [[row[c] for c in SUMMARY_COLUMNS] for row in summary])
-        if global_pred:
-            artifacts.save_predictions_csv(
-                os.path.join(save_dir, "global_test_predictions.csv"),
-                np.concatenate(global_pred), np.concatenate(global_true),
-            )
+            best_params = select_model(best_tree, best_m)
+            best_mstate = select_model(best_state, best_m)
+            if sub_dir:
+                # params + mutable state (BN running statistics), as a torch
+                # state_dict carries its buffers with the weights
+                save_model_npz(os.path.join(sub_dir, "best_subject.npz"), best_params, best_mstate)
+
+            test_acc, test_f1 = np.nan, np.nan
+            if test_per_subject and sid in test_per_subject:
+                x_test, y_test = test_per_subject[sid]
+                mdef.load(single, best_params, best_mstate)
+                y_pred = predict(
+                    single, torch.as_tensor(x_test, dtype=tc.compute_dtype, device=device),
+                    tc.batch_size)
+                y_true = y_test.astype(int)
+                cm = confusion_matrix(torch.as_tensor(y_pred), torch.as_tensor(y_true), n_classes)
+                test_acc = float(np.trace(cm.numpy()) / max(len(y_true), 1))
+                test_f1 = float(f1_from_confusion(cm))
+                global_pred.append(y_pred)
+                global_true.append(y_true)
+                if sub_dir:
+                    artifacts.save_predictions_csv(os.path.join(sub_dir, "test_predictions.csv"),
+                                                   y_pred, y_true)
+            if verbose:
+                print(f"Subject {sid}: best fold {best_k + 1} val_acc={fold_accs[best_k]:.4f}"
+                      + (f" | test acc={test_acc:.4f} f1={test_f1:.4f}"
+                         if not np.isnan(test_acc) else ""), flush=True)
+            summary.append(dict(zip(SUMMARY_COLUMNS,
+                                    (sid, float(fold_accs[best_k]), test_acc, test_f1))))
+
+        t_art = time.perf_counter() - t_art0
+        if verbose:
+            print(f"  phases: fit {t_fit:.1f}s | per-subject artifacts+eval {t_art:.1f}s",
+                  flush=True)
+        if save_dir:
+            artifacts.write_csv(os.path.join(save_dir, "summary_per_subject.csv"), SUMMARY_COLUMNS,
+                                [[row[c] for c in SUMMARY_COLUMNS] for row in summary])
+            if global_pred:
+                artifacts.save_predictions_csv(
+                    os.path.join(save_dir, "global_test_predictions.csv"),
+                    np.concatenate(global_pred), np.concatenate(global_true),
+                )
     return CVRunResult(summary=summary, fit=res, meta=meta,
                        best_fold_per_subject=best_fold_per_subject,
                        timings={"fit_s": t_fit, "artifacts_s": t_art, **res.timings})
@@ -309,7 +339,7 @@ def train_per_subject_cv(
 
 def _train_grouped(model, tc, X, Y, subjects, n_classes, test_per_subject, save_dir,
                    warm_start, epochs_per_segment, device, verbose, checkpoint_dir, resume,
-                   checkpoint_every, model_seed, group: int) -> CVRunResult:
+                   checkpoint_every, model_seed, group: int, mesh_axis=None) -> CVRunResult:
     """Sequential subject groups for ``train_per_subject_cv`` (JAX
     ``_train_grouped``): each group runs the stacked engine over its own
     S_g*K models, with the key block (model offset, total) of its models
@@ -333,8 +363,10 @@ def _train_grouped(model, tc, X, Y, subjects, n_classes, test_per_subject, save_
             checkpoint_dir=(os.path.join(checkpoint_dir, f"group-{g0 // group}")
                             if checkpoint_dir else None),
             resume=resume, checkpoint_every=checkpoint_every, model_seed=model_seed,
-            _key_block=(g0 * k, s_total * k),
+            mesh_axis=mesh_axis, _key_block=(g0 * k, s_total * k),
         )
+        if res is None:  # a rank outside the mesh
+            return None
         summaries.extend(res.summary)
         fits.append(res.fit)
         best_folds.update(res.best_fold_per_subject)

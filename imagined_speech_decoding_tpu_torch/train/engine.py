@@ -44,6 +44,24 @@ Neither reproduces the JAX package's ``jax.random`` streams. With
 G rows and repeats them R times, so that row ``r*G + g`` sees row g's
 batches and dropout masks (the sweep's configs share each fold's
 stream, as the JAX sweep gives them the same keys).
+
+A stack on several ranks (``make_fit(shard=...)``, a
+``parallel.mesh.StackShard``): the module is this rank's rows of the stack
+and the fit is given the whole stack's index rows, hyperparameters and
+carry, of which it keeps its rows. Every draw is made at the unsharded
+shape and cut to this rank's part (the epoch permutations of the whole
+stack; dropout and augmentation through a ``SharedRowsGenerator``), so the
+run is the unsharded one. Under a data axis each model's batch is split
+over the ranks (evenly: a short batch leaves ranks empty, which run the
+step on no trials and join every collective); each rank differentiates
+its local NLL sum over the whole batch's row count, the gradients are
+summed in one flat all-reduce before the optimizer step (AdamW and
+``RowAdamW`` then move every rank the same way), the batch-norm
+statistics are summed across the ranks (``ops.norm``), and the train and
+validation sums are all-reduced before any metric is read, so the best
+snapshot and the early-stop flags agree on every rank. ``result``,
+``FitCarry.arrays`` and the progress callback see the whole stack,
+gathered from the ranks' rows.
 """
 
 from __future__ import annotations
@@ -53,11 +71,14 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.arrays import epoch_permutations, num_batches
 from ..models.modules import SharedRowsGenerator
 from ..ops.augment import augment_batch
-from .metrics import confusion_matrix, cross_entropy, f1_from_confusion
+from ..ops.norm import StackedBatchNorm
+from ..parallel.mesh import all_reduce_flat_, any_rank, is_lead
+from .metrics import confusion_matrix, f1_from_confusion
 from .schedule import lr_at, warmup_cosine_lr
 
 HISTORY_KEYS = ("loss", "acc", "f1", "val_loss", "val_acc", "val_f1")
@@ -153,15 +174,24 @@ class RowAdamW(torch.optim.Optimizer):
             torch._foreach_sub_(params, upd)
 
 
+def _nll_sum(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Each model's NLL summed over its trials, ``(M,)`` (0 for none)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, y.long().unsqueeze(-1)).squeeze(-1).sum(-1)
+
+
 def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor, lr,
                n_classes: int, generator: Optional[torch.Generator] = None,
-               augment=None, compute_dtype=None):
+               augment=None, compute_dtype=None, data=None):
     """One optimizer step of every model on its batch ``x (M, b, C, T)``,
     ``y (M, b)``, at learning rate ``lr`` (a float; a ``(M,)`` tensor for
     ``RowAdamW``). ``augment``: ``(noise_sigma, ch_drop)`` applied to x
     first, from ``generator``; ``compute_dtype``: x's dtype for the model.
+    ``data``: ``(group, b_full)`` when x is this rank's share of batches of
+    ``b_full`` trials split over ``group`` (see the module docstring).
     Returns ``(loss * b (M,), confusion (M, K, K))``, the sums the epoch
-    metrics are made of."""
+    metrics are made of (over the whole batch under ``data``)."""
+    data_group, b_full = data if data is not None else (None, y.shape[-1])
     for group in opt.param_groups:
         group["lr"] = lr
     if augment is not None:
@@ -169,9 +199,11 @@ def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tens
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     logits = model(x, generator=generator)
-    loss = cross_entropy(logits, y)
     opt.zero_grad(set_to_none=True)
-    loss.sum().backward()  # models are independent: each gets its own loss's gradient
+    nll = _nll_sum(logits, y)
+    # each model's mean loss over the whole batch; the models are
+    # independent, so each gets its own loss's gradient
+    (nll.sum() / b_full).backward()
     # optax's adamw decays every parameter, one the loss does not reach too
     # (the train_head and train_transformer modes leave whole subtrees
     # out); torch's AdamW and RowAdamW skip a parameter whose .grad is None,
@@ -181,9 +213,21 @@ def train_step(model, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tens
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    if data_group is not None:
+        all_reduce_flat_([p.grad for g in opt.param_groups for p in g["params"]], data_group)
     opt.step()
-    logits = logits.detach()
-    return loss.detach() * y.shape[-1], confusion_matrix(logits, y, n_classes)
+    return _sum_metrics(nll.detach(), confusion_matrix(logits.detach(), y, n_classes),
+                        data_group)
+
+
+def _sum_metrics(loss_sum: torch.Tensor, cm: torch.Tensor, group):
+    """``(loss_sum, cm)`` summed over ``group`` in one collective (as they
+    are for none)."""
+    if group is None:
+        return loss_sum, cm
+    flat = torch.cat([loss_sum, cm.reshape(-1)])
+    dist.all_reduce(flat, group=group)
+    return flat[: loss_sum.numel()], flat[loss_sum.numel():].view_as(cm)
 
 
 def _epoch_metrics(loss_sum: torch.Tensor, cm: torch.Tensor):
@@ -193,26 +237,32 @@ def _epoch_metrics(loss_sum: torch.Tensor, cm: torch.Tensor):
 
 
 def evaluate(model, X: torch.Tensor, Y: torch.Tensor, idx: torch.Tensor, batch_size: int,
-             n_classes: int, compute_dtype=None):
+             n_classes: int, compute_dtype=None, shard=None):
     """``(loss, acc, f1)``, each ``(M,)``, of every model on its trials
     ``idx (M, n)`` in sequential batches of ``batch_size``, in eval mode
     (the running statistics); ``compute_dtype``: the batches' dtype for
-    the model (default X's)."""
+    the model (default X's). ``shard``: a ``StackShard`` whose data axis
+    splits each batch; the sums are then all-reduced over it."""
     was_training = model.training
     model.eval()
     m = idx.shape[0]
+    split = shard is not None and shard.split_batch
+    group = shard.data_group if split else None
     loss_sum = torch.zeros(m, device=X.device)
     cm = torch.zeros((m, n_classes, n_classes), device=X.device)
     with torch.no_grad():
         for s in range(0, idx.shape[1], batch_size):
             bidx = idx[:, s : s + batch_size]
+            if split:
+                c0, c1 = shard.batch_cols(bidx.shape[1])
+                bidx = bidx[:, c0:c1]
             y = Y[bidx]
             xb = X[bidx]
             logits = model(xb if compute_dtype is None else xb.to(compute_dtype))
-            loss_sum += cross_entropy(logits, y) * bidx.shape[1]
+            loss_sum += _nll_sum(logits, y)
             cm += confusion_matrix(logits, y, n_classes)
     model.train(was_training)
-    return _epoch_metrics(loss_sum, cm)
+    return _epoch_metrics(*_sum_metrics(loss_sum, cm, group))
 
 
 def predict(model, x: torch.Tensor, batch_size: int = 64) -> np.ndarray:
@@ -262,11 +312,15 @@ class FitCarry:
     (``stopped``), the epoch and step counters, the finished segments'
     history rows, and the permutation (CPU) and dropout (the device's)
     generators. ``arrays`` and ``load_arrays`` move it to and
-    from numpy for a segment checkpoint."""
+    from numpy for a segment checkpoint. ``shard``: the fit's
+    ``StackShard``; the carry then holds this rank's rows, and ``arrays``,
+    ``template``, ``load_arrays`` and ``full_histories`` the whole
+    stack's."""
 
     def __init__(self, params, opt, tidx, vidx, perm_gen, drop_gen, best, best_acc, best_ep,
-                 buffers=None):
+                 buffers=None, shard=None):
         self.params, self.opt = params, opt
+        self.shard = shard
         self.buffers = buffers or {}
         self.best_buffers = {k: b.detach().clone() for k, b in self.buffers.items()}
         self.tidx, self.vidx = tidx, vidx
@@ -279,21 +333,32 @@ class FitCarry:
         self.histories = []  # one dict of (M, epochs) numpy arrays a finished run() call
         self.timings = {"train_s": [], "val_s": []}  # this process's epochs
 
+    def full(self, t):
+        """The whole stack's rows of ``t`` (this rank's rows), gathered
+        over the shard's stack axis; ``t`` itself without one."""
+        return t if self.shard is None else self.shard.gather(t)
+
+    def full_histories(self) -> list:
+        """The finished ``run`` calls' history rows, of the whole stack."""
+        return [{k: self.full(v) for k, v in h.items()} for h in self.histories]
+
     def arrays(self) -> dict:
         """The carry as a tree of numpy arrays, copied to the host now: a
         private copy, which later steps do not change (``.cpu()`` of a CPU
-        tensor, AdamW's ``step`` among them, would share its memory)."""
+        tensor, AdamW's ``step`` among them, would share its memory). Of
+        the whole stack: every rank of a shard must call it."""
         opt_state = [self.opt.state[p] for p in self.params.values()]
         if not all(opt_state):
             raise RuntimeError("the carry has no optimizer state before its first step")
 
-        def host(t):
-            return t.detach().to("cpu", copy=True).numpy()
+        def host(t, rows=True):
+            t = self.full(t.detach()) if rows else t.detach()
+            return t.to("cpu", copy=True).numpy()
 
         names = list(self.params)
         return {
             "params": {n: host(p) for n, p in self.params.items()},
-            "opt": {key: {n: host(st[key]) for n, st in zip(names, opt_state)}
+            "opt": {key: {n: host(st[key], key != "step") for n, st in zip(names, opt_state)}
                     for key in ("step", "exp_avg", "exp_avg_sq")},
             "best": {n: host(b) for n, b in self.best.items()},
             "buffers": {n: host(b) for n, b in self.buffers.items()},
@@ -309,21 +374,32 @@ class FitCarry:
 
     def template(self) -> dict:
         """The structure, shapes and dtypes of ``arrays()``, without a step."""
-        zeros = {n: np.zeros(tuple(p.shape), np.float32) for n, p in self.params.items()}
-        bufs = {n: np.zeros(tuple(b.shape), np.float32) for n, b in self.buffers.items()}
+        m = self.best_acc.shape[0] if self.shard is None else self.shard.m_count
+
+        def rows(t):
+            return (m,) + tuple(t.shape[1:])
+
+        zeros = {n: np.zeros(rows(p), np.float32) for n, p in self.params.items()}
+        bufs = {n: np.zeros(rows(b), np.float32) for n, b in self.buffers.items()}
         return {
             "params": zeros, "opt": {"step": {n: np.zeros((), np.float32) for n in zeros},
                                      "exp_avg": zeros, "exp_avg_sq": zeros},
             "best": zeros, "buffers": bufs, "best_buffers": bufs,
-            "best_acc": self.best_acc.cpu().numpy(),
-            "best_ep": self.best_ep.cpu().numpy(),
-            "stopped": np.zeros(tuple(self.stopped.shape), bool), "epoch": np.asarray(0, np.int64),
+            "best_acc": np.zeros(m, np.float32), "best_ep": np.zeros(m, np.int64),
+            "stopped": np.zeros(m, bool), "epoch": np.asarray(0, np.int64),
             "step": np.asarray(0, np.int64), "perm_rng": self.perm_gen.get_state().numpy(),
             "drop_rng": self.drop_gen.get_state().numpy(),
         }
 
     def load_arrays(self, tree: dict) -> None:
-        """Restore the carry in place from ``arrays()``'s tree."""
+        """Restore the carry in place from ``arrays()``'s tree (of the whole
+        stack: a shard keeps its rows)."""
+        if self.shard is not None:
+            rows, opt = self.shard.rows_of, tree["opt"]
+            whole = ("opt", "epoch", "step", "perm_rng", "drop_rng")
+            tree = {k: v if k in whole else rows(v) for k, v in tree.items()}
+            tree["opt"] = {"step": opt["step"],
+                           **rows({k: v for k, v in opt.items() if k != "step"})}
         device = self.best_acc.device
         with torch.no_grad():
             for n, p in self.params.items():
@@ -368,6 +444,7 @@ def make_fit(
     compute_dtype=None,
     early_stop_threshold: Optional[float] = None,
     early_stop_patience: Optional[int] = None,
+    shard=None,
 ) -> Callable:
     """Build the fit of a stacked ``model`` (``FAST(cfg, n_models=M)`` with
     its initial parameters loaded). Returned signature::
@@ -413,21 +490,38 @@ def make_fit(
     enter the history, but its parameters, buffers and AdamW moments end
     each one where it began, and its best snapshot no longer moves. The
     flag is sticky and rides in the carry (segments, ``--resume``); with
-    ``val_every > 1`` it moves on validation epochs only."""
+    ``val_every > 1`` it moves on validation epochs only.
+
+    ``shard``: a ``parallel.mesh.StackShard`` when the stack runs on
+    several ranks (see the module docstring). ``model`` is then this rank's
+    ``shard.m_local`` rows of the stack; ``fit`` and ``init_carry`` take the
+    whole stack's ``train_idx``, ``val_idx`` and ``hyper``, and every rank
+    of the mesh must call them together."""
     if val_every < 1 or epochs % val_every != 0:
         raise ValueError(f"val_every must be >= 1 and divide epochs ({epochs}); got {val_every}")
     total = total_epochs or epochs
     spe = num_batches(n_train, batch_size)
     table = warmup_cosine_lr(learning_rate, total, spe, warmup_epochs, final_scale)
     eval_batch_size = eval_batch_size_for(n_val, batch_size)
+    split = shard is not None and shard.split_batch
+    if split:  # the batch-norm statistics of the whole batch (ops.norm)
+        for mod in model.modules():
+            if isinstance(mod, StackedBatchNorm):
+                mod.sync_group = shard.data_group
 
     def init_carry(train_idx, val_idx, X, *, seed: int, hyper=None) -> FitCarry:
         device = X.device
-        tidx = torch.as_tensor(np.asarray(train_idx), dtype=torch.long, device=device)
-        vidx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long, device=device)
+        train_idx, val_idx = np.asarray(train_idx), np.asarray(val_idx)
+        m_full = train_idx.shape[0]
+        if shard is not None:
+            if m_full != shard.m_count:
+                raise ValueError(f"{m_full} index rows for a shard of {shard.m_count} models")
+            train_idx, val_idx, hyper = shard.rows_of((train_idx, val_idx, hyper))
+        tidx = torch.as_tensor(train_idx, dtype=torch.long, device=device)
+        vidx = torch.as_tensor(val_idx, dtype=torch.long, device=device)
         m = tidx.shape[0]
-        if m % row_repeats:
-            raise ValueError(f"row_repeats={row_repeats} does not divide the {m} model rows")
+        if m_full % row_repeats:
+            raise ValueError(f"row_repeats={row_repeats} does not divide the {m_full} model rows")
         params = dict(model.named_parameters())
         best = {k: p.detach().clone() for k, p in params.items()}
         if sweep:
@@ -436,16 +530,18 @@ def make_fit(
             raise ValueError("hyper is for a sweep-mode fit (make_fit(sweep=True))")
         else:
             opt, lr_rows = make_optimizer(params.values(), weight_decay), None
-        if row_repeats == 1:
+        if shard is None and row_repeats == 1:
             drop_gen = torch.Generator(device=device)
         else:
-            drop_gen = SharedRowsGenerator(device=device)
+            stacked = shard is not None and shard.stacked
+            drop_gen = SharedRowsGenerator(device,
+                                           (shard.m_count, *shard.rows) if stacked else None)
             drop_gen.row_repeats = row_repeats
         carry = FitCarry(params, opt, tidx, vidx, torch.Generator().manual_seed(seed),
                          drop_gen.manual_seed(seed), best,
                          torch.full((m,), -float("inf"), device=device),
                          torch.full((m,), -1, dtype=torch.long, device=device),
-                         buffers=model_buffers(model))
+                         buffers=model_buffers(model), shard=shard)
         carry.lr_rows = lr_rows
         return carry
 
@@ -487,16 +583,25 @@ def make_fit(
             t0 = time.perf_counter()
             halted = carry.stopped.clone()
             frozen = _epoch_start(carry) if early_stop and bool(halted.any()) else None
-            perm = epoch_permutations(carry.perm_gen, m // row_repeats, n_train)
+            m_full = m if shard is None else shard.m_count
+            perm = epoch_permutations(carry.perm_gen, m_full // row_repeats, n_train)
             if row_repeats > 1:
                 perm = perm.repeat(row_repeats, 1)
+            if shard is not None:
+                perm = shard.rows_of(perm)
             gidx = torch.gather(carry.tidx, 1, perm.to(device))
             loss_sum = torch.zeros(m, device=device)
             cm = torch.zeros((m, n_classes, n_classes), device=device)
             for i in range(spe):
                 bidx = gidx[:, i * batch_size : (i + 1) * batch_size]
+                data = None
+                if split:
+                    b_full = bidx.shape[1]
+                    c0, c1 = shard.batch_cols(b_full)
+                    carry.drop_gen.set_batch((b_full, c0, c1))
+                    bidx, data = bidx[:, c0:c1], (shard.data_group, b_full)
                 ls, c = train_step(model, carry.opt, X[bidx], Y[bidx], lr_of(carry, carry.step),
-                                   n_classes, carry.drop_gen, augment, compute_dtype)
+                                   n_classes, carry.drop_gen, augment, compute_dtype, data)
                 loss_sum += ls
                 cm += c
                 carry.step += 1
@@ -507,7 +612,8 @@ def make_fit(
             _sync(device)
             t1 = time.perf_counter()
             if (ep + 1) % val_every == 0:
-                va = evaluate(model, X, Y, carry.vidx, eval_batch_size, n_classes, compute_dtype)
+                va = evaluate(model, X, Y, carry.vidx, eval_batch_size, n_classes, compute_dtype,
+                              shard)
                 improved = (va[1] > carry.best_acc) & ~halted
                 with torch.no_grad():
                     for k, p in carry.params.items():
@@ -532,24 +638,27 @@ def make_fit(
             carry.timings["train_s"].append(t1 - t0)
             carry.timings["val_s"].append(time.perf_counter() - t1)
             if progress is not None:
-                progress(ep + 1, va[1])
+                progress(ep + 1, carry.full(va[1]))
         if rows["loss"]:
             carry.histories.append(
                 {k: torch.stack(v, dim=1).cpu().numpy() for k, v in rows.items()})
         return carry
 
     def result(carry: FitCarry) -> FitResult:
-        history = {k: np.concatenate([h[k] for h in carry.histories], axis=1)
+        """The fit's result, of the whole stack (gathered from a shard's
+        ranks, every one of which must call it)."""
+        full = carry.full
+        history = {k: np.concatenate([h[k] for h in carry.full_histories()], axis=1)
                    for k in HISTORY_KEYS}
         return FitResult(
-            params={k: p.detach().clone() for k, p in carry.params.items()},
-            best_params=carry.best,
-            best_val_acc=carry.best_acc.cpu().numpy(),
-            best_epoch=carry.best_ep.cpu().numpy(),
+            params={k: full(p.detach()).clone() for k, p in carry.params.items()},
+            best_params={k: full(b) for k, b in carry.best.items()},
+            best_val_acc=full(carry.best_acc).cpu().numpy(),
+            best_epoch=full(carry.best_ep).cpu().numpy(),
             history=history,
             timings={**carry.timings, "steps_per_epoch": spe},
-            model_state={k: b.detach().clone() for k, b in carry.buffers.items()},
-            best_model_state=carry.best_buffers,
+            model_state={k: full(b.detach()).clone() for k, b in carry.buffers.items()},
+            best_model_state={k: full(b) for k, b in carry.best_buffers.items()},
         )
 
     def fit(train_idx, val_idx, X, Y, *, seed: int, progress=None, hyper=None) -> FitResult:
@@ -631,7 +740,13 @@ def fit_segmented(
     while the disk is written; the carry is copied to the host first, and
     the thread writes that private copy. A failed write re-raises as
     ``RuntimeError`` at the next boundary or at the end, and no segment
-    runs after it."""
+    runs after it.
+
+    A fit on several ranks (``make_fit(shard=...)``): rank 0 writes the
+    file that the unsharded run writes, from the carry gathered from every
+    rank, and on ``resume`` each rank reads it and keeps its rows. Every
+    rank waits for that write before the next segment (the write then
+    overlaps no training), and if it failed, all raise there together."""
     import os
     import threading
 
@@ -645,7 +760,10 @@ def fit_segmented(
     if path and resume and os.path.exists(path):
         tree, histories, start_seg = checkpoint.load_segment_checkpoint(path, carry.template())
         carry.load_arrays(tree)
-        carry.histories = histories
+        carry.histories = (histories if carry.shard is None else
+                           [carry.shard.rows_of(h) for h in histories])
+    shard = carry.shard
+    writes = shard is None or is_lead()
 
     writer: Optional[threading.Thread] = None
     writer_err: list = []
@@ -662,22 +780,30 @@ def fit_segmented(
     def join_writer():
         if writer is not None:
             writer.join()
-        if writer_err:
-            raise RuntimeError(f"segment-checkpoint write to {path} failed") from writer_err[0]
+        failed = bool(writer_err)
+        if shard is not None:  # rank 0's write: every rank stops with it
+            failed = any_rank(failed, shard.mesh.group, shard.mesh.device)
+        if failed:
+            raise RuntimeError(f"segment-checkpoint write to {path} failed"
+                               + ("" if writer_err else " on rank 0")) from (
+                writer_err[0] if writer_err else None)
 
     try:
         for s in range(start_seg, n_segments):
-            if writer_err:  # no further segment after a failed write
+            # no further segment after a failed write (on several ranks,
+            # each waits for the last write to know)
+            if writer_err or (path and shard is not None and s > start_seg):
                 join_writer()
             fit.run(carry, X, Y, until=(s + 1) * seg, progress=progress)
             if path and ((s + 1) % max(checkpoint_every, 1) == 0 or s + 1 == n_segments):
-                tree = carry.arrays()
+                tree, histories = carry.arrays(), carry.full_histories()
                 join_writer()
                 carry.timings["checkpoint_bytes"] = sum(
                     a.nbytes for a in checkpoint._flatten(tree).values())
-                writer = threading.Thread(target=save, args=(tree, list(carry.histories), s + 1),
-                                          daemon=True)
-                writer.start()
+                if writes:
+                    writer = threading.Thread(target=save, args=(tree, histories, s + 1),
+                                              daemon=True)
+                    writer.start()
         join_writer()
     finally:
         if writer is not None:

@@ -30,6 +30,7 @@ from ..devices import require_device
 from ..models.api import ModelDef
 from ..models.fast import FAST
 from . import artifacts
+from ..parallel.mesh import fail_together, is_lead, mesh_strategy
 from .cv import CVRunResult, train_per_subject_cv
 from .engine import predict_proba
 from .metrics import confusion_matrix, f1_from_confusion
@@ -143,11 +144,20 @@ def train_seed_ensemble(
     """Train ``n_members`` per-subject CV runs of ``cfg`` (a ``FASTConfig`` or
     a ``models.api.ModelDef``) and soft-vote them (JAX ``train_seed_ensemble``). ``cv_kwargs`` go to ``train_per_subject_cv``
     (``resume``, ``checkpoint_every``, ...); ``save_dir`` and
-    ``checkpoint_dir`` get a ``member-{e}/`` each. Runs on ``device``: CUDA
-    unless the caller names another, and CUDA without a card raises."""
+    ``checkpoint_dir`` get a ``member-{e}/`` each (``mesh_axis``: each
+    member's stack on the run's ranks, rank 0 alone writing the trees).
+    Runs on ``device``: CUDA unless the caller names another, and CUDA
+    without a card raises."""
     if n_members < 1:
         raise ValueError(f"n_members must be >= 1, got {n_members}")
     device = require_device(device)
+    mesh = mesh_strategy(cv_kwargs.get("mesh_axis"), device)[0]
+    if mesh is not None:
+        if not mesh.member:  # a rank that an odd count leaves out of a '2d' grid
+            return None
+        device = mesh.device
+    lead = mesh is None or is_lead()
+    verbose = verbose and lead
     members: List[CVRunResult] = []
     for e in range(n_members):
         if verbose:
@@ -159,6 +169,7 @@ def train_seed_ensemble(
             checkpoint_dir=os.path.join(checkpoint_dir, f"member-{e}") if checkpoint_dir else None,
             verbose=verbose, model_seed=member_seed(tc.seed, e), device=device, **cv_kwargs,
         ))
-    summary, proba = soft_vote(cfg, tc, members, subjects, n_classes, test_per_subject, save_dir,
-                               device, verbose)
+    with fail_together(mesh):  # rank 0 writes the vote's tree
+        summary, proba = soft_vote(cfg, tc, members, subjects, n_classes, test_per_subject,
+                                   save_dir if lead else None, device, verbose)
     return EnsembleResult(summary=summary, members=members, proba_per_subject=proba)

@@ -28,6 +28,7 @@ import torch
 
 from ..devices import require_device
 from ..models.api import ModelDef, make_fast_model
+from ..parallel.mesh import StackShard, any_rank, fail_together, is_lead, mesh_strategy
 from ..transplant import stack_trees
 from . import cv
 from .checkpoint import load_state_dict, save_state_dict, select_model
@@ -119,6 +120,7 @@ def pretrain_loso(
     resume: bool = True,
     return_result: bool = False,
     device="cuda",
+    mesh_axis: Optional[str] = None,
 ) -> List:
     """Train the S LOSO models at once and save each one's best parameters;
     returns their JAX-layout parameter trees (numpy leaves), one per
@@ -140,12 +142,25 @@ def pretrain_loso(
     nothing trains. ``return_result=True`` returns ``(trees, FitResult)``
     (``None`` on that path; its ``model_state`` / ``best_model_state`` hold
     the statistics). Runs on ``device``: CUDA unless the caller names
-    another, and CUDA without a card raises."""
+    another, and CUDA without a card raises. ``mesh_axis``: the stack on
+    the run's ranks, as ``cv.train_per_subject_cv`` runs it; rank 0 alone
+    writes the files and prints."""
     mdef = model if isinstance(model, ModelDef) else make_fast_model(model)
     device = require_device(device)
+    mesh = stack_axis = data_axis = None
+    if mesh_axis:
+        mesh, stack_axis, data_axis = mesh_strategy(mesh_axis, device)
+        if not mesh.member:
+            return (None, None) if return_result else None
+        device = mesh.device
+    lead = mesh is None or is_lead()
+    verbose = verbose and lead
     os.makedirs(save_dir, exist_ok=True)
     s_count = len(subjects)
-    if all(os.path.exists(_ckpt_path(save_dir, sid)) for sid in subjects):
+    done = all(os.path.exists(_ckpt_path(save_dir, sid)) for sid in subjects)
+    if mesh is not None:  # one branch on every rank: skip only where all have the files
+        done = not any_rank(not done, mesh.group, mesh.device)
+    if done:
         if verbose:
             print(f"LOSO: all {s_count} checkpoints exist; skipping pretraining", flush=True)
         template, _ = mdef.init(0, None)
@@ -157,24 +172,29 @@ def pretrain_loso(
     x_flat = torch.as_tensor(X.reshape((-1,) + X.shape[2:]),
                              dtype=torch.float32 if mdef.augment else compute, device=device)
     y_flat = torch.as_tensor(Y.reshape(-1).astype(np.int64), device=device)
-    stack = mdef.build(s_count, device)
-    mdef.load(stack, *cv.stacked_init(model, seed, s_count))
+    params0, state0 = cv.stacked_init(model, seed, s_count)
+    shard = None
+    if mesh is not None:
+        shard = StackShard(mesh, s_count, stack_axis, data_axis)
+        params0, state0 = shard.rows_of((params0, state0))
+    stack = mdef.build(s_count if shard is None else shard.m_local, device)
+    mdef.load(stack, params0, state0)
     fit = make_fit(stack, n_classes, epochs=cv._segment_length(epochs, 25), batch_size=batch_size,
                    n_train=train_idx.shape[1], n_val=val_idx.shape[1],
                    learning_rate=learning_rate, warmup_epochs=warmup_epochs,
-                   total_epochs=epochs, augment=mdef.augment, compute_dtype=compute)
+                   total_epochs=epochs, augment=mdef.augment, compute_dtype=compute, shard=shard)
     res: FitResult = fit_segmented(fit, train_idx, val_idx, x_flat, y_flat, seed=seed + 1,
                                    checkpoint_dir=checkpoint_dir, resume=resume)
 
     best_tree, _ = mdef.dump(res.best_params)
-    best = []
-    for si, sid in enumerate(subjects):
-        p = select_model(best_tree, si)
-        save_state_dict(_ckpt_path(save_dir, sid), p)
-        best.append(p)
-        if verbose:
-            print(f"LOSO pretrain (excl. {sid}): best val_acc={res.best_val_acc[si]:.4f}",
-                  flush=True)
+    best = [select_model(best_tree, si) for si in range(s_count)]
+    with fail_together(mesh):  # rank 0 writes: every rank returns once the files are there
+        for si, sid in enumerate(subjects):
+            if lead:
+                save_state_dict(_ckpt_path(save_dir, sid), best[si])
+            if verbose:
+                print(f"LOSO pretrain (excl. {sid}): best val_acc={res.best_val_acc[si]:.4f}",
+                      flush=True)
     return (best, res) if return_result else best
 
 

@@ -34,7 +34,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     fused_conv4_head,
     fused_conv4_head_plain,
 )
-from imagined_speech_decoding_tpu_torch.train import engine
+from imagined_speech_decoding_tpu_torch.train import engine, metrics
 from imagined_speech_decoding_tpu_torch.transplant import from_jax_params, to_jax_params
 
 torch.set_num_threads(1)
@@ -257,7 +257,7 @@ class TestFast:
         assert logits.dtype == torch.bfloat16
         assert {t for t, _ in seen} == set(trunk)
         assert all(dt == torch.bfloat16 for _, dt in seen), seen
-        engine.cross_entropy(logits, torch.from_numpy(np.stack([y, y]))).sum().backward()
+        metrics.cross_entropy(logits, torch.from_numpy(np.stack([y, y]))).sum().backward()
         assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                    for p in model.parameters())
 

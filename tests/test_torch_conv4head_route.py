@@ -167,6 +167,23 @@ def test_adapted_geometry_launches_the_kernels_exactly(op, geometry, dtype, laun
 @pytest.mark.parametrize("op,dtype", [("fwd", torch.float64), ("bwd_w", torch.float64),
                                       ("bwd_x", torch.float64), ("fwd", torch.bfloat16),
                                       ("bwd_w", torch.bfloat16)])
+def test_empty_batch_launches_nothing(op, dtype):
+    """A rank's empty share of a batch (``parallel``'s data axis, a tail
+    shorter than the axis): no launch, and the plain version's zeros (no
+    feature, zero weight gradients)."""
+    ops, geo = operands(b=0, dtype=dtype)
+    calls = []
+    got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo)
+    assert not adapted and calls == []
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(op, *ops, geo)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert all(not t.any() for t in got + want)
+
+
+@pytest.mark.parametrize("op,dtype", [("fwd", torch.float64), ("bwd_w", torch.float64),
+                                      ("bwd_x", torch.float64), ("fwd", torch.bfloat16),
+                                      ("bwd_w", torch.bfloat16)])
 def test_shipped_geometry_launches_unadapted(op, dtype):
     """FASTConfig.default()'s head (C = 64, O = 32, K = 5, T = 800, windows
     of 250 step 125; one trial, one zone here), and C = 10 in B2f and B2x

@@ -1586,3 +1586,45 @@ def test_bn_head_rows_are_reproducible_on_the_card(dev, monkeypatch):
                 assert torch.equal(v[:2], v[2:]), k
     for a, b_ in zip(runs[0], runs[1]):
         assert not parted(a, b_)
+
+
+@pytest.mark.parametrize("strategy", ["model", "data", "2d"])
+def test_mesh_world_of_one_on_nccl_matches_the_unsharded_fit(dev, strategy):
+    """``train_per_subject_cv`` under each strategy in a world of one rank
+    over NCCL (the one card: NCCL takes no two ranks on one device) against
+    the unsharded fit, at the JAX package's bounds for the strategy; the
+    head kernels launch in the sharded fit."""
+    import torch.distributed as dist
+
+    from imagined_speech_decoding_tpu_torch.config import TrainConfig
+    from imagined_speech_decoding_tpu_torch.data.synthetic import synthetic_trials
+    from imagined_speech_decoding_tpu_torch.parallel.dryrun import dryrun_config
+    from imagined_speech_decoding_tpu_torch.train.cv import train_per_subject_cv
+
+    cfg = dryrun_config()
+    tc = TrainConfig(max_epochs=3, batch_size=8, warmup_epochs=1, n_folds=3, precision="f32")
+    x, y = synthetic_trials(0, 30, n_channels=cfg.n_channels, n_samples=cfg.seq_len, snr=3.0)
+    X, Y = x.reshape(2, 15, cfg.n_channels, cfg.seq_len), y.reshape(2, 15)
+    runs = {}
+    for axis in (None, strategy):
+        before = fused_conv4_head.launches
+        runs[axis] = train_per_subject_cv(cfg, tc, X, Y, ["01", "02"], 5, device="cuda",
+                                          verbose=False, mesh_axis=axis).fit
+        torch.cuda.synchronize()
+        assert fused_conv4_head.launches > before
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    rtol, atol = (5e-3, 1e-3) if strategy == "model" else (1e-3, 1e-5)
+    for k in ("loss", "val_loss"):
+        np.testing.assert_allclose(runs[strategy].history[k], runs[None].history[k], rtol=rtol,
+                                   atol=atol, err_msg=k)
+    np.testing.assert_allclose(runs[strategy].best_val_acc, runs[None].best_val_acc,
+                               atol=1 / 5 + 1e-6)
+
+
+def test_dryrun_multichip_on_nccl(dev):
+    """The dry run's five sections on one rank a card, over NCCL."""
+    from imagined_speech_decoding_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(torch.cuda.device_count())
+    with pytest.raises(RuntimeError, match="cards"):
+        dryrun_multichip(torch.cuda.device_count() + 1)

@@ -212,9 +212,6 @@ class TestCLI:
             jax_build_overrides(jax_build_parser().parse_args(argv))
 
     @pytest.mark.parametrize("argv", [
-        ["--mesh", "data"],
-        ["--synthetic", "1", "--mesh", "model"],
-        ["--synthetic", "1", "--mesh", "2d"],
         ["--synthetic", "1", "--remat"],
         ["--synthetic", "1", "--head_chunk", "256"],
     ])

@@ -1,6 +1,6 @@
 """The PyTorch port's import closure (the batch-norm heads, TSception, the
-augmentation, the feature baselines and their CLIs, profiling among it)
-reaches none of ``jax``, ``yaml``,
+augmentation, the feature baselines and their CLIs, profiling, multi-rank
+training among it) reaches none of ``jax``, ``yaml``,
 ``pandas``, ``sklearn`` and ``matplotlib``, no port file imports the JAX
 package, matplotlib is imported only inside the drawing functions of the
 files that draw, ``sklearn`` and ``joblib`` only inside functions of the
@@ -117,6 +117,14 @@ with tempfile.TemporaryDirectory() as d:
                                 "--synthetic_trials", "10", "--epochs", "1", "--output_dir", d],
                                device="cpu")
     assert os.path.exists(os.path.join(d, "sub-01", "best_subject.npz"))
+# multi-rank training: the mesh helpers, the data-parallel step and the dry run
+from imagined_speech_decoding_tpu_torch import parallel
+from imagined_speech_decoding_tpu_torch.parallel import dp, dryrun, mesh
+assert parallel.make_mesh is mesh.make_mesh and "DPTrainState" not in vars(parallel)
+assert mesh.mesh_shape("2d", 8) == (("model", "data"), (4, 2))
+assert mesh.StackShard(mesh.Mesh(("model",), (4,), 3), 5, "model").rows == (6, 8)
+assert dp.DPTrainState._fields == ("params", "model_state", "opt_state", "step")
+assert dryrun.dryrun_config().n_channels == 64
 # profiling: a Chrome trace of an annotated range, the step timer
 from imagined_speech_decoding_tpu_torch import profiling
 with tempfile.TemporaryDirectory() as d:
@@ -233,6 +241,24 @@ def _imported_modules(path):
             yield from ((alias.name, id(node) in lazy) for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module, id(node) in lazy
+
+
+def test_ops_and_models_do_not_import_the_train_layer():
+    """The ops and models layers take ``parallel.mesh``'s collectives, and
+    ``parallel/__init__`` imports nothing else, so neither layer pulls in
+    ``train`` (``parallel.dp`` imports it)."""
+    script = (
+        "import sys\n"
+        "import imagined_speech_decoding_tpu_torch.ops.norm\n"
+        "import imagined_speech_decoding_tpu_torch.models.heads\n"
+        "import imagined_speech_decoding_tpu_torch.models.fast\n"
+        "import imagined_speech_decoding_tpu_torch.ops.augment\n"
+        "bad = [m for m in sys.modules if m.startswith(('imagined_speech_decoding_tpu_torch.train',"
+        " 'imagined_speech_decoding_tpu_torch.parallel.dp'))]\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run([sys.executable, "-c", script], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
 
 
 def test_no_port_file_imports_jax_yaml_or_the_jax_package():

@@ -249,8 +249,7 @@ def test_cli_subject_group_augment_and_mesh(tmp_path):
     directory a group, as the JAX CLI's grouped run writes (same layout);
     ``--augment`` on a feature pipeline exits with the JAX CLI's parser
     error, before any data; on ``cnn_bilstm`` it trains, and the engine's
-    augmentation refuses feature inputs; ``--mesh`` raises
-    ``NotImplementedError`` naming ROADMAP.md."""
+    augmentation refuses feature inputs."""
     argv = ["--pipeline", "bandpower_mlp", "--synthetic", "2", "--synthetic_trials", "10",
             "--epochs", "1", "--precision", "f32", "--subject_group", "1"]
     ours, ref = tmp_path / "port", tmp_path / "jax"
@@ -270,6 +269,3 @@ def test_cli_subject_group_augment_and_mesh(tmp_path):
     assert np.isfinite(res.fit.history["loss"]).all()
     with pytest.raises(ValueError, match="raw trials"):  # the engine's augmentation of features
         augment_batch(torch.zeros(2, 3, C * 5), generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
-        train_baselines.main(["--pipeline", "bandpower_mlp", "--synthetic", "1", "--mesh",
-                              "model"], device="cpu")
