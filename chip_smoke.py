@@ -6,8 +6,9 @@ state (the CVBlock, EEGNet_Encoder and HeadConv_Paper_Version heads,
 TSception) with their decoders and train-time augmentation, of the
 feature baselines (band-power MLP, STFT EEGNet, CNN-BiLSTM), of the
 explain and QC programs (attribution maps, PSD and FastICA, the CSP
-pipeline) and of multi-GPU training (the ``--mesh`` strategies), on one
-NVIDIA GPU.
+pipeline), of multi-GPU training (the ``--mesh`` strategies) and of the
+head's general-geometry kernels (FAST at 2-second windows), on one NVIDIA
+GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -68,7 +69,8 @@ NVIDIA GPU.
         the adapted calls counted; bf16 geometries B2w-bf16 has no plan for
         (C = 72; windows of 280 at C = 64) on the f32 route, one B2w launch
         on the bf16 operands, within 1e-2 in relative L2 of the plain bf16
-        backward; C = 128 raises (neither plan fits).
+        backward; C = 128, where neither tuned plan fits, runs on B2f-g
+        bf16 (section 14) against the plain bf16 forward.
    B2f also at the fleet's M = 15, B = 1 and 8, on one window broadcast
    to every model, with its device time.
 4. Serving path: full-width FAST weights from a numpy seed are written
@@ -254,7 +256,8 @@ NVIDIA GPU.
    B2x 32 launches, B2f 33, B2w none; ``cli.global_explain`` at its
    defaults on 3 synthetic subjects over the f32 run's first checkpoints
    (B2x and B2f 16 launches a subject), its device time, B2x's share and
-   idle share, one subject's pooled arrays against the CPU;
+   idle share, one subject's pooled arrays (its first GE_CPU_TRIALS test
+   trials) against the CPU;
    ``cli.artifact_analysis`` on 100 synthetic trials (its PSD against the
    CPU's ``welch_psd``) and ``fast_ica`` of its (80,000 x 64) input on the
    card against the CPU in f32 and f64, with iterations and seconds; the
@@ -274,9 +277,37 @@ NVIDIA GPU.
    bf16 step at its local shapes (M = 38, B = 64 under ``model``; M = 75,
    B = 32 under a data axis); (c) the head kernels at the ranks' local
    shapes against their plain versions (bf16 at M = 38, B = 64 / 24 / 35
-   and M = 75, B = 32 / 12 / 18 / 17; f32 at the data axis's), B2f-bf16 and
-   B2w-bf16 timed beside their bounds. The ``kernels`` line's
+   and M = 75, B = 32 / 12 / 18 / 17; f32 at the data axis's), each
+   precision's B2f and B2w timed beside their bounds at the full batches.
+   The ``kernels`` line's
    ``launches_mesh`` counts (b)'s launches, over both ranks and every run.
+
+14. The general-geometry head kernels B2f-g, B2w-g and B2x-g (f32 and bf16;
+   ``csrc/conv4head_general.cu``), on FAST at 2-second windows
+   (``window_len=500, slide_step=150``: 3 windows, 64 channels, 8 zones, dim
+   32), which the tuned kernels' plans do not reach: (a)
+   ``train_per_subject_cv`` with 75 models at batch 64 on the corpus's first
+   70 trials a subject, 2 epochs, in f32 (B2f-g, B2w-g) and bf16 (B2f-bf16,
+   B2w-g bf16), every head launch as the batches count them, and the
+   2 x 10 card-against-CPU trajectory at that geometry in each precision
+   (the training tolerances of the shipped geometry's); (b) a live decoder
+   of (a)'s f32 model 0: one DECODE replayed equal to eager bit for bit,
+   B2f-g launched and captured; (c) integrated and expected gradients of the
+   shipped FAST in bf16 (B2f-bf16, B2x-g bf16), integrated gradients of
+   (a)'s f32 model (B2f-g, B2x-g f32) and of FAST on one 800-sample window
+   in bf16 (B2f-g, B2x-g bf16), 100 trials each, against the CPU on 4 (bf16:
+   in relative L2 under the bf16-vs-f32 gap); the counts set to 0
+   before (b) and read after (c), held to what the calls imply, and every
+   general kernel launched on the path; (d) each general kernel launched
+   directly at M = 2, B = 8 against its plain version, f32 and bf16, on C =
+   80 and 128 at windows of 250, C = 64 at windows of 500 and 800 and O = 64
+   at the shipped geometry, reruns bit-identical; each timed by CUDA events
+   beside its bound and its plain version, B2x-g bf16 also at M = 1, B = 100
+   by device time, and one step of (a) in each precision by device time;
+   then at the path's shapes, where a block walks several units in its
+   workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64), f32 and
+   bf16, models 0, 37 and 74, reruns bit-identical; B2x-g at (c)'s M = 1,
+   B = 100 (bf16 at windows of 250, f32 at 500) on every trial.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -285,6 +316,7 @@ script exits non-zero. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import importlib.util
@@ -323,16 +355,21 @@ from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     BWD_W_BF16_PHASES,
     FWD_BF16_PHASES,
+    GENERAL_OPS,
     KERNEL_TAPS,
     _fwd_bf16_windows_built,
     _launch_bwd_w,
     _launch_fwd,
+    _general_slots,
+    _launch_general,
+    conv4head_bwd_bf16_plain,
     conv4head_bwd_plain,
     conv4head_bwd_w,
     conv4head_bwd_x,
     conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
+    general_plan,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
     _launch_causal,
@@ -1476,7 +1513,8 @@ def phase_bf16_f32_route(dev, rng) -> dict:
     windows of 280 at C = 64 (its shared memory). One B2w launch on the bf16
     kernel's operands, counted adapted, within ``F32_ROUTE_REL_L2`` in
     relative L2 of the plain bf16 backward on the CPU; C = 128, where the f32
-    plan does not fit either, raises naming both."""
+    plan does not fit either, runs on B2f-g bf16 (section 14), unadapted,
+    within ``BF16_FWD_REL`` of the plain bf16 forward."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     errs = {}
@@ -1499,21 +1537,26 @@ def phase_bf16_f32_route(dev, rng) -> dict:
         if errs[(c, w)] > F32_ROUTE_REL_L2:
             raise RuntimeError(f"bf16 C={c} W={w} on the f32 route: relative L2 "
                                f"{errs[(c, w)]:.3g} > {F32_ROUTE_REL_L2}")
-    x = torch.zeros((1, 2, 128, 800), device=dev, dtype=torch.bfloat16)
-    w128 = [torch.zeros(sh, device=dev) for sh in ((1, 256, 640), (1, 256, 1), (1, 8, 32, 160),
-                                                   (1, 8, 32, 160))]
-    try:
-        with torch.no_grad():
-            fused_conv4_head(x, *w128, 250, 125)
-    except ValueError as e:
-        if "its f32 route does not fit either" not in str(e):
-            raise
-    else:
-        raise RuntimeError("bf16 C=128 must raise: neither head kernel's plan fits")
+    shapes = (((1, 256, 640), 640 ** -0.5), ((1, 256, 1), 0.1), ((1, 8, 32, 160), 160 ** -0.5),
+              ((1, 8, 32, 160), 160 ** -0.5))
+    w128 = [torch.tensor(rng.normal(scale=sc, size=sh).astype(np.float32)) for sh, sc in shapes]
+    x = torch.tensor(rng.normal(size=(1, 2, 128, 800)).astype(np.float32)).to(torch.bfloat16)
+    reset_launches()
+    with torch.no_grad():
+        got = fused_conv4_head(x.to(dev), *(t.to(dev) for t in w128), 250, 125)
+    launches = read_launches()
+    if (launches["conv4head_fwd_general_bf16"], launches["conv4head_fwd_bf16"],
+            launches["conv4head_fwd"], launches["adapted"]) != (1, 0, 0, 0):
+        raise RuntimeError(f"bf16 C=128: neither tuned plan fits, so B2f-g bf16 must run once, "
+                           f"unadapted: {launches}")
+    err = check_rel("bf16 C=128 on B2f-g bf16", got.cpu(),
+                    fused_conv4_head_plain(x, *w128, 250, 125), BF16_FWD_REL)
     print(f"bf16 head geometries on the f32 route (B2w on the bf16 operands, one launch, "
           f"adapted): relative L2 against the plain bf16 backward "
           f"{json.dumps({f'C={c} W={w}': float(f'{v:.3g}') for (c, w), v in errs.items()})} "
-          f"(<= {F32_ROUTE_REL_L2}); C=128 raises naming both plans", flush=True)
+          f"(<= {F32_ROUTE_REL_L2}); C=128, where neither tuned plan fits, runs on B2f-g bf16 "
+          f"(one launch, unadapted), max|err| {err:.3g} against the plain bf16 forward",
+          flush=True)
     return errs
 
 
@@ -1598,17 +1641,23 @@ def reset_launches() -> None:
         fn.launches = fn.captures = 0
     fused_conv4_head.launches_bf16 = conv4head_bwd_w.launches_bf16 = 0
     for fn in HEAD_WRAPPERS:
-        fn.adapted = 0
+        fn.adapted = fn.launches_general = fn.launches_general_bf16 = 0
+
+
+# The general kernels' launch-count keys: B2f-g, B2w-g, B2x-g, f32 then bf16.
+GENERAL_KEYS = tuple(f"conv4head_{op}_general{p}" for p in ("", "_bf16") for op in GENERAL_OPS)
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
+    general = {f"conv4head_{op}_general{p}": getattr(fn, f"launches_general{p}")
+               for op, fn in zip(GENERAL_OPS, HEAD_WRAPPERS) for p in ("", "_bf16")}
     return {"iir_chain": sosfiltfilt_chain.launches, "iir": sosfilt_time_major.launches,
             "conv4head_fwd": fused_conv4_head.launches,
             "conv4head_bwd_w": conv4head_bwd_w.launches,
             "conv4head_bwd_x": conv4head_bwd_x.launches,
             "conv4head_fwd_bf16": fused_conv4_head.launches_bf16,
-            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16,
+            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16, **general,
             "adapted": sum(fn.adapted for fn in HEAD_WRAPPERS),
             "iir_chain_captures": sosfiltfilt_chain.captures,
             "conv4head_fwd_captures": fused_conv4_head.captures}
@@ -1618,19 +1667,63 @@ HEAD_WRAPPERS = (fused_conv4_head, conv4head_bwd_w, conv4head_bwd_x)  # each cou
 
 
 def require_unadapted(launches: dict, path: str) -> None:
-    """The shipped geometry runs every head call on its operands as they are."""
+    """The shipped geometry runs every head call on its operands as they
+    are, on the tuned kernels: nothing adapted, no general kernel."""
     if launches["adapted"]:
         raise RuntimeError(f"the {path} path padded or split the head's operands "
                            f"{launches['adapted']} times at the shipped geometry")
+    general = {k: launches[k] for k in GENERAL_KEYS if launches.get(k)}
+    if general:
+        raise RuntimeError(f"the {path} path launched a general head kernel at the shipped "
+                           f"geometry: {general}")
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (a comparison's own runs) leave every launch
+    counter as it was."""
+    fns = (sosfiltfilt_chain, sosfilt_time_major) + HEAD_WRAPPERS
+    saved = {(fn, a): v for fn in fns for a, v in vars(fn).items()
+             if a.startswith(("launches", "captures", "adapted"))}
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        for (fn, a), v in saved.items():
+            setattr(fn, a, v)
 
 
 HEAD_KERNELS = {"f32": ("conv4head_fwd", "conv4head_bwd_w"),
                 "bf16": ("conv4head_fwd_bf16", "conv4head_bwd_w_bf16")}  # launch-count keys
 
 
-def phase_training(cfg, dev, workdir, precision: str):
+@contextlib.contextmanager
+def corpus_made(X, Y):
+    """``synthetic_corpus`` answers a call for ``cli.train_fast``'s corpus
+    (``--synthetic TRAIN_SUBJECTS --synthetic_trials TRAIN_TRIALS``) with
+    copies of ``X, Y``, that corpus made once already: the CLI draws it
+    anew, 16-21 s of numpy a run on an H100 machine's host. Any other call
+    draws."""
+    from imagined_speech_decoding_tpu_torch.data import synthetic
+
+    draw = synthetic.synthetic_corpus
+
+    def made(*args, **kwargs):
+        if args == (0, TRAIN_SUBJECTS, TRAIN_TRIALS, 64, 800) and not kwargs:
+            return X.copy(), Y.copy()
+        return draw(*args, **kwargs)
+
+    synthetic.synthetic_corpus = made
+    try:
+        yield
+    finally:
+        synthetic.synthetic_corpus = draw
+
+
+def phase_training(cfg, dev, workdir, precision: str, X, Y):
     """The training CLI on the full synthetic corpus: 75 stacked models, at
-    the CLI's default precision (bf16: no ``--precision``) or f32."""
+    the CLI's default precision (bf16: no ``--precision``) or f32; its
+    corpus ``X, Y`` made by the caller (``corpus_made``)."""
     out = os.path.join(workdir, f"train_{precision}")
     argv = ["--synthetic", str(TRAIN_SUBJECTS), "--synthetic_trials", str(TRAIN_TRIALS),
             "--epochs", str(TRAIN_EPOCHS)]
@@ -1638,7 +1731,8 @@ def phase_training(cfg, dev, workdir, precision: str):
     argv += ["--output_dir", out]
     print(f"training path ({precision}): cli.train_fast {' '.join(argv[:-1])} <tmp>", flush=True)
     reset_launches()
-    result = train_fast.main(argv)
+    with corpus_made(X, Y):
+        result = train_fast.main(argv)
     launches = read_launches()
     print(f"training path ({precision}): kernel launches during the run {launches}", flush=True)
     other = "f32" if precision == "bf16" else "bf16"
@@ -1698,7 +1792,8 @@ def phase_training(cfg, dev, workdir, precision: str):
     print(f"training path ({precision}): all {len(expected)} result files written; "
           f"sub-{subjects[si]}'s best_subject.npz reproduces its {len(saved)} test predictions; "
           f"its logits match the plain CPU forward, {how}", flush=True)
-    print(f"training path ({precision}), host clock: corpus generation {t['data_s']:.2f} s, fit "
+    print(f"training path ({precision}), host clock: corpus (a copy of the one made) "
+          f"{t['data_s']:.2f} s, fit "
           f"{t['fit_s']:.2f} s, artifacts + test eval {t['artifacts_s']:.2f} s", flush=True)
     for ep, (tr, va) in enumerate(zip(t["train_s"], t["val_s"])):
         print(f"  epoch {ep}: train pass {tr:.3f} s ({t['steps_per_epoch']} steps, "
@@ -1865,7 +1960,9 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
     "campaign"); or (``group`` "engine") the bf16 steps of the
     ``train_head`` and ``train_transformer`` modes and CVBlock's LOSO step
     at M = 15; or (``group`` "featurize") the band-power and STFT
-    featurizers over the 15-subject corpus. The profiler has lost whole
+    featurizers over the 15-subject corpus; or (``group`` "general")
+    section 14's f32 and bf16 steps at windows of 500 (M = 75), on the
+    general kernels. The profiler has lost whole
     sessions' records late in a long run (on an H100: three sessions in a
     row after the campaign phases; the featurizers' after the engine's steps
     joined this child; and the featurizers' again, three sessions in a row,
@@ -1875,6 +1972,13 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg, dev = FASTConfig.default(), torch.device("cuda")
+    if group == "general":
+        cfg500 = dataclasses.replace(cfg, **GEN_GEOMETRY)
+        rows = {f"general {p}": general_step_profile(cfg500, dev, d)
+                for p, d in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        with open(out, "w") as f:
+            json.dump(rows, f)
+        return
     if group == "featurize":
         rows = {f"featurize {name}": featurize_profile(dev, name) for name in BASELINES[:2]}
         with open(out, "w") as f:
@@ -1917,19 +2021,21 @@ PROFILER_LOST = "the profiler recorded no device time"  # _profile's error, afte
 
 
 def phase_step_profiles() -> dict:
-    """``step_profile_child`` in three child processes, one a group; their
-    output is printed here. A child whose profiler lost records (``_profile``
+    """``step_profile_child`` in four child processes, one a group; their
+    output is printed here, and each child's host seconds in
+    ``rows["child_seconds"]``. A child whose profiler lost records (``_profile``
     gave up after three sessions) is run once more, in a fresh process; any
     other failure, or a second loss, fails the run. The bf16 sweep and LOSO
     steps beside the CV step, and the forward modes' steps beside the
     default one."""
     torch.cuda.empty_cache()
-    rows = {}
+    rows, seconds = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
-        for group in ("featurize", "campaign", "engine"):
+        for group in ("featurize", "campaign", "engine", "general"):
             out = os.path.join(workdir, f"steps_{group}.json")
             log = os.path.join(workdir, f"steps_{group}.log")
             cmd = [sys.executable, os.path.abspath(__file__), STEP_PROFILE_FLAG, out, group]
+            t0 = time.perf_counter()
             for attempt in (1, 2):
                 try:
                     _run_child(cmd, log)
@@ -1942,8 +2048,10 @@ def phase_step_profiles() -> dict:
                 finally:
                     with open(log) as f:
                         print(f.read(), end="", flush=True)
+            seconds[group] = time.perf_counter() - t0
             with open(out) as f:
                 rows.update(json.load(f))
+    rows["child_seconds"] = seconds
     cv, sweep, loso = rows["cv"], rows["sweep"], rows["loso"]
     print(f"forward modes, bf16 steps at M=75, B={TRAIN_BATCH}, device time / CUDA-event span "
           f"(B2f-bf16, B2w-bf16 launches a step): default {cv['busy_ms']:.2f} / "
@@ -1964,10 +2072,11 @@ def phase_step_profiles() -> dict:
     return rows
 
 
-def phase_trajectory(cfg, dev):
+def phase_trajectory(cfg, dev, label: str = "trajectory"):
     """2 subjects x 10 trials (10 models, 8 + 2 trials, batch 8), dropout 0,
     2 epochs: the engine on the card against the engine on the CPU, from
-    the same weights and the same CPU-generator permutations."""
+    the same weights and the same CPU-generator permutations. ``label``
+    names the run in what it prints."""
     cfg0 = dataclasses.replace(cfg, dropout=0.0)
     x, y = synthetic_corpus(SEED, 2, 10, 64, 800)
     tidx, vidx, _ = build_cv_index_stack(2, 10, 5, 42)
@@ -1982,7 +2091,7 @@ def phase_trajectory(cfg, dev):
         t0 = time.perf_counter()
         runs[device] = fit(tidx, vidx, torch.as_tensor(x.reshape(-1, 64, 800), device=d),
                            torch.as_tensor(y.reshape(-1).astype(np.int64), device=d), seed=43)
-        print(f"trajectory: {device} fit {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"{label}: {device} fit {time.perf_counter() - t0:.2f} s", flush=True)
     gpu, cpu = runs["card"], runs["cpu"]
     for k in engine.HISTORY_KEYS:
         np.testing.assert_allclose(gpu.history[k], cpu.history[k], rtol=TRAJ_RTOL, atol=TRAJ_ATOL,
@@ -1991,7 +2100,7 @@ def phase_trajectory(cfg, dev):
     np.testing.assert_allclose(gpu.best_val_acc, cpu.best_val_acc, rtol=TRAJ_RTOL)
     # The last step's gradients, per tensor, as the kernels are held (BWD_RTOL).
     for (k, a), b in zip(models["card"].named_parameters(), models["cpu"].parameters()):
-        check_close(f"trajectory last-step gradient {k}", a.grad.cpu(), b.grad, BWD_RTOL,
+        check_close(f"{label} last-step gradient {k}", a.grad.cpu(), b.grad, BWD_RTOL,
                     BWD_RTOL * float(b.grad.abs().max()))
     # Parameters. Adam moves an element by ~lr whatever its gradient's size, so
     # an element whose gradient is at the rounding-noise level moves
@@ -2017,14 +2126,14 @@ def phase_trajectory(cfg, dev):
                 far[f"{which}.{k}"] = n_far
             total += b.numel()
     n_far = sum(far.values())
-    print(f"trajectory: {n_far} of {total} parameter elements (the key bias aside) beyond rtol "
+    print(f"{label}: {n_far} of {total} parameter elements (the key bias aside) beyond rtol "
           f"{TRAJ_RTOL}, atol {TRAJ_ATOL}: {json.dumps(dict(sorted(far.items(), key=lambda kv: -kv[1])[:6]))}",
           flush=True)
     if n_far > TRAJ_NOISE_SHARE * total:
-        raise RuntimeError(f"trajectory: {n_far} of {total} parameter elements differ beyond "
+        raise RuntimeError(f"{label}: {n_far} of {total} parameter elements differ beyond "
                            f"rtol {TRAJ_RTOL}, atol {TRAJ_ATOL}")
     moved = max(float((gpu.params[k].cpu() - p0[k]).abs().max()) for k in p0)
-    print(f"trajectory: card and CPU agree over 2 epochs: history (rtol {TRAJ_RTOL}, atol "
+    print(f"{label}: card and CPU agree over 2 epochs: history (rtol {TRAJ_RTOL}, atol "
           f"{TRAJ_ATOL}), best epochs, last-step gradients (rtol {BWD_RTOL}, atol {BWD_RTOL} * "
           f"max|ref|), final and best parameters ({n_far} of {total} elements beyond rtol "
           f"{TRAJ_RTOL}, atol {TRAJ_ATOL}; max|card - CPU| {worst:.3g} <= summed lr {budget:.3g}) "
@@ -2036,7 +2145,8 @@ BF16_TRAJ_GRAD_L2 = 1e-2  # bf16 card vs CPU: the last step's gradients, all par
 BF16_TRAJ_WEIGHT_DECAY = 0.01  # AdamW's decay in that run (make_fit's default)
 
 
-def phase_trajectory_bf16(cfg, dev):
+def phase_trajectory_bf16(cfg, dev, label: str = "trajectory bf16",
+                          want=("conv4head_fwd_bf16", "conv4head_bwd_w_bf16"), shipped=True):
     """``phase_trajectory``'s run in bf16, the corpus held in bf16 as
     ``train.cv`` holds it: the card (B2f-bf16, B2w-bf16, the cuBLAS bf16
     trunk) against the CPU (the plain bf16 head, the same trunk). bf16
@@ -2071,11 +2181,10 @@ def phase_trajectory_bf16(cfg, dev):
                            torch.as_tensor(x.reshape(-1, 64, 800), dtype=torch.bfloat16, device=d),
                            torch.as_tensor(y.reshape(-1).astype(np.int64), device=d), seed=43)
         launches = read_launches()
-        if device == "card" and (launches["conv4head_fwd_bf16"] < 1
-                                 or launches["conv4head_bwd_w_bf16"] < 1):
-            raise RuntimeError(f"the bf16 trajectory run did not launch the bf16 kernels: {launches}")
-        if device == "card":
-            require_unadapted(launches, "bf16 trajectory")
+        if device == "card" and any(launches[k] < 1 for k in want):
+            raise RuntimeError(f"the {label} run did not launch {want}: {launches}")
+        if device == "card" and shipped:
+            require_unadapted(launches, label)
     gpu, cpu = runs["card"], runs["cpu"]
     loss_err = max(float(np.abs(gpu.history[k] / cpu.history[k] - 1).max())
                    for k in ("loss", "val_loss"))
@@ -2090,7 +2199,7 @@ def phase_trajectory_bf16(cfg, dev):
     worst = max(diffs, key=diffs.get)
     acc_diff = max(float(np.nanmax(np.abs(gpu.history[k] - cpu.history[k])))
                    for k in ("acc", "val_acc"))
-    print(f"trajectory bf16: card against CPU over 2 epochs: losses within {loss_err:.3g} "
+    print(f"{label}: card against CPU over 2 epochs: losses within {loss_err:.3g} "
           f"relative (rtol {BF16_TRAJ_LOSS_RTOL}), last-step gradients {grad_err:.3g} in relative "
           f"L2 (<= {BF16_TRAJ_GRAD_L2}), parameters max|card - CPU| {diffs[worst]:.3g} at "
           f"{worst} (<= two Adam walks, {budget:.4g}); accuracies differ by up to "
@@ -2099,7 +2208,7 @@ def phase_trajectory_bf16(cfg, dev):
           flush=True)
     if not (loss_err <= BF16_TRAJ_LOSS_RTOL and grad_err <= BF16_TRAJ_GRAD_L2
             and diffs[worst] <= budget):
-        raise RuntimeError("trajectory bf16: the card and the CPU disagree beyond the bounds above")
+        raise RuntimeError(f"{label}: the card and the CPU disagree beyond the bounds above")
 
 
 def phase_explain(cfg, dev, ckpt, subject):
@@ -2195,6 +2304,9 @@ def phase_explain(cfg, dev, ckpt, subject):
 # PSD and FastICA, the CSP pipeline's device work ---------------------------------------
 
 GE_SUBJECTS = 3  # cli/global_explain.py's --n_synth_subjects
+# Subject 0's test trials whose pooled maps the CPU recomputes (global_explain's CLI
+# run takes all EG_TRIALS): the CPU's expected gradients take ~0.3 s a trial.
+GE_CPU_TRIALS = 25
 QC_TRIALS = 100  # cli/artifact_analysis.py's synthetic --n_trials: an (80,000 x 64) ICA input
 QC_COMPONENTS = 15
 PSD_RTOL = 1e-4  # atol = PSD_RTOL * max|ref|: cuFFT against pocketfft, f32
@@ -2316,6 +2428,8 @@ def phase_explain_cli(cfg, dev, ckpt, subject, results_dir, x_csp, y_csp) -> dic
     X, Y = synthetic_corpus(SEED, n_subjects=1, n_trials=EG_BACKGROUND + EG_TRIALS)
     bg, xt, yt = explain_fast.split_trials(X[0], Y[0].astype(int), EG_BACKGROUND, EG_TRIALS, SEED)
     draws = draw_samples(torch.Generator().manual_seed(SEED), EG_SAMPLES, EG_TRIALS, EG_BACKGROUND)
+    n_cpu = GE_CPU_TRIALS
+    xt, yt, draws = xt[:n_cpu], yt[:n_cpu], [d[:, :n_cpu] for d in draws]
     ckpt0 = os.path.join(results_dir, "sub-01", "best_subject.npz")
     res = global_explain.explain_subject(explain_fast.load_fast(cfg, ckpt0, dev), bg, xt, yt,
                                          *draws)
@@ -2336,7 +2450,8 @@ def phase_explain_cli(cfg, dev, ckpt, subject, results_dir, x_csp, y_csp) -> dic
           f"the host clock (first call, corpus generation included); under the profiler device "
           f"{busy:.2f} ms of a {span:.2f} ms CUDA-event span (device idle {idle:.1%}), B2x "
           f"{b2x:.2f} ms ({b2x / busy:.1%} of the device time); launches {launches}; subject 0's "
-          f"pooled arrays match the CPU's ({cpu_s:.2f} s there), max|err| / max|ref| "
+          f"pooled arrays over {n_cpu} trials match the CPU's ({cpu_s:.2f} s there), max|err| / "
+          f"max|ref| "
           f"{ge_err:.3g}", flush=True)
 
     # (c) artifact_analysis on 100 synthetic trials: PSD, then FastICA, card against CPU.
@@ -3138,7 +3253,7 @@ BN_HEADS = ("CVBlock", "EEGNet_Encoder", "HeadConv_Paper_Version")
 BN_FIRST = {"CVBlock": "bn1", "EEGNet_Encoder": "bn1", "HeadConv_Paper_Version": "norm1"}
 TS_BATCH = 32  # cli.train_tsception's batch
 KERNEL_KEYS = ("iir_chain", "iir", "conv4head_fwd", "conv4head_bwd_w", "conv4head_bwd_x",
-               "conv4head_fwd_bf16", "conv4head_bwd_w_bf16")
+               "conv4head_fwd_bf16", "conv4head_bwd_w_bf16") + GENERAL_KEYS
 
 
 def check_result_tree(out: str, subjects, state_keys, what: str) -> None:
@@ -4430,8 +4545,9 @@ def phase_mesh_kernels(cfg, dev, rng) -> dict:
     """(c) The head kernels at the ranks' local shapes
     (``mesh_local_shapes``: B2w-bf16 and B2w at the train batches), models
     0, M/2 and M - 1 against the plain versions (``compare_bf16``,
-    ``compare_f32``); B2f-bf16 and B2w-bf16 timed by CUDA events beside
-    their bounds at each axis's full batch."""
+    ``compare_f32``); the forward and weight-gradient kernels of each
+    precision timed by CUDA events beside their bounds at each axis's full
+    batch."""
     geo = (cfg.window_len, cfg.slide_step)
     feat = cfg.n_zones * cfg.dim_cnn
     rows, head_ops = {}, {}
@@ -4464,17 +4580,19 @@ def phase_mesh_kernels(cfg, dev, rng) -> dict:
         r = rows[f"{precision}_m{m}_b{b}"] = {"fwd_err": errs["out"]}
         if train:
             r["w_err"] = max(errs[k] for k in ("dw12", "db12", "dw3", "dw4"))
-        if bf16 and train and b in (TRAIN_BATCH, TRAIN_BATCH // MESH_RANKS):  # full batches
+        if train and b in (TRAIN_BATCH, TRAIN_BATCH // MESH_RANKS):  # full batches
+            bound = head_bound_bf16 if bf16 else head_bound
             r.update({
                 "fwd_ms": cuda_ms(lambda: fused_conv4_head(x, *ops, *geo), 5),
                 "fwd_plain_ms": cuda_ms(lambda: fused_conv4_head_plain(x, *ops, *geo), 1),
-                "fwd_bound": head_bound_bf16(HEAD_FMA_FWD, m, b, m * b * 5 * 256, reads_g=False),
+                "fwd_bound": bound(HEAD_FMA_FWD, m, b, m * b * 5 * 256, reads_g=False),
                 "w_ms": cuda_ms(lambda: conv4head_bwd_w(g, x, *ops, *geo), 5),
                 "w_plain_ms": cuda_ms(lambda: conv4head_bwd_plain(g, x, *ops, *geo), 1),
-                "w_bound": head_bound_bf16(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS)})
-            for k, name in (("fwd", "B2f-bf16 forward"), ("w", "B2w-bf16 weight grads")):
+                "w_bound": bound(HEAD_FMA_BWD_W, m, b, m * HEAD_WEIGHT_FLOATS)})
+            suffix = "-bf16" if bf16 else ""
+            for k, name in (("fwd", f"B2f{suffix} forward"), ("w", f"B2w{suffix} weight grads")):
                 bound, by = r[f"{k}_bound"]
-                print(f"multi-GPU (c) {name} {what}: kernel {r[f'{k}_ms']:.4f} ms, plain bf16 "
+                print(f"multi-GPU (c) {name} {what}: kernel {r[f'{k}_ms']:.4f} ms, plain "
                       f"{r[f'{k}_plain_ms']:.3f} ms, max|err| {r[f'{k}_err']:.3g} (models "
                       f"{models}), bound {bound:.4f} ms ({by}, {bound / r[f'{k}_ms']:.1%} "
                       "reached)", flush=True)
@@ -4488,6 +4606,520 @@ def phase_mesh_kernels(cfg, dev, rng) -> dict:
     torch.cuda.empty_cache()
     return rows
 
+
+
+# --- 14. The general-geometry head kernels (B2f-g, B2w-g, B2x-g, f32 and bf16): FAST at
+# 2-second windows trained and served, bf16 attributions, the kernels against their plain
+# versions where no tuned plan fits -------------------------------------------------------
+
+GEN_GEOMETRY = dict(window_len=500, slide_step=150)  # 3 windows of 500 over 800 samples
+GEN_WHOLE = dict(window_len=800)  # one window, the whole trial: B2f-bf16 has no plan for it
+GEN_TRIALS = BN_LOSO_TRIALS  # (a)'s trials a subject: the corpus's first 70, as section 11's
+GEN_SHAPE = (2, 8)  # (M, B) of (d)
+# (C, W, step, O) of (d), T = 800: where no tuned plan fits, or O > 32.
+GEN_GRID = ((80, 250, 125, 32), (128, 250, 125, 32), (64, 500, 150, 32), (64, 800, 125, 32),
+            (64, 250, 125, 64))
+GEN_ENTRY = (64, 500, 150, 32)  # the kernels line's shape for B2f-g and B2w-g ((a)'s windows)
+GEN_KERNELS = {op: f"conv4head_{op}_general_kernel" for op in GENERAL_OPS}
+# bf16 dx of B2x-g against the plain bf16 backward, relative L2, for every O. bf16
+# rounds h1, h2, dh3, dh2, dh1 and dx, and two f32 sums in other orders round a few
+# elements to neighbouring bf16 values; each such flip moves dx by a bf16 ulp of its
+# terms. Both are equally far from the f32 dx (5.4e-3 on an H100: the rounding points
+# are the same); they part by 8.0e-4 to 9.5e-4 at O = 32 and 1.2e-3 at O = 64. The
+# limit sits between those readings and the f32 dx's distance.
+GEN_BF16_DX_L2 = 2e-3
+# (a)'s step shape: (M, B) of 75 models at the training batch.
+GEN_PATH_SHAPE = (TRAIN_SUBJECTS * 5, TRAIN_BATCH)
+GEN_ATTR_SHAPE = (1, EG_TRIALS)  # (M, B) of the attributions in (c)
+
+
+def general_fmas(op: str, c: int, o: int, w: int, k: int = KERNEL_TAPS) -> int:
+    """Multiply-adds of one (trial, window, zone) unit of ``op``'s Pallas
+    kernel (``_fwd_kernel``, ``_bwd_w_kernel``, ``_bwd_x_kernel``): the
+    first conv, the two 'same' convs, then the backward's products, each
+    over the window's t1 columns."""
+    t1 = w - k + 1
+    fwd = t1 * o * (k * c + 2 * k * o)
+    if op == "fwd":
+        return fwd
+    if op == "bwd_w":  # dw4, dh2, dw3, dh1, then dw12
+        return fwd + 4 * t1 * o * k * o + t1 * o * k * c
+    return fwd + 2 * t1 * o * k * o + t1 * o * k * c  # dh2, dh1, dx
+
+
+def general_bound(op: str, bf16: bool, m: int, b: int, c: int, t: int, z: int, o: int, w: int,
+                  step: int):
+    """The least time of ``op`` on M models of B trials of this geometry:
+    x (2 bytes a sample in bf16, 4 in f32), the weights and (backward) the
+    cotangent read once, the output written once, at the memory rate; or
+    its products at the head's rule for the precision (f32: three TF32
+    tensor-core passes at the TF32 peak; bf16: one pass at the bf16 peak).
+    Also the products' time at the CUDA cores' f32 peak, the general
+    kernels' route."""
+    n = (t - w) // step + 1
+    k = KERNEL_TAPS
+    weights = m * (z * o * k * c + z * o + 2 * z * o * k * o)
+    xb = (2 if bf16 else 4) * m * b * c * t
+    out = {"fwd": 4 * m * b * n * z * o, "bwd_w": 4 * weights, "bwd_x": xb}[op]
+    nbytes = xb + 4 * weights + (4 * m * b * n * z * o if op != "fwd" else 0) + out
+    fmas = general_fmas(op, c, o, w) * m * b * n * z
+    bound = (bound_ms(nbytes, 2 * fmas, BF16_FLOPS) if bf16
+             else bound_ms(nbytes, 3 * 2 * fmas, TF32_FLOPS))
+    return bound, 1e3 * 2 * fmas / F32_FLOPS
+
+
+def _general_shapes(m, b, c, t, z, o, w, step):
+    """(shape, scale) of ``(g, x, w12, b12, w3, w4)``: the weights at the
+    scales of a trained head."""
+    n = (t - w) // step + 1
+    k = KERNEL_TAPS
+    return (((m, b, n, z * o), 1.0), ((m, b, c, t), 1.0), ((m, z * o, k * c), (k * c) ** -0.5),
+            ((m, z * o, 1), 0.1), ((m, z, o, k * o), (k * o) ** -0.5),
+            ((m, z, o, k * o), (k * o) ** -0.5))
+
+
+def general_operands(dev, rng, m, b, c, t, z, o, w, step):
+    """``(g, x, w12, b12, w3, w4)`` on the card, f32, from numpy's ``rng``."""
+    return [torch.tensor(rng.normal(scale=sc, size=sh).astype(np.float32), device=dev)
+            for sh, sc in _general_shapes(m, b, c, t, z, o, w, step)]
+
+
+def general_operands_on_card(dev, m, b, c, t, z, o, w, step):
+    """``general_operands`` drawn by torch's generator on the card (SEED):
+    at (a)'s step shape numpy's draw would take seconds."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return [torch.randn(sh, generator=gen, device=dev) * sc
+            for sh, sc in _general_shapes(m, b, c, t, z, o, w, step)]
+
+
+def general_plain(op: str, g, x, w12, b12, w3, w4, w: int, step: int):
+    """``op``'s plain version in x's precision (the bf16 backward written
+    out as the Pallas kernels round it)."""
+    if op == "fwd":
+        return fused_conv4_head_plain(x, w12, b12, w3, w4, w, step)
+    if x.dtype == torch.bfloat16:
+        grads = conv4head_bwd_bf16_plain(g, x, w12, b12, w3, w4, w, step)
+    elif op == "bwd_x":
+        return conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, w, step)
+    else:
+        grads = conv4head_bwd_plain(g, x, w12, b12, w3, w4, w, step)
+    return grads[0] if op == "bwd_x" else tuple(grads[1:])
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """|got - ref| / |ref| in the L2 norm, in f32."""
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def check_general(op: str, bf16: bool, got, ref, what: str) -> float:
+    """A general kernel's result against its plain version: f32 features at
+    HEAD_RTOL / HEAD_ATOL, gradients at BWD_RTOL (atol BWD_RTOL x max|ref|);
+    bf16 features at BF16_FWD_REL, weight gradients at BF16_BWD_REL (x
+    max|ref|), dx within GEN_BF16_DX_L2 in relative L2. The largest
+    absolute error."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    errs = []
+    for i, (a, r) in enumerate(zip(got, ref)):
+        name = f"{what} {i}"
+        if a.shape != r.shape or a.dtype != r.dtype:
+            raise RuntimeError(f"{name}: {tuple(a.shape)} {a.dtype} against {tuple(r.shape)} "
+                               f"{r.dtype}")
+        if bf16 and op == "bwd_x":
+            l2 = rel_l2(a, r)
+            if not l2 <= GEN_BF16_DX_L2:
+                raise RuntimeError(f"{name}: relative L2 {l2:.3g} > {GEN_BF16_DX_L2}")
+            errs.append(float((a.float() - r.float()).abs().max()))
+        elif bf16:
+            errs.append(check_rel(name, a, r, BF16_FWD_REL if op == "fwd" else BF16_BWD_REL))
+        elif op == "fwd":
+            errs.append(check_close(name, a, r, HEAD_RTOL, HEAD_ATOL))
+        else:
+            errs.append(check_close(name, a, r, BWD_RTOL, BWD_RTOL * float(r.abs().max())))
+    return max(errs)
+
+
+def phase_general_training(cfg500, dev, X, Y) -> dict:
+    """(a) ``train_per_subject_cv`` on FAST at 2-second windows (64
+    channels, 8 zones, dim 32, 3 windows of 500, 75 models, batch 64), the
+    corpus's first GEN_TRIALS trials a subject, 2 epochs, in f32 (B2f-g,
+    B2w-g) and in bf16 (B2f-bf16 a window a launch, B2w-g bf16): the
+    history finite and every head launch as the batches count them.
+    Returns each precision's launches and the f32 run's final weights."""
+    subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
+    x, y = X[:, :GEN_TRIALS], Y[:, :GEN_TRIALS]
+    tr, va, _ = build_cv_index_stack(TRAIN_SUBJECTS, GEN_TRIALS, 5, 42)
+    fwd_calls, steps = expected_head_launches(TRAIN_EPOCHS, tr.shape[1], va.shape[1], TRAIN_BATCH)
+    n = cfg500.n_tokens
+    groups = -(-n // _fwd_bf16_windows_built(64, cfg500.window_len, cfg500.slide_step, n))
+    want = {"f32": {"conv4head_fwd_general": fwd_calls, "conv4head_bwd_w_general": steps},
+            "bf16": {"conv4head_fwd_bf16": groups * fwd_calls,
+                     "conv4head_bwd_w_general_bf16": steps}}
+    if groups > 1:  # B2f-bf16 a group of windows at a time: each forward call adapted
+        want["bf16"]["adapted"] = fwd_calls
+    runs = {}
+    for precision in ("f32", "bf16"):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train_per_subject_cv(cfg500, TrainConfig(max_epochs=TRAIN_EPOCHS, precision=precision),
+                                   x, y, subjects, cfg500.n_classes, device=dev, verbose=False)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
+        if moved != want[precision]:
+            raise RuntimeError(f"general (a) {precision}: head launches {moved}, expected "
+                               f"{want[precision]}")
+        for k, v in res.fit.history.items():
+            if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
+                raise RuntimeError(f"general (a) {precision}: history {k} {v.shape}")
+        print(f"general (a): train_per_subject_cv at windows of {cfg500.window_len} step "
+              f"{cfg500.slide_step} ({n} windows), {TRAIN_SUBJECTS * 5} models, "
+              f"{GEN_TRIALS} trials a subject, {precision}, {TRAIN_EPOCHS} epochs in {wall:.2f} s "
+              f"(host clock): history finite, head launches {json.dumps(moved)} as the batches "
+              f"count them; mean best val_acc {float(np.mean(res.fit.best_val_acc)):.3f}",
+              flush=True)
+        runs[precision] = {"launches": moved, "wall_s": wall,
+                           "params": {k: v[0].detach().cpu() for k, v in res.fit.params.items()}}
+        del res
+    return runs
+
+
+def phase_general_decoder(cfg500, dev, state_dict, rng) -> dict:
+    """(b) A live decoder of (a)'s f32 model 0: one DECODE (eager, then the
+    capture), a replay equal to it and to the un-captured chain bit for
+    bit, and the posteriors against the plain CPU forward (rtol 1e-4, atol
+    1e-5). B2f-g f32 runs in the decode: launched twice (the first decode,
+    the un-captured chain), captured once."""
+    params = to_jax_params(state_dict)
+    dec = make_online_decoder(FAST(cfg500, device=dev), params)
+    x = rng.normal(size=(1, 64, 800)).astype(np.float32)
+    before = (fused_conv4_head.launches_general, fused_conv4_head.captures)
+    first = dec(x)
+    replay = dec(x)
+    plain = eager(dec, x)
+    torch.cuda.synchronize()
+    moved = (fused_conv4_head.launches_general - before[0], fused_conv4_head.captures - before[1])
+    if not (np.array_equal(first, replay) and np.array_equal(replay, plain)) or dec.replays < 1:
+        raise RuntimeError("general (b): the replayed decode differs from the eager one "
+                           f"(max|diff| {np.abs(replay - plain).max():.3g})")
+    if moved != (2, 1):
+        raise RuntimeError(f"general (b): B2f-g launches and captures {moved}, expected (2, 1)")
+    cpu = make_online_decoder(FAST(cfg500), params)
+    check_posteriors(replay, cpu(x))
+    print(f"general (b): a live decoder at windows of {cfg500.window_len}: one DECODE replayed "
+          f"equals the eager decode and the un-captured chain bit for bit; B2f-g f32 launched "
+          f"{moved[0]}, captured {moved[1]}; posteriors match the plain CPU forward", flush=True)
+    return {"launches": moved[0], "captures": moved[1]}
+
+
+def attribution_close(what: str, got, ref, bf16: bool, gap=None) -> float:
+    """Card attributions against the CPU's on the same trials and draws:
+    f32 at rtol BWD_RTOL / atol BWD_RTOL x max|ref| (``phase_explain``'s);
+    bf16 (both in bf16 arithmetic, rounding at the same points, f32 sums in
+    other orders) in relative L2 under ``gap``, the same attributions'
+    bf16-vs-f32 difference on the card. Integrated and expected gradients
+    add IG_STEPS (EG_SAMPLES) input gradients into a bf16 total that rounds
+    at every add, so the input gradients' rounding flips grow there: 7.2e-3
+    to 7.7e-3 on an H100 against a gap of 1.0e-2 to 1.2e-2."""
+    if not bf16:
+        return check_close(what, got, ref, BWD_RTOL, BWD_RTOL * float(ref.abs().max()))
+    err = rel_l2(got, ref)
+    if not err < gap:
+        raise RuntimeError(f"{what}: relative L2 {err:.3g} against the CPU, not under the "
+                           f"bf16-vs-f32 gap {gap:.3g}")
+    return err
+
+
+def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
+    """(c) Attributions through the general input-gradient kernels, each
+    on 100 trials of subject 01 (M = 1, B = 100), against the CPU on its
+    first EG_CPU_TRIALS trials: integrated gradients (IG_STEPS steps) and
+    expected gradients (EG_SAMPLES draws against EG_BACKGROUND trials) of
+    the shipped FAST in bf16 (B2f-bf16, B2x-g bf16); integrated gradients
+    of (a)'s f32 model at windows of 500 (B2f-g, B2x-g f32) and of FAST on
+    one window of the whole trial in bf16 (B2f-g, B2x-g bf16)."""
+    perm = np.random.default_rng(SEED).permutation(X.shape[1])
+    bg_np = X[0, perm[:EG_BACKGROUND]]
+    sel = perm[EG_BACKGROUND:EG_BACKGROUND + EG_TRIALS]
+    k = EG_CPU_TRIALS
+    cfg800 = dataclasses.replace(cfg, **GEN_WHOLE)
+    runs = {}
+    for name, c_, sd, dtype in (
+            ("shipped bf16", cfg, from_jax_params(init_jax_layout_params(cfg, SEED)),
+             torch.bfloat16),
+            (f"windows of {cfg500.window_len} f32", cfg500, state500, torch.float32),
+            ("one window of 800 bf16", cfg800, from_jax_params(init_jax_layout_params(cfg800, SEED)),
+             torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        model, cpu = FAST(c_, device=dev), FAST(c_)
+        model.load_state_dict(sd)
+        cpu.load_state_dict(sd)
+        x = torch.tensor(X[0, sel], device=dev).to(dtype)
+        with torch.no_grad():
+            target = model.eval()(x).argmax(-1)
+        attr = integrated_gradients(model, x, target, n_steps=IG_STEPS)
+        ref = integrated_gradients(cpu, x[:k].cpu(), target[:k].cpu(), n_steps=IG_STEPS)
+        gap = None
+        if bf16:  # the same attributions in f32 on the card: the size of bf16's own rounding
+            with uncounted():
+                ref32 = integrated_gradients(model, x[:k].float(), target[:k], n_steps=IG_STEPS)
+            gap = rel_l2(ref32.cpu(), ref)
+        err = attribution_close(f"general (c) {name} integrated gradients", attr[:k].cpu(), ref,
+                                bf16, gap)
+        if attr.dtype != dtype or not bool(torch.isfinite(attr.float()).all()):
+            raise RuntimeError(f"general (c) {name}: attributions {attr.dtype}, not finite")
+        row = {"ig_err": err, "ig_gap": gap}
+        if name == "shipped bf16":
+            bg = torch.tensor(bg_np, device=dev).to(dtype)
+            yt = torch.tensor(Y[0, sel].astype(np.int64), device=dev)
+            attr = expected_gradients(model, x, bg, yt, torch.Generator().manual_seed(SEED),
+                                      EG_SAMPLES)
+            gen = torch.Generator().manual_seed(SEED)  # expected_gradients' draws, in its order
+            bg_idx = torch.randint(0, EG_BACKGROUND, (EG_SAMPLES, EG_TRIALS), generator=gen)
+            alphas = torch.rand((EG_SAMPLES, EG_TRIALS), generator=gen)
+            ref = expected_gradients_from_draws(cpu, x[:k].cpu(), bg.cpu(), yt[:k].cpu(),
+                                                bg_idx[:, :k], alphas[:, :k])
+            with uncounted():
+                ref32 = expected_gradients_from_draws(model, x[:k].float(), bg.float(), yt[:k],
+                                                      bg_idx[:, :k].to(dev), alphas[:, :k].to(dev))
+            gap = rel_l2(ref32.cpu(), ref)
+            row.update(eg_err=attribution_close(f"general (c) {name} expected gradients",
+                                                attr[:k].cpu(), ref, True, gap), eg_gap=gap)
+        runs[name] = row
+        print(f"general (c): {name}, {EG_TRIALS} trials: integrated gradients ({IG_STEPS} steps)"
+              + (f" and expected gradients ({EG_SAMPLES} x {EG_BACKGROUND})"
+                 if "eg_err" in row else "")
+              + f" match the CPU on {k} trials: {json.dumps({a: float(f'{v:.3g}') for a, v in row.items() if v is not None})}"
+              + (" (relative L2; gap: bf16 against f32 on the card)" if bf16 else " (max|err|)"),
+              flush=True)
+    return runs
+
+
+def general_step_profile(cfg500, dev, dtype) -> dict:
+    """One training step of (a)'s 75-model stack at batch 64 by device time
+    (profiler) and CUDA-event span, with the head kernels' own device time."""
+    torch.cuda.empty_cache()
+    m = TRAIN_SUBJECTS * 5
+    model = FAST(cfg500, n_models=m, device=dev)
+    model.load_state_dict(from_jax_params(*init_jax_layout(cfg500, SEED, m)))
+    model.train()
+    opt = engine.make_optimizer(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((m, TRAIN_BATCH, 64, 800), generator=gen, device=dev).to(dtype)
+    y = torch.randint(0, cfg500.n_classes, (m, TRAIN_BATCH), generator=gen, device=dev)
+
+    def step():
+        engine.train_step(model, opt, x, y, 1e-4, cfg500.n_classes, gen)
+
+    step()
+    bf16 = dtype == torch.bfloat16
+    fwd = "conv4head_fwd_bf16_kernel" if bf16 else GEN_KERNELS["fwd"]
+    events, span, union = profiled_step(step, f"general step {dtype}",
+                                        need=(fwd, GEN_KERNELS["bwd_w"]))
+    records = device_records(events)
+    busy = sum(e.self_device_time_total for e in records) / 1e3
+    heads = {key: sum(e.self_device_time_total for e in records if key in e.key) / 1e3
+             for key in (fwd, GEN_KERNELS["bwd_w"])}
+    b = TRAIN_BATCH
+    bounds = {fwd: general_bound("fwd", bf16, m, b, 64, 800, 8, 32, cfg500.window_len,
+                                 cfg500.slide_step)[0][0],
+              GEN_KERNELS["bwd_w"]: general_bound("bwd_w", bf16, m, b, 64, 800, 8, 32,
+                                                  cfg500.window_len, cfg500.slide_step)[0][0]}
+    print(f"general step {'bf16' if bf16 else 'f32'}, M={m} B={b}, windows of "
+          f"{cfg500.window_len}: device time {busy:.2f} ms, CUDA-event span {span:.2f} ms (idle "
+          f"{1 - union / span:.1%}); " + "; ".join(
+              f"{k} {v:.2f} ms (bound {bounds[k]:.2f} ms, {bounds[k] / v:.1%})"
+              for k, v in heads.items()), flush=True)
+    del model, opt, x
+    return {"busy_ms": busy, "span_ms": span, "idle": 1 - union / span,
+            "kernels_ms": heads, "bounds_ms": bounds}
+
+
+def general_path_checks(dev) -> dict:
+    """The general kernels against their plain versions at the path's own
+    shapes, where each block of the persistent grid walks several units in
+    its workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64,
+    GEN_ENTRY's windows of 500; B2w-g there takes few trial ranges a (zone,
+    window), each long), f32 and bf16, models 0, M/2 and M - 1, and a second
+    launch bit-identical; B2x-g at (c)'s M = 1, B = 100, bf16 at the shipped
+    geometry and f32 at windows of 500, every trial. ``check_general``'s
+    tolerances; the largest absolute error of each."""
+    out = {}
+    c, w, step, o = GEN_ENTRY
+    m, b = GEN_PATH_SHAPE
+    n = (800 - w) // step + 1
+    models = (0, m // 2, m - 1)
+    g, x32, *ops = general_operands_on_card(dev, m, b, c, 800, 8, o, w, step)
+    for bf16 in (False, True):
+        x = x32.to(torch.bfloat16) if bf16 else x32
+        for op in ("fwd", "bwd_w"):
+            plan = general_plan(op, m, b, 8, n, _general_slots(op, bf16, x.device.index))
+            got = _launch_general(op, g, x, *ops, w, step)
+            again = _launch_general(op, g, x, *ops, w, step)
+            got, again = (r if isinstance(r, tuple) else (r,) for r in (got, again))
+            what = f"general path {op} bf16={bf16} M={m} B={b} W={w}"
+            if not all(torch.equal(a, r) for a, r in zip(got, again)):
+                raise RuntimeError(f"{what}: a rerun differs")
+            err = 0.0
+            for i in models:
+                one = [t[i:i + 1] for t in (g, x, *ops)]
+                err = max(err, check_general(op, bf16, tuple(a[i:i + 1] for a in got),
+                                             general_plain(op, *one, w, step),
+                                             f"{what} model {i}"))
+            out[(op, bf16)] = {"max_abs_err": err, "models": list(models),
+                               "units_a_block": plan["units"] / plan["grid"],
+                               "splits": plan["splits"], "shape": {"M": m, "B": b, "W": w}}
+            del got, again
+        del x
+    del g, x32, ops
+    mx, bx = GEN_ATTR_SHAPE
+    for bf16, (w, step) in ((True, (250, 125)), (False, (GEN_ENTRY[1], GEN_ENTRY[2]))):
+        g, x32, *ops = general_operands_on_card(dev, mx, bx, 64, 800, 8, 32, w, step)
+        x = x32.to(torch.bfloat16) if bf16 else x32
+        n = (800 - w) // step + 1
+        plan = general_plan("bwd_x", mx, bx, 8, n, _general_slots("bwd_x", bf16, x.device.index))
+        got = _launch_general("bwd_x", g, x, *ops, w, step)
+        ref = general_plain("bwd_x", g, x, *ops, w, step)
+        row = out[("bwd_x", bf16)] = {
+            "max_abs_err": check_general("bwd_x", bf16, got, ref,
+                                         f"general path bwd_x bf16={bf16} M={mx} B={bx} W={w}"),
+            "trials": bx, "units_a_block": plan["units"] / plan["grid"],
+            "shape": {"M": mx, "B": bx, "W": w}}
+        if bf16:
+            row["l2"] = rel_l2(got, ref)
+        del g, x32, x, ops, got, ref
+    torch.cuda.empty_cache()
+    for (op, bf16), r in out.items():
+        print(f"general path check {op} {'bf16' if bf16 else 'f32'} at {json.dumps(r['shape'])} "
+              f"({r['units_a_block']:.2f} units a block"
+              + (f", {r['splits']} trial range(s) a (model, zone, window)" if "splits" in r else "")
+              + f"): max|err| {r['max_abs_err']:.3g} against plain on "
+              + (f"models {r['models']}, rerun bit-identical" if "models" in r
+                 else f"all {r['trials']} trials")
+              + (f", relative L2 {r['l2']:.3g}" if "l2" in r else ""), flush=True)
+    return out
+
+
+def phase_general_kernels(dev, rng) -> dict:
+    """(d) Each general kernel, launched directly, against its plain version
+    on the card at M = 2, B = 8, f32 and bf16, on GEN_GRID: C = 80 and 128 at
+    windows of 250, C = 64 at windows of 500 and 800, O = 64 at the shipped
+    geometry (``check_general``'s tolerances); each launch again,
+    bit-identical. Then, timed by CUDA events beside its bound and its
+    plain version: each kernel at GEN_ENTRY (B2x-g at the shipped geometry),
+    and B2x-g bf16 at M = 1, B = 100 (global-explain's batch) also by device
+    time. Last, ``general_path_checks`` at the path's shapes."""
+    m, b = GEN_SHAPE
+    rows = {}
+    for c, w, step, o in GEN_GRID:
+        g, x32, *ops = general_operands(dev, rng, m, b, c, 800, 8, o, w, step)
+        for bf16 in (False, True):
+            x = x32.to(torch.bfloat16) if bf16 else x32
+            for op in GENERAL_OPS:
+                run = lambda: _launch_general(op, g, x, *ops, w, step)  # noqa: E731
+                got = run()
+                again = run()
+                same = all(torch.equal(a, r) for a, r in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)))
+                if not same:
+                    raise RuntimeError(f"general (d) {op} bf16={bf16} C={c} W={w} O={o}: a "
+                                       "rerun differs")
+                ref = general_plain(op, g, x, *ops, w, step)
+                err = check_general(op, bf16, got, ref,
+                                    f"general (d) {op} bf16={bf16} C={c} W={w} O={o}")
+                rows[(op, bf16, c, w, o)] = {"err": err}
+                if bf16 and op == "bwd_x":
+                    rows[(op, bf16, c, w, o)]["l2"] = rel_l2(got, ref)
+        del g, x32, ops
+    print("general (d): every general kernel against its plain version at M=2 B=8, "
+          "bit-identical reruns; max|err|: " + json.dumps(
+              {f"{op}{'_bf16' if bf16 else ''} C={c} W={w} O={o}": float(f"{r['err']:.3g}")
+               for (op, bf16, c, w, o), r in rows.items()}) + "; bf16 dx relative L2: "
+          + json.dumps({f"C={c} W={w} O={o}": float(f"{r['l2']:.3g}")
+                        for (op, bf16, c, w, o), r in rows.items() if "l2" in r}), flush=True)
+    entries = {}
+    for op in GENERAL_OPS:
+        c, w, step, o = GEN_ENTRY if op != "bwd_x" else (64, 250, 125, 32)
+        g, x32, *ops = general_operands(dev, rng, m, b, c, 800, 8, o, w, step)
+        for bf16 in (False, True):
+            x = x32.to(torch.bfloat16) if bf16 else x32
+            ms = cuda_ms(lambda: _launch_general(op, g, x, *ops, w, step), 5)
+            plain_ms = cuda_ms(lambda: general_plain(op, g, x, *ops, w, step), 3)
+            err = check_general(op, bf16, _launch_general(op, g, x, *ops, w, step),
+                                general_plain(op, g, x, *ops, w, step), f"general {op} entry")
+            (bound, by), floor = general_bound(op, bf16, m, b, c, 800, 8, o, w, step)
+            entries[(op, bf16)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound, "bound_by": by, "f32_core_floor_ms": floor,
+                                   "shape": {"M": m, "B": b, "C": c, "T": 800, "W": w,
+                                             "step": step, "O": o, "Z": 8}}
+    g, x32, *ops = general_operands(dev, rng, 1, 100, 64, 800, 8, 32, 250, 125)
+    xb = x32.to(torch.bfloat16)
+    x_ms = cuda_ms(lambda: _launch_general("bwd_x", g, xb, *ops, 250, 125), 5)
+    x_dev = device_ms(lambda: _launch_general("bwd_x", g, xb, *ops, 250, 125),
+                      GEN_KERNELS["bwd_x"], 5)
+    x_plain = cuda_ms(lambda: general_plain("bwd_x", g, xb, *ops, 250, 125), 3)
+    (x_bound, x_by), x_floor = general_bound("bwd_x", True, 1, 100, 64, 800, 8, 32, 250, 125)
+    entries[("bwd_x", True)]["m1_b100"] = {"ms": x_ms, "device_ms": x_dev, "plain_ms": x_plain,
+                                           "bound_ms": x_bound, "bound_by": x_by,
+                                           "f32_core_floor_ms": x_floor}
+    del g, x32, xb, ops
+    for key, r in general_path_checks(dev).items():
+        entries[key]["path_check"] = r
+    for (op, bf16), e in entries.items():
+        print(f"general {op} {'bf16' if bf16 else 'f32'} at {json.dumps(e['shape'])}: "
+              f"{e['ms']:.4f} ms (CUDA events), bound {e['bound_ms']:.4f} ms ({e['bound_by']}; "
+              f"{e['bound_ms'] / e['ms']:.1%}), CUDA-core f32 floor {e['f32_core_floor_ms']:.4f} "
+              f"ms ({e['f32_core_floor_ms'] / e['ms']:.1%}), plain {e['plain_ms']:.3f} ms, "
+              f"max|err| {e['max_abs_err']:.3g}", flush=True)
+    print(f"general bwd_x bf16 (B2x-g bf16) at M=1 B=100, the shipped geometry: {x_ms:.4f} ms "
+          f"(CUDA events), {x_dev:.4f} ms device time; bound {x_bound:.4f} ms ({x_by}; "
+          f"{x_bound / x_dev:.1%}), CUDA-core f32 floor {x_floor:.4f} ms "
+          f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
+    return {"grid": rows, "entries": entries}
+
+
+def phase_general(cfg, dev, X, Y, rng) -> dict:
+    """Section 14: the path (a)-(c) with every launch count set to 0 before
+    it and read after it, held to the launches its batches imply; then the
+    card-against-CPU trajectories at (a)'s geometry, (d) and the kernels'
+    timings. (a)'s steps are profiled in the "general" step-profile child
+    (``phase_step_profiles``): the profiler has lost records late in this
+    long process."""
+    t_sec = time.perf_counter()
+    cfg500 = dataclasses.replace(cfg, **GEN_GEOMETRY)
+    training = phase_general_training(cfg500, dev, X, Y)
+    reset_launches()
+    decoder = phase_general_decoder(cfg500, dev, training["f32"]["params"], rng)
+    phase_general_attribution(cfg, cfg500, dev, X, Y, training["f32"]["params"])
+    launches = read_launches()
+    per_call = {"fwd": 1 + IG_STEPS, "ig": IG_STEPS, "eg": EG_SAMPLES}
+    want = {"conv4head_fwd_general": decoder["launches"] + per_call["fwd"],
+            "conv4head_bwd_x_general": per_call["ig"],
+            "conv4head_fwd_bf16": per_call["fwd"] + EG_SAMPLES,
+            "conv4head_bwd_x_general_bf16": 2 * per_call["ig"] + EG_SAMPLES,
+            "conv4head_fwd_general_bf16": per_call["fwd"], "iir_chain": 2}
+    moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
+    if moved != want:
+        raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
+    path = {k: training["f32"]["launches"].get(k, 0) + training["bf16"]["launches"].get(k, 0)
+            + moved.get(k, 0) for k in GENERAL_KEYS}
+    if not all(path.values()):
+        raise RuntimeError(f"general: a general kernel did not launch on the path: {path}")
+    print(f"general (a)-(c): the general kernels' launches on the path {json.dumps(path)}",
+          flush=True)
+    t_traj = time.perf_counter()
+    phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
+    phase_trajectory_bf16(cfg500, dev, label="general (a) trajectory bf16",
+                          want=("conv4head_fwd_bf16", "conv4head_bwd_w_general_bf16"),
+                          shipped=False)
+    t_traj = time.perf_counter() - t_traj
+    kernels = phase_general_kernels(dev, rng)
+    seconds = time.perf_counter() - t_sec
+    print(f"general (section 14): {seconds:.1f} s in this process (host clock; the "
+          f"trajectories {t_traj:.1f} s); its steps' profiles run in a step-profile child",
+          flush=True)
+    return {"path": path, "kernels": kernels, "seconds": seconds}
 
 
 def main() -> None:
@@ -4539,10 +5171,10 @@ def main() -> None:
         phase_graphs(cfg, params1, params2, init_jax_layout_params(cfg, SEED, FLEET_MODELS),
                      init_jax_layout_params(cfg, SEED + 1, FLEET_MODELS), dev, rng)
         phase_streaming(cfg, params1, dev, rng)
-        training, _, (ckpt, subject), unsharded_f32 = phase_training(cfg, dev, workdir, "f32")
+        training, _, (ckpt, subject), unsharded_f32 = phase_training(cfg, dev, workdir, "f32", X, Y)
         fleet = phase_fleet(cfg, dev, rng, os.path.join(workdir, "train_f32"))
         phase_artifact(cfg, dev, ckpt, workdir, rng)
-        training_bf16, _, _, unsharded = phase_training(cfg, dev, workdir, "bf16")
+        training_bf16, _, _, unsharded = phase_training(cfg, dev, workdir, "bf16", X, Y)
         ensemble = phase_ensemble(cfg, dev, workdir, X)
         explain = phase_explain(cfg, dev, ckpt, subject)
         explain_cli = phase_explain_cli(cfg, dev, ckpt, subject,
@@ -4564,11 +5196,15 @@ def main() -> None:
         t_mesh = time.perf_counter()
         mesh = phase_mesh(cfg, dev, X, Y, workdir, {"bf16": unsharded, "f32": unsharded_f32})
         mesh["wall_s"] = time.perf_counter() - t_mesh
+        torch.cuda.empty_cache()
+        general = phase_general(cfg, dev, X, Y, rng)
     del X, Y
     t_mesh = time.perf_counter()
     mesh_kernels = phase_mesh_kernels(cfg, dev, rng)
     mesh["kernels_s"] = time.perf_counter() - t_mesh
     steps = phase_step_profiles()
+    general["steps"] = {p: steps[f"general {p}"] for p in ("f32", "bf16")}
+    general["seconds"] += steps["child_seconds"]["general"]
     phase_trajectory(cfg, dev)
     phase_trajectory_bf16(cfg, dev)
     stateful_traj = phase_trajectory_stateful(cfg, dev)
@@ -4707,6 +5343,30 @@ def main() -> None:
                                                               if n.startswith(prefix)}
                                    for k, r in mesh_kernels.items()
                                    if k.startswith(precision) and f"{prefix}err" in r}
+    # The general-geometry kernels (section 14): launches on its path (a)-(c); times
+    # and errors from (d) at GEN_ENTRY (B2x-g at the shipped geometry), M = 2, B = 8;
+    # "path_check": the errors at the path's shapes (``general_path_checks``).
+    replaces = {"fwd": "conv4head.py:303", "bwd_w": "conv4head.py:323", "bwd_x": "conv4head.py:351"}
+    for (op, bf16), e in general["kernels"]["entries"].items():
+        name = f"conv4head_{op}_general" + ("_bf16" if bf16 else "")
+        entry = {"name": name, "route": "cuda", "source": src + "conv4head_general.cu",
+                 "replaces": pallas + replaces[op], "launches": general["path"][name],
+                 **{k: e[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                 "library_ms": None, "shape": e["shape"],
+                 "f32_core_floor_ms": e["f32_core_floor_ms"]}
+        step = general["steps"]["bf16" if bf16 else "f32"]
+        kname = f"conv4head_{op}_general_kernel"  # (a)'s bf16 forward runs B2f-bf16 instead
+        if kname in step["kernels_ms"] and not (bf16 and op == "fwd"):
+            entry["step_m75_b64_w500"] = {"device_ms": step["kernels_ms"][kname],
+                                          "bound_ms": step["bounds_ms"][kname]}
+        for k in ("m1_b100", "path_check"):
+            if k in e:
+                entry[k] = e[k]
+        kernels.append(entry)
+    print(f"general (section 14): {general['seconds']:.1f} s with its step-profile child; a step "
+          f"at M=75 B=64, windows of "
+          f"{GEN_GEOMETRY['window_len']}: f32 {general['steps']['f32']['busy_ms']:.2f} ms, bf16 "
+          f"{general['steps']['bf16']['busy_ms']:.2f} ms of device time", flush=True)
     print(f"bn LOSO (section 11a): LOSO {bn_loso['loso_s']:.2f} s, peak "
           f"{bn_loso['loso_peak_gb']:.2f} GB; step device time "
           f"{steps['loso CVBlock']['busy_ms']:.2f} ms at M={FLEET_MODELS}", flush=True)

@@ -6,8 +6,9 @@ Counterparts of ``integrated_gradients``, ``expected_gradients``,
 target-class logit with respect to the raw input, at points between a
 baseline (or background trials) and ``x``, averaged and times ``x`` minus
 that baseline. The input gradient runs through kernel B2x on a CUDA
-device (the model's weights are held out of the graph, so B2w does not
-run), once per interpolation step on the whole batch. The zone maps
+device (B2x-g for a bf16 ``x`` or a geometry B2x has no plan for; the
+model's weights are held out of the graph, so B2w does not run), once per
+interpolation step on the whole batch. The zone maps
 take the mean over each zone's channels.
 """
 

@@ -48,6 +48,11 @@ _SIGNATURES = {
     "isd_conv4head_bwd_w_bf16": ([_P] * 14 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_w_bf16_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_bf16_phases": ([_P] * 14 + [_I] * 12 + [_P, _P], _I),
+    "isd_conv4head_fwd_general": ([_P] * 7 + [_I] * 13 + [_P], _I),
+    "isd_conv4head_bwd_w_general": ([_P] * 15 + [_I] * 14 + [_P], _I),
+    "isd_conv4head_bwd_x_general": ([_P] * 8 + [_I] * 13 + [_P], _I),
+    "isd_conv4head_general_slots": ([_I] * 2, _I),
+    "isd_conv4head_general_slot_floats": ([_I] * 3, ctypes.c_longlong),
     "isd_wgmma_selftest": ([_P, _I, _P, _P] + [_I] * 7 + [_P, _P], _I),
     "isd_cuda_error_string": ([_I], ctypes.c_char_p),
 }

@@ -1,6 +1,6 @@
 """Fused sliding-window Conv4Layers head: CUDA kernels B2f (forward), B2w
-(weight gradients) and B2x (input gradient), and their plain PyTorch
-version.
+(weight gradients) and B2x (input gradient), their general-geometry
+counterparts B2f-g, B2w-g and B2x-g, and their plain PyTorch version.
 
 Replaces ``imagined_speech_decoding_tpu/ops/pallas/conv4head.py``:
 ``_fwd_impl`` / ``_fwd_kernel`` (B2f, ``csrc/conv4head.cu``) and the
@@ -9,8 +9,10 @@ custom VJP's ``_bwd_rule`` with ``_bwd_w_kernel`` (B2w) and
 header says what bounds it on the H100 and what the design does about it.
 All three run on the tensor cores in 3xTF32 (f32 accuracy), sharing one
 conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32 and
-K1 = K2 = 5. B2f and B2x take any channel count C; B2w needs C to be a
-multiple of 8.
+K1 = K2 = 5, and their plans hold a block's window and activations in
+shared memory, so their reach is bounded: B2f and B2x up to C = 72 and 64
+at windows of 250, windows of 284 at C = 64; B2w needs C to be a multiple
+of 8 (``_adapted`` pads it), up to C = 72 and windows of 292.
 
 The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
 an f32 x takes the kernels above; a bf16 x takes their bf16
@@ -22,8 +24,12 @@ a block's trials), f32 accumulators, rounding where the Pallas kernel
 rounds (an even T; B2w-bf16 C <= 64). The weights come in as
 f32 either way and the kernels round them to bf16 as they stage them; the
 output and every weight gradient are f32.
-B2x has no bf16 instantiation: a bf16 x that needs a gradient on the card
-raises ``NotImplementedError`` (ROADMAP.md, Queue 2).
+
+The general kernels (``csrc/conv4head_general.cu``, f32 and bf16) take
+any C, T, window, step and O at K1 = K2 = 5: their shared memory does not
+grow with C, W or O (a unit's intermediates sit in a global workspace, a
+slot per resident block). They run where no tuned plan fits, where O >
+32, and for every bf16 input gradient (B2x-g bf16, the only one).
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
 with a leading model axis M where the JAX kernel had ``jax.vmap``:
@@ -45,18 +51,21 @@ B2x (``conv4head_bwd_plain``; B2x's alone, dx with the weights held out
 of the graph, is ``conv4head_bwd_x_plain``). In bf16 it rounds at the
 Pallas kernel's points, and its gradient is the written-out bf16 backward
 (``conv4head_bwd_bf16_plain``), which rounds the cotangents where
-``_bwd_zone`` does. Off the CPU every wrapper launches its kernel or
-raises; nothing falls back. A geometry the kernels are not built for but
-reach exactly by zero padding (``_adapted``: ``dim_cnn`` 8 or 16, f32 B2w
-at C % 8 != 0, an odd T in bf16, a B2f-bf16 trial longer than its plan
-holds) launches them on padded or split operands and adds one to the
-wrapper's ``adapted``; so does a bf16 geometry the bf16 kernel has no plan
-for (C > 64 in B2w-bf16), run on the f32 kernel with the bf16 kernel's
-operands where that kernel's plan fits; any other (K != 5, O > 32, no plan
-fitting) raises. On CUDA the kernel forward is a ``torch.autograd.Function``: it saves only
-its operands, and its backward recomputes the forward inside B2w (when
-any weight operand needs a gradient) and B2x (only when ``x`` needs one;
-training never asks), each routed the same way.
+``_bwd_zone`` does. Off the CPU every wrapper launches a kernel or
+raises; nothing falls back. ``_adapted`` picks the kernel from the
+geometry before any launch: a geometry a tuned kernel is not built for
+but reaches exactly by zero padding (``dim_cnn`` 8 or 16, f32 B2w at C %
+8 != 0, an odd T in bf16, a B2f-bf16 trial longer than its plan holds)
+launches it on padded or split operands and adds one to the wrapper's
+``adapted``; so does a bf16 geometry the bf16 kernel has no plan for (C >
+64 in B2w-bf16), run on the f32 kernel with the bf16 kernel's operands
+where that kernel's plan fits; the rest (no tuned plan fitting, O > 32, a
+bf16 input gradient) launches the general kernel of x's precision,
+counted in ``launches_general`` / ``launches_general_bf16``. K != 5
+raises. On CUDA the kernel forward is a ``torch.autograd.Function``: it
+saves only its operands, and its backward recomputes the forward inside
+B2w (when any weight operand needs a gradient) and B2x (only when ``x``
+needs one; training never asks), each routed the same way.
 """
 
 from __future__ import annotations
@@ -353,13 +362,13 @@ def _bf16_refusal(op: str, c: int, window_len: int, step: int, n: int, smem_byte
 
 
 def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int,
-             smem_bytes=None, bwd_w_smem_bytes=None):
+             smem_bytes=None, bwd_w_smem_bytes=None, general=None):
     """``op``'s result ("fwd": the features, "bwd_w": ``(dw12, db12, dw3,
     dw4)``, "bwd_x": dx) from ``launch(g, x, w12, b12, w3, w4, window_len,
-    step)``, a kernel launch, given operands of a geometry it is built for,
-    and whether the operands had to be adapted to it first. Each adaptation
-    is exact (a zero weight or sample adds exact zeros to every sum; a
-    window's outputs do not depend on the others):
+    step)``, a tuned kernel's launch, given operands of a geometry it is
+    built for, and whether the operands had to be adapted to it first. Each
+    adaptation is exact (a zero weight or sample adds exact zeros to every
+    sum; a window's outputs do not depend on the others):
       O < KERNEL_WIDTH (dim_cnn 8, 16): every zone zero-padded to 32
         channels, the outputs and gradients cut back;
       f32 B2w at C % 8 != 0: x and w12 zero-padded to a multiple of 8
@@ -372,13 +381,13 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     One adaptation is not exact: a bf16 geometry that B2f-bf16 or B2w-bf16
     takes no plan for (``_bf16_refusal``: B2w-bf16 at C > 64, B2f-bf16 at C >
     104 for windows of 250 or windows past 580 samples at C = 64) runs the
-    f32 kernel (``_f32_route``) on the bf16 kernel's operands: x as f32
-    (exact), the weights rounded to bf16 and back, b12 and g as they are.
-    It differs from the bf16 kernel by the bf16 roundings of h1, h2 and the
-    cotangents that the f32 kernel does not make.
-    Any other geometry (K1 or K2 != KERNEL_TAPS, O > KERNEL_WIDTH, a bf16 one
-    whose f32 route does not fit either) raises, as ``launch`` does for what
-    its kernel refuses."""
+    f32 kernel (``_f32_route``) on the bf16 kernel's operands where that
+    kernel's plan fits: x as f32 (exact), the weights rounded to bf16 and
+    back, b12 and g as they are. It differs from the bf16 kernel by the bf16
+    roundings of h1, h2 and the cotangents that the f32 kernel does not make.
+    What no tuned plan takes (``general_reason``) goes, unadapted, to
+    ``general(op, g, x, ...)``, the general kernel of x's precision
+    (``_launch_general`` by default). K1 or K2 != KERNEL_TAPS raises."""
     m, b, c, t, z, o, k1, k2, n = _geometry(x, w12, w3, window_len, step)
     if b == 0:  # a rank's empty share of a batch (parallel.mesh): nothing to launch
         if op == "fwd":
@@ -390,13 +399,14 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     if k1 != KERNEL_TAPS or k2 != KERNEL_TAPS:
         raise ValueError(f"the head kernels are built for K1 = K2 = {KERNEL_TAPS}, "
                          f"got K1={k1}, K2={k2}")
-    if o > KERNEL_WIDTH:
-        raise ValueError(f"the head kernels are built for O <= {KERNEL_WIDTH}, got O={o}")
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and op in ("fwd", "bwd_w"):
-        refusal = _bf16_refusal(op, c, window_len, step, n, smem_bytes, bwd_w_smem_bytes)
-        if refusal:
-            return _f32_route(refusal, op, launch, g, x, w12, b12, w3, w4, window_len, step), True
+    refusal = (_bf16_refusal(op, c, window_len, step, n, smem_bytes, bwd_w_smem_bytes)
+               if bf16 and op in ("fwd", "bwd_w") and o <= KERNEL_WIDTH else None)
+    if general_reason(op, bf16, c, o, window_len, refusal):
+        general = _launch_general if general is None else general
+        return general(op, g, x, w12, b12, w3, w4, window_len, step), False
+    if refusal:
+        return _f32_route(op, launch, g, x, w12, b12, w3, w4, window_len, step), True
     wide = o < KERNEL_WIDTH
     pad_c = (-c) % 8 if op == "bwd_w" and not bf16 else 0
     per = n
@@ -439,17 +449,42 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     return out, True
 
 
-def _f32_route(refusal: str, op: str, launch, g, x, w12, b12, w3, w4, window_len: int,
-               step: int):
+def f32_plan_fits(op: str, c: int, window_len: int) -> bool:
+    """Whether the tuned f32 kernel of ``op`` (B2f, B2w or B2x) has a plan
+    for C channels at windows of ``window_len`` that fits a block, after
+    ``_adapted``'s padding (O to 32, B2w's C to a multiple of 8), by the
+    Python mirrors of the library's plans (the card tests hold them equal)."""
+    if op == "fwd":
+        nbytes = fwd_smem_bytes(c, window_len)
+    elif op == "bwd_w":
+        nbytes = bwd_w_smem_bytes(c + (-c) % 8, window_len)
+    else:
+        nbytes = bwd_x_smem_bytes(c, window_len)
+    return nbytes <= MAX_SMEM_BYTES
+
+
+def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal) -> str:
+    """Why ``op`` goes to the general kernel of its precision, or "" when a
+    tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient (no
+    tuned bf16 B2x); or no tuned plan fitting: f32 where the f32 plan does
+    not fit, bf16 where the bf16 kernel refuses (``refusal``) and its f32
+    route's plan does not fit either."""
+    if o > KERNEL_WIDTH:
+        return f"O = {o} > {KERNEL_WIDTH}"
+    if bf16 and op == "bwd_x":
+        return "a bf16 input gradient"
+    if (refusal or not bf16) and not f32_plan_fits(op, c, window_len):
+        return (f"{refusal}; " if refusal else "") + (
+            f"the f32 plan does not fit a block at C={c}, windows of {window_len}")
+    return ""
+
+
+def _f32_route(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int):
     """``op`` of a bf16 x on the f32 kernel (through ``_adapted``'s f32
     adaptations), on the operands the bf16 kernel would read: f32 copies of
-    x and of the weights rounded to bf16 (b12 and g are f32 already). Where
-    the f32 plan does not fit either, raises naming both."""
-    try:
-        out, _ = _adapted(op, launch, g, x.float(), _bf16(w12), b12, _bf16(w3), _bf16(w4),
-                          window_len, step)
-    except ValueError as e:
-        raise ValueError(f"{refusal}; its f32 route does not fit either: {e}") from e
+    x and of the weights rounded to bf16 (b12 and g are f32 already)."""
+    out, _ = _adapted(op, launch, g, x.float(), _bf16(w12), b12, _bf16(w3), _bf16(w4),
+                      window_len, step)
     return out
 
 
@@ -599,6 +634,17 @@ def bwd_w_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
     hsz = _round_up4(max(o * ld, 16 * lw1))
     rsz = _round_up4(max(c * ld, o * ld + hsz))
     return 4 * (2 * rsz + hsz + 2 * _round_up4(o * lw) + 2 * _round_up4(o))
+
+
+def bwd_x_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_bwd_x_smem_bytes`` (B2x's ``x_plan``,
+    csrc/conv4head_bwd.cu: C rounded up to 32)."""
+    cp = (c + 31) & ~31
+    _, ld, lw1, lw = _tc_strides(cp, w, o, k)
+    ldx = _stride_4mod8(((w + 7) & ~7) + k - 1)
+    floats = (_round_up4(cp * ld) + _round_up4(max(o * ld, o * ldx)) + _round_up4(o * ld)
+              + _round_up4(o * lw1) + 2 * _round_up4(o * lw) + 2 * _round_up4(o))
+    return 4 * floats
 
 
 def chunk_offset(cs: int, row: int, ch: int) -> int:
@@ -771,7 +817,7 @@ FWD_CLOCK_BYTES = 16 * 8 * len(FWD_BF16_PHASES)
 def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2w: ``(dw12, db12, dw3, dw4)`` of ``<g, fused_conv4_head(x, ...)>``;
     B2w-bf16 for a bf16 ``x`` (C <= 64), B2w for an f32 one (``_adapted``
-    pads C to a multiple of 8)."""
+    pads C to a multiple of 8), B2w-g where neither plan fits."""
     if x.device.type == "cpu":
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
     _require_x(x)
@@ -859,27 +905,31 @@ def conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len: int, step: int):
 
 
 def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
-    """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>``. The kernel writes
-    per-window gradients; the overlapping windows are added here, in plain
-    PyTorch, as the JAX package adds them in XLA."""
+    """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>`` in x's dtype; B2x-g
+    bf16 for a bf16 ``x``. The kernels write per-window gradients; the
+    overlapping windows are added here, in f32 plain PyTorch, as the JAX
+    package adds them in XLA."""
     if x.device.type == "cpu":
         return conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len, step)
     _require_x(x)
-    if x.dtype == torch.bfloat16:
-        _launch_bwd_x(g, x, w12, b12, w3, w4, window_len, step)  # raises: no bf16 B2x
     dx, adapted = _adapted("bwd_x", _launch_bwd_x, g, x, w12, b12, w3, w4, window_len, step)
     _lib.count(conv4head_bwd_x, "adapted", adapted)
     return dx
 
 
+def _overlap_add(dxw, x, step: int):
+    """dx (x's shape and dtype) from the per-window gradients ``dxw (M, B,
+    N, C, W)``, summed in f32 in window order."""
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    window_len = dxw.shape[-1]
+    for i in range(dxw.shape[2]):
+        dx[..., i * step : i * step + window_len] += dxw[:, :, i]
+    return dx.to(x.dtype)
+
+
 def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
     """B2x with ``sz`` zone ranges per (model, trial, window), or with
     ``_bwd_x_zone_splits``'s when None."""
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "B2x has no bf16 instantiation yet (see ROADMAP.md, Queue 2): no entry point takes "
-            "an input gradient in bf16; hold x in float32 to differentiate with respect to it"
-        )
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
     if sz is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -898,10 +948,79 @@ def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
         )
     _lib.check(code, "isd_conv4head_bwd_x")
     _lib.count(conv4head_bwd_x)
-    dx = torch.zeros_like(x)
-    for i in range(n):
-        dx[..., i * step : i * step + window_len] += dxw[:, :, i]
-    return dx
+    return _overlap_add(dxw, x, step)
+
+
+# The general kernels (csrc/conv4head_general.cu): each block of a
+# persistent grid walks units in a workspace slot of buffers of O x t1
+# floats (the library's isd_conv4head_general_slot_floats). A unit is a
+# (model, trial, window, zone) in B2f-g, a (model, zone, window, trial
+# range) in B2w-g and a (model, trial, window) in B2x-g.
+GENERAL_OPS = ("fwd", "bwd_w", "bwd_x")
+
+
+def general_plan(op: str, m: int, b: int, z: int, n: int, slots: int) -> dict:
+    """The general kernel's launch for ``slots`` resident blocks: its
+    ``units``, ``grid`` (at most one block a slot) and, in B2w-g,
+    ``splits`` S, the most trial ranges a (model, zone, window) whose units
+    still fit the slots in one wave (at least 1, at most B; S = 1 in the
+    others). B2w-g's partials are N * S a model, summed in a fixed order."""
+    splits = max(1, min(b, slots // (m * z * n))) if op == "bwd_w" else 1
+    units = {"fwd": m * b * n * z, "bwd_w": m * z * n * splits, "bwd_x": m * b * n}[op]
+    return {"units": units, "grid": min(units, slots), "splits": splits}
+
+
+@functools.lru_cache(maxsize=16)
+def _general_slots(op: str, bf16: bool, device_index: int) -> int:
+    """Resident blocks of the general kernel of ``op`` on the card (the
+    library's occupancy query; kept: it does not change)."""
+    with torch.cuda.device(device_index):
+        slots = _lib.library().isd_conv4head_general_slots(GENERAL_OPS.index(op), int(bf16))
+    if slots < 1:
+        raise RuntimeError(f"the general {op} kernel's occupancy query failed ({slots})")
+    return slots
+
+
+def _launch_general(op: str, g, x, w12, b12, w3, w4, window_len: int, step: int):
+    """B2f-g, B2w-g or B2x-g (``op``) in x's precision on CUDA operands of
+    any geometry with K1 = K2 = 5: the features, ``(dw12, db12, dw3, dw4)``
+    or dx in x's dtype, as ``_adapted`` returns them. Counts one launch in
+    the op's wrapper's ``launches_general`` (f32) or
+    ``launches_general_bf16``."""
+    m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
+    bf16 = x.dtype == torch.bfloat16
+    lib = _lib.library()
+    plan = general_plan(op, m, b, z, n, _general_slots(op, bf16, x.device.index))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty(plan["grid"] * lib.isd_conv4head_general_slot_floats(
+        GENERAL_OPS.index(op), o, window_len), **f32)
+    geo = (m, b, c, t, z, o, k1, k2, window_len, step, n)
+    with torch.cuda.device(x.device):
+        if op == "fwd":
+            out = torch.empty((m, b, n, z * o), **f32)
+            code = lib.isd_conv4head_fwd_general(
+                x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(), w4.data_ptr(),
+                out.data_ptr(), work.data_ptr(), *geo, plan["grid"], int(bf16),
+                _lib.stream_of(x))
+        elif op == "bwd_w":
+            p = n * plan["splits"]
+            out = tuple(torch.empty(w.shape, **f32) for w in (w12, b12, w3, w4))
+            parts = [torch.empty((m, p) + tuple(w.shape[1:]), **f32) for w in (w12, b12, w3, w4)]
+            code = lib.isd_conv4head_bwd_w_general(
+                g.data_ptr(), x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(),
+                w4.data_ptr(), *(t_.data_ptr() for t_ in out), *(t_.data_ptr() for t_ in parts),
+                work.data_ptr(), *geo, plan["splits"], plan["grid"], int(bf16),
+                _lib.stream_of(x))
+        else:
+            dxw = torch.empty((m, b, n, c, window_len), **f32)
+            code = lib.isd_conv4head_bwd_x_general(
+                g.data_ptr(), x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(),
+                w4.data_ptr(), dxw.data_ptr(), work.data_ptr(), *geo, plan["grid"], int(bf16),
+                _lib.stream_of(x))
+    _lib.check(code, f"isd_conv4head_{op}_general")
+    wrapper = {"fwd": fused_conv4_head, "bwd_w": conv4head_bwd_w, "bwd_x": conv4head_bwd_x}[op]
+    _lib.count(wrapper, "launches_general_bf16" if bf16 else "launches_general")
+    return _overlap_add(dxw, x, step) if op == "bwd_x" else out
 
 
 class _FusedConv4Head(torch.autograd.Function):
@@ -943,7 +1062,7 @@ def fused_conv4_head(x, w12, b12, w3, w4, window_len: int, step: int):
 
 
 def _forward(x, w12, b12, w3, w4, window_len: int, step: int):
-    """B2f or B2f-bf16 on CUDA operands of any geometry ``_adapted`` takes."""
+    """B2f, B2f-bf16 or B2f-g on CUDA operands of any geometry ``_adapted`` takes."""
     _require_x(x)
     out, adapted = _adapted("fwd", lambda g, *ops: _launch_fwd(*ops), None, x, w12, b12, w3, w4,
                             window_len, step)
@@ -956,6 +1075,9 @@ fused_conv4_head.launches_bf16 = 0  # B2f-bf16 launches
 conv4head_bwd_w.launches = 0  # B2w launches
 conv4head_bwd_w.launches_bf16 = 0  # B2w-bf16 launches
 conv4head_bwd_x.launches = 0  # B2x launches
+fused_conv4_head.launches_general = fused_conv4_head.launches_general_bf16 = 0  # B2f-g f32, bf16
+conv4head_bwd_w.launches_general = conv4head_bwd_w.launches_general_bf16 = 0  # B2w-g
+conv4head_bwd_x.launches_general = conv4head_bwd_x.launches_general_bf16 = 0  # B2x-g
 # Calls whose operands _adapted zero-padded or split to a geometry the kernels
 # are built for (each such call's launches count above as well).
 fused_conv4_head.adapted = 0

@@ -4,13 +4,16 @@ geometry the kernels take (``ops/cuda/conv4head.py::_adapted``), counted
 in each wrapper's ``adapted``, or raise; nothing runs the plain version
 on the card.
 
-The kernels are built for O = 32 and K1 = K2 = 5, an even T in bf16, C %
-8 == 0 in f32 B2w, and their plans fitting a block. A bf16 geometry that
-B2f-bf16 or B2w-bf16 has no plan for runs the f32 kernel on the bf16
-kernel's operands where the f32 plan fits (B2w-bf16 at C = 72), and raises
-naming both where it does not (C = 128, windows of 600): that route is
-held to the plain bf16 version at 1e-2 in relative L2 (the f32 kernel
-skips the bf16 roundings of h1, h2 and the cotangents; measured <= 3.4e-3).
+The tuned kernels are built for O = 32 and K1 = K2 = 5, an even T in
+bf16, C % 8 == 0 in f32 B2w, and their plans fitting a block. A bf16
+geometry that B2f-bf16 or B2w-bf16 has no plan for runs the f32 kernel on
+the bf16 kernel's operands where the f32 plan fits (B2w-bf16 at C = 72):
+that route is held to the plain bf16 version at 1e-2 in relative L2 (the
+f32 kernel skips the bf16 roundings of h1, h2 and the cotangents;
+measured <= 3.4e-3). What no tuned plan takes (C = 80 or 128, windows of
+500 or 600, O = 64, a bf16 input gradient) goes to the general kernel of
+x's precision (B2f-g, B2w-g, B2x-g), unadapted and counted in
+``launches_general`` / ``launches_general_bf16``; only K != 5 raises.
 The JAX package trains other widths (``dim_cnn`` 8 in
 ``cli/zero_shot.py``, 16 in ``tests/test_trajectory_parity.py``). Here,
 on the CPU, a stand-in for the launch checks that every geometry it is
@@ -37,6 +40,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     _geometry,
     bwd_w_bf16_smem_bytes,
     bwd_w_smem_bytes,
+    bwd_x_smem_bytes,
     conv4head_bwd_bf16_plain,
     conv4head_bwd_plain,
     conv4head_bwd_w,
@@ -46,6 +50,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     fused_conv4_head_plain,
     fwd_bf16_plan,
     fwd_smem_bytes,
+    general_reason,
 )
 
 torch.set_num_threads(1)
@@ -95,6 +100,9 @@ def stand_in(op, calls, dtypes=None):
             _check_smem(fwd_smem_bytes(c, window_len), "B2f")
         if not bf16 and op == "bwd_w":
             _check_smem(bwd_w_smem_bytes(c, window_len), "B2w")
+        if op == "bwd_x":
+            assert not bf16, "no tuned bf16 B2x"
+            _check_smem(bwd_x_smem_bytes(c, window_len), "B2x")
         calls.append(dict(c=c, t=t, n=n))
         if dtypes is not None:
             dtypes.append(x.dtype)
@@ -103,6 +111,21 @@ def stand_in(op, calls, dtypes=None):
         if op == "bwd_w":
             return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
         return conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len, step)
+
+    return launch
+
+
+def general_stand_in(calls):
+    """A general kernel's launch on the CPU (``_launch_general``'s
+    arguments): takes any geometry with K = 5, records it, computes the
+    plain version."""
+
+    def launch(op, g, x, w12, b12, w3, w4, window_len, step):
+        _, _, c, t, _, o, k1, k2, n = _geometry(x, w12, w3, window_len, step)
+        assert k1 == k2 == KERNEL_TAPS
+        calls.append(dict(op=op, c=c, t=t, o=o, n=n, dtype=x.dtype))
+        return plain(op, g, x, w12, b12, w3, w4, (window_len, step))[0 if op != "bwd_w" else
+                                                                     slice(None)]
 
     return launch
 
@@ -206,7 +229,7 @@ def test_shipped_geometry_launches_unadapted(op, dtype):
 
 @pytest.mark.parametrize("op,geometry,dtype,why", [
     ("fwd", dict(k=3), torch.float64, "K1 = K2 = 5"),
-    ("bwd_w", dict(o=64, z=1), torch.float64, "O <= 32"),
+    ("bwd_w", dict(o=64, z=1), torch.float64, "O = 64 > 32"),
     ("bwd_w", dict(SHIPPED, c=128, b=1, z=1), torch.bfloat16, "B2w-bf16 is not built"),
     ("fwd", dict(c=112, t=800, w=250, step=125, b=1, z=1), torch.bfloat16,
      "B2f-bf16 is not built"),
@@ -214,19 +237,76 @@ def test_shipped_geometry_launches_unadapted(op, dtype):
      "B2f-bf16 is not built"),
 ])
 def test_geometry_no_padding_reaches_raises(op, geometry, dtype, why):
-    """Taps other than 5, O > 32, C = 128 in B2w-bf16 (its weight-gradient
-    tiles exceed the registers), C = 112 or windows of 600 in B2f-bf16 (one
-    window's plan exceeds the shared memory), where the f32 route's plan
-    does not fit a block either: no launch, a ValueError that names the
-    limit (both kernels' for a bf16 geometry)."""
+    """Taps other than 5 raise, with no launch. The geometries that raised
+    before the general kernels, O > 32, C = 128 in B2w-bf16 (its
+    weight-gradient tiles exceed the registers), C = 112 or windows of 600
+    in B2f-bf16 (one window's plan exceeds the shared memory), where the
+    f32 route's plan does not fit a block either, launch the general
+    kernel of x's precision once, on the operands as they are, with the
+    reason naming the limits (both kernels' for a bf16 geometry); the
+    result is the plain version's."""
     ops, geo = operands(dtype=dtype, **geometry)
-    calls = []
-    with pytest.raises(ValueError, match=why) as e:
-        _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
-                 bwd_w_smem_bytes=bwd_w_bf16_smem_bytes)
-    assert calls == []
-    if dtype == torch.bfloat16:
-        assert "its f32 route does not fit either" in str(e.value)
+    calls, general = [], []
+    if "K1" in why:
+        with pytest.raises(ValueError, match=why):
+            _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
+                     bwd_w_smem_bytes=bwd_w_bf16_smem_bytes, general=general_stand_in(general))
+        assert calls == general == []
+        return
+    got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
+                            bwd_w_smem_bytes=bwd_w_bf16_smem_bytes,
+                            general=general_stand_in(general))
+    _, x, w12, _, w3, _ = ops
+    _, _, c, t, _, o, _, _, n = _geometry(x, w12, w3, *geo)
+    assert not adapted and calls == []
+    assert general == [dict(op=op, c=c, t=t, o=o, n=n, dtype=dtype)]
+    bf16 = dtype == torch.bfloat16
+    refusal = conv4head._bf16_refusal(op, c, geo[0], geo[1], n, plan_bytes,
+                                      bwd_w_bf16_smem_bytes) if bf16 else None
+    reason = general_reason(op, bf16, c, o, geo[0], refusal)
+    assert why in reason and (not bf16 or "the f32 plan does not fit" in reason)
+    assert_matches(got, plain(op, *ops, geo), bf16)
+
+
+@pytest.mark.parametrize("op", ["fwd", "bwd_w", "bwd_x"])
+@pytest.mark.parametrize("geometry,dtype", [
+    (dict(SHIPPED, c=80, b=1, z=1), torch.float64),
+    (dict(SHIPPED, w=500, step=150, b=1, z=1), torch.float64),
+    (dict(SHIPPED, w=500, step=150, b=1, z=1), torch.bfloat16),
+    (dict(o=64, z=1), torch.bfloat16),
+], ids=["f32-c80", "f32-w500", "bf16-w500", "bf16-o64"])
+def test_general_route_geometries(op, geometry, dtype):
+    """Geometries no tuned plan takes, in f32 (C = 80 at windows of 250,
+    windows of 500) and in bf16 (windows of 500 in B2w-bf16, whose f32
+    route does not fit, and every bf16 B2x; O = 64): one launch of the
+    general kernel of x's precision on the operands as they are, none of a
+    tuned one, the plain version's result. A bf16 forward at windows of
+    500 stays on B2f-bf16 (one window a launch)."""
+    ops, geo = operands(dtype=dtype, **geometry)
+    calls, general = [], []
+    got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
+                            bwd_w_smem_bytes=bwd_w_bf16_smem_bytes,
+                            general=general_stand_in(general))
+    bf16 = dtype == torch.bfloat16
+    if bf16 and op == "fwd" and geometry.get("o", 32) == 32:
+        assert adapted and general == [] and len(calls) == 3  # B2f-bf16, a window a launch
+    else:
+        assert not adapted and calls == [] and [d["dtype"] for d in general] == [dtype]
+    assert_matches(got, plain(op, *ops, geo), bf16)
+
+
+def test_bf16_input_gradient_takes_the_general_kernel():
+    """A bf16 x's input gradient at the shipped geometry (one trial, one
+    zone) and at C = 10: B2x-g bf16, unadapted, dx in bf16 equal to the
+    plain bf16 backward's."""
+    for geometry in (dict(SHIPPED, b=1, z=1), dict(c=10)):
+        ops, geo = operands(dtype=torch.bfloat16, **geometry)
+        general = []
+        got, adapted = _adapted("bwd_x", stand_in("bwd_x", []), *ops, *geo,
+                                general=general_stand_in(general))
+        assert not adapted and [d["op"] for d in general] == ["bwd_x"]
+        want = conv4head_bwd_bf16_plain(*ops, *geo)[0]
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("op,geometry", [
@@ -266,6 +346,19 @@ def test_f32_plan_mirrors_match_the_shipped_geometry():
     assert not fits(fwd_smem_bytes(80, 250)) and not fits(bwd_w_smem_bytes(80, 250))
     assert fits(bwd_w_smem_bytes(64, 280)) and not fits(bwd_w_smem_bytes(64, 300))
     assert not fits(fwd_smem_bytes(128, 250)) and not fits(fwd_smem_bytes(64, 600))
+
+
+def test_b2x_plan_mirror_limits():
+    """B2x's plan mirror (``bwd_x_smem_bytes``): 213,760 bytes at the
+    shipped geometry (csrc/conv4head_bwd.cu's header), C up to 64 at windows
+    of 250 (C rounds up to 32) and windows up to 284 at C = 64, where the
+    general kernel takes over."""
+    fits = lambda n: n <= conv4head.MAX_SMEM_BYTES  # noqa: E731
+    assert bwd_x_smem_bytes(64, 250) == 213760
+    assert fits(bwd_x_smem_bytes(64, 250)) and not fits(bwd_x_smem_bytes(65, 250))
+    assert fits(bwd_x_smem_bytes(64, 284)) and not fits(bwd_x_smem_bytes(64, 285))
+    assert general_reason("bwd_x", False, 65, 32, 250, None)
+    assert not general_reason("bwd_x", False, 64, 32, 250, None)
 
 
 CALLS = {
@@ -337,14 +430,24 @@ def test_wrappers_count_adapted_calls(monkeypatch, op, geometry, dtype, launches
     ("bwd_w", dict(c=64, t=600, w=600, step=1, b=1, z=1)),
 ], ids=["fwd-c128", "bwd_w-c128", "fwd-w600", "bwd_w-w600"])
 def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
-    """Meta tensors in bf16 at C = 128 and at windows of 600: neither the
-    bf16 kernel's plan nor the f32 one's fits a block, so the wrapper raises
-    naming both, with no launch and nothing counted as adapted."""
-    calls = []
+    """Meta tensors in bf16 at C = 128 and at windows of 600, where neither
+    the bf16 kernel's plan nor the f32 one's fits a block, raised before the
+    general kernels; now the wrapper launches B2f-g or B2w-g bf16 once (a
+    stand-in here, which counts as the launch does), no tuned kernel, and
+    counts nothing as adapted."""
+    calls, general = [], []
     launch = stand_in(op, calls)
+    run_general = general_stand_in(general)
+
+    def counted(op_, *args):
+        out = run_general(op_, *args)
+        conv4head._lib.count(WRAPPERS[op_], "launches_general_bf16")
+        return out
+
     monkeypatch.setattr(conv4head, "_require_x", lambda x: None)
     monkeypatch.setattr(conv4head, {"fwd": "_launch_fwd", "bwd_w": "_launch_bwd_w"}[op],
                         (lambda *a: launch(None, *a)) if op == "fwd" else launch)
+    monkeypatch.setattr(conv4head, "_launch_general", counted)
     monkeypatch.setattr(conv4head._lib, "library", lambda: type(
         "Lib", (), {"isd_conv4head_fwd_bf16_smem_bytes": staticmethod(plan_bytes),
                     "isd_conv4head_bwd_w_bf16_smem_bytes": staticmethod(bwd_w_bf16_smem_bytes)}))
@@ -352,7 +455,10 @@ def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
     conv4head._bwd_w_bf16_bytes_built.cache_clear()
     ops, geo = meta_operands(torch.bfloat16, **geometry)
     fn = WRAPPERS[op]
-    before = fn.adapted
-    with pytest.raises(ValueError, match="its f32 route does not fit either"):
-        CALLS[op](*ops, geo)
-    assert calls == [] and fn.adapted == before
+    before = (fn.adapted, fn.launches_general_bf16, fn.launches_general)
+    got = CALLS[op](*ops, geo)
+    assert calls == [] and [d["op"] for d in general] == [op]
+    assert (fn.adapted, fn.launches_general_bf16, fn.launches_general) == (
+        before[0], before[1] + 1, before[2])
+    want = {"fwd": [ops[0].shape], "bwd_w": [t.shape for t in ops[2:]]}[op]
+    assert [t.shape for t in (got if isinstance(got, tuple) else (got,))] == want

@@ -20,7 +20,7 @@ from imagined_speech_decoding_tpu_torch.cli import train_fast
 from imagined_speech_decoding_tpu_torch.config import FASTConfig
 from imagined_speech_decoding_tpu_torch.explain.attribution import attribution_for_predictions
 from imagined_speech_decoding_tpu_torch.models.fast import FAST
-from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
+from imagined_speech_decoding_tpu_torch.ops.cuda import _lib, conv4head
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     FWD_BF16_PHASES,
     _launch_bwd_w,
@@ -513,6 +513,9 @@ def test_head_kernel_rejects_cpu_operands_on_cuda_input(dev):
 # the weight gradients: tests/test_torch_bf16.py).
 BF16_FWD_REL, BF16_BWD_REL = 3e-4, 1e-3
 F32_ROUTE_REL_L2 = 1e-2  # tests/test_torch_conv4head_route.py: the f32 route skips bf16 roundings
+# A bf16 dx against the plain bf16 backward's, relative L2, at every O: chip_smoke.py's
+# GEN_BF16_DX_L2 says where it sits among the readings.
+BF16_DX_L2 = 2e-3
 BF16_MODELS = (0, 37, 74)  # models of a 75-model launch held against the plain version
 
 
@@ -603,18 +606,29 @@ def test_bf16_kernels_take_odd_channel_counts(dev):
         _assert_grad_close(got, r, name)
 
 
-def test_bf16_input_gradient_raises(dev):
-    """B2x has no bf16 instantiation: a bf16 dx on the card raises, never
-    upcasts."""
+def test_bf16_input_gradient_runs_b2x_g(dev):
+    """A bf16 x's input gradient on the card runs B2x-g bf16 (one launch
+    of ``launches_general_bf16``, no tuned B2x), through
+    ``fused_conv4_head(...).backward()`` as through ``conv4head_bwd_x``:
+    dx in bf16 within BF16_DX_L2 in relative L2 of the plain bf16 backward's."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
     cfg, _, ops, x, g = _full_width_operands(dev, 1, 2, 29)
     geo = (cfg.window_len, cfg.slide_step)
     xb = x.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv4head_bwd_x(g, xb, *ops, *geo)
+    ref = conv4head_bwd_bf16_plain(g, xb, *ops, *geo)[0]
+    before = (conv4head_bwd_x.launches, conv4head_bwd_x.launches_general_bf16)
+    direct = conv4head_bwd_x(g, xb, *ops, *geo)
     xg = xb.clone().requires_grad_(True)
     out = fused_conv4_head(xg, *(t.detach() for t in ops), *geo)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_x.launches, conv4head_bwd_x.launches_general_bf16) == (
+        before[0], before[1] + 2)
+    for got in (direct, xg.grad):
+        assert got.dtype == torch.bfloat16 and got.shape == xb.shape
+        assert float((got.float() - ref.float()).norm() / ref.float().norm()) <= BF16_DX_L2
+    assert torch.equal(direct, xg.grad)
 
 
 def test_bf16_kernels_are_deterministic_and_leave_f32_alone(dev):
@@ -1365,36 +1379,116 @@ def test_bf16_geometry_routes_to_the_f32_kernel(dev, c, w, step):
     assert float((fwd - ref_f).norm() / ref_f.norm()) <= F32_ROUTE_REL_L2
 
 
-@pytest.mark.parametrize("op,c,w,step", [("fwd", 128, 250, 125), ("bwd_w", 128, 250, 125),
-                                         ("fwd", 64, 600, 100), ("bwd_w", 64, 600, 100)])
-def test_bf16_geometry_without_a_route_raises(dev, op, c, w, step):
-    """C = 128 and windows of 600 in bf16: neither the bf16 kernel's plan nor
-    the f32 kernel's fits a block; the wrapper raises naming both."""
-    m, b, z, o, k, t = 1, 2, 1, 32, 5, 800
+GENERAL_COUNTERS = ("launches_general", "launches_general_bf16")
+
+
+def _general_counts():
+    return {(fn.__name__, k): getattr(fn, k) for fn in (fused_conv4_head, conv4head_bwd_w,
+                                                          conv4head_bwd_x)
+            for k in GENERAL_COUNTERS + ("launches", "launches_bf16", "adapted")
+            if hasattr(fn, k)}
+
+
+def _general_operands(dev, c, t, w, step, o, seed, m=2, b=8, z=8):
+    """Full-width head operands at C channels, O-wide zones, from numpy."""
+    x, *weights = _head_operands(m, b, c, t, z, o, seed)
     n = (t - w) // step + 1
-    x = torch.randn(m, b, c, t, device=dev).to(torch.bfloat16)
-    w12 = torch.randn(m, z * o, k * c, device=dev)
-    b12, w3 = torch.randn(m, z * o, 1, device=dev), torch.randn(m, z, o, k * o, device=dev)
-    with pytest.raises(ValueError, match="its f32 route does not fit either"):
-        if op == "fwd":
-            with torch.no_grad():
-                fused_conv4_head(x, w12, b12, w3, w3, w, step)
-        else:
-            conv4head_bwd_w(torch.randn(m, b, n, z * o, device=dev), x, w12, b12, w3, w3, w, step)
+    g = torch.tensor(np.random.default_rng(seed + 1).normal(size=(m, b, n, z * o))
+                     .astype(np.float32))
+    return [a.to(dev) for a in (g, x, *weights)]
+
+
+# (d)'s grid of chip_smoke.py section 14: C = 80 and 128 at windows of 250, C =
+# 64 at windows of 500 and 800, O = 64 at the shipped geometry.
+GENERAL_GRID = [(80, 800, 250, 125, 32), (128, 800, 250, 125, 32), (64, 800, 500, 150, 32),
+                (64, 800, 800, 1, 32), (64, 800, 250, 125, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,t,w,step,o", GENERAL_GRID)
+def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
+    """B2f-g, B2w-g and B2x-g at M = 2, B = 8 where no tuned plan fits (or
+    O > 32): one general launch each in x's precision, no tuned launch,
+    nothing adapted; each held against its plain version on the card (f32:
+    features rtol 1e-4 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4 x
+    max|ref|; bf16: features 3e-4 and weight gradients 1e-3 x max|ref|, dx
+    BF16_DX_L2 in relative L2), and bit-identical on a second run. A bf16 forward that
+    B2f-bf16 takes (windows of 500, one a launch) stays there."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    g, x, *ops = _general_operands(dev, c, t, w, step, o, c + w + o)
+    bf16 = dtype == torch.bfloat16
+    x = x.to(dtype)
+    key = "launches_general_bf16" if bf16 else "launches_general"
+    n = (t - w) // step + 1
+    tuned_fwd = bf16 and o == 32 and conv4head._bf16_refusal("fwd", c, w, step, n, None,
+                                                              None) is None
+    results = []
+    for _ in range(2):
+        before = _general_counts()
+        with torch.no_grad():
+            out = fused_conv4_head(x, *ops, w, step)
+        dw = conv4head_bwd_w(g, x, *ops, w, step)
+        dx = conv4head_bwd_x(g, x, *ops, w, step)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in _general_counts().items() if v != before[k]}
+        groups = moved.pop(("fused_conv4_head", "launches_bf16"), 0)
+        moved.pop(("fused_conv4_head", "adapted"), None)  # B2f-bf16 in groups of windows
+        want = {("conv4head_bwd_w", key): 1, ("conv4head_bwd_x", key): 1}
+        if not tuned_fwd:
+            want[("fused_conv4_head", key)] = 1
+        assert moved == want and (groups >= 1) == tuned_fwd, (moved, groups)
+        results.append([out, dx, *dw])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    out, dx, *dw = results[0]
+    if bf16:
+        ref = conv4head_bwd_bf16_plain(g, x, *ops, w, step)
+        _bf16_close(out, fused_conv4_head_plain(x, *ops, w, step), BF16_FWD_REL, "out")
+        assert dx.dtype == torch.bfloat16
+        assert float((dx.float() - ref[0].float()).norm() / ref[0].float().norm()) <= BF16_DX_L2
+        for name, got, r in zip(("dw12", "db12", "dw3", "dw4"), dw, ref[1:]):
+            _bf16_close(got, r, BF16_BWD_REL, name)
+        return
+    torch.testing.assert_close(out, fused_conv4_head_plain(x, *ops, w, step), rtol=1e-4,
+                               atol=1e-5)
+    for name, got, r in zip(("dx", "dw12", "db12", "dw3", "dw4"), (dx, *dw),
+                            conv4head_bwd_plain(g, x, *ops, w, step)):
+        _assert_grad_close(got, r, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_shipped_step_launches_no_general_kernel(dev, dtype):
+    """A training step of a stacked full-width FAST at the shipped geometry
+    (forward and weight gradients) launches the tuned kernels only: every
+    general counter stays at 0."""
+    cfg, model, ops, x, g = _full_width_operands(dev, 2, 8, 57)
+    ops = [t.detach().requires_grad_(True) for t in ops]
+    before = _general_counts()
+    out = fused_conv4_head(x.to(dtype), *ops, cfg.window_len, cfg.slide_step)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    after = _general_counts()
+    assert all(after[k] == before[k] for k in after if k[1] in GENERAL_COUNTERS)
+    tuned = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    assert after[("conv4head_bwd_w", tuned)] == before[("conv4head_bwd_w", tuned)] + 1
 
 
 @pytest.mark.parametrize("c,w", [(64, 250), (72, 250), (80, 250), (128, 250), (64, 280),
                                  (64, 600), (8, 100)])
 def test_f32_plan_mirrors_match_the_library(dev, c, w):
-    """``fwd_smem_bytes`` / ``bwd_w_smem_bytes`` (the route tests' stand-ins)
-    equal the library's ``isd_conv4head_smem_bytes`` /
-    ``isd_conv4head_bwd_w_smem_bytes``."""
+    """``fwd_smem_bytes`` / ``bwd_w_smem_bytes`` / ``bwd_x_smem_bytes`` (the
+    route's choice between the tuned and the general kernels) equal the
+    library's ``isd_conv4head_smem_bytes`` / ``isd_conv4head_bwd_w_smem_bytes``
+    / ``isd_conv4head_bwd_x_smem_bytes``."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (bwd_w_smem_bytes,
+                                                                        bwd_x_smem_bytes,
                                                                         fwd_smem_bytes)
 
     lib = _lib.library()
     assert fwd_smem_bytes(c, w) == lib.isd_conv4head_smem_bytes(c, w, 32, 5)
     assert bwd_w_smem_bytes(c, w) == lib.isd_conv4head_bwd_w_smem_bytes(c, w, 32, 5)
+    assert bwd_x_smem_bytes(c, w) == lib.isd_conv4head_bwd_x_smem_bytes(c, w, 32, 5)
 
 
 # --- the engine's remaining paths: forward modes, early stopping, dense tokens,
