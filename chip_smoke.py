@@ -67,10 +67,11 @@ GPU.
         f32 and bf16 and a bf16 forward at T = 1001 (N = 7 windows: two
         B2f-bf16 groups), against the CPU, with the kernels' launches and
         the adapted calls counted; bf16 geometries B2w-bf16 has no plan for
-        (C = 72; windows of 280 at C = 64) on the f32 route, one B2w launch
-        on the bf16 operands, within 1e-2 in relative L2 of the plain bf16
-        backward; C = 128, where neither tuned plan fits, runs on B2f-g
-        bf16 (section 14) against the plain bf16 forward.
+        (C = 72 and 68) on the f32 route, one B2w launch on the bf16
+        operands, within 1e-2 in relative L2 of the plain bf16 backward;
+        windows of 280 at C = 64 on B2w-bf16's column tiles, at the bf16
+        kernels' 1e-3 x max|ref|; C = 128, where neither tuned plan fits,
+        runs on B2f-g bf16 (section 14) against the plain bf16 forward.
    B2f also at the fleet's M = 15, B = 1 and 8, on one window broadcast
    to every model, with its device time.
 4. Serving path: full-width FAST weights from a numpy seed are written
@@ -285,10 +286,11 @@ GPU.
 14. The general-geometry head kernels B2f-g, B2w-g and B2x-g (f32 and bf16;
    ``csrc/conv4head_general.cu``), on FAST at 2-second windows
    (``window_len=500, slide_step=150``: 3 windows, 64 channels, 8 zones, dim
-   32), which the tuned kernels' plans do not reach: (a)
+   32), which the tuned f32 kernels' plans do not reach: (a)
    ``train_per_subject_cv`` with 75 models at batch 64 on the corpus's first
    70 trials a subject, 2 epochs, in f32 (B2f-g, B2w-g) and bf16 (B2f-bf16,
-   B2w-g bf16), every head launch as the batches count them, and the
+   B2w-bf16 in column tiles), and at dim 64 in bf16 on 2 subjects, 1 epoch
+   (B2f-g bf16, B2w-g bf16), every head launch as the batches count them, and the
    2 x 10 card-against-CPU trajectory at that geometry in each precision
    (the training tolerances of the shipped geometry's); (b) a live decoder
    of (a)'s f32 model 0: one DECODE replayed equal to eager bit for bit,
@@ -1509,16 +1511,19 @@ F32_ROUTE_REL_L2 = 1e-2  # bf16 geometries on the f32 kernels (tests/test_torch_
 
 def phase_bf16_f32_route(dev, rng) -> dict:
     """bf16 head geometries that B2w-bf16 has no plan for, on the f32 route
-    (``_adapted``): C = 72 at windows of 250 (its weight-gradient tiles) and
-    windows of 280 at C = 64 (its shared memory). One B2w launch on the bf16
-    kernel's operands, counted adapted, within ``F32_ROUTE_REL_L2`` in
-    relative L2 of the plain bf16 backward on the CPU; C = 128, where the f32
-    plan does not fit either, runs on B2f-g bf16 (section 14), unadapted,
-    within ``BF16_FWD_REL`` of the plain bf16 forward."""
+    (``_adapted``): C = 72 and 68 at windows of 250 (its weight-gradient
+    tiles). One B2w launch on the bf16 kernel's operands, counted adapted,
+    within ``F32_ROUTE_REL_L2`` in relative L2 of the plain bf16 backward on
+    the CPU. Windows of 280 at C = 64, on that route before column tiles,
+    run B2w-bf16 (one launch, unadapted), within BF16_BWD_REL x max|ref|
+    per tensor: the bf16 roundings of h1, h2 and the cotangents where the
+    Pallas kernel makes them. C = 128, where the f32 plan does not fit
+    either, runs on B2f-g bf16 (section 14), unadapted, within
+    ``BF16_FWD_REL`` of the plain bf16 forward."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     errs = {}
-    for c, w, step in ((72, 250, 125), (64, 280, 130)):
+    for c, w, step in ((72, 250, 125), (68, 250, 125), (64, 280, 130)):
         n = (800 - w) // step + 1
         shapes = (((1, 8 * 32, 5 * c), (5 * c) ** -0.5), ((1, 8 * 32, 1), 0.1),
                   ((1, 8, 32, 160), 160 ** -0.5), ((1, 8, 32, 160), 160 ** -0.5))
@@ -1528,13 +1533,18 @@ def phase_bf16_f32_route(dev, rng) -> dict:
         reset_launches()
         got = conv4head_bwd_w(g.to(dev), x.to(dev), *[t.to(dev) for t in ops], w, step)
         launches = read_launches()
+        tiles = c <= 64
+        want = (0, 1, 0) if tiles else (1, 0, 1)
         if (launches["conv4head_bwd_w"], launches["conv4head_bwd_w_bf16"],
-                launches["adapted"]) != (1, 0, 1):
-            raise RuntimeError(f"bf16 C={c} W={w}: the f32 route must launch B2w once, adapted: "
-                               f"{launches}")
+                launches["adapted"]) != want:
+            raise RuntimeError(f"bf16 C={c} W={w}: (B2w, B2w-bf16, adapted) launches must be "
+                               f"{want}: {launches}")
         ref = conv4head_bwd_bf16_plain(g, x, *ops, w, step)[1:]
         errs[(c, w)] = max(float((a.cpu() - r).norm() / r.norm()) for a, r in zip(got, ref))
-        if errs[(c, w)] > F32_ROUTE_REL_L2:
+        if tiles:
+            errs[(c, w, "max")] = max(check_rel(f"bf16 C={c} W={w} on B2w-bf16", a.cpu(), r,
+                                                BF16_BWD_REL) for a, r in zip(got, ref))
+        elif errs[(c, w)] > F32_ROUTE_REL_L2:
             raise RuntimeError(f"bf16 C={c} W={w} on the f32 route: relative L2 "
                                f"{errs[(c, w)]:.3g} > {F32_ROUTE_REL_L2}")
     shapes = (((1, 256, 640), 640 ** -0.5), ((1, 256, 1), 0.1), ((1, 8, 32, 160), 160 ** -0.5),
@@ -1551,10 +1561,12 @@ def phase_bf16_f32_route(dev, rng) -> dict:
                            f"unadapted: {launches}")
     err = check_rel("bf16 C=128 on B2f-g bf16", got.cpu(),
                     fused_conv4_head_plain(x, *w128, 250, 125), BF16_FWD_REL)
+    route = {f"C={k[0]} W={k[1]}": float(f"{v:.3g}") for k, v in errs.items() if k[0] > 64}
     print(f"bf16 head geometries on the f32 route (B2w on the bf16 operands, one launch, "
-          f"adapted): relative L2 against the plain bf16 backward "
-          f"{json.dumps({f'C={c} W={w}': float(f'{v:.3g}') for (c, w), v in errs.items()})} "
-          f"(<= {F32_ROUTE_REL_L2}); C=128, where neither tuned plan fits, runs on B2f-g bf16 "
+          f"adapted): relative L2 against the plain bf16 backward {json.dumps(route)} "
+          f"(<= {F32_ROUTE_REL_L2}); C=64 W=280 on B2w-bf16 (column tiles, unadapted): relative "
+          f"L2 {errs[(64, 280)]:.3g}, max|err| {errs[(64, 280, 'max')]:.3g} (atol {BF16_BWD_REL} "
+          f"x max|ref|); C=128, where neither tuned plan fits, runs on B2f-g bf16 "
           f"(one launch, unadapted), max|err| {err:.3g} against the plain bf16 forward",
           flush=True)
     return errs
@@ -1602,7 +1614,7 @@ def report_tc_build(info, cfg) -> None:
     for what, entry, smem_fn, _ in TC_KERNELS:
         for block in log.split("Compiling entry function")[1:]:
             if entry in block.splitlines()[0]:
-                name = re.search(entry + r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", block)
+                name = re.search(entry + r"ILi(\d+)ELi(\d+)ELi(n?\d+)ELi(n?\d+)E", block)
                 lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
                          if re.search(r"registers|spill", ln)]
                 print(f"{what} ptxas <O, K, C, W> = <{', '.join(name.groups()) if name else '?'}>: "
@@ -1961,8 +1973,8 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
     ``train_head`` and ``train_transformer`` modes and CVBlock's LOSO step
     at M = 15; or (``group`` "featurize") the band-power and STFT
     featurizers over the 15-subject corpus; or (``group`` "general")
-    section 14's f32 and bf16 steps at windows of 500 (M = 75), on the
-    general kernels. The profiler has lost whole
+    section 14's f32 and bf16 steps at windows of 500 (M = 75): f32 on the
+    general kernels, bf16 on B2f-bf16 and B2w-bf16's column tiles. The profiler has lost whole
     sessions' records late in a long run (on an H100: three sessions in a
     row after the campaign phases; the featurizers' after the engine's steps
     joined this child; and the featurizers' again, three sessions in a row,
@@ -4620,6 +4632,7 @@ GEN_SHAPE = (2, 8)  # (M, B) of (d)
 GEN_GRID = ((80, 250, 125, 32), (128, 250, 125, 32), (64, 500, 150, 32), (64, 800, 125, 32),
             (64, 250, 125, 64))
 GEN_ENTRY = (64, 500, 150, 32)  # the kernels line's shape for B2f-g and B2w-g ((a)'s windows)
+GEN_WIDE_DIM, GEN_WIDE_SUBJECTS = 64, 2  # (a)'s bf16 fit at O > 32: B2f-g / B2w-g bf16
 GEN_KERNELS = {op: f"conv4head_{op}_general_kernel" for op in GENERAL_OPS}
 # bf16 dx of B2x-g against the plain bf16 backward, relative L2, for every O. bf16
 # rounds h1, h2, dh3, dh2, dh1 and dx, and two f32 sums in other orders round a few
@@ -4743,43 +4756,55 @@ def phase_general_training(cfg500, dev, X, Y) -> dict:
     """(a) ``train_per_subject_cv`` on FAST at 2-second windows (64
     channels, 8 zones, dim 32, 3 windows of 500, 75 models, batch 64), the
     corpus's first GEN_TRIALS trials a subject, 2 epochs, in f32 (B2f-g,
-    B2w-g) and in bf16 (B2f-bf16 a window a launch, B2w-g bf16): the
-    history finite and every head launch as the batches count them.
-    Returns each precision's launches and the f32 run's final weights."""
+    B2w-g) and in bf16 (B2f-bf16 a window a launch, B2w-bf16 in column
+    tiles); then, where only the general kernels reach, the same fit at
+    dim_cnn = GEN_WIDE_DIM (O > 32) in bf16 on GEN_WIDE_SUBJECTS subjects, 1
+    epoch (B2f-g bf16, B2w-g bf16): the history finite and every head
+    launch as the batches count them. Returns each run's launches and the
+    f32 run's final weights."""
     subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
     x, y = X[:, :GEN_TRIALS], Y[:, :GEN_TRIALS]
     tr, va, _ = build_cv_index_stack(TRAIN_SUBJECTS, GEN_TRIALS, 5, 42)
     fwd_calls, steps = expected_head_launches(TRAIN_EPOCHS, tr.shape[1], va.shape[1], TRAIN_BATCH)
     n = cfg500.n_tokens
     groups = -(-n // _fwd_bf16_windows_built(64, cfg500.window_len, cfg500.slide_step, n))
+    wide_tr, wide_va, _ = build_cv_index_stack(GEN_WIDE_SUBJECTS, GEN_TRIALS, 5, 42)
+    wide_fwd, wide_steps = expected_head_launches(1, wide_tr.shape[1], wide_va.shape[1],
+                                                  TRAIN_BATCH)
     want = {"f32": {"conv4head_fwd_general": fwd_calls, "conv4head_bwd_w_general": steps},
-            "bf16": {"conv4head_fwd_bf16": groups * fwd_calls,
-                     "conv4head_bwd_w_general_bf16": steps}}
+            "bf16": {"conv4head_fwd_bf16": groups * fwd_calls, "conv4head_bwd_w_bf16": steps},
+            "bf16 wide": {"conv4head_fwd_general_bf16": wide_fwd,
+                          "conv4head_bwd_w_general_bf16": wide_steps}}
     if groups > 1:  # B2f-bf16 a group of windows at a time: each forward call adapted
         want["bf16"]["adapted"] = fwd_calls
     runs = {}
-    for precision in ("f32", "bf16"):
+    for name, c_, precision, n_sub, epochs in (
+            ("f32", cfg500, "f32", TRAIN_SUBJECTS, TRAIN_EPOCHS),
+            ("bf16", cfg500, "bf16", TRAIN_SUBJECTS, TRAIN_EPOCHS),
+            ("bf16 wide", dataclasses.replace(cfg500, dim_cnn=GEN_WIDE_DIM), "bf16",
+             GEN_WIDE_SUBJECTS, 1)):
         reset_launches()
         t0 = time.perf_counter()
-        res = train_per_subject_cv(cfg500, TrainConfig(max_epochs=TRAIN_EPOCHS, precision=precision),
-                                   x, y, subjects, cfg500.n_classes, device=dev, verbose=False)
+        res = train_per_subject_cv(c_, TrainConfig(max_epochs=epochs, precision=precision),
+                                   x[:n_sub], y[:n_sub], subjects[:n_sub], c_.n_classes,
+                                   device=dev, verbose=False)
         wall = time.perf_counter() - t0
         launches = read_launches()
         moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
-        if moved != want[precision]:
-            raise RuntimeError(f"general (a) {precision}: head launches {moved}, expected "
-                               f"{want[precision]}")
+        if moved != want[name]:
+            raise RuntimeError(f"general (a) {name}: head launches {moved}, expected "
+                               f"{want[name]}")
         for k, v in res.fit.history.items():
-            if v.shape != (TRAIN_SUBJECTS * 5, TRAIN_EPOCHS) or not np.isfinite(v).all():
-                raise RuntimeError(f"general (a) {precision}: history {k} {v.shape}")
-        print(f"general (a): train_per_subject_cv at windows of {cfg500.window_len} step "
-              f"{cfg500.slide_step} ({n} windows), {TRAIN_SUBJECTS * 5} models, "
-              f"{GEN_TRIALS} trials a subject, {precision}, {TRAIN_EPOCHS} epochs in {wall:.2f} s "
+            if v.shape != (n_sub * 5, epochs) or not np.isfinite(v).all():
+                raise RuntimeError(f"general (a) {name}: history {k} {v.shape}")
+        print(f"general (a): train_per_subject_cv at windows of {c_.window_len} step "
+              f"{c_.slide_step} ({n} windows), dim_cnn {c_.dim_cnn}, {n_sub * 5} models, "
+              f"{GEN_TRIALS} trials a subject, {precision}, {epochs} epochs in {wall:.2f} s "
               f"(host clock): history finite, head launches {json.dumps(moved)} as the batches "
               f"count them; mean best val_acc {float(np.mean(res.fit.best_val_acc)):.3f}",
               flush=True)
-        runs[precision] = {"launches": moved, "wall_s": wall,
-                           "params": {k: v[0].detach().cpu() for k, v in res.fit.params.items()}}
+        runs[name] = {"launches": moved, "wall_s": wall,
+                      "params": {k: v[0].detach().cpu() for k, v in res.fit.params.items()}}
         del res
     return runs
 
@@ -4914,17 +4939,17 @@ def general_step_profile(cfg500, dev, dtype) -> dict:
     step()
     bf16 = dtype == torch.bfloat16
     fwd = "conv4head_fwd_bf16_kernel" if bf16 else GEN_KERNELS["fwd"]
-    events, span, union = profiled_step(step, f"general step {dtype}",
-                                        need=(fwd, GEN_KERNELS["bwd_w"]))
+    bwd_w = "conv4head_bwd_w_bf16_kernel" if bf16 else GEN_KERNELS["bwd_w"]
+    events, span, union = profiled_step(step, f"general step {dtype}", need=(fwd, bwd_w))
     records = device_records(events)
     busy = sum(e.self_device_time_total for e in records) / 1e3
     heads = {key: sum(e.self_device_time_total for e in records if key in e.key) / 1e3
-             for key in (fwd, GEN_KERNELS["bwd_w"])}
+             for key in (fwd, bwd_w)}
     b = TRAIN_BATCH
     bounds = {fwd: general_bound("fwd", bf16, m, b, 64, 800, 8, 32, cfg500.window_len,
                                  cfg500.slide_step)[0][0],
-              GEN_KERNELS["bwd_w"]: general_bound("bwd_w", bf16, m, b, 64, 800, 8, 32,
-                                                  cfg500.window_len, cfg500.slide_step)[0][0]}
+              bwd_w: general_bound("bwd_w", bf16, m, b, 64, 800, 8, 32, cfg500.window_len,
+                                   cfg500.slide_step)[0][0]}
     print(f"general step {'bf16' if bf16 else 'f32'}, M={m} B={b}, windows of "
           f"{cfg500.window_len}: device time {busy:.2f} ms, CUDA-event span {span:.2f} ms (idle "
           f"{1 - union / span:.1%}); " + "; ".join(
@@ -4941,9 +4966,10 @@ def general_path_checks(dev) -> dict:
     its workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64,
     GEN_ENTRY's windows of 500; B2w-g there takes few trial ranges a (zone,
     window), each long), f32 and bf16, models 0, M/2 and M - 1, and a second
-    launch bit-identical; B2x-g at (c)'s M = 1, B = 100, bf16 at the shipped
-    geometry and f32 at windows of 500, every trial. ``check_general``'s
-    tolerances; the largest absolute error of each."""
+    launch bit-identical; B2w-bf16's column tiles likewise at (a)'s step in
+    bf16 (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 at
+    the shipped geometry and f32 at windows of 500, every trial.
+    ``check_general``'s tolerances; the largest absolute error of each."""
     out = {}
     c, w, step, o = GEN_ENTRY
     m, b = GEN_PATH_SHAPE
@@ -4971,7 +4997,20 @@ def general_path_checks(dev) -> dict:
                                "splits": plan["splits"], "shape": {"M": m, "B": b, "W": w}}
             del got, again
         del x
-    del g, x32, ops
+    # B2w-bf16's column tiles, which the route takes for (a)'s bf16 weight gradients.
+    xb = x32.to(torch.bfloat16)
+    with uncounted():
+        got = _launch_bwd_w(g, xb, *ops, w, step)
+        again = _launch_bwd_w(g, xb, *ops, w, step)
+    what = f"B2w-bf16 column tiles M={m} B={b} W={w}"
+    if not all(torch.equal(a, r) for a, r in zip(got, again)):
+        raise RuntimeError(f"{what}: a rerun differs")
+    err = max(check_general("bwd_w", True, tuple(a[i:i + 1] for a in got),
+                            general_plain("bwd_w", *[t[i:i + 1] for t in (g, xb, *ops)], w, step),
+                            f"{what} model {i}") for i in models)
+    out[("bwd_w_tiles", True)] = {"max_abs_err": err, "models": list(models),
+                                  "shape": {"M": m, "B": b, "W": w}}
+    del g, x32, xb, ops, got, again
     mx, bx = GEN_ATTR_SHAPE
     for bf16, (w, step) in ((True, (250, 125)), (False, (GEN_ENTRY[1], GEN_ENTRY[2]))):
         g, x32, *ops = general_operands_on_card(dev, mx, bx, 64, 800, 8, 32, w, step)
@@ -4990,6 +5029,11 @@ def general_path_checks(dev) -> dict:
         del g, x32, x, ops, got, ref
     torch.cuda.empty_cache()
     for (op, bf16), r in out.items():
+        if op == "bwd_w_tiles":
+            print(f"B2w-bf16 path check at {json.dumps(r['shape'])} (column tiles): max|err| "
+                  f"{r['max_abs_err']:.3g} against plain on models {r['models']}, rerun "
+                  "bit-identical", flush=True)
+            continue
         print(f"general path check {op} {'bf16' if bf16 else 'f32'} at {json.dumps(r['shape'])} "
               f"({r['units_a_block']:.2f} units a block"
               + (f", {r['splits']} trial range(s) a (model, zone, window)" if "splits" in r else "")
@@ -5053,6 +5097,23 @@ def phase_general_kernels(dev, rng) -> dict:
                                    "bound_ms": bound, "bound_by": by, "f32_core_floor_ms": floor,
                                    "shape": {"M": m, "B": b, "C": c, "T": 800, "W": w,
                                              "step": step, "O": o, "Z": 8}}
+    c, w, step, o = GEN_ENTRY  # B2w-bf16's column tiles there, as the route runs them
+    g, x32, *ops = general_operands(dev, rng, m, b, c, 800, 8, o, w, step)
+    xb = x32.to(torch.bfloat16)
+    with uncounted():
+        tiles = {"ms": cuda_ms(lambda: _launch_bwd_w(g, xb, *ops, w, step), 5),
+                 "plain_ms": cuda_ms(lambda: general_plain("bwd_w", g, xb, *ops, w, step), 3),
+                 "max_abs_err": check_general("bwd_w", True, _launch_bwd_w(g, xb, *ops, w, step),
+                                              general_plain("bwd_w", g, xb, *ops, w, step),
+                                              "B2w-bf16 column tiles entry")}
+    (tiles["bound_ms"], tiles["bound_by"]), _ = general_bound("bwd_w", True, m, b, c, 800, 8, o,
+                                                              w, step)
+    tiles["shape"] = {"M": m, "B": b, "C": c, "T": 800, "W": w, "step": step, "O": o, "Z": 8}
+    print(f"B2w-bf16 (column tiles) at {json.dumps(tiles['shape'])}: {tiles['ms']:.4f} ms (CUDA "
+          f"events), bound {tiles['bound_ms']:.4f} ms ({tiles['bound_by']}; "
+          f"{tiles['bound_ms'] / tiles['ms']:.1%}), plain {tiles['plain_ms']:.3f} ms, max|err| "
+          f"{tiles['max_abs_err']:.3g}", flush=True)
+    del g, x32, xb, ops
     g, x32, *ops = general_operands(dev, rng, 1, 100, 64, 800, 8, 32, 250, 125)
     xb = x32.to(torch.bfloat16)
     x_ms = cuda_ms(lambda: _launch_general("bwd_x", g, xb, *ops, 250, 125), 5)
@@ -5065,6 +5126,9 @@ def phase_general_kernels(dev, rng) -> dict:
                                            "f32_core_floor_ms": x_floor}
     del g, x32, xb, ops
     for key, r in general_path_checks(dev).items():
+        if key[0] == "bwd_w_tiles":
+            tiles["path_check"] = r
+            continue
         entries[key]["path_check"] = r
     for (op, bf16), e in entries.items():
         print(f"general {op} {'bf16' if bf16 else 'f32'} at {json.dumps(e['shape'])}: "
@@ -5076,7 +5140,7 @@ def phase_general_kernels(dev, rng) -> dict:
           f"(CUDA events), {x_dev:.4f} ms device time; bound {x_bound:.4f} ms ({x_by}; "
           f"{x_bound / x_dev:.1%}), CUDA-core f32 floor {x_floor:.4f} ms "
           f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
-    return {"grid": rows, "entries": entries}
+    return {"grid": rows, "entries": entries, "tiles_w500": tiles}
 
 
 def phase_general(cfg, dev, X, Y, rng) -> dict:
@@ -5102,17 +5166,16 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
     if moved != want:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
-    path = {k: training["f32"]["launches"].get(k, 0) + training["bf16"]["launches"].get(k, 0)
-            + moved.get(k, 0) for k in GENERAL_KEYS}
+    path = {k: sum(run["launches"].get(k, 0) for run in training.values()) + moved.get(k, 0)
+            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"]}
     if not all(path.values()):
-        raise RuntimeError(f"general: a general kernel did not launch on the path: {path}")
-    print(f"general (a)-(c): the general kernels' launches on the path {json.dumps(path)}",
-          flush=True)
+        raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
+    print(f"general (a)-(c): the general kernels' and the bf16 kernels' launches on the path "
+          f"{json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
     phase_trajectory_bf16(cfg500, dev, label="general (a) trajectory bf16",
-                          want=("conv4head_fwd_bf16", "conv4head_bwd_w_general_bf16"),
-                          shipped=False)
+                          want=("conv4head_fwd_bf16", "conv4head_bwd_w_bf16"), shipped=False)
     t_traj = time.perf_counter() - t_traj
     kernels = phase_general_kernels(dev, rng)
     seconds = time.perf_counter() - t_sec
@@ -5343,6 +5406,18 @@ def main() -> None:
                                                               if n.startswith(prefix)}
                                    for k, r in mesh_kernels.items()
                                    if k.startswith(precision) and f"{prefix}err" in r}
+    # Section 14's path (a)-(c) runs B2f-bf16 (a window a launch) and B2w-bf16's
+    # column tiles at windows of 500: their launches there, and (a)'s bf16 step's
+    # device time and bound of each.
+    for name in HEAD_KERNELS["bf16"]:
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["launches_general_section"] = general["path"][name]
+        entry["launches"] += entry["launches_general_section"]
+        step = general["steps"]["bf16"]
+        entry["step_m75_b64_w500"] = {"device_ms": step["kernels_ms"][name + "_kernel"],
+                                      "bound_ms": step["bounds_ms"][name + "_kernel"]}
+    next(k for k in kernels if k["name"] == "conv4head_bwd_w_bf16")["w500"] = (
+        general["kernels"]["tiles_w500"])
     # The general-geometry kernels (section 14): launches on its path (a)-(c); times
     # and errors from (d) at GEN_ENTRY (B2x-g at the shipped geometry), M = 2, B = 8;
     # "path_check": the errors at the path's shapes (``general_path_checks``).
@@ -5355,8 +5430,8 @@ def main() -> None:
                  "library_ms": None, "shape": e["shape"],
                  "f32_core_floor_ms": e["f32_core_floor_ms"]}
         step = general["steps"]["bf16" if bf16 else "f32"]
-        kname = f"conv4head_{op}_general_kernel"  # (a)'s bf16 forward runs B2f-bf16 instead
-        if kname in step["kernels_ms"] and not (bf16 and op == "fwd"):
+        kname = f"conv4head_{op}_general_kernel"  # (a)'s bf16 step runs B2f-bf16 and B2w-bf16
+        if kname in step["kernels_ms"] and not bf16:
             entry["step_m75_b64_w500"] = {"device_ms": step["kernels_ms"][kname],
                                           "bound_ms": step["bounds_ms"][kname]}
         for k in ("m1_b100", "path_check"):

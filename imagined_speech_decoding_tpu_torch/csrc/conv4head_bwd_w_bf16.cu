@@ -27,9 +27,10 @@
 //
 // The design: a block per (model, zone, window, trial range), 16 warps = 4
 // warpgroups, one block per SM, the zone's weights resident, the next
-// trial's window streamed in by cp.async while the current one computes.
-// Every product is a warpgroup GEMM, wgmma.mma_async m64n32k16 with both
-// operands read from shared memory through descriptors (wgmma_bf16.cuh):
+// (trial, column tile)'s samples streamed in by cp.async while the current
+// one computes. Every product is a warpgroup GEMM, wgmma.mma_async
+// m64n32k16 with both operands read from shared memory through descriptors
+// (wgmma_bf16.cuh):
 //  * the convs and conv^T's are D[t, o] GEMMs, M = time (a warpgroup takes
 //    64 rows: 4 x 64 >= t1 = 246), N = O = 32, K = (tap, channel);
 //  * the weight gradients are dw^T[(tap, i), o] = sum_t src[t + tap][i]
@@ -53,18 +54,41 @@
 // mma.sync for them keeps the ldmatrix-fed loops this design leaves).
 // The tile of taps 4 and 5 computes a tap past K, not stored.
 //
-// A trial: the window's transpose; h1, h2, h3 -> dh3c; conv4^T -> dh2c
+// Column tiles: the buffers hold at most kGroups x 64 = 256 computed rows,
+// so a window of t1 > 256 conv rows (W > 260) runs in column tiles, each
+// computing 256 rows from column s = 240 j of the window (the last as few
+// 64-row tiles as reach t1). conv3, conv4, conv4^T and conv3^T each reach
+// 2 rows, so dh1 is exact 8 rows inside a tile's interior edges (a halo of
+// kHalo = 8 rows a side, recomputed): tile j owns rows [s + 8, s + 248) of
+// the window (from 0 in the first tile, up to t1 in the last), and only
+// those enter the weight gradients and db12. Rows past t1 are zero as in
+// one tile; interior edges hold real values. The time K step of a weight
+// gradient is 16 rows and the owned edges (local rows 8 and 248) lie
+// inside one, so the epilogues of dh3c and dh2c also write a masked copy
+// of the 16-row chunk that holds each interior edge (the owned rows real,
+// the others zero) and that step reads the copy; conv4^T and conv3^T read
+// the full rows. bf16(dh1) feeds only dw12, so it is stored masked. At
+// windows of 500 that is 2 tiles, 512 rows computed for 496; at W <= 260
+// one tile, with no halo and no edge chunks (the other instantiations).
+//
+// A (trial, column tile): the window's columns transposed; h1, h2, h3 ->
+// dh3c; conv4^T -> dh2c
 // with dw4 issued behind it; conv3^T -> bf16(dh1) and db12's f32 column
 // sums (per warp, added in warp order: no atomics) with dw3 behind it;
 // dw12. Each phase's generic stores are fenced for the async proxy
 // (fence.proxy.async) before the barrier after which a wgmma reads them;
 // the weight-gradient groups run on under the next epilogues and are
-// drained before the next trial overwrites the window. C up to 64: the
+// drained before the next (trial, tile) overwrites the window. C up to 64: the
 // window and w12 are padded with zero channels to Cp = 64 (a dw12 tile is
 // one tap), whose gradient columns are not stored; more channels fit
 // neither 3 tiles a warpgroup nor the shared memory at W = 250.
-// T even. 225 KB of shared memory at full width. The debug instantiation
-// (kClock) adds per-phase clock counters (phase_clock.cuh).
+// T even. 225 KB of shared memory at full width; 230,656 B in column tiles,
+// one layout for every C <= 64 and window (the raw rows sized for 64
+// channels, the 4 KB of masked edge chunks), so the column tiles'
+// instantiation has compile-time strides as the shipped geometry's has. ops/cuda/conv4head.py mirrors the plan and the
+// column tiles (bwd_w_bf16_plan, bwd_w_bf16_col_tiles) for the CPU
+// emulation of tests/wgmma_emulation.py. The debug instantiations (kClock)
+// add per-phase clock counters (phase_clock.cuh).
 
 #include <cstdint>
 
@@ -89,36 +113,44 @@ using isd::round16;
 using isd::stage_weights_wg;
 
 constexpr int kSlots = 3;  // weight-gradient tiles a warpgroup holds: 11 at C <= 64
+constexpr int kSpan = kGroups * kRows;  // rows a column tile computes at most: 256
+constexpr int kHalo = 8;  // rows recomputed at a tile's interior edge: 2 a 'same' conv or conv^T
+constexpr int kTileStep = kSpan - 2 * kHalo;  // columns between two tiles' first rows: 240
+constexpr int kEdgeRows = 16;  // rows of a masked edge chunk: one k16 step over time
 
 // Shared-memory plan of a block, in bytes; mirrored by bwd_w_bf16_plan in
-// ops/cuda/conv4head.py. Time-major buffers have `rows` rows (time rows
-// 0..W-1 of the window; activation time t at row K/2 + t, zero rows around
+// ops/cuda/conv4head.py. Time-major buffers have `rows` rows (the column
+// tile's rows 0..nt+K-2; activation time t at row K/2 + t, zero rows around
 // up to the farthest row a tap reaches) in chunks of 8 channels, `cs`
 // bytes apart.
 struct WgPlan {
   int cp;        // channels of the staged window and w12: C rounded up to 64
-  int t1, nt;    // valid conv length; the rows the convs compute (t1 up to 64s)
+  int t1, nt;    // valid conv length; the rows a tile computes (t1 up to 64s, at most kSpan)
+  int tiles;     // column tiles a window: 1 up to t1 = kSpan, else ceil((t1 - 16) / 240)
   int rows, cs;  // rows of a buffer (nt + K - 1); bytes between its chunks
-  int rw;        // raw window row stride, in bf16 elements (even, >= W + 1)
+  int rw;        // raw row stride, in bf16 elements (even, past the columns a tile reads)
   int n34, n12;  // weight-gradient tiles of dw4 (= of dw3) and of dw12
-  int xs, raw, h1, h2, d3, d2, d1, w12, w3, w4, bias, gz, red, total;
+  int xs, raw, h1, h2, d3, d2, d1, w12, w3, w4, bias, gz, red;
+  int mk;        // the masked edge chunks, [dh3c, dh2c][left, right] (column tiles only)
+  int total;
 };
 
 __host__ __device__ inline WgPlan wg_plan(int C, int W, int O, int K) {
   WgPlan p;
   p.cp = (C + kRows - 1) / kRows * kRows;
   p.t1 = W - K + 1;
-  p.nt = (p.t1 + kRows - 1) / kRows * kRows;
+  p.nt = p.t1 < kSpan ? (p.t1 + kRows - 1) / kRows * kRows : kSpan;
+  p.tiles = p.t1 <= kSpan ? 1 : (p.t1 - 2 * kHalo + kTileStep - 1) / kTileStep;
   p.rows = p.nt + K - 1;
   p.cs = 16 * p.rows;
-  p.rw = (W + 2) & ~1;
+  p.rw = ((W < p.rows ? W : p.rows) + 2) & ~1;
   p.n34 = (K * O + kRows - 1) / kRows;
   p.n12 = K * p.cp / kRows;
   int off = 0;
   p.xs = off;
   off += round16(p.cp / 8 * p.cs);
-  p.raw = off;
-  off += round16(2 * C * p.rw);
+  p.raw = off;  // C rows; cp in column tiles, so that every column-tile plan has one layout
+  off += round16(2 * (p.tiles > 1 ? p.cp : C) * p.rw);
   p.h1 = off;  // O channels, then the copy one row down
   off += round16(O / 4 * p.cs);
   p.h2 = off;
@@ -141,19 +173,44 @@ __host__ __device__ inline WgPlan wg_plan(int C, int W, int O, int K) {
   off += round16(4 * O);
   p.red = off;
   off += round16(4 * kWarpsB * O);
+  p.mk = off;
+  off += p.tiles > 1 ? 4 * (O / 8) * 16 * kEdgeRows : 0;
   p.total = off;
   return p;
 }
 
-// The C rows of a window of W samples, from x0 (the even element at or
-// before the window's start in row 0; rows at stride T, T even), to
-// raw[c * rw + j] by 4-byte cp.async: off + W elements rounded up to even,
-// the window starting at j = off. Warp w copies rows w, w + 16, ...: no
-// division a word (one per word cost ~3,000 cycles a trial, PERF.md); a
+// Column tile j of a window, in the tile's own rows (row r is the window's
+// conv row s + r): the rows it computes (nt, 64-row tiles), the first row
+// past the window's end (e), the rows it owns [lo, hi), the window columns
+// it reads, and whether it has an interior edge on the left or right.
+struct ColTile {
+  int s, nt, e, lo, hi, cols;
+  bool left, right;
+};
+
+__host__ __device__ inline ColTile col_tile(const WgPlan& p, int j, int W, int K) {
+  ColTile c;
+  c.s = j * kTileStep;
+  c.e = p.t1 - c.s;
+  c.nt = (c.e + kRows - 1) / kRows * kRows;
+  c.nt = c.nt < p.nt ? c.nt : p.nt;
+  c.left = j > 0;
+  c.right = j + 1 < p.tiles;
+  c.lo = c.left ? kHalo : 0;
+  c.hi = c.right ? p.nt - kHalo : c.e;
+  c.cols = c.nt + K - 1 < W - c.s ? c.nt + K - 1 : W - c.s;
+  return c;
+}
+
+// The C rows of `cols` window columns, from x0 (the even element at or
+// before the columns' start in row 0; rows at stride T, T even), to
+// raw[c * rw + j] by 4-byte cp.async: off + cols elements rounded up to
+// even, the columns starting at j = off. Warp w copies rows w, w + 16, ...:
+// no division a word (one per word cost ~3,000 cycles a trial, PERF.md); a
 // round past a row's end repeats its last word.
 __device__ inline void stage_raw_rows(uint16_t* raw, int rw, const uint16_t* __restrict__ x0,
-                                      int C, int T, int W, int off, int warp) {
-  const int words = (off + W + 1) >> 1, lane = threadIdx.x & 31;
+                                      int C, int T, int cols, int off, int warp) {
+  const int words = (off + cols + 1) >> 1, lane = threadIdx.x & 31;
   for (int c = warp; c < C; c += kWarpsB) {
     for (int j0 = 0; j0 < words; j0 += 32) {
       const int j = 2 * min(j0 + lane, words - 1);
@@ -162,17 +219,21 @@ __device__ inline void stage_raw_rows(uint16_t* raw, int rw, const uint16_t* __r
   }
 }
 
-// The window into its chunks: (t, c) = x[c, t] for t < W from the raw rows,
-// 16 bytes (8 channels) a store, channels C..cp-1 zero. Rows W.. are not
-// written (zero from the block's start). A round past the last item
-// repeats it; raw rows past C are read and their values dropped (they lie
-// inside the block's shared memory).
+// The columns into their chunks: (t, c) = x[c, t] from the raw rows for t
+// < span, 16 bytes (8 channels) a store, channels C..cp-1 zero; kPad: rows
+// cols..span-1 zero as well (a column tile, span its buffers' rows: a
+// constant divisor, and a short tile's rows past the window's end hold
+// zeros). Rows from span on are not written (zero from the block's start).
+// A round past the last item repeats it; raw rows past C, and in kPad raw
+// columns past cols, are read and their values dropped (they lie inside the
+// block's shared memory).
+template <bool kPad>
 __device__ inline void raw_to_chunks(char* xs, int cs, const uint16_t* raw, int rw, int off,
-                                     int C, int cp, int W) {
-  const int n = (cp >> 3) * W;
+                                     int C, int cp, int cols, int span) {
+  const int n = (cp >> 3) * span;
   for (int i0 = 0; i0 < n; i0 += kWarpsB * 32) {
     const int i = min(i0 + static_cast<int>(threadIdx.x), n - 1);
-    const int ch = i / W, t = i - ch * W;
+    const int ch = i / span, t = i - ch * span;
     const uint16_t* col = raw + 8 * ch * rw + off + t;
     uint32_t v[4];
 #pragma unroll
@@ -180,23 +241,37 @@ __device__ inline void raw_to_chunks(char* xs, int cs, const uint16_t* raw, int 
       const int c = 8 * ch + 2 * e;
       const uint32_t lo = col[2 * e * rw], hi = col[(2 * e + 1) * rw];
       v[e] = (c < C ? lo : 0u) | ((c + 1 < C ? hi : 0u) << 16);
+      if (kPad) v[e] = t < cols ? v[e] : 0u;
     }
     *reinterpret_cast<uint4*>(xs + ch * cs + 16 * t) = make_uint4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// acc += one weight-gradient tile's k16 steps over time (overwriting acc
-// on the block's first trial): A = src from byte a0 (time along K:
-// MN-major), B = d from byte b0 (MN-major), nt rows.
-__device__ inline void dw_issue(float (&acc)[16], uint32_t a0, uint32_t b0, int cs, int nt,
-                                bool first) {
-  const uint64_t a = isd::wgmma_desc(a0, 128, cs), b = isd::wgmma_desc(b0, 128, cs);
-#pragma unroll
-  for (int t0 = 0; t0 < nt; t0 += 16) {  // +16 rows = +256 bytes = +16 in the start field
-    isd::wgmma_m64n32k16<1, 1>(acc, a + t0, b + t0, t0 > 0 || !first);
+// Zeros rows [r0, r0 + n) of `chunks` consecutive chunks (cs bytes apart) from buf.
+__device__ inline void zero_rows(char* buf, int cs, int chunks, int r0, int n) {
+  for (int i = threadIdx.x; i < chunks * n; i += blockDim.x) {
+    const int ch = i / n;
+    *reinterpret_cast<uint4*>(buf + ch * cs + 16 * (r0 + i - ch * n)) = make_uint4(0, 0, 0, 0);
   }
 }
 
+// acc += one weight-gradient tile's k16 steps over time (overwriting acc
+// on the block's first (trial, tile)): A = src from byte a0 (time along K:
+// MN-major), B = d from byte b0 (MN-major), nt rows; the first and last
+// steps read the masked edge chunks bl and br instead where they are not 0.
+__device__ inline void dw_issue(float (&acc)[16], uint32_t a0, uint32_t b0, int cs, int nt,
+                                bool first, uint64_t bl, uint64_t br) {
+  const uint64_t a = isd::wgmma_desc(a0, 128, cs), b = isd::wgmma_desc(b0, 128, cs);
+#pragma unroll
+  for (int t0 = 0; t0 < nt; t0 += 16) {  // +16 rows = +256 bytes = +16 in the start field
+    const uint64_t bt = t0 == 0 && bl ? bl : t0 + 16 == nt && br ? br : b + t0;
+    isd::wgmma_m64n32k16<1, 1>(acc, a + t0, bt, t0 > 0 || !first);
+  }
+}
+
+// kW > 0: windows of kW samples (one column tile); kW 0: any window of one
+// column tile; kW < 0 (kTiled): any window in column tiles, on the one
+// layout of every column-tile plan (its strides compile-time constants).
 template <int O, int K, int kC, int kW, bool kClock>
 __global__ void __launch_bounds__(kWarpsB * 32, 1)
 conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restrict__ x,
@@ -207,14 +282,22 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
                             int T, int Z, int N, int W_arg, int step, int S,
                             unsigned long long* __restrict__ clk) {
   static_assert(O == 32, "four 8-column chunks of O; dw3 / dw4 tiles of two taps");
+  constexpr bool kTiled = kW < 0;
   const int C = kC > 0 ? kC : C_arg, W = kW > 0 ? kW : W_arg;
   extern __shared__ uint4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const uint32_t base = isd::smem_u32(smem);
-  const WgPlan plan = wg_plan(C, W, O, K);
+  // Every column-tile plan is the plan of W = kSpan + K (two tiles) but for t1 and tiles.
+  WgPlan plan = wg_plan(kTiled ? kRows : C, kTiled ? kSpan + K : W, O, K);
+  if (kTiled) {
+    const WgPlan own = wg_plan(C, W, O, K);
+    plan.t1 = own.t1;
+    plan.tiles = own.tiles;
+  }
+  const int tiles = kTiled ? plan.tiles : 1;  // the others take one column tile (launch_w)
   const int z = blockIdx.x, p = blockIdx.y, m = blockIdx.z;
   const int n = p / S, s = p - n * S, P = N * S;
-  const int t1 = plan.t1, cs = plan.cs, tiles = plan.nt / kRows;
+  const int t1 = plan.t1, cs = plan.cs;
   // The warpgroup, through a shuffle so that the compiler knows it is the
   // same across the warp: every branch on it is then warp-uniform.
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
@@ -227,12 +310,20 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
   const size_t zo = (static_cast<size_t>(m) * Z + z) * O;
   const size_t mp = static_cast<size_t>(m) * P + p;
   const int b0 = s * B / S, b1 = (s + 1) * B / S;
-  const int off = (n * step) & 1;  // T is even: every row's window starts at this parity
+  const int off = (n * step) & 1;  // T and kTileStep even: every row's columns start at this parity
   const uint16_t* x0 = x + (static_cast<size_t>(m) * B + b0) * C * T + n * step - off;
 
-  stage_raw_rows(raw, plan.rw, x0, C, T, W, off, warp);
+  // Column tile j, in one column tile the whole window (the plan's own registers).
+  const auto tile_of = [&](int j) {
+    return kTiled ? col_tile(plan, j, W, K)
+                  : ColTile{0, plan.nt, plan.t1, 0, plan.t1, W, false, false};
+  };
+  stage_raw_rows(raw, plan.rw, x0, C, T, tile_of(0).cols, off, warp);
   isd::zero_words(reinterpret_cast<uint32_t*>(smem + plan.xs), plan.raw / 4);
   isd::zero_words(reinterpret_cast<uint32_t*>(smem + plan.h1), (plan.w12 - plan.h1) / 4);
+  if (kTiled) {
+    isd::zero_words(reinterpret_cast<uint32_t*>(smem + plan.mk), (plan.total - plan.mk) / 4);
+  }
   stage_weights_wg(smem + plan.w12, w12 + zo * K * C, O, K, C, plan.cp);
   stage_weights_wg(smem + plan.w3, w3 + zo * K * O, O, K, O, O);
   stage_weights_wg(smem + plan.w4, w4 + zo * K * O, O, K, O, O);
@@ -246,29 +337,42 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
   float acc[16];           // a conv tile
   float accw[kSlots][16];  // this warpgroup's weight-gradient tiles wg, wg + 4, ...
   float db = 0.f;  // db12's sum over the block's trials (threads o < O keep theirs)
+  ColTile ct = tile_of(0);  // the current (trial, column tile)'s
 
+  // The masked edge chunk of dh3c (0) or dh2c (1) on the left (0) or right (1).
+  const auto edge = [&](int which, int side) {
+    return plan.mk + (2 * which + side) * (O / 8) * 16 * kEdgeRows;
+  };
+  const auto edge_desc = [&](int which, bool on, int side) -> uint64_t {
+    return on ? isd::wgmma_desc(base + edge(which, side), 128, 16 * kEdgeRows) : 0;
+  };
   // This warpgroup's weight-gradient tiles of [lo, hi): dw4 tiles are
   // 0..n34-1, dw3 n34..2 n34-1, dw12 2 n34..; their sources and dh.
-  bool first = true;  // the block's first trial
+  bool first = true;  // the block's first (trial, tile)
   const auto issue_dw = [&](int lo, int hi) {
 #pragma unroll
     for (int t = 0; t < kSlots; ++t) {
       const int tile = wg + kGroups * t;
       if (tile < lo || tile >= hi) continue;
       uint32_t a0, b0r;
+      uint64_t bl = 0, br = 0;
       if (tile < plan.n34) {  // dw4: taps 2p, 2p + 1 of h2 and its copy; dh3c
         a0 = base + plan.h2 + 32 * tile;
         b0r = base + plan.d3 + 16 * (K / 2);
+        bl = edge_desc(0, ct.left, 0);
+        br = edge_desc(0, ct.right, 1);
       } else if (tile < 2 * plan.n34) {  // dw3: h1; dh2c
         a0 = base + plan.h1 + 32 * (tile - plan.n34);
         b0r = base + plan.d2 + 16 * (K / 2);
-      } else {  // dw12: (tap, 64 channels) of the window; bf16(dh1)
+        bl = edge_desc(1, ct.left, 0);
+        br = edge_desc(1, ct.right, 1);
+      } else {  // dw12: (tap, 64 channels) of the window; bf16(dh1), stored masked
         const int i = tile - 2 * plan.n34, blocks = plan.cp / kRows;
         const int tap = i / blocks, blk = i - tap * blocks;
         a0 = base + plan.xs + 8 * blk * cs + 16 * tap;
         b0r = base + plan.d1 + 16 * (K / 2);
       }
-      dw_issue(accw[t], a0, b0r, cs, plan.nt, first);
+      dw_issue(accw[t], a0, b0r, cs, ct.nt, first, bl, br);
     }
   };
   // One conv phase: this warpgroup's time tiles, each issued, waited for
@@ -280,7 +384,7 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
   const auto conv_phase = [&](auto issue, auto epilogue, auto extra, auto after, int ph_dw,
                               int ph_conv) {
     bool issued = false;
-    for (int tile = wg; tile < tiles; tile += kGroups) {
+    for (int tile = wg; tile < ct.nt / kRows; tile += kGroups) {
       isd::wgmma_fence();
       issue(tile);
       isd::wgmma_commit();
@@ -310,10 +414,17 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
   const auto put = [&](int buf, int row, int o, uint32_t v) {
     *reinterpret_cast<uint32_t*>(smem + buf + chunk_off(cs, row, o)) = v;
   };
-  const auto store = [&](int buf) {  // a bf16 activation, zero from t1 on
-    return [=](int, int t, int o, float v0, float v1) {
-      put(buf, K / 2 + t, o, t < t1 ? isd::pack_bf16(v0, v1) : 0u);
-    };
+  // In column tiles, dh3c's (0) or dh2c's (1) row t also into the masked
+  // copy of the edge chunk that holds it (zero where the tile does not own
+  // it); a row in no edge chunk goes to this thread's own word of red (free
+  // in these phases): one store, no branch on t while weight gradients run.
+  const auto put_edge = [&](int which, int t, int o, uint32_t v) {
+    const bool l = ct.left && t < kEdgeRows, r = ct.right && t >= plan.nt - kEdgeRows;
+    const bool own = l ? t >= kHalo : t < plan.nt - kHalo;
+    const int at = l || r ? edge(which, r) + chunk_off(16 * kEdgeRows,
+                                                       l ? t : t - (plan.nt - kEdgeRows), o)
+                          : plan.red + 4 * static_cast<int>(threadIdx.x);
+    *reinterpret_cast<uint32_t*>(smem + at) = own ? v : 0u;
   };
   const auto conv = [&](int src, int w) {
     return [=, &acc](int tile) { conv_issue<K, O, false>(acc, base + src, cs, base + w, O, tile); };
@@ -324,64 +435,83 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
 
   for (int b = b0; b < b1; ++b) {
     const size_t mb = static_cast<size_t>(m) * B + b;
-    isd::cp_async_wait_all();
-    isd::wgmma_wait<0>();  // the last trial's weight gradients read the window and dh1
-    __syncthreads();
-    clock.mark(isd::kPhWait);
-    raw_to_chunks(smem + plan.xs, cs, raw, plan.rw, off, C, plan.cp, W);
-    // g / t1 (O = 32: every warp stores the same values)
-    gz[threadIdx.x & 31] = g[(mb * N + n) * Z * O + z * O + (threadIdx.x & 31)] / t1;
-    isd::fence_proxy_async();
-    clock.sync(isd::kPhTranspose);
-    if (b + 1 < b1) {
-      stage_raw_rows(raw, plan.rw, x0 + (b + 1 - b0) * static_cast<size_t>(C) * T, C, T, W, off,
-                     warp);
+    for (int j = 0; j < tiles; ++j) {
+      ct = tile_of(j);
+      const int e = ct.e;  // rows from e on lie past the window's end: zero
+      isd::cp_async_wait_all();
+      isd::wgmma_wait<0>();  // the last (trial, tile)'s weight gradients read the window and dh
+      __syncthreads();
+      clock.mark(isd::kPhWait);
+      raw_to_chunks<kTiled>(smem + plan.xs, cs, raw, plan.rw, off, C, plan.cp, ct.cols,
+                            kTiled ? plan.rows : ct.cols);
+      if (kTiled && ct.nt < plan.nt) {  // a short last tile: the rows its convs read past its own
+        zero_rows(smem + plan.h1, cs, (plan.d1 - plan.h1) / cs, ct.nt + K / 2 - 1, K / 2 + 1);
+      }
+      // g / t1 (O = 32: every warp stores the same values)
+      gz[threadIdx.x & 31] = g[(mb * N + n) * Z * O + z * O + (threadIdx.x & 31)] / t1;
+      isd::fence_proxy_async();
+      clock.sync(isd::kPhTranspose);
+      const int nj = j + 1 < tiles ? j + 1 : 0, nb = nj > 0 ? b : b + 1;
+      if (nb < b1) {  // the next (trial, tile)'s columns
+        stage_raw_rows(raw, plan.rw,
+                       x0 + (nb - b0) * static_cast<size_t>(C) * T + nj * kTileStep, C, T,
+                       tile_of(nj).cols, off, warp);
+      }
+      conv_phase(  // h1 = bf16(w12 . p + b12), and its copy one row down
+          [&](int tile) { conv_issue<K, O, false>(acc, base + plan.xs, cs, base + plan.w12,
+                                                  plan.cp, tile); },
+          [&](int, int t, int o, float v0, float v1) {
+            const uint32_t v = t < e ? isd::pack_bf16(v0 + bias[o], v1 + bias[o + 1]) : 0u;
+            put(plan.h1, K / 2 + t, o, v);
+            put(plan.h1, K / 2 + t - 1, O + o, v);
+          },
+          nothing, nothing, isd::kPhConv1, isd::kPhConv1);
+      conv_phase(  // h2 = bf16(w3 . pad(h1)), and its copy
+          conv(plan.h1, plan.w3),
+          [&](int, int t, int o, float v0, float v1) {
+            const uint32_t v = t < e ? isd::pack_bf16(v0, v1) : 0u;
+            put(plan.h2, K / 2 + t, o, v);
+            put(plan.h2, K / 2 + t - 1, O + o, v);
+          },
+          nothing, nothing, isd::kPhConv2, isd::kPhConv2);
+      conv_phase(  // h3 = w4 . pad(h2) -> dh3c = bf16(g / t1 * gelu'(h3))
+          conv(plan.h2, plan.w4),
+          [&](int, int t, int o, float v0, float v1) {
+            const uint32_t v =
+                t < e ? isd::pack_bf16(gz[o] * isd::gelu_grad(v0), gz[o + 1] * isd::gelu_grad(v1))
+                      : 0u;
+            put(plan.d3, K / 2 + t, o, v);
+            if (kTiled) put_edge(0, t, o, v);
+          },
+          nothing, nothing, isd::kPhConv3, isd::kPhConv3);
+      conv_phase(  // dh2c, dw4 behind it
+          conv_t(plan.d3, plan.w4),
+          [&](int, int t, int o, float v0, float v1) {
+            const uint32_t v = t < e ? isd::pack_bf16(v0, v1) : 0u;
+            put(plan.d2, K / 2 + t, o, v);
+            if (kTiled) put_edge(1, t, o, v);
+          },
+          [&] { issue_dw(0, plan.n34); }, nothing, isd::kPhDw4, isd::kPhConv4T);
+      float sums[4][2] = {};
+      conv_phase(  // dh1 on the owned rows: bf16 for dw12, its f32 column sums for db12;
+                   // dw3 behind it
+          conv_t(plan.d2, plan.w3),
+          [&](int j4, int t, int o, float v0, float v1) {
+            const bool real = (ct.lo == 0 || t >= ct.lo) && t < ct.hi;
+            put(plan.d1, K / 2 + t, o, real ? isd::pack_bf16(v0, v1) : 0u);
+            sums[j4][0] += real ? v0 : 0.f;
+            sums[j4][1] += real ? v1 : 0.f;
+          },
+          [&] { issue_dw(plan.n34, 2 * plan.n34); }, [&] { col_sums(red, sums); },
+          isd::kPhDw3, isd::kPhConv3T);
+      isd::wgmma_fence();
+      issue_dw(2 * plan.n34, 2 * plan.n34 + plan.n12);
+      isd::wgmma_commit();
+      clock.mark(isd::kPhDw12);
+      db += isd::sum_warps(red, threadIdx.x & 31);  // every thread: no branch (see col_sums)
+      clock.mark(isd::kPhDb12);
+      first = false;
     }
-    conv_phase(  // h1 = bf16(w12 . p + b12), and its copy one row down
-        [&](int tile) { conv_issue<K, O, false>(acc, base + plan.xs, cs, base + plan.w12,
-                                                plan.cp, tile); },
-        [&](int, int t, int o, float v0, float v1) {
-          const uint32_t v = t < t1 ? isd::pack_bf16(v0 + bias[o], v1 + bias[o + 1]) : 0u;
-          put(plan.h1, K / 2 + t, o, v);
-          put(plan.h1, K / 2 + t - 1, O + o, v);
-        },
-        nothing, nothing, isd::kPhConv1, isd::kPhConv1);
-    conv_phase(  // h2 = bf16(w3 . pad(h1)), and its copy
-        conv(plan.h1, plan.w3),
-        [&](int, int t, int o, float v0, float v1) {
-          const uint32_t v = t < t1 ? isd::pack_bf16(v0, v1) : 0u;
-          put(plan.h2, K / 2 + t, o, v);
-          put(plan.h2, K / 2 + t - 1, O + o, v);
-        },
-        nothing, nothing, isd::kPhConv2, isd::kPhConv2);
-    conv_phase(  // h3 = w4 . pad(h2) -> dh3c = bf16(g / t1 * gelu'(h3))
-        conv(plan.h2, plan.w4),
-        [&](int, int t, int o, float v0, float v1) {
-          put(plan.d3, K / 2 + t, o,
-              t < t1 ? isd::pack_bf16(gz[o] * isd::gelu_grad(v0), gz[o + 1] * isd::gelu_grad(v1))
-                     : 0u);
-        },
-        nothing, nothing, isd::kPhConv3, isd::kPhConv3);
-    conv_phase(conv_t(plan.d3, plan.w4), store(plan.d2),  // dh2c, dw4 behind it
-               [&] { issue_dw(0, plan.n34); }, nothing, isd::kPhDw4, isd::kPhConv4T);
-    float sums[4][2] = {};
-    conv_phase(  // dh1: bf16 for dw12, its f32 column sums for db12; dw3 behind it
-        conv_t(plan.d2, plan.w3),
-        [&](int j, int t, int o, float v0, float v1) {
-          const bool real = t < t1;
-          put(plan.d1, K / 2 + t, o, real ? isd::pack_bf16(v0, v1) : 0u);
-          sums[j][0] += real ? v0 : 0.f;
-          sums[j][1] += real ? v1 : 0.f;
-        },
-        [&] { issue_dw(plan.n34, 2 * plan.n34); }, [&] { col_sums(red, sums); },
-        isd::kPhDw3, isd::kPhConv3T);
-    isd::wgmma_fence();
-    issue_dw(2 * plan.n34, 2 * plan.n34 + plan.n12);
-    isd::wgmma_commit();
-    clock.mark(isd::kPhDw12);
-    db += isd::sum_warps(red, threadIdx.x & 31);  // every thread: no branch (see col_sums)
-    clock.mark(isd::kPhDb12);
-    first = false;
   }
   isd::wgmma_wait<0>();
 #pragma unroll
@@ -428,9 +558,11 @@ cudaError_t launch_w(const float* g, const uint16_t* x, const float* w12, const 
     return cudaErrorInvalidValue;  // more weight-gradient tiles than registers hold
   }
   const size_t smem_bytes = plan.total + (kClock ? isd::clock_bytes() : 0);
-  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
-  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_w_bf16_kernel<O, K, 64, 250, kClock>
-                                            : conv4head_bwd_w_bf16_kernel<O, K, 0, 0, kClock>;
+  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides;
+  // windows past kSpan conv rows take the column tiles' instantiation.
+  const auto kernel = plan.tiles > 1 ? conv4head_bwd_w_bf16_kernel<O, K, 0, -1, kClock>
+                      : (C == 64 && W == 250) ? conv4head_bwd_w_bf16_kernel<O, K, 64, 250, kClock>
+                                              : conv4head_bwd_w_bf16_kernel<O, K, 0, 0, kClock>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;

@@ -8,7 +8,9 @@
 // imagined_speech_decoding_tpu/ops/pallas/conv4head.py: _fwd_kernel (B2f-g,
 // called by _fwd_impl), _bwd_w_kernel with _bwd_zone (B2w-g) and
 // _bwd_x_kernel (B2x-g), both called by _bwd_rule. B2x-g's bf16
-// instantiation is the only bf16 input gradient of the port. What it
+// instantiation is the only bf16 input gradient of the port. B2w-g bf16
+// runs only at C > 72 or O > 32: B2w-bf16's column tiles take bf16 weight
+// gradients at every window up to C = 64, the f32 route C = 65-72. What it
 // computes per (model m, trial b, window n, zone z), t in [0, t1), t1 = W - K + 1:
 //
 //   h1 = w12z . patches(x window) + b12z      (O x t1, a valid conv over K*C)
@@ -74,8 +76,9 @@
 //    (PERF.md): 128 registers, 2 blocks an SM; at the training step above
 //    141.88 ms forward and 510.29 ms in B2w-g (f32), 522.58 ms in B2w-g
 //    bf16, 10%, 7% and 1% of their bounds (25%, 17% and 17% of the CUDA
-//    cores'); B2x-g bf16 6.50 ms at 100 trials. The tensor-core redesign
-//    waits for the bench to rank it (ROADMAP.md).
+//    cores'; that bf16 step now runs B2w-bf16's column tiles); B2x-g bf16
+//    6.50 ms at 100 trials. The tensor-core redesigns still to come are in
+//    ROADMAP.md.
 //  * No host synchronisation and no allocation inside: a launch is
 //    captured in a CUDA graph like any other kernel (the decoders capture
 //    isd::conv4head_fwd).

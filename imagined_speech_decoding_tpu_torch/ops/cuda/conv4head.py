@@ -20,8 +20,9 @@ instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``: the first conv
 once per trial over the columns its windows use, every product one bf16
 ``wgmma`` pass) and B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``, one bf16
 ``wgmma`` pass per product, the weight gradients held in registers across
-a block's trials), f32 accumulators, rounding where the Pallas kernel
-rounds (an even T; B2w-bf16 C <= 64). The weights come in as
+a block's trials; a window past 260 samples in column tiles of 256 conv
+rows with a recomputed 8-row halo), f32 accumulators, rounding where the
+Pallas kernel rounds (an even T; B2w-bf16 C <= 64, any window). The weights come in as
 f32 either way and the kernels round them to bf16 as they stage them; the
 output and every weight gradient are f32.
 
@@ -340,7 +341,7 @@ def _bf16_refusal(op: str, c: int, window_len: int, step: int, n: int, smem_byte
     """Why B2f-bf16 (``op`` "fwd") or B2w-bf16 ("bwd_w") takes no plan for C
     channels at windows of ``window_len``, or None: B2f-bf16 when not even
     one window's plan fits a block, B2w-bf16 past its weight-gradient
-    registers (C > 64) or its shared memory (t1 > 256 at C = 64). Plan
+    registers (C > 64; its column tiles take any window). Plan
     sizes from the library, or from ``smem_bytes`` / ``bwd_w_smem_bytes``
     (the Python mirrors: ``fwd_bf16_plan``, ``bwd_w_bf16_smem_bytes``)."""
     if op == "fwd":
@@ -382,9 +383,10 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     takes no plan for (``_bf16_refusal``: B2w-bf16 at C > 64, B2f-bf16 at C >
     104 for windows of 250 or windows past 580 samples at C = 64) runs the
     f32 kernel (``_f32_route``) on the bf16 kernel's operands where that
-    kernel's plan fits: x as f32 (exact), the weights rounded to bf16 and
-    back, b12 and g as they are. It differs from the bf16 kernel by the bf16
-    roundings of h1, h2 and the cotangents that the f32 kernel does not make.
+    kernel's plan fits (B2w at C = 65-72, windows up to 268 samples): x as f32
+    (exact), the weights rounded to bf16 and back, b12 and g as they are. It
+    differs from the bf16 kernel by the bf16 roundings of h1, h2 and the
+    cotangents that the f32 kernel does not make.
     What no tuned plan takes (``general_reason``) goes, unadapted, to
     ``general(op, g, x, ...)``, the general kernel of x's precision
     (``_launch_general`` by default). K1 or K2 != KERNEL_TAPS raises."""
@@ -555,13 +557,17 @@ def _trial_splits(m: int, b: int, z: int, n: int, device) -> int:
 
 
 # B2w-bf16's shared-memory plan and wgmma descriptors, mirrored from
-# csrc/conv4head_bwd_w_bf16.cu (wg_plan, conv_issue, dw_issue and the
-# tiles' sources) and csrc/wgmma_bf16.cuh for the tests: every time-major buffer is stored in
+# csrc/conv4head_bwd_w_bf16.cu (wg_plan, col_tile, conv_issue, dw_issue and
+# the tiles' sources) and csrc/wgmma_bf16.cuh for the tests: every time-major buffer is stored in
 # chunks of 8 channels, [chunk][row][8] bf16, so the bytes of (row, channel)
 # are chunk_offset(cs, row, channel) from the buffer's start.
 WG_ROWS = 64  # rows of a wgmma tile: a warpgroup's share of time, or of (tap, channel)
 WG_GROUPS = 4  # warpgroups of a B2w-bf16 block (16 warps)
 WG_SLOTS = 3  # weight-gradient tiles a warpgroup holds in registers
+WG_SPAN = WG_GROUPS * WG_ROWS  # rows a column tile computes at most
+WG_HALO = 8  # rows recomputed at a column tile's interior edge
+WG_TILE_STEP = WG_SPAN - 2 * WG_HALO  # window columns between two column tiles
+WG_EDGE_ROWS = 16  # rows of a masked edge chunk (one k16 step over time)
 
 
 def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
@@ -569,30 +575,67 @@ def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
     every shared-memory region, the total, and the geometry:
       cp    channels of the staged window and w12 (C rounded up to 64: one
             dw12 tile is 64 channels of one tap);
-      nt    time rows the convs compute (t1 rounded up to WG_ROWS);
+      nt    time rows a column tile computes (t1 rounded up to WG_ROWS, at
+            most WG_SPAN);
+      tiles column tiles of a window: 1 up to t1 = WG_SPAN, else
+            ceil((t1 - 2 WG_HALO) / WG_TILE_STEP);
       rows  rows of every time-major buffer (nt + K - 1: the farthest tap);
       cs    bytes between two chunks of 8 channels (rows * 16);
       n34, n12  weight-gradient tiles of dw3 (= of dw4) and of dw12.
     h1 and h2 carry 2*O/8 chunks: O channels, then a copy one row down, so
-    one 64-row dw3 / dw4 tile spans two taps at one chunk stride."""
+    one 64-row dw3 / dw4 tile spans two taps at one chunk stride. ``mk``
+    (column tiles only) holds the masked edge chunks of dh3c and dh2c,
+    [dh3c, dh2c][left, right], each [o chunk][WG_EDGE_ROWS rows][8]."""
     cp = -(-c // WG_ROWS) * WG_ROWS
     t1 = w - k + 1
-    nt = -(-t1 // WG_ROWS) * WG_ROWS
+    nt = min(-(-t1 // WG_ROWS) * WG_ROWS, WG_SPAN)
+    tiles = 1 if t1 <= WG_SPAN else -(-(t1 - 2 * WG_HALO) // WG_TILE_STEP)
     rows = nt + k - 1
     cs = 16 * rows
-    rw = (w + 2) & ~1
-    plan = {"c": c, "w": w, "o": o, "k": k, "cp": cp, "t1": t1, "nt": nt, "rows": rows,
-            "cs": cs, "rw": rw, "n34": -(-k * o // WG_ROWS), "n12": k * cp // WG_ROWS}
+    rw = (min(w, rows) + 2) & ~1
+    plan = {"c": c, "w": w, "o": o, "k": k, "cp": cp, "t1": t1, "nt": nt, "tiles": tiles,
+            "rows": rows, "cs": cs, "rw": rw, "n34": -(-k * o // WG_ROWS),
+            "n12": k * cp // WG_ROWS}
     off = 0
-    for name, nbytes in (("xs", cp // 8 * cs), ("raw", 2 * c * rw),
+    # raw holds C rows, cp in column tiles: every column-tile plan has one layout
+    for name, nbytes in (("xs", cp // 8 * cs), ("raw", 2 * (cp if tiles > 1 else c) * rw),
                          ("h1", o // 4 * cs), ("h2", o // 4 * cs),
                          ("d3", o // 8 * cs), ("d2", o // 8 * cs), ("d1", o // 8 * cs),
                          ("w12", 2 * k * cp * o), ("w3", 2 * k * o * o), ("w4", 2 * k * o * o),
-                         ("bias", 4 * o), ("gz", 4 * o), ("red", 4 * 4 * WG_GROUPS * o)):
+                         ("bias", 4 * o), ("gz", 4 * o), ("red", 4 * 4 * WG_GROUPS * o),
+                         ("mk", 4 * (o // 8) * 16 * WG_EDGE_ROWS if tiles > 1 else 0)):
         plan[name] = off
         off += -(-nbytes // 16) * 16
     plan["total"] = off
     return plan
+
+
+def bwd_w_bf16_col_tiles(plan: dict) -> list:
+    """The kernel's column tiles of a window (``col_tile``), in the tile's
+    own rows (row r is the window's conv row s + r): ``s`` its first
+    column, ``nt`` the rows it computes, ``e`` the first row past the
+    window's end, ``[lo, hi)`` the rows it owns, ``cols`` the window
+    columns it reads, ``left`` / ``right`` whether it has an interior edge
+    there (and a masked edge chunk)."""
+    tiles = []
+    for j in range(plan["tiles"]):
+        s = j * WG_TILE_STEP
+        e = plan["t1"] - s
+        nt = min(-(-e // WG_ROWS) * WG_ROWS, plan["nt"])
+        left, right = j > 0, j + 1 < plan["tiles"]
+        tiles.append({"s": s, "nt": nt, "e": e, "lo": WG_HALO if left else 0,
+                      "hi": plan["nt"] - WG_HALO if right else e,
+                      "cols": min(nt + plan["k"] - 1, plan["w"] - s), "left": left,
+                      "right": right})
+    return tiles
+
+
+def bwd_w_bf16_edge(plan: dict, which: str, side: str) -> int:
+    """Byte offset of the masked edge chunk of ``which`` ("d3" or "d2") on
+    ``side`` ("left" or "right"): [o chunk][WG_EDGE_ROWS rows][8], chunks
+    16 * WG_EDGE_ROWS bytes apart."""
+    i = 2 * ("d3", "d2").index(which) + ("left", "right").index(side)
+    return plan["mk"] + i * (plan["o"] // 8) * 16 * WG_EDGE_ROWS
 
 
 def bwd_w_bf16_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
@@ -684,11 +727,15 @@ def bwd_w_bf16_conv_descs(plan: dict, src: str, tile: int, transposed: bool) -> 
     return steps
 
 
-def bwd_w_bf16_dw_descs(plan: dict, kind: str, index) -> list:
-    """The k16 steps (16 time rows each) of one weight-gradient tile,
+def bwd_w_bf16_dw_descs(plan: dict, kind: str, index, tile: dict = None) -> list:
+    """The k16 steps (16 time rows each) of one weight-gradient tile over
+    column tile ``tile`` (``bwd_w_bf16_col_tiles``; the first by default),
     dw^T[(tap, i), o] = sum_t src[t + tap][i] d[t][o]: A = src (MN-major:
-    time along K, channels along M), B = d from row K/2 (MN-major)."""
+    time along K, channels along M), B = d from row K/2 (MN-major); dw4's
+    and dw3's first and last steps read the masked edge chunk of dh3c or
+    dh2c where the tile has an interior edge there."""
     k, cs = plan["k"], plan["cs"]
+    tile = bwd_w_bf16_col_tiles(plan)[0] if tile is None else tile
     src, d = {"dw4": ("h2", "d3"), "dw3": ("h1", "d2"), "dw12": ("xs", "d1")}[kind]
     if kind == "dw12":
         tap, block = index
@@ -696,8 +743,15 @@ def bwd_w_bf16_dw_descs(plan: dict, kind: str, index) -> list:
     else:  # taps 2p (chunks 0..3) and 2p + 1 (the copy one row down, chunks 4..7)
         a0 = plan[src] + chunk_offset(cs, 2 * index, 0)
     b0 = plan[d] + chunk_offset(cs, k // 2, 0)
-    return [((a0 + 16 * t0, 128, cs), (b0 + 16 * t0, 128, cs))
-            for t0 in range(0, plan["nt"], 16)]
+    steps = []
+    for t0 in range(0, tile["nt"], 16):
+        b = (b0 + 16 * t0, 128, cs)
+        if kind != "dw12" and t0 == 0 and tile["left"]:
+            b = (bwd_w_bf16_edge(plan, d, "left"), 128, 16 * WG_EDGE_ROWS)
+        elif kind != "dw12" and t0 + 16 == tile["nt"] and tile["right"]:
+            b = (bwd_w_bf16_edge(plan, d, "right"), 128, 16 * WG_EDGE_ROWS)
+        steps.append(((a0 + 16 * t0, 128, cs), b))
+    return steps
 
 
 # B2f-bf16's shared-memory plan and wgmma descriptors, mirrored from
@@ -816,8 +870,9 @@ FWD_CLOCK_BYTES = 16 * 8 * len(FWD_BF16_PHASES)
 
 def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2w: ``(dw12, db12, dw3, dw4)`` of ``<g, fused_conv4_head(x, ...)>``;
-    B2w-bf16 for a bf16 ``x`` (C <= 64), B2w for an f32 one (``_adapted``
-    pads C to a multiple of 8), B2w-g where neither plan fits."""
+    B2w-bf16 for a bf16 ``x`` (C <= 64, any window: column tiles past 260
+    samples), B2w for an f32 one (``_adapted`` pads C to a multiple of 8),
+    B2w-g where neither plan fits (or O > 32)."""
     if x.device.type == "cpu":
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
     _require_x(x)

@@ -5,8 +5,10 @@ Kernel B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``) runs every product as
 a warpgroup GEMM (wgmma m64n32k16) whose operands it reads from shared
 memory through descriptors: the time-major buffers in chunks of 8
 channels, h1 and h2 with a copy one row down, the weight gradients held
-in f32 accumulator tiles across a block's trials. ``ops/cuda/conv4head.py``
-mirrors its plan (``bwd_w_bf16_plan``) and descriptors
+in f32 accumulator tiles across a block's trials, a window past 260
+samples in column tiles with an 8-row halo and masked edge chunks.
+``ops/cuda/conv4head.py`` mirrors its plan (``bwd_w_bf16_plan``, its
+column tiles ``bwd_w_bf16_col_tiles``) and descriptors
 (``bwd_w_bf16_conv_descs``, ``bwd_w_bf16_dw_descs``);
 ``tests/wgmma_emulation.py`` gathers every operand tile through those
 descriptors from a flat image of shared memory and multiplies it in f32,
@@ -32,8 +34,11 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     WG_GROUPS,
     WG_ROWS,
     WG_SLOTS,
+    BWD_W_BF16_PHASES,
     _check_smem,
+    bwd_w_bf16_col_tiles,
     bwd_w_bf16_conv_descs,
+    bwd_w_bf16_edge,
     bwd_w_bf16_dw_descs,
     bwd_w_bf16_plan,
     bwd_w_bf16_smem_bytes,
@@ -52,6 +57,9 @@ NAMES = ("dw12", "db12", "dw3", "dw4")
 FULL = dict(c=64, z=8, t=800, w=250, step=125)  # FASTConfig.default()'s head
 SMALL = dict(c=10, z=4, t=200, w=100, step=50)  # tests/test_torch_bf16.py's head
 EDGE = dict(c=64, z=2, t=230, w=120, step=37)  # t1 = 116, windows of odd parity
+LONG = dict(c=10, z=2, t=650, w=500, step=150)  # 2-second windows: two column tiles
+LONG_WINDOWS = (261, 280, 292, 500, 800)  # past 260 samples: column tiles
+CLOCK_BYTES = 16 * 8 * len(BWD_W_BF16_PHASES)  # the debug instantiation's counters
 
 
 def operands(m, b, c, z, t, w, step, seed, o=32, k=5):
@@ -73,29 +81,43 @@ def rel_max(a, ref) -> float:
     return float(np.abs(a - ref).max() / np.abs(ref).max())
 
 
-@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120), (1, 250), (33, 260)])
+@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120), (1, 250), (33, 260),
+                                 (64, 261), (64, 500), (1, 800)])
 def test_plan_fits_shared_memory(c, w):
-    """The plan at full width (225,280 bytes), C = 10, the t1 = 116 edge and
-    others fits one block's 227 KB, and its tiles fit the registers."""
+    """The plan at full width (225,280 bytes, one column tile, as before
+    column tiles), C = 10, the t1 = 116 edge and others fits one block's
+    227 KB, and its tiles fit the registers; past 260 samples the plan of a
+    column tile (230,656 bytes at C = 64, the debug instantiation's
+    counters too)."""
     plan = bwd_w_bf16_plan(c, w)
     assert plan["total"] <= MAX_SMEM_BYTES
     assert len(bwd_w_bf16_tiles(plan)) <= WG_SLOTS * WG_GROUPS
     assert bwd_w_bf16_smem_bytes(c, w, 32, 5) == plan["total"]
+    assert plan["tiles"] == (1 if w <= 260 else -(-(w - 4 - 16) // 240))
     if (c, w) == (64, 250):
         assert plan["total"] == 225280 and len(bwd_w_bf16_tiles(plan)) == 11
-        assert plan["nt"] == 4 * WG_ROWS and plan["rows"] == 260
+        assert plan["nt"] == 4 * WG_ROWS and plan["rows"] == 260 and plan["mk"] == plan["total"]
+    if (c, w) == (64, 500):
+        assert plan["total"] == 230656 and plan["total"] + CLOCK_BYTES <= MAX_SMEM_BYTES
+        assert [(t["s"], t["nt"], t["lo"], t["hi"]) for t in bwd_w_bf16_col_tiles(plan)] == [
+            (0, 256, 0, 248), (240, 256, 8, 256)]
 
 
 def test_admitted_geometries():
-    """Every C up to 64 at the windows of up to 260 samples fits both the
-    shared memory and the accumulator slots (11 tiles, 3 a warpgroup). Past
-    that the wrapper refuses: C = 65 at W = 250 by shared memory, C = 130
+    """Every C up to 64 at every window up to 800 samples (column tiles
+    past 260) fits both the shared memory, the debug instantiation's
+    counters included, and the accumulator slots (11 tiles, 3 a
+    warpgroup); the column tiles own every row of the window once. Past
+    C = 64 the wrapper refuses: C = 65 at W = 250 by shared memory, C = 130
     at W = 60 (which fits it) by registers."""
     for c in range(1, 65):
-        for w in (60, 120, 250, 260):
+        for w in (60, 120, 250, 260, 261, 280, 292, 300, 500, 501, 737, 800):
             plan = bwd_w_bf16_plan(c, w)
-            assert plan["total"] <= MAX_SMEM_BYTES, (c, w)
+            assert plan["total"] + CLOCK_BYTES <= MAX_SMEM_BYTES, (c, w)
             assert bwd_w_bf16_smem_bytes(c, w, 32, 5) == plan["total"]
+            owned = [t["s"] + r for t in bwd_w_bf16_col_tiles(plan)
+                     for r in range(t["lo"], t["hi"])]
+            assert owned == list(range(plan["t1"])), (c, w)
     assert -(-len(bwd_w_bf16_tiles(bwd_w_bf16_plan(64, 250))) // WG_GROUPS) == 3
     assert bwd_w_bf16_plan(65, 250)["total"] > MAX_SMEM_BYTES
     assert bwd_w_bf16_plan(130, 60)["total"] <= MAX_SMEM_BYTES
@@ -106,7 +128,15 @@ def test_admitted_geometries():
 
 def _regions(plan):
     names = ("xs", "raw", "h1", "h2", "d3", "d2", "d1", "w12", "w3", "w4", "bias")
-    return {a: (plan[a], plan[b]) for a, b in zip(names, names[1:])}
+    regions = {a: (plan[a], plan[b]) for a, b in zip(names, names[1:])}
+    if plan["tiles"] > 1:  # each masked edge chunk on its own
+        size = (plan["o"] // 8) * 256
+        for d in ("d3", "d2"):
+            for side in ("left", "right"):
+                start = bwd_w_bf16_edge(plan, d, side)
+                regions[f"{d} {side}"] = (start, start + size)
+        assert plan["mk"] + 4 * size == plan["total"]
+    return regions
 
 
 def _check_operand(plan, desc, n_mn, mn_major, region):
@@ -118,12 +148,15 @@ def _check_operand(plan, desc, n_mn, mn_major, region):
     assert lo <= 2 * int(slots.min()) and 2 * int(slots.max()) + 2 <= hi, (desc, region)
 
 
-@pytest.mark.parametrize("geo", [FULL, SMALL, EDGE], ids=["full", "small", "edge"])
+@pytest.mark.parametrize("geo", [FULL, SMALL, EDGE, LONG, dict(c=64, w=800), dict(c=33, w=280)],
+                         ids=["full", "small", "edge", "long", "w800", "w280"])
 def test_descriptors_are_aligned_and_stay_in_their_operands(geo):
-    """Every k16 step of every conv tile and weight-gradient tile: starts
-    and steps in whole 16-byte units (each tap's shift included), inside
-    the descriptor's 14-bit fields, and every byte it reads inside the
-    operand's own buffer."""
+    """Every k16 step of every conv tile and weight-gradient tile of every
+    column tile: starts and steps in whole 16-byte units (each tap's shift
+    included), inside the descriptor's 14-bit fields, and every byte it
+    reads inside the operand's own buffer; the edge steps of dw4 and dw3
+    inside their own masked chunk of dh3c or dh2c, on the tile's interior
+    edges only."""
     plan = bwd_w_bf16_plan(geo["c"], geo["w"])
     weights = {"xs": "w12", "h1": "w3", "h2": "w4", "d3": "w4", "d2": "w3"}
     for src, transposed in (("xs", False), ("h1", False), ("h2", False), ("d3", True),
@@ -135,12 +168,17 @@ def test_descriptors_are_aligned_and_stay_in_their_operands(geo):
                 _check_operand(plan, a, WG_ROWS, False, src)
                 _check_operand(plan, b, plan["o"], transposed, weights[src])
     sources = {"dw4": ("h2", "d3"), "dw3": ("h1", "d2"), "dw12": ("xs", "d1")}
-    for kind, index in bwd_w_bf16_tiles(plan):
-        steps = bwd_w_bf16_dw_descs(plan, kind, index)
-        assert len(steps) == plan["nt"] // 16
-        for a, b in steps:
-            _check_operand(plan, a, WG_ROWS, True, sources[kind][0])
-            _check_operand(plan, b, plan["o"], True, sources[kind][1])
+    for ct in bwd_w_bf16_col_tiles(plan):
+        for kind, index in bwd_w_bf16_tiles(plan):
+            steps = bwd_w_bf16_dw_descs(plan, kind, index, ct)
+            assert len(steps) == ct["nt"] // 16
+            for i, (a, b) in enumerate(steps):
+                _check_operand(plan, a, WG_ROWS, True, sources[kind][0])
+                d = sources[kind][1]
+                side = ("left" if i == 0 and ct["left"] else
+                        "right" if i == len(steps) - 1 and ct["right"] else None)
+                _check_operand(plan, b, plan["o"], True,
+                               d if kind == "dw12" or side is None else f"{d} {side}")
 
 
 @pytest.mark.parametrize("case", range(5))
@@ -169,6 +207,42 @@ def test_emulation_matches_plain_bf16_backward(geo, m, b, s):
         assert rel_max(a, r) <= BF16_BWD_REL, (name, rel_max(a, r))
 
 
+@pytest.mark.parametrize("c", [1, 10, 33, 64])
+@pytest.mark.parametrize("w", LONG_WINDOWS)
+def test_column_tiles_match_plain_bf16_backward(w, c):
+    """Windows past 260 samples (two column tiles up to 496 conv rows, four
+    at 800; the last one short at 261, 280 and 292), the emulated kernel
+    with its halos, masked edge chunks and weight gradients carried across
+    tiles and trials (two trial ranges at 280) against
+    ``conv4head_bwd_bf16_plain``, at the card tests' 1e-3 x max|ref| per
+    tensor."""
+    step = {261: 130, 280: 130, 292: 127, 500: 150, 800: 1}[w]
+    ops = operands(1, 2 if w == 280 else 1, c, 1, 800 if w > 500 else w + step, w, step,
+                   seed=w + c)
+    got = emulate_bwd_w_bf16(*ops, w, step, s=2 if w == 280 else 1)
+    ref = conv4head_bwd_bf16_plain(*ops, w, step)[1:]
+    for name, a, r in zip(NAMES, got, ref):
+        assert a.shape == r.shape, name
+        assert rel_max(a, r) <= BF16_BWD_REL, (name, rel_max(a, r))
+
+
+def test_column_tiles_without_masked_edges_double_count(monkeypatch):
+    """The masked edge chunks matter: with dh3c's and dh2c's own rows read
+    at the interior edges instead, the 8 rows each side of an edge enter dw4
+    and dw3 twice, far outside the tolerance (a check of the check)."""
+    import wgmma_emulation
+
+    geo = LONG
+    ops = operands(1, 2, **geo, seed=3)
+    ref = conv4head_bwd_bf16_plain(*ops, geo["w"], geo["step"])[1:]
+    monkeypatch.setattr(wgmma_emulation, "bwd_w_bf16_dw_descs",
+                        lambda plan, kind, index, tile: bwd_w_bf16_dw_descs(
+                            plan, kind, index, dict(tile, left=False, right=False)))
+    got = emulate_bwd_w_bf16(*ops, geo["w"], geo["step"])
+    assert min(rel_max(got[3], ref[3]), rel_max(got[2], ref[2])) > 10 * BF16_BWD_REL
+    assert rel_max(got[0], ref[0]) <= BF16_BWD_REL  # dw12 reads bf16(dh1), stored masked
+
+
 def test_emulation_matches_pallas_vjp_in_bf16():
     """The emulated kernel against ``jax.grad`` through the JAX package's
     Pallas head (interpret mode) in bf16, at tests/test_torch_bf16.py's
@@ -176,6 +250,32 @@ def test_emulation_matches_pallas_vjp_in_bf16():
     geo, b = SMALL, 4
     g, x, w12, b12, w3, w4 = operands(1, b, **geo, seed=5)
     got = emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, geo["w"], geo["step"], s=2)
+    jw = [jnp.asarray(t[0].numpy()) for t in (w12, b12, w3, w4)]
+    gj = jnp.asarray(g[0].numpy())
+
+    def grads(dt):
+        xx = jnp.asarray(x[0].float().numpy(), dt)
+
+        def loss(*w):
+            return jnp.sum(pallas_head(xx, *w, geo["w"], geo["step"]) * gj)
+
+        with pltpu.force_tpu_interpret_mode():
+            return [np.asarray(t, np.float32) for t in jax.grad(loss, argnums=(0, 1, 2, 3))(*jw)]
+
+    ref16, ref32 = grads(jnp.bfloat16), grads(jnp.float32)
+    for name, a, r16, r32 in zip(NAMES, got, ref16, ref32):
+        err, gap = rel_max(a[0].numpy().reshape(r16.shape), r16), rel_max(r32, r16)
+        assert err <= PALLAS_REL[name] < gap, (name, err, gap)
+
+
+def test_column_tiles_match_pallas_vjp_in_bf16():
+    """Windows of 500 (two column tiles): the emulated kernel against
+    ``jax.grad`` through the JAX package's Pallas head (interpret mode) in
+    bf16, at tests/test_torch_bf16.py's tolerances, each under the same
+    tensor's bf16-vs-f32 gap."""
+    geo, b = LONG, 2
+    g, x, w12, b12, w3, w4 = operands(1, b, **geo, seed=7)
+    got = emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, geo["w"], geo["step"])
     jw = [jnp.asarray(t[0].numpy()) for t in (w12, b12, w3, w4)]
     gj = jnp.asarray(g[0].numpy())
 

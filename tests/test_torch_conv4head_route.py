@@ -5,14 +5,16 @@ in each wrapper's ``adapted``, or raise; nothing runs the plain version
 on the card.
 
 The tuned kernels are built for O = 32 and K1 = K2 = 5, an even T in
-bf16, C % 8 == 0 in f32 B2w, and their plans fitting a block. A bf16
+bf16, C % 8 == 0 in f32 B2w, and their plans fitting a block. B2w-bf16
+takes every window at C <= 64 (past 260 samples in column tiles). A bf16
 geometry that B2f-bf16 or B2w-bf16 has no plan for runs the f32 kernel on
-the bf16 kernel's operands where the f32 plan fits (B2w-bf16 at C = 72):
-that route is held to the plain bf16 version at 1e-2 in relative L2 (the
-f32 kernel skips the bf16 roundings of h1, h2 and the cotangents;
-measured <= 3.4e-3). What no tuned plan takes (C = 80 or 128, windows of
-500 or 600, O = 64, a bf16 input gradient) goes to the general kernel of
-x's precision (B2f-g, B2w-g, B2x-g), unadapted and counted in
+the bf16 kernel's operands where the f32 plan fits (B2w-bf16 at C = 68 and
+72): that route is held to the plain bf16 version at 1e-2 in relative L2
+(the f32 kernel skips the bf16 roundings of h1, h2 and the cotangents;
+measured <= 3.4e-3). What no tuned plan takes (C = 80 or 128, f32 windows
+of 500, a bf16 forward of one window of 600, O = 64, a bf16 input
+gradient) goes to the general kernel of x's precision (B2f-g, B2w-g,
+B2x-g), unadapted and counted in
 ``launches_general`` / ``launches_general_bf16``; only K != 5 raises.
 The JAX package trains other widths (``dim_cnn`` 8 in
 ``cli/zero_shot.py``, 16 in ``tests/test_trajectory_parity.py``). Here,
@@ -277,11 +279,11 @@ def test_geometry_no_padding_reaches_raises(op, geometry, dtype, why):
 ], ids=["f32-c80", "f32-w500", "bf16-w500", "bf16-o64"])
 def test_general_route_geometries(op, geometry, dtype):
     """Geometries no tuned plan takes, in f32 (C = 80 at windows of 250,
-    windows of 500) and in bf16 (windows of 500 in B2w-bf16, whose f32
-    route does not fit, and every bf16 B2x; O = 64): one launch of the
+    windows of 500) and in bf16 (every bf16 B2x; O = 64): one launch of the
     general kernel of x's precision on the operands as they are, none of a
-    tuned one, the plain version's result. A bf16 forward at windows of
-    500 stays on B2f-bf16 (one window a launch)."""
+    tuned one, the plain version's result. At windows of 500 a bf16 forward
+    stays on B2f-bf16 (one window a launch) and bf16 weight gradients on
+    B2w-bf16 (its column tiles: one launch, unadapted)."""
     ops, geo = operands(dtype=dtype, **geometry)
     calls, general = [], []
     got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
@@ -290,6 +292,8 @@ def test_general_route_geometries(op, geometry, dtype):
     bf16 = dtype == torch.bfloat16
     if bf16 and op == "fwd" and geometry.get("o", 32) == 32:
         assert adapted and general == [] and len(calls) == 3  # B2f-bf16, a window a launch
+    elif bf16 and op == "bwd_w" and geometry.get("o", 32) == 32:
+        assert not adapted and general == [] and calls == [dict(c=64, t=800, n=3)]
     else:
         assert not adapted and calls == [] and [d["dtype"] for d in general] == [dtype]
     assert_matches(got, plain(op, *ops, geo), bf16)
@@ -312,13 +316,12 @@ def test_bf16_input_gradient_takes_the_general_kernel():
 @pytest.mark.parametrize("op,geometry", [
     ("bwd_w", dict(SHIPPED, c=72, b=2, z=2)),
     ("bwd_w", dict(SHIPPED, c=68, b=1, z=2)),
-    ("bwd_w", dict(SHIPPED, w=280, step=130, b=2, z=1)),
-], ids=["c72", "c68", "w280"])
+], ids=["c72", "c68"])
 def test_bf16_refusal_routes_to_the_f32_kernel(op, geometry):
     """A bf16 geometry B2w-bf16 has no plan for (C = 72 and 68: its
-    weight-gradient tiles exceed the registers; windows of 280 at C = 64: its
-    shared memory) where B2w's f32 plan fits: one f32 launch (C padded to a
-    multiple of 8), on f32 x and bf16-rounded weights, adapted; the result
+    weight-gradient tiles exceed the registers) where B2w's f32 plan fits:
+    one f32 launch (C padded to a multiple of 8), on f32 x and bf16-rounded
+    weights, adapted; the result
     is the plain f32 version on those operands and within
     ``F32_ROUTE_REL_L2`` of the plain bf16 version."""
     ops, geo = operands(dtype=torch.bfloat16, **geometry)
@@ -434,8 +437,10 @@ def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
     the bf16 kernel's plan nor the f32 one's fits a block, raised before the
     general kernels; now the wrapper launches B2f-g or B2w-g bf16 once (a
     stand-in here, which counts as the launch does), no tuned kernel, and
-    counts nothing as adapted."""
+    counts nothing as adapted. Weight gradients at windows of 600 (C = 64)
+    take B2w-bf16's column tiles instead: one tuned launch, no general one."""
     calls, general = [], []
+    tiled = op == "bwd_w" and geometry["c"] <= 64
     launch = stand_in(op, calls)
     run_general = general_stand_in(general)
 
@@ -457,8 +462,47 @@ def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
     fn = WRAPPERS[op]
     before = (fn.adapted, fn.launches_general_bf16, fn.launches_general)
     got = CALLS[op](*ops, geo)
-    assert calls == [] and [d["op"] for d in general] == [op]
+    if tiled:
+        assert len(calls) == 1 and general == []
+    else:
+        assert calls == [] and [d["op"] for d in general] == [op]
     assert (fn.adapted, fn.launches_general_bf16, fn.launches_general) == (
-        before[0], before[1] + 1, before[2])
+        before[0], before[1] + (not tiled), before[2])
     want = {"fwd": [ops[0].shape], "bwd_w": [t.shape for t in ops[2:]]}[op]
     assert [t.shape for t in (got if isinstance(got, tuple) else (got,))] == want
+
+
+@pytest.mark.parametrize("c,w,step,t", [
+    (64, 500, 150, 800), (64, 280, 130, 800), (64, 800, 1, 800), (1, 500, 150, 800),
+    (10, 261, 130, 800), (33, 292, 127, 800),
+], ids=["w500", "w280", "w800", "w500-c1", "w261-c10", "w292-c33"])
+def test_bf16_weight_gradients_take_the_column_tiles(monkeypatch, c, w, step, t):
+    """bf16 weight gradients at C <= 64 and windows past 260 samples (280,
+    292: once the f32 route, 500 and 800: once B2w-g bf16) on meta tensors:
+    one B2w-bf16 launch (a stand-in that refuses what its plan's mirror
+    refuses, counting as the launch does) on the operands as they are, bf16
+    x, counted in ``launches_bf16``; no general kernel, no f32 kernel,
+    nothing adapted; the gradients' shapes."""
+    calls, dtypes, general = [], [], []
+    launch = stand_in("bwd_w", calls, dtypes)
+
+    def counted(*args):
+        out = launch(*args)
+        conv4head._lib.count(conv4head_bwd_w, "launches_bf16")
+        return out
+
+    monkeypatch.setattr(conv4head, "_require_x", lambda x: None)
+    monkeypatch.setattr(conv4head, "_launch_bwd_w", counted)
+    monkeypatch.setattr(conv4head, "_launch_general", general_stand_in(general))
+    monkeypatch.setattr(conv4head._lib, "library", lambda: type(
+        "Lib", (), {"isd_conv4head_bwd_w_bf16_smem_bytes": staticmethod(bwd_w_bf16_smem_bytes)}))
+    conv4head._bwd_w_bf16_bytes_built.cache_clear()
+    ops, geo = meta_operands(torch.bfloat16, c=c, t=t, w=w, step=step, b=2, z=1)
+    fn = conv4head_bwd_w
+    before = (fn.launches_bf16, fn.launches, fn.adapted, fn.launches_general_bf16)
+    got = CALLS["bwd_w"](*ops, geo)
+    assert general == [] and dtypes == [torch.bfloat16]
+    assert calls == [dict(c=c, t=t, n=(t - w) // step + 1)]
+    assert (fn.launches_bf16, fn.launches, fn.adapted, fn.launches_general_bf16) == (
+        before[0] + 1, before[1], before[2], before[3])
+    assert [x.shape for x in got] == [x.shape for x in ops[2:]]

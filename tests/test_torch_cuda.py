@@ -711,14 +711,73 @@ def test_bf16_weight_grads_are_deterministic_over_20_runs(dev):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120), (72, 250), (130, 60)])
+@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (64, 120), (72, 250), (130, 60),
+                                 (64, 261), (64, 500), (1, 800), (33, 292)])
 def test_bwd_w_bf16_plan_mirror_matches_kernel(dev, c, w):
     """The Python mirror of B2w-bf16's shared-memory plan gives the kernel's
-    total, and -1 where it is not built for C (72, 130: more weight-gradient
-    tiles than its registers hold)."""
+    total (column tiles past windows of 260), and -1 where it is not built
+    for C (72, 130: more weight-gradient tiles than its registers hold)."""
     assert bwd_w_bf16_smem_bytes(c, w) == _lib.library().isd_conv4head_bwd_w_bf16_smem_bytes(
         c, w, 32, 5)
     assert bwd_w_bf16_smem_bytes(c, w) in (-1, bwd_w_bf16_plan(c, w)["total"])
+
+
+# Windows past 260 samples: B2w-bf16 in column tiles (W, step), T = 800.
+COLUMN_TILE_WINDOWS = ((261, 130), (280, 130), (292, 127), (500, 150), (800, 1))
+
+
+@pytest.mark.parametrize("o", [8, 16, 32])
+@pytest.mark.parametrize("c", [1, 10, 33, 64])
+@pytest.mark.parametrize("w,step", COLUMN_TILE_WINDOWS)
+def test_bf16_column_tiles_match_plain(dev, w, step, c, o):
+    """bf16 weight gradients at windows of 261 to 800 samples (two to four
+    column tiles, the last short at 261-292), C = 1 to 64, O = 8 and 16
+    (widened to 32) and 32, M = 2, B = 4, 2 zones: one B2w-bf16 launch, no
+    general or f32 one, held against the plain bf16 backward at BF16_BWD_REL
+    x max|ref| per tensor; a second launch bit-identical."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    x, *ops = _head_operands(2, 4, c, 800, 2, o, w + c + o)
+    n = (800 - w) // step + 1
+    g = torch.tensor(np.random.default_rng(w + o).normal(size=(2, 4, n, 2 * o))
+                     .astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    before = (conv4head_bwd_w.launches_bf16, conv4head_bwd_w.launches,
+              conv4head_bwd_w.launches_general_bf16, conv4head_bwd_w.adapted)
+    cuda_ops = [t.to(dev) for t in (g, xb, *ops)]
+    got = conv4head_bwd_w(*cuda_ops, w, step)
+    again = conv4head_bwd_w(*cuda_ops, w, step)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_w.launches_bf16, conv4head_bwd_w.launches,
+            conv4head_bwd_w.launches_general_bf16, conv4head_bwd_w.adapted) == (
+        before[0] + 2, before[1], before[2], before[3] + 2 * (o < 32))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = conv4head_bwd_bf16_plain(g, xb, *ops, w, step)[1:]
+    for name, a, r in zip(("dw12", "db12", "dw3", "dw4"), got, ref):
+        _bf16_close(a.cpu(), r, BF16_BWD_REL, f"B2w-bf16 W={w} C={c} O={o} {name}")
+
+
+def test_bf16_column_tiles_at_the_step_shape(dev):
+    """B2w-bf16 at section 14 (a)'s step shape (75 models, batch 64, full
+    width, 3 windows of 500 in two column tiles): models 0, 37 and 74
+    against the plain bf16 backward at BF16_BWD_REL, and a second launch
+    bit-identical."""
+    cfg, _, ops, x, _ = _full_width_operands(dev, 75, 64, 61)
+    w, step = 500, 150
+    g = torch.randn((75, 64, 3, 256), generator=torch.Generator(device=dev).manual_seed(61),
+                    device=dev)
+    xb = x.to(torch.bfloat16)
+    before = conv4head_bwd_w.launches_bf16
+    got = conv4head_bwd_w(g, xb, *ops, w, step)
+    again = conv4head_bwd_w(g, xb, *ops, w, step)
+    torch.cuda.synchronize()
+    assert conv4head_bwd_w.launches_bf16 == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i in BF16_MODELS:
+        one = [t[i : i + 1] for t in (g, xb, *ops)]
+        ref = conv4head_bwd_plain(*one, w, step)[1:]
+        for name, a, r in zip(("dw12", "db12", "dw3", "dw4"), got, ref):
+            _bf16_close(a[i : i + 1], r, BF16_BWD_REL, f"B2w-bf16 W=500 model {i} {name}")
 
 
 def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
@@ -1343,11 +1402,11 @@ def test_train_baselines_cli_on_the_card(dev, tmp_path):
 
 
 
-@pytest.mark.parametrize("c,w,step", [(72, 250, 125), (68, 250, 125), (64, 280, 130)])
+@pytest.mark.parametrize("c,w,step", [(72, 250, 125), (68, 250, 125)])
 def test_bf16_geometry_routes_to_the_f32_kernel(dev, c, w, step):
     """A bf16 head geometry that B2w-bf16 has no plan for (C = 72 and 68:
-    its weight-gradient tiles; windows of 280 at C = 64: its shared memory)
-    runs the f32 B2w on the bf16 kernel's operands, counted in ``adapted``,
+    its weight-gradient tiles; every window at C <= 64 takes its column
+    tiles) runs the f32 B2w on the bf16 kernel's operands, counted in ``adapted``,
     within 1e-2 in relative L2 of the plain bf16 backward; the forward
     (B2f-bf16, in groups of windows at C = 72) likewise against the plain
     bf16 forward."""
@@ -1413,7 +1472,9 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     features rtol 1e-4 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4 x
     max|ref|; bf16: features 3e-4 and weight gradients 1e-3 x max|ref|, dx
     BF16_DX_L2 in relative L2), and bit-identical on a second run. A bf16 forward that
-    B2f-bf16 takes (windows of 500, one a launch) stays there."""
+    B2f-bf16 takes (windows of 500, one a launch) stays there, and bf16 weight
+    gradients at C <= 64 and O = 32 (windows of 500 and 800) run B2w-bf16's
+    column tiles."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     g, x, *ops = _general_operands(dev, c, t, w, step, o, c + w + o)
@@ -1423,6 +1484,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     n = (t - w) // step + 1
     tuned_fwd = bf16 and o == 32 and conv4head._bf16_refusal("fwd", c, w, step, n, None,
                                                               None) is None
+    tuned_w = bf16 and o == 32 and c <= 64
     results = []
     for _ in range(2):
         before = _general_counts()
@@ -1434,7 +1496,8 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
         moved = {k: v - before[k] for k, v in _general_counts().items() if v != before[k]}
         groups = moved.pop(("fused_conv4_head", "launches_bf16"), 0)
         moved.pop(("fused_conv4_head", "adapted"), None)  # B2f-bf16 in groups of windows
-        want = {("conv4head_bwd_w", key): 1, ("conv4head_bwd_x", key): 1}
+        want = {("conv4head_bwd_w", "launches_bf16" if tuned_w else key): 1,
+                ("conv4head_bwd_x", key): 1}
         if not tuned_fwd:
             want[("fused_conv4_head", key)] = 1
         assert moved == want and (groups >= 1) == tuned_fwd, (moved, groups)

@@ -6,14 +6,15 @@ card).
 
 Shared memory is modelled as an image of 2-byte slots (a float tensor of
 bf16 values, one row per block), laid out by the Python mirror of the
-kernel's plan (``ops.cuda.conv4head.bwd_w_bf16_plan`` or
-``fwd_bf16_plan``, ``chunk_offset``).
+kernel's plan (``ops.cuda.conv4head.bwd_w_bf16_plan`` with its column
+tiles ``bwd_w_bf16_col_tiles``, or ``fwd_bf16_plan``; ``chunk_offset``).
 A wgmma k16 step is emulated by gathering its two operand tiles from the
 image through their descriptors (start, byte step between core matrices
 along K and along M or N), as the PTX ISA defines the no-swizzle layout,
 and multiplying them in f32. The block emulation runs the kernel's
-phases on those gathers with the kernel's epilogues, trial after trial,
-holding the weight gradients in f32 accumulator tiles across the trials.
+phases on those gathers with the kernel's epilogues, trial after trial
+(and in B2w-bf16 column tile after column tile), holding the weight
+gradients in f32 accumulator tiles across them.
 """
 
 from __future__ import annotations
@@ -26,9 +27,13 @@ import torch
 from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     FWD_SB,
+    WG_EDGE_ROWS,
+    WG_HALO,
     WG_ROWS,
+    bwd_w_bf16_col_tiles,
     bwd_w_bf16_conv_descs,
     bwd_w_bf16_dw_descs,
+    bwd_w_bf16_edge,
     bwd_w_bf16_plan,
     bwd_w_bf16_tiles,
     chunk_offset,
@@ -93,10 +98,16 @@ def stage_weights(img, base: int, w: torch.Tensor, k: int, ch: int, chp: int) ->
 
 def emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, s: int = 1):
     """B2w-bf16 on the CPU: ``(dw12, db12, dw3, dw4)`` f32 as the kernel
-    computes them, with ``s`` trial ranges per (model, zone, window)."""
+    computes them, with ``s`` trial ranges per (model, zone, window), each
+    window in the plan's column tiles (``bwd_w_bf16_col_tiles``): the
+    tile's columns into the chunks (the buffer's later rows zero), a short
+    last tile's trailing rows zeroed, the convs over its rows, rows past
+    the window's end zero, the masked edge chunks of dh3c and dh2c, dh1
+    and db12 on the owned rows only, and the weight gradients carried
+    across the tiles and trials of a range."""
     m, b, c, _, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
     plan = bwd_w_bf16_plan(c, window_len, o, k)
-    t1, nt, cs, cp, half = plan["t1"], plan["nt"], plan["cs"], plan["cp"], k // 2
+    t1, cs, cp, half = plan["t1"], plan["cs"], plan["cp"], k // 2
     tiles = bwd_w_bf16_tiles(plan)
     u = m * z * n  # one image row per block (model, zone, window) of a trial range
     per_block = lambda t: t.repeat_interleave(n, dim=0)  # noqa: E731  (m*z, ...) -> (u, ...)
@@ -106,17 +117,26 @@ def emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, s: in
     stage_weights(img0, plan["w4"], per_block(w4.reshape(m * z, o, k * o)), k, o, o)
     bias = per_block(b12.reshape(m * z, 1, o))
     xf = x.float()
-    real = (torch.arange(nt) < t1)[None, :, None]
+    edge_cs = 16 * WG_EDGE_ROWS
 
-    def conv(img, src, transposed):
+    def conv(img, src, transposed, nt):
         return torch.cat([wgmma(img, bwd_w_bf16_conv_descs(plan, src, tile, transposed), False,
                                 transposed) for tile in range(nt // WG_ROWS)], dim=1)
 
-    def store(img, name, v, shifted=False):  # an epilogue: rows K/2 + t, zero from t1 on
+    def store(img, name, v, real, shifted=False, ct=None):  # an epilogue: rows K/2 + t
         v = torch.where(real, v, 0.0)
         write(img, plan[name], cs, v, row0=half)
         if shifted:  # the copy one row down, channels O..2O-1
             write(img, plan[name], cs, v, row0=half - 1, ch0=o)
+        if ct is not None and ct["left"]:  # rows 0..15, owned from WG_HALO on
+            keep = (torch.arange(WG_EDGE_ROWS) >= WG_HALO)[None, :, None]
+            write(img, bwd_w_bf16_edge(plan, name, "left"), edge_cs,
+                  torch.where(keep, v[:, :WG_EDGE_ROWS], 0.0))
+        if ct is not None and ct["right"]:  # the last 16 rows, owned up to nt - WG_HALO
+            r0 = plan["nt"] - WG_EDGE_ROWS
+            keep = (torch.arange(r0, plan["nt"]) < plan["nt"] - WG_HALO)[None, :, None]
+            write(img, bwd_w_bf16_edge(plan, name, "right"), edge_cs,
+                  torch.where(keep, v[:, r0:], 0.0))
 
     parts = {key: [] for key in ("dw12", "db12", "dw3", "dw4")}
     for si in range(s):
@@ -127,17 +147,30 @@ def emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, s: in
             win = torch.stack([xf[:, bi, :, ni * step : ni * step + window_len]
                                for ni in range(n)], dim=1)  # (m, n, C, W)
             win = win[:, None].expand(m, z, n, c, window_len).reshape(u, c, window_len)
-            write(img, plan["xs"], cs, win.mT)
             gz = g[:, bi].reshape(m, n, z, o).transpose(1, 2).reshape(u, 1, o) / t1
-            store(img, "h1", bf16(conv(img, "xs", False) + bias), shifted=True)
-            store(img, "h2", bf16(conv(img, "h1", False)), shifted=True)
-            store(img, "d3", bf16(gz * conv4head._gelu_grad(conv(img, "h2", False))))
-            store(img, "d2", bf16(conv(img, "d3", True)))
-            dh1 = conv(img, "d2", True)
-            db = db + torch.where(real, dh1, 0.0).sum(dim=1)
-            store(img, "d1", bf16(dh1))
-            for i, (kind, index) in enumerate(tiles):
-                acc[i] = wgmma(img, bwd_w_bf16_dw_descs(plan, kind, index), True, True, acc[i])
+            for ct in bwd_w_bf16_col_tiles(plan):
+                nt, rows = ct["nt"], torch.arange(ct["nt"])[None, :, None]
+                write(img, plan["xs"], cs, win[:, :, ct["s"] : ct["s"] + ct["cols"]].mT)
+                if plan["tiles"] > 1:  # column tiles: the buffer's rows past the columns zero
+                    write(img, plan["xs"], cs, torch.zeros((u, plan["rows"] - ct["cols"], c)),
+                          row0=ct["cols"])
+                if nt < plan["nt"]:  # the rows past its own that a short tile's convs read
+                    for ch in range((plan["d1"] - plan["h1"]) // cs):
+                        write(img, plan["h1"] + ch * cs, cs, torch.zeros((u, half + 1, 8)),
+                              row0=nt + half - 1)
+                past = rows < ct["e"]
+                owned = (rows >= ct["lo"]) & (rows < ct["hi"])
+                store(img, "h1", bf16(conv(img, "xs", False, nt) + bias), past, shifted=True)
+                store(img, "h2", bf16(conv(img, "h1", False, nt)), past, shifted=True)
+                store(img, "d3", bf16(gz * conv4head._gelu_grad(conv(img, "h2", False, nt))),
+                      past, ct=ct)
+                store(img, "d2", bf16(conv(img, "d3", True, nt)), past, ct=ct)
+                dh1 = conv(img, "d2", True, nt)
+                db = db + torch.where(owned, dh1, 0.0).sum(dim=1)
+                store(img, "d1", bf16(dh1), owned)
+                for i, (kind, index) in enumerate(tiles):
+                    acc[i] = wgmma(img, bwd_w_bf16_dw_descs(plan, kind, index, ct), True, True,
+                                   acc[i])
         dw12 = torch.zeros((u, o, k, c))
         dw3 = torch.zeros((u, o, k, o))
         dw4 = torch.zeros((u, o, k, o))
