@@ -288,9 +288,10 @@ GPU.
    (``window_len=500, slide_step=150``: 3 windows, 64 channels, 8 zones, dim
    32), which the tuned f32 kernels' plans do not reach: (a)
    ``train_per_subject_cv`` with 75 models at batch 64 on the corpus's first
-   70 trials a subject, 2 epochs, in f32 (B2f-g, B2w-g) and bf16 (B2f-bf16,
-   B2w-bf16 in column tiles), and at dim 64 in bf16 on 2 subjects, 1 epoch
-   (B2f-g bf16, B2w-g bf16), every head launch as the batches count them, and the
+   70 trials a subject, 2 epochs, in f32 (B2f-g, B2w in column tiles) and
+   bf16 (B2f-bf16, B2w-bf16 in column tiles), and at dim 64 on 2 subjects, 1
+   epoch, in f32 (B2f-g, B2w-g) and bf16 (B2f-g bf16, B2w-g bf16), every
+   head launch as the batches count them, and the
    2 x 10 card-against-CPU trajectory at that geometry in each precision
    (the training tolerances of the shipped geometry's); (b) a live decoder
    of (a)'s f32 model 0: one DECODE replayed equal to eager bit for bit,
@@ -308,8 +309,10 @@ GPU.
    by device time, and one step of (a) in each precision by device time;
    then at the path's shapes, where a block walks several units in its
    workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64), f32 and
-   bf16, models 0, 37 and 74, reruns bit-identical; B2x-g at (c)'s M = 1,
-   B = 100 (bf16 at windows of 250, f32 at 500) on every trial.
+   bf16, models 0, 37 and 74, reruns bit-identical, and so B2w's and
+   B2w-bf16's column tiles; B2x-g at (c)'s M = 1, B = 100 (bf16 at windows
+   of 250, f32 at 500) on every trial. The f32 step's profile prints B2w's
+   share of its device time.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -1973,8 +1976,8 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
     ``train_head`` and ``train_transformer`` modes and CVBlock's LOSO step
     at M = 15; or (``group`` "featurize") the band-power and STFT
     featurizers over the 15-subject corpus; or (``group`` "general")
-    section 14's f32 and bf16 steps at windows of 500 (M = 75): f32 on the
-    general kernels, bf16 on B2f-bf16 and B2w-bf16's column tiles. The profiler has lost whole
+    section 14's f32 and bf16 steps at windows of 500 (M = 75): f32 on B2f-g
+    and B2w's column tiles, bf16 on B2f-bf16 and B2w-bf16's. The profiler has lost whole
     sessions' records late in a long run (on an H100: three sessions in a
     row after the campaign phases; the featurizers' after the engine's steps
     joined this child; and the featurizers' again, three sessions in a row,
@@ -4632,7 +4635,7 @@ GEN_SHAPE = (2, 8)  # (M, B) of (d)
 GEN_GRID = ((80, 250, 125, 32), (128, 250, 125, 32), (64, 500, 150, 32), (64, 800, 125, 32),
             (64, 250, 125, 64))
 GEN_ENTRY = (64, 500, 150, 32)  # the kernels line's shape for B2f-g and B2w-g ((a)'s windows)
-GEN_WIDE_DIM, GEN_WIDE_SUBJECTS = 64, 2  # (a)'s bf16 fit at O > 32: B2f-g / B2w-g bf16
+GEN_WIDE_DIM, GEN_WIDE_SUBJECTS = 64, 2  # (a)'s fits at O > 32: B2f-g / B2w-g, f32 and bf16
 GEN_KERNELS = {op: f"conv4head_{op}_general_kernel" for op in GENERAL_OPS}
 # bf16 dx of B2x-g against the plain bf16 backward, relative L2, for every O. bf16
 # rounds h1, h2, dh3, dh2, dh1 and dx, and two f32 sums in other orders round a few
@@ -4756,12 +4759,12 @@ def phase_general_training(cfg500, dev, X, Y) -> dict:
     """(a) ``train_per_subject_cv`` on FAST at 2-second windows (64
     channels, 8 zones, dim 32, 3 windows of 500, 75 models, batch 64), the
     corpus's first GEN_TRIALS trials a subject, 2 epochs, in f32 (B2f-g,
-    B2w-g) and in bf16 (B2f-bf16 a window a launch, B2w-bf16 in column
-    tiles); then, where only the general kernels reach, the same fit at
-    dim_cnn = GEN_WIDE_DIM (O > 32) in bf16 on GEN_WIDE_SUBJECTS subjects, 1
-    epoch (B2f-g bf16, B2w-g bf16): the history finite and every head
-    launch as the batches count them. Returns each run's launches and the
-    f32 run's final weights."""
+    B2w in column tiles) and in bf16 (B2f-bf16 a window a launch, B2w-bf16
+    in column tiles); then, where only the general kernels reach, the same
+    fit at dim_cnn = GEN_WIDE_DIM (O > 32) on GEN_WIDE_SUBJECTS subjects, 1
+    epoch, in f32 (B2f-g, B2w-g) and in bf16 (B2f-g bf16, B2w-g bf16): the
+    history finite and every head launch as the batches count them. Returns
+    each run's launches and the f32 run's final weights."""
     subjects = [f"{i + 1:02d}" for i in range(TRAIN_SUBJECTS)]
     x, y = X[:, :GEN_TRIALS], Y[:, :GEN_TRIALS]
     tr, va, _ = build_cv_index_stack(TRAIN_SUBJECTS, GEN_TRIALS, 5, 42)
@@ -4771,8 +4774,10 @@ def phase_general_training(cfg500, dev, X, Y) -> dict:
     wide_tr, wide_va, _ = build_cv_index_stack(GEN_WIDE_SUBJECTS, GEN_TRIALS, 5, 42)
     wide_fwd, wide_steps = expected_head_launches(1, wide_tr.shape[1], wide_va.shape[1],
                                                   TRAIN_BATCH)
-    want = {"f32": {"conv4head_fwd_general": fwd_calls, "conv4head_bwd_w_general": steps},
+    want = {"f32": {"conv4head_fwd_general": fwd_calls, "conv4head_bwd_w": steps},
             "bf16": {"conv4head_fwd_bf16": groups * fwd_calls, "conv4head_bwd_w_bf16": steps},
+            "f32 wide": {"conv4head_fwd_general": wide_fwd,
+                         "conv4head_bwd_w_general": wide_steps},
             "bf16 wide": {"conv4head_fwd_general_bf16": wide_fwd,
                           "conv4head_bwd_w_general_bf16": wide_steps}}
     if groups > 1:  # B2f-bf16 a group of windows at a time: each forward call adapted
@@ -4781,6 +4786,8 @@ def phase_general_training(cfg500, dev, X, Y) -> dict:
     for name, c_, precision, n_sub, epochs in (
             ("f32", cfg500, "f32", TRAIN_SUBJECTS, TRAIN_EPOCHS),
             ("bf16", cfg500, "bf16", TRAIN_SUBJECTS, TRAIN_EPOCHS),
+            ("f32 wide", dataclasses.replace(cfg500, dim_cnn=GEN_WIDE_DIM), "f32",
+             GEN_WIDE_SUBJECTS, 1),
             ("bf16 wide", dataclasses.replace(cfg500, dim_cnn=GEN_WIDE_DIM), "bf16",
              GEN_WIDE_SUBJECTS, 1)):
         reset_launches()
@@ -4939,7 +4946,7 @@ def general_step_profile(cfg500, dev, dtype) -> dict:
     step()
     bf16 = dtype == torch.bfloat16
     fwd = "conv4head_fwd_bf16_kernel" if bf16 else GEN_KERNELS["fwd"]
-    bwd_w = "conv4head_bwd_w_bf16_kernel" if bf16 else GEN_KERNELS["bwd_w"]
+    bwd_w = "conv4head_bwd_w_bf16_kernel" if bf16 else "conv4head_bwd_w_kernel"
     events, span, union = profiled_step(step, f"general step {dtype}", need=(fwd, bwd_w))
     records = device_records(events)
     busy = sum(e.self_device_time_total for e in records) / 1e3
@@ -4953,8 +4960,8 @@ def general_step_profile(cfg500, dev, dtype) -> dict:
     print(f"general step {'bf16' if bf16 else 'f32'}, M={m} B={b}, windows of "
           f"{cfg500.window_len}: device time {busy:.2f} ms, CUDA-event span {span:.2f} ms (idle "
           f"{1 - union / span:.1%}); " + "; ".join(
-              f"{k} {v:.2f} ms (bound {bounds[k]:.2f} ms, {bounds[k] / v:.1%})"
-              for k, v in heads.items()), flush=True)
+              f"{k} {v:.2f} ms ({v / busy:.1%} of the step; bound {bounds[k]:.2f} ms, "
+              f"{bounds[k] / v:.1%})" for k, v in heads.items()), flush=True)
     del model, opt, x
     return {"busy_ms": busy, "span_ms": span, "idle": 1 - union / span,
             "kernels_ms": heads, "bounds_ms": bounds}
@@ -4966,8 +4973,8 @@ def general_path_checks(dev) -> dict:
     its workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64,
     GEN_ENTRY's windows of 500; B2w-g there takes few trial ranges a (zone,
     window), each long), f32 and bf16, models 0, M/2 and M - 1, and a second
-    launch bit-identical; B2w-bf16's column tiles likewise at (a)'s step in
-    bf16 (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 at
+    launch bit-identical; B2w's and B2w-bf16's column tiles likewise at (a)'s
+    step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 at
     the shipped geometry and f32 at windows of 500, every trial.
     ``check_general``'s tolerances; the largest absolute error of each."""
     out = {}
@@ -4997,20 +5004,23 @@ def general_path_checks(dev) -> dict:
                                "splits": plan["splits"], "shape": {"M": m, "B": b, "W": w}}
             del got, again
         del x
-    # B2w-bf16's column tiles, which the route takes for (a)'s bf16 weight gradients.
-    xb = x32.to(torch.bfloat16)
-    with uncounted():
-        got = _launch_bwd_w(g, xb, *ops, w, step)
-        again = _launch_bwd_w(g, xb, *ops, w, step)
-    what = f"B2w-bf16 column tiles M={m} B={b} W={w}"
-    if not all(torch.equal(a, r) for a, r in zip(got, again)):
-        raise RuntimeError(f"{what}: a rerun differs")
-    err = max(check_general("bwd_w", True, tuple(a[i:i + 1] for a in got),
-                            general_plain("bwd_w", *[t[i:i + 1] for t in (g, xb, *ops)], w, step),
-                            f"{what} model {i}") for i in models)
-    out[("bwd_w_tiles", True)] = {"max_abs_err": err, "models": list(models),
-                                  "shape": {"M": m, "B": b, "W": w}}
-    del g, x32, xb, ops, got, again
+    # B2w's and B2w-bf16's column tiles, which the route takes for (a)'s weight gradients.
+    for bf16 in (False, True):
+        x = x32.to(torch.bfloat16) if bf16 else x32
+        with uncounted():
+            got = _launch_bwd_w(g, x, *ops, w, step)
+            again = _launch_bwd_w(g, x, *ops, w, step)
+        what = f"{'B2w-bf16' if bf16 else 'B2w'} column tiles M={m} B={b} W={w}"
+        if not all(torch.equal(a, r) for a, r in zip(got, again)):
+            raise RuntimeError(f"{what}: a rerun differs")
+        err = max(check_general("bwd_w", bf16, tuple(a[i:i + 1] for a in got),
+                                general_plain("bwd_w", *[t[i:i + 1] for t in (g, x, *ops)], w,
+                                              step),
+                                f"{what} model {i}") for i in models)
+        out[("bwd_w_tiles", bf16)] = {"max_abs_err": err, "models": list(models),
+                                      "shape": {"M": m, "B": b, "W": w}}
+        del x, got, again
+    del g, x32, ops
     mx, bx = GEN_ATTR_SHAPE
     for bf16, (w, step) in ((True, (250, 125)), (False, (GEN_ENTRY[1], GEN_ENTRY[2]))):
         g, x32, *ops = general_operands_on_card(dev, mx, bx, 64, 800, 8, 32, w, step)
@@ -5030,9 +5040,9 @@ def general_path_checks(dev) -> dict:
     torch.cuda.empty_cache()
     for (op, bf16), r in out.items():
         if op == "bwd_w_tiles":
-            print(f"B2w-bf16 path check at {json.dumps(r['shape'])} (column tiles): max|err| "
-                  f"{r['max_abs_err']:.3g} against plain on models {r['models']}, rerun "
-                  "bit-identical", flush=True)
+            print(f"{'B2w-bf16' if bf16 else 'B2w'} path check at {json.dumps(r['shape'])} "
+                  f"(column tiles): max|err| {r['max_abs_err']:.3g} against plain on models "
+                  f"{r['models']}, rerun bit-identical", flush=True)
             continue
         print(f"general path check {op} {'bf16' if bf16 else 'f32'} at {json.dumps(r['shape'])} "
               f"({r['units_a_block']:.2f} units a block"
@@ -5097,23 +5107,28 @@ def phase_general_kernels(dev, rng) -> dict:
                                    "bound_ms": bound, "bound_by": by, "f32_core_floor_ms": floor,
                                    "shape": {"M": m, "B": b, "C": c, "T": 800, "W": w,
                                              "step": step, "O": o, "Z": 8}}
-    c, w, step, o = GEN_ENTRY  # B2w-bf16's column tiles there, as the route runs them
+    c, w, step, o = GEN_ENTRY  # B2w's and B2w-bf16's column tiles there, as the route runs them
     g, x32, *ops = general_operands(dev, rng, m, b, c, 800, 8, o, w, step)
-    xb = x32.to(torch.bfloat16)
-    with uncounted():
-        tiles = {"ms": cuda_ms(lambda: _launch_bwd_w(g, xb, *ops, w, step), 5),
-                 "plain_ms": cuda_ms(lambda: general_plain("bwd_w", g, xb, *ops, w, step), 3),
-                 "max_abs_err": check_general("bwd_w", True, _launch_bwd_w(g, xb, *ops, w, step),
-                                              general_plain("bwd_w", g, xb, *ops, w, step),
-                                              "B2w-bf16 column tiles entry")}
-    (tiles["bound_ms"], tiles["bound_by"]), _ = general_bound("bwd_w", True, m, b, c, 800, 8, o,
+    tiles = {}
+    for bf16 in (True, False):
+        x = x32.to(torch.bfloat16) if bf16 else x32
+        name = "B2w-bf16" if bf16 else "B2w"
+        with uncounted():
+            row = tiles[bf16] = {
+                "ms": cuda_ms(lambda: _launch_bwd_w(g, x, *ops, w, step), 5),
+                "plain_ms": cuda_ms(lambda: general_plain("bwd_w", g, x, *ops, w, step), 3),
+                "max_abs_err": check_general("bwd_w", bf16, _launch_bwd_w(g, x, *ops, w, step),
+                                             general_plain("bwd_w", g, x, *ops, w, step),
+                                             f"{name} column tiles entry")}
+        (row["bound_ms"], row["bound_by"]), _ = general_bound("bwd_w", bf16, m, b, c, 800, 8, o,
                                                               w, step)
-    tiles["shape"] = {"M": m, "B": b, "C": c, "T": 800, "W": w, "step": step, "O": o, "Z": 8}
-    print(f"B2w-bf16 (column tiles) at {json.dumps(tiles['shape'])}: {tiles['ms']:.4f} ms (CUDA "
-          f"events), bound {tiles['bound_ms']:.4f} ms ({tiles['bound_by']}; "
-          f"{tiles['bound_ms'] / tiles['ms']:.1%}), plain {tiles['plain_ms']:.3f} ms, max|err| "
-          f"{tiles['max_abs_err']:.3g}", flush=True)
-    del g, x32, xb, ops
+        row["shape"] = {"M": m, "B": b, "C": c, "T": 800, "W": w, "step": step, "O": o, "Z": 8}
+        print(f"{name} (column tiles) at {json.dumps(row['shape'])}: {row['ms']:.4f} ms (CUDA "
+              f"events), bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_ms'] / row['ms']:.1%}), plain {row['plain_ms']:.3f} ms, max|err| "
+              f"{row['max_abs_err']:.3g}", flush=True)
+        del x
+    del g, x32, ops
     g, x32, *ops = general_operands(dev, rng, 1, 100, 64, 800, 8, 32, 250, 125)
     xb = x32.to(torch.bfloat16)
     x_ms = cuda_ms(lambda: _launch_general("bwd_x", g, xb, *ops, 250, 125), 5)
@@ -5127,7 +5142,7 @@ def phase_general_kernels(dev, rng) -> dict:
     del g, x32, xb, ops
     for key, r in general_path_checks(dev).items():
         if key[0] == "bwd_w_tiles":
-            tiles["path_check"] = r
+            tiles[key[1]]["path_check"] = r
             continue
         entries[key]["path_check"] = r
     for (op, bf16), e in entries.items():
@@ -5140,7 +5155,8 @@ def phase_general_kernels(dev, rng) -> dict:
           f"(CUDA events), {x_dev:.4f} ms device time; bound {x_bound:.4f} ms ({x_by}; "
           f"{x_bound / x_dev:.1%}), CUDA-core f32 floor {x_floor:.4f} ms "
           f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
-    return {"grid": rows, "entries": entries, "tiles_w500": tiles}
+    return {"grid": rows, "entries": entries, "tiles_w500": tiles[True],
+            "tiles_w500_f32": tiles[False]}
 
 
 def phase_general(cfg, dev, X, Y, rng) -> dict:
@@ -5167,11 +5183,11 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     if moved != want:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
     path = {k: sum(run["launches"].get(k, 0) for run in training.values()) + moved.get(k, 0)
-            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"]}
+            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"] + ("conv4head_bwd_w",)}
     if not all(path.values()):
         raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
-    print(f"general (a)-(c): the general kernels' and the bf16 kernels' launches on the path "
-          f"{json.dumps(path)}", flush=True)
+    print(f"general (a)-(c): the general kernels', the bf16 kernels' and B2w's launches on the "
+          f"path {json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
     phase_trajectory_bf16(cfg500, dev, label="general (a) trajectory bf16",
@@ -5406,18 +5422,21 @@ def main() -> None:
                                                               if n.startswith(prefix)}
                                    for k, r in mesh_kernels.items()
                                    if k.startswith(precision) and f"{prefix}err" in r}
-    # Section 14's path (a)-(c) runs B2f-bf16 (a window a launch) and B2w-bf16's
-    # column tiles at windows of 500: their launches there, and (a)'s bf16 step's
-    # device time and bound of each.
-    for name in HEAD_KERNELS["bf16"]:
+    # Section 14's path (a)-(c) runs B2f-bf16 (a window a launch) and B2w-bf16's and
+    # B2w's column tiles at windows of 500: their launches there, and (a)'s step's
+    # device time and bound of each in its precision.
+    for name, precision in zip(HEAD_KERNELS["bf16"] + ("conv4head_bwd_w",),
+                               ("bf16", "bf16", "f32")):
         entry = next(k for k in kernels if k["name"] == name)
         entry["launches_general_section"] = general["path"][name]
         entry["launches"] += entry["launches_general_section"]
-        step = general["steps"]["bf16"]
+        step = general["steps"][precision]
         entry["step_m75_b64_w500"] = {"device_ms": step["kernels_ms"][name + "_kernel"],
-                                      "bound_ms": step["bounds_ms"][name + "_kernel"]}
-    next(k for k in kernels if k["name"] == "conv4head_bwd_w_bf16")["w500"] = (
-        general["kernels"]["tiles_w500"])
+                                      "bound_ms": step["bounds_ms"][name + "_kernel"],
+                                      "share_of_step": step["kernels_ms"][name + "_kernel"]
+                                      / step["busy_ms"]}
+    for name, key in (("conv4head_bwd_w_bf16", "tiles_w500"), ("conv4head_bwd_w", "tiles_w500_f32")):
+        next(k for k in kernels if k["name"] == name)["w500"] = general["kernels"][key]
     # The general-geometry kernels (section 14): launches on its path (a)-(c); times
     # and errors from (d) at GEN_ENTRY (B2x-g at the shipped geometry), M = 2, B = 8;
     # "path_check": the errors at the path's shapes (``general_path_checks``).
@@ -5438,9 +5457,12 @@ def main() -> None:
             if k in e:
                 entry[k] = e[k]
         kernels.append(entry)
+    f32_step = general["steps"]["f32"]
     print(f"general (section 14): {general['seconds']:.1f} s with its step-profile child; a step "
           f"at M=75 B=64, windows of "
-          f"{GEN_GEOMETRY['window_len']}: f32 {general['steps']['f32']['busy_ms']:.2f} ms, bf16 "
+          f"{GEN_GEOMETRY['window_len']}: f32 {f32_step['busy_ms']:.2f} ms (B2w's column tiles "
+          f"{f32_step['kernels_ms']['conv4head_bwd_w_kernel']:.2f} ms of it, "
+          f"{f32_step['kernels_ms']['conv4head_bwd_w_kernel'] / f32_step['busy_ms']:.1%}), bf16 "
           f"{general['steps']['bf16']['busy_ms']:.2f} ms of device time", flush=True)
     print(f"bn LOSO (section 11a): LOSO {bn_loso['loso_s']:.2f} s, peak "
           f"{bn_loso['loso_peak_gb']:.2f} GB; step device time "

@@ -59,9 +59,25 @@
 //    warps; dw3 and dh1 run side by side on two teams of eight.
 //  * Nothing is staged on the critical path but w12: the zone's w3 and w4
 //    stay resident (conv^T reads them transposed in place), and the next
-//    trial's window streams in by cp.async during the dw12 phase, into the
-//    region whose activations are dead by then; the two regions swap roles
-//    every trial. w12's halves go into space conv1 leaves free.
+//    unit's window columns stream in by cp.async during the dw12 phase, into
+//    the region whose activations are dead by then; the two regions swap
+//    roles every unit. w12's halves go into space conv1 leaves free.
+//  * Long windows: the plan holds a whole window up to 292 samples at C <=
+//    64 (229,120 B) and 268 at C = 72 (230,912 B; the card allows
+//    232,448). Past that a unit runs its window in column tiles of 256 conv
+//    rows (conv4head_common.cuh, B2w-bf16's geometry): tile j stages the
+//    window's columns [240 j, 240 j + 260) on the plan of windows of 260
+//    samples (208,640 B at C <= 64, 225,280 B at C = 72; C = 80 fits
+//    neither plan), recomputes the forward and the cotangents over its
+//    rows, and adds to the weight gradients only the rows it owns, [8, 248)
+//    at an interior edge: conv3, conv4 and their transposes reach two rows
+//    each, so dh1 is exact 8 rows inside an edge. The reduction over time
+//    runs in steps of 8, so an owned edge only moves its bounds. The
+//    epilogues zero rows from the window's end on, and gz is g / t1 of the
+//    window. A block's units are then (trial, tile) pairs; 32 time tiles
+//    of 8 are exactly kNtConv a warp. At windows of 500 a unit computes 2
+//    x 256 rows for 496; 0 spills, 117 registers (C = 64: compile-time
+//    strides, one layout for every window) and 119 (any C), H100.
 //  * Padding: activations are stored from column K/2 with zero columns
 //    around them, the window from column 0 with zeros after it, so a tap's
 //    shift never leaves the row and fragment loads need no branch. Every
@@ -80,7 +96,8 @@
 //    partials per model, S trial ranges chosen by the wrapper to fill the
 //    SMs); a second, deterministic pass sums the P partials. Each lane adds
 //    its accumulator fragments into fixed elements of the slice once per
-//    trial. No atomics: the result is bit-identical from run to run.
+//    unit (a trial, or a trial's column tile). No atomics: the result is
+//    bit-identical from run to run.
 //
 // B2x: the same route from the same pieces. A unit is B2w's first six
 // phases and one GEMM more, the input gradient:
@@ -125,8 +142,10 @@
 //    reads lies inside its tap.
 // Both kernels take O and K as template arguments, instantiated only for
 // the shipped model's O = 32, K1 = K2 = 5, with compile-time strides for
-// its C = 64, W = 250 beside a generic instantiation; B2w also needs
-// C % 8 == 0 (a reduction step of 8 rows never straddles two taps).
+// its C = 64, W = 250 beside a generic instantiation (B2w: and column
+// tiles at C = 64 and at any C); B2w also needs C % 8 == 0 (a reduction
+// step of 8 rows never straddles two taps). ops/cuda/conv4head.py mirrors
+// B2w's plans and tiles (bwd_w_smem_bytes, bwd_w_col_tiles).
 
 #include <cuda_runtime.h>
 
@@ -167,8 +186,9 @@ using isd::sum_partials;
 constexpr int kWarpsW = 16;  // B2w's block: 16 warps, one block per SM
 
 // 8-column tiles per warp in each phase, for the shipped geometry's 31 time
-// tiles, K*O/8 = 20 column tiles of dw3/dw4 and K*C/8 = 40 of dw12 (other
-// geometries loop over more tiles, or compute some twice and store once).
+// tiles (32 in a column tile), K*O/8 = 20 column tiles of dw3/dw4 and K*C/8
+// = 40 of dw12 (other geometries loop over more tiles, or compute some twice
+// and store once).
 constexpr int kNtConv = 32 / kWarpsW;                          // all warps, both row tiles
 constexpr int kNtConvHalf = 64 / kWarpsW;                      // dh1 on half the warps
 constexpr int kNtDw4 = (20 + kWarpsW / 2 - 1) / (kWarpsW / 2);  // all warps, one row tile
@@ -204,16 +224,31 @@ __host__ __device__ inline TcPlan tc_plan(int C, int W, int O, int K) {
   return p;
 }
 
-// dw[o * ldw + n] (+)= sum_{t < nt8} d[o, K/2 + t] * src[i, t + k] for
-// n = k * Ch + i < K * Ch: the weight gradient of a conv whose input is
-// the window (src from column 0) or an activation (from column K/2). d is
-// zero from column K/2 + t1 on. A team of kTeam warps: warp tw owns the
+// The plan a B2w launch takes for windows of W: the whole window where it
+// fits a block, else column tiles (isd::kColSpan, conv4head_common.cuh),
+// each staging kColSpan + K - 1 window columns on the plan of windows of
+// that length, whatever W is (mirrored by bwd_w_smem_bytes in
+// ops/cuda/conv4head.py).
+__host__ __device__ inline bool w_tiled(int C, int W, int O, int K) {
+  return static_cast<int>(sizeof(float)) * tc_plan(C, W, O, K).total > isd::kMaxSmemBytes;
+}
+
+__host__ __device__ inline TcPlan w_plan(int C, int W, int O, int K) {
+  return tc_plan(C, w_tiled(C, W, O, K) ? isd::kColSpan + K - 1 : W, O, K);
+}
+
+// dw[o * ldw + n] (+)= sum_{r0 <= t < r1} d[o, K/2 + t] * src[i, t + k]
+// for n = k * Ch + i < K * Ch: the weight gradient of a conv whose input is
+// the window (src from column 0) or an activation (from column K/2), over
+// the rows [r0, r1) (multiples of 8) that the unit owns. d is zero from the
+// window's end on. A team of kTeam warps: warp tw owns the
 // 16-row tile tw % 2 and the 8-column tiles tw / 2, tw / 2 + kTeam / 2, ...
 // (NT at a time; a tile past the end is computed as the last one and not
 // stored); each lane adds its fragments into fixed elements of dw.
 template <int K, int NT, int kTeam>
 __device__ inline void weight_grad_tc(float* __restrict__ dw, int ldw, bool first, const float* d,
-                                      int ld, const float* src, int lds, int Ch, int nt8, int tw) {
+                                      int ld, const float* src, int lds, int Ch, int r0, int r1,
+                                      int tw) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int mt = tw & 1, group = tw >> 1;
   constexpr int kGroups = kTeam / 2;
@@ -228,7 +263,7 @@ __device__ inline void weight_grad_tc(float* __restrict__ dw, int ldw, bool firs
     }
     float acc[1][NT][4] = {};
 #pragma unroll kUnrollTc
-    for (int t0 = 0; t0 < nt8; t0 += 8) {
+    for (int t0 = r0; t0 < r1; t0 += 8) {
       float a[1][4], b[NT][2];
       a[0][0] = arow[t0];
       a[0][1] = arow[t0 + 8 * ld];
@@ -259,14 +294,14 @@ __device__ inline void weight_grad_tc(float* __restrict__ dw, int ldw, bool firs
   }
 }
 
-// db[o] (+)= sum_{t < nt8} d[o, K/2 + t], one warp per row at a time.
+// db[o] (+)= sum_{r0 <= t < r1} d[o, K/2 + t], one warp per row at a time.
 template <int K>
 __device__ inline void bias_grad(float* __restrict__ db, bool first, const float* d, int ld,
-                                 int O, int nt8) {
+                                 int O, int r0, int r1) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int o = warp; o < O; o += kWarpsW) {
     float s = 0.f;
-    for (int t = lane; t < nt8; t += 32) s += d[o * ld + K / 2 + t];
+    for (int t = r0 + lane; t < r1; t += 32) s += d[o * ld + K / 2 + t];
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
     if (lane == 0) db[o] = (first ? 0.f : db[o]) + s;
@@ -274,12 +309,19 @@ __device__ inline void bias_grad(float* __restrict__ db, bool first, const float
 }
 
 // B2w: block (z, p = n * S + s, m) covers trials [s*B/S, (s+1)*B/S) of
-// window n and writes partial p of model m's zone-z gradients. Per trial,
+// window n and writes partial p of model m's zone-z gradients. Per unit,
 // seven phases between barriers (h1 | h2 | h3, dh3 | dw4 | dh2 | dw3 and
-// dh1 by two teams of eight warps | dw12, db12); the next trial's window
-// streams in by cp.async during the last phase. kC, kW > 0 fix C and W at
-// compile time (the shipped model's geometry), so every stride and trip
-// count is a constant; 0 takes them from the arguments.
+// dh1 by two teams of eight warps | dw12, db12); the next unit's columns
+// stream in by cp.async during the last phase. A unit is a trial, or in
+// column tiles (kW < 0) a (trial, tile) pair, the tiles of a trial in
+// turn: tile j stages the window's columns [s, s + kColSpan + K - 1), s =
+// kColStep j, computes rows [0, nt8) of its own (row t is the window's s +
+// t; zero from the window's end e = t1 - s on), and adds to the weight
+// gradients the rows it owns, [kColHalo, kColSpan - kColHalo) at interior
+// edges. kC > 0 fixes C at compile time, kW > 0 W (the shipped model's
+// geometry), so every stride and trip count is a constant; in column tiles
+// the plan is one layout for every W, so kC alone fixes it; 0 takes them
+// from the arguments.
 template <int O, int K, int kC, int kW>
 __global__ void __launch_bounds__(kWarpsW * 32, 1)
 conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
@@ -289,6 +331,8 @@ conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
                        float* __restrict__ pw3, float* __restrict__ pw4, int B, int C_arg,
                        int T, int Z, int N, int W_arg, int step, int S) {
   static_assert(O == 32, "two 16-row tiles of O");
+  constexpr bool kTiled = kW < 0;
+  constexpr int kSpanCols = isd::kColSpan + K - 1;  // a column tile's window columns
   const int C = kC > 0 ? kC : C_arg, W = kW > 0 ? kW : W_arg;
   constexpr int kHalf = kWarpsW / 2;
   extern __shared__ float4 smem4[];
@@ -297,8 +341,9 @@ conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int n = p / S, s = p - n * S, P = N * S;
   const int t1 = W - K + 1;
   const int warp = threadIdx.x >> 5;
-  const TcPlan plan = tc_plan(C, W, O, K);
-  const int ld = plan.ld, nt8 = plan.nt8, lw = plan.lw, lw1 = plan.lw1;
+  const TcPlan plan = tc_plan(C, kTiled ? kSpanCols : W, O, K);
+  const int ld = plan.ld, lw = plan.lw, lw1 = plan.lw1;
+  const int tiles = kTiled ? isd::col_tile_count(t1) : 1;
   const Operands op = model_operands(w12, b12, w3, w4, m, Z, O, K, C);
   const size_t mp = static_cast<size_t>(m) * P + p;
   float* dw12z = pw12 + (mp * Z * O + static_cast<size_t>(z) * O) * K * C;
@@ -312,58 +357,74 @@ conv4head_bwd_w_kernel(const float* __restrict__ g, const float* __restrict__ x,
   float* gz = smem + plan.gz;
   float* bias = smem + plan.bias;
   const size_t x_win = static_cast<size_t>(n) * step;
-
   const int b0 = s * B / S, b1 = (s + 1) * B / S;
+  const int units = (b1 - b0) * tiles;
+  // Unit u's window columns: its trial's window from the tile's first column.
+  const auto unit_x = [&](int u) {
+    const int bi = kTiled ? u / tiles : u;
+    return x + (static_cast<size_t>(m) * B + b0 + bi) * C * T + x_win +
+           (kTiled ? (u - bi * tiles) * isd::kColStep : 0);
+  };
+  const auto unit_cols = [&](int u) {
+    return kTiled ? min(kSpanCols, W - (u % tiles) * isd::kColStep) : W;
+  };
+
   stage_rows_async<kWarpsW>(w3s, w3s + 16 * lw, lw, op.w3 + static_cast<size_t>(z) * O * K * O,
                             K * O);
   stage_rows_async<kWarpsW>(w4s, w4s + 16 * lw, lw, op.w4 + static_cast<size_t>(z) * O * K * O,
                             K * O);
-  stage_window_async<kWarpsW>(smem + plan.r[0], ld,
-                              x + (static_cast<size_t>(m) * B + b0) * C * T + x_win, C, T, W);
+  stage_window_async<kWarpsW>(smem + plan.r[0], ld, unit_x(0), C, T, unit_cols(0));
   stage_rows_async<kWarpsW>(smem + plan.r[1] + O * ld, hc, lw1, w12z, K * C);
   if (threadIdx.x < O) bias[threadIdx.x] = op.b12[z * O + threadIdx.x];
   isd::cp_async_wait_all();
   __syncthreads();
 
-  const auto same = [&](int, int t, float v) { return t < t1 ? v : 0.f; };
-  for (int b = b0; b < b1; ++b) {
-    const size_t mb = static_cast<size_t>(m) * B + b;
-    const bool first = b == b0;
-    const bool odd = (b - b0) & 1;
+  for (int u = 0; u < units; ++u) {
+    const int bi = kTiled ? u / tiles : u, j = kTiled ? u - bi * tiles : 0;
+    const size_t mb = static_cast<size_t>(m) * B + b0 + bi;
+    const bool first = u == 0;
+    const bool odd = u & 1;
+    // The tile's rows: e = the window's end; nt8 computed (whole 8-row
+    // tiles); [r0, r1) owned, in whole 8-row steps (rows from e on are zero).
+    const int e = t1 - j * isd::kColStep;
+    const int nt8 = kTiled ? min((e + 7) & ~7, plan.nt8) : plan.nt8;
+    const int r0 = j > 0 ? isd::kColHalo : 0;
+    const int r1 = j + 1 < tiles ? isd::kColSpan - isd::kColHalo : nt8;
     float* xs = smem + (odd ? plan.r[1] : plan.r[0]);
     float* ha = smem + (odd ? plan.r[0] : plan.r[1]);
     float* hb = ha + O * ld;
+    const auto same = [&](int, int t, float v) { return t < e ? v : 0.f; };
     if (threadIdx.x < O) gz[threadIdx.x] = g[(mb * N + n) * Z * O + z * O + threadIdx.x] / t1;
     conv_tc<K, false, kNtConv, kWarpsW>(  // h1
         ha, ld, hb, hc, lw1, xs, ld, C, nt8, warp,
-        [&](int o, int t, float v) { return t < t1 ? v + bias[o] : 0.f; });
+        [&](int o, int t, float v) { return t < e ? v + bias[o] : 0.f; });
     __syncthreads();
     conv_tc<K, false, kNtConv, kWarpsW>(  // h2
         hb, ld, w3s, w3s + 16 * lw, lw, ha, ld, O, nt8, warp, same);
     __syncthreads();
     conv_tc<K, false, kNtConv, kWarpsW>(  // h3 -> dh3
         hc, ld, w4s, w4s + 16 * lw, lw, hb, ld, O, nt8, warp,
-        [&](int o, int t, float v) { return t < t1 ? gz[o] * isd::gelu_grad(v) : 0.f; });
+        [&](int o, int t, float v) { return t < e ? gz[o] * isd::gelu_grad(v) : 0.f; });
     __syncthreads();
-    weight_grad_tc<K, kNtDw4, kWarpsW>(dw4z, K * O, first, hc, ld, hb, ld, O, nt8, warp);
+    weight_grad_tc<K, kNtDw4, kWarpsW>(dw4z, K * O, first, hc, ld, hb, ld, O, r0, r1, warp);
     __syncthreads();
     conv_tc<K, true, kNtConv, kWarpsW>(  // dh2 = conv4^T(dh3)
         hb, ld, w4s, nullptr, lw, hc, ld, O, nt8, warp, same);
     __syncthreads();
     if (warp < kHalf) {
-      weight_grad_tc<K, kNtDw3, kHalf>(dw3z, K * O, first, hb, ld, ha, ld, O, nt8, warp);
+      weight_grad_tc<K, kNtDw3, kHalf>(dw3z, K * O, first, hb, ld, ha, ld, O, r0, r1, warp);
     } else {
       conv_tc<K, true, kNtConvHalf, kHalf>(  // dh1 = conv3^T(dh2)
           hc, ld, w3s, nullptr, lw, hb, ld, O, nt8, warp - kHalf, same);
     }
     __syncthreads();
-    if (b + 1 < b1) {
-      stage_window_async<kWarpsW>(ha, ld, x + (mb + 1) * C * T + x_win, C, T, W);
+    if (u + 1 < units) {
+      stage_window_async<kWarpsW>(ha, ld, unit_x(u + 1), C, T, unit_cols(u + 1));
     }
-    weight_grad_tc<K, kNtDw12, kWarpsW>(dw12z, K * C, first, hc, ld, xs, ld, C, nt8, warp);
-    bias_grad<K>(db12z, first, hc, ld, O, nt8);
+    weight_grad_tc<K, kNtDw12, kWarpsW>(dw12z, K * C, first, hc, ld, xs, ld, C, r0, r1, warp);
+    bias_grad<K>(db12z, first, hc, ld, O, r0, r1);
     __syncthreads();
-    if (b + 1 < b1) {  // the next trial's w12 halves, into its h2's and c's space
+    if (u + 1 < units) {  // the next unit's w12 halves, into its h2's and c's space
       stage_rows_async<kWarpsW>(xs + O * ld, hc, lw1, w12z, K * C);
       isd::cp_async_wait_all();
       __syncthreads();
@@ -566,10 +627,14 @@ cudaError_t launch_w(const float* g, const float* x, const float* w12, const flo
                      const float* w3, const float* w4, float* dw12, float* db12, float* dw3,
                      float* dw4, float* pw12, float* pb12, float* pw3, float* pw4, int M, int B,
                      int C, int T, int Z, int W, int step, int N, int S, cudaStream_t st) {
-  const size_t smem_bytes = sizeof(float) * tc_plan(C, W, O, K).total;
-  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
-  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_w_kernel<O, K, 64, 250>
-                                            : conv4head_bwd_w_kernel<O, K, 0, 0>;
+  const size_t smem_bytes = sizeof(float) * w_plan(C, W, O, K).total;
+  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides,
+  // and so do column tiles at 64 channels (one layout for every W).
+  const auto kernel = !w_tiled(C, W, O, K)
+                          ? ((C == 64 && W == 250) ? conv4head_bwd_w_kernel<O, K, 64, 250>
+                                                   : conv4head_bwd_w_kernel<O, K, 0, 0>)
+                          : (C == 64 ? conv4head_bwd_w_kernel<O, K, 64, -1>
+                                     : conv4head_bwd_w_kernel<O, K, 0, -1>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
@@ -607,9 +672,10 @@ extern "C" int isd_conv4head_bwd_x_smem_bytes(int C, int W, int O, int K) {
   return static_cast<int>(sizeof(float)) * x_plan(C, W, O, K).total;
 }
 
-// Dynamic shared memory of one B2w block, in bytes.
+// Dynamic shared memory of one B2w block, in bytes: the whole window's
+// plan where it fits a block, else the column tiles'.
 extern "C" int isd_conv4head_bwd_w_smem_bytes(int C, int W, int O, int K) {
-  return static_cast<int>(sizeof(float)) * tc_plan(C, W, O, K).total;
+  return static_cast<int>(sizeof(float)) * w_plan(C, W, O, K).total;
 }
 
 // B2w. g (M, B, N, Z*O), x (M, B, C, T), operands as the forward's;

@@ -114,8 +114,9 @@ using isd::stage_weights_wg;
 
 constexpr int kSlots = 3;  // weight-gradient tiles a warpgroup holds: 11 at C <= 64
 constexpr int kSpan = kGroups * kRows;  // rows a column tile computes at most: 256
-constexpr int kHalo = 8;  // rows recomputed at a tile's interior edge: 2 a 'same' conv or conv^T
-constexpr int kTileStep = kSpan - 2 * kHalo;  // columns between two tiles' first rows: 240
+constexpr int kHalo = isd::kColHalo;  // rows recomputed at a tile's interior edge
+constexpr int kTileStep = isd::kColStep;  // columns between two tiles' first rows: 240
+static_assert(kSpan == isd::kColSpan, "B2w's and B2w-bf16's column tiles are one geometry");
 constexpr int kEdgeRows = 16;  // rows of a masked edge chunk: one k16 step over time
 
 // Shared-memory plan of a block, in bytes; mirrored by bwd_w_bf16_plan in
@@ -140,7 +141,7 @@ __host__ __device__ inline WgPlan wg_plan(int C, int W, int O, int K) {
   p.cp = (C + kRows - 1) / kRows * kRows;
   p.t1 = W - K + 1;
   p.nt = p.t1 < kSpan ? (p.t1 + kRows - 1) / kRows * kRows : kSpan;
-  p.tiles = p.t1 <= kSpan ? 1 : (p.t1 - 2 * kHalo + kTileStep - 1) / kTileStep;
+  p.tiles = isd::col_tile_count(p.t1);
   p.rows = p.nt + K - 1;
   p.cs = 16 * p.rows;
   p.rw = ((W < p.rows ? W : p.rows) + 2) & ~1;

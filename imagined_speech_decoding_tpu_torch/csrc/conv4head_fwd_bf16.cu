@@ -89,7 +89,6 @@ using isd::round16;
 
 constexpr int kSb = kGroups * kRows;  // h1 columns a sub-block: a 64-row tile a warpgroup
 constexpr int kTeamWarps = kWarpsB / 2;  // the warps of a window team (two warpgroups)
-constexpr int kMaxSmem = 232448;      // a block's dynamic shared memory on Hopper
 
 // The phases of the debug instantiation's counters, in the order of
 // ops/cuda/conv4head.py's FWD_BF16_PHASES.
@@ -532,7 +531,7 @@ cudaError_t launch_f(const uint16_t* x, const float* w12, const float* b12, cons
                      int step, int N, int G, unsigned long long* clk, cudaStream_t st) {
   const FwdPlan plan = fwd_plan(C, W, step, N, O, K);
   const int smem_bytes = plan.total + (kClock ? isd::clock_bytes<kFwPhases>() : 0);
-  if (smem_bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem_bytes > isd::kMaxSmemBytes) return cudaErrorInvalidValue;
   // The shipped model's geometry gets compile-time strides.
   const bool vec = T % 8 == 0 && ((plan.lx + 7) & ~7) <= T;  // the kernel's 16-byte copies
   const auto kernel = (C == 64 && W == 250 && step == 125 && N == 5 && vec)

@@ -11,8 +11,12 @@ All three run on the tensor cores in 3xTF32 (f32 accuracy), sharing one
 conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32 and
 K1 = K2 = 5, and their plans hold a block's window and activations in
 shared memory, so their reach is bounded: B2f and B2x up to C = 72 and 64
-at windows of 250, windows of 284 at C = 64; B2w needs C to be a multiple
-of 8 (``_adapted`` pads it), up to C = 72 and windows of 292.
+at windows of 250, windows of 284 at C = 64. B2w needs C to be a multiple
+of 8 (``_adapted`` pads it) and takes C up to 72 at every window: the
+whole window up to 292 samples at C <= 64 and 268 at C = 72, past that in
+column tiles of 256 conv rows with a recomputed 8-row halo (``col_tiles``,
+B2w-bf16's geometry), whose plan does not grow with the window; C > 72
+fits neither plan.
 
 The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
 an f32 x takes the kernels above; a bf16 x takes their bf16
@@ -451,15 +455,18 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     return out, True
 
 
-def f32_plan_fits(op: str, c: int, window_len: int) -> bool:
+def f32_plan_fits(op: str, c: int, window_len: int, tiles: bool = True) -> bool:
     """Whether the tuned f32 kernel of ``op`` (B2f, B2w or B2x) has a plan
     for C channels at windows of ``window_len`` that fits a block, after
     ``_adapted``'s padding (O to 32, B2w's C to a multiple of 8), by the
-    Python mirrors of the library's plans (the card tests hold them equal)."""
+    Python mirrors of the library's plans (the card tests hold them equal).
+    B2w's column tiles count only with ``tiles``; without, its whole
+    window's plan must fit."""
     if op == "fwd":
         nbytes = fwd_smem_bytes(c, window_len)
     elif op == "bwd_w":
-        nbytes = bwd_w_smem_bytes(c + (-c) % 8, window_len)
+        plan = bwd_w_smem_bytes if tiles else bwd_w_plan_bytes
+        nbytes = plan(c + (-c) % 8, window_len)
     else:
         nbytes = bwd_x_smem_bytes(c, window_len)
     return nbytes <= MAX_SMEM_BYTES
@@ -468,14 +475,15 @@ def f32_plan_fits(op: str, c: int, window_len: int) -> bool:
 def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal) -> str:
     """Why ``op`` goes to the general kernel of its precision, or "" when a
     tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient (no
-    tuned bf16 B2x); or no tuned plan fitting: f32 where the f32 plan does
-    not fit, bf16 where the bf16 kernel refuses (``refusal``) and its f32
-    route's plan does not fit either."""
+    tuned bf16 B2x); or no tuned plan fitting: f32 where the f32 plan (B2w:
+    in column tiles past its whole window's) does not fit, bf16 where the
+    bf16 kernel refuses (``refusal``) and its f32 route's whole-window plan
+    does not fit either."""
     if o > KERNEL_WIDTH:
         return f"O = {o} > {KERNEL_WIDTH}"
     if bf16 and op == "bwd_x":
         return "a bf16 input gradient"
-    if (refusal or not bf16) and not f32_plan_fits(op, c, window_len):
+    if (refusal or not bf16) and not f32_plan_fits(op, c, window_len, tiles=not refusal):
         return (f"{refusal}; " if refusal else "") + (
             f"the f32 plan does not fit a block at C={c}, windows of {window_len}")
     return ""
@@ -564,10 +572,38 @@ def _trial_splits(m: int, b: int, z: int, n: int, device) -> int:
 WG_ROWS = 64  # rows of a wgmma tile: a warpgroup's share of time, or of (tap, channel)
 WG_GROUPS = 4  # warpgroups of a B2w-bf16 block (16 warps)
 WG_SLOTS = 3  # weight-gradient tiles a warpgroup holds in registers
-WG_SPAN = WG_GROUPS * WG_ROWS  # rows a column tile computes at most
-WG_HALO = 8  # rows recomputed at a column tile's interior edge
-WG_TILE_STEP = WG_SPAN - 2 * WG_HALO  # window columns between two column tiles
 WG_EDGE_ROWS = 16  # rows of a masked edge chunk (one k16 step over time)
+# Column tiles of B2w and B2w-bf16 (csrc/conv4head_common.cuh): a window
+# whose plan does not fit a block runs in tiles of at most COL_SPAN conv
+# rows (B2w-bf16: WG_GROUPS x WG_ROWS; B2w: 16 warps x 2 tiles of 8).
+COL_SPAN = 256  # rows a column tile computes at most
+COL_HALO = 8  # rows recomputed at a column tile's interior edge
+COL_STEP = COL_SPAN - 2 * COL_HALO  # window columns between two column tiles
+F32_ROWS = 8  # B2w's time tile: one mma.sync reduction step over time
+
+
+def col_tiles(t1: int, w: int, k: int, rows: int) -> list:
+    """The column tiles of a window of ``w`` samples (``t1`` conv rows)
+    that a kernel computing ``rows`` time rows at a time runs it in (the
+    kernels' ``col_tile``: B2w-bf16 ``rows`` = WG_ROWS, B2w F32_ROWS), in
+    the tile's own rows (row r is the window's conv row s + r): ``s`` its
+    first column, ``nt`` the rows it computes, ``e`` the first row past the
+    window's end, ``[lo, hi)`` the rows it owns, ``cols`` the window
+    columns it reads, ``left`` / ``right`` whether it has an interior edge
+    there. One tile up to t1 = COL_SPAN, else ceil((t1 - 2 COL_HALO) /
+    COL_STEP); the owned ranges cover [0, t1) once."""
+    span = min(-(-t1 // rows) * rows, COL_SPAN)
+    count = 1 if t1 <= COL_SPAN else -(-(t1 - 2 * COL_HALO) // COL_STEP)
+    tiles = []
+    for j in range(count):
+        s = j * COL_STEP
+        e = t1 - s
+        nt = min(-(-e // rows) * rows, span)
+        left, right = j > 0, j + 1 < count
+        tiles.append({"s": s, "nt": nt, "e": e, "lo": COL_HALO if left else 0,
+                      "hi": span - COL_HALO if right else e,
+                      "cols": min(nt + k - 1, w - s), "left": left, "right": right})
+    return tiles
 
 
 def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
@@ -576,9 +612,8 @@ def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
       cp    channels of the staged window and w12 (C rounded up to 64: one
             dw12 tile is 64 channels of one tap);
       nt    time rows a column tile computes (t1 rounded up to WG_ROWS, at
-            most WG_SPAN);
-      tiles column tiles of a window: 1 up to t1 = WG_SPAN, else
-            ceil((t1 - 2 WG_HALO) / WG_TILE_STEP);
+            most COL_SPAN);
+      tiles column tiles of a window (``col_tiles``);
       rows  rows of every time-major buffer (nt + K - 1: the farthest tap);
       cs    bytes between two chunks of 8 channels (rows * 16);
       n34, n12  weight-gradient tiles of dw3 (= of dw4) and of dw12.
@@ -588,8 +623,8 @@ def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
     [dh3c, dh2c][left, right], each [o chunk][WG_EDGE_ROWS rows][8]."""
     cp = -(-c // WG_ROWS) * WG_ROWS
     t1 = w - k + 1
-    nt = min(-(-t1 // WG_ROWS) * WG_ROWS, WG_SPAN)
-    tiles = 1 if t1 <= WG_SPAN else -(-(t1 - 2 * WG_HALO) // WG_TILE_STEP)
+    nt = min(-(-t1 // WG_ROWS) * WG_ROWS, COL_SPAN)
+    tiles = len(col_tiles(t1, w, k, WG_ROWS))
     rows = nt + k - 1
     cs = 16 * rows
     rw = (min(w, rows) + 2) & ~1
@@ -611,23 +646,9 @@ def bwd_w_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
 
 
 def bwd_w_bf16_col_tiles(plan: dict) -> list:
-    """The kernel's column tiles of a window (``col_tile``), in the tile's
-    own rows (row r is the window's conv row s + r): ``s`` its first
-    column, ``nt`` the rows it computes, ``e`` the first row past the
-    window's end, ``[lo, hi)`` the rows it owns, ``cols`` the window
-    columns it reads, ``left`` / ``right`` whether it has an interior edge
-    there (and a masked edge chunk)."""
-    tiles = []
-    for j in range(plan["tiles"]):
-        s = j * WG_TILE_STEP
-        e = plan["t1"] - s
-        nt = min(-(-e // WG_ROWS) * WG_ROWS, plan["nt"])
-        left, right = j > 0, j + 1 < plan["tiles"]
-        tiles.append({"s": s, "nt": nt, "e": e, "lo": WG_HALO if left else 0,
-                      "hi": plan["nt"] - WG_HALO if right else e,
-                      "cols": min(nt + plan["k"] - 1, plan["w"] - s), "left": left,
-                      "right": right})
-    return tiles
+    """B2w-bf16's column tiles of a window (``col_tiles`` in 64-row tiles;
+    an interior edge has a masked edge chunk)."""
+    return col_tiles(plan["t1"], plan["w"], plan["k"], WG_ROWS)
 
 
 def bwd_w_bf16_edge(plan: dict, which: str, side: str) -> int:
@@ -670,13 +691,33 @@ def fwd_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
     return 4 * floats
 
 
-def bwd_w_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
-    """The library's ``isd_conv4head_bwd_w_smem_bytes`` (B2w's ``tc_plan``,
-    csrc/conv4head_bwd.cu; C a multiple of 8)."""
+def bwd_w_plan_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """B2w's ``tc_plan`` for windows of ``w`` staged whole, in bytes
+    (csrc/conv4head_bwd.cu; C a multiple of 8)."""
     _, ld, lw1, lw = _tc_strides(c, w, o, k)
     hsz = _round_up4(max(o * ld, 16 * lw1))
     rsz = _round_up4(max(c * ld, o * ld + hsz))
     return 4 * (2 * rsz + hsz + 2 * _round_up4(o * lw) + 2 * _round_up4(o))
+
+
+def bwd_w_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_bwd_w_smem_bytes`` (``w_plan``): the
+    whole window's plan where it fits a block, else the column tiles'
+    (the plan of windows of COL_SPAN + K - 1, whatever ``w`` is)."""
+    whole = bwd_w_plan_bytes(c, w, o, k)
+    return whole if whole <= MAX_SMEM_BYTES else bwd_w_plan_bytes(c, COL_SPAN + k - 1, o, k)
+
+
+def bwd_w_col_tiles(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> list:
+    """B2w's units of a window (``col_tiles``' keys; their count is the
+    library's ``isd_conv4head_bwd_w_col_tiles``): the whole window where
+    its plan fits a block, else ``col_tiles`` in 8-row tiles. The kernel
+    reduces over [lo, hi) rounded up to 8 rows (rows from e on are zero)."""
+    t1 = w - k + 1
+    if bwd_w_plan_bytes(c, w, o, k) <= MAX_SMEM_BYTES:
+        return [{"s": 0, "nt": -(-t1 // F32_ROWS) * F32_ROWS, "e": t1, "lo": 0, "hi": t1,
+                 "cols": w, "left": False, "right": False}]
+    return col_tiles(t1, w, k, F32_ROWS)
 
 
 def bwd_x_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
@@ -871,8 +912,9 @@ FWD_CLOCK_BYTES = 16 * 8 * len(FWD_BF16_PHASES)
 def conv4head_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2w: ``(dw12, db12, dw3, dw4)`` of ``<g, fused_conv4_head(x, ...)>``;
     B2w-bf16 for a bf16 ``x`` (C <= 64, any window: column tiles past 260
-    samples), B2w for an f32 one (``_adapted`` pads C to a multiple of 8),
-    B2w-g where neither plan fits (or O > 32)."""
+    samples), B2w for an f32 one (``_adapted`` pads C to a multiple of 8;
+    C <= 72, any window: column tiles past its whole window's plan), B2w-g
+    where neither plan fits (or O > 32)."""
     if x.device.type == "cpu":
         return conv4head_bwd_plain(g, x, w12, b12, w3, w4, window_len, step)[1:]
     _require_x(x)

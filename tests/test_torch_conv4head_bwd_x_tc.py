@@ -31,6 +31,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from imagined_speech_decoding_tpu.ops.pallas.conv4head import fused_conv4_head as pallas_head
+from tf32_emulation import im2col, mma
 
 torch.set_num_threads(1)
 
@@ -38,35 +39,6 @@ BWD_RTOL = 1e-4  # atol = BWD_RTOL * max|ref| (chip_smoke.py)
 O, K = 32, 5
 FULL = dict(c=64, z=8, t=800, window=250, step=125)  # FASTConfig.default() widths
 SMALL = dict(c=10, z=3, t=230, window=120, step=37)  # t1 = 116: not a multiple of 8
-
-
-def to_tf32(a: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of an f32 operand: its top 19 bits."""
-    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def split(a: torch.Tensor):
-    hi = to_tf32(a)
-    return hi, to_tf32(a - hi)
-
-
-def mma(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """``a (..., M, R) @ b (..., R, n)`` as mma.sync m16n8k8 steps of 8
-    along R, each step's products added into f32 accumulators: lo*hi,
-    hi*lo, hi*hi (``passes`` 3), or hi*hi alone (one TF32 pass)."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    pairs = [(al, bh), (ah, bl), (ah, bh)][3 - passes:]
-    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.shape[-2], b.shape[-1]))
-    for r0 in range(0, a.shape[-1], 8):
-        for x, y in pairs:
-            acc = acc + x[..., r0:r0 + 8] @ y[..., r0:r0 + 8, :]
-    return acc
-
-
-def im2col(rows: torch.Tensor, n_cols: int, taps) -> torch.Tensor:
-    """``P[..., i * R + c, t] = rows[..., c, t + shift_i]`` for t < n_cols,
-    the shifts in ``taps`` order (tap-major)."""
-    return torch.cat([rows[..., s:s + n_cols] for s in taps], dim=-2)
 
 
 def b2x_emulated(g, x, w12, b12, w3, w4, window, step, sz=1, passes=3):

@@ -6,15 +6,18 @@ on the card.
 
 The tuned kernels are built for O = 32 and K1 = K2 = 5, an even T in
 bf16, C % 8 == 0 in f32 B2w, and their plans fitting a block. B2w-bf16
-takes every window at C <= 64 (past 260 samples in column tiles). A bf16
-geometry that B2f-bf16 or B2w-bf16 has no plan for runs the f32 kernel on
-the bf16 kernel's operands where the f32 plan fits (B2w-bf16 at C = 68 and
-72): that route is held to the plain bf16 version at 1e-2 in relative L2
-(the f32 kernel skips the bf16 roundings of h1, h2 and the cotangents;
-measured <= 3.4e-3). What no tuned plan takes (C = 80 or 128, f32 windows
-of 500, a bf16 forward of one window of 600, O = 64, a bf16 input
-gradient) goes to the general kernel of x's precision (B2f-g, B2w-g,
-B2x-g), unadapted and counted in
+takes every window at C <= 64 (past 260 samples in column tiles), f32 B2w
+every window at C <= 72 (past its whole window's plan in column tiles). A
+bf16 geometry that B2f-bf16 or B2w-bf16 has no plan for runs the f32
+kernel on the bf16 kernel's operands where the f32 whole-window plan fits
+(B2w-bf16 at C = 68 and 72, windows up to 268): that route is held to the
+plain bf16 version at 1e-2 in relative L2 (the f32 kernel skips the bf16
+roundings of h1, h2 and the cotangents; measured <= 3.4e-3); its column
+tiles do not widen that route. What no tuned plan takes (C = 80 or 128, f32
+forwards and input gradients at windows of 500, a bf16 forward of one
+window of 600, O = 64, a bf16 input gradient, bf16 weight gradients at C =
+65-72 past windows of 268) goes to the general kernel of x's precision
+(B2f-g, B2w-g, B2x-g), unadapted and counted in
 ``launches_general`` / ``launches_general_bf16``; only K != 5 raises.
 The JAX package trains other widths (``dim_cnn`` 8 in
 ``cli/zero_shot.py``, 16 in ``tests/test_trajectory_parity.py``). Here,
@@ -41,6 +44,8 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     _check_smem,
     _geometry,
     bwd_w_bf16_smem_bytes,
+    bwd_w_col_tiles,
+    bwd_w_plan_bytes,
     bwd_w_smem_bytes,
     bwd_x_smem_bytes,
     conv4head_bwd_bf16_plain,
@@ -282,8 +287,8 @@ def test_general_route_geometries(op, geometry, dtype):
     windows of 500) and in bf16 (every bf16 B2x; O = 64): one launch of the
     general kernel of x's precision on the operands as they are, none of a
     tuned one, the plain version's result. At windows of 500 a bf16 forward
-    stays on B2f-bf16 (one window a launch) and bf16 weight gradients on
-    B2w-bf16 (its column tiles: one launch, unadapted)."""
+    stays on B2f-bf16 (one window a launch), and weight gradients on B2w-bf16
+    or, in f32, on B2w (column tiles: one launch, unadapted)."""
     ops, geo = operands(dtype=dtype, **geometry)
     calls, general = [], []
     got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
@@ -292,7 +297,7 @@ def test_general_route_geometries(op, geometry, dtype):
     bf16 = dtype == torch.bfloat16
     if bf16 and op == "fwd" and geometry.get("o", 32) == 32:
         assert adapted and general == [] and len(calls) == 3  # B2f-bf16, a window a launch
-    elif bf16 and op == "bwd_w" and geometry.get("o", 32) == 32:
+    elif op == "bwd_w" and geometry.get("o", 32) == 32 and geometry.get("c") == 64:
         assert not adapted and general == [] and calls == [dict(c=64, t=800, n=3)]
     else:
         assert not adapted and calls == [] and [d["dtype"] for d in general] == [dtype]
@@ -342,12 +347,15 @@ def test_bf16_refusal_routes_to_the_f32_kernel(op, geometry):
 def test_f32_plan_mirrors_match_the_shipped_geometry():
     """The f32 plans' mirrors at the shipped geometry fit a block, and their
     limits are where the route's choice changes (C = 72 fits, 80 does not;
-    B2w at windows of 280 fits, 300 does not)."""
+    B2w's whole window at windows of 280 fits, 300 does not, where its
+    column tiles' plan takes over)."""
     fits = lambda n: 0 <= n <= conv4head.MAX_SMEM_BYTES  # noqa: E731
     assert fits(fwd_smem_bytes(64, 250)) and fits(bwd_w_smem_bytes(64, 250))
     assert fits(fwd_smem_bytes(72, 250)) and fits(bwd_w_smem_bytes(72, 250))
     assert not fits(fwd_smem_bytes(80, 250)) and not fits(bwd_w_smem_bytes(80, 250))
-    assert fits(bwd_w_smem_bytes(64, 280)) and not fits(bwd_w_smem_bytes(64, 300))
+    assert fits(bwd_w_plan_bytes(64, 280)) and not fits(bwd_w_plan_bytes(64, 300))
+    assert bwd_w_smem_bytes(64, 280) == bwd_w_plan_bytes(64, 280)
+    assert fits(bwd_w_smem_bytes(64, 300)) and bwd_w_smem_bytes(64, 300) < bwd_w_plan_bytes(64, 300)
     assert not fits(fwd_smem_bytes(128, 250)) and not fits(fwd_smem_bytes(64, 600))
 
 
@@ -506,3 +514,94 @@ def test_bf16_weight_gradients_take_the_column_tiles(monkeypatch, c, w, step, t)
     assert (fn.launches_bf16, fn.launches, fn.adapted, fn.launches_general_bf16) == (
         before[0] + 1, before[1], before[2], before[3])
     assert [x.shape for x in got] == [x.shape for x in ops[2:]]
+
+
+def _stand_in_wrappers(monkeypatch, calls, dtypes, general):
+    """``conv4head_bwd_w`` on meta tensors: the CUDA check and the launches
+    stood in for (a tuned launch refusing what its plan's mirror refuses,
+    a general one taking any geometry), each counting as its launch does."""
+    launch, run_general = stand_in("bwd_w", calls, dtypes), general_stand_in(general)
+
+    def counted(g, x, *args):
+        out = launch(g, x, *args)
+        conv4head._lib.count(conv4head_bwd_w, "launches_bf16" if x.dtype == torch.bfloat16
+                             else "launches")
+        return out
+
+    def counted_general(op, g, x, *args):
+        out = run_general(op, g, x, *args)
+        conv4head._lib.count(conv4head_bwd_w, "launches_general_bf16"
+                             if x.dtype == torch.bfloat16 else "launches_general")
+        return out
+
+    monkeypatch.setattr(conv4head, "_require_x", lambda x: None)
+    monkeypatch.setattr(conv4head, "_launch_bwd_w", counted)
+    monkeypatch.setattr(conv4head, "_launch_general", counted_general)
+    monkeypatch.setattr(conv4head._lib, "library", lambda: type(
+        "Lib", (), {"isd_conv4head_bwd_w_bf16_smem_bytes": staticmethod(bwd_w_bf16_smem_bytes)}))
+    conv4head._bwd_w_bf16_bytes_built.cache_clear()
+
+
+def _bwd_w_counts():
+    fn = conv4head_bwd_w
+    return (fn.launches, fn.launches_bf16, fn.launches_general, fn.launches_general_bf16,
+            fn.adapted)
+
+
+@pytest.mark.parametrize("c", [64, 72, 60])
+@pytest.mark.parametrize("w,step", [(293, 127), (500, 150), (800, 1)], ids=["w293", "w500", "w800"])
+def test_f32_weight_gradients_take_the_column_tiles(monkeypatch, c, w, step):
+    """f32 weight gradients past B2w's whole-window plan (windows of 293,
+    500 and 800 at C = 64, 72, and 60, padded to 64) on meta tensors: one B2w
+    launch (its plan's mirror in column tiles), counted in ``launches``; no
+    general kernel; ``adapted`` only for the padded C."""
+    calls, dtypes, general = [], [], []
+    _stand_in_wrappers(monkeypatch, calls, dtypes, general)
+    ops, geo = meta_operands(torch.float32, c=c, t=800, w=w, step=step, b=2, z=1)
+    assert len(bwd_w_col_tiles(c + (-c) % 8, w)) >= 2
+    before = _bwd_w_counts()
+    got = CALLS["bwd_w"](*ops, geo)
+    assert general == [] and dtypes == [torch.float32]
+    assert calls == [dict(c=c + (-c) % 8, t=800, n=(800 - w) // step + 1)]
+    assert _bwd_w_counts() == (before[0] + 1, before[1], before[2], before[3],
+                               before[4] + (c % 8 != 0))
+    assert [x.shape for x in got] == [x.shape for x in ops[2:]]
+
+
+@pytest.mark.parametrize("geometry", [dict(c=80, w=250, step=125), dict(c=80, w=500, step=150),
+                                      dict(c=64, o=64, w=500, step=150)],
+                         ids=["c80-w250", "c80-w500", "o64-w500"])
+def test_f32_weight_gradients_beyond_the_tiles_stay_general(monkeypatch, geometry):
+    """f32 weight gradients at C = 80 (neither B2w plan fits) and at O = 64
+    (B2w is built for O = 32): B2w-g, once, on the operands as they are,
+    counted in ``launches_general``; no tuned launch."""
+    calls, dtypes, general = [], [], []
+    _stand_in_wrappers(monkeypatch, calls, dtypes, general)
+    ops, geo = meta_operands(torch.float32, t=800, b=2, z=1, **geometry)
+    before = _bwd_w_counts()
+    CALLS["bwd_w"](*ops, geo)
+    assert calls == [] and [(d["op"], d["dtype"]) for d in general] == [("bwd_w", torch.float32)]
+    assert _bwd_w_counts() == (before[0], before[1], before[2] + 1, before[3], before[4])
+
+
+@pytest.mark.parametrize("c", [65, 68, 72])
+@pytest.mark.parametrize("w,step", [(269, 131), (293, 127), (500, 150)],
+                         ids=["w269", "w293", "w500"])
+def test_bf16_past_the_f32_route_stays_general(monkeypatch, c, w, step):
+    """bf16 weight gradients that B2w-bf16 refuses (C = 65-72) past windows
+    of 268, where B2w's whole-window plan does not fit: B2w-g bf16, once, on
+    the bf16 operands; not the f32 route (``_f32_route``, inexact), though
+    B2w's column tiles would take the f32 operands. The reason names both
+    kernels."""
+    calls, dtypes, general = [], [], []
+    _stand_in_wrappers(monkeypatch, calls, dtypes, general)
+    ops, geo = meta_operands(torch.bfloat16, c=c, t=800, w=w, step=step, b=2, z=1)
+    assert conv4head.f32_plan_fits("bwd_w", c, w) and not conv4head.f32_plan_fits(
+        "bwd_w", c, w, tiles=False)
+    before = _bwd_w_counts()
+    CALLS["bwd_w"](*ops, geo)
+    assert calls == [] and [(d["op"], d["dtype"]) for d in general] == [("bwd_w", torch.bfloat16)]
+    assert _bwd_w_counts() == (before[0], before[1], before[2], before[3] + 1, before[4])
+    refusal = conv4head._bf16_refusal("bwd_w", c, w, step, 1, plan_bytes, bwd_w_bf16_smem_bytes)
+    reason = general_reason("bwd_w", True, c, 32, w, refusal)
+    assert "B2w-bf16 is not built" in reason and "the f32 plan does not fit" in reason

@@ -27,6 +27,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from imagined_speech_decoding_tpu.ops.pallas.conv4head import fused_conv4_head as pallas_head
+from tf32_emulation import mma
 
 torch.set_num_threads(1)
 
@@ -34,29 +35,6 @@ HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-5  # chip_smoke.py's B2f tolerance
 Z, O, K, T, W, STEP = 8, 32, 5, 800, 250, 125  # FASTConfig.default() widths
 N, T1 = (T - W) // STEP + 1, W - K + 1
 NT8 = -(-T1 // 8) * 8
-
-
-def to_tf32(a: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of an f32 operand: its top 19 bits."""
-    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def split(a: torch.Tensor):
-    hi = to_tf32(a)
-    return hi, to_tf32(a - hi)
-
-
-def mma(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """``a (32, R) @ b (R, n)`` as mma.sync m16n8k8 steps of 8 along R, each
-    step's products added into f32 accumulators: lo*hi, hi*lo, hi*hi
-    (``passes`` 3), or hi*hi alone (one TF32 pass)."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    pairs = [(al, bh), (ah, bl), (ah, bh)][3 - passes:]
-    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
-    for r0 in range(0, a.shape[1], 8):
-        for x, y in pairs:
-            acc = acc + x[:, r0:r0 + 8] @ y[r0:r0 + 8]
-    return acc
 
 
 def im2col(rows: torch.Tensor) -> torch.Tensor:

@@ -780,6 +780,71 @@ def test_bf16_column_tiles_at_the_step_shape(dev):
             _bf16_close(a[i : i + 1], r, BF16_BWD_REL, f"B2w-bf16 W=500 model {i} {name}")
 
 
+# Windows past B2w's whole-window plan (292 samples at C <= 64, 268 at C = 72):
+# f32 weight gradients in column tiles (W, step), T = 800.
+F32_COLUMN_TILE_WINDOWS = ((293, 127), (500, 150), (800, 1))
+
+
+@pytest.mark.parametrize("c", [8, 64, 72])
+@pytest.mark.parametrize("w,step", F32_COLUMN_TILE_WINDOWS)
+def test_f32_column_tiles_match_plain(dev, w, step, c):
+    """f32 weight gradients at windows of 293, 500 and 800 samples (two to
+    four column tiles, the last short at 293 and 800), C = 8, 64 and 72, M =
+    2, B = 4, 2 zones: one B2w launch, no general one, nothing adapted, held
+    against the plain f32 backward on the CPU at the backward's tolerance;
+    a second launch bit-identical."""
+    x, *ops = _head_operands(2, 4, c, 800, 2, 32, w + c)
+    n = (800 - w) // step + 1
+    g = torch.tensor(np.random.default_rng(w + c).normal(size=(2, 4, n, 64)).astype(np.float32))
+    before = (conv4head_bwd_w.launches, conv4head_bwd_w.launches_general,
+              conv4head_bwd_w.adapted)
+    cuda_ops = [t.to(dev) for t in (g, x, *ops)]
+    got = conv4head_bwd_w(*cuda_ops, w, step)
+    again = conv4head_bwd_w(*cuda_ops, w, step)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_w.launches, conv4head_bwd_w.launches_general,
+            conv4head_bwd_w.adapted) == (before[0] + 2, before[1], before[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = conv4head_bwd_plain(g, x, *ops, w, step)[1:]
+    for name, a, r in zip(("dw12", "db12", "dw3", "dw4"), got, ref):
+        _assert_grad_close(a.cpu(), r, f"B2w W={w} C={c} {name}")
+
+
+def test_f32_column_tiles_at_the_step_shape(dev):
+    """B2w in column tiles at section 14 (a)'s f32 step shape (75 models,
+    batch 64, full width, 3 windows of 500, two tiles each): models 0, 37
+    and 74 against the plain f32 backward at the backward's tolerance, and a
+    second launch bit-identical."""
+    _, _, ops, x, _ = _full_width_operands(dev, 75, 64, 62)
+    w, step = 500, 150
+    g = torch.randn((75, 64, 3, 256), generator=torch.Generator(device=dev).manual_seed(62),
+                    device=dev)
+    before = (conv4head_bwd_w.launches, conv4head_bwd_w.launches_general)
+    got = conv4head_bwd_w(g, x, *ops, w, step)
+    again = conv4head_bwd_w(g, x, *ops, w, step)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_w.launches, conv4head_bwd_w.launches_general) == (
+        before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i in BF16_MODELS:
+        one = [t[i : i + 1] for t in (g, x, *ops)]
+        ref = conv4head_bwd_plain(*one, w, step)[1:]
+        for name, a, r in zip(("dw12", "db12", "dw3", "dw4"), got, ref):
+            _assert_grad_close(a[i : i + 1], r, f"B2w W=500 model {i} {name}")
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (64, 292), (64, 293), (64, 500), (8, 800),
+                                 (72, 268), (72, 269), (72, 500), (80, 500)])
+def test_f32_column_tile_mirror_matches_the_library(dev, c, w):
+    """The Python mirror of B2w's plan (``bwd_w_smem_bytes``: the whole
+    window's where it fits a block, past it the column tiles') equals the
+    library's ``isd_conv4head_bwd_w_smem_bytes`` on both sides of the
+    whole window's reach."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import bwd_w_smem_bytes
+
+    assert bwd_w_smem_bytes(c, w) == _lib.library().isd_conv4head_bwd_w_smem_bytes(c, w, 32, 5)
+
+
 def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
     """One wgmma tile on the card from the image (csrc/wgmma_selftest.cu);
     ``swap`` exchanges an operand's two core-matrix steps (the other
@@ -1472,9 +1537,9 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     features rtol 1e-4 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4 x
     max|ref|; bf16: features 3e-4 and weight gradients 1e-3 x max|ref|, dx
     BF16_DX_L2 in relative L2), and bit-identical on a second run. A bf16 forward that
-    B2f-bf16 takes (windows of 500, one a launch) stays there, and bf16 weight
-    gradients at C <= 64 and O = 32 (windows of 500 and 800) run B2w-bf16's
-    column tiles."""
+    B2f-bf16 takes (windows of 500, one a launch) stays there, and weight
+    gradients at C = 64 and O = 32 (windows of 500 and 800) run B2w-bf16's
+    column tiles in bf16 and B2w's in f32."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     g, x, *ops = _general_operands(dev, c, t, w, step, o, c + w + o)
@@ -1484,7 +1549,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     n = (t - w) // step + 1
     tuned_fwd = bf16 and o == 32 and conv4head._bf16_refusal("fwd", c, w, step, n, None,
                                                               None) is None
-    tuned_w = bf16 and o == 32 and c <= 64
+    tuned_w = o == 32 and c <= (64 if bf16 else 72)
     results = []
     for _ in range(2):
         before = _general_counts()
@@ -1496,7 +1561,8 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
         moved = {k: v - before[k] for k, v in _general_counts().items() if v != before[k]}
         groups = moved.pop(("fused_conv4_head", "launches_bf16"), 0)
         moved.pop(("fused_conv4_head", "adapted"), None)  # B2f-bf16 in groups of windows
-        want = {("conv4head_bwd_w", "launches_bf16" if tuned_w else key): 1,
+        tuned = "launches_bf16" if bf16 else "launches"
+        want = {("conv4head_bwd_w", tuned if tuned_w else key): 1,
                 ("conv4head_bwd_x", key): 1}
         if not tuned_fwd:
             want[("fused_conv4_head", key)] = 1

@@ -18,20 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from tf32_emulation import split, to_tf32
+
 torch.set_num_threads(1)
 
 BWD_RTOL = 1e-4  # chip_smoke.py: atol = BWD_RTOL * max|ref| per gradient tensor
 O, T1, KC, TRIALS = 32, 246, 320, 64
-
-
-def to_tf32(a: torch.Tensor) -> torch.Tensor:
-    """Truncate f32 to TF32: clear the low 13 mantissa bits."""
-    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def split(a: torch.Tensor):
-    hi = to_tf32(a)
-    return hi, to_tf32(a - hi)
 
 
 def tolerance_share(got: torch.Tensor, ref: torch.Tensor) -> float:

@@ -28,7 +28,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     FWD_SB,
     WG_EDGE_ROWS,
-    WG_HALO,
+    COL_HALO,
     WG_ROWS,
     bwd_w_bf16_col_tiles,
     bwd_w_bf16_conv_descs,
@@ -128,13 +128,13 @@ def emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, s: in
         write(img, plan[name], cs, v, row0=half)
         if shifted:  # the copy one row down, channels O..2O-1
             write(img, plan[name], cs, v, row0=half - 1, ch0=o)
-        if ct is not None and ct["left"]:  # rows 0..15, owned from WG_HALO on
-            keep = (torch.arange(WG_EDGE_ROWS) >= WG_HALO)[None, :, None]
+        if ct is not None and ct["left"]:  # rows 0..15, owned from COL_HALO on
+            keep = (torch.arange(WG_EDGE_ROWS) >= COL_HALO)[None, :, None]
             write(img, bwd_w_bf16_edge(plan, name, "left"), edge_cs,
                   torch.where(keep, v[:, :WG_EDGE_ROWS], 0.0))
-        if ct is not None and ct["right"]:  # the last 16 rows, owned up to nt - WG_HALO
+        if ct is not None and ct["right"]:  # the last 16 rows, owned up to nt - COL_HALO
             r0 = plan["nt"] - WG_EDGE_ROWS
-            keep = (torch.arange(r0, plan["nt"]) < plan["nt"] - WG_HALO)[None, :, None]
+            keep = (torch.arange(r0, plan["nt"]) < plan["nt"] - COL_HALO)[None, :, None]
             write(img, bwd_w_bf16_edge(plan, name, "right"), edge_cs,
                   torch.where(keep, v[:, r0:], 0.0))
 
