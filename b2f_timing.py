@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Times kernel B2f-bf16 (the bf16 Conv4Layers head's forward, the default
-training step's second kernel) of the package that sits beside this
-script, by the two yardsticks of ``kernel_timing.py`` and by phase:
+training step's second kernel) and kernel B2f (the f32 head's) of the
+package that sits beside this script, by the two yardsticks of
+``kernel_timing.py``, B2f-bf16 also by phase:
 
     python3 b2f_timing.py --label new               # from a checkout's root, on a card
     python3 other/b2f_timing.py --label old         # with kernel_timing.py, in another checkout
+    python3 b2f_timing.py --precision f32           # B2f only (bf16: B2f-bf16 only)
 
 Work: ``ops.cuda.conv4head.fused_conv4_head`` on a bf16 x under
 ``torch.no_grad()`` at full width (FAST weights from seed 0, x normal from
@@ -13,6 +15,15 @@ numpy seed 0) for (M, B) = (75, 64) (a training step's batch), (75, 24)
 device time is the kernel's (``conv4head_fwd_bf16_kernel``).
 ``us_per_item`` is event_ms spread over the card's SMs per (trial, zone)
 item, the time one item (its five windows) takes on one SM.
+f32: (75, 64) at windows of 250 and of 500 (3 windows, two column tiles
+each), whichever kernel the checkout's route launches there (``route``:
+B2f, or B2f-g where B2f has no plan for the windows), and B2f-g f32
+launched directly at both (``general_*``), in the same call;
+``us_per_unit`` per (trial, window, zone) unit. Then the sha256 of B2f's
+features at the shipped geometry on a fixed input (``shipped_sha256``),
+equal in two checkouts whose shipped instantiation computes alike. Where
+this process built the kernels, the registers and spills of every
+instantiation of B2f from ``-Xptxas -v``.
 
 Then, where the checkout has the debug instantiation
 (``conv4head._launch_fwd(..., clk=...)``), one launch of it at M = 75,
@@ -26,6 +37,8 @@ line a JSON object of the rows. Exits non-zero without a card.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -34,16 +47,81 @@ from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 
 ITERS = 10
 SHAPES = ((75, 64), (75, 24), (75, 35), (1, 64), (2, 8))
+F32_SHAPES = ((75, 64, 250, 125), (75, 64, 500, 150))  # (M, B, window, step)
+F32_KERNELS = {"B2f": "conv4head_fwd_kernel", "B2f-g": "conv4head_fwd_general_kernel"}
 WARPS = 16  # a B2f-bf16 block
 
 
+def shipped_digest(dev) -> str:
+    """sha256 of B2f's features at the shipped geometry on a fixed input: M
+    = 2, B = 8, full width, x and the fused weights normal from numpy seed
+    63 (``tests/test_torch_cuda.py``'s ``_head_operands(2, 8, 64, 800, 8,
+    32, 63)``), so that two checkouts' shipped instantiations can be held
+    bit for bit."""
+    rng = np.random.default_rng(63)
+    m, b, c, t, z, o, k = 2, 8, 64, 800, 8, 32, 5
+
+    def normal(shape, scale):
+        return torch.tensor((scale * rng.normal(size=shape)).astype(np.float32), device=dev)
+
+    ops = (normal((m, b, c, t), 1.0), normal((m, z * o, k * c), (k * c) ** -0.5),
+           normal((m, z * o, 1), 0.1), normal((m, z, o, k * o), (k * o) ** -0.5),
+           normal((m, z, o, k * o), (k * o) ** -0.5))
+    with torch.no_grad():
+        out = conv4head.fused_conv4_head(*ops, 250, 125).cpu()
+    return hashlib.sha256(out.numpy().tobytes()).hexdigest()
+
+
+def f32_rows(args, dev, sms, rng) -> list:
+    """B2f (or, where the checkout's route takes it, B2f-g) at F32_SHAPES,
+    and B2f-g f32 launched directly at each, in the same call."""
+    rows = []
+    for m, b, w, step in F32_SHAPES:
+        cfg, _, ops, x = kt.head_operands(m, b, dev, rng)
+        geo, n = (w, step), (cfg.seq_len - w) // step + 1
+
+        def fn():
+            with torch.no_grad():
+                return conv4head.fused_conv4_head(x, *ops, *geo)
+
+        before = conv4head.fused_conv4_head.launches_general
+        fn()
+        route = "B2f-g" if conv4head.fused_conv4_head.launches_general > before else "B2f"
+        units = m * b * n * cfg.n_zones
+        row = {"precision": "f32", "m": m, "b": b, "w": w, "route": route,
+               "event_ms": kt.event_ms(fn, ITERS),
+               "device_ms": kt.device_ms(fn, ITERS, F32_KERNELS[route])[0]}
+        row["us_per_unit"] = 1e3 * row["event_ms"] * sms / units
+        print(f"[{args.label}] {route} f32 M={m} B={b} W={w}: {row['event_ms']:.4f} ms a call "
+              f"(CUDA events), {row['device_ms']:.4f} ms on the device, "
+              f"{row['us_per_unit']:.2f} us a (trial, window, zone) unit on one SM", flush=True)
+        general = lambda: conv4head._launch_general("fwd", None, x, *ops, *geo)  # noqa: E731
+        row["general_event_ms"] = kt.event_ms(general, 3)
+        row["general_device_ms"] = kt.device_ms(general, 3, F32_KERNELS["B2f-g"])[0]
+        print(f"[{args.label}] B2f-g f32 M={m} B={b} W={w}, launched directly: "
+              f"{row['general_event_ms']:.4f} ms a call (CUDA events), "
+              f"{row['general_device_ms']:.4f} ms on the device", flush=True)
+        rows.append(row)
+        del x, ops
+        torch.cuda.empty_cache()
+    digest = shipped_digest(dev)
+    print(f"[{args.label}] B2f at the shipped geometry, M=2 B=8 (numpy seed 63): sha256 {digest}",
+          flush=True)
+    rows.append({"shipped_sha256": digest})
+    return rows
+
+
 def main() -> None:
-    args = kt.start(__doc__, "b2f_timing.py")
+    args = kt.start(__doc__, "b2f_timing.py", (("--precision", dict(
+        choices=("both", "bf16", "f32"), default="both")),))
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
-    rows = []
-    for m, b in SHAPES:
+    regs = kt.registers(("conv4head_fwd_kernel",))
+    for name, line in regs.items():
+        print(f"[{args.label}] ptxas {name}: {line}", flush=True)
+    rows = f32_rows(args, dev, sms, rng) if args.precision != "bf16" else []
+    for m, b in SHAPES if args.precision != "f32" else ():
         cfg, geo, ops, x = kt.head_operands(m, b, dev, rng, torch.bfloat16)
 
         def fn():
@@ -65,6 +143,8 @@ def main() -> None:
         rows.append(row)
         del x, ops
         torch.cuda.empty_cache()
+    if regs:
+        rows.append({"registers": regs})
     kt.finish(args.label, rows)
 
 

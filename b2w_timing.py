@@ -37,13 +37,11 @@ line a JSON object of the rows. Exits non-zero without a card.
 
 from __future__ import annotations
 
-import re
-
 import numpy as np
 import torch
 
 import kernel_timing as kt
-from imagined_speech_decoding_tpu_torch.ops.cuda import _lib, conv4head
+from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 
 ITERS = 10
 SHAPES = ((75, 64, 250, 125), (75, 24, 250, 125), (75, 35, 250, 125), (1, 64, 250, 125),
@@ -54,23 +52,6 @@ F32_KERNELS = {"B2w": "conv4head_bwd_w_kernel|sum_partials_kernel",
                "B2w-g": "conv4head_bwd_w_general_kernel|sum_partials_kernel"}
 WARPS = 16  # a B2w-bf16 block
 ENTRIES = ("conv4head_bwd_w_kernel", "conv4head_bwd_w_bf16_kernel")
-
-
-def registers() -> dict:
-    """Registers and spills of each instantiation of B2w and B2w-bf16 (its
-    mangled template arguments), from this process's build log; empty
-    where the library was built before."""
-    out = {}
-    for block in _lib.build_info()["log"].split("Compiling entry function")[1:]:
-        head = block.splitlines()[0]
-        entry = next((e for e in ENTRIES if e in head), None)
-        args = re.search(r"kernelI(L[^E]*E)+", head) if entry else None
-        if args:
-            lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
-                     if re.search(r"registers|spill", ln)]
-            out[f"{entry}<{','.join(re.findall(r'L[ib](n?[0-9]+)E', args.group(0)))}>"] = (
-                " | ".join(lines))
-    return out
 
 
 def f32_rows(args, dev, sms, rng) -> list:
@@ -112,7 +93,7 @@ def main() -> None:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
-    regs = registers()
+    regs = kt.registers(ENTRIES)
     for name, line in regs.items():
         print(f"[{args.label}] ptxas {name}: {line}", flush=True)
     rows = f32_rows(args, dev, sms, rng) if args.precision != "bf16" else []

@@ -284,20 +284,22 @@ GPU.
    ``launches_mesh`` counts (b)'s launches, over both ranks and every run.
 
 14. The general-geometry head kernels B2f-g, B2w-g and B2x-g (f32 and bf16;
-   ``csrc/conv4head_general.cu``), on FAST at 2-second windows
-   (``window_len=500, slide_step=150``: 3 windows, 64 channels, 8 zones, dim
-   32), which the tuned f32 kernels' plans do not reach: (a)
-   ``train_per_subject_cv`` with 75 models at batch 64 on the corpus's first
-   70 trials a subject, 2 epochs, in f32 (B2f-g, B2w in column tiles) and
+   ``csrc/conv4head_general.cu``) and the tuned kernels' column tiles, on
+   FAST at 2-second windows (``window_len=500, slide_step=150``: 3 windows,
+   64 channels, 8 zones, dim 32), past the tuned f32 kernels' whole-window
+   plans: (a) ``train_per_subject_cv`` with 75 models at batch 64 on the
+   corpus's first 70 trials a subject, 2 epochs, in f32 (B2f and B2w in
+   column tiles) and
    bf16 (B2f-bf16, B2w-bf16 in column tiles), and at dim 64 on 2 subjects, 1
    epoch, in f32 (B2f-g, B2w-g) and bf16 (B2f-g bf16, B2w-g bf16), every
    head launch as the batches count them, and the
    2 x 10 card-against-CPU trajectory at that geometry in each precision
    (the training tolerances of the shipped geometry's); (b) a live decoder
    of (a)'s f32 model 0: one DECODE replayed equal to eager bit for bit,
-   B2f-g launched and captured; (c) integrated and expected gradients of the
-   shipped FAST in bf16 (B2f-bf16, B2x-g bf16), integrated gradients of
-   (a)'s f32 model (B2f-g, B2x-g f32) and of FAST on one 800-sample window
+   B2f's column tiles launched and captured; (c) integrated and expected
+   gradients of the shipped FAST in bf16 (B2f-bf16, B2x-g bf16), integrated
+   gradients of (a)'s f32 model (B2f in column tiles, B2x-g f32) and of FAST
+   on one 800-sample window
    in bf16 (B2f-g, B2x-g bf16), 100 trials each, against the CPU on 4 (bf16:
    in relative L2 under the bf16-vs-f32 gap); the counts set to 0
    before (b) and read after (c), held to what the calls imply, and every
@@ -309,10 +311,10 @@ GPU.
    by device time, and one step of (a) in each precision by device time;
    then at the path's shapes, where a block walks several units in its
    workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64), f32 and
-   bf16, models 0, 37 and 74, reruns bit-identical, and so B2w's and
-   B2w-bf16's column tiles; B2x-g at (c)'s M = 1, B = 100 (bf16 at windows
-   of 250, f32 at 500) on every trial. The f32 step's profile prints B2w's
-   share of its device time.
+   bf16, models 0, 37 and 74, reruns bit-identical, and so B2f's, B2w's and
+   B2w-bf16's column tiles (also timed at M = 2, B = 8); B2x-g at (c)'s M =
+   1, B = 100 (bf16 at windows of 250, f32 at 500) on every trial. The f32
+   step's profile prints B2f's and B2w's shares of its device time.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -1976,7 +1978,7 @@ def step_profile_child(out: str, group: str = "campaign") -> None:
     ``train_head`` and ``train_transformer`` modes and CVBlock's LOSO step
     at M = 15; or (``group`` "featurize") the band-power and STFT
     featurizers over the 15-subject corpus; or (``group`` "general")
-    section 14's f32 and bf16 steps at windows of 500 (M = 75): f32 on B2f-g
+    section 14's f32 and bf16 steps at windows of 500 (M = 75): f32 on B2f's
     and B2w's column tiles, bf16 on B2f-bf16 and B2w-bf16's. The profiler has lost whole
     sessions' records late in a long run (on an H100: three sessions in a
     row after the campaign phases; the featurizers' after the engine's steps
@@ -4623,9 +4625,9 @@ def phase_mesh_kernels(cfg, dev, rng) -> dict:
 
 
 
-# --- 14. The general-geometry head kernels (B2f-g, B2w-g, B2x-g, f32 and bf16): FAST at
-# 2-second windows trained and served, bf16 attributions, the kernels against their plain
-# versions where no tuned plan fits -------------------------------------------------------
+# --- 14. The general-geometry head kernels (B2f-g, B2w-g, B2x-g, f32 and bf16) and the tuned
+# kernels' column tiles: FAST at 2-second windows trained and served, bf16 attributions, the
+# kernels against their plain versions where no whole-window plan fits --------------------
 
 GEN_GEOMETRY = dict(window_len=500, slide_step=150)  # 3 windows of 500 over 800 samples
 GEN_WHOLE = dict(window_len=800)  # one window, the whole trial: B2f-bf16 has no plan for it
@@ -4634,7 +4636,7 @@ GEN_SHAPE = (2, 8)  # (M, B) of (d)
 # (C, W, step, O) of (d), T = 800: where no tuned plan fits, or O > 32.
 GEN_GRID = ((80, 250, 125, 32), (128, 250, 125, 32), (64, 500, 150, 32), (64, 800, 125, 32),
             (64, 250, 125, 64))
-GEN_ENTRY = (64, 500, 150, 32)  # the kernels line's shape for B2f-g and B2w-g ((a)'s windows)
+GEN_ENTRY = (64, 500, 150, 32)  # the kernels line's shape at (a)'s windows: general and tiles
 GEN_WIDE_DIM, GEN_WIDE_SUBJECTS = 64, 2  # (a)'s fits at O > 32: B2f-g / B2w-g, f32 and bf16
 GEN_KERNELS = {op: f"conv4head_{op}_general_kernel" for op in GENERAL_OPS}
 # bf16 dx of B2x-g against the plain bf16 backward, relative L2, for every O. bf16
@@ -4758,7 +4760,7 @@ def check_general(op: str, bf16: bool, got, ref, what: str) -> float:
 def phase_general_training(cfg500, dev, X, Y) -> dict:
     """(a) ``train_per_subject_cv`` on FAST at 2-second windows (64
     channels, 8 zones, dim 32, 3 windows of 500, 75 models, batch 64), the
-    corpus's first GEN_TRIALS trials a subject, 2 epochs, in f32 (B2f-g,
+    corpus's first GEN_TRIALS trials a subject, 2 epochs, in f32 (B2f and
     B2w in column tiles) and in bf16 (B2f-bf16 a window a launch, B2w-bf16
     in column tiles); then, where only the general kernels reach, the same
     fit at dim_cnn = GEN_WIDE_DIM (O > 32) on GEN_WIDE_SUBJECTS subjects, 1
@@ -4774,7 +4776,7 @@ def phase_general_training(cfg500, dev, X, Y) -> dict:
     wide_tr, wide_va, _ = build_cv_index_stack(GEN_WIDE_SUBJECTS, GEN_TRIALS, 5, 42)
     wide_fwd, wide_steps = expected_head_launches(1, wide_tr.shape[1], wide_va.shape[1],
                                                   TRAIN_BATCH)
-    want = {"f32": {"conv4head_fwd_general": fwd_calls, "conv4head_bwd_w": steps},
+    want = {"f32": {"conv4head_fwd": fwd_calls, "conv4head_bwd_w": steps},
             "bf16": {"conv4head_fwd_bf16": groups * fwd_calls, "conv4head_bwd_w_bf16": steps},
             "f32 wide": {"conv4head_fwd_general": wide_fwd,
                          "conv4head_bwd_w_general": wide_steps},
@@ -4820,27 +4822,31 @@ def phase_general_decoder(cfg500, dev, state_dict, rng) -> dict:
     """(b) A live decoder of (a)'s f32 model 0: one DECODE (eager, then the
     capture), a replay equal to it and to the un-captured chain bit for
     bit, and the posteriors against the plain CPU forward (rtol 1e-4, atol
-    1e-5). B2f-g f32 runs in the decode: launched twice (the first decode,
-    the un-captured chain), captured once."""
+    1e-5). B2f runs in the decode, in column tiles: launched twice (the
+    first decode, the un-captured chain), captured once; no general kernel."""
     params = to_jax_params(state_dict)
     dec = make_online_decoder(FAST(cfg500, device=dev), params)
     x = rng.normal(size=(1, 64, 800)).astype(np.float32)
-    before = (fused_conv4_head.launches_general, fused_conv4_head.captures)
+    before = (fused_conv4_head.launches, fused_conv4_head.captures,
+              fused_conv4_head.launches_general)
     first = dec(x)
     replay = dec(x)
     plain = eager(dec, x)
     torch.cuda.synchronize()
-    moved = (fused_conv4_head.launches_general - before[0], fused_conv4_head.captures - before[1])
+    moved = (fused_conv4_head.launches - before[0], fused_conv4_head.captures - before[1],
+             fused_conv4_head.launches_general - before[2])
     if not (np.array_equal(first, replay) and np.array_equal(replay, plain)) or dec.replays < 1:
         raise RuntimeError("general (b): the replayed decode differs from the eager one "
                            f"(max|diff| {np.abs(replay - plain).max():.3g})")
-    if moved != (2, 1):
-        raise RuntimeError(f"general (b): B2f-g launches and captures {moved}, expected (2, 1)")
+    if moved != (2, 1, 0):
+        raise RuntimeError(f"general (b): B2f launches, captures and B2f-g launches {moved}, "
+                           "expected (2, 1, 0)")
     cpu = make_online_decoder(FAST(cfg500), params)
     check_posteriors(replay, cpu(x))
     print(f"general (b): a live decoder at windows of {cfg500.window_len}: one DECODE replayed "
-          f"equals the eager decode and the un-captured chain bit for bit; B2f-g f32 launched "
-          f"{moved[0]}, captured {moved[1]}; posteriors match the plain CPU forward", flush=True)
+          f"equals the eager decode and the un-captured chain bit for bit; B2f (column tiles) "
+          f"launched {moved[0]}, captured {moved[1]}; posteriors match the plain CPU forward",
+          flush=True)
     return {"launches": moved[0], "captures": moved[1]}
 
 
@@ -4868,8 +4874,9 @@ def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
     first EG_CPU_TRIALS trials: integrated gradients (IG_STEPS steps) and
     expected gradients (EG_SAMPLES draws against EG_BACKGROUND trials) of
     the shipped FAST in bf16 (B2f-bf16, B2x-g bf16); integrated gradients
-    of (a)'s f32 model at windows of 500 (B2f-g, B2x-g f32) and of FAST on
-    one window of the whole trial in bf16 (B2f-g, B2x-g bf16)."""
+    of (a)'s f32 model at windows of 500 (B2f in column tiles, B2x-g f32)
+    and of FAST on one window of the whole trial in bf16 (B2f-g, B2x-g
+    bf16)."""
     perm = np.random.default_rng(SEED).permutation(X.shape[1])
     bg_np = X[0, perm[:EG_BACKGROUND]]
     sel = perm[EG_BACKGROUND:EG_BACKGROUND + EG_TRIALS]
@@ -4945,7 +4952,7 @@ def general_step_profile(cfg500, dev, dtype) -> dict:
 
     step()
     bf16 = dtype == torch.bfloat16
-    fwd = "conv4head_fwd_bf16_kernel" if bf16 else GEN_KERNELS["fwd"]
+    fwd = "conv4head_fwd_bf16_kernel" if bf16 else "conv4head_fwd_kernel"
     bwd_w = "conv4head_bwd_w_bf16_kernel" if bf16 else "conv4head_bwd_w_kernel"
     events, span, union = profiled_step(step, f"general step {dtype}", need=(fwd, bwd_w))
     records = device_records(events)
@@ -4973,8 +4980,8 @@ def general_path_checks(dev) -> dict:
     its workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64,
     GEN_ENTRY's windows of 500; B2w-g there takes few trial ranges a (zone,
     window), each long), f32 and bf16, models 0, M/2 and M - 1, and a second
-    launch bit-identical; B2w's and B2w-bf16's column tiles likewise at (a)'s
-    step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 at
+    launch bit-identical; B2f's, B2w's and B2w-bf16's column tiles likewise
+    at (a)'s step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 at
     the shipped geometry and f32 at windows of 500, every trial.
     ``check_general``'s tolerances; the largest absolute error of each."""
     out = {}
@@ -5004,6 +5011,19 @@ def general_path_checks(dev) -> dict:
                                "splits": plan["splits"], "shape": {"M": m, "B": b, "W": w}}
             del got, again
         del x
+    # B2f's column tiles, which the route takes for (a)'s f32 forwards.
+    with uncounted():
+        got = _launch_fwd(x32, *ops, w, step)
+        again = _launch_fwd(x32, *ops, w, step)
+    what = f"B2f column tiles M={m} B={b} W={w}"
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{what}: a rerun differs")
+    err = max(check_general("fwd", False, got[i:i + 1],
+                            general_plain("fwd", *[t[i:i + 1] for t in (g, x32, *ops)], w, step),
+                            f"{what} model {i}") for i in models)
+    out[("fwd_tiles", False)] = {"max_abs_err": err, "models": list(models),
+                                 "shape": {"M": m, "B": b, "W": w}}
+    del got, again
     # B2w's and B2w-bf16's column tiles, which the route takes for (a)'s weight gradients.
     for bf16 in (False, True):
         x = x32.to(torch.bfloat16) if bf16 else x32
@@ -5039,8 +5059,9 @@ def general_path_checks(dev) -> dict:
         del g, x32, x, ops, got, ref
     torch.cuda.empty_cache()
     for (op, bf16), r in out.items():
-        if op == "bwd_w_tiles":
-            print(f"{'B2w-bf16' if bf16 else 'B2w'} path check at {json.dumps(r['shape'])} "
+        if op in ("fwd_tiles", "bwd_w_tiles"):
+            name = {"fwd_tiles": "B2f", "bwd_w_tiles": "B2w"}[op] + ("-bf16" if bf16 else "")
+            print(f"{name} path check at {json.dumps(r['shape'])} "
                   f"(column tiles): max|err| {r['max_abs_err']:.3g} against plain on models "
                   f"{r['models']}, rerun bit-identical", flush=True)
             continue
@@ -5062,7 +5083,8 @@ def phase_general_kernels(dev, rng) -> dict:
     bit-identical. Then, timed by CUDA events beside its bound and its
     plain version: each kernel at GEN_ENTRY (B2x-g at the shipped geometry),
     and B2x-g bf16 at M = 1, B = 100 (global-explain's batch) also by device
-    time. Last, ``general_path_checks`` at the path's shapes."""
+    time; B2f's, B2w's and B2w-bf16's column tiles at GEN_ENTRY, which the
+    route runs there. Last, ``general_path_checks`` at the path's shapes."""
     m, b = GEN_SHAPE
     rows = {}
     for c, w, step, o in GEN_GRID:
@@ -5128,6 +5150,19 @@ def phase_general_kernels(dev, rng) -> dict:
               f"{row['bound_ms'] / row['ms']:.1%}), plain {row['plain_ms']:.3f} ms, max|err| "
               f"{row['max_abs_err']:.3g}", flush=True)
         del x
+    with uncounted():  # B2f's column tiles there, as the route runs them for f32 forwards
+        fwd = {"ms": cuda_ms(lambda: _launch_fwd(x32, *ops, w, step), 5),
+               "plain_ms": cuda_ms(lambda: general_plain("fwd", g, x32, *ops, w, step), 3),
+               "max_abs_err": check_general("fwd", False, _launch_fwd(x32, *ops, w, step),
+                                            general_plain("fwd", g, x32, *ops, w, step),
+                                            "B2f column tiles entry")}
+    (fwd["bound_ms"], fwd["bound_by"]), _ = general_bound("fwd", False, m, b, c, 800, 8, o, w,
+                                                          step)
+    fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
+    fwd["shape"] = {"M": m, "B": b, "C": c, "T": 800, "W": w, "step": step, "O": o, "Z": 8}
+    print(f"B2f (column tiles) at {json.dumps(fwd['shape'])}: {fwd['ms']:.4f} ms (CUDA events), "
+          f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}; {fwd['bound_share']:.1%}), plain "
+          f"{fwd['plain_ms']:.3f} ms, max|err| {fwd['max_abs_err']:.3g}", flush=True)
     del g, x32, ops
     g, x32, *ops = general_operands(dev, rng, 1, 100, 64, 800, 8, 32, 250, 125)
     xb = x32.to(torch.bfloat16)
@@ -5144,6 +5179,9 @@ def phase_general_kernels(dev, rng) -> dict:
         if key[0] == "bwd_w_tiles":
             tiles[key[1]]["path_check"] = r
             continue
+        if key[0] == "fwd_tiles":
+            fwd["path_check"] = r
+            continue
         entries[key]["path_check"] = r
     for (op, bf16), e in entries.items():
         print(f"general {op} {'bf16' if bf16 else 'f32'} at {json.dumps(e['shape'])}: "
@@ -5156,7 +5194,7 @@ def phase_general_kernels(dev, rng) -> dict:
           f"{x_bound / x_dev:.1%}), CUDA-core f32 floor {x_floor:.4f} ms "
           f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
     return {"grid": rows, "entries": entries, "tiles_w500": tiles[True],
-            "tiles_w500_f32": tiles[False]}
+            "tiles_w500_f32": tiles[False], "fwd_tiles_w500": fwd}
 
 
 def phase_general(cfg, dev, X, Y, rng) -> dict:
@@ -5174,7 +5212,7 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     phase_general_attribution(cfg, cfg500, dev, X, Y, training["f32"]["params"])
     launches = read_launches()
     per_call = {"fwd": 1 + IG_STEPS, "ig": IG_STEPS, "eg": EG_SAMPLES}
-    want = {"conv4head_fwd_general": decoder["launches"] + per_call["fwd"],
+    want = {"conv4head_fwd": decoder["launches"] + per_call["fwd"],
             "conv4head_bwd_x_general": per_call["ig"],
             "conv4head_fwd_bf16": per_call["fwd"] + EG_SAMPLES,
             "conv4head_bwd_x_general_bf16": 2 * per_call["ig"] + EG_SAMPLES,
@@ -5183,11 +5221,11 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     if moved != want:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
     path = {k: sum(run["launches"].get(k, 0) for run in training.values()) + moved.get(k, 0)
-            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"] + ("conv4head_bwd_w",)}
+            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"] + HEAD_KERNELS["f32"]}
     if not all(path.values()):
         raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
-    print(f"general (a)-(c): the general kernels', the bf16 kernels' and B2w's launches on the "
-          f"path {json.dumps(path)}", flush=True)
+    print(f"general (a)-(c): the general kernels', the bf16 kernels' and B2f's and B2w's "
+          f"launches on the path {json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
     phase_trajectory_bf16(cfg500, dev, label="general (a) trajectory bf16",
@@ -5422,11 +5460,11 @@ def main() -> None:
                                                               if n.startswith(prefix)}
                                    for k, r in mesh_kernels.items()
                                    if k.startswith(precision) and f"{prefix}err" in r}
-    # Section 14's path (a)-(c) runs B2f-bf16 (a window a launch) and B2w-bf16's and
-    # B2w's column tiles at windows of 500: their launches there, and (a)'s step's
-    # device time and bound of each in its precision.
-    for name, precision in zip(HEAD_KERNELS["bf16"] + ("conv4head_bwd_w",),
-                               ("bf16", "bf16", "f32")):
+    # Section 14's path (a)-(c) runs B2f-bf16 (a window a launch) and B2w-bf16's,
+    # B2f's and B2w's column tiles at windows of 500: their launches there, and (a)'s
+    # step's device time and bound of each in its precision.
+    for name, precision in zip(HEAD_KERNELS["bf16"] + HEAD_KERNELS["f32"],
+                               ("bf16", "bf16", "f32", "f32")):
         entry = next(k for k in kernels if k["name"] == name)
         entry["launches_general_section"] = general["path"][name]
         entry["launches"] += entry["launches_general_section"]
@@ -5435,7 +5473,8 @@ def main() -> None:
                                       "bound_ms": step["bounds_ms"][name + "_kernel"],
                                       "share_of_step": step["kernels_ms"][name + "_kernel"]
                                       / step["busy_ms"]}
-    for name, key in (("conv4head_bwd_w_bf16", "tiles_w500"), ("conv4head_bwd_w", "tiles_w500_f32")):
+    for name, key in (("conv4head_bwd_w_bf16", "tiles_w500"), ("conv4head_bwd_w", "tiles_w500_f32"),
+                      ("conv4head_fwd", "fwd_tiles_w500")):
         next(k for k in kernels if k["name"] == name)["w500"] = general["kernels"][key]
     # The general-geometry kernels (section 14): launches on its path (a)-(c); times
     # and errors from (d) at GEN_ENTRY (B2x-g at the shipped geometry), M = 2, B = 8;
@@ -5460,9 +5499,11 @@ def main() -> None:
     f32_step = general["steps"]["f32"]
     print(f"general (section 14): {general['seconds']:.1f} s with its step-profile child; a step "
           f"at M=75 B=64, windows of "
-          f"{GEN_GEOMETRY['window_len']}: f32 {f32_step['busy_ms']:.2f} ms (B2w's column tiles "
-          f"{f32_step['kernels_ms']['conv4head_bwd_w_kernel']:.2f} ms of it, "
-          f"{f32_step['kernels_ms']['conv4head_bwd_w_kernel'] / f32_step['busy_ms']:.1%}), bf16 "
+          f"{GEN_GEOMETRY['window_len']}: f32 {f32_step['busy_ms']:.2f} ms (" + ", ".join(
+              f"{name}'s column tiles {f32_step['kernels_ms'][k]:.2f} ms of it, "
+              f"{f32_step['kernels_ms'][k] / f32_step['busy_ms']:.1%}"
+              for name, k in (("B2f", "conv4head_fwd_kernel"), ("B2w", "conv4head_bwd_w_kernel")))
+          + f"), bf16 "
           f"{general['steps']['bf16']['busy_ms']:.2f} ms of device time", flush=True)
     print(f"bn LOSO (section 11a): LOSO {bn_loso['loso_s']:.2f} s, peak "
           f"{bn_loso['loso_peak_gb']:.2f} GB; step device time "

@@ -678,6 +678,12 @@ extern "C" int isd_conv4head_bwd_w_smem_bytes(int C, int W, int O, int K) {
   return static_cast<int>(sizeof(float)) * w_plan(C, W, O, K).total;
 }
 
+// Units of one (trial, window) in B2w: 1 where the whole window's plan
+// fits a block, else its column tiles.
+extern "C" int isd_conv4head_bwd_w_col_tiles(int C, int W, int O, int K) {
+  return w_tiled(C, W, O, K) ? isd::col_tile_count(W - K + 1) : 1;
+}
+
 // B2w. g (M, B, N, Z*O), x (M, B, C, T), operands as the forward's;
 // outputs dw12 (M, Z*O, K1*C), db12 (M, Z*O), dw3/dw4 (M, Z, O, K2*O);
 // scratch pw12/pb12/pw3/pw4 the same with a partial axis P = N*S after M.

@@ -1,7 +1,7 @@
 // Device helpers of the Conv4Layers head kernels (conv4head.cu,
 // conv4head_bwd.cu, conv4head_bwd_w_bf16.cu): GELU and its derivative,
 // small integer helpers of the shared-memory plans, and the column tiles of
-// the weight-gradient kernels.
+// the f32 forward and the weight-gradient kernels.
 
 #pragma once
 
@@ -17,13 +17,14 @@ constexpr int kMaxSmemBytes = 232448;  // a block's dynamic shared memory on Hop
 __host__ __device__ inline int round_up4(int v) { return (v + 3) & ~3; }
 __host__ __device__ inline int max_int(int a, int b) { return a > b ? a : b; }
 
-// Column tiles (B2w and B2w-bf16): a window whose plan does not fit a block
-// runs in tiles of at most kColSpan conv rows, tile j from the window's conv
-// row kColStep * j. The two 'same' convs and their transposes reach two rows
-// each, so dh1 is exact kColHalo rows inside an interior edge: tile j owns
-// rows [kColHalo, kColSpan - kColHalo) of its own (from 0 in the first tile,
-// up to t1 in the last), and only those enter the weight gradients.
-// ops/cuda/conv4head.py mirrors them (col_tiles).
+// Column tiles (B2f, B2w and B2w-bf16): a window whose plan does not fit a
+// block runs in tiles of at most kColSpan conv rows, tile j from the
+// window's conv row kColStep * j. The two 'same' convs and their transposes
+// reach two rows each, so dh1 is exact kColHalo rows inside an interior edge
+// (gelu(h3) four): tile j owns rows [kColHalo, kColSpan - kColHalo) of its
+// own (from 0 in the first tile, up to t1 in the last), and only those enter
+// the weight gradients (B2f: the mean). ops/cuda/conv4head.py mirrors them
+// (col_tiles).
 constexpr int kColSpan = 256;
 constexpr int kColHalo = 8;
 constexpr int kColStep = kColSpan - 2 * kColHalo;  // 240

@@ -10,12 +10,15 @@ header says what bounds it on the H100 and what the design does about it.
 All three run on the tensor cores in 3xTF32 (f32 accuracy), sharing one
 conv helper (``csrc/conv4head_tc.cuh``); they are built for O = 32 and
 K1 = K2 = 5, and their plans hold a block's window and activations in
-shared memory, so their reach is bounded: B2f and B2x up to C = 72 and 64
-at windows of 250, windows of 284 at C = 64. B2w needs C to be a multiple
-of 8 (``_adapted`` pads it) and takes C up to 72 at every window: the
-whole window up to 292 samples at C <= 64 and 268 at C = 72, past that in
-column tiles of 256 conv rows with a recomputed 8-row halo (``col_tiles``,
-B2w-bf16's geometry), whose plan does not grow with the window; C > 72
+shared memory, so their reach is bounded: B2x up to C = 64 at windows of
+250, windows of 284 at C = 64. B2f takes any C up to 72 at every window:
+the whole window up to 284 samples at C = 64 (260 at C = 72, 636 at C =
+8), past that in column tiles of 256 conv rows with a recomputed 8-row
+halo, the mean summed over the rows each tile owns (``fwd_col_tiles``).
+B2w needs C to be a multiple of 8 (``_adapted`` pads it) and takes C up to
+72 at every window: the whole window up to 292 samples at C <= 64 and 268
+at C = 72, past that in the same column tiles (``col_tiles``, B2w-bf16's
+geometry). A column tile's plan does not grow with the window; C > 72
 fits neither plan.
 
 The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
@@ -460,10 +463,10 @@ def f32_plan_fits(op: str, c: int, window_len: int, tiles: bool = True) -> bool:
     for C channels at windows of ``window_len`` that fits a block, after
     ``_adapted``'s padding (O to 32, B2w's C to a multiple of 8), by the
     Python mirrors of the library's plans (the card tests hold them equal).
-    B2w's column tiles count only with ``tiles``; without, its whole
-    window's plan must fit."""
+    B2f's and B2w's column tiles count only with ``tiles``; without, the
+    whole window's plan must fit."""
     if op == "fwd":
-        nbytes = fwd_smem_bytes(c, window_len)
+        nbytes = (fwd_smem_bytes if tiles else fwd_plan_bytes)(c, window_len)
     elif op == "bwd_w":
         plan = bwd_w_smem_bytes if tiles else bwd_w_plan_bytes
         nbytes = plan(c + (-c) % 8, window_len)
@@ -475,8 +478,8 @@ def f32_plan_fits(op: str, c: int, window_len: int, tiles: bool = True) -> bool:
 def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal) -> str:
     """Why ``op`` goes to the general kernel of its precision, or "" when a
     tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient (no
-    tuned bf16 B2x); or no tuned plan fitting: f32 where the f32 plan (B2w:
-    in column tiles past its whole window's) does not fit, bf16 where the
+    tuned bf16 B2x); or no tuned plan fitting: f32 where the f32 plan (B2f
+    and B2w: in column tiles past the whole window's) does not fit, bf16 where the
     bf16 kernel refuses (``refusal``) and its f32 route's whole-window plan
     does not fit either."""
     if o > KERNEL_WIDTH:
@@ -573,19 +576,19 @@ WG_ROWS = 64  # rows of a wgmma tile: a warpgroup's share of time, or of (tap, c
 WG_GROUPS = 4  # warpgroups of a B2w-bf16 block (16 warps)
 WG_SLOTS = 3  # weight-gradient tiles a warpgroup holds in registers
 WG_EDGE_ROWS = 16  # rows of a masked edge chunk (one k16 step over time)
-# Column tiles of B2w and B2w-bf16 (csrc/conv4head_common.cuh): a window
-# whose plan does not fit a block runs in tiles of at most COL_SPAN conv
-# rows (B2w-bf16: WG_GROUPS x WG_ROWS; B2w: 16 warps x 2 tiles of 8).
+# Column tiles of B2f, B2w and B2w-bf16 (csrc/conv4head_common.cuh): a
+# window whose plan does not fit a block runs in tiles of at most COL_SPAN
+# conv rows (B2w-bf16: WG_GROUPS x WG_ROWS; B2f, B2w: 16 warps x 2 tiles of 8).
 COL_SPAN = 256  # rows a column tile computes at most
 COL_HALO = 8  # rows recomputed at a column tile's interior edge
 COL_STEP = COL_SPAN - 2 * COL_HALO  # window columns between two column tiles
-F32_ROWS = 8  # B2w's time tile: one mma.sync reduction step over time
+F32_ROWS = 8  # B2f's and B2w's time tile: one mma.sync reduction step over time
 
 
 def col_tiles(t1: int, w: int, k: int, rows: int) -> list:
     """The column tiles of a window of ``w`` samples (``t1`` conv rows)
     that a kernel computing ``rows`` time rows at a time runs it in (the
-    kernels' ``col_tile``: B2w-bf16 ``rows`` = WG_ROWS, B2w F32_ROWS), in
+    kernels' ``col_tile``: B2w-bf16 ``rows`` = WG_ROWS, B2f and B2w F32_ROWS), in
     the tile's own rows (row r is the window's conv row s + r): ``s`` its
     first column, ``nt`` the rows it computes, ``e`` the first row past the
     window's end, ``[lo, hi)`` the rows it owns, ``cols`` the window
@@ -681,14 +684,39 @@ def _tc_strides(ch: int, w: int, o: int, k: int):
     return nt8, _stride_4mod8(nt8 + k - 1), _stride_4mod8(k * ch), _stride_4mod8(k * o)
 
 
-def fwd_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
-    """The library's ``isd_conv4head_smem_bytes`` (B2f's ``fwd_plan``,
-    csrc/conv4head.cu)."""
+def fwd_plan_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """B2f's ``fwd_plan`` for windows of ``w`` staged whole, in bytes
+    (csrc/conv4head.cu: C rounded up to 8)."""
     cp = (c + 7) & ~7
     _, ld, lw1, lw = _tc_strides(cp, w, o, k)
     floats = (_round_up4(cp * ld) + 2 * _round_up4(o * ld) + _round_up4(o * lw1)
               + 2 * _round_up4(o * lw) + _round_up4(o))
     return 4 * floats
+
+
+def fwd_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_smem_bytes`` (``f_plan``): the whole
+    window's plan where it fits a block, else the column tiles' (the plan
+    of windows of COL_SPAN + K - 1, whatever ``w`` is)."""
+    whole = fwd_plan_bytes(c, w, o, k)
+    return whole if whole <= MAX_SMEM_BYTES else fwd_plan_bytes(c, COL_SPAN + k - 1, o, k)
+
+
+def _units(t1: int, w: int, k: int, tiled: bool) -> list:
+    """A window's units in ``col_tiles``' keys: one over the whole window,
+    or its column tiles in 8-row tiles."""
+    if tiled:
+        return col_tiles(t1, w, k, F32_ROWS)
+    return [{"s": 0, "nt": -(-t1 // F32_ROWS) * F32_ROWS, "e": t1, "lo": 0, "hi": t1,
+             "cols": w, "left": False, "right": False}]
+
+
+def fwd_col_tiles(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> list:
+    """B2f's units of a window (``col_tiles``' keys; their count is the
+    library's ``isd_conv4head_fwd_col_tiles``): the whole window where its
+    plan fits a block, else ``col_tiles`` in 8-row tiles. The kernel adds
+    rows [lo, hi) of each to the mean (rows from e on are zero)."""
+    return _units(w - k + 1, w, k, fwd_plan_bytes(c, w, o, k) > MAX_SMEM_BYTES)
 
 
 def bwd_w_plan_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
@@ -713,11 +741,7 @@ def bwd_w_col_tiles(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> list:
     library's ``isd_conv4head_bwd_w_col_tiles``): the whole window where
     its plan fits a block, else ``col_tiles`` in 8-row tiles. The kernel
     reduces over [lo, hi) rounded up to 8 rows (rows from e on are zero)."""
-    t1 = w - k + 1
-    if bwd_w_plan_bytes(c, w, o, k) <= MAX_SMEM_BYTES:
-        return [{"s": 0, "nt": -(-t1 // F32_ROWS) * F32_ROWS, "e": t1, "lo": 0, "hi": t1,
-                 "cols": w, "left": False, "right": False}]
-    return col_tiles(t1, w, k, F32_ROWS)
+    return _units(w - k + 1, w, k, bwd_w_plan_bytes(c, w, o, k) > MAX_SMEM_BYTES)
 
 
 def bwd_x_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:

@@ -87,6 +87,26 @@ def head_operands(m: int, b: int, dev, rng, dtype=torch.float32):
     return cfg, (cfg.window_len, cfg.slide_step), ops, x.to(dtype)
 
 
+def registers(entries) -> dict:
+    """Registers and spills of each instantiation of the kernels named in
+    ``entries`` (their mangled template arguments), from this process's
+    build log of the package beside the script; empty where the library
+    was built before."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda import _lib
+
+    out = {}
+    for block in _lib.build_info()["log"].split("Compiling entry function")[1:]:
+        head = block.splitlines()[0]
+        entry = next((e for e in entries if e in head), None)
+        args = re.search(r"kernelI(L[^E]*E)+", head) if entry else None
+        if args:
+            lines = [ln.strip() for ln in block.split("Compile time")[0].splitlines()
+                     if re.search(r"registers|spill", ln)]
+            out[f"{entry}<{','.join(re.findall(r'L[ib](n?[0-9]+)E', args.group(0)))}>"] = (
+                " | ".join(lines))
+    return out
+
+
 def phase_split(launch, names, warps: int, units: int) -> dict:
     """One launch of a debug instantiation, ``launch(clk)``, whose
     ``clock64()`` counters (one per phase in ``names``, then every block's

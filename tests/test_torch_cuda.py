@@ -845,6 +845,99 @@ def test_f32_column_tile_mirror_matches_the_library(dev, c, w):
     assert bwd_w_smem_bytes(c, w) == _lib.library().isd_conv4head_bwd_w_smem_bytes(c, w, 32, 5)
 
 
+# Windows past B2f's whole-window plan (284 samples at C = 64, 260 at C = 72,
+# 636 at C = 8): f32 forwards in column tiles (W, step), T = 800.
+F32_FWD_COLUMN_TILE_WINDOWS = ((285, 128), (500, 150), (800, 1))
+
+
+@pytest.mark.parametrize("c", [8, 64, 72])
+@pytest.mark.parametrize("w,step", F32_FWD_COLUMN_TILE_WINDOWS)
+def test_f32_forward_column_tiles_match_plain(dev, w, step, c):
+    """f32 forwards at windows of 285, 500 and 800 samples (two to four
+    column tiles at C = 64 and 72, the last owning 33 rows at 285; the whole
+    window at C = 8 up to 636), M = 2, B = 4, 2 zones: one B2f launch, no
+    general one, nothing adapted, held against the plain f32 forward on the
+    CPU at rtol 1e-4 / atol 1e-5; a second launch bit-identical."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import fwd_col_tiles
+
+    x, *ops = _head_operands(2, 4, c, 800, 2, 32, w + c + 1)
+    before = (fused_conv4_head.launches, fused_conv4_head.launches_general,
+              fused_conv4_head.adapted)
+    cuda_ops = [t.to(dev) for t in (x, *ops)]
+    with torch.no_grad():
+        got = fused_conv4_head(*cuda_ops, w, step)
+        again = fused_conv4_head(*cuda_ops, w, step)
+    torch.cuda.synchronize()
+    assert (fused_conv4_head.launches, fused_conv4_head.launches_general,
+            fused_conv4_head.adapted) == (before[0] + 2, before[1], before[2])
+    assert (len(fwd_col_tiles(c, w)) > 1) == (c > 8 or w > 636)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), fused_conv4_head_plain(x, *ops, w, step), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_f32_forward_column_tiles_at_the_step_shape(dev):
+    """B2f in column tiles at section 14 (a)'s f32 step shape (75 models,
+    batch 64, full width, 3 windows of 500, two tiles each): models 0, 37
+    and 74 against the plain f32 forward at rtol 1e-4 / atol 1e-5, and a
+    second launch bit-identical."""
+    _, _, ops, x, _ = _full_width_operands(dev, 75, 64, 63)
+    w, step = 500, 150
+    before = (fused_conv4_head.launches, fused_conv4_head.launches_general)
+    with torch.no_grad():
+        got = fused_conv4_head(x, *ops, w, step)
+        again = fused_conv4_head(x, *ops, w, step)
+    torch.cuda.synchronize()
+    assert (fused_conv4_head.launches, fused_conv4_head.launches_general) == (
+        before[0] + 2, before[1])
+    assert got.shape == (75, 64, 3, 256) and torch.equal(got, again)
+    for i in BF16_MODELS:
+        one = [t[i : i + 1] for t in (x, *ops)]
+        torch.testing.assert_close(got[i : i + 1], fused_conv4_head_plain(*one, w, step),
+                                   rtol=1e-4, atol=1e-5, msg=lambda m: f"B2f W=500 model {i}: {m}")
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (64, 284), (64, 285), (64, 500), (64, 800),
+                                 (8, 636), (8, 637), (72, 260), (72, 261), (80, 500),
+                                 (60, 500), (64, 292), (64, 293)])
+def test_f32_tile_mirrors_match_the_library(dev, c, w):
+    """The Python mirrors of B2f's plan and tiles (``fwd_smem_bytes``,
+    ``fwd_col_tiles``) and of B2w's tile count (``bwd_w_col_tiles``) equal
+    the library's ``isd_conv4head_smem_bytes``,
+    ``isd_conv4head_fwd_col_tiles`` and ``isd_conv4head_bwd_w_col_tiles`` on
+    both sides of the whole window's reach."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (bwd_w_col_tiles,
+                                                                        fwd_col_tiles,
+                                                                        fwd_smem_bytes)
+
+    lib = _lib.library()
+    assert fwd_smem_bytes(c, w) == lib.isd_conv4head_smem_bytes(c, w, 32, 5)
+    assert len(fwd_col_tiles(c, w)) == lib.isd_conv4head_fwd_col_tiles(c, w, 32, 5)
+    cp = c + (-c) % 8
+    assert len(bwd_w_col_tiles(cp, w)) == lib.isd_conv4head_bwd_w_col_tiles(cp, w, 32, 5)
+
+
+# sha256 of B2f's features at the shipped geometry (M = 2, B = 8, full width,
+# ``_head_operands(2, 8, 64, 800, 8, 32, 63)``) from the kernel as it was before
+# its column tiles (commit b6ee2fe) on an H100 80GB HBM3: the shipped
+# instantiation's arithmetic is unchanged when this digest holds.
+SHIPPED_B2F_SHA256 = "a4259f2f717dbd474941912eea0e7a1572158a25d07842eb9e5a70a9c514470a"
+
+
+def test_shipped_forward_is_unchanged(dev):
+    """B2f at the shipped geometry (its compile-time instantiation <64, 250>)
+    gives the features the kernel gave before its column tiles, bit for bit
+    (their sha256), and the plain forward's at rtol 1e-4 / atol 1e-5."""
+    import hashlib
+
+    x, *ops = _head_operands(2, 8, 64, 800, 8, 32, 63)
+    with torch.no_grad():
+        got = fused_conv4_head(*(t.to(dev) for t in (x, *ops)), 250, 125).cpu()
+    torch.testing.assert_close(got, fused_conv4_head_plain(x, *ops, 250, 125), rtol=1e-4,
+                               atol=1e-5)
+    assert hashlib.sha256(got.numpy().tobytes()).hexdigest() == SHIPPED_B2F_SHA256
+
+
 def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
     """One wgmma tile on the card from the image (csrc/wgmma_selftest.cu);
     ``swap`` exchanges an operand's two core-matrix steps (the other
@@ -1537,9 +1630,10 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     features rtol 1e-4 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4 x
     max|ref|; bf16: features 3e-4 and weight gradients 1e-3 x max|ref|, dx
     BF16_DX_L2 in relative L2), and bit-identical on a second run. A bf16 forward that
-    B2f-bf16 takes (windows of 500, one a launch) stays there, and weight
-    gradients at C = 64 and O = 32 (windows of 500 and 800) run B2w-bf16's
-    column tiles in bf16 and B2w's in f32."""
+    B2f-bf16 takes (windows of 500, one a launch) stays there, an f32 forward
+    at C = 64 and O = 32 (windows of 500 and 800) runs B2f's column tiles,
+    and weight gradients there run B2w-bf16's column tiles in bf16 and B2w's
+    in f32."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     g, x, *ops = _general_operands(dev, c, t, w, step, o, c + w + o)
@@ -1550,6 +1644,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     tuned_fwd = bf16 and o == 32 and conv4head._bf16_refusal("fwd", c, w, step, n, None,
                                                               None) is None
     tuned_w = o == 32 and c <= (64 if bf16 else 72)
+    tuned_f32_fwd = not bf16 and o == 32 and c <= 72
     results = []
     for _ in range(2):
         before = _general_counts()
@@ -1564,7 +1659,9 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
         tuned = "launches_bf16" if bf16 else "launches"
         want = {("conv4head_bwd_w", tuned if tuned_w else key): 1,
                 ("conv4head_bwd_x", key): 1}
-        if not tuned_fwd:
+        if tuned_f32_fwd:
+            want[("fused_conv4_head", "launches")] = 1
+        elif not tuned_fwd:
             want[("fused_conv4_head", key)] = 1
         assert moved == want and (groups >= 1) == tuned_fwd, (moved, groups)
         results.append([out, dx, *dw])
