@@ -24,6 +24,9 @@ the card's SMs per (trial, window, zone) unit, the time one unit takes on
 one SM. Where this process built the kernels, the registers and spills of
 every instantiation of B2w and B2w-bf16 from ``-Xptxas -v``.
 
+Each bf16 row carries the sha256 of one call's four gradients (``sha256``),
+so that two checkouts' outputs can be held bit for bit.
+
 Then, where the checkout has the debug instantiation
 (``conv4head._launch_bwd_w(..., clk=...)``), one launch of it at M = 75,
 B = 64 (each window length) splits a unit's cycles by phase
@@ -36,6 +39,8 @@ line a JSON object of the rows. Exits non-zero without a card.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -109,9 +114,13 @@ def main() -> None:
         row = {"precision": "bf16", "m": m, "b": b, "w": w, "event_ms": kt.event_ms(fn, ITERS),
                "device_ms": kt.device_ms(fn, ITERS, KERNELS)[0]}
         row["us_per_unit"] = 1e3 * row["event_ms"] * sms / units
+        digest = hashlib.sha256()
+        for t in fn():
+            digest.update(t.cpu().numpy().tobytes())
+        row["sha256"] = digest.hexdigest()
         print(f"[{args.label}] B2w-bf16 M={m} B={b} W={w}: {row['event_ms']:.4f} ms a call (CUDA "
               f"events), {row['device_ms']:.4f} ms on the device, {row['us_per_unit']:.2f} us "
-              f"a unit on one SM", flush=True)
+              f"a unit on one SM; sha256 {row['sha256'][:16]}", flush=True)
         if (m, b) == (75, 64) and hasattr(conv4head, "BWD_W_BF16_PHASES"):
             row["phases"] = kt.phase_split(
                 lambda clk: conv4head._launch_bwd_w(g, x, *ops, *geo, clk=clk),

@@ -15,12 +15,12 @@ GPU.
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the hand-written CUDA kernels from ``csrc/`` and prints the
    build time and, for the tensor-core kernels B2f, B2w and B2x and the
-   bf16 instantiations B2f-bf16 and B2w-bf16, their registers and spills
-   (``-Xptxas -v``), shared memory per block and the count of tensor-core
-   instructions of their route in their SASS (``cuobjdump``, where the
-   toolkit has it): HMMA (``mma.sync``), or HGMMA (``wgmma``) for
-   B2f-bf16 and B2w-bf16 (which must have no HMMA); a count of 0 fails
-   the run.
+   bf16 instantiations B2f-bf16, B2w-bf16 and B2x-bf16, their registers
+   and spills (``-Xptxas -v``), shared memory per block and the count of
+   tensor-core instructions of their route in their SASS (``cuobjdump``,
+   where the toolkit has it): HMMA (``mma.sync``), or HGMMA (``wgmma``)
+   for B2f-bf16, B2w-bf16 and B2x-bf16 (which must have no HMMA); a count
+   of 0 fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, in
    f32 with TF32 off, at the main paths' shapes, and times both with
    CUDA events (B1 also by the profiler's device time), beside the kernel's bound (the least time for its work:
@@ -62,6 +62,11 @@ GPU.
         item and B2w-bf16's a (trial, window, zone) unit by phase at M = 75,
         B = 64 (their debug instantiations, ``b2f_timing.py``'s and
         ``b2w_timing.py``'s splits).
+     B2x-bf16 (a bf16 x's input gradient, dx in bf16) at (M, B) = (2, 8),
+        (1, 16) and (1, 100) (the attribution CLIs' batches), against the
+        plain bf16 backward's dx within 2e-3 in relative L2, a rerun
+        bit-identical; timed by CUDA events and device time beside its
+        bound (one bf16 tensor-core pass) and its ``wgmma`` floor.
      Head geometries the kernels are not built for, which the wrappers
         launch on zero-padded or split operands: dim_cnn = 8 trained in
         f32 and bf16 and a bf16 forward at T = 1001 (N = 7 windows: two
@@ -297,7 +302,7 @@ GPU.
    (the training tolerances of the shipped geometry's); (b) a live decoder
    of (a)'s f32 model 0: one DECODE replayed equal to eager bit for bit,
    B2f's column tiles launched and captured; (c) integrated and expected
-   gradients of the shipped FAST in bf16 (B2f-bf16, B2x-g bf16), integrated
+   gradients of the shipped FAST in bf16 (B2f-bf16, B2x-bf16), integrated
    gradients of (a)'s f32 model (B2f in column tiles, B2x-g f32) and of FAST
    on one 800-sample window
    in bf16 (B2f-g, B2x-g bf16), 100 trials each, against the CPU on 4 (bf16:
@@ -366,6 +371,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     KERNEL_TAPS,
     _fwd_bf16_windows_built,
     _launch_bwd_w,
+    _launch_bwd_x,
     _launch_fwd,
     _general_slots,
     _launch_general,
@@ -1445,6 +1451,72 @@ def phase_bf16_kernels(cfg, dev, rng):
     return rows, big
 
 
+# (M, B) of B2x-bf16's comparisons: explain_fast's and global_explain's batches too;
+# JSON line: the last.
+X_BF16_SHAPES = ((2, 8), (1, 16), (1, 100))
+# B2x-bf16's kernel, its pre-pass (staged bf16 weights, g / t1) and its partial pass
+B2X_BF16_KERNELS = "conv4head_bwd_x_bf16_|sum_partials_kernel"
+
+
+def phase_bf16_input_gradient(cfg, dev, rng) -> dict:
+    """B2x-bf16 (a bf16 x's input gradient) at full width against the plain
+    bf16 backward's dx (``conv4head_bwd_bf16_plain``) at X_BF16_SHAPES:
+    relative L2 within GEN_BF16_DX_L2 (the bf16 dx limit of every input
+    gradient kernel), a rerun bit-identical, one B2x-bf16 launch a call and
+    nothing else; timed by CUDA events (the wrapper: the kernel, dxw and the
+    overlap-add) and by the profiler's device time (the kernel and its
+    partial pass), beside its bound (``general_bound``: one bf16
+    tensor-core pass at 989 TFLOP/s, or the bytes), its route's floor (the
+    Pallas kernel's products at the ``wgmma`` m64n32k16 rate) and the plain
+    version's time. The comparisons' launches are not counted."""
+    geo = (cfg.window_len, cfg.slide_step)
+    z, o = cfg.n_zones, cfg.dim_cnn
+    rows = {}
+    for m, b in X_BF16_SHAPES:
+        model = FAST(cfg, n_models=m, device=dev)
+        model.load_state_dict(from_jax_params(init_jax_layout_params(cfg, SEED, m)))
+        with torch.no_grad():
+            ops = model.head.fused_weights()
+        x = torch.tensor(rng.normal(size=(m, b, 64, 800)).astype(np.float32),
+                         device=dev).to(torch.bfloat16)
+        g = torch.tensor(rng.normal(size=(m, b, cfg.n_tokens, z * o)).astype(np.float32),
+                         device=dev)
+        what = f"B2x-bf16 M={m} B={b}"
+        with uncounted():
+            before = read_launches()
+            got = conv4head_bwd_x(g, x, *ops, *geo)
+            again = conv4head_bwd_x(g, x, *ops, *geo)
+            moved = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+        if moved != {"conv4head_bwd_x_bf16": 2}:
+            raise RuntimeError(f"{what}: launches {moved}, expected 2 of B2x-bf16 alone")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"{what}: a rerun differs in its bits")
+        ref = conv4head_bwd_bf16_plain(g, x, *ops, *geo)[0]
+        if got.dtype != torch.bfloat16 or got.shape != ref.shape:
+            raise RuntimeError(f"{what}: dx {got.dtype} {tuple(got.shape)}")
+        l2 = rel_l2(got, ref)
+        if not l2 <= GEN_BF16_DX_L2:
+            raise RuntimeError(f"{what}: relative L2 {l2:.3g} > {GEN_BF16_DX_L2}")
+        with uncounted():
+            ms = cuda_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), 10)
+            dev_ms = device_ms(lambda: conv4head_bwd_x(g, x, *ops, *geo), B2X_BF16_KERNELS, 10)
+        plain_ms = cuda_ms(lambda: conv4head_bwd_bf16_plain(g, x, *ops, *geo), 3)
+        (bound, by), _ = general_bound("bwd_x", True, m, b, 64, 800, z, o, *geo)
+        floor = (1e3 * 2 * m * b * cfg.n_tokens * z * general_fmas("bwd_x", 64, o, geo[0])
+                 / WGMMA_N32_FLOPS)
+        rows[(m, b)] = {"max_abs_err": float((got.float() - ref.float()).abs().max()),
+                        "rel_l2": l2, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": by, "wgmma_floor_ms": floor}
+        print(f"{what} input grad: wrapper {ms:.4f} ms a call (CUDA events: the kernel, dxw and "
+              f"the overlap-add), kernel {dev_ms:.4f} ms on the device (profiler), plain bf16 "
+              f"{plain_ms:.3f} ms; relative L2 {l2:.3g}, max|err| "
+              f"{rows[(m, b)]['max_abs_err']:.3g}, rerun bit-identical; bound {bound:.4f} ms "
+              f"({by}, {bound / dev_ms:.1%} of the device time); wgmma m64n32k16 floor "
+              f"{floor:.4f} ms ({floor / dev_ms:.1%})", flush=True)
+        del model, ops, x, g, got, again, ref
+    return rows
+
+
 def phase_adapted_geometry(cfg, dev, rng):
     """Head geometries the kernels are not built for, launched on operands
     ``_adapted`` zero-pads or splits: dim_cnn = 8 (the width
@@ -1591,6 +1663,9 @@ TC_KERNELS = (  # the tensor-core kernels: (name, entry function, its smem bytes
     ("B2w-bf16", "conv4head_bwd_w_bf16_kernel", lambda lib, c: (
         lib.isd_conv4head_bwd_w_bf16_smem_bytes(64, c.window_len, c.dim_cnn, KERNEL_TAPS)),
      "HGMMA"),
+    ("B2x-bf16", "conv4head_bwd_x_bf16_kernel", lambda lib, c: (
+        lib.isd_conv4head_bwd_x_bf16_smem_bytes(64, c.window_len, c.dim_cnn, KERNEL_TAPS)),
+     "HGMMA"),
 )
 DEBUG_INSTANTIATION = "Lb1EE"  # B2f-bf16's and B2w-bf16's phase counters (kClock): not counted
 
@@ -1657,6 +1732,7 @@ def reset_launches() -> None:
                conv4head_bwd_x):
         fn.launches = fn.captures = 0
     fused_conv4_head.launches_bf16 = conv4head_bwd_w.launches_bf16 = 0
+    conv4head_bwd_x.launches_bf16 = 0
     for fn in HEAD_WRAPPERS:
         fn.adapted = fn.launches_general = fn.launches_general_bf16 = 0
 
@@ -1674,7 +1750,8 @@ def read_launches() -> dict:
             "conv4head_bwd_w": conv4head_bwd_w.launches,
             "conv4head_bwd_x": conv4head_bwd_x.launches,
             "conv4head_fwd_bf16": fused_conv4_head.launches_bf16,
-            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16, **general,
+            "conv4head_bwd_w_bf16": conv4head_bwd_w.launches_bf16,
+            "conv4head_bwd_x_bf16": conv4head_bwd_x.launches_bf16, **general,
             "adapted": sum(fn.adapted for fn in HEAD_WRAPPERS),
             "iir_chain_captures": sosfiltfilt_chain.captures,
             "conv4head_fwd_captures": fused_conv4_head.captures}
@@ -3270,7 +3347,7 @@ BN_HEADS = ("CVBlock", "EEGNet_Encoder", "HeadConv_Paper_Version")
 BN_FIRST = {"CVBlock": "bn1", "EEGNet_Encoder": "bn1", "HeadConv_Paper_Version": "norm1"}
 TS_BATCH = 32  # cli.train_tsception's batch
 KERNEL_KEYS = ("iir_chain", "iir", "conv4head_fwd", "conv4head_bwd_w", "conv4head_bwd_x",
-               "conv4head_fwd_bf16", "conv4head_bwd_w_bf16") + GENERAL_KEYS
+               "conv4head_fwd_bf16", "conv4head_bwd_w_bf16", "conv4head_bwd_x_bf16") + GENERAL_KEYS
 
 
 def check_result_tree(out: str, subjects, state_keys, what: str) -> None:
@@ -4873,7 +4950,7 @@ def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
     on 100 trials of subject 01 (M = 1, B = 100), against the CPU on its
     first EG_CPU_TRIALS trials: integrated gradients (IG_STEPS steps) and
     expected gradients (EG_SAMPLES draws against EG_BACKGROUND trials) of
-    the shipped FAST in bf16 (B2f-bf16, B2x-g bf16); integrated gradients
+    the shipped FAST in bf16 (B2f-bf16, B2x-bf16); integrated gradients
     of (a)'s f32 model at windows of 500 (B2f in column tiles, B2x-g f32)
     and of FAST on one window of the whole trial in bf16 (B2f-g, B2x-g
     bf16)."""
@@ -4981,8 +5058,9 @@ def general_path_checks(dev) -> dict:
     GEN_ENTRY's windows of 500; B2w-g there takes few trial ranges a (zone,
     window), each long), f32 and bf16, models 0, M/2 and M - 1, and a second
     launch bit-identical; B2f's, B2w's and B2w-bf16's column tiles likewise
-    at (a)'s step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 at
-    the shipped geometry and f32 at windows of 500, every trial.
+    at (a)'s step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 on
+    one 800-sample window (the shipped windows take B2x-bf16) and f32 at windows of
+    500, every trial.
     ``check_general``'s tolerances; the largest absolute error of each."""
     out = {}
     c, w, step, o = GEN_ENTRY
@@ -5042,7 +5120,8 @@ def general_path_checks(dev) -> dict:
         del x, got, again
     del g, x32, ops
     mx, bx = GEN_ATTR_SHAPE
-    for bf16, (w, step) in ((True, (250, 125)), (False, (GEN_ENTRY[1], GEN_ENTRY[2]))):
+    for bf16, (w, step) in ((True, (GEN_WHOLE["window_len"], 125)),
+                            (False, (GEN_ENTRY[1], GEN_ENTRY[2]))):
         g, x32, *ops = general_operands_on_card(dev, mx, bx, 64, 800, 8, 32, w, step)
         x = x32.to(torch.bfloat16) if bf16 else x32
         n = (800 - w) // step + 1
@@ -5215,16 +5294,19 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     want = {"conv4head_fwd": decoder["launches"] + per_call["fwd"],
             "conv4head_bwd_x_general": per_call["ig"],
             "conv4head_fwd_bf16": per_call["fwd"] + EG_SAMPLES,
-            "conv4head_bwd_x_general_bf16": 2 * per_call["ig"] + EG_SAMPLES,
+            "conv4head_bwd_x_bf16": per_call["ig"] + EG_SAMPLES,
+            "conv4head_bwd_x_general_bf16": per_call["ig"],
             "conv4head_fwd_general_bf16": per_call["fwd"], "iir_chain": 2}
     moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
     if moved != want:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
     path = {k: sum(run["launches"].get(k, 0) for run in training.values()) + moved.get(k, 0)
-            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"] + HEAD_KERNELS["f32"]}
+            for k in GENERAL_KEYS + HEAD_KERNELS["bf16"] + HEAD_KERNELS["f32"]
+            + ("conv4head_bwd_x_bf16",)}
     if not all(path.values()):
         raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
-    print(f"general (a)-(c): the general kernels', the bf16 kernels' and B2f's and B2w's "
+    print(f"general (a)-(c): the general kernels', the bf16 kernels' (B2x-bf16 in (c)) and "
+          f"B2f's and B2w's "
           f"launches on the path {json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
@@ -5275,6 +5357,7 @@ def main() -> None:
     fleet_head = phase_fleet_head(cfg, dev, rng)
     bwd, _ = phase_head_backward(cfg, dev, rng)
     bf16, _ = phase_bf16_kernels(cfg, dev, rng)
+    bf16_x = phase_bf16_input_gradient(cfg, dev, rng)
     phase_adapted_geometry(cfg, dev, rng)
     phase_bf16_f32_route(dev, rng)
     campaign_kernels = phase_campaign_kernels(cfg, dev, rng)
@@ -5421,6 +5504,17 @@ def main() -> None:
          "loso_m15": {b: {k[2:]: v for k, v in r.items() if k.startswith("w_")}
                       for b, r in zip(LOSO_BATCHES[:2], loso_rows[:2])}},
     ]
+    # B2x-bf16: a bf16 x's input gradient, launched by section 14 (c)'s bf16 attributions of
+    # the shipped FAST; times and errors from its own phase at X_BF16_SHAPES.
+    b2x16 = bf16_x[X_BF16_SHAPES[-1]]
+    kernels.append(
+        {"name": "conv4head_bwd_x_bf16", "route": "cuda",
+         "source": src + "conv4head_bwd_x_bf16.cu", "replaces": pallas + "conv4head.py:351",
+         "launches": general["path"]["conv4head_bwd_x_bf16"],
+         **{k: b2x16[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by")},
+         "library_ms": None, "rel_l2": b2x16["rel_l2"],
+         "shapes": {f"m{m}_b{b}": r for (m, b), r in bf16_x.items()}})
     # The engine's remaining paths (section 11): early stopping, one step of
     # each training mode (the step-profile child), dense tokens.
     modes = {k: sum(steps[mode]["launches"][k] for mode in FORWARD_MODES[1:])

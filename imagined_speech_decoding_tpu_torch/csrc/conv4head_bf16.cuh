@@ -1,6 +1,6 @@
 // Small pieces shared by the bf16 Conv4Layers head kernels B2f-bf16
-// (conv4head_fwd_bf16.cu) and B2w-bf16 (conv4head_bwd_w_bf16.cu), both on
-// wgmma (conv4head_wgmma.cuh): the block size, the fixed-order sum of
+// (conv4head_fwd_bf16.cu), B2w-bf16 (conv4head_bwd_w_bf16.cu) and B2x-bf16
+// (conv4head_bwd_x_bf16.cu), all on wgmma (conv4head_wgmma.cuh): the block size, the fixed-order sum of
 // per-warp column sums, and zero fill. The bf16 packing, the 4-byte
 // cp.async and ldmatrix.trans are in mma_bf16.cuh; cp.async's wait in
 // mma_tf32.cuh; GELU and its derivative in conv4head_common.cuh.

@@ -1,5 +1,6 @@
 // Pieces of the Conv4Layers head kernels on wgmma (B2w-bf16,
-// conv4head_bwd_w_bf16.cu; B2f-bf16, conv4head_fwd_bf16.cu): the chunked
+// conv4head_bwd_w_bf16.cu; B2f-bf16, conv4head_fwd_bf16.cu; B2x-bf16,
+// conv4head_bwd_x_bf16.cu): the chunked
 // core-matrix layout of their time-major buffers and staged weights, a
 // 64-row conv tile issued as wgmma m64n32k16 from shared memory, its
 // accumulator epilogue and the per-warp column sums. wgmma_bf16.cuh says

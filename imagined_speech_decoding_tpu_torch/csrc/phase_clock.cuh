@@ -1,7 +1,8 @@
 // Per-phase clock counters for the debug instantiations of kernels
-// B2w-bf16 (conv4head_bwd_w_bf16.cu) and B2f-bf16 (conv4head_fwd_bf16.cu),
-// kClock = true; b2w_timing.py and b2f_timing.py read them. The shipped
-// instantiations compile them out.
+// B2w-bf16 (conv4head_bwd_w_bf16.cu), B2f-bf16 (conv4head_fwd_bf16.cu) and
+// B2x-bf16 (conv4head_bwd_x_bf16.cu), kClock = true; b2w_timing.py,
+// b2f_timing.py and b2x_timing.py read them. The shipped instantiations
+// compile them out.
 //
 // Each warp adds the clock64() cycles since its previous mark to the slot
 // of the phase that just ended, in shared memory ([warp][phase],

@@ -1,5 +1,6 @@
 // The deterministic second pass of the head's backward kernels (B2w and
-// B2x in conv4head_bwd.cu, B2w-bf16 in conv4head_bwd_w_bf16.cu): blocks
+// B2x in conv4head_bwd.cu, B2w-bf16 in conv4head_bwd_w_bf16.cu, B2x-bf16
+// in conv4head_bwd_x_bf16.cu): blocks
 // write private partials, and this pass sums them in a fixed order, so no
 // atomics are needed and reruns are bit-identical.
 

@@ -50,6 +50,10 @@ _SIGNATURES = {
     "isd_conv4head_bwd_w_bf16": ([_P] * 14 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_w_bf16_smem_bytes": ([_I] * 4, _I),
     "isd_conv4head_bwd_w_bf16_phases": ([_P] * 14 + [_I] * 12 + [_P, _P], _I),
+    "isd_conv4head_bwd_x_bf16": ([_P] * 9 + [_I] * 12 + [_P], _I),
+    "isd_conv4head_bwd_x_bf16_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_bwd_x_bf16_work_bytes": ([_I] * 7, ctypes.c_longlong),
+    "isd_conv4head_bwd_x_bf16_phases": ([_P] * 9 + [_I] * 12 + [_P, _P], _I),
     "isd_conv4head_fwd_general": ([_P] * 7 + [_I] * 13 + [_P], _I),
     "isd_conv4head_bwd_w_general": ([_P] * 15 + [_I] * 14 + [_P], _I),
     "isd_conv4head_bwd_x_general": ([_P] * 8 + [_I] * 13 + [_P], _I),

@@ -25,19 +25,23 @@ The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
 an f32 x takes the kernels above; a bf16 x takes their bf16
 instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``: the first conv
 once per trial over the columns its windows use, every product one bf16
-``wgmma`` pass) and B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``, one bf16
+``wgmma`` pass), B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``, one bf16
 ``wgmma`` pass per product, the weight gradients held in registers across
 a block's trials; a window past 260 samples in column tiles of 256 conv
-rows with a recomputed 8-row halo), f32 accumulators, rounding where the
-Pallas kernel rounds (an even T; B2w-bf16 C <= 64, any window). The weights come in as
-f32 either way and the kernels round them to bf16 as they stage them; the
-output and every weight gradient are f32.
+rows with a recomputed 8-row halo) and B2x-bf16
+(``csrc/conv4head_bwd_x_bf16.cu``: B2w-bf16's recompute and one more
+``wgmma`` GEMM, the input gradient, held in registers across a block's
+zones), f32 accumulators, rounding where the Pallas kernel rounds (an even
+T in B2f-bf16 and B2w-bf16; B2w-bf16 C <= 64, any window; B2x-bf16 C <=
+64, windows up to 260 samples). The weights come in as f32 either way and
+the kernels round them to bf16 as they stage them; the output and every
+weight gradient are f32, a bf16 dx is bf16.
 
 The general kernels (``csrc/conv4head_general.cu``, f32 and bf16) take
 any C, T, window, step and O at K1 = K2 = 5: their shared memory does not
 grow with C, W or O (a unit's intermediates sit in a global workspace, a
-slot per resident block). They run where no tuned plan fits, where O >
-32, and for every bf16 input gradient (B2x-g bf16, the only one).
+slot per resident block). They run where no tuned plan fits and where O >
+32 (a bf16 input gradient past B2x-bf16's plan: B2x-g bf16).
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
 with a leading model axis M where the JAX kernel had ``jax.vmap``:
@@ -63,12 +67,13 @@ Pallas kernel's points, and its gradient is the written-out bf16 backward
 raises; nothing falls back. ``_adapted`` picks the kernel from the
 geometry before any launch: a geometry a tuned kernel is not built for
 but reaches exactly by zero padding (``dim_cnn`` 8 or 16, f32 B2w at C %
-8 != 0, an odd T in bf16, a B2f-bf16 trial longer than its plan holds)
+8 != 0, an odd T in bf16 (but for B2x-bf16, which takes any T), a
+B2f-bf16 trial longer than its plan holds)
 launches it on padded or split operands and adds one to the wrapper's
 ``adapted``; so does a bf16 geometry the bf16 kernel has no plan for (C >
 64 in B2w-bf16), run on the f32 kernel with the bf16 kernel's operands
-where that kernel's plan fits; the rest (no tuned plan fitting, O > 32, a
-bf16 input gradient) launches the general kernel of x's precision,
+where that kernel's plan fits; the rest (no tuned plan fitting, O > 32)
+launches the general kernel of x's precision,
 counted in ``launches_general`` / ``launches_general_bf16``. K != 5
 raises. On CUDA the kernel forward is a ``torch.autograd.Function``: it
 saves only its operands, and its backward recomputes the forward inside
@@ -381,8 +386,9 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
         channels, the outputs and gradients cut back;
       f32 B2w at C % 8 != 0: x and w12 zero-padded to a multiple of 8
         channels, dw12 cut back;
-      bf16 at an odd T: the samples the windows use, in a copy of even
-        length, the cotangent padded with zero windows where that adds one;
+      bf16 at an odd T (B2f-bf16, B2w-bf16; B2x-bf16 takes any T): the
+        samples the windows use, in a copy of even length, the cotangent
+        padded with zero windows where that adds one;
       B2f-bf16 with more windows than its plan holds (``smem_bytes``, the
         library's by default): groups of windows, each on a copy of its
         samples.
@@ -422,7 +428,7 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
     if bf16 and op == "fwd":
         per = (_fwd_bf16_windows_built(c, window_len, step, n) if smem_bytes is None
                else _fwd_bf16_windows(c, window_len, step, n, smem_bytes))
-    copies = bf16 and (t % 2 == 1 or per < n)
+    copies = bf16 and op != "bwd_x" and (t % 2 == 1 or per < n)
     if not (wide or pad_c or copies):
         return launch(g, x, w12, b12, w3, w4, window_len, step), False
     if wide:
@@ -477,15 +483,19 @@ def f32_plan_fits(op: str, c: int, window_len: int, tiles: bool = True) -> bool:
 
 def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal) -> str:
     """Why ``op`` goes to the general kernel of its precision, or "" when a
-    tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient (no
-    tuned bf16 B2x); or no tuned plan fitting: f32 where the f32 plan (B2f
-    and B2w: in column tiles past the whole window's) does not fit, bf16 where the
-    bf16 kernel refuses (``refusal``) and its f32 route's whole-window plan
-    does not fit either."""
+    tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient that
+    B2x-bf16 has no plan for (``bwd_x_bf16_smem_bytes``: C > 64, windows
+    past 260 samples); or no tuned plan fitting: f32 where the f32 plan
+    (B2f and B2w: in column tiles past the whole window's) does not fit,
+    bf16 where the bf16 kernel refuses (``refusal``) and its f32 route's
+    whole-window plan does not fit either."""
     if o > KERNEL_WIDTH:
         return f"O = {o} > {KERNEL_WIDTH}"
     if bf16 and op == "bwd_x":
-        return "a bf16 input gradient"
+        if 0 <= bwd_x_bf16_smem_bytes(c, window_len) <= MAX_SMEM_BYTES:
+            return ""
+        return (f"B2x-bf16 is not built for C={c} at windows of {window_len} "
+                f"(C <= {BWD_X_BF16_CP}, windows up to {BWD_X_BF16_MAX_T1 + KERNEL_TAPS - 1})")
     if (refusal or not bf16) and not f32_plan_fits(op, c, window_len, tiles=not refusal):
         return (f"{refusal}; " if refusal else "") + (
             f"the f32 plan does not fit a block at C={c}, windows of {window_len}")
@@ -755,6 +765,91 @@ def bwd_x_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
     return 4 * floats
 
 
+# B2x-bf16's shared-memory plan and dx descriptors, mirrored from
+# csrc/conv4head_bwd_x_bf16.cu (x_plan, issue_dx) for the tests; its conv
+# tiles are B2w-bf16's (``bwd_w_bf16_conv_descs`` on the zone's weight set).
+BWD_X_BF16_CP = 64  # channels of B2x-bf16's staged window and w12
+BWD_X_BF16_MAX_T1 = WG_GROUPS * WG_ROWS  # its conv rows of a window: windows up to 260 samples
+BWD_X_BF16_SLOTS = 3  # dx tiles a warpgroup holds in registers
+
+
+def bwd_x_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
+    """B2x-bf16's plan for C channels and windows of W: the byte offset of
+    every shared-memory region, the total, and the geometry:
+      cp    channels of the staged window and w12 (BWD_X_BF16_CP at every C);
+      nt    time rows the convs compute (t1 rounded up to WG_ROWS);
+      rows  rows of the window, h1, h2, dh3c and dh2c (nt + K - 1: time t
+            of an activation at row K/2 + t), ``cs`` their chunk stride;
+      nx    dx row tiles (W rounded up to WG_ROWS, over WG_ROWS): 2 nx dx
+            tiles of 32 channels;
+      rx    rows of bf16(dh1) (WG_ROWS nx + K - 1: time t at row K - 1 + t,
+            zero rows on both sides), ``csx`` its chunk stride.
+    A zone's weights (w12, w3, w4 in bf16; b12 and g / t1 in f32) take two
+    sets ``wset`` bytes apart; ``w12`` to ``gz`` are the first set's."""
+    t1 = w - k + 1
+    nt = -(-t1 // WG_ROWS) * WG_ROWS
+    rows = nt + k - 1
+    nx = -(-w // WG_ROWS)
+    rx = WG_ROWS * nx + k - 1
+    cp = BWD_X_BF16_CP
+    plan = {"c": c, "w": w, "o": o, "k": k, "cp": cp, "t1": t1, "nt": nt, "rows": rows,
+            "cs": 16 * rows, "nx": nx, "rx": rx, "csx": 16 * rx}
+    off = 0
+    for name, nbytes in (("xs", cp // 8 * 16 * rows), ("h1", o // 8 * 16 * rows),
+                         ("h2", o // 8 * 16 * rows), ("d3", o // 8 * 16 * rows),
+                         ("d2", o // 8 * 16 * rows), ("d1", o // 8 * 16 * rx),
+                         ("w12", 2 * k * cp * o), ("w3", 2 * k * o * o), ("w4", 2 * k * o * o),
+                         ("bias", 4 * o), ("gz", 4 * o)):
+        plan[name] = off
+        off += -(-nbytes // 16) * 16
+    plan["wset"] = off - plan["w12"]
+    plan["total"] = off + plan["wset"]
+    return plan
+
+
+def bwd_x_bf16_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_bwd_x_bf16_smem_bytes``: the plan's
+    bytes, or -1 where B2x-bf16 has no plan (C > BWD_X_BF16_CP, or t1 past
+    BWD_X_BF16_MAX_T1: one window in one tile)."""
+    if not (1 <= c <= BWD_X_BF16_CP and k <= w and w - k + 1 <= BWD_X_BF16_MAX_T1):
+        return -1
+    return bwd_x_bf16_plan(c, w, o, k)["total"]
+
+
+def bwd_x_bf16_weights(plan: dict, buf: int) -> dict:
+    """``plan`` with its weights' offsets on set ``buf``: zone z of a
+    block's range [z0, z1) reads set (z - z0) % 2, the next zone's weights
+    being staged into the other under its dx GEMM."""
+    shift = buf * plan["wset"]
+    return dict(plan, **{name: plan[name] + shift for name in ("w12", "w3", "w4", "bias", "gz")})
+
+
+def bwd_x_bf16_dx_tiles(plan: dict) -> list:
+    """B2x-bf16's dx tiles in the kernel's order, ``(row tile, channel
+    half)``; warpgroup ``i % WG_GROUPS`` holds tile ``i`` in its registers."""
+    return [(i // 2, i % 2) for i in range(2 * plan["nx"])]
+
+
+def bwd_x_bf16_dx_descs(plan: dict, tile, buf: int = 0) -> list:
+    """The k16 steps of dx tile ``tile`` = (row tile mt, channel half h) in
+    issue order, each ``((a_start, k_step, mn_step), (b_start, k_step,
+    mn_step))`` in bytes: D[w, c] for rows w from WG_ROWS mt and channels c
+    from 32 h, summed over taps k and channels o of dh1. A = bf16(dh1) from
+    row WG_ROWS mt + K-1-k (K-major: o along K); B = w12 of weight set
+    ``buf``, tap k's channels 32 h.. (its K-major layout read MN-major: o
+    along K, as a conv^T reads w3 and w4)."""
+    mt, h = tile
+    o, k, csx = plan["o"], plan["k"], plan["csx"]
+    w12 = bwd_x_bf16_weights(plan, buf)["w12"]
+    steps = []
+    for tap in range(k):
+        for o0 in range(0, o, 16):
+            a = (plan["d1"] + chunk_offset(csx, WG_ROWS * mt + k - 1 - tap, o0), csx, 128)
+            b = (w12 + chunk_offset(16 * o, o0, tap * plan["cp"] + 32 * h), 128, 16 * o)
+            steps.append((a, b))
+    return steps
+
+
 def chunk_offset(cs: int, row: int, ch: int) -> int:
     """Bytes of (row, channel) from the start of a chunked buffer."""
     return (ch // 8) * cs + 16 * row + 2 * (ch % 8)
@@ -997,20 +1092,28 @@ def _launch_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int, s=None, cl
 # B2x's time for one unit (one trial, window and zone) on one SM at full
 # width: 47.6 us on an H100 80GB HBM3 at 700 W (1.522 ms for 4 waves of
 # 8-zone blocks at M = 1, B = 100; PERF.md). _bwd_x_zone_splits weighs it
-# against the bytes of the pass that a zone split adds.
+# against the bytes of the pass that a zone split adds. B2x-bf16's, on the
+# same card: 7.75 us a zone and 8.4 us a block besides (the window's
+# transpose, the first zone's weights, dx's stores), fitted to its device
+# times at M = 1, B = 16 with SZ = 1, 2, 3 and 8 (b2x_timing.py --sweep;
+# PERF.md).
 X_UNIT_S = 47.6e-6
+X_BF16_UNIT_S = 7.75e-6
+X_BF16_BLOCK_S = 8.4e-6
 HBM_BYTES_S = 3.35e12
 
 
-def _bwd_x_zone_splits(m: int, b: int, n: int, z: int, c: int, w: int, sms: int) -> int:
-    """SZ, B2x's zone ranges per (model, trial, window). A block fills an
-    SM, so the kernel takes about its waves of blocks times a block's
-    zones; SZ > 1 adds a pass over SZ + 1 copies of dxw. The least
+def _bwd_x_zone_splits(m: int, b: int, n: int, z: int, c: int, w: int, sms: int,
+                       unit_s: float = X_UNIT_S, block_s: float = 0.0) -> int:
+    """SZ, B2x's (or, with its ``unit_s`` and ``block_s``, B2x-bf16's) zone
+    ranges per (model, trial, window). A block fills an SM, so the kernel
+    takes about its waves of blocks times a block's time (its zones and its
+    fixed cost); SZ > 1 adds a pass over SZ + 1 copies of dxw. The least
     estimate wins, ties to fewer ranges."""
     def seconds(sz):
         waves = -(-m * b * n * sz // sms)
         extra = (sz + 1) * m * b * n * c * w * 4 / HBM_BYTES_S if sz > 1 else 0.0
-        return waves * -(-z // sz) * X_UNIT_S + extra
+        return waves * (-(-z // sz) * unit_s + block_s) + extra
 
     return min(range(1, z + 1), key=lambda sz: (seconds(sz), sz))
 
@@ -1026,10 +1129,11 @@ def conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len: int, step: int):
 
 
 def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
-    """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>`` in x's dtype; B2x-g
-    bf16 for a bf16 ``x``. The kernels write per-window gradients; the
-    overlapping windows are added here, in f32 plain PyTorch, as the JAX
-    package adds them in XLA."""
+    """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>`` in x's dtype; B2x
+    for an f32 ``x``, B2x-bf16 for a bf16 one (C <= 64, windows up to 260
+    samples), B2x-g of x's precision where neither plan fits (or O > 32).
+    The kernels write per-window gradients; the overlapping windows are
+    added here, in f32 plain PyTorch, as the JAX package adds them in XLA."""
     if x.device.type == "cpu":
         return conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len, step)
     _require_x(x)
@@ -1048,27 +1152,53 @@ def _overlap_add(dxw, x, step: int):
     return dx.to(x.dtype)
 
 
-def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None):
-    """B2x with ``sz`` zone ranges per (model, trial, window), or with
-    ``_bwd_x_zone_splits``'s when None."""
+# B2x-bf16's phases, in the order of the counters that its debug
+# instantiation keeps (``_launch_bwd_x(..., clk=...)``; b2x_timing.py).
+BWD_X_BF16_PHASES = ("setup", "conv1", "conv2", "conv3", "conv4T", "conv3T", "dx", "store",
+                     "barrier")
+
+
+def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None, clk=None):
+    """B2x, or B2x-bf16 for a bf16 ``x``, with ``sz`` zone ranges per
+    (model, trial, window), or with ``_bwd_x_zone_splits``'s when None.
+    ``clk`` (bf16 only: a CUDA int64 tensor of ``len(BWD_X_BF16_PHASES) +
+    2`` zeros) launches B2x-bf16's debug instantiation instead, which adds
+    to it each phase's clock cycles summed over warps and blocks, then
+    every block's cycles and nanoseconds; such a launch is not counted."""
     m, b, c, t, z, o, k1, k2, n = _check_cuda(x, w12, b12, w3, w4, window_len, step, g)
+    bf16 = x.dtype == torch.bfloat16
     if sz is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        sz = _bwd_x_zone_splits(m, b, n, z, c, window_len, sms)
+        sz = (_bwd_x_zone_splits(m, b, n, z, c, window_len, sms, X_BF16_UNIT_S, X_BF16_BLOCK_S)
+              if bf16 else _bwd_x_zone_splits(m, b, n, z, c, window_len, sms))
     lib = _lib.library()
-    _check_smem(lib.isd_conv4head_bwd_x_smem_bytes(c, window_len, o, k1), "B2x")
+    if bf16:
+        _check_smem(lib.isd_conv4head_bwd_x_bf16_smem_bytes(c, window_len, o, k1), "B2x-bf16")
+    else:
+        _check_smem(lib.isd_conv4head_bwd_x_smem_bytes(c, window_len, o, k1), "B2x")
     w3, w4 = _aligned16(w3), _aligned16(w4)
     dxw = torch.empty((m, b, n, c, window_len), dtype=torch.float32, device=x.device)
     part = (torch.empty((m, b, n, sz, c, window_len), dtype=torch.float32, device=x.device)
             if sz > 1 else None)
+    entry = lib.isd_conv4head_bwd_x_bf16 if bf16 else lib.isd_conv4head_bwd_x
+    work, extra = (), ()
+    if bf16:  # the pre-pass's staged bf16 weights and g / t1
+        work = (torch.empty(lib.isd_conv4head_bwd_x_bf16_work_bytes(m, b, n, z, c, o, k1),
+                            dtype=torch.uint8, device=x.device).data_ptr(),)
+    if clk is not None:
+        if not bf16:
+            raise ValueError("only B2x-bf16 has a debug instantiation with phase counters")
+        _lib.require_cuda("clk", clk, torch.int64, (len(BWD_X_BF16_PHASES) + 2,))
+        entry, extra = lib.isd_conv4head_bwd_x_bf16_phases, (clk.data_ptr(),)
     with torch.cuda.device(x.device):
-        code = lib.isd_conv4head_bwd_x(
+        code = entry(
             g.data_ptr(), x.data_ptr(), w12.data_ptr(), b12.data_ptr(), w3.data_ptr(),
-            w4.data_ptr(), dxw.data_ptr(), None if part is None else part.data_ptr(),
-            m, b, c, t, z, o, k1, k2, window_len, step, n, sz, _lib.stream_of(x),
+            w4.data_ptr(), dxw.data_ptr(), None if part is None else part.data_ptr(), *work,
+            m, b, c, t, z, o, k1, k2, window_len, step, n, sz, *extra, _lib.stream_of(x),
         )
-    _lib.check(code, "isd_conv4head_bwd_x")
-    _lib.count(conv4head_bwd_x)
+    _lib.check(code, entry.__name__)
+    if clk is None:
+        _lib.count(conv4head_bwd_x, "launches_bf16" if bf16 else "launches")
     return _overlap_add(dxw, x, step)
 
 
@@ -1196,6 +1326,7 @@ fused_conv4_head.launches_bf16 = 0  # B2f-bf16 launches
 conv4head_bwd_w.launches = 0  # B2w launches
 conv4head_bwd_w.launches_bf16 = 0  # B2w-bf16 launches
 conv4head_bwd_x.launches = 0  # B2x launches
+conv4head_bwd_x.launches_bf16 = 0  # B2x-bf16 launches
 fused_conv4_head.launches_general = fused_conv4_head.launches_general_bf16 = 0  # B2f-g f32, bf16
 conv4head_bwd_w.launches_general = conv4head_bwd_w.launches_general_bf16 = 0  # B2w-g
 conv4head_bwd_x.launches_general = conv4head_bwd_x.launches_general_bf16 = 0  # B2x-g

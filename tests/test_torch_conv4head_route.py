@@ -5,7 +5,8 @@ in each wrapper's ``adapted``, or raise; nothing runs the plain version
 on the card.
 
 The tuned kernels are built for O = 32 and K1 = K2 = 5, an even T in
-bf16, C % 8 == 0 in f32 B2w, and their plans fitting a block. B2w-bf16
+bf16 (B2f-bf16 and B2w-bf16; B2x-bf16 takes any T), C % 8 == 0 in f32
+B2w, and their plans fitting a block. B2w-bf16
 takes every window at C <= 64 (past 260 samples in column tiles), f32 B2f
 and B2w every window at C <= 72 (past the whole window's plan in column
 tiles). A
@@ -14,10 +15,12 @@ kernel on the bf16 kernel's operands where the f32 whole-window plan fits
 (B2w-bf16 at C = 68 and 72, windows up to 268): that route is held to the
 plain bf16 version at 1e-2 in relative L2 (the f32 kernel skips the bf16
 roundings of h1, h2 and the cotangents; measured <= 3.4e-3); its column
-tiles do not widen that route. What no tuned plan takes (C = 80 or 128, f32
-input gradients at windows of 500, a bf16 forward of one window of 600, O =
-64, a bf16 input gradient, bf16 weight gradients at C = 65-72 past windows
-of 268) goes to the general kernel of x's precision
+tiles do not widen that route. A bf16 input gradient takes B2x-bf16 at C
+<= 64 and windows up to 260 samples, at any T. What no tuned plan takes (C
+= 80 or 128, f32 input gradients at windows of 500, a bf16 forward of one
+window of 600, O = 64, a bf16 input gradient at C = 65 or past windows of
+260, bf16 weight gradients at C = 65-72 past windows of 268) goes to the
+general kernel of x's precision
 (B2f-g, B2w-g, B2x-g), unadapted and counted in
 ``launches_general`` / ``launches_general_bf16``; only K != 5 raises.
 The JAX package trains other widths (``dim_cnn`` 8 in
@@ -48,6 +51,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     bwd_w_col_tiles,
     bwd_w_plan_bytes,
     bwd_w_smem_bytes,
+    bwd_x_bf16_smem_bytes,
     bwd_x_smem_bytes,
     conv4head_bwd_bf16_plain,
     conv4head_bwd_plain,
@@ -100,7 +104,7 @@ def stand_in(op, calls, dtypes=None):
         _, _, c, t, _, o, k1, k2, n = _geometry(x, w12, w3, window_len, step)
         bf16 = x.dtype == torch.bfloat16
         assert o == KERNEL_WIDTH and k1 == k2 == KERNEL_TAPS
-        assert not bf16 or t % 2 == 0
+        assert not bf16 or op == "bwd_x" or t % 2 == 0
         assert bf16 or op != "bwd_w" or c % 8 == 0
         if bf16 and op == "bwd_w":
             _check_smem(bwd_w_bf16_smem_bytes(c, window_len), "B2w-bf16")
@@ -110,8 +114,9 @@ def stand_in(op, calls, dtypes=None):
             _check_smem(fwd_smem_bytes(c, window_len), "B2f")
         if not bf16 and op == "bwd_w":
             _check_smem(bwd_w_smem_bytes(c, window_len), "B2w")
-        if op == "bwd_x":
-            assert not bf16, "no tuned bf16 B2x"
+        if bf16 and op == "bwd_x":
+            _check_smem(bwd_x_bf16_smem_bytes(c, window_len), "B2x-bf16")
+        if not bf16 and op == "bwd_x":
             _check_smem(bwd_x_smem_bytes(c, window_len), "B2x")
         calls.append(dict(c=c, t=t, n=n))
         if dtypes is not None:
@@ -216,17 +221,18 @@ def test_empty_batch_launches_nothing(op, dtype):
 
 @pytest.mark.parametrize("op,dtype", [("fwd", torch.float64), ("bwd_w", torch.float64),
                                       ("bwd_x", torch.float64), ("fwd", torch.bfloat16),
-                                      ("bwd_w", torch.bfloat16)])
+                                      ("bwd_w", torch.bfloat16), ("bwd_x", torch.bfloat16)])
 def test_shipped_geometry_launches_unadapted(op, dtype):
     """FASTConfig.default()'s head (C = 64, O = 32, K = 5, T = 800, windows
     of 250 step 125; one trial, one zone here), and C = 10 in B2f and B2x
     (which take any C), and dense tokens at step 25 (23 windows; B2f-bf16
-    groups them, above): one launch on the operands as they are. (B2x has
-    no bf16 instantiation.)"""
+    groups them, above): one launch on the operands as they are (a bf16
+    B2x: B2x-bf16)."""
     for geometry in (dict(SHIPPED, b=1, z=1), dict(c=10), dict(SHIPPED, step=25, b=1, z=1)):
         if geometry.get("step") == 25 and dtype == torch.bfloat16 and op == "fwd":
             continue  # dense tokens: B2f-bf16 groups their windows (above)
-        if geometry["c"] == 10 and (op == "bwd_w" or dtype == torch.bfloat16):
+        if geometry["c"] == 10 and (op == "bwd_w" or (dtype == torch.bfloat16
+                                                       and op != "bwd_x")):
             continue
         ops, geo = operands(dtype=dtype, **geometry)
         calls = []
@@ -287,7 +293,8 @@ def test_geometry_no_padding_reaches_raises(op, geometry, dtype, why):
 ], ids=["f32-c80", "f32-w500", "bf16-w500", "bf16-o64"])
 def test_general_route_geometries(op, geometry, dtype):
     """Geometries no tuned plan takes, in f32 (C = 80 at windows of 250,
-    input gradients at windows of 500) and in bf16 (every bf16 B2x; O = 64):
+    input gradients at windows of 500) and in bf16 (B2x past windows of
+    260; O = 64):
     one launch of the general kernel of x's precision on the operands as
     they are, none of a tuned one, the plain version's result. At windows of
     500 a bf16 forward stays on B2f-bf16 (one window a launch), and weight
@@ -309,17 +316,48 @@ def test_general_route_geometries(op, geometry, dtype):
 
 
 def test_bf16_input_gradient_takes_the_general_kernel():
-    """A bf16 x's input gradient at the shipped geometry (one trial, one
-    zone) and at C = 10: B2x-g bf16, unadapted, dx in bf16 equal to the
-    plain bf16 backward's."""
-    for geometry in (dict(SHIPPED, b=1, z=1), dict(c=10)):
+    """A bf16 x's input gradient that B2x-bf16 has no plan for (C = 65 at
+    windows of 250, windows of 261 at C = 64: t1 = 257 rows, past one tile)
+    or O = 64: B2x-g bf16, unadapted, no tuned launch, dx in bf16 equal to
+    the plain bf16 backward's, the reason naming B2x-bf16's limits (or O)."""
+    for geometry, why in ((dict(SHIPPED, c=65, b=1, z=1), "B2x-bf16 is not built for C=65"),
+                          (dict(SHIPPED, t=400, w=261, step=130, b=1, z=1),
+                           "B2x-bf16 is not built for C=64 at windows of 261"),
+                          (dict(o=64, z=1), "O = 64 > 32")):
         ops, geo = operands(dtype=torch.bfloat16, **geometry)
-        general = []
-        got, adapted = _adapted("bwd_x", stand_in("bwd_x", []), *ops, *geo,
+        calls, general = [], []
+        got, adapted = _adapted("bwd_x", stand_in("bwd_x", calls), *ops, *geo,
                                 general=general_stand_in(general))
-        assert not adapted and [d["op"] for d in general] == ["bwd_x"]
+        assert not adapted and calls == [] and [d["op"] for d in general] == ["bwd_x"]
         want = conv4head_bwd_bf16_plain(*ops, *geo)[0]
         assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        c, o = geometry.get("c", 10), geometry.get("o", 32)
+        assert why in general_reason("bwd_x", True, c, o, geo[0], None)
+
+
+@pytest.mark.parametrize("geometry", [
+    dict(SHIPPED, b=1, z=1), dict(c=10), dict(SHIPPED, t=300, w=260, step=40, b=1, z=1),
+    dict(c=1, t=21, w=5, step=4), dict(t=201), dict(o=16),
+], ids=["shipped", "c10", "w260", "w5-c1", "odd-t", "o16"])
+def test_bf16_input_gradient_takes_b2x_bf16(geometry):
+    """A bf16 x's input gradient at C <= 64 and windows up to 260 samples:
+    one B2x-bf16 launch (a stand-in that refuses what its plan's mirror
+    refuses) on bf16 x as it is, also at an odd T (B2x-bf16 reads x by
+    2-byte loads: no even copy), no general kernel; dim_cnn 16 with zones
+    zero-padded to 32 channels (adapted). dx in bf16 within 1e-3 in relative
+    L2 of the plain bf16 backward's (the stand-in's plain version is
+    autograd through the bf16 forward)."""
+    ops, geo = operands(dtype=torch.bfloat16, **geometry)
+    calls, dtypes, general = [], [], []
+    got, adapted = _adapted("bwd_x", stand_in("bwd_x", calls, dtypes), *ops, *geo,
+                            general=general_stand_in(general))
+    t = geometry.get("t", 200)
+    assert adapted == (geometry.get("o", 32) < 32) and general == []
+    assert dtypes == [torch.bfloat16]
+    assert calls == [dict(c=geometry.get("c", 10), t=t, n=(t - geo[0]) // geo[1] + 1)]
+    want = conv4head_bwd_bf16_plain(*ops, *geo)[0]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert_matches(got, (want,), True)
 
 
 @pytest.mark.parametrize("op,geometry", [
@@ -484,6 +522,46 @@ def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
         before[0], before[1] + (not tiled), before[2])
     want = {"fwd": [ops[0].shape], "bwd_w": [t.shape for t in ops[2:]]}[op]
     assert [t.shape for t in (got if isinstance(got, tuple) else (got,))] == want
+
+
+@pytest.mark.parametrize("geometry,tuned", [
+    (dict(SHIPPED, b=2, z=2), True), (dict(SHIPPED, c=1, b=1, z=1), True),
+    (dict(SHIPPED, t=300, w=260, step=40, b=1, z=1), True), (dict(t=201), True),
+    (dict(SHIPPED, c=65, b=1, z=1), False), (dict(SHIPPED, t=400, w=261, step=130, b=1, z=1), False),
+    (dict(o=64, z=1), False),
+], ids=["shipped", "c1", "w260", "odd-t", "c65", "w261", "o64"])
+def test_bf16_input_gradient_routes_on_meta(monkeypatch, geometry, tuned):
+    """A bf16 ``conv4head_bwd_x`` on meta tensors, the launches stood in
+    for (each counting as its launch does): at C <= 64 and windows up to 260
+    samples one B2x-bf16 launch, counted in ``launches_bf16``; at C = 65,
+    windows of 261 or O = 64 one B2x-g bf16 launch, counted in
+    ``launches_general_bf16``; never the f32 B2x, nothing adapted; dx of
+    x's shape in bf16."""
+    calls, general = [], []
+    launch, run_general = stand_in("bwd_x", calls), general_stand_in(general)
+
+    def counted(*args):
+        out = launch(*args)
+        conv4head._lib.count(conv4head_bwd_x, "launches_bf16")
+        return out
+
+    def counted_general(op, *args):
+        out = run_general(op, *args)
+        conv4head._lib.count(conv4head_bwd_x, "launches_general_bf16")
+        return out
+
+    monkeypatch.setattr(conv4head, "_require_x", lambda x: None)
+    monkeypatch.setattr(conv4head, "_launch_bwd_x", counted)
+    monkeypatch.setattr(conv4head, "_launch_general", counted_general)
+    ops, geo = meta_operands(torch.bfloat16, **geometry)
+    fn = conv4head_bwd_x
+    before = (fn.launches_bf16, fn.launches_general_bf16, fn.launches, fn.launches_general,
+              fn.adapted)
+    got = CALLS["bwd_x"](*ops, geo)
+    assert (len(calls), len(general)) == ((1, 0) if tuned else (0, 1))
+    assert (fn.launches_bf16, fn.launches_general_bf16, fn.launches, fn.launches_general,
+            fn.adapted) == (before[0] + tuned, before[1] + (not tuned), *before[2:])
+    assert got.shape == ops[1].shape and got.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("c,w,step,t", [

@@ -606,29 +606,123 @@ def test_bf16_kernels_take_odd_channel_counts(dev):
         _assert_grad_close(got, r, name)
 
 
+def _rel_l2(got, ref) -> float:
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
 def test_bf16_input_gradient_runs_b2x_g(dev):
-    """A bf16 x's input gradient on the card runs B2x-g bf16 (one launch
-    of ``launches_general_bf16``, no tuned B2x), through
+    """A bf16 x's input gradient on the card, through
     ``fused_conv4_head(...).backward()`` as through ``conv4head_bwd_x``:
-    dx in bf16 within BF16_DX_L2 in relative L2 of the plain bf16 backward's."""
+    at the shipped geometry B2x-bf16 (``launches_bf16``, no B2x-g bf16, no
+    f32 B2x), on one 800-sample window B2x-g bf16 (``launches_general_bf16``:
+    B2x-bf16 has no plan past 260 samples); dx in bf16 within BF16_DX_L2 in
+    relative L2 of the plain bf16 backward's, both routes bit-identical."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
-    cfg, _, ops, x, g = _full_width_operands(dev, 1, 2, 29)
+    for geometry, key in (({}, "launches_bf16"), (dict(window_len=800), "launches_general_bf16")):
+        cfg, _, ops, x, g = _full_width_operands(dev, 1, 2, 29, **geometry)
+        geo = (cfg.window_len, cfg.slide_step)
+        xb = x.to(torch.bfloat16)
+        ref = conv4head_bwd_bf16_plain(g, xb, *ops, *geo)[0]
+        counters = ("launches", "launches_bf16", "launches_general_bf16", "adapted")
+        before = {k: getattr(conv4head_bwd_x, k) for k in counters}
+        direct = conv4head_bwd_x(g, xb, *ops, *geo)
+        xg = xb.clone().requires_grad_(True)
+        out = fused_conv4_head(xg, *(t.detach() for t in ops), *geo)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        moved = {k: getattr(conv4head_bwd_x, k) - v for k, v in before.items()}
+        assert moved == {k: 2 if k == key else 0 for k in counters}, (geometry, moved)
+        for got in (direct, xg.grad):
+            assert got.dtype == torch.bfloat16 and got.shape == xb.shape
+            assert _rel_l2(got, ref) <= BF16_DX_L2
+        assert torch.equal(direct, xg.grad)
+
+
+# (M, B) of B2x-bf16's comparisons: chip_smoke.py's, the attribution CLIs' batches.
+B2X_BF16_SHAPES = ((2, 8), (1, 16), (1, 100))
+
+
+@pytest.mark.parametrize("m,b", B2X_BF16_SHAPES)
+def test_b2x_bf16_matches_plain(dev, m, b):
+    """B2x-bf16 at full width against ``conv4head_bwd_bf16_plain``'s dx:
+    one launch (``launches_bf16``), nothing adapted, no general kernel,
+    within BF16_DX_L2 in relative L2 (both round h1, h2, the cotangents
+    and bf16(dh1) at the Pallas kernel's points; f32 sums in other orders
+    move a few elements one bf16 ulp), and a rerun bit-identical."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    cfg, _, ops, x, g = _full_width_operands(dev, m, b, 61 * m + b)
     geo = (cfg.window_len, cfg.slide_step)
     xb = x.to(torch.bfloat16)
-    ref = conv4head_bwd_bf16_plain(g, xb, *ops, *geo)[0]
-    before = (conv4head_bwd_x.launches, conv4head_bwd_x.launches_general_bf16)
-    direct = conv4head_bwd_x(g, xb, *ops, *geo)
-    xg = xb.clone().requires_grad_(True)
-    out = fused_conv4_head(xg, *(t.detach() for t in ops), *geo)
-    (out * g).sum().backward()
+    counters = ("launches", "launches_bf16", "launches_general_bf16", "adapted")
+    before = {k: getattr(conv4head_bwd_x, k) for k in counters}
+    dx = conv4head_bwd_x(g, xb, *ops, *geo)
+    again = conv4head_bwd_x(g, xb, *ops, *geo)
     torch.cuda.synchronize()
-    assert (conv4head_bwd_x.launches, conv4head_bwd_x.launches_general_bf16) == (
-        before[0], before[1] + 2)
-    for got in (direct, xg.grad):
-        assert got.dtype == torch.bfloat16 and got.shape == xb.shape
-        assert float((got.float() - ref.float()).norm() / ref.float().norm()) <= BF16_DX_L2
-    assert torch.equal(direct, xg.grad)
+    assert {k: getattr(conv4head_bwd_x, k) - v for k, v in before.items()} == {
+        "launches": 0, "launches_bf16": 2, "launches_general_bf16": 0, "adapted": 0}
+    assert torch.equal(dx, again)
+    ref = conv4head_bwd_bf16_plain(g, xb, *ops, *geo)[0]
+    assert dx.dtype == torch.bfloat16 and dx.shape == ref.shape
+    assert _rel_l2(dx, ref) <= BF16_DX_L2
+
+
+@pytest.mark.parametrize("sz", [1, 2, 3, 8])
+def test_b2x_bf16_splits_match_plain(dev, sz):
+    """Every split of the zones into SZ ranges (partials summed by the
+    fixed-order pass when SZ > 1) gives the plain bf16 dx within BF16_DX_L2,
+    reruns bit-identical; the wrapper picks one."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    cfg, _, ops, x, g = _full_width_operands(dev, 1, 16, 67)
+    geo = (cfg.window_len, cfg.slide_step)
+    xb = x.to(torch.bfloat16)
+    dx = _launch_bwd_x(g, xb, *ops, *geo, sz)
+    assert torch.equal(_launch_bwd_x(g, xb, *ops, *geo, sz), dx)
+    assert _rel_l2(dx, conv4head_bwd_bf16_plain(g, xb, *ops, *geo)[0]) <= BF16_DX_L2
+
+
+@pytest.mark.parametrize("c,t,w,step,o", [
+    (64, 231, 117, 37, 32),  # t1 = 113: not a multiple of 8 or 16; windows of odd parity
+    (10, 800, 250, 125, 32),  # C = 10: zero-padded to 64 channels
+    (64, 300, 260, 40, 32),  # t1 = 256: 5 dx row tiles, 3 slots a warpgroup
+    (33, 801, 250, 125, 32),  # an odd T: read as it is
+    (1, 21, 5, 4, 32),  # one channel, t1 = 1
+    (10, 200, 100, 50, 16),  # dim_cnn 16: zones zero-padded to 32 channels (adapted)
+])
+def test_b2x_bf16_edges_match_plain(dev, c, t, w, step, o):
+    """B2x-bf16 at its edges, M = 2, B = 3, 3 zones: one launch on the
+    operands as they are (dim_cnn 16: adapted), dx within BF16_DX_L2 of the
+    plain bf16 backward's on the CPU."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    x, *weights = _head_operands(2, 3, c, t, 3, o, c + t + w)
+    n = (t - w) // step + 1
+    g = torch.tensor(np.random.default_rng(w).normal(size=(2, 3, n, 3 * o)).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    before = (conv4head_bwd_x.launches_bf16, conv4head_bwd_x.adapted,
+              conv4head_bwd_x.launches_general_bf16)
+    got = conv4head_bwd_x(g.to(dev), xb.to(dev), *(p.to(dev) for p in weights), w, step)
+    torch.cuda.synchronize()
+    assert (conv4head_bwd_x.launches_bf16, conv4head_bwd_x.adapted,
+            conv4head_bwd_x.launches_general_bf16) == (before[0] + 1, before[1] + (o < 32),
+                                                       before[2])
+    ref = conv4head_bwd_bf16_plain(g, xb, *weights, w, step)[0]
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _rel_l2(got.cpu(), ref) <= BF16_DX_L2
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (10, 250), (33, 117), (64, 260), (1, 5), (65, 250),
+                                 (64, 261), (128, 250)])
+def test_bwd_x_bf16_plan_mirror_matches_kernel(dev, c, w):
+    """The Python mirror of B2x-bf16's plan (the route's choice between it
+    and B2x-g bf16) gives the library's ``isd_conv4head_bwd_x_bf16_smem_bytes``,
+    -1 where it has no plan (C > 64, windows past 260)."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import bwd_x_bf16_smem_bytes
+
+    assert bwd_x_bf16_smem_bytes(c, w) == _lib.library().isd_conv4head_bwd_x_bf16_smem_bytes(
+        c, w, 32, 5)
 
 
 def test_bf16_kernels_are_deterministic_and_leave_f32_alone(dev):

@@ -1,6 +1,7 @@
-"""Byte-level emulation of kernels B2w-bf16's and B2f-bf16's wgmma
-routes, shared by ``tests/test_torch_conv4head_bwd_w_wgmma.py`` and
-``tests/test_torch_conv4head_fwd_bf16_wgmma.py`` (on the CPU) and the
+"""Byte-level emulation of kernels B2w-bf16's, B2f-bf16's and B2x-bf16's
+wgmma routes, shared by ``tests/test_torch_conv4head_bwd_w_wgmma.py``,
+``tests/test_torch_conv4head_fwd_bf16_wgmma.py`` and
+``tests/test_torch_conv4head_bwd_x_wgmma.py`` (on the CPU) and the
 one-tile descriptor self-tests of ``tests/test_torch_cuda.py`` (on the
 card).
 
@@ -36,6 +37,10 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     bwd_w_bf16_edge,
     bwd_w_bf16_plan,
     bwd_w_bf16_tiles,
+    bwd_x_bf16_dx_descs,
+    bwd_x_bf16_dx_tiles,
+    bwd_x_bf16_plan,
+    bwd_x_bf16_weights,
     chunk_offset,
     fwd_bf16_conv_descs,
     fwd_bf16_h1_rows,
@@ -196,6 +201,74 @@ def emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, s: in
             total = total + p[:, :, q]
         out.append(total.reshape(shape))
     return tuple(out)
+
+
+def emulate_bwd_x_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, sz: int = 1):
+    """B2x-bf16 on the CPU: dx in x's dtype as the kernel and its wrapper
+    compute it, with ``sz`` zone ranges per (model, trial, window). A block
+    stages its window once (rows past W zero), then walks its zones: the
+    zone's weights into weight set (z - z0) % 2, B2w-bf16's convs over the
+    window's rows (rows past t1 zero), bf16(dh1) from row K - 1, and the dx
+    tiles accumulated in f32 across the range's zones; with sz > 1 the
+    partials are summed in range order from zero (``sum_partials.cuh``);
+    the windows are overlap-added in f32 in window order, then rounded."""
+    m, b, c, t, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
+    plan = bwd_x_bf16_plan(c, window_len, o, k)
+    t1, nt, cs, csx, cp = (plan[key] for key in ("t1", "nt", "cs", "csx", "cp"))
+    half = k // 2
+    u = m * b * n  # one image row per block (model, trial, window) of a zone range
+    per_block = lambda v: v.repeat_interleave(b * n, dim=0)  # noqa: E731  (m, ...) -> (u, ...)
+    xf = x.float()
+    win = torch.stack([xf[..., ni * step : ni * step + window_len] for ni in range(n)], dim=2)
+    img0 = torch.zeros((u, plan["total"] // 2))
+    write(img0, plan["xs"], cs, win.reshape(u, c, window_len).mT)
+    real = (torch.arange(nt) < t1)[None, :, None]
+    tiles = bwd_x_bf16_dx_tiles(plan)
+
+    def conv(img, wp, src, transposed):
+        return torch.cat([wgmma(img, bwd_w_bf16_conv_descs(wp, src, tile, transposed), False,
+                                transposed) for tile in range(nt // WG_ROWS)], dim=1)
+
+    parts = []
+    for zs in range(sz):
+        img = img0.clone()
+        acc = [torch.zeros((u, WG_ROWS, 32)) for _ in tiles]
+        z0, z1 = zs * z // sz, (zs + 1) * z // sz
+        for zi in range(z0, z1):
+            buf = (zi - z0) % 2
+            wp = bwd_x_bf16_weights(plan, buf)
+            rows = slice(zi * o, (zi + 1) * o)
+            stage_weights(img, wp["w12"], per_block(w12[:, rows]), k, c, cp)
+            stage_weights(img, wp["w3"], per_block(w3[:, zi]), k, o, o)
+            stage_weights(img, wp["w4"], per_block(w4[:, zi]), k, o, o)
+            bias = per_block(b12[:, rows, 0])[:, None]
+            gz = g[..., rows].reshape(u, 1, o) / t1
+            h1 = torch.where(real, bf16(conv(img, wp, "xs", False) + bias), 0.0)
+            write(img, plan["h1"], cs, h1, row0=half)
+            h2 = torch.where(real, bf16(conv(img, wp, "h1", False)), 0.0)
+            write(img, plan["h2"], cs, h2, row0=half)
+            d3 = torch.where(real, bf16(gz * conv4head._gelu_grad(conv(img, wp, "h2", False))), 0.0)
+            write(img, plan["d3"], cs, d3, row0=half)
+            d2 = torch.where(real, bf16(conv(img, wp, "d3", True)), 0.0)
+            write(img, plan["d2"], cs, d2, row0=half)
+            d1 = torch.where(real, bf16(conv(img, wp, "d2", True)), 0.0)
+            write(img, plan["d1"], csx, d1, row0=k - 1)
+            for i, tile in enumerate(tiles):
+                acc[i] = wgmma(img, bwd_x_bf16_dx_descs(plan, tile, buf), False, True, acc[i])
+        part = torch.zeros((u, WG_ROWS * plan["nx"], 2 * 32))
+        for (mt, h), a in zip(tiles, acc):
+            part[:, WG_ROWS * mt : WG_ROWS * (mt + 1), 32 * h : 32 * (h + 1)] = a
+        parts.append(part[:, :window_len, :c].mT)  # (u, C, W): rows w < W, channels c < C
+    dxw = parts[0]
+    if sz > 1:
+        dxw = torch.zeros_like(parts[0])
+        for p in parts:
+            dxw = dxw + p
+    dxw = dxw.reshape(m, b, n, c, window_len)
+    dx = torch.zeros(x.shape)
+    for ni in range(n):
+        dx[..., ni * step : ni * step + window_len] += dxw[:, :, ni]
+    return dx.to(x.dtype)
 
 
 def selftest_cases(plan: dict, seed: int = 0):
