@@ -15,10 +15,15 @@ kernel, the dxw buffer and the overlap-add of the windows); device time is
 the kernel's and its partial pass's.
 
 f32: B2x at those shapes, and at M = 1, B = 100 on windows of 500 (step
-150), where B2x has no plan and the route launches B2x-g f32.
+150), past B2x's whole-window plan: whichever kernel the checkout's route
+launches there (B2x in column tiles, or B2x-g f32 in a checkout without
+them), beside B2x-g f32 launched directly in the same process
+(``general_*``).
 bf16: whichever kernel the checkout's route launches for a bf16 x
 (``route``: B2x-bf16, or B2x-g bf16 in a checkout without it), and B2x-g
-bf16 launched directly at the same shapes (``general_*``). ``us_per_unit``
+bf16 launched directly at the same shapes (``general_*``); and at M = 1,
+B = 100 on one window of 800 samples (step 125), where B2x-bf16 has no
+plan and the route launches B2x-g bf16. ``us_per_unit``
 is the device time spread over the card's SMs per (trial, window, zone)
 unit, the time one unit takes on one SM. Where this process built the
 kernels, the registers and spills of every instantiation of B2x and
@@ -49,7 +54,8 @@ from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 
 ITERS = 20
 SHAPES = ((2, 8), (1, 16), (1, 64), (1, 100))
-WIDE = (1, 100, 500, 150)  # (M, B, window, step) of B2x-g f32: past B2x's plan
+WIDE = (1, 100, 500, 150)  # (M, B, window, step) past B2x's whole-window plan (f32)
+WHOLE = (1, 100, 800, 125)  # (M, B, window, step) past B2x-bf16's plan: B2x-g bf16
 KERNELS = {"B2x": "conv4head_bwd_x_kernel|sum_partials_kernel",
            "B2x-bf16": "conv4head_bwd_x_bf16_|sum_partials_kernel",  # with its pre-pass
            "B2x-g": "conv4head_bwd_x_general_kernel"}
@@ -72,8 +78,12 @@ def sweep(g, x, ops, geo, m, b, n, sms, bf16: bool) -> dict:
     """Device time of each SZ = 1..8, and the wrapper's pick."""
     costs = ((conv4head.X_BF16_UNIT_S, getattr(conv4head, "X_BF16_BLOCK_S", 0.0)) if bf16
              else (conv4head.X_UNIT_S,))
+    tiles = {}
+    if not bf16 and hasattr(conv4head, "bwd_x_col_tiles"):  # a zone is its tiles' units
+        tiles["tiles"] = len(conv4head.bwd_x_col_tiles(64, geo[0]))
     pattern = KERNELS["B2x-bf16" if bf16 else "B2x"]
-    return {"pick": conv4head._bwd_x_zone_splits(m, b, n, ZONES, 64, geo[0], sms, *costs),
+    return {"pick": conv4head._bwd_x_zone_splits(m, b, n, ZONES, 64, geo[0], sms, *costs,
+                                                 **tiles),
             "sweep": [[sz, kt.device_ms(lambda: conv4head._launch_bwd_x(g, x, *ops, *geo, sz),
                                         ITERS, pattern)[0]] for sz in range(1, ZONES + 1)]}
 
@@ -105,7 +115,7 @@ def main() -> None:
     precisions = ("f32", "bf16") if args.precision == "both" else (args.precision,)
     for precision in precisions:
         bf16 = precision == "bf16"
-        shapes = [(m, b, None, None) for m, b in SHAPES] + ([] if bf16 else [WIDE])
+        shapes = [(m, b, None, None) for m, b in SHAPES] + [WHOLE if bf16 else WIDE]
         for m, b, w, step in shapes:
             cfg, geo, ops, x = kt.head_operands(m, b, dev, rng,
                                                 torch.bfloat16 if bf16 else torch.float32)
@@ -114,12 +124,12 @@ def main() -> None:
             g = torch.tensor(rng.normal(size=(m, b, n, 256)).astype(np.float32), device=dev)
             fn = lambda: conv4head.conv4head_bwd_x(g, x, *ops, *geo)  # noqa: E731
             row = time_row(args.label, precision, m, b, geo, fn, route(fn, bf16), sms, n)
-            if bf16:
+            if bf16 or w is not None:
                 general = lambda: conv4head._launch_general("bwd_x", g, x, *ops, *geo)  # noqa: E731
                 row["general_event_ms"] = kt.event_ms(general, 5)
                 row["general_device_ms"] = kt.device_ms(general, 5, KERNELS["B2x-g"])[0]
-                print(f"[{args.label}] B2x-g bf16 M={m} B={b}, launched directly: "
-                      f"{row['general_event_ms']:.4f} ms a call (CUDA events), "
+                print(f"[{args.label}] B2x-g {precision} M={m} B={b} W={geo[0]}, launched "
+                      f"directly: {row['general_event_ms']:.4f} ms a call (CUDA events), "
                       f"{row['general_device_ms']:.4f} ms on the device", flush=True)
             if bf16 and row["route"] == "B2x-bf16" and hasattr(conv4head, "BWD_X_BF16_PHASES"):
                 row["phases"] = kt.phase_split(

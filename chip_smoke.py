@@ -303,8 +303,9 @@ GPU.
    of (a)'s f32 model 0: one DECODE replayed equal to eager bit for bit,
    B2f's column tiles launched and captured; (c) integrated and expected
    gradients of the shipped FAST in bf16 (B2f-bf16, B2x-bf16), integrated
-   gradients of (a)'s f32 model (B2f in column tiles, B2x-g f32) and of FAST
-   on one 800-sample window
+   gradients of (a)'s f32 model (B2f and B2x in column tiles), of FAST at
+   dim 64 at the same windows in f32 (B2f-g, B2x-g f32) and of FAST on one
+   800-sample window
    in bf16 (B2f-g, B2x-g bf16), 100 trials each, against the CPU on 4 (bf16:
    in relative L2 under the bf16-vs-f32 gap); the counts set to 0
    before (b) and read after (c), held to what the calls imply, and every
@@ -318,8 +319,14 @@ GPU.
    workspace slot: B2f-g and B2w-g at (a)'s step (M = 75, B = 64), f32 and
    bf16, models 0, 37 and 74, reruns bit-identical, and so B2f's, B2w's and
    B2w-bf16's column tiles (also timed at M = 2, B = 8); B2x-g at (c)'s M =
-   1, B = 100 (bf16 at windows of 250, f32 at 500) on every trial. The f32
-   step's profile prints B2f's and B2w's shares of its device time.
+   1, B = 100 (bf16 on one 800-sample window, f32 at windows of 500) and
+   B2x's column tiles there, on every trial, B2x's rerun bit-identical; (e)
+   B2x's column tiles launched directly against the plain input gradient
+   at M = 2, B = 8, windows of 285, 500 and 800, C = 13 and 64, SZ = 1, 2
+   and 8, reruns bit-identical, and timed at M = 1, B = 100, windows of 500
+   (CUDA events and device time) beside their bound and B2x-g f32 launched
+   directly. The f32 step's profile prints B2f's and B2w's shares of its
+   device time.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -382,6 +389,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
+    bwd_x_col_tiles,
     general_plan,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.iir import (
@@ -4951,19 +4959,23 @@ def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
     first EG_CPU_TRIALS trials: integrated gradients (IG_STEPS steps) and
     expected gradients (EG_SAMPLES draws against EG_BACKGROUND trials) of
     the shipped FAST in bf16 (B2f-bf16, B2x-bf16); integrated gradients
-    of (a)'s f32 model at windows of 500 (B2f in column tiles, B2x-g f32)
-    and of FAST on one window of the whole trial in bf16 (B2f-g, B2x-g
+    of (a)'s f32 model at windows of 500 (B2f and B2x in column tiles), of
+    FAST at dim GEN_WIDE_DIM at those windows in f32 (B2f-g, B2x-g f32: O >
+    32) and of FAST on one window of the whole trial in bf16 (B2f-g, B2x-g
     bf16)."""
     perm = np.random.default_rng(SEED).permutation(X.shape[1])
     bg_np = X[0, perm[:EG_BACKGROUND]]
     sel = perm[EG_BACKGROUND:EG_BACKGROUND + EG_TRIALS]
     k = EG_CPU_TRIALS
     cfg800 = dataclasses.replace(cfg, **GEN_WHOLE)
+    cfg_wide = dataclasses.replace(cfg500, dim_cnn=GEN_WIDE_DIM)
     runs = {}
     for name, c_, sd, dtype in (
             ("shipped bf16", cfg, from_jax_params(init_jax_layout_params(cfg, SEED)),
              torch.bfloat16),
             (f"windows of {cfg500.window_len} f32", cfg500, state500, torch.float32),
+            (f"dim {GEN_WIDE_DIM} at windows of {cfg500.window_len} f32", cfg_wide,
+             from_jax_params(init_jax_layout_params(cfg_wide, SEED)), torch.float32),
             ("one window of 800 bf16", cfg800, from_jax_params(init_jax_layout_params(cfg800, SEED)),
              torch.bfloat16)):
         bf16 = dtype == torch.bfloat16
@@ -5060,7 +5072,8 @@ def general_path_checks(dev) -> dict:
     launch bit-identical; B2f's, B2w's and B2w-bf16's column tiles likewise
     at (a)'s step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 on
     one 800-sample window (the shipped windows take B2x-bf16) and f32 at windows of
-    500, every trial.
+    500, and B2x's column tiles there (what the route runs for f32), every trial,
+    B2x's rerun bit-identical.
     ``check_general``'s tolerances; the largest absolute error of each."""
     out = {}
     c, w, step, o = GEN_ENTRY
@@ -5135,14 +5148,27 @@ def general_path_checks(dev) -> dict:
             "shape": {"M": mx, "B": bx, "W": w}}
         if bf16:
             row["l2"] = rel_l2(got, ref)
+        else:  # B2x's column tiles, which the route takes for f32 there
+            with uncounted():
+                tiles = _launch_bwd_x(g, x, *ops, w, step)
+                again = _launch_bwd_x(g, x, *ops, w, step)
+            what = f"B2x column tiles M={mx} B={bx} W={w}"
+            if not torch.equal(tiles, again):
+                raise RuntimeError(f"{what}: a rerun differs")
+            out[("bwd_x_tiles", False)] = {
+                "max_abs_err": check_general("bwd_x", False, tiles, ref, what), "trials": bx,
+                "shape": {"M": mx, "B": bx, "W": w}}
+            del tiles, again
         del g, x32, x, ops, got, ref
     torch.cuda.empty_cache()
     for (op, bf16), r in out.items():
-        if op in ("fwd_tiles", "bwd_w_tiles"):
-            name = {"fwd_tiles": "B2f", "bwd_w_tiles": "B2w"}[op] + ("-bf16" if bf16 else "")
+        if op in ("fwd_tiles", "bwd_w_tiles", "bwd_x_tiles"):
+            name = {"fwd_tiles": "B2f", "bwd_w_tiles": "B2w", "bwd_x_tiles": "B2x"}[op] + (
+                "-bf16" if bf16 else "")
             print(f"{name} path check at {json.dumps(r['shape'])} "
-                  f"(column tiles): max|err| {r['max_abs_err']:.3g} against plain on models "
-                  f"{r['models']}, rerun bit-identical", flush=True)
+                  f"(column tiles): max|err| {r['max_abs_err']:.3g} against plain on "
+                  + (f"models {r['models']}" if "models" in r else f"all {r['trials']} trials")
+                  + ", rerun bit-identical", flush=True)
             continue
         print(f"general path check {op} {'bf16' if bf16 else 'f32'} at {json.dumps(r['shape'])} "
               f"({r['units_a_block']:.2f} units a block"
@@ -5154,6 +5180,78 @@ def general_path_checks(dev) -> dict:
     return out
 
 
+# (e): B2x's column tiles against the plain input gradient, (C, W, step) at M = 2,
+# B = 8, T = 800, each at SZ = 1, 2 and 8 zone ranges: windows past the whole
+# window's plan at C = 64 (285: two tiles, the last owning 33 rows; 800: four),
+# and at C = 13 the whole window at 285 (C <= 32 holds it to 436), tiles at 500
+# and 800.
+B2X_TILE_GRID = tuple((c, w, step) for c in (13, 64) for w, step in ((285, 128), (500, 150),
+                                                                      (800, 1)))
+B2X_TILE_SPLITS = (1, 2, 8)
+
+
+def phase_b2x_column_tiles(dev, rng) -> dict:
+    """(e) B2x's column tiles launched directly (uncounted) against
+    ``conv4head_bwd_x_plain`` at B2X_TILE_GRID and B2X_TILE_SPLITS (M = 2, B
+    = 8), at rtol BWD_RTOL / atol BWD_RTOL x max|ref|, each launch again
+    bit-identical. Then timed at GEN_ENTRY's windows of 500 at M = 2, B = 8
+    and at (c)'s M = 1, B = 100 (CUDA events; device time at M = 1, B =
+    100) beside their bound and their plain version, and B2x-g f32 launched
+    directly on the same operands."""
+    errs = {}
+    m, b = GEN_SHAPE
+    with uncounted():
+        for c, w, step in B2X_TILE_GRID:
+            g, x, *ops = general_operands(dev, rng, m, b, c, 800, 8, 32, w, step)
+            ref = conv4head_bwd_x_plain(g, x, *ops, w, step)
+            for sz in B2X_TILE_SPLITS:
+                what = f"B2x column tiles C={c} W={w} SZ={sz}"
+                got = _launch_bwd_x(g, x, *ops, w, step, sz)
+                if not torch.equal(got, _launch_bwd_x(g, x, *ops, w, step, sz)):
+                    raise RuntimeError(f"{what}: a rerun differs")
+                errs[(c, w, sz)] = check_close(what, got, ref, BWD_RTOL,
+                                               BWD_RTOL * float(ref.abs().max()))
+            del g, x, ops, ref
+    print("general (e): B2x's column tiles against the plain input gradient at M=2 B=8 "
+          f"(tiles a window: {json.dumps({f'C={c} W={w}': len(bwd_x_col_tiles(c, w)) for c, w, _ in B2X_TILE_GRID})}), "
+          "reruns bit-identical; max|err|: " + json.dumps(
+              {f"C={c} W={w} SZ={sz}": float(f"{v:.3g}") for (c, w, sz), v in errs.items()}),
+          flush=True)
+    _, w, step, _ = GEN_ENTRY
+    rows = {}
+    for m, b in (GEN_SHAPE, GEN_ATTR_SHAPE):
+        g, x, *ops = general_operands(dev, rng, m, b, 64, 800, 8, 32, w, step)
+        tiled = lambda: _launch_bwd_x(g, x, *ops, w, step)  # noqa: E731
+        general = lambda: _launch_general("bwd_x", g, x, *ops, w, step)  # noqa: E731
+        with uncounted():
+            ref = conv4head_bwd_x_plain(g, x, *ops, w, step)
+            row = {"max_abs_err": check_close(f"B2x column tiles M={m} B={b} W={w}", tiled(),
+                                              ref, BWD_RTOL, BWD_RTOL * float(ref.abs().max())),
+                   "ms": cuda_ms(tiled, 5), "plain_ms": cuda_ms(
+                       lambda: conv4head_bwd_x_plain(g, x, *ops, w, step), 3),
+                   "general_ms": cuda_ms(general, 3)}
+            if (m, b) == GEN_ATTR_SHAPE:
+                row["device_ms"] = device_ms(tiled, B2X_KERNELS, 5)
+                row["general_device_ms"] = device_ms(general, GEN_KERNELS["bwd_x"], 3)
+        (row["bound_ms"], row["bound_by"]), _ = general_bound("bwd_x", False, m, b, 64, 800, 8,
+                                                              32, w, step)
+        row["shape"] = {"M": m, "B": b, "C": 64, "T": 800, "W": w, "step": step, "O": 32, "Z": 8}
+        row["tiles"] = len(bwd_x_col_tiles(64, w))
+        ms = row.get("device_ms", row["ms"])
+        print(f"B2x (column tiles) at {json.dumps(row['shape'])}: {row['ms']:.4f} ms (CUDA "
+              f"events)" + (f", {row['device_ms']:.4f} ms device time" if "device_ms" in row
+                            else "")
+              + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_ms'] / ms:.1%}); B2x-g f32 launched directly {row['general_ms']:.4f} "
+              f"ms" + (f" ({row['general_device_ms']:.4f} ms device time)"
+                       if "general_device_ms" in row else "")
+              + f", {row.get('general_device_ms', row['general_ms']) / ms:.2f}x; plain "
+              f"{row['plain_ms']:.3f} ms; max|err| {row['max_abs_err']:.3g}", flush=True)
+        rows[(m, b)] = row
+        del g, x, ops, ref
+    return {"grid": errs, "m1_b100": rows[GEN_ATTR_SHAPE], "m2_b8": rows[GEN_SHAPE]}
+
+
 def phase_general_kernels(dev, rng) -> dict:
     """(d) Each general kernel, launched directly, against its plain version
     on the card at M = 2, B = 8, f32 and bf16, on GEN_GRID: C = 80 and 128 at
@@ -5163,7 +5261,8 @@ def phase_general_kernels(dev, rng) -> dict:
     plain version: each kernel at GEN_ENTRY (B2x-g at the shipped geometry),
     and B2x-g bf16 at M = 1, B = 100 (global-explain's batch) also by device
     time; B2f's, B2w's and B2w-bf16's column tiles at GEN_ENTRY, which the
-    route runs there. Last, ``general_path_checks`` at the path's shapes."""
+    route runs there; (e) B2x's column tiles (``phase_b2x_column_tiles``).
+    Last, ``general_path_checks`` at the path's shapes."""
     m, b = GEN_SHAPE
     rows = {}
     for c, w, step, o in GEN_GRID:
@@ -5254,9 +5353,13 @@ def phase_general_kernels(dev, rng) -> dict:
                                            "bound_ms": x_bound, "bound_by": x_by,
                                            "f32_core_floor_ms": x_floor}
     del g, x32, xb, ops
+    x_tiles = phase_b2x_column_tiles(dev, rng)
     for key, r in general_path_checks(dev).items():
         if key[0] == "bwd_w_tiles":
             tiles[key[1]]["path_check"] = r
+            continue
+        if key[0] == "bwd_x_tiles":
+            x_tiles["m1_b100"]["path_check"] = r
             continue
         if key[0] == "fwd_tiles":
             fwd["path_check"] = r
@@ -5273,7 +5376,7 @@ def phase_general_kernels(dev, rng) -> dict:
           f"{x_bound / x_dev:.1%}), CUDA-core f32 floor {x_floor:.4f} ms "
           f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
     return {"grid": rows, "entries": entries, "tiles_w500": tiles[True],
-            "tiles_w500_f32": tiles[False], "fwd_tiles_w500": fwd}
+            "tiles_w500_f32": tiles[False], "fwd_tiles_w500": fwd, "x_tiles_w500": x_tiles}
 
 
 def phase_general(cfg, dev, X, Y, rng) -> dict:
@@ -5292,7 +5395,8 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     launches = read_launches()
     per_call = {"fwd": 1 + IG_STEPS, "ig": IG_STEPS, "eg": EG_SAMPLES}
     want = {"conv4head_fwd": decoder["launches"] + per_call["fwd"],
-            "conv4head_bwd_x_general": per_call["ig"],
+            "conv4head_bwd_x": per_call["ig"],
+            "conv4head_fwd_general": per_call["fwd"], "conv4head_bwd_x_general": per_call["ig"],
             "conv4head_fwd_bf16": per_call["fwd"] + EG_SAMPLES,
             "conv4head_bwd_x_bf16": per_call["ig"] + EG_SAMPLES,
             "conv4head_bwd_x_general_bf16": per_call["ig"],
@@ -5302,11 +5406,11 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
     path = {k: sum(run["launches"].get(k, 0) for run in training.values()) + moved.get(k, 0)
             for k in GENERAL_KEYS + HEAD_KERNELS["bf16"] + HEAD_KERNELS["f32"]
-            + ("conv4head_bwd_x_bf16",)}
+            + ("conv4head_bwd_x", "conv4head_bwd_x_bf16")}
     if not all(path.values()):
         raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
     print(f"general (a)-(c): the general kernels', the bf16 kernels' (B2x-bf16 in (c)) and "
-          f"B2f's and B2w's "
+          f"B2f's, B2w's and B2x's (column tiles) "
           f"launches on the path {json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
@@ -5570,6 +5674,14 @@ def main() -> None:
     for name, key in (("conv4head_bwd_w_bf16", "tiles_w500"), ("conv4head_bwd_w", "tiles_w500_f32"),
                       ("conv4head_fwd", "fwd_tiles_w500")):
         next(k for k in kernels if k["name"] == name)["w500"] = general["kernels"][key]
+    # B2x's column tiles: section 14 (c)'s f32 integrated gradients at windows of 500, and
+    # (e)'s times and errors ("grid": M = 2, B = 8 against the plain input gradient).
+    x_tiles = general["kernels"]["x_tiles_w500"]
+    entry = next(k for k in kernels if k["name"] == "conv4head_bwd_x")
+    entry["launches_general_section"] = general["path"]["conv4head_bwd_x"]
+    entry["launches"] += entry["launches_general_section"]
+    entry["w500"] = {**x_tiles["m1_b100"], "m2_b8": x_tiles["m2_b8"],
+                     "grid_max_abs_err": max(x_tiles["grid"].values())}
     # The general-geometry kernels (section 14): launches on its path (a)-(c); times
     # and errors from (d) at GEN_ENTRY (B2x-g at the shipped geometry), M = 2, B = 8;
     # "path_check": the errors at the path's shapes (``general_path_checks``).

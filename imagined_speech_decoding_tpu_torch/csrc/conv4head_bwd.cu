@@ -140,12 +140,38 @@
 //    Cp = C rounded up to 32 (a pair of dx's row tiles), so a reduction
 //    step of 8 never straddles two taps and every row of A that a warp
 //    reads lies inside its tap.
+//  * Long windows: the plan holds a whole window up to 284 samples at C =
+//    64 (230,144 B; 217,856 B at windows of 260). Past that a unit runs its
+//    window in B2w's column tiles (conv4head_common.cuh): tile j stages
+//    the window's columns [240 j, 240 j + 260) on the plan of windows of
+//    260 samples, recomputes h1 .. dh1 over its 256 rows (zero from the
+//    window's end on; gz is g / t1 of the whole window) and keeps in dh1
+//    only the rows it owns, [8, 248) at interior edges, exact zeros
+//    elsewhere: a halo row kept would be counted twice. dx at window
+//    column w reads dh1 rows w - 4 .. w, so the owned rows [lo, hi) reach
+//    dx columns [lo, hi + K - 1), and two neighbouring tiles both reach
+//    the K - 1 = 4 seam columns [240 j + 8, 240 j + 12) between them; dh1
+//    is exact only 8 rows inside an edge, so no tile can take them alone.
+//    The seam is summed in one block, in a fixed order, without atomics:
+//    a block runs its zones in turn and each zone's tiles in turn, every
+//    tile adds into the block's dxw slice, the seam columns always add, and
+//    only the first zone writes, its other columns. Zones outside the
+//    tiles, and not tiles outside the zones: a zone's 80 KB of weights is
+//    then staged once (tiles outside would stage it once a tile), and the
+//    66.5 KB window tile staged per (zone, tile) streams in by cp.async
+//    behind the phases after h1 (the window is dead once h1 has read it).
+//    At windows of 500 a (trial, window, zone) computes 2 x 256 rows and
+//    2 x 256 dx columns, against 248 and 256 at the shipped windows: the
+//    tiles are bound, as the whole window is, by the products on the
+//    tensor cores, 2.05x the shipped unit's. C = 65-96 (Cp = 96) fits
+//    neither plan (271,616 B tiled) and stays on B2x-g.
 // Both kernels take O and K as template arguments, instantiated only for
 // the shipped model's O = 32, K1 = K2 = 5, with compile-time strides for
-// its C = 64, W = 250 beside a generic instantiation (B2w: and column
-// tiles at C = 64 and at any C); B2w also needs C % 8 == 0 (a reduction
-// step of 8 rows never straddles two taps). ops/cuda/conv4head.py mirrors
-// B2w's plans and tiles (bwd_w_smem_bytes, bwd_w_col_tiles).
+// its C = 64, W = 250 beside a generic instantiation, and column tiles at
+// C = 64 and at any C; B2w also needs C % 8 == 0 (a reduction step of 8
+// rows never straddles two taps). ops/cuda/conv4head.py mirrors both plans
+// and tiles (bwd_w_smem_bytes, bwd_w_col_tiles, bwd_x_smem_bytes,
+// bwd_x_col_tiles).
 
 #include <cuda_runtime.h>
 
@@ -468,28 +494,30 @@ __host__ __device__ inline XPlan x_plan(int C, int W, int O, int K) {
   return p;
 }
 
-// dx[c * W + w] (+)= sum_{k, o} w12z[o, k*C + c] * dh1[o, w - k] for c < C,
-// w < W: a GEMM of Cp x wp over K*O, with w12z staged as
-// a[o * lda + k * cp + c] and dh1[o, t] at d[o * ldd + K - 1 + t], zero for
-// t outside [0, t1). A[c, k*O + o] = a[o * lda + k * cp + c] is read in
-// place and B[k*O + o, w] = d[o * ldd + K - 1 - k + w] is dh1 shifted by
-// the tap (conv_tc's kT pattern, with the tap's stride cp and C rows).
-// Warp tw of a team of kTeam takes the units tw, tw + kTeam, ...: a unit
-// is a pair of 16-row tiles and NT consecutive 8-column tiles (a tile past
-// the end is computed as the last one and not stored). Each lane adds its
-// accumulators into fixed elements of dx; `first` writes instead.
+// dx[c * ldo + w] (+)= sum_{k, o} w12z[o, k*C + c] * dh1[o, w - k] for c < C
+// and w in [w0, w1) (w0 a multiple of 8): a GEMM of Cp x (w1 - w0, rounded
+// up to 8) over K*O, with w12z staged as a[o * lda + k * cp + c] and
+// dh1[o, t] at d[o * ldd + K - 1 + t], zero for t outside the rows that
+// enter dx. A[c, k*O + o] = a[o * lda + k * cp + c] is read in place and
+// B[k*O + o, w] = d[o * ldd + K - 1 - k + w] is dh1 shifted by the tap
+// (conv_tc's kT pattern, with the tap's stride cp and C rows). Warp tw of
+// a team of kTeam takes the units tw, tw + kTeam, ...: a unit is a pair of
+// 16-row tiles and NT consecutive 8-column tiles (a tile past the end is
+// computed as the last one and not stored). Each lane adds its
+// accumulators into fixed elements of dx; `first` writes instead in the
+// columns from wf on (even: a lane's two columns lie on one side of it).
 template <int O, int K, int NT, int kTeam>
-__device__ inline void input_grad_tc(float* __restrict__ dx, bool first, const float* d, int ldd,
-                                     const float* a, int lda, int C, int cp, int W, int wp,
-                                     int tw) {
+__device__ inline void input_grad_tc(float* __restrict__ dx, int ldo, bool first, int w0, int wf,
+                                     int w1, const float* d, int ldd, const float* a, int lda,
+                                     int C, int cp, int tw) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int pairs = cp >> 5, tiles = wp >> 3;
+  const int pairs = cp >> 5, t0 = w0 >> 3, tiles = ((w1 + 7) >> 3) - t0;
   const int units = pairs * ((tiles + NT - 1) / NT);
   for (int u = tw; u < units; u += kTeam) {
     const int r0 = 32 * (u % pairs), base = NT * (u / pairs);
     int col[NT];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) col[j] = 8 * min(base + j, tiles - 1) + g;
+    for (int j = 0; j < NT; ++j) col[j] = 8 * (t0 + min(base + j, tiles - 1)) + g;
     float acc[2][NT][4] = {};
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -515,27 +543,28 @@ __device__ inline void input_grad_tc(float* __restrict__ dx, bool first, const f
         isd::mma3_step<2, NT>(acc, av, bv);
       }
     }
-    const bool pairs_fit = (W & 1) == 0;  // float2 stores stay 8-byte aligned
+    const bool pairs_fit = (ldo & 1) == 0;  // float2 stores stay 8-byte aligned
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (base + j >= tiles) continue;
-      const int w = 8 * (base + j) + 2 * q;
+      const int w = 8 * (t0 + base + j) + 2 * q;
+      const bool wr = first && w >= wf;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int c = r0 + 16 * i + 8 * h + g;
           if (c >= C) continue;
-          float* p = dx + static_cast<size_t>(c) * W + w;
+          float* p = dx + static_cast<size_t>(c) * ldo + w;
           const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-          if (pairs_fit && w + 1 < W) {
-            float2 v = first ? make_float2(0.f, 0.f) : *reinterpret_cast<float2*>(p);
+          if (pairs_fit && w + 1 < w1) {
+            float2 v = wr ? make_float2(0.f, 0.f) : *reinterpret_cast<float2*>(p);
             v.x += v0;
             v.y += v1;
             *reinterpret_cast<float2*>(p) = v;
           } else {
-            if (w < W) p[0] = (first ? 0.f : p[0]) + v0;
-            if (w + 1 < W) p[1] = (first ? 0.f : p[1]) + v1;
+            if (w < w1) p[0] = (wr ? 0.f : p[0]) + v0;
+            if (w + 1 < w1) p[1] = (wr ? 0.f : p[1]) + v1;
           }
         }
       }
@@ -543,11 +572,34 @@ __device__ inline void input_grad_tc(float* __restrict__ dx, bool first, const f
   }
 }
 
+// The plan a B2x launch takes for windows of W: the whole window where it
+// fits a block, else column tiles on the plan of windows of kColSpan + K -
+// 1 samples, whatever W is (mirrored by bwd_x_smem_bytes in
+// ops/cuda/conv4head.py).
+__host__ __device__ inline bool x_tiled(int C, int W, int O, int K) {
+  return static_cast<int>(sizeof(float)) * x_plan(C, W, O, K).total > isd::kMaxSmemBytes;
+}
+
+__host__ __device__ inline XPlan x_block_plan(int C, int W, int O, int K) {
+  return x_plan(C, x_tiled(C, W, O, K) ? isd::kColSpan + K - 1 : W, O, K);
+}
+
 // B2x: block (n * SZ + zs, b, m) covers zones [zs*Z/SZ, (zs+1)*Z/SZ) of
 // trial b's window n in model m, and writes their sum of the window's
-// input gradient (C x W) to out + ((m*B + b)*N + n)*SZ + zs. Per zone, six
-// phases between barriers (h1 | h2 | h3 -> dh3 | dh2 | dh1 | dx). kC, kW >
-// 0 fix C and W at compile time; 0 takes them from the arguments.
+// input gradient (C x W) to out + ((m*B + b)*N + n)*SZ + zs. A unit is a
+// zone, or in column tiles (kW < 0) a (zone, tile) pair, the tiles of a
+// zone in turn; per unit six phases between barriers (h1 | h2 | h3 -> dh3
+// | dh2 | dh1 | dx). Tile j stages the window's columns [s, s + kColSpan +
+// K - 1), s = kColStep j (the next unit's stream in by cp.async once h1 has
+// read them), computes rows [0, nt8) of its own (row t is the window's s +
+// t; zero from the window's end e = t1 - s on), keeps in dh1 only the rows
+// it owns, [lo, hi) ([kColHalo, kColSpan - kColHalo) at interior edges),
+// and adds their reach, dx columns [lo, hi + K - 1), into the window's
+// columns from s + lo: the K - 1 columns from lo, which tile j - 1 reached
+// too, always add; the block's first zone writes the rest. kC > 0 fixes C
+// at compile time, kW > 0 W (the shipped model's geometry), so every stride
+// and trip count is a constant; in column tiles the plan is one layout for
+// every W, so kC alone fixes it; 0 takes them from the arguments.
 template <int O, int K, int kC, int kW>
 __global__ void __launch_bounds__(kWarpsX * 32, 1)
 conv4head_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ x,
@@ -556,14 +608,17 @@ conv4head_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ x,
                        float* __restrict__ out, int B, int C_arg, int T, int Z, int N, int W_arg,
                        int step, int SZ) {
   static_assert(O == 32, "two 16-row tiles of O");
+  constexpr bool kTiled = kW < 0;
+  constexpr int kSpanCols = isd::kColSpan + K - 1;  // a column tile's window columns
   const int C = kC > 0 ? kC : C_arg, W = kW > 0 ? kW : W_arg;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int n = blockIdx.x / SZ, zs = blockIdx.x - n * SZ, b = blockIdx.y, m = blockIdx.z;
   const int t1 = W - K + 1;
   const int warp = threadIdx.x >> 5;
-  const XPlan plan = x_plan(C, W, O, K);
-  const int ld = plan.ld, nt8 = plan.nt8, cp = plan.cp, lw1 = plan.lw1, lw = plan.lw;
+  const XPlan plan = x_plan(C, kTiled ? kSpanCols : W, O, K);
+  const int ld = plan.ld, cp = plan.cp, lw1 = plan.lw1, lw = plan.lw;
+  const int tiles = kTiled ? isd::col_tile_count(t1) : 1;
   float* xs = smem + plan.xs;
   float* ha = smem + plan.a;
   float* hb = smem + plan.b;
@@ -576,42 +631,61 @@ conv4head_bwd_x_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const size_t mbn = (static_cast<size_t>(m) * B + b) * N + n;
   float* dxw = out + (mbn * SZ + zs) * C * W;
   const int z0 = zs * Z / SZ, z1 = (zs + 1) * Z / SZ;
+  const float* xw = x + (static_cast<size_t>(m) * B + b) * C * T + static_cast<size_t>(n) * step;
+  const auto tile_cols = [&](int j) {
+    return kTiled ? min(kSpanCols, W - j * isd::kColStep) : W;
+  };
 
   for (int i = threadIdx.x; i < (cp - C) * ld; i += blockDim.x) xs[C * ld + i] = 0.f;
-  stage_window_async<kWarpsX>(xs, ld, x + (static_cast<size_t>(m) * B + b) * C * T +
-                                          static_cast<size_t>(n) * step, C, T, W);
-  const auto same = [&](int, int t, float v) { return t < t1 ? v : 0.f; };
-  for (int z = z0; z < z1; ++z) {
-    isd::stage_w12_async<O, K, kWarpsX>(w12s, lw1, op.w12 + static_cast<size_t>(z) * O * K * C, C,
-                                        cp);
-    stage_rows_async<kWarpsX>(w3s, w3s + 16 * lw, lw, op.w3 + static_cast<size_t>(z) * O * K * O,
-                              K * O);
-    stage_rows_async<kWarpsX>(w4s, w4s + 16 * lw, lw, op.w4 + static_cast<size_t>(z) * O * K * O,
-                              K * O);
-    if (threadIdx.x < O) {
-      bias[threadIdx.x] = op.b12[z * O + threadIdx.x];
-      gz[threadIdx.x] = g[mbn * Z * O + z * O + threadIdx.x] / t1;
+  stage_window_async<kWarpsX>(xs, ld, xw, C, T, tile_cols(0));
+  const int units = (z1 - z0) * tiles;
+  for (int u = 0; u < units; ++u) {
+    const int zi = kTiled ? u / tiles : u, j = u - zi * tiles, z = z0 + zi;
+    if (j == 0) {  // the zone's weights
+      isd::stage_w12_async<O, K, kWarpsX>(w12s, lw1, op.w12 + static_cast<size_t>(z) * O * K * C,
+                                          C, cp);
+      stage_rows_async<kWarpsX>(w3s, w3s + 16 * lw, lw,
+                                op.w3 + static_cast<size_t>(z) * O * K * O, K * O);
+      stage_rows_async<kWarpsX>(w4s, w4s + 16 * lw, lw,
+                                op.w4 + static_cast<size_t>(z) * O * K * O, K * O);
+      if (threadIdx.x < O) {
+        bias[threadIdx.x] = op.b12[z * O + threadIdx.x];
+        gz[threadIdx.x] = g[mbn * Z * O + z * O + threadIdx.x] / t1;
+      }
     }
     isd::cp_async_wait_all();
     __syncthreads();
+    // The tile's rows: s its first window column, e the window's end, nt8
+    // computed (whole 8-row tiles), [lo, hi) owned.
+    const int s = j * isd::kColStep, e = t1 - s;
+    const int nt8 = kTiled ? min((e + 7) & ~7, plan.nt8) : plan.nt8;
+    const int lo = j > 0 ? isd::kColHalo : 0;
+    const int hi = j + 1 < tiles ? isd::kColSpan - isd::kColHalo : e;
+    const auto same = [&](int, int t, float v) { return t < e ? v : 0.f; };
     conv_tc<K, false, kNtConv, kWarpsX>(  // h1
         ha, ld, w12s, w12s + 16 * lw1, lw1, xs, ld, cp, nt8, warp,
-        [&](int o, int t, float v) { return t < t1 ? v + bias[o] : 0.f; });
+        [&](int o, int t, float v) { return t < e ? v + bias[o] : 0.f; });
     __syncthreads();
+    if (kTiled && u + 1 < units) {  // the window is read: the next unit's columns
+      const int jn = j + 1 < tiles ? j + 1 : 0;
+      stage_window_async<kWarpsX>(xs, ld, xw + jn * isd::kColStep, C, T, tile_cols(jn));
+    }
     conv_tc<K, false, kNtConv, kWarpsX>(  // h2
         hb, ld, w3s, w3s + 16 * lw, lw, ha, ld, O, nt8, warp, same);
     __syncthreads();
     conv_tc<K, false, kNtConv, kWarpsX>(  // h3 -> dh3
         ha, ld, w4s, w4s + 16 * lw, lw, hb, ld, O, nt8, warp,
-        [&](int o, int t, float v) { return t < t1 ? gz[o] * isd::gelu_grad(v) : 0.f; });
+        [&](int o, int t, float v) { return t < e ? gz[o] * isd::gelu_grad(v) : 0.f; });
     __syncthreads();
     conv_tc<K, true, kNtConv, kWarpsX>(  // dh2 = conv4^T(dh3)
         hb, ld, w4s, nullptr, lw, ha, ld, O, nt8, warp, same);
     __syncthreads();
-    conv_tc<K, true, kNtConv, kWarpsX, K - 1>(  // dh1 = conv3^T(dh2), from column K - 1
-        ha, plan.ldx, w3s, nullptr, lw, hb, ld, O, nt8, warp, same);
+    conv_tc<K, true, kNtConv, kWarpsX, K - 1>(  // dh1 = conv3^T(dh2), owned rows, from column K - 1
+        ha, plan.ldx, w3s, nullptr, lw, hb, ld, O, nt8, warp,
+        [&](int, int t, float v) { return t >= lo && t < hi ? v : 0.f; });
     __syncthreads();
-    input_grad_tc<O, K, kNtDx, kWarpsX>(dxw, z == z0, ha, plan.ldx, w12s, lw1, C, cp, W, plan.wp,
+    input_grad_tc<O, K, kNtDx, kWarpsX>(dxw + s, W, zi == 0, lo, j > 0 ? lo + K - 1 : 0,
+                                        min(hi + K - 1, W - s), ha, plan.ldx, w12s, lw1, C, cp,
                                         warp);
     __syncthreads();
   }
@@ -652,10 +726,14 @@ template <int O, int K>
 cudaError_t launch_x(const float* g, const float* x, const float* w12, const float* b12,
                      const float* w3, const float* w4, float* dxw, float* part, int M, int B,
                      int C, int T, int Z, int W, int step, int N, int SZ, cudaStream_t st) {
-  const size_t smem_bytes = sizeof(float) * x_plan(C, W, O, K).total;
-  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
-  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_x_kernel<O, K, 64, 250>
-                                            : conv4head_bwd_x_kernel<O, K, 0, 0>;
+  const size_t smem_bytes = sizeof(float) * x_block_plan(C, W, O, K).total;
+  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides,
+  // and so do column tiles at 64 channels (one layout for every W).
+  const auto kernel = !x_tiled(C, W, O, K)
+                          ? ((C == 64 && W == 250) ? conv4head_bwd_x_kernel<O, K, 64, 250>
+                                                   : conv4head_bwd_x_kernel<O, K, 0, 0>)
+                          : (C == 64 ? conv4head_bwd_x_kernel<O, K, 64, -1>
+                                     : conv4head_bwd_x_kernel<O, K, 0, -1>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
@@ -667,9 +745,16 @@ cudaError_t launch_x(const float* g, const float* x, const float* w12, const flo
 
 }  // namespace
 
-// Dynamic shared memory of one B2x block, in bytes.
+// Dynamic shared memory of one B2x block, in bytes: the whole window's
+// plan where it fits a block, else the column tiles'.
 extern "C" int isd_conv4head_bwd_x_smem_bytes(int C, int W, int O, int K) {
-  return static_cast<int>(sizeof(float)) * x_plan(C, W, O, K).total;
+  return static_cast<int>(sizeof(float)) * x_block_plan(C, W, O, K).total;
+}
+
+// Units of one (trial, window, zone) in B2x: 1 where the whole window's
+// plan fits a block, else its column tiles.
+extern "C" int isd_conv4head_bwd_x_col_tiles(int C, int W, int O, int K) {
+  return x_tiled(C, W, O, K) ? isd::col_tile_count(W - K + 1) : 1;
 }
 
 // Dynamic shared memory of one B2w block, in bytes: the whole window's

@@ -469,15 +469,15 @@ def f32_plan_fits(op: str, c: int, window_len: int, tiles: bool = True) -> bool:
     for C channels at windows of ``window_len`` that fits a block, after
     ``_adapted``'s padding (O to 32, B2w's C to a multiple of 8), by the
     Python mirrors of the library's plans (the card tests hold them equal).
-    B2f's and B2w's column tiles count only with ``tiles``; without, the
-    whole window's plan must fit."""
+    The column tiles of B2f, B2w and B2x count only with ``tiles``;
+    without, the whole window's plan must fit."""
     if op == "fwd":
         nbytes = (fwd_smem_bytes if tiles else fwd_plan_bytes)(c, window_len)
     elif op == "bwd_w":
         plan = bwd_w_smem_bytes if tiles else bwd_w_plan_bytes
         nbytes = plan(c + (-c) % 8, window_len)
     else:
-        nbytes = bwd_x_smem_bytes(c, window_len)
+        nbytes = (bwd_x_smem_bytes if tiles else bwd_x_plan_bytes)(c, window_len)
     return nbytes <= MAX_SMEM_BYTES
 
 
@@ -486,7 +486,8 @@ def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal
     tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient that
     B2x-bf16 has no plan for (``bwd_x_bf16_smem_bytes``: C > 64, windows
     past 260 samples); or no tuned plan fitting: f32 where the f32 plan
-    (B2f and B2w: in column tiles past the whole window's) does not fit,
+    (in column tiles past the whole window's) does not fit (C > 72 in B2f
+    and B2w, C > 64 in B2x),
     bf16 where the bf16 kernel refuses (``refusal``) and its f32 route's
     whole-window plan does not fit either."""
     if o > KERNEL_WIDTH:
@@ -754,15 +755,34 @@ def bwd_w_col_tiles(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> list:
     return _units(w - k + 1, w, k, bwd_w_plan_bytes(c, w, o, k) > MAX_SMEM_BYTES)
 
 
-def bwd_x_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
-    """The library's ``isd_conv4head_bwd_x_smem_bytes`` (B2x's ``x_plan``,
-    csrc/conv4head_bwd.cu: C rounded up to 32)."""
+def bwd_x_plan_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """B2x's ``x_plan`` for windows of ``w`` staged whole, in bytes
+    (csrc/conv4head_bwd.cu: C rounded up to 32)."""
     cp = (c + 31) & ~31
     _, ld, lw1, lw = _tc_strides(cp, w, o, k)
     ldx = _stride_4mod8(((w + 7) & ~7) + k - 1)
     floats = (_round_up4(cp * ld) + _round_up4(max(o * ld, o * ldx)) + _round_up4(o * ld)
               + _round_up4(o * lw1) + 2 * _round_up4(o * lw) + 2 * _round_up4(o))
     return 4 * floats
+
+
+def bwd_x_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_bwd_x_smem_bytes`` (``x_block_plan``):
+    the whole window's plan where it fits a block, else the column tiles'
+    (the plan of windows of COL_SPAN + K - 1, whatever ``w`` is)."""
+    whole = bwd_x_plan_bytes(c, w, o, k)
+    return whole if whole <= MAX_SMEM_BYTES else bwd_x_plan_bytes(c, COL_SPAN + k - 1, o, k)
+
+
+def bwd_x_col_tiles(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> list:
+    """B2x's units of a (trial, window, zone) (``col_tiles``' keys; their
+    count is the library's ``isd_conv4head_bwd_x_col_tiles``): the whole
+    window where its plan fits a block, else ``col_tiles`` in 8-row tiles.
+    The kernel keeps rows [lo, hi) of dh1 and adds their reach, dx columns
+    [lo, hi + K - 1) of the tile, into the window's columns from s + lo:
+    the first K - 1 of them, at an interior left edge, onto what the tile
+    before wrote there."""
+    return _units(w - k + 1, w, k, bwd_x_plan_bytes(c, w, o, k) > MAX_SMEM_BYTES)
 
 
 # B2x-bf16's shared-memory plan and dx descriptors, mirrored from
@@ -1091,8 +1111,9 @@ def _launch_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int, s=None, cl
 
 # B2x's time for one unit (one trial, window and zone) on one SM at full
 # width: 47.6 us on an H100 80GB HBM3 at 700 W (1.522 ms for 4 waves of
-# 8-zone blocks at M = 1, B = 100; PERF.md). _bwd_x_zone_splits weighs it
-# against the bytes of the pass that a zone split adds. B2x-bf16's, on the
+# 8-zone blocks at M = 1, B = 100; PERF.md); in column tiles a zone is its
+# tiles' count of such units. _bwd_x_zone_splits weighs it against the bytes
+# of the pass that a zone split adds. B2x-bf16's, on the
 # same card: 7.75 us a zone and 8.4 us a block besides (the window's
 # transpose, the first zone's weights, dx's stores), fitted to its device
 # times at M = 1, B = 16 with SZ = 1, 2, 3 and 8 (b2x_timing.py --sweep;
@@ -1104,16 +1125,16 @@ HBM_BYTES_S = 3.35e12
 
 
 def _bwd_x_zone_splits(m: int, b: int, n: int, z: int, c: int, w: int, sms: int,
-                       unit_s: float = X_UNIT_S, block_s: float = 0.0) -> int:
+                       unit_s: float = X_UNIT_S, block_s: float = 0.0, tiles: int = 1) -> int:
     """SZ, B2x's (or, with its ``unit_s`` and ``block_s``, B2x-bf16's) zone
     ranges per (model, trial, window). A block fills an SM, so the kernel
-    takes about its waves of blocks times a block's time (its zones and its
-    fixed cost); SZ > 1 adds a pass over SZ + 1 copies of dxw. The least
-    estimate wins, ties to fewer ranges."""
+    takes about its waves of blocks times a block's time (its zones, each
+    ``tiles`` units, and its fixed cost); SZ > 1 adds a pass over SZ + 1
+    copies of dxw. The least estimate wins, ties to fewer ranges."""
     def seconds(sz):
         waves = -(-m * b * n * sz // sms)
         extra = (sz + 1) * m * b * n * c * w * 4 / HBM_BYTES_S if sz > 1 else 0.0
-        return waves * (-(-z // sz) * unit_s + block_s) + extra
+        return waves * (-(-z // sz) * tiles * unit_s + block_s) + extra
 
     return min(range(1, z + 1), key=lambda sz: (seconds(sz), sz))
 
@@ -1130,8 +1151,10 @@ def conv4head_bwd_x_plain(g, x, w12, b12, w3, w4, window_len: int, step: int):
 
 def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>`` in x's dtype; B2x
-    for an f32 ``x``, B2x-bf16 for a bf16 one (C <= 64, windows up to 260
-    samples), B2x-g of x's precision where neither plan fits (or O > 32).
+    for an f32 ``x`` (C <= 64, any window: column tiles past its whole
+    window's plan, 284 samples at C = 64), B2x-bf16 for a bf16 one (C <=
+    64, windows up to 260 samples), B2x-g of x's precision where neither
+    plan fits (f32 at C > 64, bf16 at C > 64 or past 260 samples; O > 32).
     The kernels write per-window gradients; the overlapping windows are
     added here, in f32 plain PyTorch, as the JAX package adds them in XLA."""
     if x.device.type == "cpu":
@@ -1170,7 +1193,8 @@ def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None, c
     if sz is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         sz = (_bwd_x_zone_splits(m, b, n, z, c, window_len, sms, X_BF16_UNIT_S, X_BF16_BLOCK_S)
-              if bf16 else _bwd_x_zone_splits(m, b, n, z, c, window_len, sms))
+              if bf16 else _bwd_x_zone_splits(m, b, n, z, c, window_len, sms,
+                                              tiles=len(bwd_x_col_tiles(c, window_len, o, k1))))
     lib = _lib.library()
     if bf16:
         _check_smem(lib.isd_conv4head_bwd_x_bf16_smem_bytes(c, window_len, o, k1), "B2x-bf16")

@@ -8,8 +8,8 @@ The tuned kernels are built for O = 32 and K1 = K2 = 5, an even T in
 bf16 (B2f-bf16 and B2w-bf16; B2x-bf16 takes any T), C % 8 == 0 in f32
 B2w, and their plans fitting a block. B2w-bf16
 takes every window at C <= 64 (past 260 samples in column tiles), f32 B2f
-and B2w every window at C <= 72 (past the whole window's plan in column
-tiles). A
+and B2w every window at C <= 72, f32 B2x every window at C <= 64 (past the
+whole window's plan in column tiles). A
 bf16 geometry that B2f-bf16 or B2w-bf16 has no plan for runs the f32
 kernel on the bf16 kernel's operands where the f32 whole-window plan fits
 (B2w-bf16 at C = 68 and 72, windows up to 268): that route is held to the
@@ -17,9 +17,10 @@ plain bf16 version at 1e-2 in relative L2 (the f32 kernel skips the bf16
 roundings of h1, h2 and the cotangents; measured <= 3.4e-3); its column
 tiles do not widen that route. A bf16 input gradient takes B2x-bf16 at C
 <= 64 and windows up to 260 samples, at any T. What no tuned plan takes (C
-= 80 or 128, f32 input gradients at windows of 500, a bf16 forward of one
-window of 600, O = 64, a bf16 input gradient at C = 65 or past windows of
-260, bf16 weight gradients at C = 65-72 past windows of 268) goes to the
+= 80 or 128, f32 input gradients at C = 65-96 past windows of 284, a bf16
+forward of one window of 600, O = 64, a bf16 input gradient at C = 65 or
+past windows of 260, bf16 weight gradients at C = 65-72 past windows of
+268) goes to the
 general kernel of x's precision
 (B2f-g, B2w-g, B2x-g), unadapted and counted in
 ``launches_general`` / ``launches_general_bf16``; only K != 5 raises.
@@ -52,6 +53,8 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     bwd_w_plan_bytes,
     bwd_w_smem_bytes,
     bwd_x_bf16_smem_bytes,
+    bwd_x_col_tiles,
+    bwd_x_plan_bytes,
     bwd_x_smem_bytes,
     conv4head_bwd_bf16_plain,
     conv4head_bwd_plain,
@@ -292,14 +295,14 @@ def test_geometry_no_padding_reaches_raises(op, geometry, dtype, why):
     (dict(o=64, z=1), torch.bfloat16),
 ], ids=["f32-c80", "f32-w500", "bf16-w500", "bf16-o64"])
 def test_general_route_geometries(op, geometry, dtype):
-    """Geometries no tuned plan takes, in f32 (C = 80 at windows of 250,
-    input gradients at windows of 500) and in bf16 (B2x past windows of
-    260; O = 64):
+    """Geometries no tuned plan takes, in f32 (C = 80 at windows of 250) and
+    in bf16 (B2x past windows of 260; O = 64):
     one launch of the general kernel of x's precision on the operands as
     they are, none of a tuned one, the plain version's result. At windows of
     500 a bf16 forward stays on B2f-bf16 (one window a launch), and weight
-    gradients on B2w-bf16 or, in f32, on B2w; an f32 forward takes B2f (both
-    in column tiles: one launch, unadapted)."""
+    gradients on B2w-bf16 or, in f32, on B2w; an f32 forward takes B2f and
+    an f32 input gradient B2x (each in column tiles: one launch,
+    unadapted)."""
     ops, geo = operands(dtype=dtype, **geometry)
     calls, general = [], []
     got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
@@ -308,7 +311,8 @@ def test_general_route_geometries(op, geometry, dtype):
     bf16 = dtype == torch.bfloat16
     if bf16 and op == "fwd" and geometry.get("o", 32) == 32:
         assert adapted and general == [] and len(calls) == 3  # B2f-bf16, a window a launch
-    elif op != "bwd_x" and geometry.get("o", 32) == 32 and geometry.get("c") == 64:
+    elif ((op != "bwd_x" or not bf16) and geometry.get("o", 32) == 32
+          and geometry.get("c") == 64):
         assert not adapted and general == [] and calls == [dict(c=64, t=800, n=3)]
     else:
         assert not adapted and calls == [] and [d["dtype"] for d in general] == [dtype]
@@ -404,16 +408,25 @@ def test_f32_plan_mirrors_match_the_shipped_geometry():
 
 
 def test_b2x_plan_mirror_limits():
-    """B2x's plan mirror (``bwd_x_smem_bytes``): 213,760 bytes at the
-    shipped geometry (csrc/conv4head_bwd.cu's header), C up to 64 at windows
-    of 250 (C rounds up to 32) and windows up to 284 at C = 64, where the
-    general kernel takes over."""
+    """B2x's plan mirrors: the whole window's (``bwd_x_plan_bytes``) 213,760
+    bytes at the shipped geometry (csrc/conv4head_bwd.cu's header), C up to
+    64 at windows of 250 (C rounds up to 32) and windows up to 284 at C =
+    64; from 285 on the column tiles' plan (``bwd_x_smem_bytes``), 217,856
+    bytes whatever the window, takes over. So f32 input gradients at C = 64
+    take B2x at windows of 500 (no general reason), and C = 65 and O = 64
+    the general kernel."""
     fits = lambda n: n <= conv4head.MAX_SMEM_BYTES  # noqa: E731
-    assert bwd_x_smem_bytes(64, 250) == 213760
+    assert bwd_x_smem_bytes(64, 250) == bwd_x_plan_bytes(64, 250) == 213760
     assert fits(bwd_x_smem_bytes(64, 250)) and not fits(bwd_x_smem_bytes(65, 250))
-    assert fits(bwd_x_smem_bytes(64, 284)) and not fits(bwd_x_smem_bytes(64, 285))
+    assert fits(bwd_x_plan_bytes(64, 284)) and not fits(bwd_x_plan_bytes(64, 285))
+    assert bwd_x_smem_bytes(64, 284) == bwd_x_plan_bytes(64, 284)
+    for w in (285, 500, 800):
+        assert bwd_x_smem_bytes(64, w) == 217856 and len(bwd_x_col_tiles(64, w)) >= 2
     assert general_reason("bwd_x", False, 65, 32, 250, None)
     assert not general_reason("bwd_x", False, 64, 32, 250, None)
+    assert not general_reason("bwd_x", False, 64, 32, 500, None)
+    assert "C=65" in general_reason("bwd_x", False, 65, 32, 500, None)
+    assert "O = 64" in general_reason("bwd_x", False, 64, 64, 500, None)
 
 
 CALLS = {
@@ -782,3 +795,74 @@ def test_bf16_forward_refusals_stay_general(monkeypatch, geometry):
     assert _fwd_counts() == (before[0], before[1], before[2], before[3] + 1, before[4])
     reason = general_reason("fwd", True, c, 32, w, refusal)
     assert "B2f-bf16 is not built" in reason and "the f32 plan does not fit" in reason
+
+
+def _stand_in_input_gradient(monkeypatch, calls, dtypes, general):
+    """``conv4head_bwd_x`` on meta tensors: the CUDA check and the launches
+    stood in for (a tuned launch refusing what its plan's mirror refuses,
+    a general one taking any geometry), each counting as its launch does."""
+    launch, run_general = stand_in("bwd_x", calls, dtypes), general_stand_in(general)
+
+    def counted(g, x, *args):
+        out = launch(g, x, *args)
+        conv4head._lib.count(conv4head_bwd_x, "launches_bf16" if x.dtype == torch.bfloat16
+                             else "launches")
+        return out
+
+    def counted_general(op, g, x, *args):
+        out = run_general(op, g, x, *args)
+        conv4head._lib.count(conv4head_bwd_x, "launches_general_bf16"
+                             if x.dtype == torch.bfloat16 else "launches_general")
+        return out
+
+    monkeypatch.setattr(conv4head, "_require_x", lambda x: None)
+    monkeypatch.setattr(conv4head, "_launch_bwd_x", counted)
+    monkeypatch.setattr(conv4head, "_launch_general", counted_general)
+
+
+def _bwd_x_counts():
+    fn = conv4head_bwd_x
+    return (fn.launches, fn.launches_bf16, fn.launches_general, fn.launches_general_bf16,
+            fn.adapted)
+
+
+@pytest.mark.parametrize("c", [13, 40, 64])
+@pytest.mark.parametrize("w,step", [(285, 128), (500, 150), (800, 1)], ids=["w285", "w500", "w800"])
+def test_f32_input_gradients_take_the_column_tiles(monkeypatch, c, w, step):
+    """f32 input gradients at C <= 64 and windows of 285, 500 and 800 (past
+    B2x's whole-window plan at C = 40 and 64; C = 13 keeps the whole window
+    up to 436) on meta tensors: one B2x launch (its plan's mirror) on the
+    operands as they are, counted in ``launches``; no general kernel,
+    nothing adapted (B2x takes any C); dx of x's shape."""
+    calls, dtypes, general = [], [], []
+    _stand_in_input_gradient(monkeypatch, calls, dtypes, general)
+    ops, geo = meta_operands(torch.float32, c=c, t=800, w=w, step=step, b=2, z=1)
+    assert len(bwd_x_col_tiles(c, w)) == (1 if c == 13 and w < 437 else -(-(w - 20) // 240))
+    assert conv4head.f32_plan_fits("bwd_x", c, w)
+    before = _bwd_x_counts()
+    got = CALLS["bwd_x"](*ops, geo)
+    assert general == [] and dtypes == [torch.float32]
+    assert calls == [dict(c=c, t=800, n=(800 - w) // step + 1)]
+    assert _bwd_x_counts() == (before[0] + 1, *before[1:])
+    assert got.shape == ops[1].shape and got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("geometry,why", [
+    (dict(c=72, w=500, step=150), "the f32 plan does not fit a block at C=72, windows of 500"),
+    (dict(c=96, w=285, step=128), "the f32 plan does not fit a block at C=96, windows of 285"),
+    (dict(c=64, o=64, w=500, step=150), "O = 64 > 32"),
+], ids=["c72-w500", "c96-w285", "o64-w500"])
+def test_f32_input_gradients_beyond_the_tiles_stay_general(monkeypatch, geometry, why):
+    """f32 input gradients at C = 72 and 96 (Cp = 96: neither B2x plan
+    fits, 271,616 bytes tiled) and at O = 64 (B2x is built for O = 32):
+    B2x-g f32, once, on the operands as they are, counted in
+    ``launches_general``; no tuned launch; the reason says why."""
+    calls, dtypes, general = [], [], []
+    _stand_in_input_gradient(monkeypatch, calls, dtypes, general)
+    ops, geo = meta_operands(torch.float32, t=800, b=2, z=1, **geometry)
+    before = _bwd_x_counts()
+    CALLS["bwd_x"](*ops, geo)
+    assert calls == [] and [(d["op"], d["dtype"]) for d in general] == [("bwd_x", torch.float32)]
+    assert _bwd_x_counts() == (before[0], before[1], before[2] + 1, before[3], before[4])
+    c, o = geometry["c"], geometry.get("o", 32)
+    assert why in general_reason("bwd_x", False, c, o, geometry["w"], None)

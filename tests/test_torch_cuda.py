@@ -1032,6 +1032,85 @@ def test_shipped_forward_is_unchanged(dev):
     assert hashlib.sha256(got.numpy().tobytes()).hexdigest() == SHIPPED_B2F_SHA256
 
 
+# Windows past B2x's whole-window plan (284 samples at C = 33-64, 436 at C <=
+# 32): f32 input gradients in column tiles (W, step), T = 800; chip_smoke.py's
+# B2x column-tile phase runs the same grid.
+F32_X_COLUMN_TILE_WINDOWS = ((285, 128), (500, 150), (800, 1))
+
+
+@pytest.mark.parametrize("sz", [1, 2, 8])
+@pytest.mark.parametrize("c", [13, 64])
+@pytest.mark.parametrize("w,step", F32_X_COLUMN_TILE_WINDOWS)
+def test_f32_input_gradient_column_tiles_match_plain(dev, w, step, c, sz):
+    """B2x at windows of 285, 500 and 800 samples (at C = 64 two to four
+    column tiles, the last owning 33 rows at 285; at C = 13 the whole window
+    at 285, tiles at 500 and 800), M = 2, B = 8, 8 zones in SZ = 1, 2 and 8
+    ranges, against the plain f32 input gradient at rtol 1e-4 / atol 1e-4 x
+    max|ref|; a second launch bit-identical."""
+    g, x, *ops = _general_operands(dev, c, 800, w, step, 32, 3 * w + c)
+    dx = _launch_bwd_x(g, x, *ops, w, step, sz)
+    assert torch.equal(dx, _launch_bwd_x(g, x, *ops, w, step, sz))
+    _assert_grad_close(dx, conv4head_bwd_x_plain(g, x, *ops, w, step), f"B2x W={w} C={c} SZ={sz}")
+
+
+@pytest.mark.parametrize("c,o,tuned", [(64, 32, True), (40, 32, True), (72, 32, False),
+                                       (64, 64, False)], ids=["c64", "c40", "c72", "o64"])
+def test_f32_input_gradient_routes_past_the_whole_window(dev, c, o, tuned):
+    """f32 input gradients at windows of 500: at C <= 64 and O = 32 one B2x
+    launch (column tiles), nothing adapted, no general one; at C = 72 and
+    at O = 64 one B2x-g f32 launch; dx against the plain version."""
+    g, x, *ops = _general_operands(dev, c, 800, 500, 150, o, c + o, m=1, b=4)
+    before = _general_counts()
+    dx = conv4head_bwd_x(g, x, *ops, 500, 150)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _general_counts().items() if v != before[k]}
+    assert moved == {("conv4head_bwd_x", "launches" if tuned else "launches_general"): 1}
+    _assert_grad_close(dx, conv4head_bwd_x_plain(g, x, *ops, 500, 150), f"dx C={c} O={o}")
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (64, 284), (64, 285), (64, 500), (64, 800),
+                                 (13, 250), (13, 285), (13, 436), (13, 437), (13, 500),
+                                 (13, 800), (65, 500), (96, 285)])
+def test_b2x_tile_mirrors_match_the_library(dev, c, w):
+    """The Python mirrors of B2x's plan and tiles (``bwd_x_smem_bytes``:
+    the whole window's where it fits a block, past it the column tiles';
+    ``bwd_x_col_tiles``) equal the library's
+    ``isd_conv4head_bwd_x_smem_bytes`` and ``isd_conv4head_bwd_x_col_tiles``
+    on both sides of the whole window's reach, and where neither fits."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (bwd_x_col_tiles,
+                                                                        bwd_x_smem_bytes)
+
+    lib = _lib.library()
+    assert bwd_x_smem_bytes(c, w) == lib.isd_conv4head_bwd_x_smem_bytes(c, w, 32, 5)
+    assert len(bwd_x_col_tiles(c, w)) == lib.isd_conv4head_bwd_x_col_tiles(c, w, 32, 5)
+
+
+# sha256 of B2x's input gradient at the shipped geometry (full width, windows of
+# 250 step 125, ``_general_operands(dev, 64, 800, 250, 125, 32, seed, m, b)``) at
+# (M, B, seed) = (2, 8, 250) and (1, 100, 251), from the kernel as it was before
+# its column tiles (commit 0fcf220) on an H100 80GB HBM3: the whole-window
+# instantiations' arithmetic is unchanged when these digests hold.
+SHIPPED_B2X_SHA256 = {
+    (2, 8, 250): "e65959eea9c80bb1dd95f886249d3a05cb0ecf50932d05798d37fe4912d4c7b6",
+    (1, 100, 251): "255e24cda90b61ddf47657903487c8031731f59e62ef69df98e0df493e01e7a4",
+}
+
+
+@pytest.mark.parametrize("m,b,seed", sorted(SHIPPED_B2X_SHA256))
+def test_shipped_input_gradient_is_unchanged(dev, m, b, seed):
+    """B2x at the shipped geometry (its compile-time instantiation <64, 250>)
+    gives the input gradient the kernel gave before its column tiles, bit
+    for bit (its sha256), and the plain version's at the backward's
+    tolerance."""
+    import hashlib
+
+    g, x, *ops = _general_operands(dev, 64, 800, 250, 125, 32, seed, m=m, b=b)
+    dx = conv4head_bwd_x(g, x, *ops, 250, 125)
+    _assert_grad_close(dx, conv4head_bwd_x_plain(g, x, *ops, 250, 125), "dx")
+    digest = hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()
+    assert digest == SHIPPED_B2X_SHA256[(m, b, seed)]
+
+
 def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
     """One wgmma tile on the card from the image (csrc/wgmma_selftest.cu);
     ``swap`` exchanges an operand's two core-matrix steps (the other
@@ -1726,8 +1805,8 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     BF16_DX_L2 in relative L2), and bit-identical on a second run. A bf16 forward that
     B2f-bf16 takes (windows of 500, one a launch) stays there, an f32 forward
     at C = 64 and O = 32 (windows of 500 and 800) runs B2f's column tiles,
-    and weight gradients there run B2w-bf16's column tiles in bf16 and B2w's
-    in f32."""
+    weight gradients there run B2w-bf16's column tiles in bf16 and B2w's in
+    f32, and f32 input gradients B2x's column tiles."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     g, x, *ops = _general_operands(dev, c, t, w, step, o, c + w + o)
@@ -1739,6 +1818,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
                                                               None) is None
     tuned_w = o == 32 and c <= (64 if bf16 else 72)
     tuned_f32_fwd = not bf16 and o == 32 and c <= 72
+    tuned_f32_x = not bf16 and o == 32 and c <= 64
     results = []
     for _ in range(2):
         before = _general_counts()
@@ -1752,7 +1832,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
         moved.pop(("fused_conv4_head", "adapted"), None)  # B2f-bf16 in groups of windows
         tuned = "launches_bf16" if bf16 else "launches"
         want = {("conv4head_bwd_w", tuned if tuned_w else key): 1,
-                ("conv4head_bwd_x", key): 1}
+                ("conv4head_bwd_x", tuned if tuned_f32_x else key): 1}
         if tuned_f32_fwd:
             want[("fused_conv4_head", "launches")] = 1
         elif not tuned_fwd:
