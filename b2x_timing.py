@@ -22,8 +22,11 @@ them), beside B2x-g f32 launched directly in the same process
 bf16: whichever kernel the checkout's route launches for a bf16 x
 (``route``: B2x-bf16, or B2x-g bf16 in a checkout without it), and B2x-g
 bf16 launched directly at the same shapes (``general_*``); and at M = 1,
-B = 100 on one window of 800 samples (step 125), where B2x-bf16 has no
-plan and the route launches B2x-g bf16. ``us_per_unit``
+B = 100 on windows of 500 (3 windows) and on one window of 800 samples
+(step 125), past one tile of B2x-bf16: its column tiles, or B2x-g bf16 in a
+checkout without them. Then B2f-g bf16 (the forward on one window of 800,
+where B2f-bf16 has no plan) at that shape. ``bound_ms`` is the head's
+bound (``chip_smoke.general_bound``). ``us_per_unit``
 is the device time spread over the card's SMs per (trial, window, zone)
 unit, the time one unit takes on one SM. Where this process built the
 kernels, the registers and spills of every instantiation of B2x and
@@ -35,8 +38,8 @@ has B2x-bf16) adds the device time of each split of the 8 zones into SZ =
 checkout has B2x-bf16's debug instantiation (``_launch_bwd_x(...,
 clk=...)``), one launch of it at each bf16 shape (the wrapper's SZ) splits
 a block's cycles by phase (``BWD_X_BF16_PHASES``: each phase's clock64()
-cycles per warp and (trial, window, zone) unit, barriers apart) and reads
-the SM clock.
+cycles per warp and (trial, window, zone) unit, barriers apart; in column
+tiles a unit is a zone's tiles) and reads the SM clock.
 
 Prints the card's name and power limit, one line per row, and as the last
 line a JSON object of the rows. Exits non-zero without a card.
@@ -50,15 +53,16 @@ import numpy as np
 import torch
 
 import kernel_timing as kt
+from chip_smoke import general_bound
 from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 
 ITERS = 20
 SHAPES = ((2, 8), (1, 16), (1, 64), (1, 100))
-WIDE = (1, 100, 500, 150)  # (M, B, window, step) past B2x's whole-window plan (f32)
-WHOLE = (1, 100, 800, 125)  # (M, B, window, step) past B2x-bf16's plan: B2x-g bf16
+WIDE = (1, 100, 500, 150)  # (M, B, window, step) past B2x's and B2x-bf16's whole-window plans
+WHOLE = (1, 100, 800, 125)  # (M, B, window, step): one window of 800, past one tile of B2x-bf16
 KERNELS = {"B2x": "conv4head_bwd_x_kernel|sum_partials_kernel",
            "B2x-bf16": "conv4head_bwd_x_bf16_|sum_partials_kernel",  # with its pre-pass
-           "B2x-g": "conv4head_bwd_x_general_kernel"}
+           "B2x-g": "conv4head_bwd_x_general_kernel", "B2f-g": "conv4head_fwd_general_kernel"}
 ENTRIES = ("conv4head_bwd_x_kernel", "conv4head_bwd_x_bf16_kernel")
 ZONES = 8
 WARPS = 16  # a B2x-bf16 block
@@ -78,8 +82,10 @@ def sweep(g, x, ops, geo, m, b, n, sms, bf16: bool) -> dict:
     """Device time of each SZ = 1..8, and the wrapper's pick."""
     costs = ((conv4head.X_BF16_UNIT_S, getattr(conv4head, "X_BF16_BLOCK_S", 0.0)) if bf16
              else (conv4head.X_UNIT_S,))
-    tiles = {}
-    if not bf16 and hasattr(conv4head, "bwd_x_col_tiles"):  # a zone is its tiles' units
+    tiles = {}  # a zone is its tiles' units
+    if bf16 and hasattr(conv4head, "bwd_x_bf16_col_tiles"):
+        tiles["tiles"] = len(conv4head.bwd_x_bf16_col_tiles(conv4head.bwd_x_bf16_plan(64, geo[0])))
+    elif not bf16 and hasattr(conv4head, "bwd_x_col_tiles"):
         tiles["tiles"] = len(conv4head.bwd_x_col_tiles(64, geo[0]))
     pattern = KERNELS["B2x-bf16" if bf16 else "B2x"]
     return {"pick": conv4head._bwd_x_zone_splits(m, b, n, ZONES, 64, geo[0], sms, *costs,
@@ -88,14 +94,17 @@ def sweep(g, x, ops, geo, m, b, n, sms, bf16: bool) -> dict:
                                         ITERS, pattern)[0]] for sz in range(1, ZONES + 1)]}
 
 
-def time_row(label, precision, m, b, geo, fn, name, sms, n) -> dict:
+def time_row(label, precision, m, b, geo, fn, name, sms, n, op="bwd_x") -> dict:
     row = {"precision": precision, "m": m, "b": b, "w": geo[0], "route": name,
            "event_ms": kt.event_ms(fn, ITERS), "device_ms": kt.device_ms(fn, ITERS,
                                                                          KERNELS[name])[0]}
     row["us_per_unit"] = 1e3 * row["device_ms"] * sms / (m * b * n * ZONES)
+    (row["bound_ms"], row["bound_by"]), _ = general_bound(op, precision == "bf16", m, b, 64, 800,
+                                                          ZONES, 32, *geo)
     print(f"[{label}] {name} {precision} M={m} B={b} W={geo[0]}: {row['event_ms']:.4f} ms a call "
           f"(CUDA events), {row['device_ms']:.4f} ms on the device, {row['us_per_unit']:.2f} us "
-          f"a unit on one SM", flush=True)
+          f"a unit on one SM; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{row['bound_ms'] / row['device_ms']:.1%})", flush=True)
     return row
 
 
@@ -115,7 +124,7 @@ def main() -> None:
     precisions = ("f32", "bf16") if args.precision == "both" else (args.precision,)
     for precision in precisions:
         bf16 = precision == "bf16"
-        shapes = [(m, b, None, None) for m, b in SHAPES] + [WHOLE if bf16 else WIDE]
+        shapes = [(m, b, None, None) for m, b in SHAPES] + ([WIDE, WHOLE] if bf16 else [WIDE])
         for m, b, w, step in shapes:
             cfg, geo, ops, x = kt.head_operands(m, b, dev, rng,
                                                 torch.bfloat16 if bf16 else torch.float32)
@@ -143,6 +152,10 @@ def main() -> None:
                     {sz: round(t, 4) for sz, t in row["sweep"]})
                     + f"; the wrapper picks {row['pick']}", flush=True)
             rows.append(row)
+            if bf16 and (w, step) == WHOLE[2:]:  # B2f-g bf16 there: the next slice's figure
+                fwd = lambda: conv4head._launch_general("fwd", None, x, *ops, *geo)  # noqa: E731
+                rows.append(time_row(args.label, precision, m, b, geo, fwd, "B2f-g", sms, n,
+                                     op="fwd"))
             del x, g, ops
             torch.cuda.empty_cache()
     if regs:

@@ -306,8 +306,10 @@ GPU.
    gradients of (a)'s f32 model (B2f and B2x in column tiles), of FAST at
    dim 64 at the same windows in f32 (B2f-g, B2x-g f32) and of FAST on one
    800-sample window
-   in bf16 (B2f-g, B2x-g bf16), 100 trials each, against the CPU on 4 (bf16:
-   in relative L2 under the bf16-vs-f32 gap); the counts set to 0
+   in bf16 (B2f-g bf16, B2x-bf16 in column tiles), 100 trials each, and of
+   FAST at dim 64 at windows of 500 in bf16 (B2f-g bf16, B2x-g bf16) on 4,
+   against the CPU on 4 (bf16: in relative L2 under the bf16-vs-f32 gap);
+   the counts set to 0
    before (b) and read after (c), held to what the calls imply, and every
    general kernel launched on the path; (d) each general kernel launched
    directly at M = 2, B = 8 against its plain version, f32 and bf16, on C =
@@ -320,13 +322,17 @@ GPU.
    bf16, models 0, 37 and 74, reruns bit-identical, and so B2f's, B2w's and
    B2w-bf16's column tiles (also timed at M = 2, B = 8); B2x-g at (c)'s M =
    1, B = 100 (bf16 on one 800-sample window, f32 at windows of 500) and
-   B2x's column tiles there, on every trial, B2x's rerun bit-identical; (e)
+   B2x-bf16's and B2x's column tiles there, on every trial, the tiles'
+   reruns bit-identical; (e)
    B2x's column tiles launched directly against the plain input gradient
    at M = 2, B = 8, windows of 285, 500 and 800, C = 13 and 64, SZ = 1, 2
    and 8, reruns bit-identical, and timed at M = 1, B = 100, windows of 500
    (CUDA events and device time) beside their bound and B2x-g f32 launched
-   directly. The f32 step's profile prints B2f's and B2w's shares of its
-   device time.
+   directly; (f) B2x-bf16's column tiles on the same grid in bf16 against
+   the plain bf16 input gradient, reruns bit-identical, timed at M = 1, B =
+   100 on one 800-sample window and at windows of 500 beside their bound
+   and B2x-g bf16 launched directly. The f32 step's profile prints B2f's
+   and B2w's shares of its device time.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -389,6 +395,8 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
+    bwd_x_bf16_col_tiles,
+    bwd_x_bf16_plan,
     bwd_x_col_tiles,
     general_plan,
 )
@@ -4954,15 +4962,17 @@ def attribution_close(what: str, got, ref, bf16: bool, gap=None) -> float:
 
 
 def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
-    """(c) Attributions through the general input-gradient kernels, each
-    on 100 trials of subject 01 (M = 1, B = 100), against the CPU on its
-    first EG_CPU_TRIALS trials: integrated gradients (IG_STEPS steps) and
-    expected gradients (EG_SAMPLES draws against EG_BACKGROUND trials) of
-    the shipped FAST in bf16 (B2f-bf16, B2x-bf16); integrated gradients
-    of (a)'s f32 model at windows of 500 (B2f and B2x in column tiles), of
-    FAST at dim GEN_WIDE_DIM at those windows in f32 (B2f-g, B2x-g f32: O >
-    32) and of FAST on one window of the whole trial in bf16 (B2f-g, B2x-g
-    bf16)."""
+    """(c) Attributions past the shipped geometry, each on 100 trials of
+    subject 01 (M = 1, B = 100), against the CPU on its first EG_CPU_TRIALS
+    trials: integrated gradients (IG_STEPS steps) and expected gradients
+    (EG_SAMPLES draws against EG_BACKGROUND trials) of the shipped FAST in
+    bf16 (B2f-bf16, B2x-bf16); integrated gradients of (a)'s f32 model at
+    windows of 500 (B2f and B2x in column tiles), of FAST at dim
+    GEN_WIDE_DIM at those windows in f32 (B2f-g, B2x-g f32: O > 32) and of
+    FAST on one window of the whole trial in bf16 (B2f-g bf16, B2x-bf16 in
+    column tiles); and of FAST at dim GEN_WIDE_DIM at windows of 500 in
+    bf16 (B2f-g bf16, B2x-g bf16) on EG_CPU_TRIALS trials only, which the
+    CPU holds whole (the launches do not depend on the trials)."""
     perm = np.random.default_rng(SEED).permutation(X.shape[1])
     bg_np = X[0, perm[:EG_BACKGROUND]]
     sel = perm[EG_BACKGROUND:EG_BACKGROUND + EG_TRIALS]
@@ -4970,19 +4980,22 @@ def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
     cfg800 = dataclasses.replace(cfg, **GEN_WHOLE)
     cfg_wide = dataclasses.replace(cfg500, dim_cnn=GEN_WIDE_DIM)
     runs = {}
-    for name, c_, sd, dtype in (
+    wide_sd = from_jax_params(init_jax_layout_params(cfg_wide, SEED))
+    for name, c_, sd, dtype, trials in (
             ("shipped bf16", cfg, from_jax_params(init_jax_layout_params(cfg, SEED)),
-             torch.bfloat16),
-            (f"windows of {cfg500.window_len} f32", cfg500, state500, torch.float32),
-            (f"dim {GEN_WIDE_DIM} at windows of {cfg500.window_len} f32", cfg_wide,
-             from_jax_params(init_jax_layout_params(cfg_wide, SEED)), torch.float32),
+             torch.bfloat16, sel),
+            (f"windows of {cfg500.window_len} f32", cfg500, state500, torch.float32, sel),
+            (f"dim {GEN_WIDE_DIM} at windows of {cfg500.window_len} f32", cfg_wide, wide_sd,
+             torch.float32, sel),
             ("one window of 800 bf16", cfg800, from_jax_params(init_jax_layout_params(cfg800, SEED)),
-             torch.bfloat16)):
+             torch.bfloat16, sel),
+            (f"dim {GEN_WIDE_DIM} at windows of {cfg500.window_len} bf16", cfg_wide, wide_sd,
+             torch.bfloat16, sel[:k])):
         bf16 = dtype == torch.bfloat16
         model, cpu = FAST(c_, device=dev), FAST(c_)
         model.load_state_dict(sd)
         cpu.load_state_dict(sd)
-        x = torch.tensor(X[0, sel], device=dev).to(dtype)
+        x = torch.tensor(X[0, trials], device=dev).to(dtype)
         with torch.no_grad():
             target = model.eval()(x).argmax(-1)
         attr = integrated_gradients(model, x, target, n_steps=IG_STEPS)
@@ -5014,7 +5027,7 @@ def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
             row.update(eg_err=attribution_close(f"general (c) {name} expected gradients",
                                                 attr[:k].cpu(), ref, True, gap), eg_gap=gap)
         runs[name] = row
-        print(f"general (c): {name}, {EG_TRIALS} trials: integrated gradients ({IG_STEPS} steps)"
+        print(f"general (c): {name}, {len(trials)} trials: integrated gradients ({IG_STEPS} steps)"
               + (f" and expected gradients ({EG_SAMPLES} x {EG_BACKGROUND})"
                  if "eg_err" in row else "")
               + f" match the CPU on {k} trials: {json.dumps({a: float(f'{v:.3g}') for a, v in row.items() if v is not None})}"
@@ -5071,9 +5084,8 @@ def general_path_checks(dev) -> dict:
     window), each long), f32 and bf16, models 0, M/2 and M - 1, and a second
     launch bit-identical; B2f's, B2w's and B2w-bf16's column tiles likewise
     at (a)'s step (what the route runs there); B2x-g at (c)'s M = 1, B = 100, bf16 on
-    one 800-sample window (the shipped windows take B2x-bf16) and f32 at windows of
-    500, and B2x's column tiles there (what the route runs for f32), every trial,
-    B2x's rerun bit-identical.
+    one 800-sample window and f32 at windows of 500, and B2x-bf16's and B2x's column
+    tiles there (what the route runs), every trial, the tiles' reruns bit-identical.
     ``check_general``'s tolerances; the largest absolute error of each."""
     out = {}
     c, w, step, o = GEN_ENTRY
@@ -5148,17 +5160,17 @@ def general_path_checks(dev) -> dict:
             "shape": {"M": mx, "B": bx, "W": w}}
         if bf16:
             row["l2"] = rel_l2(got, ref)
-        else:  # B2x's column tiles, which the route takes for f32 there
-            with uncounted():
-                tiles = _launch_bwd_x(g, x, *ops, w, step)
-                again = _launch_bwd_x(g, x, *ops, w, step)
-            what = f"B2x column tiles M={mx} B={bx} W={w}"
-            if not torch.equal(tiles, again):
-                raise RuntimeError(f"{what}: a rerun differs")
-            out[("bwd_x_tiles", False)] = {
-                "max_abs_err": check_general("bwd_x", False, tiles, ref, what), "trials": bx,
-                "shape": {"M": mx, "B": bx, "W": w}}
-            del tiles, again
+        # B2x-bf16's and B2x's column tiles, which the route takes there
+        with uncounted():
+            tiles = _launch_bwd_x(g, x, *ops, w, step)
+            again = _launch_bwd_x(g, x, *ops, w, step)
+        what = f"B2x{'-bf16' if bf16 else ''} column tiles M={mx} B={bx} W={w}"
+        if not torch.equal(tiles, again):
+            raise RuntimeError(f"{what}: a rerun differs")
+        out[("bwd_x_tiles", bf16)] = {
+            "max_abs_err": check_general("bwd_x", bf16, tiles, ref, what), "trials": bx,
+            "shape": {"M": mx, "B": bx, "W": w}}
+        del tiles, again
         del g, x32, x, ops, got, ref
     torch.cuda.empty_cache()
     for (op, bf16), r in out.items():
@@ -5252,6 +5264,73 @@ def phase_b2x_column_tiles(dev, rng) -> dict:
     return {"grid": errs, "m1_b100": rows[GEN_ATTR_SHAPE], "m2_b8": rows[GEN_SHAPE]}
 
 
+# (f): B2x-bf16's column tiles on (e)'s grid (bf16 x): C = 13 and 64 at windows of
+# 285, 500 and 800 (past one tile of 260 samples at every C), SZ = 1, 2 and 8.
+def phase_b2x_bf16_column_tiles(dev, rng) -> dict:
+    """(f) B2x-bf16's column tiles launched directly (uncounted) on a bf16 x
+    against ``conv4head_bwd_bf16_plain`` at B2X_TILE_GRID and
+    B2X_TILE_SPLITS (M = 2, B = 8), within GEN_BF16_DX_L2 in relative L2,
+    each launch again bit-identical. Then timed at (c)'s M = 1, B = 100 on
+    one 800-sample window (GEN_WHOLE: four tiles) and at windows of 500
+    (GEN_ENTRY's: three windows of two tiles), by CUDA events and device
+    time, beside their bound, their plain version and B2x-g bf16 launched
+    directly on the same operands (its device time too)."""
+    l2s = {}
+    m, b = GEN_SHAPE
+    with uncounted():
+        for c, w, step in B2X_TILE_GRID:
+            g, x, *ops = general_operands(dev, rng, m, b, c, 800, 8, 32, w, step)
+            xb = x.to(torch.bfloat16)
+            ref = conv4head_bwd_bf16_plain(g, xb, *ops, w, step)[0]
+            for sz in B2X_TILE_SPLITS:
+                what = f"B2x-bf16 column tiles C={c} W={w} SZ={sz}"
+                got = _launch_bwd_x(g, xb, *ops, w, step, sz)
+                if not torch.equal(got, _launch_bwd_x(g, xb, *ops, w, step, sz)):
+                    raise RuntimeError(f"{what}: a rerun differs")
+                check_general("bwd_x", True, got, ref, what)
+                l2s[(c, w, sz)] = rel_l2(got, ref)
+            del g, x, xb, ops, ref
+    counts = {f"C={c} W={w}": len(bwd_x_bf16_col_tiles(bwd_x_bf16_plan(c, w)))
+              for c, w, _ in B2X_TILE_GRID}
+    print(f"general (f): B2x-bf16's column tiles against the plain bf16 input gradient at M=2 "
+          f"B=8 (tiles a window: {json.dumps(counts)}), reruns bit-identical; relative L2: "
+          + json.dumps({f"C={c} W={w} SZ={sz}": float(f"{v:.3g}")
+                        for (c, w, sz), v in l2s.items()}), flush=True)
+    rows = {}
+    mx, bx = GEN_ATTR_SHAPE
+    for w, step in ((GEN_WHOLE["window_len"], 125), (GEN_ENTRY[1], GEN_ENTRY[2])):
+        g, x, *ops = general_operands(dev, rng, mx, bx, 64, 800, 8, 32, w, step)
+        xb = x.to(torch.bfloat16)
+        tiled = lambda: _launch_bwd_x(g, xb, *ops, w, step)  # noqa: E731
+        general = lambda: _launch_general("bwd_x", g, xb, *ops, w, step)  # noqa: E731
+        with uncounted():
+            got, ref = tiled(), conv4head_bwd_bf16_plain(g, xb, *ops, w, step)[0]
+            row = {"max_abs_err": check_general("bwd_x", True, got, ref,
+                                                f"B2x-bf16 column tiles M={mx} B={bx} W={w}"),
+                   "rel_l2": rel_l2(got, ref), "ms": cuda_ms(tiled, 5),
+                   "device_ms": device_ms(tiled, B2X_BF16_KERNELS, 5),
+                   "plain_ms": cuda_ms(lambda: conv4head_bwd_bf16_plain(g, xb, *ops, w, step),
+                                       3),
+                   "general_ms": cuda_ms(general, 3),
+                   "general_device_ms": device_ms(general, GEN_KERNELS["bwd_x"], 3)}
+        (row["bound_ms"], row["bound_by"]), _ = general_bound("bwd_x", True, mx, bx, 64, 800, 8,
+                                                              32, w, step)
+        row["shape"] = {"M": mx, "B": bx, "C": 64, "T": 800, "W": w, "step": step, "O": 32,
+                        "Z": 8}
+        row["tiles"] = len(bwd_x_bf16_col_tiles(bwd_x_bf16_plan(64, w)))
+        print(f"B2x-bf16 (column tiles) at {json.dumps(row['shape'])}: {row['ms']:.4f} ms (CUDA "
+              f"events), {row['device_ms']:.4f} ms device time; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; {row['bound_ms'] / row['device_ms']:.1%}); B2x-g bf16 "
+              f"launched directly {row['general_ms']:.4f} ms ({row['general_device_ms']:.4f} ms "
+              f"device time), {row['general_device_ms'] / row['device_ms']:.2f}x; plain "
+              f"{row['plain_ms']:.3f} ms; relative L2 {row['rel_l2']:.3g}, max|err| "
+              f"{row['max_abs_err']:.3g}", flush=True)
+        rows[w] = row
+        del g, x, xb, ops, got, ref
+    return {"grid_rel_l2": l2s, "w800": rows[GEN_WHOLE["window_len"]],
+            "w500": rows[GEN_ENTRY[1]]}
+
+
 def phase_general_kernels(dev, rng) -> dict:
     """(d) Each general kernel, launched directly, against its plain version
     on the card at M = 2, B = 8, f32 and bf16, on GEN_GRID: C = 80 and 128 at
@@ -5261,8 +5340,9 @@ def phase_general_kernels(dev, rng) -> dict:
     plain version: each kernel at GEN_ENTRY (B2x-g at the shipped geometry),
     and B2x-g bf16 at M = 1, B = 100 (global-explain's batch) also by device
     time; B2f's, B2w's and B2w-bf16's column tiles at GEN_ENTRY, which the
-    route runs there; (e) B2x's column tiles (``phase_b2x_column_tiles``).
-    Last, ``general_path_checks`` at the path's shapes."""
+    route runs there; (e) B2x's column tiles (``phase_b2x_column_tiles``);
+    (f) B2x-bf16's (``phase_b2x_bf16_column_tiles``). Last,
+    ``general_path_checks`` at the path's shapes."""
     m, b = GEN_SHAPE
     rows = {}
     for c, w, step, o in GEN_GRID:
@@ -5354,12 +5434,13 @@ def phase_general_kernels(dev, rng) -> dict:
                                            "f32_core_floor_ms": x_floor}
     del g, x32, xb, ops
     x_tiles = phase_b2x_column_tiles(dev, rng)
+    x_bf16_tiles = phase_b2x_bf16_column_tiles(dev, rng)
     for key, r in general_path_checks(dev).items():
         if key[0] == "bwd_w_tiles":
             tiles[key[1]]["path_check"] = r
             continue
         if key[0] == "bwd_x_tiles":
-            x_tiles["m1_b100"]["path_check"] = r
+            (x_bf16_tiles["w800"] if key[1] else x_tiles["m1_b100"])["path_check"] = r
             continue
         if key[0] == "fwd_tiles":
             fwd["path_check"] = r
@@ -5376,7 +5457,8 @@ def phase_general_kernels(dev, rng) -> dict:
           f"{x_bound / x_dev:.1%}), CUDA-core f32 floor {x_floor:.4f} ms "
           f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
     return {"grid": rows, "entries": entries, "tiles_w500": tiles[True],
-            "tiles_w500_f32": tiles[False], "fwd_tiles_w500": fwd, "x_tiles_w500": x_tiles}
+            "tiles_w500_f32": tiles[False], "fwd_tiles_w500": fwd, "x_tiles_w500": x_tiles,
+            "x_bf16_tiles": x_bf16_tiles}
 
 
 def phase_general(cfg, dev, X, Y, rng) -> dict:
@@ -5394,13 +5476,15 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     phase_general_attribution(cfg, cfg500, dev, X, Y, training["f32"]["params"])
     launches = read_launches()
     per_call = {"fwd": 1 + IG_STEPS, "ig": IG_STEPS, "eg": EG_SAMPLES}
+    # bf16 input gradients: B2x-bf16 for the shipped FAST and (column tiles) the
+    # 800-sample window, B2x-g bf16 for the dim-64 model; B2f-g bf16 forwards both.
     want = {"conv4head_fwd": decoder["launches"] + per_call["fwd"],
             "conv4head_bwd_x": per_call["ig"],
             "conv4head_fwd_general": per_call["fwd"], "conv4head_bwd_x_general": per_call["ig"],
             "conv4head_fwd_bf16": per_call["fwd"] + EG_SAMPLES,
-            "conv4head_bwd_x_bf16": per_call["ig"] + EG_SAMPLES,
+            "conv4head_bwd_x_bf16": 2 * per_call["ig"] + EG_SAMPLES,
             "conv4head_bwd_x_general_bf16": per_call["ig"],
-            "conv4head_fwd_general_bf16": per_call["fwd"], "iir_chain": 2}
+            "conv4head_fwd_general_bf16": 2 * per_call["fwd"], "iir_chain": 2}
     moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
     if moved != want:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
@@ -5409,8 +5493,8 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
             + ("conv4head_bwd_x", "conv4head_bwd_x_bf16")}
     if not all(path.values()):
         raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
-    print(f"general (a)-(c): the general kernels', the bf16 kernels' (B2x-bf16 in (c)) and "
-          f"B2f's, B2w's and B2x's (column tiles) "
+    print(f"general (a)-(c): the general kernels', the bf16 kernels' (B2x-bf16 in (c), in "
+          f"column tiles on the 800-sample window) and B2f's, B2w's and B2x's (column tiles) "
           f"launches on the path {json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
@@ -5609,8 +5693,11 @@ def main() -> None:
                       for b, r in zip(LOSO_BATCHES[:2], loso_rows[:2])}},
     ]
     # B2x-bf16: a bf16 x's input gradient, launched by section 14 (c)'s bf16 attributions of
-    # the shipped FAST; times and errors from its own phase at X_BF16_SHAPES.
+    # the shipped FAST and (column tiles) of FAST on one 800-sample window; times and errors
+    # from its own phase at X_BF16_SHAPES, and (f)'s: its column tiles at M = 1, B = 100 on
+    # one window of 800 and at windows of 500, and the grid at M = 2, B = 8.
     b2x16 = bf16_x[X_BF16_SHAPES[-1]]
+    x16_tiles = general["kernels"]["x_bf16_tiles"]
     kernels.append(
         {"name": "conv4head_bwd_x_bf16", "route": "cuda",
          "source": src + "conv4head_bwd_x_bf16.cu", "replaces": pallas + "conv4head.py:351",
@@ -5618,7 +5705,9 @@ def main() -> None:
          **{k: b2x16[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                   "bound_by")},
          "library_ms": None, "rel_l2": b2x16["rel_l2"],
-         "shapes": {f"m{m}_b{b}": r for (m, b), r in bf16_x.items()}})
+         "shapes": {f"m{m}_b{b}": r for (m, b), r in bf16_x.items()},
+         "w800": x16_tiles["w800"], "w500": x16_tiles["w500"],
+         "grid_max_rel_l2": max(x16_tiles["grid_rel_l2"].values())})
     # The engine's remaining paths (section 11): early stopping, one step of
     # each training mode (the step-profile child), dense tokens.
     modes = {k: sum(steps[mode]["launches"][k] for mode in FORWARD_MODES[1:])

@@ -32,4 +32,13 @@ __device__ inline void zero_words(uint32_t* p, int words) {
   for (int i = threadIdx.x; i < words; i += blockDim.x) p[i] = 0u;
 }
 
+// Zeros rows [r0, r0 + n) of `chunks` consecutive chunks of 8 channels (cs
+// bytes apart, 16 bytes a row) from buf.
+__device__ inline void zero_rows(char* buf, int cs, int chunks, int r0, int n) {
+  for (int i = threadIdx.x; i < chunks * n; i += blockDim.x) {
+    const int ch = i / n;
+    *reinterpret_cast<uint4*>(buf + ch * cs + 16 * (r0 + i - ch * n)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
 }  // namespace isd

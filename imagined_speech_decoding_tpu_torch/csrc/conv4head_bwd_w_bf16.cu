@@ -248,14 +248,6 @@ __device__ inline void raw_to_chunks(char* xs, int cs, const uint16_t* raw, int 
   }
 }
 
-// Zeros rows [r0, r0 + n) of `chunks` consecutive chunks (cs bytes apart) from buf.
-__device__ inline void zero_rows(char* buf, int cs, int chunks, int r0, int n) {
-  for (int i = threadIdx.x; i < chunks * n; i += blockDim.x) {
-    const int ch = i / n;
-    *reinterpret_cast<uint4*>(buf + ch * cs + 16 * (r0 + i - ch * n)) = make_uint4(0, 0, 0, 0);
-  }
-}
-
 // acc += one weight-gradient tile's k16 steps over time (overwriting acc
 // on the block's first (trial, tile)): A = src from byte a0 (time along K:
 // MN-major), B = d from byte b0 (MN-major), nt rows; the first and last
@@ -446,7 +438,7 @@ conv4head_bwd_w_bf16_kernel(const float* __restrict__ g, const uint16_t* __restr
       raw_to_chunks<kTiled>(smem + plan.xs, cs, raw, plan.rw, off, C, plan.cp, ct.cols,
                             kTiled ? plan.rows : ct.cols);
       if (kTiled && ct.nt < plan.nt) {  // a short last tile: the rows its convs read past its own
-        zero_rows(smem + plan.h1, cs, (plan.d1 - plan.h1) / cs, ct.nt + K / 2 - 1, K / 2 + 1);
+        isd::zero_rows(smem + plan.h1, cs, (plan.d1 - plan.h1) / cs, ct.nt + K / 2 - 1, K / 2 + 1);
       }
       // g / t1 (O = 32: every warp stores the same values)
       gz[threadIdx.x & 31] = g[(mb * N + n) * Z * O + z * O + (threadIdx.x & 31)] / t1;

@@ -79,17 +79,40 @@
 //    an odd T needs no even copy.
 //  * GELU' takes its exponential from ex2.approx (__expf, a few ulp), the
 //    product rounded to bf16 right after, as Pallas rounds it.
+//  * Column tiles: a block holds at most kGroups x 64 = 256 conv rows, so a
+//    window of t1 > 256 (W > 260) runs in B2w-bf16's column tiles
+//    (conv4head_common.cuh): tile j stages the window's columns [240 j,
+//    240 j + 260) on the plan of windows of 260 samples (one layout for
+//    every W), recomputes h1 .. dh1 over its rows (zero from the window's
+//    end on; g / t1 is the whole window's) and keeps in bf16(dh1) only the
+//    rows it owns, [8, 248) at interior edges (from 0 in the first tile, up
+//    to t1 in the last): dh1 is exact 8 rows inside an edge, and a halo row
+//    kept would count twice. dh3c and dh2c need no masked edge chunks here
+//    (B2w-bf16 sums them over time; here only dh1 feeds dx). The owned rows
+//    [lo, hi) reach dx columns [lo, hi + K - 1), so tiles j and j + 1 both
+//    reach the K - 1 = 4 seam columns [240 j + 248, 240 j + 252). Tiles run
+//    outside the zones: a block walks units (tile j, zone z), the tile's dx
+//    in registers across its zones (a whole 800-sample window's 26 dx tiles
+//    would not fit), the window transposed once a tile, a zone's weight set
+//    copied in under the phases a unit as before (the double buffer carries
+//    on across the tiles). After a tile's last zone its dx GEMM is drained
+//    and the tile stored: columns from lo + K - 1 written (from 0 in the
+//    first tile), the K - 1 before them added onto what tile j - 1 stored
+//    there, by the same block in tile order with a barrier between, so no
+//    atomics and reruns stay bit-identical. At one 800-sample window a
+//    (trial, window, zone) computes 3 x 256 + 128 = 896 conv rows (the
+//    short last tile in two 64-row tiles) against the 796 of t1.
 // It takes O = 32, K1 = K2 = 5, C <= 64 (the window and w12 zero-padded to
-// Cp = 64 channels, whose gradient rows are not stored) and a whole window
-// in one tile: t1 <= 256 conv rows, windows up to 260 samples. 198,912 B of
-// shared memory at the shipped geometry (C = 64, W = 250), which has
-// compile-time strides; another instantiation takes the rest, and a debug
-// instantiation of each (kClock) adds per-phase clock counters
-// (phase_clock.cuh). Column tiles (windows past 260) are not built:
-// adjacent tiles' owned rows both reach the K1 - 1 window columns at their
-// seam. ops/cuda/conv4head.py mirrors the plan and the descriptors
-// (bwd_x_bf16_plan, bwd_x_bf16_dx_descs) for the CPU emulation of
-// tests/wgmma_emulation.py.
+// Cp = 64 channels, whose gradient rows are not stored) and any window:
+// one tile up to t1 = 256 conv rows (windows of 260 samples), column tiles
+// past that. 198,912 B of shared memory at the shipped geometry (C = 64,
+// W = 250), which has compile-time strides; another instantiation takes
+// the other windows of one tile; column tiles have two (C = 64 and any C,
+// compile-time strides both, 203,008 B), and a debug instantiation of each
+// (kClock) adds per-phase clock counters (phase_clock.cuh).
+// ops/cuda/conv4head.py mirrors the plan, the tiles and the descriptors
+// (bwd_x_bf16_plan, bwd_x_bf16_col_tiles, bwd_x_bf16_dx_descs) for the CPU
+// emulation of tests/wgmma_emulation.py.
 
 #include <cstdint>
 #include <type_traits>
@@ -114,7 +137,8 @@ using isd::round16;
 
 constexpr int kCp = 64;                // channels of the staged window and w12
 constexpr int kSlots = 3;              // dx tiles a warpgroup holds
-constexpr int kMaxT1 = kGroups * kRows;  // conv rows of a window: one 64-row tile a warpgroup
+constexpr int kMaxT1 = kGroups * kRows;  // conv rows of a block: one 64-row tile a warpgroup
+static_assert(kMaxT1 == isd::kColSpan, "B2x-bf16's column tiles are B2w-bf16's geometry");
 
 // Shared-memory plan of a block, in bytes; mirrored by bwd_x_bf16_plan in
 // ops/cuda/conv4head.py. The time-major buffers have `rows` rows (time t
@@ -171,17 +195,54 @@ __host__ __device__ inline XPlan x_plan(int C, int W, int O, int K) {
   return p;
 }
 
-// Whether B2x-bf16 has a plan for C channels at windows of W: C <= kCp, t1
-// <= kMaxT1 (then its 2 nx dx tiles fit the kSlots a warpgroup holds).
+// Whether B2x-bf16 has a plan for C channels at windows of W: C <= kCp (one
+// window in column tiles past t1 = kMaxT1).
 __host__ __device__ inline bool x_plan_ok(int C, int W, int K) {
-  return C >= 1 && C <= kCp && W >= K && W - K + 1 <= kMaxT1;
+  return C >= 1 && C <= kCp && W >= K;
 }
 
-// The window's columns into the chunks: (t, c) = x0[c * T + t] for t < W
+// Whether windows of W run in column tiles: t1 past one block's rows.
+__host__ __device__ inline bool x_tiled(int W, int K) { return W - K + 1 > kMaxT1; }
+
+// The plan a launch takes: the whole window's, or in column tiles the plan
+// of windows of kMaxT1 + K - 1 samples, whatever W is (one layout; its nx
+// = 5 row tiles make 10 dx tiles, within kSlots a warpgroup).
+__host__ __device__ inline XPlan x_block_plan(int C, int W, int O, int K) {
+  return x_plan(C, x_tiled(W, K) ? kMaxT1 + K - 1 : W, O, K);
+}
+
+// Column tile j of `tiles` of a window of W samples (t1 conv rows), on the
+// block's plan p, in the tile's own rows and columns (row r is the window's
+// conv row s + r, column w its column s + w; conv4head_common.cuh's
+// geometry): the rows its convs compute (nt, whole 64-row tiles), the first
+// row past the window's end (e), the rows of dh1 it keeps [lo, hi), the
+// window columns it stages (cols); its dx reach [lo, w1) in nx 64-row dx
+// tiles, of which it adds [lo, wf) onto what tile j - 1 stored (the K - 1
+// seam columns) and writes [wf, w1). The whole window is one such tile.
+struct XTile {
+  int s, nt, e, lo, hi, cols, wf, w1, nx;
+};
+
+__host__ __device__ inline XTile x_tile(const XPlan& p, int W, int K, int j, int tiles) {
+  XTile c;
+  c.s = j * isd::kColStep;
+  c.e = W - K + 1 - c.s;
+  c.nt = (c.e + kRows - 1) / kRows * kRows;
+  c.nt = c.nt < p.nt ? c.nt : p.nt;
+  c.lo = j > 0 ? isd::kColHalo : 0;
+  c.hi = j + 1 < tiles ? p.nt - isd::kColHalo : c.e;
+  c.cols = c.nt + K - 1 < W - c.s ? c.nt + K - 1 : W - c.s;
+  c.wf = j > 0 ? c.lo + K - 1 : 0;
+  c.w1 = c.hi + K - 1 < W - c.s ? c.hi + K - 1 : W - c.s;
+  c.nx = (c.w1 + kRows - 1) / kRows;
+  return c;
+}
+
+// The window's columns into the chunks: (t, c) = x0[c * T + t] for t < cols
 // and c < C, zero elsewhere, rows 0..rows-1, by 2-byte loads (a warp reads
 // 32 consecutive samples of a channel), 16 bytes (8 channels) a store.
 __device__ inline void window_to_chunks(char* xs, int cs, const uint16_t* __restrict__ x0, int C,
-                                        int T, int W, int rows) {
+                                        int T, int cols, int rows) {
   const int n = (kCp >> 3) * rows;
 #pragma unroll 5
   for (int i = threadIdx.x; i < n; i += kWarpsB * 32) {
@@ -190,8 +251,8 @@ __device__ inline void window_to_chunks(char* xs, int cs, const uint16_t* __rest
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 8 * ch + 2 * e;
-      const uint32_t lo = t < W && c < C ? x0[static_cast<size_t>(c) * T + t] : 0u;
-      const uint32_t hi = t < W && c + 1 < C ? x0[static_cast<size_t>(c + 1) * T + t] : 0u;
+      const uint32_t lo = t < cols && c < C ? x0[static_cast<size_t>(c) * T + t] : 0u;
+      const uint32_t hi = t < cols && c + 1 < C ? x0[static_cast<size_t>(c + 1) * T + t] : 0u;
       v[e] = lo | (hi << 16);
     }
     *reinterpret_cast<uint4*>(xs + ch * cs + 16 * t) = make_uint4(v[0], v[1], v[2], v[3]);
@@ -263,7 +324,7 @@ __global__ void conv4head_bwd_x_bf16_scale_kernel(const float* __restrict__ g,
   }
 }
 
-// A zone's phases, in the order of ops/cuda/conv4head.py's BWD_X_BF16_PHASES:
+// A unit's phases, in the order of ops/cuda/conv4head.py's BWD_X_BF16_PHASES:
 // the debug instantiation's counters (phase_clock.cuh).
 enum XPhase {
   kXSetup,    // zeros, the window's transpose, the first zone's weights
@@ -272,15 +333,23 @@ enum XPhase {
   kXConv3,    // h3 -> dh3c; the last zone's dx GEMM issued behind its products
   kXConv4T,   // dh2c (the last zone's dx GEMM drained)
   kXConv3T,   // bf16(dh1); the next zone's w12, b12 and g / t1 staged behind its products
-  kXDx,       // the block's last dx GEMM, issued and waited for
-  kXStore,    // dx written
+  kXDx,       // a tile's last dx GEMM, issued and waited for
+  kXStore,    // dx written, the seam added
+  kXTile,     // column tiles: the next tile's window transposed, a short tile's stale rows zeroed
   kXBarrier,  // every __syncthreads
   kXPhases
 };
 
-// kC, kW > 0: the shipped geometry's compile-time strides; 0: any geometry
-// with a plan. kClock: the debug instantiation, which adds its phase
-// counters to clk.
+// kC, kW > 0: the shipped geometry's compile-time strides; kW 0: any window
+// of one tile; kW < 0 (kTiled): any window in column tiles, on the one plan
+// of every column-tile geometry (compile-time strides; kC > 0 fixes C too).
+// kClock: the debug instantiation, which adds its phase counters to clk.
+// A block walks its units (column tile j, zone z), the tiles in order and
+// each tile's zones in order: the tile's dx stays in registers across its
+// zones, and after its last zone it is stored (the K - 1 seam columns at an
+// interior left edge added onto what tile j - 1 stored), then the next
+// tile's window is staged. The zones' weight sets alternate by unit, across
+// the tiles.
 template <int O, int K, int kC, int kW, bool kClock>
 __global__ void __launch_bounds__(kWarpsB * 32, 1)
 conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __restrict__ x,
@@ -288,6 +357,7 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
                             int C_arg, int T, int Z, int N, int W_arg, int step, int SZ,
                             unsigned long long* __restrict__ clk) {
   static_assert(O == 32, "four 8-column chunks of O; a warp's lanes copy b12 and g / t1");
+  constexpr bool kTiled = kW < 0;
   // dx tiles a warpgroup holds: 2 at the shipped windows of 250 (8 tiles), else kSlots.
   constexpr int kSl = kW > 0 ? (2 * ((kW + kRows - 1) / kRows) + kGroups - 1) / kGroups : kSlots;
   static_assert(kSl <= kSlots, "the dx tiles must fit the registers");
@@ -295,15 +365,17 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
   extern __shared__ uint4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const uint32_t base = isd::smem_u32(smem);
-  const XPlan plan = x_plan(C, W, O, K);
-  const int t1 = plan.t1, cs = plan.cs, csx = plan.csx, nt = plan.nt;
+  const XPlan plan = x_plan(C, kTiled ? kMaxT1 + K - 1 : W, O, K);
+  const int cs = plan.cs, csx = plan.csx;
+  const int tiles = kTiled ? isd::col_tile_count(W - K + 1) : 1;
   const int n = blockIdx.x / SZ, zs = blockIdx.x - n * SZ, b = blockIdx.y, m = blockIdx.z;
   // The warpgroup, through a shuffle so that the compiler knows it is the
   // same across the warp: every branch on it is then warp-uniform.
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
   const int wg = warp >> 2;
   const size_t mb = static_cast<size_t>(m) * B + b, mbn = mb * N + n;
-  const int z0 = zs * Z / SZ, z1 = (zs + 1) * Z / SZ;
+  const int z0 = zs * Z / SZ, z1 = (zs + 1) * Z / SZ, nz = z1 - z0;
+  const uint16_t* xw = x + mb * C * T + static_cast<size_t>(n) * step;
   isd::PhaseClock<kClock, kXPhases> clock(smem + plan.total);
   // Zone z's staged weights into the set at `set` (the plan's first set's
   // offsets shifted), by cp.async: w3, w4, b12 and g / t1 (every warp copies
@@ -332,11 +404,11 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
     }
   };
 
+  XTile ct = x_tile(plan, W, K, 0, tiles);  // the current column tile; the whole window in one
   copy34(z0, 0);
   copy12(z0, 0);
   isd::zero_words(reinterpret_cast<uint32_t*>(smem + plan.h1), (plan.w12 - plan.h1) / 4);
-  window_to_chunks(smem + plan.xs, cs, x + mb * C * T + static_cast<size_t>(n) * step, C, T, W,
-                   plan.rows);
+  window_to_chunks(smem + plan.xs, cs, xw, C, T, ct.cols, plan.rows);
   isd::cp_async_wait_all();
   isd::fence_proxy_async();
   clock.sync(kXSetup);
@@ -345,18 +417,18 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
   // other instructions: those would serialise the wgmma pipeline.
   float acc[16];        // a conv tile
   float accx[kSl][16];  // this warpgroup's dx tiles wg, wg + 4, ...: (row tile, half) = (i / 2, i % 2)
-  // One conv phase: this warpgroup's time tile (t1 <= kGroups x 64: one a
-  // warpgroup), issued, waited for and handed to its epilogue, `under` run
-  // behind its products (or alone, without a tile); kPend 1: `under` issues
-  // products of its own, committed as a group that runs on under the
-  // epilogue into the next phase; kPend 0: nothing is left in flight (a
-  // warpgroup without a tile drains the last dx GEMM here). Then, with
-  // `land`, the wait for this thread's cp.async copies; the fence for the
-  // async proxy and the barrier.
+  // One conv phase: this warpgroup's time tile (a tile's rows <= kGroups x
+  // 64: one a warpgroup), issued, waited for and handed to its epilogue,
+  // `under` run behind its products (or alone, without a tile); kPend 1:
+  // `under` issues products of its own, committed as a group that runs on
+  // under the epilogue into the next phase; kPend 0: nothing is left in
+  // flight (a warpgroup without a tile drains the last dx GEMM here). Then,
+  // with `land`, the wait for this thread's cp.async copies; the fence for
+  // the async proxy and the barrier.
   const auto conv_phase = [&](auto issue, auto epilogue, auto under, auto pend, int phase,
                               bool land) {
     constexpr int kPend = decltype(pend)::value;
-    if (wg < nt / kRows) {
+    if (wg < ct.nt / kRows) {
       isd::wgmma_fence();
       issue(wg);
       isd::wgmma_commit();
@@ -381,16 +453,17 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
   const auto put = [&](int buf, int row, int o, uint32_t v) {
     *reinterpret_cast<uint32_t*>(smem + buf + chunk_off(cs, row, o)) = v;
   };
-  // This warpgroup's dx tiles of zone zd (its bf16(dh1) in d1, its w12 in
-  // set (zd - z0) % 2): A = bf16(dh1) from row 64 mt + K-1-k (tap k),
-  // K-major; B = w12's taps k, channels 32 h.., read MN-major. The block's
-  // first zone overwrites the accumulators.
-  const auto issue_dx = [&](int zd) {
-    const uint32_t w12s = base + ((zd - z0) & 1) * plan.wset + plan.w12;
+  // This warpgroup's dx tiles of unit ud (its bf16(dh1) in d1, its w12 in
+  // weight set ud % 2): A = bf16(dh1) from row 64 mt + K-1-k (tap k),
+  // K-major; B = w12's taps k, channels 32 h.., read MN-major. A tile's
+  // first zone (`first`) overwrites the accumulators; the tile's nx row
+  // tiles only (the rest of the slots hold nothing of it).
+  const auto issue_dx = [&](int ud, bool first) {
+    const uint32_t w12s = base + (ud & 1) * plan.wset + plan.w12;
 #pragma unroll
     for (int s = 0; s < kSl; ++s) {
       const int tile = wg + kGroups * s;
-      if (tile >= 2 * plan.nx) continue;
+      if (tile >= 2 * ct.nx) continue;
       const int mt = tile >> 1, h = tile & 1;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
@@ -400,32 +473,67 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
           const uint64_t a = isd::wgmma_desc(a_row + (o0 >> 3) * csx, csx, 128);
           const uint64_t bd = isd::wgmma_desc(
               w12s + ((k * kCp + 32 * h) >> 3) * 16 * O + 16 * o0, 128, 16 * O);
-          isd::wgmma_m64n32k16<0, 1>(accx[s], a, bd, zd > z0 || k > 0 || o0 > 0);
+          isd::wgmma_m64n32k16<0, 1>(accx[s], a, bd, !first || k > 0 || o0 > 0);
+        }
+      }
+    }
+  };
+  // The current tile's last dx GEMM (unit ud), waited for, and its dx out:
+  // each dx tile's columns [lo, w1) of the tile and channels c < C, written
+  // from wf on, added before it (the seam, which tile j - 1 stored earlier
+  // in this block: a barrier lies between).
+  const int w4q = warp & 3, gq = lane >> 2, q = lane & 3;
+  float* const dxw = out + (mbn * SZ + zs) * C * W;
+  const auto flush_dx = [&](int ud) {
+    isd::wgmma_fence();
+    issue_dx(ud, nz == 1);
+    isd::wgmma_commit();
+    isd::wgmma_wait<0>();
+#pragma unroll
+    for (int s = 0; s < kSl; ++s) isd::fence_operand(accx[s]);
+    clock.mark(kXDx);
+    float* dst = dxw + ct.s;
+#pragma unroll
+    for (int s = 0; s < kSl; ++s) {
+      const int tile = wg + kGroups * s;
+      if (tile >= 2 * ct.nx) continue;
+      const int mt = tile >> 1, h = tile & 1;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int w = kRows * mt + 16 * w4q + 8 * ((i >> 1) & 1) + gq;
+        const int c = 32 * h + 8 * (i >> 2) + 2 * q + (i & 1);
+        if (w >= ct.lo && w < ct.w1 && c < C) {
+          float* p = dst + static_cast<size_t>(c) * W + w;
+          *p = kTiled && w < ct.wf ? *p + accx[s][i] : accx[s][i];
         }
       }
     }
   };
 
-  for (int z = z0; z < z1; ++z) {
-    const int set = ((z - z0) & 1) * plan.wset;
+  const int units = nz * tiles;
+  for (int u = 0; u < units; ++u) {
+    const int j = kTiled ? u / nz : 0, z = z0 + (u - j * nz);
+    const int zn = z + 1 < z1 ? z + 1 : z0, set = (u & 1) * plan.wset;  // the next unit's zone
+    const bool more = u + 1 < units;
+    const int e = ct.e, lo = ct.lo, hi = ct.hi;
     const float* bias = reinterpret_cast<const float*>(smem + set + plan.bias);
     const float* gz = reinterpret_cast<const float*>(smem + set + plan.gz);
     const uint32_t w12s = base + set + plan.w12, w3s = base + set + plan.w3,
                    w4s = base + set + plan.w4;
-    conv_phase(  // h1 = bf16(w12 . p + b12); the next zone's w3, w4, b12 and g / t1 copied
-                 // in behind it (into the last zone's set)
+    conv_phase(  // h1 = bf16(w12 . p + b12); the next unit's w3, w4, b12 and g / t1 copied
+                 // in behind it (into the last unit's set)
         [&](int tile) { conv_issue<K, O, false>(acc, base + plan.xs, cs, w12s, kCp, tile); },
         [&](int, int t, int o, float v0, float v1) {
-          put(plan.h1, K / 2 + t, o, t < t1 ? isd::pack_bf16(v0 + bias[o], v1 + bias[o + 1]) : 0u);
+          put(plan.h1, K / 2 + t, o, t < e ? isd::pack_bf16(v0 + bias[o], v1 + bias[o + 1]) : 0u);
         },
         [&] {
-          if (z + 1 < z1) copy34(z + 1, plan.wset - set);
+          if (more) copy34(zn, plan.wset - set);
         },
         drained, kXConv1, false);
     conv_phase(  // h2 = bf16(w3 . pad(h1))
         [&](int tile) { conv_issue<K, O, false>(acc, base + plan.h1, cs, w3s, O, tile); },
         [&](int, int t, int o, float v0, float v1) {
-          put(plan.h2, K / 2 + t, o, t < t1 ? isd::pack_bf16(v0, v1) : 0u);
+          put(plan.h2, K / 2 + t, o, t < e ? isd::pack_bf16(v0, v1) : 0u);
         },
         nothing, drained, kXConv2, false);
     conv_phase(  // h3 = w4 . pad(h2) -> dh3c = bf16(g / t1 * gelu'(h3)); the last zone's dx
@@ -433,55 +541,46 @@ conv4head_bwd_x_bf16_kernel(const float* __restrict__ gs, const uint16_t* __rest
         [&](int tile) { conv_issue<K, O, false>(acc, base + plan.h2, cs, w4s, O, tile); },
         [&](int, int t, int o, float v0, float v1) {
           put(plan.d3, K / 2 + t, o,
-              t < t1 ? isd::pack_bf16(gz[o] * gelu_grad_fast(v0), gz[o + 1] * gelu_grad_fast(v1))
-                     : 0u);
+              t < e ? isd::pack_bf16(gz[o] * gelu_grad_fast(v0), gz[o + 1] * gelu_grad_fast(v1))
+                    : 0u);
         },
         [&] {
-          if (z > z0) issue_dx(z - 1);
+          if (z > z0) issue_dx(u - 1, z - 1 == z0);
         },
         behind, kXConv3, false);
     conv_phase(  // dh2c = bf16(conv4^T(dh3c)); the last zone's dx GEMM drained
         [&](int tile) { conv_issue<K, O, true>(acc, base + plan.d3, cs, w4s, O, tile); },
         [&](int, int t, int o, float v0, float v1) {
-          put(plan.d2, K / 2 + t, o, t < t1 ? isd::pack_bf16(v0, v1) : 0u);
+          put(plan.d2, K / 2 + t, o, t < e ? isd::pack_bf16(v0, v1) : 0u);
         },
         nothing, drained, kXConv4T, false);
-    conv_phase(  // bf16(dh1), dh1 = conv3^T(dh2c) in f32, from row K - 1; the next zone's
-                 // w12 copied in behind it (the last zone's dx GEMM, which read that set's,
-                 // drained), and every copy landed before the barrier
+    conv_phase(  // bf16(dh1) on the rows the tile keeps, dh1 = conv3^T(dh2c) in f32, from row
+                 // K - 1; the next unit's w12 copied in behind it (the last zone's dx GEMM,
+                 // which read that set's, drained), and every copy landed before the barrier
         [&](int tile) { conv_issue<K, O, true>(acc, base + plan.d2, cs, w3s, O, tile); },
         [&](int, int t, int o, float v0, float v1) {
           *reinterpret_cast<uint32_t*>(smem + plan.d1 + chunk_off(csx, K - 1 + t, o)) =
-              t < t1 ? isd::pack_bf16(v0, v1) : 0u;
+              t >= lo && t < hi ? isd::pack_bf16(v0, v1) : 0u;
         },
         [&] {
-          if (z + 1 < z1) copy12(z + 1, plan.wset - set);
+          if (more) copy12(zn, plan.wset - set);
         },
         drained, kXConv3T, true);
-  }
-  isd::wgmma_fence();
-  issue_dx(z1 - 1);
-  isd::wgmma_commit();
-  isd::wgmma_wait<0>();
-#pragma unroll
-  for (int s = 0; s < kSl; ++s) isd::fence_operand(accx[s]);
-  clock.mark(kXDx);
-
-  // Each dx tile's rows w < W and channels c < C, once.
-  const int w4q = warp & 3, gq = lane >> 2, q = lane & 3;
-  float* dst = out + (mbn * SZ + zs) * C * W;
-#pragma unroll
-  for (int s = 0; s < kSl; ++s) {
-    const int tile = wg + kGroups * s;
-    if (tile >= 2 * plan.nx) continue;
-    const int mt = tile >> 1, h = tile & 1;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int w = kRows * mt + 16 * w4q + 8 * ((i >> 1) & 1) + gq;
-      const int c = 32 * h + 8 * (i >> 2) + 2 * q + (i & 1);
-      if (w < W && c < C) dst[static_cast<size_t>(c) * W + w] = accx[s][i];
+    if (kTiled && zn == z0 && more) {  // the tile's last zone: its dx out, the next tile in
+      flush_dx(u);
+      clock.sync(kXStore);
+      ct = x_tile(plan, W, K, j + 1, tiles);
+      window_to_chunks(smem + plan.xs, cs, xw + ct.s, C, T, ct.cols, plan.rows);
+      if (ct.nt < plan.nt) {  // a short last tile: the rows past its own that its convs and
+                              // dx GEMM read, which hold the tile before's values
+        isd::zero_rows(smem + plan.h1, cs, (plan.d1 - plan.h1) / cs, ct.nt + K / 2, K - 1 - K / 2);
+        isd::zero_rows(smem + plan.d1, csx, O / 8, ct.nt + K - 1, kRows);
+      }
+      isd::fence_proxy_async();
+      clock.sync(kXTile);
     }
   }
+  flush_dx(units - 1);
   clock.mark(kXStore);
   clock.finish(clk);
 }
@@ -506,7 +605,7 @@ cudaError_t launch_x(const float* g, const uint16_t* x, const float* w12, const 
                      const float* w3, const float* w4, float* dxw, float* part, void* work,
                      int M, int B, int C, int T, int Z, int W, int step, int N, int SZ,
                      unsigned long long* clk, cudaStream_t st) {
-  const XPlan plan = x_plan(C, W, O, K);
+  const XPlan plan = x_block_plan(C, W, O, K);
   char* prep = static_cast<char*>(work);
   float* gs = reinterpret_cast<float*>(prep + static_cast<size_t>(M) * Z * prep_bytes(plan));
   conv4head_bwd_x_bf16_prep_kernel<O, K><<<dim3(Z, M, kPrepParts), 256, 0, st>>>(
@@ -515,12 +614,17 @@ cudaError_t launch_x(const float* g, const uint16_t* x, const float* w12, const 
   if (err != cudaSuccess) return err;
   const long long ng = static_cast<long long>(M) * B * N * Z * O;
   const int gblocks = static_cast<int>((ng + 255) / 256 < 1024 ? (ng + 255) / 256 : 1024);
-  conv4head_bwd_x_bf16_scale_kernel<<<gblocks, 256, 0, st>>>(g, gs, ng, plan.t1);
+  // g / t1 of the whole window, in column tiles too
+  conv4head_bwd_x_bf16_scale_kernel<<<gblocks, 256, 0, st>>>(g, gs, ng, W - K + 1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_bytes = plan.total + (kClock ? isd::clock_bytes<kXPhases>() : 0);
-  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides.
-  const auto kernel = (C == 64 && W == 250) ? conv4head_bwd_x_bf16_kernel<O, K, 64, 250, kClock>
-                                            : conv4head_bwd_x_bf16_kernel<O, K, 0, 0, kClock>;
+  // The shipped model's geometry (64 channels, windows of 250) gets compile-time strides,
+  // and so do column tiles (one plan for every window; C too at 64 channels).
+  const auto kernel =
+      !x_tiled(W, K) ? ((C == 64 && W == 250) ? conv4head_bwd_x_bf16_kernel<O, K, 64, 250, kClock>
+                                              : conv4head_bwd_x_bf16_kernel<O, K, 0, 0, kClock>)
+                     : (C == 64 ? conv4head_bwd_x_bf16_kernel<O, K, 64, -1, kClock>
+                                : conv4head_bwd_x_bf16_kernel<O, K, 0, -1, kClock>);
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(smem_bytes))) != cudaSuccess) {
     return err;
@@ -547,11 +651,20 @@ int bwd_x_bf16(const float* g, const void* x, const float* w12, const float* b12
 
 }  // namespace
 
-// Dynamic shared memory of one B2x-bf16 block, in bytes; -1 where it has
-// no plan (C > 64, or windows past 260 samples at K = 5). Mirrored by
+// Dynamic shared memory of one B2x-bf16 block, in bytes: the whole
+// window's plan, or past t1 = 256 the column tiles' (one plan for every
+// window); -1 where it has no plan (C > 64). Mirrored by
 // bwd_x_bf16_smem_bytes in ops/cuda/conv4head.py.
 extern "C" int isd_conv4head_bwd_x_bf16_smem_bytes(int C, int W, int O, int K) {
-  return x_plan_ok(C, W, K) ? x_plan(C, W, O, K).total : -1;
+  return x_plan_ok(C, W, K) ? x_block_plan(C, W, O, K).total : -1;
+}
+
+// Column tiles of one (trial, window) in B2x-bf16: 1 up to t1 = 256, else
+// ceil((t1 - 16) / 240); mirrored by bwd_x_bf16_col_tiles.
+extern "C" int isd_conv4head_bwd_x_bf16_col_tiles(int C, int W, int O, int K) {
+  (void)C;
+  (void)O;
+  return x_tiled(W, K) ? isd::col_tile_count(W - K + 1) : 1;
 }
 
 // Bytes of B2x-bf16's scratch `work` (the pre-pass's staged weights and

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "isd_conv4head_bwd_w_bf16_phases": ([_P] * 14 + [_I] * 12 + [_P, _P], _I),
     "isd_conv4head_bwd_x_bf16": ([_P] * 9 + [_I] * 12 + [_P], _I),
     "isd_conv4head_bwd_x_bf16_smem_bytes": ([_I] * 4, _I),
+    "isd_conv4head_bwd_x_bf16_col_tiles": ([_I] * 4, _I),
     "isd_conv4head_bwd_x_bf16_work_bytes": ([_I] * 7, ctypes.c_longlong),
     "isd_conv4head_bwd_x_bf16_phases": ([_P] * 9 + [_I] * 12 + [_P, _P], _I),
     "isd_conv4head_fwd_general": ([_P] * 7 + [_I] * 13 + [_P], _I),

@@ -31,9 +31,11 @@ a block's trials; a window past 260 samples in column tiles of 256 conv
 rows with a recomputed 8-row halo) and B2x-bf16
 (``csrc/conv4head_bwd_x_bf16.cu``: B2w-bf16's recompute and one more
 ``wgmma`` GEMM, the input gradient, held in registers across a block's
-zones), f32 accumulators, rounding where the Pallas kernel rounds (an even
-T in B2f-bf16 and B2w-bf16; B2w-bf16 C <= 64, any window; B2x-bf16 C <=
-64, windows up to 260 samples). The weights come in as f32 either way and
+zones; a window past 260 samples in the same column tiles, each tile's dx
+stored after its zones and the K - 1 seam columns between tiles added in
+tile order), f32 accumulators, rounding where the Pallas kernel rounds (an
+even T in B2f-bf16 and B2w-bf16; B2w-bf16 and B2x-bf16 C <= 64, any
+window). The weights come in as f32 either way and
 the kernels round them to bf16 as they stage them; the output and every
 weight gradient are f32, a bf16 dx is bf16.
 
@@ -41,7 +43,7 @@ The general kernels (``csrc/conv4head_general.cu``, f32 and bf16) take
 any C, T, window, step and O at K1 = K2 = 5: their shared memory does not
 grow with C, W or O (a unit's intermediates sit in a global workspace, a
 slot per resident block). They run where no tuned plan fits and where O >
-32 (a bf16 input gradient past B2x-bf16's plan: B2x-g bf16).
+32 (a bf16 input gradient at C > 64 or O > 32: B2x-g bf16).
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
 with a leading model axis M where the JAX kernel had ``jax.vmap``:
@@ -484,8 +486,9 @@ def f32_plan_fits(op: str, c: int, window_len: int, tiles: bool = True) -> bool:
 def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal) -> str:
     """Why ``op`` goes to the general kernel of its precision, or "" when a
     tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient that
-    B2x-bf16 has no plan for (``bwd_x_bf16_smem_bytes``: C > 64, windows
-    past 260 samples); or no tuned plan fitting: f32 where the f32 plan
+    B2x-bf16 has no plan for (``bwd_x_bf16_smem_bytes``: C > 64; it takes
+    any window, in column tiles past 260 samples); or no tuned plan
+    fitting: f32 where the f32 plan
     (in column tiles past the whole window's) does not fit (C > 72 in B2f
     and B2w, C > 64 in B2x),
     bf16 where the bf16 kernel refuses (``refusal``) and its f32 route's
@@ -496,7 +499,7 @@ def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal
         if 0 <= bwd_x_bf16_smem_bytes(c, window_len) <= MAX_SMEM_BYTES:
             return ""
         return (f"B2x-bf16 is not built for C={c} at windows of {window_len} "
-                f"(C <= {BWD_X_BF16_CP}, windows up to {BWD_X_BF16_MAX_T1 + KERNEL_TAPS - 1})")
+                f"(C <= {BWD_X_BF16_CP})")
     if (refusal or not bf16) and not f32_plan_fits(op, c, window_len, tiles=not refusal):
         return (f"{refusal}; " if refusal else "") + (
             f"the f32 plan does not fit a block at C={c}, windows of {window_len}")
@@ -785,11 +788,12 @@ def bwd_x_col_tiles(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> list:
     return _units(w - k + 1, w, k, bwd_x_plan_bytes(c, w, o, k) > MAX_SMEM_BYTES)
 
 
-# B2x-bf16's shared-memory plan and dx descriptors, mirrored from
-# csrc/conv4head_bwd_x_bf16.cu (x_plan, issue_dx) for the tests; its conv
-# tiles are B2w-bf16's (``bwd_w_bf16_conv_descs`` on the zone's weight set).
+# B2x-bf16's shared-memory plan, column tiles and dx descriptors, mirrored
+# from csrc/conv4head_bwd_x_bf16.cu (x_plan, x_block_plan, x_tile,
+# issue_dx) for the tests; its conv tiles are B2w-bf16's
+# (``bwd_w_bf16_conv_descs`` on the zone's weight set).
 BWD_X_BF16_CP = 64  # channels of B2x-bf16's staged window and w12
-BWD_X_BF16_MAX_T1 = WG_GROUPS * WG_ROWS  # its conv rows of a window: windows up to 260 samples
+BWD_X_BF16_MAX_T1 = WG_GROUPS * WG_ROWS  # conv rows of a block: windows up to 260 in one tile
 BWD_X_BF16_SLOTS = 3  # dx tiles a warpgroup holds in registers
 
 
@@ -797,23 +801,31 @@ def bwd_x_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
     """B2x-bf16's plan for C channels and windows of W: the byte offset of
     every shared-memory region, the total, and the geometry:
       cp    channels of the staged window and w12 (BWD_X_BF16_CP at every C);
-      nt    time rows the convs compute (t1 rounded up to WG_ROWS);
+      t1    the window's conv rows; ``tiles`` its column tiles
+            (``bwd_x_bf16_col_tiles``: one up to t1 = BWD_X_BF16_MAX_T1);
+      nt    time rows the convs compute (t1 rounded up to WG_ROWS; in
+            column tiles COL_SPAN);
       rows  rows of the window, h1, h2, dh3c and dh2c (nt + K - 1: time t
             of an activation at row K/2 + t), ``cs`` their chunk stride;
-      nx    dx row tiles (W rounded up to WG_ROWS, over WG_ROWS): 2 nx dx
-            tiles of 32 channels;
+      nx    dx row tiles (W rounded up to WG_ROWS, over WG_ROWS; in column
+            tiles those of windows of COL_SPAN + K - 1): 2 nx dx tiles of
+            32 channels;
       rx    rows of bf16(dh1) (WG_ROWS nx + K - 1: time t at row K - 1 + t,
             zero rows on both sides), ``csx`` its chunk stride.
-    A zone's weights (w12, w3, w4 in bf16; b12 and g / t1 in f32) take two
-    sets ``wset`` bytes apart; ``w12`` to ``gz`` are the first set's."""
+    Past one tile the layout is the plan of windows of COL_SPAN + K - 1
+    samples, whatever W is. A zone's weights (w12, w3, w4 in bf16; b12 and
+    g / t1 in f32) take two sets ``wset`` bytes apart; ``w12`` to ``gz``
+    are the first set's."""
     t1 = w - k + 1
-    nt = -(-t1 // WG_ROWS) * WG_ROWS
+    tiles = len(col_tiles(t1, w, k, WG_ROWS))
+    span = w if tiles == 1 else COL_SPAN + k - 1  # the window the layout is laid out for
+    nt = -(-(span - k + 1) // WG_ROWS) * WG_ROWS
     rows = nt + k - 1
-    nx = -(-w // WG_ROWS)
+    nx = -(-span // WG_ROWS)
     rx = WG_ROWS * nx + k - 1
     cp = BWD_X_BF16_CP
-    plan = {"c": c, "w": w, "o": o, "k": k, "cp": cp, "t1": t1, "nt": nt, "rows": rows,
-            "cs": 16 * rows, "nx": nx, "rx": rx, "csx": 16 * rx}
+    plan = {"c": c, "w": w, "o": o, "k": k, "cp": cp, "t1": t1, "tiles": tiles, "nt": nt,
+            "rows": rows, "cs": 16 * rows, "nx": nx, "rx": rx, "csx": 16 * rx}
     off = 0
     for name, nbytes in (("xs", cp // 8 * 16 * rows), ("h1", o // 8 * 16 * rows),
                          ("h2", o // 8 * 16 * rows), ("d3", o // 8 * 16 * rows),
@@ -829,17 +841,34 @@ def bwd_x_bf16_plan(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> dict:
 
 def bwd_x_bf16_smem_bytes(c: int, w: int, o: int = 32, k: int = KERNEL_TAPS) -> int:
     """The library's ``isd_conv4head_bwd_x_bf16_smem_bytes``: the plan's
-    bytes, or -1 where B2x-bf16 has no plan (C > BWD_X_BF16_CP, or t1 past
-    BWD_X_BF16_MAX_T1: one window in one tile)."""
-    if not (1 <= c <= BWD_X_BF16_CP and k <= w and w - k + 1 <= BWD_X_BF16_MAX_T1):
+    bytes (past one tile the column tiles', one plan for every window), or
+    -1 where B2x-bf16 has no plan (C > BWD_X_BF16_CP)."""
+    if not (1 <= c <= BWD_X_BF16_CP and k <= w):
         return -1
     return bwd_x_bf16_plan(c, w, o, k)["total"]
 
 
+def bwd_x_bf16_col_tiles(plan: dict) -> list:
+    """B2x-bf16's column tiles of a window (their count is the library's
+    ``isd_conv4head_bwd_x_bf16_col_tiles``): ``col_tiles`` in 64-row tiles,
+    the whole window one tile up to t1 = BWD_X_BF16_MAX_T1, each with its
+    dx columns in its own columns: ``[lo, w1)`` reached by the dh1 rows it
+    keeps, ``[lo, wf)`` added onto what the tile before stored there (the
+    K - 1 seam columns at an interior left edge), ``[wf, w1)`` written, in
+    ``nx`` 64-row dx tiles."""
+    k = plan["k"]
+    tiles = []
+    for tile in col_tiles(plan["t1"], plan["w"], k, WG_ROWS):
+        w1 = min(tile["hi"] + k - 1, plan["w"] - tile["s"])
+        tiles.append(dict(tile, w1=w1, wf=tile["lo"] + k - 1 if tile["left"] else 0,
+                          nx=-(-w1 // WG_ROWS)))
+    return tiles
+
+
 def bwd_x_bf16_weights(plan: dict, buf: int) -> dict:
-    """``plan`` with its weights' offsets on set ``buf``: zone z of a
-    block's range [z0, z1) reads set (z - z0) % 2, the next zone's weights
-    being staged into the other under its dx GEMM."""
+    """``plan`` with its weights' offsets on set ``buf``: a block's unit u
+    (its tiles in order, each over the zones of its range) reads set u % 2,
+    the next unit's weights being staged into the other under its phases."""
     shift = buf * plan["wset"]
     return dict(plan, **{name: plan[name] + shift for name in ("w12", "w3", "w4", "bias", "gz")})
 
@@ -1111,13 +1140,13 @@ def _launch_bwd_w(g, x, w12, b12, w3, w4, window_len: int, step: int, s=None, cl
 
 # B2x's time for one unit (one trial, window and zone) on one SM at full
 # width: 47.6 us on an H100 80GB HBM3 at 700 W (1.522 ms for 4 waves of
-# 8-zone blocks at M = 1, B = 100; PERF.md); in column tiles a zone is its
-# tiles' count of such units. _bwd_x_zone_splits weighs it against the bytes
-# of the pass that a zone split adds. B2x-bf16's, on the
+# 8-zone blocks at M = 1, B = 100; PERF.md). _bwd_x_zone_splits weighs it
+# against the bytes of the pass that a zone split adds. B2x-bf16's, on the
 # same card: 7.75 us a zone and 8.4 us a block besides (the window's
 # transpose, the first zone's weights, dx's stores), fitted to its device
 # times at M = 1, B = 16 with SZ = 1, 2, 3 and 8 (b2x_timing.py --sweep;
-# PERF.md).
+# PERF.md). In column tiles, B2x's and B2x-bf16's, a zone is its tiles'
+# count of such units.
 X_UNIT_S = 47.6e-6
 X_BF16_UNIT_S = 7.75e-6
 X_BF16_BLOCK_S = 8.4e-6
@@ -1153,8 +1182,8 @@ def conv4head_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int):
     """B2x: ``dx`` of ``<g, fused_conv4_head(x, ...)>`` in x's dtype; B2x
     for an f32 ``x`` (C <= 64, any window: column tiles past its whole
     window's plan, 284 samples at C = 64), B2x-bf16 for a bf16 one (C <=
-    64, windows up to 260 samples), B2x-g of x's precision where neither
-    plan fits (f32 at C > 64, bf16 at C > 64 or past 260 samples; O > 32).
+    64, any window: column tiles past 260 samples), B2x-g of x's precision
+    where neither plan fits (C > 64; O > 32).
     The kernels write per-window gradients; the overlapping windows are
     added here, in f32 plain PyTorch, as the JAX package adds them in XLA."""
     if x.device.type == "cpu":
@@ -1178,7 +1207,7 @@ def _overlap_add(dxw, x, step: int):
 # B2x-bf16's phases, in the order of the counters that its debug
 # instantiation keeps (``_launch_bwd_x(..., clk=...)``; b2x_timing.py).
 BWD_X_BF16_PHASES = ("setup", "conv1", "conv2", "conv3", "conv4T", "conv3T", "dx", "store",
-                     "barrier")
+                     "tile", "barrier")
 
 
 def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None, clk=None):
@@ -1192,9 +1221,10 @@ def _launch_bwd_x(g, x, w12, b12, w3, w4, window_len: int, step: int, sz=None, c
     bf16 = x.dtype == torch.bfloat16
     if sz is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        sz = (_bwd_x_zone_splits(m, b, n, z, c, window_len, sms, X_BF16_UNIT_S, X_BF16_BLOCK_S)
-              if bf16 else _bwd_x_zone_splits(m, b, n, z, c, window_len, sms,
-                                              tiles=len(bwd_x_col_tiles(c, window_len, o, k1))))
+        tiles = (len(bwd_x_bf16_col_tiles(bwd_x_bf16_plan(c, window_len, o, k1))) if bf16
+                 else len(bwd_x_col_tiles(c, window_len, o, k1)))
+        costs = (X_BF16_UNIT_S, X_BF16_BLOCK_S) if bf16 else (X_UNIT_S, 0.0)
+        sz = _bwd_x_zone_splits(m, b, n, z, c, window_len, sms, *costs, tiles=tiles)
     lib = _lib.library()
     if bf16:
         _check_smem(lib.isd_conv4head_bwd_x_bf16_smem_bytes(c, window_len, o, k1), "B2x-bf16")

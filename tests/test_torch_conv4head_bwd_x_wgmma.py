@@ -93,9 +93,11 @@ def test_plan_fits_shared_memory(c, w):
 
 def test_admitted_geometries():
     """Every C up to 64 at every window up to 260 samples fits the shared
-    memory and the dx slots; the plan is one layout for every C. Past C =
-    64 or windows of 260 (t1 > 256: a window in more than one tile) the
-    library's size is -1, which the wrapper's check refuses."""
+    memory and the dx slots; the plan is one layout for every C. Past
+    windows of 260 (t1 > 256: a window in more than one tile) the column
+    tiles' plan takes them (``tests/test_torch_conv4head_bwd_x_wgmma_col_tiles.py``);
+    past C = 64 the library's size is -1, which the wrapper's check
+    refuses."""
     for c in range(1, 65):
         for w in range(5, 261):
             nbytes = bwd_x_bf16_smem_bytes(c, w)
@@ -104,10 +106,12 @@ def test_admitted_geometries():
     assert bwd_x_bf16_smem_bytes(10, 250) == bwd_x_bf16_smem_bytes(64, 250)
     # the debug instantiation's phase counters (phase_clock.cuh) fit beside the widest plan
     assert bwd_x_bf16_smem_bytes(64, 260) + 16 * 8 * len(BWD_X_BF16_PHASES) <= MAX_SMEM_BYTES
-    for c, w in ((65, 250), (64, 261), (128, 250), (1, 800), (64, 4)):
+    for c, w in ((65, 250), (65, 800), (128, 250), (64, 4)):
         assert bwd_x_bf16_smem_bytes(c, w) == -1, (c, w)
+    for c, w in ((64, 261), (1, 800)):
+        assert 0 < bwd_x_bf16_smem_bytes(c, w) <= MAX_SMEM_BYTES, (c, w)
     with pytest.raises(ValueError, match="B2x-bf16 is not built"):
-        _check_smem(bwd_x_bf16_smem_bytes(64, 261), "B2x-bf16")
+        _check_smem(bwd_x_bf16_smem_bytes(65, 250), "B2x-bf16")
 
 
 def _regions(plan):
@@ -130,14 +134,16 @@ def _check_operand(plan, desc, n_mn, mn_major, region):
     assert lo <= 2 * int(slots.min()) and 2 * int(slots.max()) + 2 <= hi, (desc, region)
 
 
-@pytest.mark.parametrize("geo", [FULL, RAGGED, WIDEST, dict(c=1, w=5)],
-                         ids=["full", "ragged", "widest", "w5"])
+@pytest.mark.parametrize("geo", [FULL, RAGGED, WIDEST, dict(c=1, w=5), dict(c=64, w=800)],
+                         ids=["full", "ragged", "widest", "w5", "tiled"])
 def test_descriptors_are_aligned_and_stay_in_their_operands(geo):
     """Every k16 step of every conv tile and dx tile, on both weight sets:
     starts and steps in whole 16-byte units (each tap's shift included),
     inside the descriptor's 14-bit fields, and every byte it reads inside
     the operand's own buffer: the dx tiles' A inside dh1's zero-padded
-    rows, their B inside the set's w12."""
+    rows, their B inside the set's w12. In column tiles (windows of 800)
+    the plan is that of windows of 260, whose descriptors every tile
+    reads."""
     plan = bwd_x_bf16_plan(geo["c"], geo["w"])
     weights = {"xs": "w12", "h1": "w3", "h2": "w4", "d3": "w4", "d2": "w3"}
     for buf in (0, 1):

@@ -16,11 +16,11 @@ kernel on the bf16 kernel's operands where the f32 whole-window plan fits
 plain bf16 version at 1e-2 in relative L2 (the f32 kernel skips the bf16
 roundings of h1, h2 and the cotangents; measured <= 3.4e-3); its column
 tiles do not widen that route. A bf16 input gradient takes B2x-bf16 at C
-<= 64 and windows up to 260 samples, at any T. What no tuned plan takes (C
-= 80 or 128, f32 input gradients at C = 65-96 past windows of 284, a bf16
-forward of one window of 600, O = 64, a bf16 input gradient at C = 65 or
-past windows of 260, bf16 weight gradients at C = 65-72 past windows of
-268) goes to the
+<= 64 at every window (past 260 samples in column tiles), at any T. What
+no tuned plan takes (C = 80 or 128, f32 input gradients at C = 65-96 past
+windows of 284, a bf16 forward of one window of 600, O = 64, a bf16 input
+gradient at C = 65 or 80, bf16 weight gradients at C = 65-72 past windows
+of 268) goes to the
 general kernel of x's precision
 (B2f-g, B2w-g, B2x-g), unadapted and counted in
 ``launches_general`` / ``launches_general_bf16``; only K != 5 raises.
@@ -296,13 +296,13 @@ def test_geometry_no_padding_reaches_raises(op, geometry, dtype, why):
 ], ids=["f32-c80", "f32-w500", "bf16-w500", "bf16-o64"])
 def test_general_route_geometries(op, geometry, dtype):
     """Geometries no tuned plan takes, in f32 (C = 80 at windows of 250) and
-    in bf16 (B2x past windows of 260; O = 64):
+    in bf16 (O = 64):
     one launch of the general kernel of x's precision on the operands as
     they are, none of a tuned one, the plain version's result. At windows of
     500 a bf16 forward stays on B2f-bf16 (one window a launch), and weight
-    gradients on B2w-bf16 or, in f32, on B2w; an f32 forward takes B2f and
-    an f32 input gradient B2x (each in column tiles: one launch,
-    unadapted)."""
+    gradients on B2w-bf16 or, in f32, on B2w; an f32 forward takes B2f, an
+    f32 input gradient B2x and a bf16 one B2x-bf16 (each in column tiles:
+    one launch, unadapted)."""
     ops, geo = operands(dtype=dtype, **geometry)
     calls, general = [], []
     got, adapted = _adapted(op, stand_in(op, calls), *ops, *geo, smem_bytes=plan_bytes,
@@ -311,8 +311,7 @@ def test_general_route_geometries(op, geometry, dtype):
     bf16 = dtype == torch.bfloat16
     if bf16 and op == "fwd" and geometry.get("o", 32) == 32:
         assert adapted and general == [] and len(calls) == 3  # B2f-bf16, a window a launch
-    elif ((op != "bwd_x" or not bf16) and geometry.get("o", 32) == 32
-          and geometry.get("c") == 64):
+    elif geometry.get("o", 32) == 32 and geometry.get("c") == 64:
         assert not adapted and general == [] and calls == [dict(c=64, t=800, n=3)]
     else:
         assert not adapted and calls == [] and [d["dtype"] for d in general] == [dtype]
@@ -321,12 +320,13 @@ def test_general_route_geometries(op, geometry, dtype):
 
 def test_bf16_input_gradient_takes_the_general_kernel():
     """A bf16 x's input gradient that B2x-bf16 has no plan for (C = 65 at
-    windows of 250, windows of 261 at C = 64: t1 = 257 rows, past one tile)
-    or O = 64: B2x-g bf16, unadapted, no tuned launch, dx in bf16 equal to
-    the plain bf16 backward's, the reason naming B2x-bf16's limits (or O)."""
+    windows of 250, C = 80 at windows of 500: past its 64 channels, at any
+    window) or O = 64: B2x-g bf16, unadapted, no tuned launch, dx in bf16
+    equal to the plain bf16 backward's, the reason naming B2x-bf16's limits
+    (or O)."""
     for geometry, why in ((dict(SHIPPED, c=65, b=1, z=1), "B2x-bf16 is not built for C=65"),
-                          (dict(SHIPPED, t=400, w=261, step=130, b=1, z=1),
-                           "B2x-bf16 is not built for C=64 at windows of 261"),
+                          (dict(SHIPPED, c=80, w=500, step=150, b=1, z=1),
+                           "B2x-bf16 is not built for C=80 at windows of 500"),
                           (dict(o=64, z=1), "O = 64 > 32")):
         ops, geo = operands(dtype=torch.bfloat16, **geometry)
         calls, general = [], []
@@ -342,9 +342,12 @@ def test_bf16_input_gradient_takes_the_general_kernel():
 @pytest.mark.parametrize("geometry", [
     dict(SHIPPED, b=1, z=1), dict(c=10), dict(SHIPPED, t=300, w=260, step=40, b=1, z=1),
     dict(c=1, t=21, w=5, step=4), dict(t=201), dict(o=16),
-], ids=["shipped", "c10", "w260", "w5-c1", "odd-t", "o16"])
+    dict(SHIPPED, t=400, w=261, step=130, b=1, z=1), dict(SHIPPED, w=500, step=150, b=1, z=1),
+    dict(c=13, t=801, w=801, step=1, b=1, z=2),
+], ids=["shipped", "c10", "w260", "w5-c1", "odd-t", "o16", "w261", "w500", "w801-odd-t"])
 def test_bf16_input_gradient_takes_b2x_bf16(geometry):
-    """A bf16 x's input gradient at C <= 64 and windows up to 260 samples:
+    """A bf16 x's input gradient at C <= 64, at any window (past 260
+    samples in column tiles: 261, 500, and one window of an odd T = 801):
     one B2x-bf16 launch (a stand-in that refuses what its plan's mirror
     refuses) on bf16 x as it is, also at an odd T (B2x-bf16 reads x by
     2-byte loads: no even copy), no general kernel; dim_cnn 16 with zones
@@ -540,16 +543,17 @@ def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
 @pytest.mark.parametrize("geometry,tuned", [
     (dict(SHIPPED, b=2, z=2), True), (dict(SHIPPED, c=1, b=1, z=1), True),
     (dict(SHIPPED, t=300, w=260, step=40, b=1, z=1), True), (dict(t=201), True),
-    (dict(SHIPPED, c=65, b=1, z=1), False), (dict(SHIPPED, t=400, w=261, step=130, b=1, z=1), False),
-    (dict(o=64, z=1), False),
-], ids=["shipped", "c1", "w260", "odd-t", "c65", "w261", "o64"])
+    (dict(SHIPPED, c=65, b=1, z=1), False), (dict(SHIPPED, t=400, w=261, step=130, b=1, z=1), True),
+    (dict(o=64, z=1), False), (dict(SHIPPED, w=800, b=1), True),
+    (dict(SHIPPED, c=80, w=800, b=1), False),
+], ids=["shipped", "c1", "w260", "odd-t", "c65", "w261", "o64", "w800", "c80-w800"])
 def test_bf16_input_gradient_routes_on_meta(monkeypatch, geometry, tuned):
     """A bf16 ``conv4head_bwd_x`` on meta tensors, the launches stood in
-    for (each counting as its launch does): at C <= 64 and windows up to 260
-    samples one B2x-bf16 launch, counted in ``launches_bf16``; at C = 65,
-    windows of 261 or O = 64 one B2x-g bf16 launch, counted in
-    ``launches_general_bf16``; never the f32 B2x, nothing adapted; dx of
-    x's shape in bf16."""
+    for (each counting as its launch does): at C <= 64, at every window
+    (261 and 800: B2x-bf16's column tiles), one B2x-bf16 launch, counted in
+    ``launches_bf16``; at C = 65 or 80 or O = 64 one B2x-g bf16 launch,
+    counted in ``launches_general_bf16``; never the f32 B2x, nothing
+    adapted; dx of x's shape in bf16."""
     calls, general = [], []
     launch, run_general = stand_in("bwd_x", calls), general_stand_in(general)
 

@@ -613,15 +613,20 @@ def _rel_l2(got, ref) -> float:
 def test_bf16_input_gradient_runs_b2x_g(dev):
     """A bf16 x's input gradient on the card, through
     ``fused_conv4_head(...).backward()`` as through ``conv4head_bwd_x``:
-    at the shipped geometry B2x-bf16 (``launches_bf16``, no B2x-g bf16, no
-    f32 B2x), on one 800-sample window B2x-g bf16 (``launches_general_bf16``:
-    B2x-bf16 has no plan past 260 samples); dx in bf16 within BF16_DX_L2 in
-    relative L2 of the plain bf16 backward's, both routes bit-identical."""
+    at the shipped geometry and on one 800-sample window B2x-bf16
+    (``launches_bf16``: past 260 samples in column tiles; no B2x-g bf16,
+    no f32 B2x), at O = 64 B2x-g bf16 (``launches_general_bf16``: B2x-bf16
+    is built for O = 32); dx in bf16 within BF16_DX_L2 in relative L2 of
+    the plain bf16 backward's, both routes bit-identical."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
-    for geometry, key in (({}, "launches_bf16"), (dict(window_len=800), "launches_general_bf16")):
+    cases = []
+    for geometry in ({}, dict(window_len=800)):
         cfg, _, ops, x, g = _full_width_operands(dev, 1, 2, 29, **geometry)
-        geo = (cfg.window_len, cfg.slide_step)
+        cases.append((ops, x, g, (cfg.window_len, cfg.slide_step), "launches_bf16"))
+    g, x, *ops = _general_operands(dev, 64, 800, 250, 125, 64, 29, m=1, b=2)
+    cases.append((ops, x, g, (250, 125), "launches_general_bf16"))
+    for ops, x, g, geo, key in cases:
         xb = x.to(torch.bfloat16)
         ref = conv4head_bwd_bf16_plain(g, xb, *ops, *geo)[0]
         counters = ("launches", "launches_bf16", "launches_general_bf16", "adapted")
@@ -632,7 +637,7 @@ def test_bf16_input_gradient_runs_b2x_g(dev):
         (out * g).sum().backward()
         torch.cuda.synchronize()
         moved = {k: getattr(conv4head_bwd_x, k) - v for k, v in before.items()}
-        assert moved == {k: 2 if k == key else 0 for k in counters}, (geometry, moved)
+        assert moved == {k: 2 if k == key else 0 for k in counters}, (geo, moved)
         for got in (direct, xg.grad):
             assert got.dtype == torch.bfloat16 and got.shape == xb.shape
             assert _rel_l2(got, ref) <= BF16_DX_L2
@@ -718,7 +723,8 @@ def test_b2x_bf16_edges_match_plain(dev, c, t, w, step, o):
 def test_bwd_x_bf16_plan_mirror_matches_kernel(dev, c, w):
     """The Python mirror of B2x-bf16's plan (the route's choice between it
     and B2x-g bf16) gives the library's ``isd_conv4head_bwd_x_bf16_smem_bytes``,
-    -1 where it has no plan (C > 64, windows past 260)."""
+    -1 where it has no plan (C > 64; past windows of 260 the column tiles'
+    plan)."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import bwd_x_bf16_smem_bytes
 
     assert bwd_x_bf16_smem_bytes(c, w) == _lib.library().isd_conv4head_bwd_x_bf16_smem_bytes(
@@ -1109,6 +1115,79 @@ def test_shipped_input_gradient_is_unchanged(dev, m, b, seed):
     _assert_grad_close(dx, conv4head_bwd_x_plain(g, x, *ops, 250, 125), "dx")
     digest = hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()
     assert digest == SHIPPED_B2X_SHA256[(m, b, seed)]
+
+
+# Windows past B2x-bf16's one tile (260 samples): bf16 input gradients in its
+# column tiles (W, step), T = 800; chip_smoke.py's phase (f) runs the same grid.
+BF16_X_COLUMN_TILE_WINDOWS = ((285, 128), (500, 150), (800, 1))
+
+
+@pytest.mark.parametrize("sz", [1, 2, 8])
+@pytest.mark.parametrize("c", [13, 64])
+@pytest.mark.parametrize("w,step", BF16_X_COLUMN_TILE_WINDOWS)
+def test_bf16_input_gradient_column_tiles_match_plain(dev, w, step, c, sz):
+    """B2x-bf16 at windows of 285, 500 and 800 samples (two, two and four
+    column tiles; the last owning 33 rows at 285, 128 rows computed at
+    800), C = 13 and 64, M = 2, B = 8, 8 zones in SZ = 1, 2 and 8 ranges,
+    against the plain bf16 backward's dx within BF16_DX_L2 in relative L2;
+    a second launch bit-identical (the seams are added in tile order by one
+    block, no atomics)."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    g, x, *ops = _general_operands(dev, c, 800, w, step, 32, 5 * w + c)
+    xb = x.to(torch.bfloat16)
+    dx = _launch_bwd_x(g, xb, *ops, w, step, sz)
+    assert torch.equal(dx, _launch_bwd_x(g, xb, *ops, w, step, sz))
+    ref = conv4head_bwd_bf16_plain(g, xb, *ops, w, step)[0]
+    assert dx.dtype == torch.bfloat16 and dx.shape == ref.shape
+    assert _rel_l2(dx, ref) <= BF16_DX_L2, (w, c, sz)
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (64, 260), (64, 261), (64, 308), (64, 500),
+                                 (64, 800), (13, 800), (1, 1000), (65, 800), (128, 250)])
+def test_b2x_bf16_tile_mirrors_match_the_library(dev, c, w):
+    """The Python mirrors of B2x-bf16's plan and tiles (``bwd_x_bf16_smem_bytes``,
+    ``bwd_x_bf16_col_tiles``) equal the library's
+    ``isd_conv4head_bwd_x_bf16_smem_bytes`` and
+    ``isd_conv4head_bwd_x_bf16_col_tiles`` on both sides of one tile's
+    reach, and -1 where it has no plan (C > 64)."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (bwd_x_bf16_col_tiles,
+                                                                        bwd_x_bf16_plan,
+                                                                        bwd_x_bf16_smem_bytes)
+
+    lib = _lib.library()
+    assert bwd_x_bf16_smem_bytes(c, w) == lib.isd_conv4head_bwd_x_bf16_smem_bytes(c, w, 32, 5)
+    assert (len(bwd_x_bf16_col_tiles(bwd_x_bf16_plan(c, w)))
+            == lib.isd_conv4head_bwd_x_bf16_col_tiles(c, w, 32, 5))
+
+
+# sha256 of B2x-bf16's input gradient at the shipped geometry (full width, windows
+# of 250 step 125, ``_general_operands(dev, 64, 800, 250, 125, 32, seed, m, b)`` with
+# x in bf16) at (M, B, seed) = (2, 8, 252) and (1, 100, 253), from the kernel as it
+# was before its column tiles (commit 7d07416) on an H100 80GB HBM3: the shipped
+# instantiation's arithmetic is unchanged when these digests hold.
+SHIPPED_B2X_BF16_SHA256 = {
+    (2, 8, 252): "36166301135f6fda768d693da9e63f096072e6d6ca0eb9e9117775bf984df27a",
+    (1, 100, 253): "6603a4b225a091aaae625720616514221fd99f4556e337354e3e567c6f813c60",
+}
+
+
+@pytest.mark.parametrize("m,b,seed", sorted(SHIPPED_B2X_BF16_SHA256))
+def test_shipped_bf16_input_gradient_is_unchanged(dev, m, b, seed):
+    """B2x-bf16 at the shipped geometry (its compile-time instantiation <64,
+    250>) gives the input gradient the kernel gave before its column tiles,
+    bit for bit (its sha256), and the plain bf16 backward's within
+    BF16_DX_L2."""
+    import hashlib
+
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
+
+    g, x, *ops = _general_operands(dev, 64, 800, 250, 125, 32, seed, m=m, b=b)
+    xb = x.to(torch.bfloat16)
+    dx = conv4head_bwd_x(g, xb, *ops, 250, 125)
+    assert _rel_l2(dx, conv4head_bwd_bf16_plain(g, xb, *ops, 250, 125)[0]) <= BF16_DX_L2
+    digest = hashlib.sha256(dx.float().cpu().numpy().tobytes()).hexdigest()
+    assert digest == SHIPPED_B2X_BF16_SHA256[(m, b, seed)]
 
 
 def _wgmma_selftest(dev, img, steps, a_mn_major, b_mn_major, swap=(False, False)):
@@ -1806,7 +1885,8 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     B2f-bf16 takes (windows of 500, one a launch) stays there, an f32 forward
     at C = 64 and O = 32 (windows of 500 and 800) runs B2f's column tiles,
     weight gradients there run B2w-bf16's column tiles in bf16 and B2w's in
-    f32, and f32 input gradients B2x's column tiles."""
+    f32, and input gradients B2x-bf16's column tiles in bf16 and B2x's in
+    f32."""
     from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import conv4head_bwd_bf16_plain
 
     g, x, *ops = _general_operands(dev, c, t, w, step, o, c + w + o)
@@ -1818,7 +1898,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
                                                               None) is None
     tuned_w = o == 32 and c <= (64 if bf16 else 72)
     tuned_f32_fwd = not bf16 and o == 32 and c <= 72
-    tuned_f32_x = not bf16 and o == 32 and c <= 64
+    tuned_x = o == 32 and c <= 64
     results = []
     for _ in range(2):
         before = _general_counts()
@@ -1832,7 +1912,7 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
         moved.pop(("fused_conv4_head", "adapted"), None)  # B2f-bf16 in groups of windows
         tuned = "launches_bf16" if bf16 else "launches"
         want = {("conv4head_bwd_w", tuned if tuned_w else key): 1,
-                ("conv4head_bwd_x", tuned if tuned_f32_x else key): 1}
+                ("conv4head_bwd_x", tuned if tuned_x else key): 1}
         if tuned_f32_fwd:
             want[("fused_conv4_head", "launches")] = 1
         elif not tuned_fwd:

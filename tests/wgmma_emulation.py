@@ -1,21 +1,24 @@
 """Byte-level emulation of kernels B2w-bf16's, B2f-bf16's and B2x-bf16's
 wgmma routes, shared by ``tests/test_torch_conv4head_bwd_w_wgmma.py``,
-``tests/test_torch_conv4head_fwd_bf16_wgmma.py`` and
-``tests/test_torch_conv4head_bwd_x_wgmma.py`` (on the CPU) and the
+``tests/test_torch_conv4head_fwd_bf16_wgmma.py``,
+``tests/test_torch_conv4head_bwd_x_wgmma.py`` and
+``tests/test_torch_conv4head_bwd_x_wgmma_col_tiles.py`` (on the CPU) and the
 one-tile descriptor self-tests of ``tests/test_torch_cuda.py`` (on the
 card).
 
 Shared memory is modelled as an image of 2-byte slots (a float tensor of
 bf16 values, one row per block), laid out by the Python mirror of the
 kernel's plan (``ops.cuda.conv4head.bwd_w_bf16_plan`` with its column
-tiles ``bwd_w_bf16_col_tiles``, or ``fwd_bf16_plan``; ``chunk_offset``).
+tiles ``bwd_w_bf16_col_tiles``, ``bwd_x_bf16_plan`` with
+``bwd_x_bf16_col_tiles``, or ``fwd_bf16_plan``; ``chunk_offset``).
 A wgmma k16 step is emulated by gathering its two operand tiles from the
 image through their descriptors (start, byte step between core matrices
 along K and along M or N), as the PTX ISA defines the no-swizzle layout,
 and multiplying them in f32. The block emulation runs the kernel's
 phases on those gathers with the kernel's epilogues, trial after trial
-(and in B2w-bf16 column tile after column tile), holding the weight
-gradients in f32 accumulator tiles across them.
+(in B2w-bf16 and B2x-bf16 column tile after column tile), holding the
+weight gradients (B2x-bf16: a tile's dx) in f32 accumulator tiles across
+them.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     bwd_w_bf16_edge,
     bwd_w_bf16_plan,
     bwd_w_bf16_tiles,
+    bwd_x_bf16_col_tiles,
     bwd_x_bf16_dx_descs,
     bwd_x_bf16_dx_tiles,
     bwd_x_bf16_plan,
@@ -203,62 +207,100 @@ def emulate_bwd_w_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, s: in
     return tuple(out)
 
 
-def emulate_bwd_x_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, sz: int = 1):
+def emulate_bwd_x_bf16(g, x, w12, b12, w3, w4, window_len: int, step: int, sz: int = 1,
+                       owned: bool = True, seam_adds: bool = True, whole_t1: bool = True,
+                       zero_short: bool = True):
     """B2x-bf16 on the CPU: dx in x's dtype as the kernel and its wrapper
-    compute it, with ``sz`` zone ranges per (model, trial, window). A block
-    stages its window once (rows past W zero), then walks its zones: the
-    zone's weights into weight set (z - z0) % 2, B2w-bf16's convs over the
-    window's rows (rows past t1 zero), bf16(dh1) from row K - 1, and the dx
-    tiles accumulated in f32 across the range's zones; with sz > 1 the
-    partials are summed in range order from zero (``sum_partials.cuh``);
-    the windows are overlap-added in f32 in window order, then rounded."""
+    compute it, with ``sz`` zone ranges per (model, trial, window). Shared
+    memory starts as NaN but for what the kernel zeroes (h1 .. bf16(dh1));
+    the block's dxw slice is NaN-filled too, so that a byte read before it
+    is written shows. A block walks the plan's column tiles
+    (``bwd_x_bf16_col_tiles``; the whole window is one), each tile's zones
+    in order: the tile's window columns into the chunks (rows past them
+    zero; a short last tile first zeroes the rows past its own that its
+    convs and dx tiles read), then per zone its weights into weight set
+    (unit % 2), B2w-bf16's convs over the tile's rows (rows past the
+    window's end zero), bf16(dh1) from row K - 1 on the rows the tile keeps
+    [lo, hi), and its nx dx tiles accumulated in f32 across the zones;
+    after the tile's last zone its dx columns [wf, w1) written and [lo, wf)
+    (the seam) added; with sz > 1 the partials are summed in range order
+    from zero (``sum_partials.cuh``); the windows are overlap-added in f32
+    in window order, then rounded. Mutations, for the tests: ``owned``
+    False keeps every row of dh1 before the window's end; ``seam_adds``
+    False writes the seam; ``whole_t1`` False divides g by the plan's own
+    t1 (one tile's) instead of the window's; ``zero_short`` False leaves a
+    short last tile's rows past its own as the tile before left them."""
     m, b, c, t, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
     plan = bwd_x_bf16_plan(c, window_len, o, k)
-    t1, nt, cs, csx, cp = (plan[key] for key in ("t1", "nt", "cs", "csx", "cp"))
-    half = k // 2
+    cs, csx, cp, half = plan["cs"], plan["csx"], plan["cp"], k // 2
+    t1 = plan["t1"] if whole_t1 else plan["nt"] - k + 1 if plan["tiles"] > 1 else plan["t1"]
     u = m * b * n  # one image row per block (model, trial, window) of a zone range
     per_block = lambda v: v.repeat_interleave(b * n, dim=0)  # noqa: E731  (m, ...) -> (u, ...)
     xf = x.float()
     win = torch.stack([xf[..., ni * step : ni * step + window_len] for ni in range(n)], dim=2)
-    img0 = torch.zeros((u, plan["total"] // 2))
-    write(img0, plan["xs"], cs, win.reshape(u, c, window_len).mT)
-    real = (torch.arange(nt) < t1)[None, :, None]
-    tiles = bwd_x_bf16_dx_tiles(plan)
+    win = win.reshape(u, c, window_len)
+    img0 = torch.full((u, plan["total"] // 2), float("nan"))
+    img0[:, plan["h1"] // 2 : plan["w12"] // 2] = 0.0  # the kernel's set-up zeroes
+    tiles = bwd_x_bf16_col_tiles(plan)
+    dx_tiles = bwd_x_bf16_dx_tiles(plan)
 
-    def conv(img, wp, src, transposed):
+    def conv(img, wp, src, transposed, nt):
         return torch.cat([wgmma(img, bwd_w_bf16_conv_descs(wp, src, tile, transposed), False,
                                 transposed) for tile in range(nt // WG_ROWS)], dim=1)
 
     parts = []
     for zs in range(sz):
         img = img0.clone()
-        acc = [torch.zeros((u, WG_ROWS, 32)) for _ in tiles]
+        buf = torch.full((u, c, window_len), float("nan"))  # the block's dxw slice
         z0, z1 = zs * z // sz, (zs + 1) * z // sz
-        for zi in range(z0, z1):
-            buf = (zi - z0) % 2
-            wp = bwd_x_bf16_weights(plan, buf)
-            rows = slice(zi * o, (zi + 1) * o)
-            stage_weights(img, wp["w12"], per_block(w12[:, rows]), k, c, cp)
-            stage_weights(img, wp["w3"], per_block(w3[:, zi]), k, o, o)
-            stage_weights(img, wp["w4"], per_block(w4[:, zi]), k, o, o)
-            bias = per_block(b12[:, rows, 0])[:, None]
-            gz = g[..., rows].reshape(u, 1, o) / t1
-            h1 = torch.where(real, bf16(conv(img, wp, "xs", False) + bias), 0.0)
-            write(img, plan["h1"], cs, h1, row0=half)
-            h2 = torch.where(real, bf16(conv(img, wp, "h1", False)), 0.0)
-            write(img, plan["h2"], cs, h2, row0=half)
-            d3 = torch.where(real, bf16(gz * conv4head._gelu_grad(conv(img, wp, "h2", False))), 0.0)
-            write(img, plan["d3"], cs, d3, row0=half)
-            d2 = torch.where(real, bf16(conv(img, wp, "d3", True)), 0.0)
-            write(img, plan["d2"], cs, d2, row0=half)
-            d1 = torch.where(real, bf16(conv(img, wp, "d2", True)), 0.0)
-            write(img, plan["d1"], csx, d1, row0=k - 1)
-            for i, tile in enumerate(tiles):
-                acc[i] = wgmma(img, bwd_x_bf16_dx_descs(plan, tile, buf), False, True, acc[i])
-        part = torch.zeros((u, WG_ROWS * plan["nx"], 2 * 32))
-        for (mt, h), a in zip(tiles, acc):
-            part[:, WG_ROWS * mt : WG_ROWS * (mt + 1), 32 * h : 32 * (h + 1)] = a
-        parts.append(part[:, :window_len, :c].mT)  # (u, C, W): rows w < W, channels c < C
+        unit = 0
+        for ct in tiles:
+            nt, s0 = ct["nt"], ct["s"]
+            cols = torch.zeros((u, plan["rows"], cp))
+            cols[:, : ct["cols"], :c] = win[:, :, s0 : s0 + ct["cols"]].mT
+            write(img, plan["xs"], cs, cols)
+            if zero_short and nt < plan["nt"]:  # a short last tile: the rows past its own
+                for buf_name in ("h1", "h2", "d3", "d2"):
+                    write(img, plan[buf_name], cs, torch.zeros((u, k - 1 - half, o)),
+                          row0=nt + half)
+                write(img, plan["d1"], csx, torch.zeros((u, WG_ROWS, o)), row0=nt + k - 1)
+            rows = torch.arange(nt)[None, :, None]
+            real = rows < ct["e"]
+            keep = (rows >= ct["lo"]) & (rows < ct["hi"]) if owned else real
+            live = [i for i, (mt, _) in enumerate(dx_tiles) if mt < ct["nx"]]
+            acc = {i: torch.zeros((u, WG_ROWS, 32)) for i in live}
+            for zi in range(z0, z1):
+                wbuf = unit % 2
+                unit += 1
+                wp = bwd_x_bf16_weights(plan, wbuf)
+                zr = slice(zi * o, (zi + 1) * o)
+                stage_weights(img, wp["w12"], per_block(w12[:, zr]), k, c, cp)
+                stage_weights(img, wp["w3"], per_block(w3[:, zi]), k, o, o)
+                stage_weights(img, wp["w4"], per_block(w4[:, zi]), k, o, o)
+                bias = per_block(b12[:, zr, 0])[:, None]
+                gz = g[..., zr].reshape(u, 1, o) / t1
+                h1 = torch.where(real, bf16(conv(img, wp, "xs", False, nt) + bias), 0.0)
+                write(img, plan["h1"], cs, h1, row0=half)
+                h2 = torch.where(real, bf16(conv(img, wp, "h1", False, nt)), 0.0)
+                write(img, plan["h2"], cs, h2, row0=half)
+                d3 = torch.where(real, bf16(gz * conv4head._gelu_grad(conv(img, wp, "h2", False,
+                                                                           nt))), 0.0)
+                write(img, plan["d3"], cs, d3, row0=half)
+                d2 = torch.where(real, bf16(conv(img, wp, "d3", True, nt)), 0.0)
+                write(img, plan["d2"], cs, d2, row0=half)
+                d1 = torch.where(keep, bf16(conv(img, wp, "d2", True, nt)), 0.0)
+                write(img, plan["d1"], csx, d1, row0=k - 1)
+                for i in live:
+                    acc[i] = wgmma(img, bwd_x_bf16_dx_descs(plan, dx_tiles[i], wbuf), False,
+                                   True, acc[i])
+            dxt = torch.full((u, WG_ROWS * plan["nx"], cp), float("nan"))
+            for i in live:
+                mt, h = dx_tiles[i]
+                dxt[:, WG_ROWS * mt : WG_ROWS * (mt + 1), 32 * h : 32 * (h + 1)] = acc[i]
+            lo, wf, w1 = ct["lo"], ct["wf"] if seam_adds else ct["lo"], ct["w1"]
+            buf[..., s0 + lo : s0 + wf] += dxt[:, lo:wf, :c].mT
+            buf[..., s0 + wf : s0 + w1] = dxt[:, wf:w1, :c].mT
+        parts.append(buf)
     dxw = parts[0]
     if sz > 1:
         dxw = torch.zeros_like(parts[0])
