@@ -24,8 +24,9 @@ bf16: whichever kernel the checkout's route launches for a bf16 x
 bf16 launched directly at the same shapes (``general_*``); and at M = 1,
 B = 100 on windows of 500 (3 windows) and on one window of 800 samples
 (step 125), past one tile of B2x-bf16: its column tiles, or B2x-g bf16 in a
-checkout without them. Then B2f-g bf16 (the forward on one window of 800,
-where B2f-bf16 has no plan) at that shape. ``bound_ms`` is the head's
+checkout without them. Then B2f-g bf16 launched directly (the forward on
+one window of 800; B2f-bf16 runs it in column tiles, ``b2f_timing.py``) at
+that shape. ``bound_ms`` is the head's
 bound (``chip_smoke.general_bound``). ``us_per_unit``
 is the device time spread over the card's SMs per (trial, window, zone)
 unit, the time one unit takes on one SM. Where this process built the
@@ -152,7 +153,7 @@ def main() -> None:
                     {sz: round(t, 4) for sz, t in row["sweep"]})
                     + f"; the wrapper picks {row['pick']}", flush=True)
             rows.append(row)
-            if bf16 and (w, step) == WHOLE[2:]:  # B2f-g bf16 there: the next slice's figure
+            if bf16 and (w, step) == WHOLE[2:]:  # B2f-g bf16 there, launched directly
                 fwd = lambda: conv4head._launch_general("fwd", None, x, *ops, *geo)  # noqa: E731
                 rows.append(time_row(args.label, precision, m, b, geo, fwd, "B2f-g", sms, n,
                                      op="fwd"))

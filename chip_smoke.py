@@ -306,7 +306,7 @@ GPU.
    gradients of (a)'s f32 model (B2f and B2x in column tiles), of FAST at
    dim 64 at the same windows in f32 (B2f-g, B2x-g f32) and of FAST on one
    800-sample window
-   in bf16 (B2f-g bf16, B2x-bf16 in column tiles), 100 trials each, and of
+   in bf16 (B2f-bf16 and B2x-bf16 in column tiles), 100 trials each, and of
    FAST at dim 64 at windows of 500 in bf16 (B2f-g bf16, B2x-g bf16) on 4,
    against the CPU on 4 (bf16: in relative L2 under the bf16-vs-f32 gap);
    the counts set to 0
@@ -331,8 +331,13 @@ GPU.
    directly; (f) B2x-bf16's column tiles on the same grid in bf16 against
    the plain bf16 input gradient, reruns bit-identical, timed at M = 1, B =
    100 on one 800-sample window and at windows of 500 beside their bound
-   and B2x-g bf16 launched directly. The f32 step's profile prints B2f's
-   and B2w's shares of its device time.
+   and B2x-g bf16 launched directly; (g) B2f-bf16's column tiles launched
+   directly against the plain bf16 forward at M = 2, B = 8 (C = 64 at
+   windows of 581, 600 and 800, 72 at 500, 104 at 300, 106 at 800), reruns
+   bit-identical, and timed at M = 1, B = 100 on one 800-sample window
+   (CUDA events and device time) beside its bound and B2f-g bf16 launched
+   directly. The f32 step's profile prints B2f's and B2w's shares of its
+   device time.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -396,6 +401,8 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     fused_conv4_head,
     fused_conv4_head_plain,
     bwd_x_bf16_col_tiles,
+    fwd_bf16_block_plan,
+    fwd_bf16_col_tiles,
     bwd_x_bf16_plan,
     bwd_x_col_tiles,
     general_plan,
@@ -4723,7 +4730,7 @@ def phase_mesh_kernels(cfg, dev, rng) -> dict:
 # kernels against their plain versions where no whole-window plan fits --------------------
 
 GEN_GEOMETRY = dict(window_len=500, slide_step=150)  # 3 windows of 500 over 800 samples
-GEN_WHOLE = dict(window_len=800)  # one window, the whole trial: B2f-bf16 has no plan for it
+GEN_WHOLE = dict(window_len=800)  # one window, the whole trial: past B2f-bf16's whole-window plan
 GEN_TRIALS = BN_LOSO_TRIALS  # (a)'s trials a subject: the corpus's first 70, as section 11's
 GEN_SHAPE = (2, 8)  # (M, B) of (d)
 # (C, W, step, O) of (d), T = 800: where no tuned plan fits, or O > 32.
@@ -4969,7 +4976,7 @@ def phase_general_attribution(cfg, cfg500, dev, X, Y, state500) -> dict:
     bf16 (B2f-bf16, B2x-bf16); integrated gradients of (a)'s f32 model at
     windows of 500 (B2f and B2x in column tiles), of FAST at dim
     GEN_WIDE_DIM at those windows in f32 (B2f-g, B2x-g f32: O > 32) and of
-    FAST on one window of the whole trial in bf16 (B2f-g bf16, B2x-bf16 in
+    FAST on one window of the whole trial in bf16 (B2f-bf16 and B2x-bf16 in
     column tiles); and of FAST at dim GEN_WIDE_DIM at windows of 500 in
     bf16 (B2f-g bf16, B2x-g bf16) on EG_CPU_TRIALS trials only, which the
     CPU holds whole (the launches do not depend on the trials)."""
@@ -5331,6 +5338,71 @@ def phase_b2x_bf16_column_tiles(dev, rng) -> dict:
             "w500": rows[GEN_ENTRY[1]]}
 
 
+# (g): B2f-bf16's column tiles on the card tests' grid (C, W, step), T = 800: past
+# its whole-window plan (580 samples at C = 64, 452 at 72, 260 at 104), odd steps
+# (staged from the even column below), one window and a step of 8s (16-byte copies).
+B2F_BF16_TILE_GRID = ((64, 581, 219), (64, 800, 1), (72, 500, 150), (104, 300, 125),
+                      (106, 800, 1), (64, 600, 200))
+
+
+def phase_b2f_bf16_column_tiles(dev, rng) -> dict:
+    """(g) B2f-bf16's column tiles launched directly (uncounted) on a bf16 x
+    against the plain bf16 forward at B2F_BF16_TILE_GRID (M = 2, B = 8) at
+    BF16_FWD_REL x max|ref|, each launch again bit-identical. Then timed at
+    (c)'s M = 1, B = 100 on one 800-sample window (GEN_WHOLE: four tiles) by
+    CUDA events and device time, beside its bound, its plain version and
+    B2f-g bf16 launched directly on the same operands (its device time
+    too)."""
+    errs = {}
+    m, b = GEN_SHAPE
+    with uncounted():
+        for c, w, step in B2F_BF16_TILE_GRID:
+            _, x, *ops = general_operands(dev, rng, m, b, c, 800, 8, 32, w, step)
+            xb = x.to(torch.bfloat16)
+            if not fwd_bf16_block_plan(c, w, step, (800 - w) // step + 1)["tiled"]:
+                raise RuntimeError(f"B2f-bf16 at C={c} W={w}: not in column tiles")
+            what = f"B2f-bf16 column tiles C={c} W={w}"
+            got = _launch_fwd(xb, *ops, w, step)
+            if not torch.equal(got, _launch_fwd(xb, *ops, w, step)):
+                raise RuntimeError(f"{what}: a rerun differs")
+            ref = fused_conv4_head_plain(xb, *ops, w, step)
+            check_rel(what, got, ref, BF16_FWD_REL)
+            errs[(c, w)] = float((got - ref).abs().max() / ref.abs().max())
+            del x, xb, ops, got, ref
+    counts = {f"C={c} W={w}": len(fwd_bf16_col_tiles(fwd_bf16_block_plan(c, w, step, 1)))
+              for c, w, step in B2F_BF16_TILE_GRID}
+    print(f"general (g): B2f-bf16's column tiles against the plain bf16 forward at M=2 B=8 "
+          f"(tiles a window: {json.dumps(counts)}), reruns bit-identical; max|err| / max|ref|: "
+          + json.dumps({f"C={c} W={w}": float(f"{v:.3g}") for (c, w), v in errs.items()}),
+          flush=True)
+    mx, bx = GEN_ATTR_SHAPE
+    w, step = GEN_WHOLE["window_len"], 125
+    _, x, *ops = general_operands(dev, rng, mx, bx, 64, 800, 8, 32, w, step)
+    xb = x.to(torch.bfloat16)
+    tiled = lambda: _launch_fwd(xb, *ops, w, step)  # noqa: E731
+    general = lambda: _launch_general("fwd", None, xb, *ops, w, step)  # noqa: E731
+    with uncounted():
+        got, ref = tiled(), fused_conv4_head_plain(xb, *ops, w, step)
+        row = {"max_abs_err": check_rel(f"B2f-bf16 column tiles M={mx} B={bx} W={w}", got, ref,
+                                        BF16_FWD_REL),
+               "ms": cuda_ms(tiled, 10), "device_ms": device_ms(tiled, "conv4head_fwd_bf16_", 10),
+               "plain_ms": cuda_ms(lambda: fused_conv4_head_plain(xb, *ops, w, step), 3),
+               "general_ms": cuda_ms(general, 3),
+               "general_device_ms": device_ms(general, GEN_KERNELS["fwd"], 3)}
+    (row["bound_ms"], row["bound_by"]), _ = general_bound("fwd", True, mx, bx, 64, 800, 8, 32, w,
+                                                          step)
+    row["shape"] = {"M": mx, "B": bx, "C": 64, "T": 800, "W": w, "step": step, "O": 32, "Z": 8}
+    row["tiles"] = len(fwd_bf16_col_tiles(fwd_bf16_block_plan(64, w, step, 1)))
+    print(f"B2f-bf16 (column tiles) at {json.dumps(row['shape'])}: {row['ms']:.4f} ms (CUDA "
+          f"events), {row['device_ms']:.4f} ms device time; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}; {row['bound_ms'] / row['device_ms']:.1%}); B2f-g bf16 launched "
+          f"directly {row['general_ms']:.4f} ms ({row['general_device_ms']:.4f} ms device time), "
+          f"{row['general_device_ms'] / row['device_ms']:.2f}x; plain {row['plain_ms']:.3f} ms; "
+          f"max|err| {row['max_abs_err']:.3g}", flush=True)
+    del x, xb, ops, got, ref
+    return {"grid_rel_err": errs, "w800": row}
+
+
 def phase_general_kernels(dev, rng) -> dict:
     """(d) Each general kernel, launched directly, against its plain version
     on the card at M = 2, B = 8, f32 and bf16, on GEN_GRID: C = 80 and 128 at
@@ -5341,7 +5413,8 @@ def phase_general_kernels(dev, rng) -> dict:
     and B2x-g bf16 at M = 1, B = 100 (global-explain's batch) also by device
     time; B2f's, B2w's and B2w-bf16's column tiles at GEN_ENTRY, which the
     route runs there; (e) B2x's column tiles (``phase_b2x_column_tiles``);
-    (f) B2x-bf16's (``phase_b2x_bf16_column_tiles``). Last,
+    (f) B2x-bf16's (``phase_b2x_bf16_column_tiles``); (g) B2f-bf16's
+    (``phase_b2f_bf16_column_tiles``). Last,
     ``general_path_checks`` at the path's shapes."""
     m, b = GEN_SHAPE
     rows = {}
@@ -5435,6 +5508,7 @@ def phase_general_kernels(dev, rng) -> dict:
     del g, x32, xb, ops
     x_tiles = phase_b2x_column_tiles(dev, rng)
     x_bf16_tiles = phase_b2x_bf16_column_tiles(dev, rng)
+    fwd_bf16_tiles = phase_b2f_bf16_column_tiles(dev, rng)
     for key, r in general_path_checks(dev).items():
         if key[0] == "bwd_w_tiles":
             tiles[key[1]]["path_check"] = r
@@ -5458,7 +5532,7 @@ def phase_general_kernels(dev, rng) -> dict:
           f"({x_floor / x_dev:.1%}); plain {x_plain:.3f} ms", flush=True)
     return {"grid": rows, "entries": entries, "tiles_w500": tiles[True],
             "tiles_w500_f32": tiles[False], "fwd_tiles_w500": fwd, "x_tiles_w500": x_tiles,
-            "x_bf16_tiles": x_bf16_tiles}
+            "x_bf16_tiles": x_bf16_tiles, "fwd_bf16_tiles": fwd_bf16_tiles}
 
 
 def phase_general(cfg, dev, X, Y, rng) -> dict:
@@ -5476,15 +5550,15 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
     phase_general_attribution(cfg, cfg500, dev, X, Y, training["f32"]["params"])
     launches = read_launches()
     per_call = {"fwd": 1 + IG_STEPS, "ig": IG_STEPS, "eg": EG_SAMPLES}
-    # bf16 input gradients: B2x-bf16 for the shipped FAST and (column tiles) the
-    # 800-sample window, B2x-g bf16 for the dim-64 model; B2f-g bf16 forwards both.
+    # bf16: B2f-bf16 and B2x-bf16 for the shipped FAST and (column tiles) the
+    # 800-sample window, B2f-g bf16 and B2x-g bf16 for the dim-64 model.
     want = {"conv4head_fwd": decoder["launches"] + per_call["fwd"],
             "conv4head_bwd_x": per_call["ig"],
             "conv4head_fwd_general": per_call["fwd"], "conv4head_bwd_x_general": per_call["ig"],
-            "conv4head_fwd_bf16": per_call["fwd"] + EG_SAMPLES,
+            "conv4head_fwd_bf16": 2 * per_call["fwd"] + EG_SAMPLES,
             "conv4head_bwd_x_bf16": 2 * per_call["ig"] + EG_SAMPLES,
             "conv4head_bwd_x_general_bf16": per_call["ig"],
-            "conv4head_fwd_general_bf16": 2 * per_call["fwd"], "iir_chain": 2}
+            "conv4head_fwd_general_bf16": per_call["fwd"], "iir_chain": 2}
     moved = {k: v for k, v in launches.items() if v and k in KERNEL_KEYS + ("adapted",)}
     if moved != want:
         raise RuntimeError(f"general (b)-(c): launches {moved}, expected {want}")
@@ -5493,8 +5567,8 @@ def phase_general(cfg, dev, X, Y, rng) -> dict:
             + ("conv4head_bwd_x", "conv4head_bwd_x_bf16")}
     if not all(path.values()):
         raise RuntimeError(f"general: a kernel did not launch on the path: {path}")
-    print(f"general (a)-(c): the general kernels', the bf16 kernels' (B2x-bf16 in (c), in "
-          f"column tiles on the 800-sample window) and B2f's, B2w's and B2x's (column tiles) "
+    print(f"general (a)-(c): the general kernels', the bf16 kernels' (B2f-bf16 and B2x-bf16 in "
+          f"(c), in column tiles on the 800-sample window) and B2f's, B2w's and B2x's (column tiles) "
           f"launches on the path {json.dumps(path)}", flush=True)
     t_traj = time.perf_counter()
     phase_trajectory(cfg500, dev, label="general (a) trajectory f32")
@@ -5763,6 +5837,12 @@ def main() -> None:
     for name, key in (("conv4head_bwd_w_bf16", "tiles_w500"), ("conv4head_bwd_w", "tiles_w500_f32"),
                       ("conv4head_fwd", "fwd_tiles_w500")):
         next(k for k in kernels if k["name"] == name)["w500"] = general["kernels"][key]
+    # B2f-bf16's column tiles: section 14 (c)'s bf16 attributions on one 800-sample
+    # window, and (g)'s times and errors ("grid": M = 2, B = 8 against the plain forward).
+    fwd16_tiles = general["kernels"]["fwd_bf16_tiles"]
+    entry = next(k for k in kernels if k["name"] == "conv4head_fwd_bf16")
+    entry["w800"] = fwd16_tiles["w800"]
+    entry["grid_max_rel_err"] = max(fwd16_tiles["grid_rel_err"].values())
     # B2x's column tiles: section 14 (c)'s f32 integrated gradients at windows of 500, and
     # (e)'s times and errors ("grid": M = 2, B = 8 against the plain input gradient).
     x_tiles = general["kernels"]["x_tiles_w500"]

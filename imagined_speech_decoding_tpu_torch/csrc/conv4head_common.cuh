@@ -17,14 +17,14 @@ constexpr int kMaxSmemBytes = 232448;  // a block's dynamic shared memory on Hop
 __host__ __device__ inline int round_up4(int v) { return (v + 3) & ~3; }
 __host__ __device__ inline int max_int(int a, int b) { return a > b ? a : b; }
 
-// Column tiles (B2f, B2w and B2w-bf16): a window whose plan does not fit a
-// block runs in tiles of at most kColSpan conv rows, tile j from the
-// window's conv row kColStep * j. The two 'same' convs and their transposes
-// reach two rows each, so dh1 is exact kColHalo rows inside an interior edge
-// (gelu(h3) four): tile j owns rows [kColHalo, kColSpan - kColHalo) of its
-// own (from 0 in the first tile, up to t1 in the last), and only those enter
-// the weight gradients (B2f: the mean). ops/cuda/conv4head.py mirrors them
-// (col_tiles).
+// Column tiles (B2f, B2w, B2x and their bf16 kernels): a window whose plan
+// does not fit a block runs in tiles of at most kColSpan conv rows, tile j
+// from the window's conv row kColStep * j. The two 'same' convs and their
+// transposes reach two rows each, so dh1 is exact kColHalo rows inside an
+// interior edge (gelu(h3) four): tile j owns rows [kColHalo, kColSpan -
+// kColHalo) of its own (from 0 in the first tile, up to t1 in the last), and
+// only those enter the weight gradients (B2f, B2f-bf16: the mean).
+// ops/cuda/conv4head.py mirrors them (col_tiles).
 constexpr int kColSpan = 256;
 constexpr int kColHalo = 8;
 constexpr int kColStep = kColSpan - 2 * kColHalo;  // 240

@@ -25,7 +25,10 @@ The precision is x's dtype, as in the Pallas kernel (``dt = xt.dtype``):
 an f32 x takes the kernels above; a bf16 x takes their bf16
 instantiations B2f-bf16 (``csrc/conv4head_fwd_bf16.cu``: the first conv
 once per trial over the columns its windows use, every product one bf16
-``wgmma`` pass), B2w-bf16 (``csrc/conv4head_bwd_w_bf16.cu``, one bf16
+``wgmma`` pass; where one window's plan does not fit a block, past 580
+samples at C = 64, in the same column tiles, the GELU mean summed over the
+rows each tile owns, C up to 106 at any window), B2w-bf16
+(``csrc/conv4head_bwd_w_bf16.cu``, one bf16
 ``wgmma`` pass per product, the weight gradients held in registers across
 a block's trials; a window past 260 samples in column tiles of 256 conv
 rows with a recomputed 8-row halo) and B2x-bf16
@@ -34,8 +37,8 @@ rows with a recomputed 8-row halo) and B2x-bf16
 zones; a window past 260 samples in the same column tiles, each tile's dx
 stored after its zones and the K - 1 seam columns between tiles added in
 tile order), f32 accumulators, rounding where the Pallas kernel rounds (an
-even T in B2f-bf16 and B2w-bf16; B2w-bf16 and B2x-bf16 C <= 64, any
-window). The weights come in as f32 either way and
+even T in B2f-bf16 and B2w-bf16; B2w-bf16 and B2x-bf16 C <= 64, B2f-bf16
+C <= 106, any window). The weights come in as f32 either way and
 the kernels round them to bf16 as they stage them; the output and every
 weight gradient are f32, a bf16 dx is bf16.
 
@@ -43,7 +46,8 @@ The general kernels (``csrc/conv4head_general.cu``, f32 and bf16) take
 any C, T, window, step and O at K1 = K2 = 5: their shared memory does not
 grow with C, W or O (a unit's intermediates sit in a global workspace, a
 slot per resident block). They run where no tuned plan fits and where O >
-32 (a bf16 input gradient at C > 64 or O > 32: B2x-g bf16).
+32 (a bf16 forward at C >= 107 past B2f-bf16's plan or O > 32: B2f-g bf16;
+a bf16 input gradient at C > 64 or O > 32: B2x-g bf16).
 
 Operand layouts (from ``models.heads.Conv4LayersHead.fused_weights``),
 with a leading model axis M where the JAX kernel had ``jax.vmap``:
@@ -72,8 +76,8 @@ but reaches exactly by zero padding (``dim_cnn`` 8 or 16, f32 B2w at C %
 8 != 0, an odd T in bf16 (but for B2x-bf16, which takes any T), a
 B2f-bf16 trial longer than its plan holds)
 launches it on padded or split operands and adds one to the wrapper's
-``adapted``; so does a bf16 geometry the bf16 kernel has no plan for (C >
-64 in B2w-bf16), run on the f32 kernel with the bf16 kernel's operands
+``adapted``; so do bf16 weight gradients that B2w-bf16 has no plan for (C >
+64), run on the f32 kernel with the bf16 kernel's operands
 where that kernel's plan fits; the rest (no tuned plan fitting, O > 32)
 launches the general kernel of x's precision,
 counted in ``launches_general`` / ``launches_general_bf16``. K != 5
@@ -326,13 +330,15 @@ def _fwd_bf16_windows(c: int, window_len: int, step: int, n: int, smem_bytes) ->
     ``smem_bytes(c, window_len, step, windows, KERNEL_WIDTH, KERNEL_TAPS)``
     (the library's ``isd_conv4head_fwd_bf16_smem_bytes``) fits a block; the
     block holds the h1 of all its windows, so a longer trial, or a wider
-    one, runs in groups of windows."""
+    one, runs in groups of windows. In column tiles (one window's plan past
+    a block) the plan does not grow with N: all N windows in one launch."""
     for g in range(n, 0, -1):
         if smem_bytes(c, window_len, step, g, KERNEL_WIDTH, KERNEL_TAPS) <= MAX_SMEM_BYTES:
             return g
     raise ValueError(f"B2f-bf16 is not built for C={c} at windows of {window_len}: "
                      f"{smem_bytes(c, window_len, step, 1, KERNEL_WIDTH, KERNEL_TAPS)} bytes "
-                     f"for one window, {MAX_SMEM_BYTES} a block")
+                     f"for one window (in column tiles past the whole window's plan), "
+                     f"{MAX_SMEM_BYTES} a block")
 
 
 @functools.lru_cache(maxsize=64)
@@ -354,10 +360,11 @@ def _bf16_refusal(op: str, c: int, window_len: int, step: int, n: int, smem_byte
                   bwd_w_smem_bytes):
     """Why B2f-bf16 (``op`` "fwd") or B2w-bf16 ("bwd_w") takes no plan for C
     channels at windows of ``window_len``, or None: B2f-bf16 when not even
-    one window's plan fits a block, B2w-bf16 past its weight-gradient
-    registers (C > 64; its column tiles take any window). Plan
-    sizes from the library, or from ``smem_bytes`` / ``bwd_w_smem_bytes``
-    (the Python mirrors: ``fwd_bf16_plan``, ``bwd_w_bf16_smem_bytes``)."""
+    its column tiles' plan fits a block (C >= 107 past the whole window's),
+    B2w-bf16 past its weight-gradient registers (C > 64; its column tiles
+    take any window). Plan sizes from the library, or from ``smem_bytes`` /
+    ``bwd_w_smem_bytes`` (the Python mirrors: ``fwd_bf16_smem_bytes``,
+    ``bwd_w_bf16_smem_bytes``)."""
     if op == "fwd":
         try:
             if smem_bytes is None:
@@ -391,17 +398,19 @@ def _adapted(op: str, launch, g, x, w12, b12, w3, w4, window_len: int, step: int
       bf16 at an odd T (B2f-bf16, B2w-bf16; B2x-bf16 takes any T): the
         samples the windows use, in a copy of even length, the cotangent
         padded with zero windows where that adds one;
-      B2f-bf16 with more windows than its plan holds (``smem_bytes``, the
-        library's by default): groups of windows, each on a copy of its
-        samples.
-    One adaptation is not exact: a bf16 geometry that B2f-bf16 or B2w-bf16
-    takes no plan for (``_bf16_refusal``: B2w-bf16 at C > 64, B2f-bf16 at C >
-    104 for windows of 250 or windows past 580 samples at C = 64) runs the
-    f32 kernel (``_f32_route``) on the bf16 kernel's operands where that
-    kernel's plan fits (B2w at C = 65-72, windows up to 268 samples): x as f32
-    (exact), the weights rounded to bf16 and back, b12 and g as they are. It
-    differs from the bf16 kernel by the bf16 roundings of h1, h2 and the
-    cotangents that the f32 kernel does not make.
+      B2f-bf16 with more windows than its whole-window plan holds
+        (``smem_bytes``, the library's by default): groups of windows, each
+        on a copy of its samples; in column tiles (one window's plan past a
+        block) all N windows at once, on x as it is.
+    One adaptation is not exact: bf16 weight gradients that B2w-bf16 takes
+    no plan for (``_bf16_refusal``: C > 64) run the f32 kernel
+    (``_f32_route``) on the bf16 kernel's operands where that kernel's plan
+    fits (B2w at C = 65-72, windows up to 268 samples): x as f32 (exact), the
+    weights rounded to bf16 and back, b12 and g as they are. It differs from
+    the bf16 kernel by the bf16 roundings of h1, h2 and the cotangents that
+    the f32 kernel does not make. A bf16 forward takes no such route: what
+    B2f-bf16 refuses (C >= 107 past its whole-window plan) goes to B2f-g
+    bf16.
     What no tuned plan takes (``general_reason``) goes, unadapted, to
     ``general(op, g, x, ...)``, the general kernel of x's precision
     (``_launch_general`` by default). K1 or K2 != KERNEL_TAPS raises."""
@@ -487,12 +496,14 @@ def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal
     """Why ``op`` goes to the general kernel of its precision, or "" when a
     tuned kernel takes it: O > KERNEL_WIDTH; a bf16 input gradient that
     B2x-bf16 has no plan for (``bwd_x_bf16_smem_bytes``: C > 64; it takes
-    any window, in column tiles past 260 samples); or no tuned plan
-    fitting: f32 where the f32 plan
+    any window, in column tiles past 260 samples); a bf16 forward that
+    B2f-bf16 refuses (``refusal``: C >= 107 past its whole-window plan; it
+    takes any window up to C = 106, in column tiles past that plan); or no
+    tuned plan fitting: f32 where the f32 plan
     (in column tiles past the whole window's) does not fit (C > 72 in B2f
     and B2w, C > 64 in B2x),
-    bf16 where the bf16 kernel refuses (``refusal``) and its f32 route's
-    whole-window plan does not fit either."""
+    bf16 weight gradients where B2w-bf16 refuses (``refusal``) and its f32
+    route's whole-window plan does not fit either."""
     if o > KERNEL_WIDTH:
         return f"O = {o} > {KERNEL_WIDTH}"
     if bf16 and op == "bwd_x":
@@ -503,6 +514,8 @@ def general_reason(op: str, bf16: bool, c: int, o: int, window_len: int, refusal
     if (refusal or not bf16) and not f32_plan_fits(op, c, window_len, tiles=not refusal):
         return (f"{refusal}; " if refusal else "") + (
             f"the f32 plan does not fit a block at C={c}, windows of {window_len}")
+    if refusal and op == "fwd":
+        return f"{refusal}; a bf16 forward takes no f32 route"
     return ""
 
 
@@ -1010,6 +1023,64 @@ def fwd_bf16_plan(c: int, w: int, step: int, n: int, o: int = 32, k: int = KERNE
     return plan
 
 
+def fwd_bf16_tile_plan(c: int, w: int, step: int, n: int, o: int = 32,
+                       k: int = KERNEL_TAPS) -> dict:
+    """B2f-bf16's column tiles' plan for N windows of W (``tiled``): the plan
+    of one window of COL_SPAN + K - 1 samples whatever W and N are, with the
+    launch's ``window`` (W) and ``windows`` (N)."""
+    return dict(fwd_bf16_plan(c, COL_SPAN + k - 1, step, 1, o, k), window=w, windows=n,
+                tiled=True)
+
+
+def fwd_bf16_block_plan(c: int, w: int, step: int, n: int, o: int = 32,
+                        k: int = KERNEL_TAPS) -> dict:
+    """The plan a B2f-bf16 launch takes (the kernel's ``fwd_block_plan``):
+    ``fwd_bf16_plan`` of the N windows where one window's plan fits a block,
+    else ``fwd_bf16_tile_plan``; both carry ``window``, ``windows`` and
+    ``tiled``."""
+    if fwd_bf16_plan(c, w, step, 1, o, k)["total"] > MAX_SMEM_BYTES:
+        return fwd_bf16_tile_plan(c, w, step, n, o, k)
+    return dict(fwd_bf16_plan(c, w, step, n, o, k), window=w, windows=n, tiled=False)
+
+
+def fwd_bf16_smem_bytes(c: int, w: int, step: int, n: int, o: int = 32,
+                        k: int = KERNEL_TAPS) -> int:
+    """The library's ``isd_conv4head_fwd_bf16_smem_bytes``: the bytes of
+    ``fwd_bf16_block_plan``."""
+    return fwd_bf16_block_plan(c, w, step, n, o, k)["total"]
+
+
+def fwd_bf16_col_tiles(plan: dict) -> list:
+    """B2f-bf16's units of a window under ``plan`` (``fwd_bf16_block_plan``;
+    their count is the library's ``isd_conv4head_fwd_bf16_col_tiles``), in
+    ``col_tiles``' keys: the whole window where its plan fits, else
+    ``col_tiles`` in 64-row tiles, each computing all COL_SPAN rows (h1 and
+    h2 zero from ``e`` on) and adding rows [lo, hi) to the mean."""
+    w, k = plan["window"], plan["k"]
+    t1 = w - k + 1
+    if not plan["tiled"]:
+        return [{"s": 0, "nt": plan["nt"], "e": t1, "lo": 0, "hi": t1, "cols": w,
+                 "left": False, "right": False}]
+    return [dict(t, nt=COL_SPAN, cols=min(COL_SPAN + k - 1, w - t["s"]))
+            for t in col_tiles(t1, w, k, WG_ROWS)]
+
+
+def fwd_bf16_unit_copy(plan: dict, t: int, i: int, tile: dict) -> dict:
+    """The samples of a trial of T that B2f-bf16's column tiles stage for
+    window ``i``'s ``tile`` (the kernel's ``stage_unit``): from ``s0`` the
+    tile's first column less ``shift``, ``cnt`` samples rounded up to 8
+    (``vec``: 16-byte copies, where T and every unit's start are multiples of
+    8 and the last copy stays in the trial) or to 2; the h1 tiles read the
+    staged rows from ``shift`` on."""
+    k, n, step, w = plan["k"], plan["windows"], plan["step"], plan["window"]
+    lx = (n - 1) * step + w
+    vec = t % 8 == 0 and (n == 1 or step % 8 == 0) and -(-lx // 8) * 8 <= t
+    first = i * step + tile["s"]
+    shift = 0 if vec else first % 2
+    cnt, unit = shift + min(COL_SPAN + k - 1, w - tile["s"]), 8 if vec else 2
+    return {"s0": first - shift, "shift": shift, "cnt": -(-cnt // unit) * unit, "vec": vec}
+
+
 def fwd_bf16_h1_rows(plan: dict, u: int) -> list:
     """The h1 rows that column ``u`` of the sequence is stored at, as the
     kernel's epilogue walks them: row i * rs + K/2 + l of every window i
@@ -1021,17 +1092,19 @@ def fwd_bf16_h1_rows(plan: dict, u: int) -> list:
     return rows
 
 
-def fwd_bf16_conv_descs(plan: dict, conv: str, index: int, tile: int) -> list:
+def fwd_bf16_conv_descs(plan: dict, conv: str, index: int, tile: int, shift: int = 0) -> list:
     """The k16 steps of one 64-row conv tile in issue order, each
     ``((a_start, k_step, mn_step), (b_start, k_step, mn_step))`` in bytes
     from the start of shared memory; A K-major (time x channels), B K-major
     (w staged [chunk of (tap, channel)][o][8]):
-      "h1": x sub-block ``index``'s tile (rows 64 tile + tap of xs) by w12;
+      "h1": x sub-block ``index``'s tile (rows shift + 64 tile + tap of xs:
+            ``shift`` 1 in a column tile staged from the even column below)
+            by w12;
       "h2": window ``index``'s stacked h1 (rows index * rs + 64 tile + tap) by w3;
       "h3": h2's buffer ``index % 2`` (rows 64 tile + tap) by w4."""
     o, k = plan["o"], plan["k"]
     src, cs, row0, ch, w = {
-        "h1": ("xs", plan["cs_x"], 0, plan["cp"], "w12"),
+        "h1": ("xs", plan["cs_x"], shift, plan["cp"], "w12"),
         "h2": ("h1", plan["cs_h1"], index * plan["rs"], o, "w3"),
         "h3": ("h2", plan["cs_h2"], 0, o, "w4")}[conv]
     base = plan[src] + (index % 2) * (o // 8) * cs if conv == "h3" else plan[src]

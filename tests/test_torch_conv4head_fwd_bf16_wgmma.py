@@ -44,6 +44,7 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     fwd_bf16_conv_descs,
     fwd_bf16_h1_rows,
     fwd_bf16_plan,
+    fwd_bf16_smem_bytes,
     gelu_fit,
 )
 from wgmma_emulation import (
@@ -67,7 +68,7 @@ LONG = dict(c=8, z=1, t=450, w=300, step=150)  # t1 = 296: five time tiles a win
 
 def plan_bytes(c, w, step, n, o=32, k=5):
     """The library's ``isd_conv4head_fwd_bf16_smem_bytes``, from the mirror."""
-    return fwd_bf16_plan(c, w, step, n, o, k)["total"]
+    return fwd_bf16_smem_bytes(c, w, step, n, o, k)
 
 
 def operands(m, b, c, z, t, w, step, seed, o=32, k=5):
@@ -112,8 +113,10 @@ def test_windows_a_launch_takes():
     C = 72 at the shipped windows, and a trial of T = 1000 (N = 7); one
     window a launch holds C up to 104 at windows of 250, and windows of 300
     (t1 = 296: five time tiles, two rounds of the window teams) at C = 64.
-    Past that (C = 112; windows of 600 at C = 64) the kernel is not built
-    for the geometry and the wrapper raises."""
+    Past one window's plan (windows of 600 at C = 64) the column tiles take
+    every window in one launch. Past that (C = 112 at windows of 250, where
+    the tiles' plan does not fit either) the kernel is not built for the
+    geometry and the wrapper raises."""
     for c in range(1, 65):
         for w in (20, 120, 250, 260):
             assert fwd_bf16_plan(c, w, w // 2, 5)["total"] + FWD_CLOCK_BYTES <= MAX_SMEM_BYTES
@@ -122,7 +125,8 @@ def test_windows_a_launch_takes():
     assert 1 <= _fwd_bf16_windows(72, 250, 125, 5, plan_bytes) < 5
     assert _fwd_bf16_windows(104, 250, 125, 5, plan_bytes) == 1
     assert _fwd_bf16_windows(64, 300, 150, 2, plan_bytes) >= 1
-    for c, w in ((112, 250), (64, 600)):
+    assert _fwd_bf16_windows(64, 600, 300, 5, plan_bytes) == 5
+    for c, w in ((112, 250), (107, 600)):
         with pytest.raises(ValueError, match="B2f-bf16 is not built"):
             _fwd_bf16_windows(c, w, w // 2, 5, plan_bytes)
 

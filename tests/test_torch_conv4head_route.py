@@ -16,9 +16,12 @@ kernel on the bf16 kernel's operands where the f32 whole-window plan fits
 plain bf16 version at 1e-2 in relative L2 (the f32 kernel skips the bf16
 roundings of h1, h2 and the cotangents; measured <= 3.4e-3); its column
 tiles do not widen that route. A bf16 input gradient takes B2x-bf16 at C
-<= 64 at every window (past 260 samples in column tiles), at any T. What
+<= 64 at every window (past 260 samples in column tiles), at any T, and a
+bf16 forward B2f-bf16 at C <= 106 at every window (past one window's plan
+in column tiles, all windows in one launch). What
 no tuned plan takes (C = 80 or 128, f32 input gradients at C = 65-96 past
-windows of 284, a bf16 forward of one window of 600, O = 64, a bf16 input
+windows of 284, a bf16 forward at C = 107 past its whole window or at C =
+112, O = 64, a bf16 input
 gradient at C = 65 or 80, bf16 weight gradients at C = 65-72 past windows
 of 268) goes to the
 general kernel of x's precision
@@ -63,7 +66,8 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     conv4head_bwd_x_plain,
     fused_conv4_head,
     fused_conv4_head_plain,
-    fwd_bf16_plan,
+    fwd_bf16_block_plan,
+    fwd_bf16_smem_bytes,
     fwd_col_tiles,
     fwd_plan_bytes,
     fwd_smem_bytes,
@@ -79,7 +83,7 @@ F32_ROUTE_REL_L2 = 1e-2
 
 def plan_bytes(c, w, step, n, o=32, k=5):
     """The library's ``isd_conv4head_fwd_bf16_smem_bytes``, from the mirror."""
-    return fwd_bf16_plan(c, w, step, n, o, k)["total"]
+    return fwd_bf16_smem_bytes(c, w, step, n, o, k)
 
 
 def operands(m=1, b=2, c=10, t=200, z=3, o=32, w=100, step=50, dtype=torch.float64, k=5,
@@ -252,14 +256,15 @@ def test_shipped_geometry_launches_unadapted(op, dtype):
     ("bwd_w", dict(SHIPPED, c=128, b=1, z=1), torch.bfloat16, "B2w-bf16 is not built"),
     ("fwd", dict(c=112, t=800, w=250, step=125, b=1, z=1), torch.bfloat16,
      "B2f-bf16 is not built"),
-    ("fwd", dict(c=64, t=600, w=600, step=1, b=1, z=1), torch.bfloat16,
+    ("fwd", dict(c=107, t=800, w=800, step=1, b=1, z=1), torch.bfloat16,
      "B2f-bf16 is not built"),
 ])
 def test_geometry_no_padding_reaches_raises(op, geometry, dtype, why):
     """Taps other than 5 raise, with no launch. The geometries that raised
     before the general kernels, O > 32, C = 128 in B2w-bf16 (its
-    weight-gradient tiles exceed the registers), C = 112 or windows of 600
-    in B2f-bf16 (one window's plan exceeds the shared memory), where the
+    weight-gradient tiles exceed the registers), C = 112 at windows of 250
+    or C = 107 at a window of 800 in B2f-bf16 (one window's plan, and its
+    column tiles' past that, exceed the shared memory), where the
     f32 route's plan does not fit a block either, launch the general
     kernel of x's precision once, on the operands as they are, with the
     reason naming the limits (both kernels' for a bf16 geometry); the
@@ -503,12 +508,13 @@ def test_wrappers_count_adapted_calls(monkeypatch, op, geometry, dtype, launches
 def test_wrappers_raise_where_no_route_fits(monkeypatch, op, geometry):
     """Meta tensors in bf16 at C = 128 and at windows of 600, where neither
     the bf16 kernel's plan nor the f32 one's fits a block, raised before the
-    general kernels; now the wrapper launches B2f-g or B2w-g bf16 once (a
-    stand-in here, which counts as the launch does), no tuned kernel, and
-    counts nothing as adapted. Weight gradients at windows of 600 (C = 64)
-    take B2w-bf16's column tiles instead: one tuned launch, no general one."""
+    general kernels; now the wrapper launches B2f-g or B2w-g bf16 once at C
+    = 128 (a stand-in here, which counts as the launch does), no tuned
+    kernel, and counts nothing as adapted. At windows of 600 (C = 64) the
+    forward takes B2f-bf16's column tiles and the weight gradients
+    B2w-bf16's instead: one tuned launch, no general one."""
     calls, general = [], []
-    tiled = op == "bwd_w" and geometry["c"] <= 64
+    tiled = geometry["c"] <= 64
     launch = stand_in(op, calls)
     run_general = general_stand_in(general)
 
@@ -777,14 +783,15 @@ def test_f32_forwards_beyond_the_tiles_stay_general(monkeypatch, geometry):
 
 
 @pytest.mark.parametrize("geometry", [dict(c=112, w=250, step=125), dict(c=128, w=250, step=125),
-                                      dict(c=64, w=600, step=1), dict(c=64, w=800, step=1)],
-                         ids=["c112-w250", "c128-w250", "c64-w600", "c64-w800"])
+                                      dict(c=107, w=600, step=1), dict(c=107, w=800, step=1)],
+                         ids=["c112-w250", "c128-w250", "c107-w600", "c107-w800"])
 def test_bf16_forward_refusals_stay_general(monkeypatch, geometry):
     """bf16 forwards B2f-bf16 has no plan for (C = 112 and 128 at windows of
-    250, one window of 600 or 800 samples at C = 64): B2f-g bf16, once, on
-    the bf16 operands; not the f32 route (``_f32_route``, inexact), though
-    B2f's column tiles would take the f32 operands at C = 64. The reason
-    names both kernels."""
+    250, one window of 600 or 800 samples at C = 107, past its column
+    tiles' plan too): B2f-g bf16, once, on the bf16 operands; not the f32
+    route (``_f32_route``, inexact). The reason names both kernels. (One
+    window of 600 or 800 at C = 64 takes B2f-bf16's column tiles:
+    ``test_bf16_forwards_take_the_column_tiles``.)"""
     calls, dtypes, general = [], [], []
     _stand_in_forward(monkeypatch, calls, dtypes, general)
     ops, geo = meta_operands(torch.bfloat16, t=800, b=2, z=1, **geometry)
@@ -799,6 +806,68 @@ def test_bf16_forward_refusals_stay_general(monkeypatch, geometry):
     assert _fwd_counts() == (before[0], before[1], before[2], before[3] + 1, before[4])
     reason = general_reason("fwd", True, c, 32, w, refusal)
     assert "B2f-bf16 is not built" in reason and "the f32 plan does not fit" in reason
+
+
+@pytest.mark.parametrize("c,w,step", [(64, 581, 219), (64, 800, 1), (72, 500, 150),
+                                      (104, 300, 125), (106, 800, 1)],
+                         ids=["c64-w581", "c64-w800", "c72-w500", "c104-w300", "c106-w800"])
+def test_bf16_forwards_take_the_column_tiles(monkeypatch, c, w, step):
+    """bf16 forwards past B2f-bf16's whole-window plan (one window of 581 or
+    800 samples at C = 64, 500 at C = 72, 300 at C = 104, 800 at C = 106)
+    on meta tensors: one B2f-bf16 launch (its plan's mirror in column
+    tiles) taking all the trial's windows on the operands as they are (T
+    even), counted in ``launches_bf16``; no general kernel, nothing
+    adapted, no f32 launch."""
+    calls, dtypes, general = [], [], []
+    _stand_in_forward(monkeypatch, calls, dtypes, general)
+    n = (800 - w) // step + 1
+    assert fwd_bf16_block_plan(c, w, step, n)["tiled"]
+    ops, geo = meta_operands(torch.bfloat16, c=c, t=800, w=w, step=step, b=2, z=1)
+    before = _fwd_counts()
+    got = CALLS["fwd"](*ops, geo)
+    assert general == [] and dtypes == [torch.bfloat16] and calls == [dict(c=c, t=800, n=n)]
+    assert _fwd_counts() == (before[0], before[1] + 1, *before[2:])
+    assert got.shape == (1, 2, n, 32)
+
+
+@pytest.mark.parametrize("geometry", [dict(c=107, w=800, step=1), dict(c=112, w=250, step=125),
+                                      dict(c=64, o=64, w=800, step=1)],
+                         ids=["c107-w800", "c112-w250", "o64-w800"])
+def test_bf16_forwards_past_the_tiles_stay_general(monkeypatch, geometry):
+    """bf16 forwards that B2f-bf16's column tiles do not take either (C =
+    107 at one window of 800, C = 112 at windows of 250: the tiles' plan
+    past the shared memory) or O = 64 (B2f-bf16 is built for O = 32):
+    B2f-g bf16, once, counted in ``launches_general_bf16``; no tuned
+    launch, nothing adapted."""
+    calls, dtypes, general = [], [], []
+    _stand_in_forward(monkeypatch, calls, dtypes, general)
+    ops, geo = meta_operands(torch.bfloat16, t=800, b=2, z=1, **geometry)
+    before = _fwd_counts()
+    CALLS["fwd"](*ops, geo)
+    assert calls == [] and [(d["op"], d["dtype"]) for d in general] == [("fwd", torch.bfloat16)]
+    assert _fwd_counts() == (*before[:3], before[3] + 1, before[4])
+
+
+def test_no_bf16_forward_takes_the_f32_route(monkeypatch):
+    """No bf16 forward reaches ``_f32_route``: at C <= 106 B2f-bf16 takes
+    every window (its whole-window plan or its column tiles'), and past
+    that what it refuses goes to B2f-g bf16 even where B2f's f32
+    whole-window plan would fit (C = 121-200 at short windows)."""
+    for c in range(1, 201):
+        for w in (5, 20, 133, 197, 250, 261, 300, 453, 581, 800, 1000):
+            refusal = conv4head._bf16_refusal("fwd", c, w, 1, 1, plan_bytes,
+                                              bwd_w_bf16_smem_bytes)
+            assert (refusal is None) == (c <= 106 or plan_bytes(c, w, 1, 1) <= conv4head
+                                         .MAX_SMEM_BYTES), (c, w)
+            assert not refusal or general_reason("fwd", True, c, 32, w, refusal), (c, w)
+    monkeypatch.setattr(conv4head, "_f32_route", lambda *a: pytest.fail("the f32 route"))
+    calls, general = [], []
+    for c, w in ((121, 133), (106, 800), (150, 20)):
+        ops, geo = operands(dtype=torch.bfloat16, c=c, t=w, w=w, step=1, b=1, z=1)
+        _adapted("fwd", stand_in("fwd", calls), *ops, *geo, smem_bytes=plan_bytes,
+                 bwd_w_smem_bytes=bwd_w_bf16_smem_bytes, general=general_stand_in(general))
+    assert [d["c"] for d in general] == [121, 150] and [d["c"] for d in calls] == [106]
+    assert conv4head.f32_plan_fits("fwd", 121, 133, tiles=False)
 
 
 def _stand_in_input_gradient(monkeypatch, calls, dtypes, general):

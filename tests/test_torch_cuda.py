@@ -1161,6 +1161,86 @@ def test_b2x_bf16_tile_mirrors_match_the_library(dev, c, w):
             == lib.isd_conv4head_bwd_x_bf16_col_tiles(c, w, 32, 5))
 
 
+# Windows past B2f-bf16's whole-window plan (580 samples at C = 64, 452 at 72,
+# 260 at 104): bf16 forwards in its column tiles (C, W, step), T = 800;
+# chip_smoke.py's phase (g) runs the same grid. Odd steps stage from the even
+# column below (4-byte copies), a step of 8s and one window take 16-byte copies.
+BF16_FWD_COLUMN_TILE_GRID = ((64, 581, 219), (64, 800, 1), (72, 500, 150), (104, 300, 125),
+                             (106, 800, 1), (64, 600, 200))
+
+
+@pytest.mark.parametrize("c,w,step", BF16_FWD_COLUMN_TILE_GRID)
+def test_bf16_forward_column_tiles_match_plain(dev, c, w, step):
+    """bf16 forwards past B2f-bf16's whole-window plan, M = 2, B = 8, 8
+    zones: one B2f-bf16 launch a call taking every window of the trial (two
+    to four column tiles each), no general launch, nothing adapted, within
+    BF16_FWD_REL of the plain bf16 forward on the CPU; a second launch
+    bit-identical (each window's GELU sums added in a fixed order by one
+    block)."""
+    x, *ops = _head_operands(2, 8, c, 800, 8, 32, 7 * w + c)
+    xb = x.to(torch.bfloat16)
+    cuda_ops = [t.to(dev) for t in (xb, *ops)]
+    counts = ("launches_bf16", "launches_general_bf16", "adapted")
+    before = [getattr(fused_conv4_head, k) for k in counts]
+    with torch.no_grad():
+        got = fused_conv4_head(*cuda_ops, w, step)
+        again = fused_conv4_head(*cuda_ops, w, step)
+    torch.cuda.synchronize()
+    assert [getattr(fused_conv4_head, k) - v for k, v in zip(counts, before)] == [2, 0, 0]
+    assert torch.equal(got, again)
+    _bf16_close(got.cpu(), fused_conv4_head_plain(xb, *ops, w, step), BF16_FWD_REL,
+                f"B2f-bf16 column tiles C={c} W={w}")
+
+
+@pytest.mark.parametrize("c,w", [(64, 250), (64, 580), (64, 581), (64, 800), (72, 452),
+                                 (72, 453), (104, 260), (104, 261), (106, 800), (107, 800),
+                                 (8, 900), (8, 901)])
+def test_b2f_bf16_tile_mirrors_match_the_library(dev, c, w):
+    """The Python mirrors of B2f-bf16's plan and tiles (``fwd_bf16_smem_bytes``,
+    ``fwd_bf16_col_tiles`` of ``fwd_bf16_block_plan``) equal the library's
+    ``isd_conv4head_fwd_bf16_smem_bytes`` and
+    ``isd_conv4head_fwd_bf16_col_tiles`` on both sides of the whole window's
+    reach, and past the tiles' (C = 107)."""
+    from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (fwd_bf16_block_plan,
+                                                                        fwd_bf16_col_tiles,
+                                                                        fwd_bf16_smem_bytes)
+
+    lib = _lib.library()
+    for step, n in ((1, 1), (125, 3)):
+        assert fwd_bf16_smem_bytes(c, w, step, n) == lib.isd_conv4head_fwd_bf16_smem_bytes(
+            c, w, step, n, 32, 5)
+    assert (len(fwd_bf16_col_tiles(fwd_bf16_block_plan(c, w, 1, 1)))
+            == lib.isd_conv4head_fwd_bf16_col_tiles(c, w, 32, 5))
+
+
+# sha256 of B2f-bf16's features at the shipped geometry (full width, windows of
+# 250 step 125, ``_head_operands(m, b, 64, 800, 8, 32, seed)`` with x in bf16)
+# at (M, B, seed) = (2, 8, 272) and (1, 100, 273), from the kernel as it was
+# before its column tiles (commit 330ba62) on an H100 80GB HBM3: the shipped
+# instantiation's arithmetic is unchanged when these digests hold.
+SHIPPED_B2F_BF16_SHA256 = {
+    (2, 8, 272): "18fc84502324e6f2750f7d969b6ec613160a457e03525eebe5c16d763f9ab8c7",
+    (1, 100, 273): "3e1a5b23e83db2a5ab28f928896c7fe06bbd606a4d37ebcedd711d4a23695530",
+}
+
+
+@pytest.mark.parametrize("m,b,seed", sorted(SHIPPED_B2F_BF16_SHA256))
+def test_shipped_bf16_forward_is_unchanged(dev, m, b, seed):
+    """B2f-bf16 at the shipped geometry (its compile-time instantiation <64,
+    250, 125, 5>) gives the features the kernel gave before its column
+    tiles, bit for bit (their sha256), and the plain bf16 forward's within
+    BF16_FWD_REL."""
+    import hashlib
+
+    x, *ops = _head_operands(m, b, 64, 800, 8, 32, seed)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        out = fused_conv4_head(*(t.to(dev) for t in (xb, *ops)), 250, 125).cpu()
+    _bf16_close(out, fused_conv4_head_plain(xb, *ops, 250, 125), BF16_FWD_REL, "shipped")
+    digest = hashlib.sha256(out.float().numpy().tobytes()).hexdigest()
+    assert digest == SHIPPED_B2F_BF16_SHA256[(m, b, seed)]
+
+
 # sha256 of B2x-bf16's input gradient at the shipped geometry (full width, windows
 # of 250 step 125, ``_general_operands(dev, 64, 800, 250, 125, 32, seed, m, b)`` with
 # x in bf16) at (M, B, seed) = (2, 8, 252) and (1, 100, 253), from the kernel as it
@@ -1882,7 +1962,8 @@ def test_general_kernels_match_plain(dev, c, t, w, step, o, dtype):
     features rtol 1e-4 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4 x
     max|ref|; bf16: features 3e-4 and weight gradients 1e-3 x max|ref|, dx
     BF16_DX_L2 in relative L2), and bit-identical on a second run. A bf16 forward that
-    B2f-bf16 takes (windows of 500, one a launch) stays there, an f32 forward
+    B2f-bf16 takes (windows of 500, one a launch; one window of 800 in its
+    column tiles, one launch) stays there, an f32 forward
     at C = 64 and O = 32 (windows of 500 and 800) runs B2f's column tiles,
     weight gradients there run B2w-bf16's column tiles in bf16 and B2w's in
     f32, and input gradients B2x-bf16's column tiles in bf16 and B2x's in

@@ -1,6 +1,7 @@
 """Byte-level emulation of kernels B2w-bf16's, B2f-bf16's and B2x-bf16's
 wgmma routes, shared by ``tests/test_torch_conv4head_bwd_w_wgmma.py``,
 ``tests/test_torch_conv4head_fwd_bf16_wgmma.py``,
+``tests/test_torch_conv4head_fwd_bf16_col_tiles.py``,
 ``tests/test_torch_conv4head_bwd_x_wgmma.py`` and
 ``tests/test_torch_conv4head_bwd_x_wgmma_col_tiles.py`` (on the CPU) and the
 one-tile descriptor self-tests of ``tests/test_torch_cuda.py`` (on the
@@ -10,13 +11,14 @@ Shared memory is modelled as an image of 2-byte slots (a float tensor of
 bf16 values, one row per block), laid out by the Python mirror of the
 kernel's plan (``ops.cuda.conv4head.bwd_w_bf16_plan`` with its column
 tiles ``bwd_w_bf16_col_tiles``, ``bwd_x_bf16_plan`` with
-``bwd_x_bf16_col_tiles``, or ``fwd_bf16_plan``; ``chunk_offset``).
+``bwd_x_bf16_col_tiles``, or ``fwd_bf16_plan`` / ``fwd_bf16_block_plan``
+with ``fwd_bf16_col_tiles``; ``chunk_offset``).
 A wgmma k16 step is emulated by gathering its two operand tiles from the
 image through their descriptors (start, byte step between core matrices
 along K and along M or N), as the PTX ISA defines the no-swizzle layout,
 and multiplying them in f32. The block emulation runs the kernel's
 phases on those gathers with the kernel's epilogues, trial after trial
-(in B2w-bf16 and B2x-bf16 column tile after column tile), holding the
+(in B2w-bf16, B2x-bf16 and B2f-bf16 column tile after column tile), holding the
 weight gradients (B2x-bf16: a tile's dx) in f32 accumulator tiles across
 them.
 """
@@ -30,6 +32,7 @@ import torch
 
 from imagined_speech_decoding_tpu_torch.ops.cuda import conv4head
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
+    COL_SPAN,
     FWD_SB,
     WG_EDGE_ROWS,
     COL_HALO,
@@ -46,9 +49,13 @@ from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import (
     bwd_x_bf16_plan,
     bwd_x_bf16_weights,
     chunk_offset,
+    fwd_bf16_block_plan,
+    fwd_bf16_col_tiles,
     fwd_bf16_conv_descs,
     fwd_bf16_h1_rows,
     fwd_bf16_plan,
+    fwd_bf16_tile_plan,
+    fwd_bf16_unit_copy,
     gelu_fit,
 )
 from imagined_speech_decoding_tpu_torch.ops.cuda.conv4head import _bf16 as bf16
@@ -361,13 +368,24 @@ def selftest_cases(plan: dict, seed: int = 0):
     return img, cases
 
 
-def emulate_fwd_bf16(x, w12, b12, w3, w4, window_len: int, step: int, rs: int = None):
+def emulate_fwd_bf16(x, w12, b12, w3, w4, window_len: int, step: int, rs: int = None,
+                     tiled: bool = None, owned: bool = True, whole_t1: bool = True,
+                     past: str = "zero"):
     """B2f-bf16 on the CPU: ``(M, B, N, Z*O)`` f32 as the kernel computes
     it, one image of shared memory per (model, zone) carried through its
     trials in order. ``rs`` replaces the plan's h1 rows a window (a test
     sets it to ``step``: every window then reads the sequence's own
-    columns around its edges instead of its zero pads)."""
-    m, b, c, _, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
+    columns around its edges instead of its zero pads). ``tiled`` runs the
+    column tiles (``_emulate_fwd_bf16_tiles``) where True, the whole-window
+    route where False, and the route of the launch's plan
+    (``fwd_bf16_block_plan``) where None; ``owned``, ``whole_t1`` and
+    ``past`` are the column tiles' mutations."""
+    m, b, c, t, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
+    if tiled is None:
+        tiled = fwd_bf16_block_plan(c, window_len, step, n, o, k)["tiled"]
+    if tiled:
+        return _emulate_fwd_bf16_tiles(x, w12, b12, w3, w4, window_len, step, owned, whole_t1,
+                                       past)
     plan = fwd_bf16_plan(c, window_len, step, n, o, k)
     if rs is not None:
         plan = dict(plan, rs=rs)
@@ -407,6 +425,69 @@ def emulate_fwd_bf16(x, w12, b12, w3, w4, window_len: int, step: int, rs: int = 
             h3 = conv("h3", i)
             g = torch.where(real, gelu_fit(h3), 0.0)
             out[:, bi, i] = (g.sum(dim=1) / t1).reshape(m, z, o)
+    return out.reshape(m, b, n, z * o)
+
+
+def _emulate_fwd_bf16_tiles(x, w12, b12, w3, w4, window_len: int, step: int, owned: bool,
+                            whole_t1: bool, past: str):
+    """B2f-bf16's column tiles on the CPU, on the plan of one window of
+    COL_SPAN + K - 1 samples whatever W is (``fwd_bf16_tile_plan``, also
+    where the whole window's plan would fit): an item's
+    (window, tile) units in order, each staging its columns as the kernel
+    does (``fwd_bf16_unit_copy``: from the even column below where the first
+    is odd, the staged rows' tail keeping older bytes), h1 over the tile's
+    COL_SPAN rows from the shift on, zero from the window's end on (row
+    ``e`` of the tile), h2 likewise into buffer (unit % 2), h3, and GELU
+    summed over the rows the tile owns [lo, hi); after the window's last
+    tile the sums over the window's t1. Mutations, for the tests: ``owned``
+    False sums every row the tile computes; ``whole_t1`` False divides by a
+    tile's COL_SPAN rows; ``past`` "stale" leaves h1's and h2's rows from
+    ``e`` on as the unit before wrote them, "bias" stores bf16(w12 . p +
+    b12) in h1's rows there."""
+    m, b, c, t, z, o, k, _, n = conv4head._geometry(x, w12, w3, window_len, step)
+    plan = fwd_bf16_tile_plan(c, window_len, step, n, o, k)
+    t1, half, cs_h2 = window_len - k + 1, k // 2, plan["cs_h2"]
+    u = m * z
+    img = torch.zeros((u, plan["total"] // 2))
+    stage_weights(img, plan["w12"], w12.reshape(u, o, k * c), k, c, plan["cp"])
+    stage_weights(img, plan["w3"], w3.reshape(u, o, k * o), k, o, o)
+    stage_weights(img, plan["w4"], w4.reshape(u, o, k * o), k, o, o)
+    bias = b12.reshape(u, 1, o)
+    xf = x.float()
+    out = torch.zeros((m, b, n, z, o))
+    rows = torch.arange(COL_SPAN)[None, :, None]
+
+    def conv(name, index, shift=0):
+        return torch.cat([wgmma(img, fwd_bf16_conv_descs(plan, name, index, tile, shift), False,
+                                False) for tile in range(COL_SPAN // WG_ROWS)], dim=1)
+
+    def store(base, cs, v, e):  # an epilogue from row K/2: zeros from e on, or stale rows
+        if past == "stale":
+            write(img, base, cs, v[:, :e], row0=half)
+        else:
+            write(img, base, cs, torch.where(rows < e, v, 0.0), row0=half)
+
+    for bi in range(b):
+        trial = xf[:, bi][:, None].expand(m, z, c, t).reshape(u, c, t)
+        unit = 0
+        for i in range(n):
+            s = torch.zeros((u, o))
+            for tile in fwd_bf16_col_tiles(plan):
+                cp = fwd_bf16_unit_copy(plan, t, i, tile)
+                assert cp["s0"] >= 0 and cp["s0"] + cp["cnt"] <= t and cp["cnt"] <= plan["xr"]
+                write(img, plan["xs"], plan["cs_x"], trial[:, :, cp["s0"]:cp["s0"] + cp["cnt"]].mT)
+                e = tile["e"]
+                h1 = bf16(conv("h1", 0, cp["shift"]) + bias)
+                if past == "bias":
+                    write(img, plan["h1"], plan["cs_h1"], h1, row0=half)
+                else:
+                    store(plan["h1"], plan["cs_h1"], h1, e)
+                store(plan["h2"] + (unit % 2) * (o // 8) * cs_h2, cs_h2, bf16(conv("h2", 0)), e)
+                g = gelu_fit(conv("h3", unit))
+                keep = (rows >= tile["lo"]) & (rows < tile["hi"]) if owned else rows >= 0
+                s = s + torch.where(keep, g, 0.0).sum(dim=1)
+                unit += 1
+            out[:, bi, i] = (s / (t1 if whole_t1 else COL_SPAN)).reshape(m, z, o)
     return out.reshape(m, b, n, z * o)
 
 
